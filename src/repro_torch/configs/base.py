@@ -1,0 +1,34 @@
+"""Model configuration (counterpart of ``repro.configs.base``).
+
+The fields the dense decoder family needs, named as in the reference; the
+reference's MoE/MLA/SSM/RWKV/encoder/frontend/sliding-window fields arrive
+with the families that use them.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Optional
+
+
+@dataclasses.dataclass(frozen=True)
+class ModelConfig:
+    name: str
+    family: str                # dense | moe | ssm | hybrid | vlm | audio
+    n_layers: int
+    d_model: int
+    n_heads: int
+    n_kv_heads: int
+    d_ff: int
+    vocab_size: int
+    head_dim: Optional[int] = None        # default d_model // n_heads
+    ffn_act: str = "swiglu"
+    pos: str = "rope"
+    rope_theta: float = 10000.0
+    tie_embeddings: bool = False
+    # quantized-GEMM precision policy (paper eq. 8a): a preset name of
+    # repro_torch.precision or a QuantPolicy; None keeps GEMMs unrounded
+    gemm_policy: Optional[Any] = None
+
+    @property
+    def resolved_head_dim(self) -> int:
+        return self.head_dim if self.head_dim else self.d_model // self.n_heads

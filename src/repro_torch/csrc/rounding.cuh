@@ -1,0 +1,178 @@
+// Device-side rounding core shared by the rounded-GEMM kernels.
+//
+// A CUDA port of repro.kernels.common.round_block for plain FP grids under
+// the "rn" and "sr" schemes, and of the reference's counter-based random
+// bits (Threefry-2x32 keyed by the element's global (row, col), the
+// interpret-mode derivation of repro.kernels.common.counter_bits_reduced).
+// The plain PyTorch twin is repro_torch/kernels/common.py; both must give
+// the same bits for the same inputs.
+//
+// Exactness: every step of the decomposition is an exact float32 operation
+// (power-of-two scalings assembled in the exponent field, floor, a
+// subtraction of two multiples of the same power of two).  The products and
+// sums below use __fmul_rn/__fadd_rn so the compiler never contracts them
+// into FMAs, and the file must be built without --use_fast_math: subnormals
+// are kept, and the flush below 2^-126 that the reference performs is
+// explicit.
+#pragma once
+
+#include <cstdint>
+
+namespace rt {
+
+constexpr uint32_t kGolden = 0x9E3779B9u;   // stream offset in the key
+constexpr uint32_t kParity = 0x1BD11BDAu;
+constexpr float kTiny = 1.17549435082228750797e-38f;   // 2^-126
+
+enum Mode : int { kRN = 0, kSR = 1 };
+
+// One rounding site: an FP grid (precision p, [emin, emax], xmax), the
+// scheme (rn or sr), and the random bits an sr draw consumes per element.
+struct RoundParams {
+  int precision;
+  int emin;
+  int emax;
+  float xmax;
+  int mode;
+  int rand_bits;   // 32, 16 or 8
+  int enabled;     // 0: identity site (no rounding)
+};
+
+__device__ __forceinline__ uint32_t rotl32(uint32_t x, int r) {
+  return (x << r) | (x >> (32 - r));
+}
+
+// Threefry-2x32, 20 rounds: repro.kernels.common.threefry2x32.
+__device__ __forceinline__ void threefry2x32(uint32_t k0, uint32_t k1,
+                                             uint32_t c0, uint32_t c1,
+                                             uint32_t& o0, uint32_t& o1) {
+  const uint32_t ks[3] = {k0, k1, k0 ^ k1 ^ kParity};
+  uint32_t x0 = c0 + ks[0];
+  uint32_t x1 = c1 + ks[1];
+#pragma unroll
+  for (int g = 0; g < 5; ++g) {
+    const int r0 = (g % 2) ? 17 : 13, r1 = (g % 2) ? 29 : 15;
+    const int r2 = (g % 2) ? 16 : 26, r3 = (g % 2) ? 24 : 6;
+    x0 += x1; x1 = rotl32(x1, r0) ^ x0;
+    x0 += x1; x1 = rotl32(x1, r1) ^ x0;
+    x0 += x1; x1 = rotl32(x1, r2) ^ x0;
+    x0 += x1; x1 = rotl32(x1, r3) ^ x0;
+    x0 += ks[(g + 1) % 3];
+    x1 += ks[(g + 2) % 3] + static_cast<uint32_t>(g + 1);
+  }
+  o0 = x0;
+  o1 = x1;
+}
+
+// The random field of output element (row, col): word col' % 2 of
+// threefry(k0, k1 + golden * stream, row, col' / 2) with col' = col / ratio,
+// then field col % ratio of that word (ratio = 32 / rand_bits).
+__device__ __forceinline__ uint32_t element_bits(uint32_t k0, uint32_t k1,
+                                                 uint32_t stream,
+                                                 int rand_bits, uint32_t row,
+                                                 uint32_t col) {
+  const uint32_t ratio = 32u / static_cast<uint32_t>(rand_bits);
+  const uint32_t wc = col / ratio;
+  uint32_t o0, o1;
+  threefry2x32(k0, k1 + kGolden * stream, row, wc >> 1, o0, o1);
+  const uint32_t w = (wc & 1u) ? o1 : o0;
+  if (rand_bits == 32) return w;
+  const uint32_t field = col % ratio;
+  return (w >> (field * static_cast<uint32_t>(rand_bits))) &
+         ((1u << rand_bits) - 1u);
+}
+
+// Random bits -> uniform in [0, 1): top 24 bits for r = 32, the centred
+// (b + 1/2) * 2^-r for r in {8, 16}.
+__device__ __forceinline__ float uniform_from_bits(uint32_t bits,
+                                                   int rand_bits) {
+  if (rand_bits == 32)
+    return __fmul_rn(__uint2float_rn(bits >> 8), 5.9604644775390625e-08f);
+  const float low = __uint2float_rn(bits & ((1u << rand_bits) - 1u));
+  const float scale = (rand_bits == 16) ? 1.52587890625e-05f : 0.00390625f;
+  return __fmul_rn(__fadd_rn(low, 0.5f), scale);
+}
+
+// Exact float32 2^n for -126 <= n <= 127.
+__device__ __forceinline__ float pow2i(int n) {
+  return __int_as_float((n + 127) << 23);
+}
+
+__device__ __forceinline__ int floor_div2(int n) { return n >> 1; }
+
+// x * 2^n exactly, for |n| <= 252, in two in-range factors.
+__device__ __forceinline__ float exact_scale(float x, int n) {
+  const int n1 = floor_div2(n);
+  return __fmul_rn(__fmul_rn(x, pow2i(n1)), pow2i(n - n1));
+}
+
+// floor(log2|x|) for normal |x|; -127 for zero and subnormals.
+__device__ __forceinline__ int float_exponent(float x) {
+  const int raw = (__float_as_int(x) >> 23) & 0xFF;
+  return raw > 0 ? raw - 127 : -127;
+}
+
+// round_block for one value: decompose |z| on the grid, choose the floor or
+// ceiling neighbour, saturate at xmax, restore the sign (keeping -0), pass
+// NaN and +-inf through.
+__device__ __forceinline__ float round_value(float x, uint32_t bits,
+                                             const RoundParams& p) {
+  float z = x;
+  if (fabsf(z) < kTiny) z = __fmul_rn(z, 0.0f);   // explicit FTZ, signed
+  const float mag_in = fabsf(z);
+  const int e = float_exponent(mag_in);
+  const int qe = min(max(e, p.emin), p.emax) - (p.precision - 1);
+  const int qmin = p.emin - p.precision + 1;
+  const bool narrow = qmin >= -126 && (p.emax - p.precision) < 126;
+
+  float y, fy, frac, floor_mag, quantum;
+  if (narrow) {
+    quantum = pow2i(qe);
+    y = __fmul_rn(mag_in, pow2i(-qe));
+    fy = floorf(y);
+    frac = __fadd_rn(y, -fy);
+    floor_mag = __fmul_rn(fy, quantum);
+  } else {
+    y = exact_scale(mag_in, -qe);
+    fy = floorf(y);
+    frac = __fadd_rn(y, -fy);
+    floor_mag = exact_scale(fy, qe);
+    quantum = __fmul_rn(pow2i(floor_div2(qe)), pow2i(qe - floor_div2(qe)));
+  }
+
+  const float u = (p.mode == kSR) ? uniform_from_bits(bits, p.rand_bits)
+                                  : 0.5f;
+  float mag;
+  if (p.mode == kSR && qmin >= -126) {
+    // pure-SR fast path: ceil = floor + quantum exactly; frac == 0 never
+    // rounds up, so the exact-input fix-up is implied
+    mag = (u < frac) ? __fadd_rn(floor_mag, quantum) : floor_mag;
+  } else {
+    const float fy1 = __fadd_rn(fy, 1.0f);
+    const float ceil_mag = narrow ? __fmul_rn(fy1, pow2i(qe))
+                                  : exact_scale(fy1, qe);
+    float p_up;
+    if (p.mode == kSR) {
+      p_up = frac;
+    } else {   // rn, ties to even
+      const float odd = (static_cast<int>(fy) & 1) ? 1.0f : 0.0f;
+      p_up = frac > 0.5f ? 1.0f : (frac < 0.5f ? 0.0f : odd);
+    }
+    mag = (u < p_up) ? ceil_mag : floor_mag;
+    if (frac == 0.0f) mag = mag_in;
+  }
+  mag = fminf(mag, p.xmax);
+  float out = (z < 0.0f) ? -mag : mag;
+  if (z == 0.0f && signbit(z)) out = -0.0f;
+  return isfinite(x) ? out : x;
+}
+
+// SiLU as the plain twin computes it: g * (1 / (1 + exp(-g))).  expf is the
+// accurate libm routine (no __expf): this is one of the two places where
+// kernel and reference may differ by a float32 ulp (the other is the
+// summation order of the GEMM).
+__device__ __forceinline__ float silu(float g) {
+  return __fmul_rn(g, __fdiv_rn(1.0f, __fadd_rn(1.0f, expf(-g))));
+}
+
+}  // namespace rt

@@ -1,0 +1,131 @@
+"""Shared rounding math and counter-based random bits, plain PyTorch
+(counterpart of ``repro.kernels.common``).
+
+These are the plain versions of what the CUDA kernels compute in their
+epilogues (``csrc/rounding.cuh``): ``round_block`` is the block rounding
+the kernels apply to a GEMM result, and ``counter_bits_reduced`` the random
+words they draw.  The words are those the reference draws in interpret
+mode: element (r, c) of an output takes word ``c % 2`` of
+``threefry(k0, k1 + 0x9E3779B9 * stream, r, c // 2)`` keyed by its global
+(row, col), so they do not depend on how the output is tiled.  (The
+reference's TPU hardware-PRNG branches have no counterpart: the port always
+draws these counter bits, which makes it bit-comparable with the
+reference.)
+"""
+from __future__ import annotations
+
+from typing import Optional, Tuple
+
+import torch
+
+from repro_torch.core.grids import get_grid
+from repro_torch.core.prng import M32, threefry2x32_tensor as threefry2x32
+from repro_torch.core.rounding import (RoundingSpec, _ceil_from_decompose,
+                                       _finish, _flush_tiny,
+                                       _uniform_from_bits,
+                                       magnitude_decompose)
+from repro_torch.core.schemes import get_scheme
+
+GOLDEN = 0x9E3779B9          # stream offsets fold into the Threefry key
+
+
+def round_block(x: torch.Tensor, bits: Optional[torch.Tensor], fmt, mode,
+                eps: float = 0.0, v: Optional[torch.Tensor] = None,
+                rand_bits: int = 32, overflow: str = "saturate"
+                ) -> torch.Tensor:
+    """Round a block of float32 values; the same math as round_to_format,
+    with the reference kernels' two fast paths (bf16 bit-trick SR and
+    pure SR), each bit-identical to the generic rule."""
+    grid = get_grid(fmt)
+    scheme = get_scheme(mode)
+    fmt = grid.fmt
+    x = x.float()
+    z = _flush_tiny(grid.to_grid(x))
+
+    if (scheme.randomness == "bittrick" and bits is not None
+            and not grid.transformed and fmt.name == "bfloat16"
+            and rand_bits == 16):
+        # add 16 random bits to the float32 word, keep the top 16: the
+        # carry out of the low half is the round-up event
+        zb = z.contiguous().view(torch.int32).to(torch.int64) & M32
+        r = (zb + (bits & 0xFFFF)) & 0xFFFF0000
+        r = torch.where(r >= 2 ** 31, r - 2 ** 32, r).to(torch.int32)
+        out = r.view(torch.float32)
+        if overflow != "inf":
+            out = torch.where(torch.isfinite(out), out,
+                              torch.sign(z) * fmt.xmax)
+        return torch.where(torch.isfinite(x), out, x)
+
+    floor_mag, quantum, frac, fy = magnitude_decompose(z, fmt)
+    sign_x = torch.sign(z)
+    if bits is None:
+        u = torch.full_like(x, 0.5)
+    else:
+        u = _uniform_from_bits(bits, rand_bits, scheme.randomness)
+
+    if scheme.p_up_is_frac and fmt.quantum_min_exp >= -126:
+        # pure-SR fast path: ceil = floor + quantum exactly, and the
+        # frac == 0 fix-up is a no-op (u >= 0 never rounds up)
+        mag = torch.where(u < frac, floor_mag + quantum, floor_mag)
+    else:
+        ceil_mag = _ceil_from_decompose(z, fy, fmt)
+        sign_v = torch.sign(v.float()) if v is not None \
+            else torch.zeros_like(z)
+        p_up = scheme.p_up(frac, fy, sign_x, eps, sign_v)
+        mag = torch.where(u < p_up, ceil_mag, floor_mag)
+        mag = torch.where(frac == 0.0, torch.abs(z), mag)
+    return _finish(x, z, mag, sign_x, grid, overflow)
+
+
+def apply_spec_block(spec: RoundingSpec, x: torch.Tensor,
+                     bits: Optional[torch.Tensor], v=None) -> torch.Tensor:
+    """RoundingSpec-dispatched block rounding (identity-aware)."""
+    if spec.is_identity:
+        return x.float()
+    return round_block(x, bits if spec.stochastic else None, spec.fmt,
+                       spec.mode, spec.eps, v=v, rand_bits=spec.rand_bits,
+                       overflow=spec.overflow)
+
+
+def _stream_key(k1: int, stream: int) -> int:
+    return (k1 + GOLDEN * stream) & M32
+
+
+def counter_bits(k0: int, k1: int, shape: Tuple[int, int], row0: int = 0,
+                 col0: int = 0, stream: int = 0, device=None
+                 ) -> torch.Tensor:
+    """One uint32 word (in int64) per element of a 2-D block at global
+    offset (row0, col0): Threefry over column *pairs* (row, col // 2),
+    both output words consumed (``repro.kernels.common._interleaved_words``).
+    """
+    rows, cols = shape
+    off = col0 % 2
+    n_pairs = (off + cols + 1) // 2
+    r = torch.arange(rows, dtype=torch.int64, device=device)[:, None] + row0
+    c = torch.arange(n_pairs, dtype=torch.int64, device=device)[None, :] \
+        + col0 // 2
+    r, c = torch.broadcast_tensors(r, c)
+    x0, x1 = threefry2x32(k0 & M32, _stream_key(k1, stream), r, c)
+    inter = torch.stack([x0, x1], dim=-1).reshape(rows, 2 * n_pairs)
+    return inter[:, off:off + cols]
+
+
+def counter_bits_reduced(k0: int, k1: int, shape: Tuple[int, int],
+                         rand_bits: int, row0: int = 0, col0: int = 0,
+                         stream: int = 0, device=None) -> torch.Tensor:
+    """``rand_bits``-bit fields, ``32 / rand_bits`` columns per word: the
+    word grid is keyed by global (row, col // ratio), element (r, c) takes
+    field ``c % ratio`` (low bits of the result).  ``rand_bits == 32`` is
+    exactly :func:`counter_bits`."""
+    if rand_bits == 32:
+        return counter_bits(k0, k1, shape, row0, col0, stream, device)
+    ratio = 32 // rand_bits
+    rows, cols = shape
+    off = col0 % ratio
+    n_words = (off + cols + ratio - 1) // ratio
+    words = counter_bits(k0, k1, (rows, n_words), row0, col0 // ratio,
+                         stream, device)
+    rep = torch.repeat_interleave(words, ratio, dim=-1)[:, off:off + cols]
+    sub = (torch.arange(cols, dtype=torch.int64, device=device) + off) \
+        % ratio
+    return (rep >> (sub * rand_bits)) & ((1 << rand_bits) - 1)

@@ -1,0 +1,93 @@
+"""Model facade for the dense decoder: init and cached decode
+(counterpart of ``repro.models.model``).
+
+``decode_step`` keeps the reference's seed chain: with a GEMM policy the
+step key is ``fold_in(PRNGKey(0), pos)`` (stochastic-rounding streams
+decorrelate across positions), each layer's context comes from
+``transformer.apply_blocks``, and the lm head runs under
+``ctx_for(cfg, rng)``.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Dict, Optional, Tuple
+
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.core import prng
+from repro_torch.models import attention, layers as L, transformer
+from repro_torch.precision.policy import TAG_LOGITS, ctx_for
+
+
+def store_params(tree):
+    """The parameter tree as the port keeps it: the embedding and every
+    GEMM weight rounded once to bf16 (their values as the GEMMs and the
+    bf16 embedding lookup see them), norm scales float32 (see
+    models/layers.py)."""
+    out = {}
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            out[k] = store_params(v)
+        elif k.startswith("norm") or k == "final_norm":
+            out[k] = v.float()
+        else:
+            out[k] = L.store_weight(v)
+    return out
+
+
+@dataclasses.dataclass(frozen=True)
+class Model:
+    cfg: ModelConfig
+
+    def init(self, gen: torch.Generator) -> Dict[str, Any]:
+        """Random parameters from ``gen``, on ``gen.device``; the same
+        tree and initial distributions as the reference's ``Model.init``."""
+        cfg = self.cfg
+        params: Dict[str, Any] = {
+            "embed": L.embed_init(gen, cfg.vocab_size, cfg.d_model),
+            "blocks": transformer.init_blocks(gen, cfg),
+            "final_norm": torch.zeros((cfg.d_model,), device=gen.device),
+        }
+        if not cfg.tie_embeddings:
+            params["lm_head"] = L.dense_init(gen, cfg.d_model,
+                                             cfg.vocab_size, scale=0.02)
+        return store_params(params)
+
+    def init_decode_cache(self, batch: int, max_len: int, device=None
+                          ) -> Dict[str, attention.KVCache]:
+        return {"attn": attention.init_cache(self.cfg, batch, max_len,
+                                             device=device)}
+
+    def _logits(self, params, h, quant=None):
+        if self.cfg.tie_embeddings:
+            w = params["embed"].T.contiguous()
+        else:
+            w = params["lm_head"]
+        return L.qdense(h, w, quant, TAG_LOGITS)
+
+    def decode_step(self, params, caches, tokens: torch.Tensor, pos: int,
+                    compute_logits: bool = True
+                    ) -> Tuple[Optional[torch.Tensor], Dict]:
+        """Cached decode of ``tokens`` (B, S) at positions pos..pos+S-1.
+        ``compute_logits=False`` skips the lm head (prompt absorption).
+        The caches are updated in place and returned."""
+        cfg = self.cfg
+        rng = prng.PRNGKey(0)
+        if cfg.gemm_policy is not None:
+            rng = prng.fold_in(rng, pos)
+        x = params["embed"][tokens].to(L.COMPUTE_DTYPE)
+        B, S = tokens.shape
+        positions = (pos + torch.arange(S, device=tokens.device))[None] \
+            .expand(B, S)
+        x = transformer.apply_blocks(params["blocks"], x, positions, cfg,
+                                     caches=caches, rng=rng)
+        caches["attn"].length += S
+        x = L.rms_norm(x, params["final_norm"])
+        if not compute_logits:
+            return None, caches
+        return self._logits(params, x, quant=ctx_for(cfg, rng)), caches
+
+
+def build_model(cfg: ModelConfig) -> Model:
+    return Model(cfg=cfg)

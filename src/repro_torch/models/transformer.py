@@ -1,0 +1,61 @@
+"""Block assembly for the dense decoder (counterpart of
+``repro.models.transformer``): pre-norm attention + pre-norm SwiGLU FFN,
+parameters stacked over layers, run as a Python loop over the layers.
+
+Seed chain of the reference's ``apply_blocks``: the plan of "attn" blocks is
+one segment, so ``seg_rng = fold_in(rng, 0)`` and layer i gets
+``split(seg_rng, n_layers)[i]``; its quantized-GEMM context is
+``ctx_for(cfg, keys[i])``.
+"""
+from __future__ import annotations
+
+from typing import Any, Dict
+
+import torch
+
+from repro_torch.core import prng
+from repro_torch.models import attention, ffn, layers as L
+from repro_torch.precision.policy import ctx_for
+
+
+def init_blocks(gen: torch.Generator, cfg) -> Dict[str, Any]:
+    """Stacked params of the "attn" blocks (leading dim = layer)."""
+    if cfg.family != "dense":
+        raise NotImplementedError(f"block plan of {cfg.name!r} "
+                                  f"({cfg.family}) is not ported yet")
+    n, d = cfg.n_layers, cfg.d_model
+    dev = gen.device
+    return {"attn": {
+        "norm1": torch.zeros((n, d), device=dev),
+        "norm2": torch.zeros((n, d), device=dev),
+        "attn": attention.attn_init(gen, cfg, n=n),
+        "mlp": ffn.ffn_init(gen, d, cfg.d_ff, cfg.ffn_act, n=n),
+    }}
+
+
+def _layer(tree, i: int):
+    """Layer i's view of a stacked parameter tree (no copy)."""
+    if isinstance(tree, dict):
+        return {k: _layer(v, i) for k, v in tree.items()}
+    return tree[i]
+
+
+def apply_attn_block(p, x, positions, cfg, cache, layer: int, key):
+    qc = ctx_for(cfg, key)
+    h = L.rms_norm(x, p["norm1"])
+    x = x + attention.attn_apply(p["attn"], h, positions, cfg, cache=cache,
+                                 layer=layer, quant=qc)
+    h2 = L.rms_norm(x, p["norm2"])
+    return x + ffn.ffn_apply(p["mlp"], h2, cfg.ffn_act, quant=qc)
+
+
+def apply_blocks(blocks, x, positions, cfg, *, caches, rng: prng.Key):
+    """Run every layer over the new tokens ``x`` (B, S, D), appending to
+    the stacked KV cache ``caches["attn"]``."""
+    seg_rng = prng.fold_in(rng, 0)
+    keys = prng.split(seg_rng, cfg.n_layers)
+    stacked = blocks["attn"]
+    for i in range(cfg.n_layers):
+        x = apply_attn_block(_layer(stacked, i), x, positions, cfg,
+                             caches["attn"], i, keys[i])
+    return x

@@ -1,0 +1,196 @@
+"""Precision-policy subsystem, forward only (counterpart of
+``repro.precision.policy``).
+
+``QuantPolicy`` holds one ``RoundingSpec`` per site (fwd, dgrad, wgrad,
+act); ``qdot`` is the policy-rounded matmul every weight GEMM of the model
+routes through.  Seed discipline as in the reference: a block's rng key is
+reduced to two uint32 words (``make_ctx``), every call site folds a static
+tag and every site inside a call folds its site id, each fold one
+Threefry-2x32 evaluation (``fold_words``).  The words are Python ints on the
+host; the kernels draw their bits from them on the device.
+
+This slice is forward-only: the ``torch.autograd.Function`` forms of
+``qdot`` and ``qffn_glu`` arrive with the training slice.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, NamedTuple, Optional
+
+import torch
+
+from repro_torch.core import prng
+from repro_torch.core.rounding import IDENTITY, RoundingSpec, parse_spec, spec
+from repro_torch.kernels.qmatmul import Words, qmatmul_prng
+
+# GEMM/activation sites (folded into the per-call seed words).
+SITE_FWD, SITE_DGRAD, SITE_WGRAD, SITE_ACT = 0, 1, 2, 3
+
+# Static per-call-site tags (unique within a block), the reference's
+# values for the sites this slice runs.
+TAG_ATTN_Q, TAG_ATTN_K, TAG_ATTN_V, TAG_ATTN_O = 0, 1, 2, 3
+TAG_FFN_UP, TAG_FFN_GATE, TAG_FFN_DOWN, TAG_FFN_ACT = 4, 5, 6, 7
+TAG_LOGITS = 18
+
+
+@dataclasses.dataclass(frozen=True)
+class QuantPolicy:
+    """Per-site rounding policy.  The reference's oracle, packed, block
+    size and attention/KV-cache fields are not ported yet (their sites
+    are identity in every preset this slice carries)."""
+
+    fwd: RoundingSpec = IDENTITY
+    dgrad: RoundingSpec = IDENTITY
+    wgrad: RoundingSpec = IDENTITY
+    act: RoundingSpec = IDENTITY
+
+    @property
+    def gemm_identity(self) -> bool:
+        return (self.fwd.is_identity and self.dgrad.is_identity
+                and self.wgrad.is_identity)
+
+    @property
+    def is_identity(self) -> bool:
+        return self.gemm_identity and self.act.is_identity
+
+
+_SITE_ATTR = {SITE_FWD: "fwd", SITE_DGRAD: "dgrad", SITE_WGRAD: "wgrad",
+              SITE_ACT: "act"}
+
+
+def _check_gemm_spec(s: RoundingSpec, site: str) -> RoundingSpec:
+    if not s.is_identity and s.scheme.needs_v:
+        raise ValueError(
+            f"{s.mode} is not supported for site {site!r} "
+            "(result/STE rounding has no bias-direction operand); use "
+            "'sr' / 'sr2' / 'sr_eps' or a deterministic mode")
+    return s
+
+
+def make_policy(fwd=None, dgrad=None, wgrad=None, act=None, *, fmt=None,
+                mode: str = "sr", eps: float = 0.0,
+                rand_bits: int = 32) -> QuantPolicy:
+    """Build a QuantPolicy; ``fmt`` fills every unspecified GEMM site."""
+    default = spec(fmt, mode, eps, rand_bits) if fmt is not None else IDENTITY
+    return QuantPolicy(
+        fwd=_check_gemm_spec(fwd if fwd is not None else default, "fwd"),
+        dgrad=_check_gemm_spec(dgrad if dgrad is not None else default,
+                               "dgrad"),
+        wgrad=_check_gemm_spec(wgrad if wgrad is not None else default,
+                               "wgrad"),
+        act=_check_gemm_spec(act if act is not None else IDENTITY, "act"))
+
+
+# The reference's presets whose policies this slice can express (the same
+# specs, hence the same streams).
+PRESETS = {
+    "fp32": QuantPolicy(),
+    "bf16-rn": make_policy(fmt="bfloat16", mode="rn"),
+    "e4m3-sr": make_policy(fmt="e4m3", mode="sr"),
+    "binary8-paper": make_policy(fmt="binary8", mode="sr",
+                                 act=spec("binary8", "sr")),
+    "binary8-paper-r16": make_policy(fmt="binary8", mode="sr", rand_bits=16,
+                                     act=spec("binary8", "sr", rand_bits=16)),
+    "binary8-rn": make_policy(fmt="binary8", mode="rn",
+                              act=spec("binary8", "rn")),
+    "binary8-sr": make_policy(fmt="binary8", mode="sr",
+                              act=spec("binary8", "sr")),
+    "bf16-sr": make_policy(fmt="bfloat16", mode="sr"),
+}
+_NOT_PORTED = ("binary8-paper-packed", "e4m3-sr-oracle",
+               "binary8-paper-attn", "e4m3-attn")
+
+
+def get_policy(name: str) -> QuantPolicy:
+    """Named preset, or any canonical spec name applied to every site."""
+    hit = PRESETS.get(name)
+    if hit is not None:
+        return hit
+    if name in _NOT_PORTED:
+        raise NotImplementedError(f"gemm policy {name!r} is not ported yet")
+    try:
+        s = parse_spec(name)
+    except ValueError as exc:
+        raise ValueError(
+            f"unknown gemm policy {name!r}; known presets: "
+            f"{sorted(PRESETS)}, or any canonical spec name") from exc
+    if s.is_identity:
+        return PRESETS["fp32"]
+    return make_policy(s, s, s, s)
+
+
+def resolve_policy(p: Any) -> Optional[QuantPolicy]:
+    """None | preset name | QuantPolicy -> Optional[QuantPolicy]."""
+    if p is None:
+        return None
+    if isinstance(p, QuantPolicy):
+        return p
+    return get_policy(p)
+
+
+# ---------------------------------------------------------------------------
+# Seed plumbing.
+# ---------------------------------------------------------------------------
+_FOLD_CONST = 0x243F6A88      # pi fractional bits; fixed second counter word
+_CTX_SALT = 0x71D07          # "qdot" context salt folded into the base key
+
+
+def fold_words(words: Words, tag: int) -> Words:
+    """Fold a static tag into seed words (one Threefry evaluation)."""
+    return prng.threefry2x32(words[0], words[1], tag, _FOLD_CONST)
+
+
+class QuantCtx(NamedTuple):
+    """A policy plus this call site's (k0, k1) seed words."""
+    policy: QuantPolicy
+    words: Words
+
+
+def make_ctx(policy, key: prng.Key, step=None) -> Optional[QuantCtx]:
+    """(policy-or-name, key[, step]) -> QuantCtx (None if identity)."""
+    pol = resolve_policy(policy)
+    if pol is None or pol.is_identity:
+        return None
+    return QuantCtx(pol, prng.derive_seed(key, step, _CTX_SALT))
+
+
+def ctx_for(cfg, key: prng.Key) -> Optional[QuantCtx]:
+    """Context from a ModelConfig's ``gemm_policy`` and a block key."""
+    return make_ctx(getattr(cfg, "gemm_policy", None), key)
+
+
+def fold_ctx(ctx: Optional[QuantCtx], tag: int) -> Optional[QuantCtx]:
+    if ctx is None:
+        return None
+    return QuantCtx(ctx.policy, fold_words(ctx.words, tag))
+
+
+# ---------------------------------------------------------------------------
+# The rounded matmul (forward).
+# ---------------------------------------------------------------------------
+def site_matmul(policy: QuantPolicy, site: int, a: torch.Tensor,
+                b: torch.Tensor, words: Words) -> torch.Tensor:
+    """One rounded 2-D GEMM at ``site`` (a float32, b float32 or bf16;
+    float32 out)."""
+    s: RoundingSpec = getattr(policy, _SITE_ATTR[site])
+    if s.is_identity:
+        return a.float() @ b.float()
+    w = fold_words(words, site)
+    return qmatmul_prng(a, b, w, s.fmt, s.mode, s.rand_bits, eps=s.eps,
+                        overflow=s.overflow)
+
+
+def qdot(a: torch.Tensor, b: torch.Tensor, quant: Optional[QuantCtx],
+         tag: int = 0) -> torch.Tensor:
+    """Policy-rounded ``a @ b`` (a: (..., K); b: (K, N)).  With no policy
+    this is exactly ``a @ b``.  Otherwise a goes to float32 and b as given
+    (the kernel reads bf16 weights and widens them exactly), and the result
+    is cast back to the operands' common dtype."""
+    if quant is None or quant.policy.gemm_identity:
+        return a @ b
+    policy, words = quant
+    lead = a.shape[:-1]
+    a2 = a.reshape(-1, a.shape[-1]).float()
+    out = site_matmul(policy, SITE_FWD, a2, b, fold_words(words, tag))
+    out_dtype = torch.promote_types(a.dtype, b.dtype)
+    return out.reshape(*lead, b.shape[-1]).to(out_dtype)
