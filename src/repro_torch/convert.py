@@ -7,6 +7,8 @@ mlp: {w_gate, w_up, w_down}}}, "final_norm", "lm_head"}`` with the block
 leaves stacked over layers, and returns the port's tree of tensors: the
 same keys and layouts, GEMM weights rounded once to bf16 and norm scales
 float32 (models/model.py), so both packages compute the same thing.
+``master_params_from_jax`` keeps every leaf float32, as views of one flat
+buffer: the master parameters the trainer updates.
 """
 from __future__ import annotations
 
@@ -15,6 +17,7 @@ from typing import Any, Dict
 import numpy as np
 import torch
 
+from repro_torch.kernels.tree_update import flat_backed
 from repro_torch.models.model import store_params
 
 _BLOCK_KEYS = {"norm1", "norm2", "attn", "mlp"}
@@ -28,8 +31,8 @@ def _tensors(tree, device):
     return torch.from_numpy(np.array(tree, dtype=np.float32)).to(device)
 
 
-def params_from_jax(tree: Dict[str, Any], device="cpu") -> Dict[str, Any]:
-    """Map the reference's dense-decoder parameter tree onto the port's."""
+def _dense_tree(tree: Dict[str, Any]) -> Dict[str, Any]:
+    """The reference's dense-decoder tree, checked, as nested dicts."""
     blocks = tree["blocks"]
     if set(blocks) != {"attn"}:
         raise NotImplementedError(f"block types {sorted(blocks)} are not "
@@ -43,4 +46,16 @@ def params_from_jax(tree: Dict[str, Any], device="cpu") -> Dict[str, Any]:
     keep = {k: tree[k] for k in ("embed", "final_norm", "lm_head")
             if k in tree}
     keep["blocks"] = {"attn": b}
-    return store_params(_tensors(keep, device))
+    return keep
+
+
+def params_from_jax(tree: Dict[str, Any], device="cpu") -> Dict[str, Any]:
+    """Map the reference's dense-decoder parameter tree onto the port's
+    serving parameters."""
+    return store_params(_tensors(_dense_tree(tree), device))
+
+
+def master_params_from_jax(tree: Dict[str, Any],
+                           device="cpu") -> Dict[str, Any]:
+    """The reference's tree as float32 master parameters (flat-backed)."""
+    return flat_backed(_tensors(_dense_tree(tree), device))

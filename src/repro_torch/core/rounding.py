@@ -20,7 +20,7 @@ from typing import Optional
 
 import torch
 
-from repro_torch.core import schemes as _schemes
+from repro_torch.core import prng, schemes as _schemes
 from repro_torch.core.formats import FPFormat
 from repro_torch.core.grids import Grid, get_grid
 from repro_torch.core.schemes import (RAND_BITS_CHOICES, RoundingScheme,
@@ -141,6 +141,7 @@ def _finish(x, z, mag, sign_x, grid: Grid, overflow: str):
 
 
 def round_to_format(x: torch.Tensor, fmt, mode: str = "rn", *,
+                    key: Optional[prng.Key] = None,
                     bits: Optional[torch.Tensor] = None, eps: float = 0.0,
                     v: Optional[torch.Tensor] = None,
                     overflow: str = "saturate",
@@ -149,6 +150,8 @@ def round_to_format(x: torch.Tensor, fmt, mode: str = "rn", *,
 
     ``bits``: int64 tensor of uint32 words, same shape as x (stochastic
     schemes); with ``rand_bits < 32`` only the low bits are consumed.
+    ``key``: without ``bits``, a stochastic scheme draws
+    ``prng.random_bits(key, x.shape)`` (``jax.random.bits``).
     ``v``: the bias direction of signed-SRε.  Returns exact grid values.
     """
     grid = get_grid(fmt)
@@ -157,7 +160,9 @@ def round_to_format(x: torch.Tensor, fmt, mode: str = "rn", *,
     x = x.float()
     if scheme.stochastic:
         if bits is None:
-            raise ValueError(f"mode {mode!r} needs `bits`")
+            if key is None:
+                raise ValueError(f"mode {mode!r} needs `key` or `bits`")
+            bits = prng.random_bits(key, x.shape, x.device)
         u = _uniform_from_bits(bits, rand_bits, scheme.randomness)
     else:
         u = torch.full_like(x, 0.5)
@@ -248,6 +253,15 @@ class RoundingSpec:
         return _schemes.format_spec_name(
             None if self.fmt is None else get_grid(self.fmt).name,
             self.scheme.name, self.eps, self.rand_bits, self.overflow)
+
+    def __call__(self, x: torch.Tensor, *, key: Optional[prng.Key] = None,
+                 bits: Optional[torch.Tensor] = None,
+                 v: Optional[torch.Tensor] = None) -> torch.Tensor:
+        if self.is_identity:
+            return x.float()
+        return round_to_format(x, self.fmt, self.mode, key=key, bits=bits,
+                               eps=self.eps, v=v, rand_bits=self.rand_bits,
+                               overflow=self.overflow)
 
 
 IDENTITY = RoundingSpec(None)

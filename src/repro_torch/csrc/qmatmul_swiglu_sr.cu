@@ -8,6 +8,9 @@
 // with seed pair 1 (stream 0), applies SiLU and the product, and rounds the
 // hidden with seed pair 2 (stream 1) when the activation site is not the
 // identity.  Bits are keyed by the global (row, col), as in qmatmul_sr.cu.
+// For the backward pass (residuals) it also writes the rounded branches
+// g_r and u_r as float32 (the reference's g_r/u_r outputs,
+// repro/kernels/qmatmul.py:678-699).
 //
 // What bounds it on an H100: at decode it streams both weight matrices once
 // (bytes); this first version uses the same simple CUDA-core tiling as
@@ -23,7 +26,8 @@ template <typename TB>
 __global__ void __launch_bounds__(rt::kThreads)
 qmatmul_swiglu_sr_kernel(const float* __restrict__ x,
                          const TB* __restrict__ wg, const TB* __restrict__ wu,
-                         float* __restrict__ out, int M, int N, int K,
+                         float* __restrict__ out, float* __restrict__ g_out,
+                         float* __restrict__ u_out, int M, int N, int K,
                          uint32_t g0, uint32_t g1, uint32_t u0, uint32_t u1,
                          uint32_t a0, uint32_t a1, rt::RoundParams fwd,
                          rt::RoundParams act) {
@@ -54,7 +58,12 @@ qmatmul_swiglu_sr_kernel(const float* __restrict__ x,
               act_sr ? rt::element_bits(a0, a1, 1, act.rand_bits, r, c) : 0u;
           h = rt::round_value(h, ba, act);
         }
-        out[static_cast<size_t>(r) * N + c] = h;
+        const size_t idx = static_cast<size_t>(r) * N + c;
+        out[idx] = h;
+        if (g_out != nullptr) {   // residuals for the backward pass
+          g_out[idx] = g_r;
+          u_out[idx] = u_r;
+        }
       }
     }
   }
@@ -62,15 +71,16 @@ qmatmul_swiglu_sr_kernel(const float* __restrict__ x,
 
 }  // namespace
 
-// seeds: {gate k0, gate k1, up k0, up k1, act k0, act k1}.  Launch on
+// seeds: {gate k0, gate k1, up k0, up k1, act k0, act k1}; g_out/u_out:
+// nullptr, or (M, N) float32 outputs for the rounded branches.  Launch on
 // `stream`; returns cudaGetLastError() (0 on success).
 extern "C" int qmatmul_swiglu_sr(
     const float* x, const void* wg, const void* wu, int w_is_bf16, float* out,
-    int M, int N, int K, uint32_t g0, uint32_t g1, uint32_t u0, uint32_t u1,
-    uint32_t a0, uint32_t a1, int precision, int emin, int emax, float xmax,
-    int mode, int rand_bits, int act_enabled, int act_precision,
-    int act_emin, int act_emax, float act_xmax, int act_mode,
-    int act_rand_bits, void* stream) {
+    float* g_out, float* u_out, int M, int N, int K, uint32_t g0, uint32_t g1,
+    uint32_t u0, uint32_t u1, uint32_t a0, uint32_t a1, int precision,
+    int emin, int emax, float xmax, int mode, int rand_bits, int act_enabled,
+    int act_precision, int act_emin, int act_emax, float act_xmax,
+    int act_mode, int act_rand_bits, void* stream) {
   if (M <= 0 || N <= 0) return 0;
   const rt::RoundParams fwd{precision, emin, emax, xmax, mode, rand_bits, 1};
   const rt::RoundParams act{act_precision, act_emin, act_emax, act_xmax,
@@ -80,12 +90,12 @@ extern "C" int qmatmul_swiglu_sr(
   if (w_is_bf16) {
     qmatmul_swiglu_sr_kernel<__nv_bfloat16><<<grid, rt::kThreads, 0, s>>>(
         x, static_cast<const __nv_bfloat16*>(wg),
-        static_cast<const __nv_bfloat16*>(wu), out, M, N, K, g0, g1, u0, u1,
-        a0, a1, fwd, act);
+        static_cast<const __nv_bfloat16*>(wu), out, g_out, u_out, M, N, K, g0,
+        g1, u0, u1, a0, a1, fwd, act);
   } else {
     qmatmul_swiglu_sr_kernel<float><<<grid, rt::kThreads, 0, s>>>(
         x, static_cast<const float*>(wg), static_cast<const float*>(wu), out,
-        M, N, K, g0, g1, u0, u1, a0, a1, fwd, act);
+        g_out, u_out, M, N, K, g0, g1, u0, u1, a0, a1, fwd, act);
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -1,7 +1,8 @@
-// Device-side rounding core shared by the rounded-GEMM kernels.
+// Device-side rounding core shared by the rounded-GEMM and update kernels.
 //
 // A CUDA port of repro.kernels.common.round_block for plain FP grids under
-// the "rn" and "sr" schemes, and of the reference's counter-based random
+// the "rn", "sr", "sr_eps" and "signed_sr_eps" schemes (the GEMM wrappers
+// accept only rn and sr), and of the reference's counter-based random
 // bits (Threefry-2x32 keyed by the element's global (row, col), the
 // interpret-mode derivation of repro.kernels.common.counter_bits_reduced).
 // The plain PyTorch twin is repro_torch/kernels/common.py; both must give
@@ -24,10 +25,11 @@ constexpr uint32_t kGolden = 0x9E3779B9u;   // stream offset in the key
 constexpr uint32_t kParity = 0x1BD11BDAu;
 constexpr float kTiny = 1.17549435082228750797e-38f;   // 2^-126
 
-enum Mode : int { kRN = 0, kSR = 1 };
+enum Mode : int { kRN = 0, kSR = 1, kSREps = 2, kSignedSREps = 3 };
 
 // One rounding site: an FP grid (precision p, [emin, emax], xmax), the
-// scheme (rn or sr), and the random bits an sr draw consumes per element.
+// scheme, the random bits a stochastic draw consumes per element, and the
+// epsilon of sr_eps / signed_sr_eps.
 struct RoundParams {
   int precision;
   int emin;
@@ -36,6 +38,7 @@ struct RoundParams {
   int mode;
   int rand_bits;   // 32, 16 or 8
   int enabled;     // 0: identity site (no rounding)
+  float eps = 0.0f;
 };
 
 __device__ __forceinline__ uint32_t rotl32(uint32_t x, int r) {
@@ -112,11 +115,18 @@ __device__ __forceinline__ int float_exponent(float x) {
   return raw > 0 ? raw - 127 : -127;
 }
 
+// jnp.sign: +-1, and the argument itself for +-0 and NaN.
+__device__ __forceinline__ float sign_of(float v) {
+  return v > 0.0f ? 1.0f : (v < 0.0f ? -1.0f : v);
+}
+
 // round_block for one value: decompose |z| on the grid, choose the floor or
 // ceiling neighbour, saturate at xmax, restore the sign (keeping -0), pass
-// NaN and +-inf through.
+// NaN and +-inf through.  sign_v is sign(v), the bias direction of
+// signed_sr_eps (0 where the site has none).
 __device__ __forceinline__ float round_value(float x, uint32_t bits,
-                                             const RoundParams& p) {
+                                             const RoundParams& p,
+                                             float sign_v = 0.0f) {
   float z = x;
   if (fabsf(z) < kTiny) z = __fmul_rn(z, 0.0f);   // explicit FTZ, signed
   const float mag_in = fabsf(z);
@@ -140,7 +150,7 @@ __device__ __forceinline__ float round_value(float x, uint32_t bits,
     quantum = __fmul_rn(pow2i(floor_div2(qe)), pow2i(qe - floor_div2(qe)));
   }
 
-  const float u = (p.mode == kSR) ? uniform_from_bits(bits, p.rand_bits)
+  const float u = (p.mode != kRN) ? uniform_from_bits(bits, p.rand_bits)
                                   : 0.5f;
   float mag;
   if (p.mode == kSR && qmin >= -126) {
@@ -154,6 +164,11 @@ __device__ __forceinline__ float round_value(float x, uint32_t bits,
     float p_up;
     if (p.mode == kSR) {
       p_up = frac;
+    } else if (p.mode == kSREps) {        // min(frac + eps, 1)
+      p_up = fminf(__fadd_rn(frac, p.eps), 1.0f);
+    } else if (p.mode == kSignedSREps) {  // clamp(frac - sx sv eps, 0, 1)
+      const float bias = __fmul_rn(__fmul_rn(sign_of(z), sign_v), p.eps);
+      p_up = fminf(fmaxf(__fadd_rn(frac, -bias), 0.0f), 1.0f);
     } else {   // rn, ties to even
       const float odd = (static_cast<int>(fy) & 1) ? 1.0f : 0.0f;
       p_up = frac > 0.5f ? 1.0f : (frac < 0.5f ? 0.0f : odd);
@@ -165,6 +180,13 @@ __device__ __forceinline__ float round_value(float x, uint32_t bits,
   float out = (z < 0.0f) ? -mag : mag;
   if (z == 0.0f && signbit(z)) out = -0.0f;
   return isfinite(x) ? out : x;
+}
+
+// One rounding site of the eq.-8 chain: the identity when disabled.
+__device__ __forceinline__ float apply_site(float x, uint32_t bits,
+                                            const RoundParams& p,
+                                            float sign_v) {
+  return p.enabled ? round_value(x, bits, p, sign_v) : x;
 }
 
 // SiLU as the plain twin computes it: g * (1 / (1 + exp(-g))).  expf is the

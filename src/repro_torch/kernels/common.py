@@ -10,7 +10,10 @@ mode: element (r, c) of an output takes word ``c % 2`` of
 (row, col), so they do not depend on how the output is tiled.  (The
 reference's TPU hardware-PRNG branches have no counterpart: the port always
 draws these counter bits, which makes it bit-comparable with the
-reference.)
+reference.)  The eq.-8 update draws per element instead
+(``kernel_bits3``): both words of ``threefry(k0, k1 + 0x9E3779B9 * stream,
+row, col)`` on the flat (rows, 128) layout, element n at
+(n // 128, n % 128).
 """
 from __future__ import annotations
 
@@ -108,6 +111,42 @@ def counter_bits(k0: int, k1: int, shape: Tuple[int, int], row0: int = 0,
     x0, x1 = threefry2x32(k0 & M32, _stream_key(k1, stream), r, c)
     inter = torch.stack([x0, x1], dim=-1).reshape(rows, 2 * n_pairs)
     return inter[:, off:off + cols]
+
+
+def counter_bits_pair(k0: int, k1: int, shape: Tuple[int, int],
+                      row0: int = 0, col0: int = 0, stream: int = 0,
+                      device=None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Both Threefry words of ``threefry(k0, k1 + GOLDEN * stream, row,
+    col)`` for each element of a 2-D block at global offset (row0, col0):
+    two independent planes keyed by the element's own (row, col), not by
+    column pairs (``repro.kernels.common.counter_bits_pair``)."""
+    rows, cols = shape
+    r = torch.arange(rows, dtype=torch.int64, device=device)[:, None] + row0
+    c = torch.arange(cols, dtype=torch.int64, device=device)[None, :] + col0
+    r, c = torch.broadcast_tensors(r, c)
+    return threefry2x32(k0 & M32, _stream_key(k1, stream), r, c)
+
+
+def kernel_bits3(words: Tuple[int, int], shape: Tuple[int, int], row0: int,
+                 need: Tuple[bool, bool, bool], device=None):
+    """The eq.-8 update's three bit planes, ``None`` where a step is
+    deterministic (``repro.kernels.common.kernel_bits3``, interpret path):
+    the stochastic steps take, in order, word 0 of pair stream 0, word 1 of
+    it, then word 0 of pair stream 1."""
+    out = [None, None, None]
+    pair, drawn = None, 0
+    for i, n in enumerate(need):
+        if not n:
+            continue
+        if pair is None:
+            pair = counter_bits_pair(words[0], words[1], shape, row0=row0,
+                                     stream=drawn, device=device)
+            drawn += 1
+            out[i] = pair[0]
+        else:
+            out[i] = pair[1]
+            pair = None
+    return out
 
 
 def counter_bits_reduced(k0: int, k1: int, shape: Tuple[int, int],

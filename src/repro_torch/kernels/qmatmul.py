@@ -182,9 +182,10 @@ def silu(g: torch.Tensor) -> torch.Tensor:
 def qmatmul_swiglu_plain(x: torch.Tensor, wg: torch.Tensor,
                          wu: torch.Tensor, seeds: Sequence[Words], fmt,
                          mode: str = "sr", rand_bits: int = 32,
-                         act_spec: Optional[RoundingSpec] = None
-                         ) -> torch.Tensor:
-    """The plain twin of the fused GLU prefix."""
+                         act_spec: Optional[RoundingSpec] = None,
+                         residuals: bool = False):
+    """The plain twin of the fused GLU prefix: h, or (h, g_r, u_r) with
+    ``residuals``."""
     x = x.float()
     accg = x @ wg.float()
     accu = x @ wu.float()
@@ -205,7 +206,7 @@ def qmatmul_swiglu_plain(x: torch.Tensor, wg: torch.Tensor,
                                              act_spec.rand_bits,
                                              stream=STREAM_ACT, device=dev)
         h = common.apply_spec_block(act_spec, h, ab)
-    return h
+    return (h, g_r, u_r) if residuals else h
 
 
 def qmatmul_swiglu_prng(x: torch.Tensor, wg: torch.Tensor, wu: torch.Tensor,
@@ -214,15 +215,15 @@ def qmatmul_swiglu_prng(x: torch.Tensor, wg: torch.Tensor, wu: torch.Tensor,
                         act_spec: Optional[RoundingSpec] = None,
                         rand_bits: int = 32, eps: float = 0.0,
                         overflow: str = "saturate", out_packed: bool = False,
-                        residuals: bool = False) -> torch.Tensor:
+                        residuals: bool = False):
     """Fused GLU-FFN prefix: x (M, K) float32, wg/wu (K, N) float32 or
     bf16; ``seeds``: the gate, up and activation-site (k0, k1) pairs.
-    Returns h (M, N) float32."""
+    Returns h (M, N) float32, or with ``residuals`` the tuple (h, g_r,
+    u_r): the rounded gate and up branches (float32) the backward needs."""
     if act != "silu":
         raise NotImplementedError(f"activation {act!r} is not ported yet")
-    if out_packed or residuals:
-        raise NotImplementedError("packed outputs / residuals are not "
-                                  "ported yet (forward-only slice)")
+    if out_packed:
+        raise NotImplementedError("packed outputs are not ported yet")
     if eps or overflow != "saturate":
         raise NotImplementedError("eps (sr_eps schemes) and overflow='inf' "
                                   "are not ported yet")
@@ -240,13 +241,16 @@ def qmatmul_swiglu_prng(x: torch.Tensor, wg: torch.Tensor, wu: torch.Tensor,
     _check_gemm_operands(x, (wg, wu), "qmatmul_swiglu_prng")
     if x.device.type == "cpu":
         return qmatmul_swiglu_plain(x, wg, wu, seeds, grid, mode, rand_bits,
-                                    act_spec)
+                                    act_spec, residuals)
     M, K = x.shape
     N = wg.shape[1]
     x, wg, wu = x.contiguous(), wg.contiguous(), wu.contiguous()
-    out = torch.empty((M, N), dtype=torch.float32, device=x.device)
-    if out.numel() == 0:
-        return out                       # nothing to launch
+    outs = [torch.empty((M, N), dtype=torch.float32, device=x.device)
+            for _ in range(3 if residuals else 1)]
+    if outs[0].numel() == 0:
+        return tuple(outs) if residuals else outs[0]   # nothing to launch
+    res_ptrs = (outs[1].data_ptr(), outs[2].data_ptr()) if residuals \
+        else (None, None)
     if act_spec is not None:
         act_args = (1, *_round_args(act_grid, act_spec.mode,
                                     act_spec.rand_bits))
@@ -255,13 +259,14 @@ def qmatmul_swiglu_prng(x: torch.Tensor, wg: torch.Tensor, wu: torch.Tensor,
     lib = _lib_swiglu()
     rc = lib.qmatmul_swiglu_sr(
         x.data_ptr(), wg.data_ptr(), wu.data_ptr(),
-        int(wg.dtype == torch.bfloat16), out.data_ptr(), M, N, K,
+        int(wg.dtype == torch.bfloat16), outs[0].data_ptr(), *res_ptrs,
+        M, N, K,
         *seeds[0], *seeds[1], *seeds[2],
         *_round_args(grid, mode, rand_bits), *act_args,
         torch.cuda.current_stream(x.device).cuda_stream)
     _launch_check(rc, "qmatmul_swiglu_sr")
     LAUNCHES["qmatmul_swiglu_sr"] += 1
-    return out
+    return tuple(outs) if residuals else outs[0]
 
 
 def _lib_swiglu():
@@ -269,7 +274,7 @@ def _lib_swiglu():
     fn = lib.qmatmul_swiglu_sr
     if fn.argtypes is None:
         c = ctypes
-        fn.argtypes = ([c.c_void_p] * 3 + [c.c_int, c.c_void_p]
+        fn.argtypes = ([c.c_void_p] * 3 + [c.c_int] + [c.c_void_p] * 3
                        + [c.c_int] * 3 + [c.c_uint32] * 6
                        + [c.c_int] * 3 + [c.c_float] + [c.c_int] * 2
                        + [c.c_int] * 4 + [c.c_float] + [c.c_int] * 2

@@ -1,12 +1,15 @@
-"""GQA attention with RoPE and a contiguous KV cache, decode branch
-(counterpart of ``repro.models.attention``).
+"""GQA attention with RoPE: the full-sequence (training) branch and the
+contiguous-KV-cache decode branch (counterpart of
+``repro.models.attention``).
 
-Only the cached decode branch of ``attn_apply`` is ported (one or more new
-tokens against a (B, S_max, n_kv, hd) cache per layer, RoPE positions);
-the paged, flash and prefill branches, M-RoPE and sliding windows wait
-for later slices.  The cache is updated in place
-(the reference returns a new array), which saves a full cache copy per
-token.
+Without a cache, ``attn_apply`` is causal attention over the whole
+sequence through ``flash_attention``, the reference's blocked
+online-softmax recurrence in plain float32 ops (its jnp path: the policy's
+attention sites are the identity in every preset ported so far).  With a
+cache, one or more new tokens attend to a (B, S_max, n_kv, hd) cache per
+layer, updated in place (the reference returns a new array), which saves a
+full cache copy per token.  The paged branch, the rounded flash kernels,
+M-RoPE and sliding windows wait for later slices.
 """
 from __future__ import annotations
 
@@ -56,6 +59,58 @@ def _sdpa(q, k, v, mask, scale: float):
     return out.reshape(B, Sq, H, dv)
 
 
+def flash_attention(q, k, v, scale: float, *, causal: bool = True,
+                    q_block: int = 1024, kv_block: int = 1024):
+    """Blocked attention with online softmax (the reference's
+    ``flash_attention``, same block loop and float32 arithmetic).
+    q: (B, Sq, H, dk); k: (B, Skv, KV, dk); v: (B, Skv, KV, dv)."""
+    B, Sq, H, dk = q.shape
+    KV = k.shape[2]
+    G = H // KV
+    dv = v.shape[-1]
+    qb = min(q_block, Sq)
+    kb = min(kv_block, k.shape[1])
+    n_q = -(-Sq // qb)
+    n_k = -(-k.shape[1] // kb)
+    qf = q.float().reshape(B, Sq, KV, G, dk)
+    kf, vf = k.float(), v.float()
+    inf = float("inf")
+    out_blocks = []
+    for i in range(n_q):
+        q_i = qf[:, i * qb:(i + 1) * qb]
+        qlen = q_i.shape[1]
+        m = torch.full((B, KV, G, qlen), -inf, device=q.device)
+        l = torch.zeros((B, KV, G, qlen), device=q.device)
+        acc = torch.zeros((B, KV, G, qlen, dv), device=q.device)
+        q_lo = i * qb
+        q_hi = q_lo + qlen - 1
+        for j in range(n_k):
+            k_lo = j * kb
+            if causal and k_lo > q_hi:
+                continue                                    # above diagonal
+            k_hi = min((j + 1) * kb, k.shape[1]) - 1
+            s = torch.einsum("bqkgh,bskh->bkgqs", q_i,
+                             kf[:, k_lo:k_hi + 1]) * scale
+            if causal and k_hi > q_lo:
+                qpos = torch.arange(q_lo, q_hi + 1, device=q.device)[:, None]
+                kpos = torch.arange(k_lo, k_hi + 1, device=q.device)[None, :]
+                s = torch.where(kpos <= qpos, s, torch.full_like(s, -inf))
+            m_new = torch.maximum(m, s.amax(dim=-1))
+            m_safe = torch.where(torch.isfinite(m_new), m_new,
+                                 torch.zeros_like(m_new))
+            p = torch.exp(s - m_safe[..., None])
+            p = torch.where(torch.isfinite(s), p, torch.zeros_like(p))
+            corr = torch.where(torch.isfinite(m), torch.exp(m - m_safe),
+                               torch.zeros_like(m))
+            l = l * corr + p.sum(dim=-1)
+            acc = acc * corr[..., None] + torch.einsum(
+                "bkgqs,bskv->bkgqv", p, vf[:, k_lo:k_hi + 1])
+            m = m_new
+        out_blocks.append(acc / torch.clamp(l, min=1e-30)[..., None])
+    o = torch.cat(out_blocks, dim=3)                        # (B,KV,G,Sq,dv)
+    return o.movedim(3, 1).reshape(B, Sq, H, dv).to(q.dtype)
+
+
 def init_cache(cfg, batch: int, max_len: int, dtype=torch.bfloat16,
                device=None) -> KVCache:
     shape = (cfg.n_layers, batch, max_len, cfg.n_kv_heads, cfg.resolved_head_dim)
@@ -63,10 +118,12 @@ def init_cache(cfg, batch: int, max_len: int, dtype=torch.bfloat16,
                    v=torch.zeros(shape, dtype=dtype, device=device))
 
 
-def attn_apply(params, x, positions, cfg, *, cache: KVCache, layer: int,
-               quant=None) -> torch.Tensor:
-    """x: (B, S, D) new tokens; appends their k/v to layer ``layer`` of the
-    cache at ``cache.length`` and attends to the whole prefix."""
+def attn_apply(params, x, positions, cfg, *, cache: Optional[KVCache] = None,
+               layer: int = 0, quant=None) -> torch.Tensor:
+    """x: (B, S, D).  Without ``cache``: causal attention over the whole
+    sequence.  With it: x are new tokens, their k/v go to layer ``layer``
+    of the cache at ``cache.length``, and they attend to the whole
+    prefix."""
     B, S, _ = x.shape
     hd = cfg.resolved_head_dim
     nh, nkv = cfg.n_heads, cfg.n_kv_heads
@@ -75,6 +132,10 @@ def attn_apply(params, x, positions, cfg, *, cache: KVCache, layer: int,
     v = L.qdense(x, params["wv"], quant, QP.TAG_ATTN_V).reshape(B, S, nkv, hd)
     q = L.apply_rope(q, positions, cfg.rope_theta)
     k = L.apply_rope(k, positions, cfg.rope_theta)
+    if cache is None:
+        out = flash_attention(q, k, v, 1.0 / hd ** 0.5, causal=True)
+        return L.qdense(out.reshape(B, S, nh * hd), params["wo"], quant,
+                        QP.TAG_ATTN_O)
 
     start = cache.length
     Skv = cache.k.shape[2]

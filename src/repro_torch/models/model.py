@@ -1,11 +1,13 @@
-"""Model facade for the dense decoder: init and cached decode
-(counterpart of ``repro.models.model``).
+"""Model facade for the dense decoder: init, training loss and cached
+decode (counterpart of ``repro.models.model``).
 
 ``decode_step`` keeps the reference's seed chain: with a GEMM policy the
 step key is ``fold_in(PRNGKey(0), pos)`` (stochastic-rounding streams
 decorrelate across positions), each layer's context comes from
 ``transformer.apply_blocks``, and the lm head runs under
-``ctx_for(cfg, rng)``.
+``ctx_for(cfg, rng)``.  ``loss_fn`` is the reference's chunked next-token
+cross-entropy: the lm head runs over ``LOSS_CHUNK`` positions at a time
+under ``fold_ctx(ctx_for(cfg, rng), chunk)``.
 """
 from __future__ import annotations
 
@@ -17,7 +19,9 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core import prng
 from repro_torch.models import attention, layers as L, transformer
-from repro_torch.precision.policy import TAG_LOGITS, ctx_for
+from repro_torch.precision.policy import TAG_LOGITS, ctx_for, fold_ctx
+
+LOSS_CHUNK = 1024
 
 
 def store_params(tree):
@@ -41,8 +45,14 @@ class Model:
     cfg: ModelConfig
 
     def init(self, gen: torch.Generator) -> Dict[str, Any]:
-        """Random parameters from ``gen``, on ``gen.device``; the same
-        tree and initial distributions as the reference's ``Model.init``."""
+        """Random parameters from ``gen``, on ``gen.device``, as the port
+        serves with them (``store_params``); the same tree and initial
+        distributions as the reference's ``Model.init``."""
+        return store_params(self.init_master(gen))
+
+    def init_master(self, gen: torch.Generator) -> Dict[str, Any]:
+        """The float32 master parameters the trainer updates: the same
+        draws as ``init``, unrounded."""
         cfg = self.cfg
         params: Dict[str, Any] = {
             "embed": L.embed_init(gen, cfg.vocab_size, cfg.d_model),
@@ -52,7 +62,7 @@ class Model:
         if not cfg.tie_embeddings:
             params["lm_head"] = L.dense_init(gen, cfg.d_model,
                                              cfg.vocab_size, scale=0.02)
-        return store_params(params)
+        return params
 
     def init_decode_cache(self, batch: int, max_len: int, device=None
                           ) -> Dict[str, attention.KVCache]:
@@ -65,6 +75,38 @@ class Model:
         else:
             w = params["lm_head"]
         return L.qdense(h, w, quant, TAG_LOGITS)
+
+    def hidden_states(self, params, batch, rng: Optional[prng.Key] = None
+                      ) -> torch.Tensor:
+        """Full-sequence forward to the final hidden states (training)."""
+        tokens = batch["tokens"]
+        x = params["embed"][tokens].to(L.COMPUTE_DTYPE)
+        B, S = tokens.shape
+        positions = torch.arange(S, device=tokens.device)[None].expand(B, S)
+        x = transformer.apply_blocks(
+            params["blocks"], x, positions, self.cfg,
+            rng=rng if rng is not None else prng.PRNGKey(0))
+        return L.rms_norm(x, params["final_norm"])
+
+    def loss_fn(self, params, batch, rng: Optional[prng.Key] = None
+                ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+        """Chunked next-token cross-entropy; returns (loss, metrics)."""
+        h = self.hidden_states(params, batch, rng)
+        labels = batch["labels"]
+        B, S, _ = h.shape
+        lq = ctx_for(self.cfg, rng if rng is not None else prng.PRNGKey(0))
+        total, count = torch.zeros((), device=h.device), 0
+        for i in range(max(1, -(-S // LOSS_CHUNK))):
+            sl = slice(i * LOSS_CHUNK, min((i + 1) * LOSS_CHUNK, S))
+            logits = self._logits(params, h[:, sl, :],
+                                  quant=fold_ctx(lq, i)).float()
+            logz = torch.logsumexp(logits, dim=-1)
+            gold = torch.gather(logits, -1,
+                                labels[:, sl, None].long())[..., 0]
+            total = total + torch.sum(logz - gold)
+            count += logits.shape[0] * logits.shape[1]
+        loss = total / count
+        return loss, {"ce": loss, "moe_aux": torch.zeros((), device=h.device)}
 
     def decode_step(self, params, caches, tokens: torch.Tensor, pos: int,
                     compute_logits: bool = True

@@ -6,6 +6,10 @@ Seed chain of the reference's ``apply_blocks``: the plan of "attn" blocks is
 one segment, so ``seg_rng = fold_in(rng, 0)`` and layer i gets
 ``split(seg_rng, n_layers)[i]``; its quantized-GEMM context is
 ``ctx_for(cfg, keys[i])``.
+
+A stacked leaf may also be given as a list of per-layer tensors (the
+trainer differentiates with respect to each layer's slice separately, so
+autograd never assembles a zero-filled stacked gradient per layer).
 """
 from __future__ import annotations
 
@@ -34,7 +38,8 @@ def init_blocks(gen: torch.Generator, cfg) -> Dict[str, Any]:
 
 
 def _layer(tree, i: int):
-    """Layer i's view of a stacked parameter tree (no copy)."""
+    """Layer i's view of a stacked parameter tree (no copy); a leaf is a
+    stacked tensor or a list of per-layer tensors."""
     if isinstance(tree, dict):
         return {k: _layer(v, i) for k, v in tree.items()}
     return tree[i]
@@ -49,13 +54,16 @@ def apply_attn_block(p, x, positions, cfg, cache, layer: int, key):
     return x + ffn.ffn_apply(p["mlp"], h2, cfg.ffn_act, quant=qc)
 
 
-def apply_blocks(blocks, x, positions, cfg, *, caches, rng: prng.Key):
-    """Run every layer over the new tokens ``x`` (B, S, D), appending to
-    the stacked KV cache ``caches["attn"]``."""
+def apply_blocks(blocks, x, positions, cfg, *, caches=None,
+                 rng: prng.Key):
+    """Run every layer over ``x`` (B, S, D): the whole sequence (no
+    caches), or new tokens appended to the stacked KV cache
+    ``caches["attn"]``."""
     seg_rng = prng.fold_in(rng, 0)
     keys = prng.split(seg_rng, cfg.n_layers)
     stacked = blocks["attn"]
+    cache = None if caches is None else caches["attn"]
     for i in range(cfg.n_layers):
-        x = apply_attn_block(_layer(stacked, i), x, positions, cfg,
-                             caches["attn"], i, keys[i])
+        x = apply_attn_block(_layer(stacked, i), x, positions, cfg, cache,
+                             i, keys[i])
     return x

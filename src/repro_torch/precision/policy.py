@@ -1,5 +1,4 @@
-"""Precision-policy subsystem, forward only (counterpart of
-``repro.precision.policy``).
+"""Precision-policy subsystem (counterpart of ``repro.precision.policy``).
 
 ``QuantPolicy`` holds one ``RoundingSpec`` per site (fwd, dgrad, wgrad,
 act); ``qdot`` is the policy-rounded matmul every weight GEMM of the model
@@ -9,8 +8,9 @@ tag and every site inside a call folds its site id, each fold one
 Threefry-2x32 evaluation (``fold_words``).  The words are Python ints on the
 host; the kernels draw their bits from them on the device.
 
-This slice is forward-only: the ``torch.autograd.Function`` forms of
-``qdot`` and ``qffn_glu`` arrive with the training slice.
+``qdot`` is differentiable: its backward runs the dgrad and wgrad GEMMs
+through the same rounded kernel (K3') at the DGRAD/WGRAD sites, as the
+reference's ``custom_vjp`` does.  ``qact`` is not ported yet.
 """
 from __future__ import annotations
 
@@ -166,7 +166,7 @@ def fold_ctx(ctx: Optional[QuantCtx], tag: int) -> Optional[QuantCtx]:
 
 
 # ---------------------------------------------------------------------------
-# The rounded matmul (forward).
+# The differentiable rounded matmul.
 # ---------------------------------------------------------------------------
 def site_matmul(policy: QuantPolicy, site: int, a: torch.Tensor,
                 b: torch.Tensor, words: Words) -> torch.Tensor:
@@ -180,17 +180,51 @@ def site_matmul(policy: QuantPolicy, site: int, a: torch.Tensor,
                         overflow=s.overflow)
 
 
+def needs_grad(*tensors: torch.Tensor) -> bool:
+    """Whether autograd will differentiate through these operands."""
+    return torch.is_grad_enabled() and any(t.requires_grad for t in tensors)
+
+
+class _QDot(torch.autograd.Function):
+    """The rounded 2-D GEMM with the reference's VJP (``_qdot2_bwd``):
+    ``da = dgrad(g @ bᵀ)``, ``db = wgrad(aᵀ @ g)``, straight through the
+    forward rounding."""
+
+    @staticmethod
+    def forward(ctx, a, b, policy: QuantPolicy, words: Words):
+        ctx.save_for_backward(a, b)
+        ctx.policy, ctx.words = policy, words
+        return site_matmul(policy, SITE_FWD, a, b, words)
+
+    @staticmethod
+    def backward(ctx, g):
+        a, b = ctx.saved_tensors
+        policy, words = ctx.policy, ctx.words
+        g = g.float().contiguous()
+        da = db = None
+        if ctx.needs_input_grad[0]:
+            da = site_matmul(policy, SITE_DGRAD, g, b.t().contiguous(), words)
+        if ctx.needs_input_grad[1]:
+            db = site_matmul(policy, SITE_WGRAD, a.t().contiguous(), g,
+                             words).to(b.dtype)
+        return da, db, None, None
+
+
 def qdot(a: torch.Tensor, b: torch.Tensor, quant: Optional[QuantCtx],
          tag: int = 0) -> torch.Tensor:
-    """Policy-rounded ``a @ b`` (a: (..., K); b: (K, N)).  With no policy
-    this is exactly ``a @ b``.  Otherwise a goes to float32 and b as given
-    (the kernel reads bf16 weights and widens them exactly), and the result
-    is cast back to the operands' common dtype."""
+    """Policy-rounded differentiable ``a @ b`` (a: (..., K); b: (K, N)).
+    With no policy this is exactly ``a @ b``.  Otherwise a goes to float32
+    and b as given (the kernel reads bf16 weights and widens them exactly),
+    and the result is cast back to the operands' common dtype."""
     if quant is None or quant.policy.gemm_identity:
         return a @ b
     policy, words = quant
+    words = fold_words(words, tag)
     lead = a.shape[:-1]
     a2 = a.reshape(-1, a.shape[-1]).float()
-    out = site_matmul(policy, SITE_FWD, a2, b, fold_words(words, tag))
+    if needs_grad(a2, b):
+        out = _QDot.apply(a2, b, policy, words)
+    else:
+        out = site_matmul(policy, SITE_FWD, a2, b, words)
     out_dtype = torch.promote_types(a.dtype, b.dtype)
     return out.reshape(*lead, b.shape[-1]).to(out_dtype)

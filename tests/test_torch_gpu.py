@@ -6,18 +6,22 @@ it runs on a machine that has only PyTorch:
 
   python -m pytest -q --noconftest -m gpu tests/test_torch_gpu.py
 
-Tolerances: bitwise on exact-sum inputs (dyadic values, every partial sum
-exact); on N(0, 1) inputs at most 1e-4 of the elements may differ (the
-summation order differs from the twin's torch.matmul).  A qmatmul output
-then differs by one grid step (``rounding.grid_flips``); in the fused
-kernel a flip of a rounded branch propagates through silu(g) * u, so only
-the share is bounded for its hidden.
+Tolerances: the update kernels (K2', K2) and the momentum FMA are bitwise
+equal to their twins on any input; the GEMM kernels are bitwise on exact-sum inputs (dyadic
+values, every partial sum exact); on N(0, 1) inputs at most 1e-4 of the
+elements may differ (the summation order differs from the twin's
+torch.matmul).  A qmatmul output then differs by one grid step
+(``rounding.grid_flips``); in the fused kernel a flip of a rounded branch
+propagates through silu(g) * u, so only the share is bounded for its
+hidden.
 """
 import numpy as np
 import pytest
 import torch
 
-from repro_torch.core.rounding import grid_flips, spec
+from repro_torch.core import gd
+from repro_torch.core.rounding import grid_flips, parse_spec, spec
+from repro_torch.kernels import fused_update as tfu
 from repro_torch.kernels import qmatmul as tq
 
 SEEDS = ((0x12345678, 0x9ABCDEF0), (7, 0xFFFFFFFF), (0xDEADBEEF, 3))
@@ -106,3 +110,95 @@ def test_kernels_count_their_launches(cuda):
     empty = tq.qmatmul_prng(a[:0], b, SEEDS[0], "binary8")
     assert empty.shape == (0, 32)
     assert tq.LAUNCHES == {"qmatmul_sr": 1, "qmatmul_swiglu_sr": 1}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("M,K,N", [(37, 45, 70), (256, 2048, 5632)])
+def test_swiglu_kernel_residuals_match_plain(cuda, M, K, N):
+    """The rounded branches g_r, u_r the backward needs: bitwise on
+    exact-sum inputs."""
+    x = _exact((M, K), 8.0, 3).to(cuda)
+    wg = _exact((K, N), 4.0, 4).to(cuda).to(torch.bfloat16)
+    wu = _exact((K, N), 4.0, 5).to(cuda).to(torch.bfloat16)
+    act = ACT_SPECS["binary8-sr"]
+    got = tq.qmatmul_swiglu_prng(x, wg, wu, SEEDS, "binary8", act_spec=act,
+                                 residuals=True)
+    ref = tq.qmatmul_swiglu_plain(x, wg, wu, SEEDS, "binary8", act_spec=act,
+                                  residuals=True)
+    torch.cuda.synchronize()
+    for r, g in zip(ref[1:], got[1:]):
+        assert torch.equal(r.view(torch.int32), g.view(torch.int32))
+    _assert_flips(ref[0], got[0], "binary8", adjacent_only=False)
+
+
+UPDATE_CONFIGS = [
+    ("binary8-rn", "binary8-sr", "binary8-signed_sr_eps-e0.1", "self"),
+    ("binary8-rn", "binary8-sr_eps-e0.1", "binary8-sr", "self"),
+    ("binary8-sr-r16", "binary8-sr-r16", "binary8-sr-r16", "self"),
+    ("binary8-rn", "binary8-rn", "binary8-rn", "self"),
+    ("bf16-rn", "bf16-sr", "bf16-signed_sr_eps-e0.1", "self"),
+    ("e4m3-signed_sr_eps-e0.3", "fp32", "e4m3-sr", "neg_grad"),
+]
+
+
+def _update_inputs(n, seed):
+    rng = np.random.default_rng(seed)
+    x = (rng.standard_normal(n) * 0.05).astype(np.float32)
+    g = (rng.standard_normal(n) * 0.3).astype(np.float32)
+    g[::13] = 0.0
+    x[2::23] = 1e-40          # float32 subnormals: flushed by the rounding
+    g[4::31] = 7e4            # beyond binary8's xmax: saturates
+    return torch.from_numpy(x), torch.from_numpy(g)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n", [1, 128 * 3 + 5, 2 ** 20 + 37])
+@pytest.mark.parametrize("names", UPDATE_CONFIGS,
+                         ids=["-".join(c[:3]) for c in UPDATE_CONFIGS])
+def test_update_kernels_match_plain(cuda, n, names):
+    cfg = gd.GDRounding(*(parse_spec(s) for s in names[:3]),
+                        grad_v=names[3])
+    x, g = _update_inputs(n, n)
+    seed = (0x1234ABCD, 0x0BADF00D)
+    ref = tfu.fused_qupdate_prng(x, g, 0.05, seed, cfg)
+    xc, gc = x.to(cuda), g.to(cuda)
+    got = tfu.fused_qupdate_prng(xc, gc, 0.05, seed, cfg)
+    torch.cuda.synchronize()
+    assert torch.equal(ref.view(torch.int32), got.cpu().view(torch.int32))
+    bits3 = torch.from_numpy(np.random.default_rng(n).integers(
+        0, 2 ** 32, (3, n), dtype=np.uint64).astype(np.int64))
+    ref = tfu.fused_qupdate(x, g, 0.05, bits3, cfg)
+    got = tfu.fused_qupdate(x.to(cuda), g.to(cuda), 0.05, bits3.to(cuda),
+                            cfg)
+    torch.cuda.synchronize()
+    assert torch.equal(ref.view(torch.int32), got.cpu().view(torch.int32))
+
+
+@pytest.mark.gpu
+def test_update_kernels_count_their_launches(cuda):
+    tfu.reset_launches()
+    cfg = gd.make_config("binary8")
+    x, g = (t.to(cuda) for t in _update_inputs(300, 1))
+    tfu.fused_qupdate_prng(x, g, 0.1, (1, 2), cfg)
+    tfu.fused_qupdate_prng_plain(x, g, 0.1, (1, 2), cfg)
+    bits3 = torch.zeros((3, 300), dtype=torch.int32, device=cuda)
+    tfu.fused_qupdate(x, g, 0.1, bits3, cfg)
+    tfu.fused_qupdate(x[:0], g[:0], 0.1, bits3[:, :0], cfg)
+    tfu.momentum_fma(0.9, x, g)
+    tfu.momentum_fma_plain(0.9, x, g)
+    assert tfu.LAUNCHES == {"fused_qupdate_prng": 1, "fused_qupdate_bits": 1,
+                            "momentum_fma": 1}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n", [1, 128 * 3 + 5, 2 ** 20 + 37])
+def test_momentum_fma_kernel_matches_plain(cuda, n):
+    """One rounding of 0.9 * m + g, subnormal operands and results
+    flushed, as the float64 emulation computes it."""
+    m, g = _update_inputs(n, n + 1)
+    m[5::41] = 2e-38              # normal operands, subnormal results
+    g[5::41] = -1.7e-38
+    ref = tfu.momentum_fma(0.9, m, g)
+    got = tfu.momentum_fma(0.9, m.to(cuda), g.to(cuda))
+    torch.cuda.synchronize()
+    assert torch.equal(ref.view(torch.int32), got.cpu().view(torch.int32))
