@@ -37,12 +37,28 @@ Phases (any failed check exits non-zero; there is no CPU fallback):
    twins from the same parameters and batches, for ``fused`` (K2') and
    ``fused_bits`` (K2): at most ``AGREE_MAX_PARAMS`` parameters differ and
    the losses agree within ``AGREE_MAX_REL_LOSS``;
-10. one JSON line of per-kernel numbers, then the result line.
+10. attention kernels vs plain: K6, K7 and K7' at the train step's shapes
+   (B.H = 128, S = 256, d = 64, B.KV = 16, causal) and on a multi-block
+   ragged case (blocks of 64, S = 200) with 32-, 16- and 8-bit draws, K9
+   at the decode shapes (B.KV = 16, G = 8, S_max = 48, packed e4m3 codes,
+   lengths 1, 17, 48): the rounded logits and m bitwise on exact-sum
+   inputs, out/dq/dk/dv at most 1e-4 of the elements different on N(0, 1)
+   inputs, K9 over codes bitwise K9 over the unpacked values; timed beside
+   the bound, the twin and ``scaled_dot_product_attention`` (float32,
+   unrounded: a yardstick only);
+11. serve tinyllama-1.1b under ``binary8-paper-attn`` (rounded attention,
+   packed e4m3 KV cache): launch counts (K9 once per layer per token);
+12. its agreement: reduced tinyllama card vs CPU, logits and cache codes;
+13. train tinyllama-1.1b under ``binary8-paper-attn`` (4 steps, batch 4 x
+   256): K6, K7, K7' once per layer per step, finite losses;
+14. its agreement: reduced tinyllama, 2 steps card vs CPU;
+15. one JSON line of per-kernel numbers, then the result line.
 
 Detailed numbers also go to ``chiprun_out/chip_smoke.json``.
 """
 from __future__ import annotations
 
+import gc
 import json
 import math
 import subprocess
@@ -51,6 +67,7 @@ import time
 from pathlib import Path
 
 HERE = Path(__file__).resolve().parent
+T_START = time.time()
 # H100 SXM peaks (data sheet): fp32 outside the tensor cores, HBM3 rate
 PEAK_FP32_FLOPS = 67e12
 PEAK_BYTES_PER_S = 3.35e12
@@ -97,6 +114,17 @@ MOMENTUM = 0.9
 # losses within 9.8e-8 relative: one float32 ulp of the cross-entropy sum)
 AGREE_MAX_PARAMS = 8
 AGREE_MAX_REL_LOSS = 5e-7
+# attention shapes: the train step's (batch 4 x 256, 32 query / 4 kv
+# heads of 64) and a decode step's (batch 4, S_max = prompt + gen)
+ATTN = dict(BH=TRAIN_BATCH * 32, BKV=TRAIN_BATCH * 4, S=TRAIN_SEQ, d=64,
+            n_heads=32, n_kv=4)
+DECODE = dict(BKV=BATCH * 4, G=8, Smax=PROMPT + GEN, d=64)
+ATTN_POLICY = "binary8-paper-attn"
+# phase 12's limit on the share of differing KV-cache codes per layer, set
+# from its reading (0 of 768 per layer; phase 14 reads 0 parameters and
+# equal losses, held to phase 9's limits): a GEMM sum flipped upstream
+# would move whole rows of later layers' codes
+ATTN_AGREE_MAX_CODE_SHARE = 0.01
 # (grad, mul, sub) spec names of the extra update configs of phase 4
 UPDATE_CONFIGS = {
     "sr_eps-binary8": ("binary8-rn", "binary8-sr_eps-e0.1", "binary8-sr"),
@@ -286,6 +314,230 @@ def gemm_phase(torch, tq, cases):
     return rows
 
 
+def attn_bound(flops, n_threefry, nbytes):
+    """(ms, bound_by) of attention work: bytes over the HBM rate against
+    the larger of the fp32 flops over the fp32 peak and the Threefry
+    integer work over the int32 rate."""
+    t_bytes = nbytes / PEAK_BYTES_PER_S
+    t_ops = max(flops / PEAK_FP32_FLOPS,
+                n_threefry * THREEFRY_OPS / PEAK_INT32_OPS)
+    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
+                                       else "operations")
+
+
+def attn_work(kernel, BH, BKV, S, d, pairs, G=None):
+    """(flops, Threefry evaluations, bytes) one call needs for ``pairs``
+    unmasked (query, key) pairs: each logit drawn once, two draws per
+    Threefry evaluation; float32 operands read once, outputs written
+    once (K9's cache: one byte per code, the ``S`` valid rows)."""
+    if kernel == "flash_decode":
+        rows = BKV * G
+        return (2 * pairs * 2 * d, (pairs + 2 * rows * d) / 2,
+                4 * rows * d * 2 + 2 * BKV * S * d)
+    q_elems, kv_elems, rows = BH * S * d, BKV * S * d, BH * S
+    if kernel == "flash_fwd":     # qk, pv; draws qk, av, out
+        return (2 * pairs * 2 * d, (pairs + 2 * q_elems) / 2,
+                4 * (2 * q_elems + 2 * kv_elems + 2 * rows))
+    if kernel == "flash_bwd_dq":  # qk, dp, dq; draws qk, dq
+        return (2 * pairs * 3 * d, (pairs + q_elems) / 2,
+                4 * (3 * q_elems + 2 * kv_elems + 3 * rows))
+    # flash_bwd_dkv: qk, dp, dv, dk; draws qk, dk, dv (per query head)
+    return (2 * pairs * 4 * d, (pairs + 2 * q_elems) / 2,
+            4 * (4 * q_elems + 2 * kv_elems + 3 * rows))
+
+
+def attention_phase(torch, tfa):
+    """K6, K7, K7' and K9 against their plain twins; timed at the main
+    path's shapes.  Returns rows keyed by kernel."""
+    import numpy as np
+    import torch.nn.functional as F
+    from repro_torch.core.rounding import grid_flips, parse_spec
+    from repro_torch.kernels import common
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(4321)
+    rng = np.random.default_rng(4321)
+
+    def ints(shape):
+        return torch.randint(-8, 9, shape, generator=gen,
+                             device=dev).float() / 8
+
+    def normal(shape):
+        return torch.randn(shape, generator=gen, device=dev)
+
+    def check_flips(what, ref, got, fmt):
+        n_bad, adjacent = grid_flips(ref, got, fmt)
+        share = n_bad / ref.numel()
+        if share > max(1e-4, 1.0 / ref.numel()):
+            fail(f"{what}: {n_bad} of {ref.numel()} elements differ")
+        return dict(mismatches=n_bad, mismatch_share=share,
+                    adjacent=adjacent,
+                    max_abs_err=float((got - ref).abs().max()))
+
+    def check_bitwise(what, ref, got):
+        if not bitwise(torch, ref, got):
+            fail(f"{what}: not bitwise equal to the plain twin")
+
+    rows = {}
+    # --- K6, K7, K7' at the train step's shapes, then a ragged case ---
+    BH, BKV, S, d = (ATTN[k] for k in ("BH", "BKV", "S", "d"))
+    cases = [(BH, BKV, S, 1024, "binary8-sr", ATTN["n_heads"], ATTN["n_kv"]),
+             (32, 4, 200, 64, "binary8-sr", 8, 1),
+             (32, 4, 200, 64, "binary8-sr-r16", 8, 1),
+             (32, 4, 200, 64, "binary8-sr-r8", 8, 1)]
+    for (bh, bkv, s_len, blk, name, nh, nkv) in cases:
+        main = bh == BH and s_len == S
+        specs = [parse_spec(name)] * 3
+        seeds = rng.integers(0, 2 ** 32, (bh, 6), dtype=np.uint64)
+        kw = dict(scale=d ** -0.5, n_heads=nh, n_kv=nkv, causal=True,
+                  q_block=blk, kv_block=blk)
+        tag = f"{name} B.H={bh} S={s_len} blocks={blk}"
+        q, k, v = ints((bh, s_len, d)), ints((bkv, s_len, d)), \
+            ints((bkv, s_len, d))
+        got = tfa.flash_fwd(q, k, v, seeds, specs, return_logits=True, **kw)
+        ref = tfa.flash_fwd_plain(q, k, v, seeds, specs, return_logits=True,
+                                  **kw)
+        torch.cuda.synchronize()
+        check_bitwise(f"flash_fwd logits {tag}", ref[3], got[3])
+        check_bitwise(f"flash_fwd m {tag}", ref[1], got[1])
+        del got, ref
+        q, k, v, do = normal((bh, s_len, d)), normal((bkv, s_len, d)), \
+            normal((bkv, s_len, d)), normal((bh, s_len, d))
+        out, m, l = tfa.flash_fwd(q, k, v, seeds, specs, **kw)
+        r_out, r_m, r_l = tfa.flash_fwd_plain(q, k, v, seeds, specs, **kw)
+        torch.cuda.synchronize()
+        res = {"flash_fwd": check_flips(f"flash_fwd out {tag}", r_out, out,
+                                        "binary8")}
+        rel_l = float(((l - r_l).abs() / r_l.abs()).max())
+        dd = (do * r_out).sum(-1)
+        seeds_dq = np.concatenate([seeds[:, :2], seeds[:, 4:]], axis=1)
+        bwd = dict(dq=(tfa.flash_bwd_dq, tfa.flash_bwd_dq_plain,
+                       (seeds_dq, specs[0], specs[0])),
+                   dkv=(tfa.flash_bwd_dkv, tfa.flash_bwd_dkv_plain,
+                        (seeds, specs[0], specs[0], specs[1])))
+        for key, (kern, plain, extra) in bwd.items():
+            got = kern(q, k, v, do, r_m, r_l, dd, *extra, **kw)
+            ref = plain(q, k, v, do, r_m, r_l, dd, *extra, **kw)
+            torch.cuda.synchronize()
+            pairs = zip(("dq",), (got,), (ref,)) if key == "dq" else \
+                zip(("dk", "dv"), got, ref)
+            checks = [check_flips(f"flash_bwd {nm} {tag}", r, g, "binary8")
+                      for nm, g, r in pairs]
+            res[kern.__name__] = {
+                "mismatches": sum(c["mismatches"] for c in checks),
+                "mismatch_share": max(c["mismatch_share"] for c in checks),
+                "adjacent": all(c["adjacent"] for c in checks),
+                "max_abs_err": max(c["max_abs_err"] for c in checks)}
+            del got, ref
+        print(f"  {tag}: logits and m bitwise (exact sums); N(0,1) "
+              f"mismatches out {res['flash_fwd']['mismatches']}, dq "
+              f"{res['flash_bwd_dq']['mismatches']}, dk+dv "
+              f"{res['flash_bwd_dkv']['mismatches']} (adjacent: "
+              f"{[r['adjacent'] for r in res.values()]}); l max rel diff "
+              f"{rel_l:.3g}", flush=True)
+        if rel_l > 1e-5:
+            fail(f"flash_fwd l {tag}: relative difference {rel_l}")
+        for kname, r in res.items():
+            rows.setdefault(kname, []).append(dict(case=tag, main=main, **r))
+        if not main:
+            continue
+        # timing at the train shape (one launch per layer per step)
+        pairs = bh * s_len * (s_len + 1) // 2
+        gqa = dict(is_causal=True, enable_gqa=True)
+        q4 = q.view(TRAIN_BATCH, nh, s_len, d)
+        k4, v4 = (x.view(TRAIN_BATCH, nkv, s_len, d) for x in (k, v))
+        do4 = do.view(TRAIN_BATCH, nh, s_len, d)
+        qg, kg, vg = (x.detach().requires_grad_() for x in (q4, k4, v4))
+
+        def sdpa_fwd_bwd(i):
+            o = F.scaled_dot_product_attention(qg, kg, vg, **gqa)
+            torch.autograd.grad(o, (qg, kg, vg), do4)
+
+        sdpa_fwd = time_ms(torch, lambda i: F.scaled_dot_product_attention(
+            q4, k4, v4, **gqa), 1)
+        sdpa_both = time_ms(torch, sdpa_fwd_bwd, 1)
+        timed = {
+            "flash_fwd": (lambda i: tfa.flash_fwd(q, k, v, seeds, specs,
+                                                  **kw),
+                          lambda i: tfa.flash_fwd_plain(q, k, v, seeds,
+                                                        specs, **kw),
+                          sdpa_fwd, "scaled_dot_product_attention forward"),
+            "flash_bwd_dq": (
+                lambda i: tfa.flash_bwd_dq(q, k, v, do, r_m, r_l, dd,
+                                           seeds_dq, specs[0], specs[0],
+                                           **kw),
+                lambda i: tfa.flash_bwd_dq_plain(q, k, v, do, r_m, r_l, dd,
+                                                 seeds_dq, specs[0],
+                                                 specs[0], **kw),
+                sdpa_both, "scaled_dot_product_attention forward + backward"),
+            "flash_bwd_dkv": (
+                lambda i: tfa.flash_bwd_dkv(q, k, v, do, r_m, r_l, dd, seeds,
+                                            specs[0], specs[0], specs[1],
+                                            **kw),
+                lambda i: tfa.flash_bwd_dkv_plain(q, k, v, do, r_m, r_l, dd,
+                                                  seeds, specs[0], specs[0],
+                                                  specs[1], **kw),
+                sdpa_both, "scaled_dot_product_attention forward + backward"),
+        }
+        for kname, (kern, plain, lib, lib_what) in timed.items():
+            ms = time_ms(torch, kern, 1)
+            plain_ms = time_ms(torch, plain, 1, iters=3, warmup=1)
+            flops, n_tf, nbytes = attn_work(kname, bh, bkv, s_len, d, pairs)
+            bms, by = attn_bound(flops, n_tf, nbytes)
+            rows[kname][-1].update(ms=ms, plain_ms=plain_ms, bound_ms=bms,
+                                   bound_by=by, library_ms=lib,
+                                   library=lib_what,
+                                   tflops=flops / (ms * 1e-3) / 1e12)
+            print(f"  {kname:14s} B.H={bh} S={s_len} d={d}: kernel "
+                  f"{ms:.4f} ms ({flops / (ms * 1e-3) / 1e12:.2f} TFLOP/s)"
+                  f"  bound {bms:.4f} ms ({by})  plain {plain_ms:.3f} ms  "
+                  f"{lib_what} (float32, unrounded) {lib:.4f} ms",
+                  flush=True)
+        del q, k, v, do, out, r_out, qg, kg, vg
+        torch.cuda.empty_cache()
+
+    # --- K9 at the decode shapes: packed e4m3 codes ---
+    BKVd, G, Smax = (DECODE[k] for k in ("BKV", "G", "Smax"))
+    specs = [parse_spec("binary8-sr")] * 3
+    seeds = rng.integers(0, 2 ** 32, (BKVd, 6), dtype=np.uint64)
+    q = normal((BKVd, G, d))
+    codes = [common.pack_block(parse_spec("e4m3-rn")(normal((BKVd, Smax, d))),
+                               "e4m3") for _ in range(2)]
+    floats = [common.unpack_block(c, "e4m3") for c in codes]
+    rows["flash_decode"] = []
+    for length in (1, 17, Smax):
+        kw = dict(scale=d ** -0.5, kv_fmt="e4m3")
+        got = tfa.flash_decode(q, *codes, seeds, length, specs, **kw)
+        unpacked = tfa.flash_decode(q, *floats, seeds, length, specs,
+                                    scale=d ** -0.5)
+        ref = tfa.flash_decode_plain(q, *codes, seeds, length, specs, **kw)
+        torch.cuda.synchronize()
+        check_bitwise(f"flash_decode length {length}: packed vs unpacked",
+                      unpacked, got)
+        r = check_flips(f"flash_decode length {length}", ref, got, "binary8")
+        ms = time_ms(torch, lambda i: tfa.flash_decode(
+            q, *codes, seeds, length, specs, **kw), 1, iters=50)
+        plain_ms = time_ms(torch, lambda i: tfa.flash_decode_plain(
+            q, *codes, seeds, length, specs, **kw), 1, iters=3, warmup=1)
+        q4 = q.view(BATCH, DECODE["BKV"] // BATCH * G, 1, d)
+        k4, v4 = (f.view(BATCH, DECODE["BKV"] // BATCH, Smax, d)[:, :, :length]
+                  for f in floats)
+        lib = time_ms(torch, lambda i: F.scaled_dot_product_attention(
+            q4, k4, v4, enable_gqa=True), 1, iters=50)
+        flops, n_tf, nbytes = attn_work("flash_decode", None, BKVd, length,
+                                        d, BKVd * G * length, G)
+        bms, by = attn_bound(flops, n_tf, nbytes)
+        rows["flash_decode"].append(dict(
+            case=f"length {length}", main=length == Smax, ms=ms,
+            plain_ms=plain_ms, bound_ms=bms, bound_by=by, library_ms=lib,
+            library="scaled_dot_product_attention (float32 cache, "
+                    "unrounded)", **r))
+        print(f"  flash_decode B.KV={BKVd} G={G} length={length}: packed == "
+              f"unpacked bitwise; mismatches vs plain {r['mismatches']}; "
+              f"kernel {ms:.4f} ms  bound {bms:.5f} ms ({by})  plain "
+              f"{plain_ms:.3f} ms  sdpa {lib:.4f} ms", flush=True)
+    return rows
+
+
 def tinyllama_params() -> int:
     """Parameters of tinyllama-1.1b: embedding, lm head, final norm and
     per layer two norms, q/k/v/o and the three FFN matrices."""
@@ -440,16 +692,28 @@ def momentum_fma_check(torch, tfu, m, g, timed: bool):
     return row
 
 
-def serve_phase(torch, tq, serve):
+def serve_phase(torch, tq, tfa, serve, policy="binary8-paper"):
+    """The full-size serve run under ``policy``; every launch count
+    checked."""
+    gc.collect()          # an earlier phase's cycles hold device memory
+    torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     tq.reset_launches()
-    out = serve.run("tinyllama-1.1b", batch=BATCH, prompt_len=PROMPT,
-                    gen=GEN, gemm_policy="binary8-paper", device="cuda")
-    launches = dict(tq.LAUNCHES)
+    tfa.reset_launches()
+    run = serve.SERVE_RUN
+    if (run["arch"], run["batch"], run["prompt_len"], run["gen"]) != (
+            "tinyllama-1.1b", BATCH, PROMPT, GEN):
+        fail(f"serve.SERVE_RUN {run} is not the run whose shapes phases 3 and 10 "
+             "checks")
+    out = serve.run(**run, gemm_policy=policy, device="cuda")
+    launches = {**tq.LAUNCHES, **tfa.LAUNCHES}
     peak = torch.cuda.max_memory_allocated()
     steps = PROMPT + GEN
-    want = {"qmatmul_sr": 5 * TINYLLAMA["n_layers"] * steps + GEN,
-            "qmatmul_swiglu_sr": TINYLLAMA["n_layers"] * steps}
+    attn = policy == ATTN_POLICY
+    want = {"qmatmul_sr": 5 * LAYERS * steps + GEN,
+            "qmatmul_swiglu_sr": LAYERS * steps, "flash_fwd": 0,
+            "flash_bwd_dq": 0, "flash_bwd_dkv": 0,
+            "flash_decode": LAYERS * steps if attn else 0}
     if launches != want:
         fail(f"launch counts {launches} != expected {want}")
     toks, logits = out["tokens"], out["logits"]
@@ -460,20 +724,23 @@ def serve_phase(torch, tq, serve):
         fail("non-finite logits")
     print(f"  prefill {out['prefill_tokps']:.1f} tok/s, decode "
           f"{out['decode_tokps']:.1f} tok/s, peak memory "
-          f"{peak / 2 ** 30:.2f} GiB, launches {launches}", flush=True)
+          f"{peak / 2 ** 30:.2f} GiB, kv cache {out['cache_dtype']} "
+          f"{out['cache_bytes']} bytes, launches {launches}", flush=True)
     return dict(prefill_tokps=out["prefill_tokps"],
                 decode_tokps=out["decode_tokps"], t_prefill=out["t_prefill"],
                 t_decode=out["t_decode"], peak_bytes=peak,
-                launches=launches)
+                cache_dtype=str(out["cache_dtype"]),
+                cache_bytes=out["cache_bytes"], launches=launches)
 
 
-def agreement_phase(torch, serve):
-    """The whole serving path on the card vs the plain twins on the CPU."""
+def agreement_phase(torch, serve, policy="binary8-paper"):
+    """The whole serving path on the card vs the plain twins on the CPU;
+    under a packed-cache policy the uint8 cache codes are compared too."""
     import dataclasses
     from repro_torch.configs import get_config, reduced
     from repro_torch.models import build_model
     cfg = dataclasses.replace(reduced(get_config("tinyllama-1.1b")),
-                              gemm_policy="binary8-paper")
+                              gemm_policy=policy)
     model = build_model(cfg)
     params = model.init(torch.Generator().manual_seed(7))
     prompts = torch.randint(0, cfg.vocab_size, (2, 8),
@@ -488,39 +755,58 @@ def agreement_phase(torch, serve):
                              forced=cpu["tokens"].cuda())
     d = (card["logits"].cpu() - cpu["logits"]).abs()
     med, share = float(d.median()), float((d > 0.05).float().mean())
-    print(f"  reduced tinyllama card vs cpu: median |dlogit| {med:.4g}, "
-          f"share > 0.05 {share:.4g}", flush=True)
+    res = dict(median_abs_dlogit=med, share_over_0_05=share)
+    if policy == ATTN_POLICY:
+        cc, gc = cpu["caches"]["attn"], card["caches"]["attn"]
+        if gc.k.dtype != torch.uint8:
+            fail(f"{policy} cache holds {gc.k.dtype}, not uint8 codes")
+        per_layer = [float(((a[i] != b[i].cpu()).float().mean()))
+                     for a, b in ((cc.k, gc.k), (cc.v, gc.v))
+                     for i in range(a.shape[0])]
+        res["code_share_by_layer"] = per_layer
+    print(f"  reduced tinyllama {policy} card vs cpu: median |dlogit| "
+          f"{med:.4g}, share > 0.05 {share:.4g}"
+          + (f", cache codes differing by layer (k, then v) "
+             f"{res['code_share_by_layer']}" if "code_share_by_layer" in res
+             else ""), flush=True)
     if not (med < 0.02 and share <= 0.10):
         fail("card and CPU paths disagree beyond the stated tolerance")
-    return dict(median_abs_dlogit=med, share_over_0_05=share)
+    if max(res.get("code_share_by_layer", [0.0])) > ATTN_AGREE_MAX_CODE_SHARE:
+        fail("card and CPU cache codes disagree beyond the stated tolerance")
+    return res
 
 
-def reset_all(tq, tfu):
-    tq.reset_launches()
-    tfu.reset_launches()
+def reset_all(*mods):
+    for mod in mods:
+        mod.reset_launches()
 
 
-def all_launches(tq, tfu):
-    return {**tq.LAUNCHES, **tfu.LAUNCHES}
+def all_launches(*mods):
+    return {k: v for mod in mods for k, v in mod.LAUNCHES.items()}
 
 
-def train_phase(torch, tq, tfu, train):
-    """The full-size train run; returns its numbers."""
+def train_phase(torch, mods, train, policy="binary8-paper"):
+    """The full-size train run (``train.PAPER_RUN`` under ``policy``);
+    returns its numbers."""
+    gc.collect()          # an earlier run's cycles hold device memory
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
-    run = train.PAPER_RUN
+    run = dict(train.PAPER_RUN, gemm_policy=policy)
     if (run["arch"], run["batch"], run["seq"]) != ("tinyllama-1.1b",
                                                    TRAIN_BATCH, TRAIN_SEQ):
         fail(f"train.PAPER_RUN {run} is not the run whose shapes phase 5 "
              "checks")
-    reset_all(tq, tfu)
+    reset_all(*mods)
     out = train.run(steps=TRAIN_STEPS, device="cuda", **run)
-    launches = all_launches(tq, tfu)
+    launches = all_launches(*mods)
     peak = torch.cuda.max_memory_allocated()
+    n_attn = TRAIN_STEPS * LAYERS if policy == ATTN_POLICY else 0
     want = {"qmatmul_sr": TRAIN_STEPS * TRAIN_QMATMUL_PER_STEP,
             "qmatmul_swiglu_sr": TRAIN_STEPS * LAYERS,
             "fused_qupdate_prng": TRAIN_STEPS, "fused_qupdate_bits": 0,
-            "momentum_fma": TRAIN_STEPS}
+            "momentum_fma": TRAIN_STEPS, "flash_fwd": n_attn,
+            "flash_bwd_dq": n_attn, "flash_bwd_dkv": n_attn,
+            "flash_decode": 0}
     if launches != want:
         fail(f"train launch counts {launches} != expected {want}")
     losses = [h["loss"] for h in out["history"]]
@@ -546,7 +832,8 @@ def train_phase(torch, tq, tfu, train):
     return res
 
 
-def train_agreement_phase(torch, tq, tfu, train):
+def train_agreement_phase(torch, mods, train, policy="binary8-paper",
+                          paths=("fused", "fused_bits")):
     """Reduced tinyllama, 2 steps on the card vs the CPU twins from the
     same parameters and batches: the parameters bitwise equal but for a
     handful (``AGREE_MAX_PARAMS``) and the losses within
@@ -559,20 +846,22 @@ def train_agreement_phase(torch, tq, tfu, train):
     cfg = reduced(get_config("tinyllama-1.1b"))
     master = build_model(cfg).init_master(torch.Generator().manual_seed(3))
     res, launches = {}, {}
-    for path in ("fused", "fused_bits"):
+    for path in paths:
         kw = dict(reduced=True, steps=2, batch=2, seq=16,
-                  gemm_policy="binary8-paper", rounding_kind="signed_sr_eps",
+                  gemm_policy=policy, rounding_kind="signed_sr_eps",
                   fmt="binary8", eps=0.1, update_path=path, verbose=False)
         cpu = train.run("tinyllama-1.1b", device="cpu", params=master, **kw)
-        reset_all(tq, tfu)
+        reset_all(*mods)
         card = train.run("tinyllama-1.1b", device="cuda",
                          params=_to(master, "cuda"), **kw)
         torch.cuda.synchronize()
-        launches[path] = all_launches(tq, tfu)
+        launches[path] = all_launches(*mods)
         kernel = "fused_qupdate_prng" if path == "fused" \
             else "fused_qupdate_bits"
-        for k in (kernel, "momentum_fma"):
-            if launches[path][k] != 2:
+        attn = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv") \
+            if policy == ATTN_POLICY else ()
+        for k in (kernel, "momentum_fma", *attn):
+            if launches[path][k] != 2 * (cfg.n_layers if k in attn else 1):
                 fail(f"train agreement {path}: {k} launched "
                      f"{launches[path][k]} times, not 2")
         lc = [h["loss"] for h in cpu["history"]]
@@ -585,7 +874,7 @@ def train_agreement_phase(torch, tq, tfu, train):
                            != b.cpu().view(torch.int32)).sum())
             n += a.numel()
         share = n_diff / n
-        print(f"  {path}: losses cpu {lc} card {lg} (max rel diff "
+        print(f"  {policy} {path}: losses cpu {lc} card {lg} (max rel diff "
               f"{rel:.3g}), parameters differing {n_diff}/{n} "
               f"({share:.3g})", flush=True)
         if rel > AGREE_MAX_REL_LOSS or n_diff > AGREE_MAX_PARAMS:
@@ -624,8 +913,8 @@ def main() -> None:
         fail("torch.cuda.is_available() is false: this script needs a GPU")
     sys.path.insert(0, str(HERE / "src"))
     try:
-        from repro_torch.kernels import build, fused_update as tfu, \
-            qmatmul as tq
+        from repro_torch.kernels import build, flash_attention as tfa, \
+            fused_update as tfu, qmatmul as tq
         from repro_torch.launch import serve, train
     except ImportError as exc:
         fail(f"cannot import the port ({exc}); run from a checkout")
@@ -666,19 +955,38 @@ def main() -> None:
     train_rows = gemm_phase(torch, tq, gemm_cases(train=True))
 
     print("== phase 6: serve tinyllama-1.1b binary8-paper", flush=True)
-    served = serve_phase(torch, tq, serve)
+    served = serve_phase(torch, tq, tfa, serve)
 
     print("== phase 7: serve agreement card vs cpu", flush=True)
     agree = agreement_phase(torch, serve)
 
+    mods = (tq, tfu, tfa)
     print(f"== phase 8: train tinyllama-1.1b, batch {TRAIN_BATCH} x "
           f"{TRAIN_SEQ}, {TRAIN_STEPS} steps, binary8-paper, signed-SRe "
           "binary8 update (fused)", flush=True)
-    trained = train_phase(torch, tq, tfu, train)
+    trained = train_phase(torch, mods, train)
 
     print("== phase 9: train agreement card vs cpu (reduced)", flush=True)
-    train_agree, agree_launches = train_agreement_phase(torch, tq, tfu,
-                                                        train)
+    train_agree, agree_launches = train_agreement_phase(torch, mods, train)
+
+    print("== phase 10: attention kernels vs plain twins", flush=True)
+    attn_rows = attention_phase(torch, tfa)
+
+    print(f"== phase 11: serve tinyllama-1.1b {ATTN_POLICY}", flush=True)
+    served_attn = serve_phase(torch, tq, tfa, serve, ATTN_POLICY)
+
+    print(f"== phase 12: serve agreement card vs cpu ({ATTN_POLICY})",
+          flush=True)
+    agree_attn = agreement_phase(torch, serve, ATTN_POLICY)
+
+    print(f"== phase 13: train tinyllama-1.1b, batch {TRAIN_BATCH} x "
+          f"{TRAIN_SEQ}, {TRAIN_STEPS} steps, {ATTN_POLICY}", flush=True)
+    trained_attn = train_phase(torch, mods, train, ATTN_POLICY)
+
+    print(f"== phase 14: train agreement card vs cpu ({ATTN_POLICY}, "
+          "reduced)", flush=True)
+    train_agree_attn, _ = train_agreement_phase(torch, mods, train,
+                                                ATTN_POLICY, ("fused",))
 
     kernels = []
     replaces = {"qmatmul_sr": "src/repro/kernels/qmatmul.py:360",
@@ -734,14 +1042,43 @@ def main() -> None:
         library_ms=None, add_alpha_ms=fma_full["add_alpha_ms"],
         timed=f"one launch over the {n_full} tinyllama-1.1b parameters "
               "(one train step)", launches_path="train"))
+    lines = {"flash_fwd": 195, "flash_bwd_dq": 344, "flash_bwd_dkv": 438,
+             "flash_decode": 649}
+    for name, line in lines.items():
+        main_row = [r for r in attn_rows[name] if r["main"]][0]
+        serve_path = name == "flash_decode"
+        kernels.append(dict(
+            name=name, route="cuda",
+            source="src/repro_torch/csrc/flash_attention.cu",
+            replaces=f"src/repro/kernels/flash_attention.py:{line}",
+            launches=(served_attn if serve_path
+                      else trained_attn)["launches"][name],
+            max_abs_err=max(r["max_abs_err"] for r in attn_rows[name]),
+            ms=LAYERS * main_row["ms"], plain_ms=LAYERS * main_row["plain_ms"],
+            bound_ms=LAYERS * main_row["bound_ms"],
+            bound_by=main_row["bound_by"],
+            library_ms=LAYERS * main_row["library_ms"],
+            library=main_row["library"] + ", float32, unrounded",
+            mismatch_share=max(r["mismatch_share"] for r in attn_rows[name]),
+            timed=(f"one decode step's {LAYERS} launches at length "
+                   f"{DECODE['Smax']}" if serve_path else
+                   f"one batch-{TRAIN_BATCH} x {TRAIN_SEQ} train step's "
+                   f"{LAYERS} launches"),
+            launches_path=f"{'serve' if serve_path else 'train'} "
+                          f"{ATTN_POLICY}"))
     report = dict(device=kind, nvidia_smi=smi[0], build_s=t_build,
                   rows=rows, train_rows=train_rows, update_rows=update_rows,
                   serve=served, agreement=agree, train=trained,
                   train_agreement=train_agree,
-                  train_agreement_launches=agree_launches, kernels=kernels)
+                  train_agreement_launches=agree_launches,
+                  attention_rows=attn_rows, serve_attn=served_attn,
+                  agreement_attn=agree_attn, train_attn=trained_attn,
+                  train_agreement_attn=train_agree_attn,
+                  t_total_s=time.time() - T_START, kernels=kernels)
     out_dir = HERE / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke.json").write_text(json.dumps(report, indent=1))
+    print(f"  total {report['t_total_s']:.1f} s", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": kind,

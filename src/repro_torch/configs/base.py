@@ -28,6 +28,10 @@ class ModelConfig:
     # quantized-GEMM precision policy (paper eq. 8a): a preset name of
     # repro_torch.precision or a QuantPolicy; None keeps GEMMs unrounded
     gemm_policy: Optional[Any] = None
+    # logical block sizes of the rounded flash-attention kernels: the av
+    # site rounds once per kv block, so they are part of the numerics
+    attn_q_block: int = 1024
+    attn_kv_block: int = 1024
 
     @property
     def resolved_head_dim(self) -> int:

@@ -28,6 +28,11 @@ class FPFormat:
         return (2.0 - 2.0 ** (1 - self.precision)) * 2.0 ** self.emax
 
     @property
+    def xmin(self) -> float:
+        """Smallest positive normal number ``2**emin``."""
+        return 2.0 ** self.emin
+
+    @property
     def quantum_min_exp(self) -> int:
         return self.emin - self.precision + 1
 

@@ -53,15 +53,14 @@ def threefry2x32(k0: int, k1: int, c0: int, c1: int) -> Tuple[int, int]:
     return x0, x1
 
 
-def threefry2x32_tensor(k0, k1, c0: torch.Tensor, c1: torch.Tensor
-                        ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Threefry-2x32 on int64 tensors holding uint32 words (masked to 32
-    bits after every add and rotate).  ``k0``/``k1``: ints or tensors that
-    broadcast against the counters."""
+def threefry2x32_tensor(k0, k1, c0, c1):
+    """Threefry-2x32 on int64 tensors (or numpy int64 arrays) holding
+    uint32 words, masked to 32 bits after every add and rotate.
+    ``k0``/``k1``/``c1``: ints or arrays that broadcast against ``c0``."""
     if isinstance(k0, int):
-        k0 = torch.tensor(k0 & M32, dtype=torch.int64, device=c0.device)
+        k0 &= M32
     if isinstance(k1, int):
-        k1 = torch.tensor(k1 & M32, dtype=torch.int64, device=c0.device)
+        k1 &= M32
     ks = (k0, k1, k0 ^ k1 ^ _KS_PARITY)
     x0 = (c0 + ks[0]) & M32
     x1 = (c1 + ks[1]) & M32

@@ -1,0 +1,710 @@
+// flash_attention: the rounded flash-attention family (the paper's
+// stochastic rounding carried into the attention op).
+//
+// Replaces the TPU kernels of repro/kernels/flash_attention.py:
+//   flash_fwd      <- flash_fwd_p      (K6, training forward)
+//   flash_bwd_dq   <- flash_bwd_dq_p   (K7, dq)
+//   flash_bwd_dkv  <- flash_bwd_dkv_p  (K7', per-query-head dk, dv)
+//   flash_decode   <- flash_decode_p   (K9, one-token decode over a float
+//                                        or packed KV cache)
+// Plain twins: repro_torch/kernels/flash_attention.py (*_plain).
+//
+// What each kernel must reproduce:
+// * The reference's online softmax runs once per *logical* kv block
+//   (kv_block keys): the block's row max before its exps, one P.V partial
+//   product per block rounded on the av site with stream = block index.
+//   A CUDA tile is smaller than a logical block, so the forward makes two
+//   passes over each block's tiles (row max of the rounded logits, then
+//   p = exp(s - m_safe), its row sum and the unrounded P.V partial) and
+//   rounds the partial once when the block is done.  The backward kernels
+//   likewise sum a whole logical block's dq (or q block's dk, dv)
+//   contribution before rounding it.
+// * The same logits everywhere: qk_logit below is the one function that
+//   computes q.k (fmaf in index order, times scale, rounded on the qk site
+//   keyed by global (q position, k position), stream 0) in all four
+//   kernels, so the backward recomputes bitwise the logits whose max and
+//   sum the forward saved.
+// * Masks in global positions (causal, window, ragged tails); masked
+//   logits are -inf; m_safe, corr and linv guard non-finite values as the
+//   reference does; rows of V past the valid length read as zero.
+// A kv tile (forward) or q tile (backward) in which every pair is masked
+// is skipped: with finite inputs it adds exact zeros.
+//
+// Arithmetic is IEEE float32 on the CUDA cores, expf (no fast math),
+// __fmul_rn/__fadd_rn where the twin's order matters (no FMA contraction).
+//
+// What bounds them on an H100: at the training shape (B.H = 128, S = 256,
+// d = 64) the forward does 2 S^2 d flops per head for QK^T and as many for
+// P.V (half of them masked): operations, not bytes, bound it.  This simple
+// design stages q, K and V tiles in shared memory and runs fp32 FMAs from
+// there (two shared loads per FMA), computes the forward's logits twice
+// (two passes), and draws one Threefry per logit (the pair-word
+// interleaving would serve two).  bf16/tf32 mma for q.k and p.v where the
+// twins still agree, one Threefry per two logits and a single-pass
+// forward are left for later work.  Decode (K9) is latency-bound: one
+// block per (batch, kv head), G = 8 query rows.
+#include <cuda_runtime.h>
+
+#include <cstdint>
+
+#include "rounding.cuh"
+
+namespace {
+
+constexpr int kThreads = 256;
+constexpr int kWarps = kThreads / 32;
+constexpr int kTQ = 32;    // query rows per block (K6, K7, K9)
+constexpr int kTK = 64;    // key rows per tile (K6, K7, K9)
+constexpr int kTKV = 32;   // key rows per block (K7')
+constexpr int kTQB = 32;   // query rows per tile (K7')
+constexpr int kDMax = 128;
+constexpr int kAcc = kTQ * kDMax / kThreads;    // 16 outputs per thread
+constexpr int kAccKV = kTKV * kDMax / kThreads;
+
+struct Sites {
+  rt::RoundParams p[3];
+};
+
+// Geometry of one call.  For decode, ``rows`` is G, every row's query
+// position is length - 1, and the draws are keyed by the head row.
+struct Geo {
+  int rows;      // query rows per (batch, head): Sq, or G for decode
+  int kv_rows;   // Skv, or S_max for decode
+  int dk, dv;
+  int n_heads, n_kv;
+  int qb, kb;    // logical block sizes
+  int q_offset;
+  int causal, window;
+  float scale;
+  int decode;
+  int length;    // decode: valid cache rows including the new token
+};
+
+__device__ __forceinline__ int kv_of(int bh, const Geo& g) {
+  return bh / g.n_heads * g.n_kv + (bh % g.n_heads) / (g.n_heads / g.n_kv);
+}
+
+__device__ __forceinline__ int q_len(const Geo& g) {
+  return g.decode ? g.length : g.q_offset + g.rows;
+}
+
+__device__ __forceinline__ int kv_len(const Geo& g) {
+  return g.decode ? g.length : g.kv_rows;
+}
+
+// Query position of local query row r (the mask's coordinate).
+__device__ __forceinline__ int qpos_of(int r, const Geo& g) {
+  return g.decode ? g.length - 1 : g.q_offset + r;
+}
+
+// Draw row of local query row r: the global query position, or the head
+// row of the group for decode.
+__device__ __forceinline__ uint32_t drow_of(int r, const Geo& g) {
+  return static_cast<uint32_t>(g.decode ? r : g.q_offset + r);
+}
+
+__device__ __forceinline__ bool valid(int qpos, int kpos, const Geo& g) {
+  bool ok = qpos < q_len(g) && kpos < kv_len(g);
+  if (g.causal) ok = ok && kpos <= qpos;
+  if (g.window) ok = ok && kpos > qpos - g.window;
+  return ok;
+}
+
+// One rounding site at global (row, col) on `stream`; w: the site's words.
+__device__ __forceinline__ float round_site(float x, const rt::RoundParams& p,
+                                            const uint32_t* w,
+                                            uint32_t stream, uint32_t row,
+                                            uint32_t col) {
+  if (!p.enabled) return x;
+  const uint32_t bits =
+      p.mode != rt::kRN
+          ? rt::element_bits(w[0], w[1], stream, p.rand_bits, row, col)
+          : 0u;
+  return rt::round_value(x, bits, p);
+}
+
+// The rounded logit of one (query, key) pair: every kernel calls this, so
+// the forward and the backward's recompute agree bit for bit.
+__device__ __forceinline__ float qk_logit(const float* q, const float* k,
+                                          const Geo& g,
+                                          const rt::RoundParams& p,
+                                          const uint32_t* w, uint32_t row,
+                                          uint32_t col) {
+  float acc = 0.0f;
+  for (int t = 0; t < g.dk; ++t) acc = fmaf(q[t], k[t], acc);
+  return round_site(__fmul_rn(acc, g.scale), p, w, 0u, row, col);
+}
+
+__device__ __forceinline__ float dot(const float* a, const float* b, int n) {
+  float acc = 0.0f;
+  for (int t = 0; t < n; ++t) acc = fmaf(a[t], b[t], acc);
+  return acc;
+}
+
+__device__ __forceinline__ float warp_max(float v) {
+  for (int o = 16; o > 0; o >>= 1)
+    v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
+  return v;
+}
+
+__device__ __forceinline__ float warp_sum(float v) {
+  for (int o = 16; o > 0; o >>= 1)
+    v = __fadd_rn(v, __shfl_xor_sync(0xffffffffu, v, o));
+  return v;
+}
+
+// ---------------------------------------------------------------------------
+// K6 / K9: forward and decode.
+// ---------------------------------------------------------------------------
+struct FwdArgs {
+  const float* q;
+  const void* k;
+  const void* v;
+  int code_bytes;          // 0: float32 cache; 1 or 2: packed code words
+  rt::PackParams pack;
+  const uint32_t* seeds;   // (rows of q, 6): [qk | av | out]
+  float* out;
+  float* m;                // forward only
+  float* l;
+  float* s_out;            // optional: the rounded masked logits
+  Geo g;
+  Sites sites;
+};
+
+__device__ __forceinline__ float load_kv(const void* base, size_t idx,
+                                         int code_bytes,
+                                         const rt::PackParams& pack) {
+  if (code_bytes == 0) return static_cast<const float*>(base)[idx];
+  const uint32_t c = code_bytes == 1
+                         ? static_cast<const uint8_t*>(base)[idx]
+                         : static_cast<const uint16_t*>(base)[idx];
+  return rt::unpack(c, pack);
+}
+
+__global__ void __launch_bounds__(kThreads) fwd_kernel(FwdArgs a) {
+  extern __shared__ float smem[];
+  const Geo& g = a.g;
+  const int bh = blockIdx.y;
+  const int r0 = blockIdx.x * kTQ;
+  const int nr = min(kTQ, g.rows - r0);
+  const int kvrow = g.decode ? bh : kv_of(bh, g);
+  const int ldk = g.dk + 1;
+  float* Qs = smem;                    // kTQ x dk
+  float* Ks = Qs + kTQ * g.dk;         // kTK x ldk
+  float* Vs = Ks + kTK * ldk;          // kTK x dv
+  float* Ss = Vs + kTK * g.dv;         // kTQ x kTK: logits, then p
+  float* row_m = Ss + kTQ * kTK;
+  float* row_l = row_m + kTQ;
+  float* row_t = row_l + kTQ;          // block max, then block sum
+  float* row_safe = row_t + kTQ;
+  float* row_corr = row_safe + kTQ;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const uint32_t* w = a.seeds + static_cast<size_t>(bh) * 6;
+  const rt::RoundParams& p_qk = a.sites.p[0];
+
+  for (int e = tid; e < kTQ * g.dk; e += kThreads) {
+    const int r = e / g.dk;
+    Qs[e] = r < nr ? a.q[(static_cast<size_t>(bh) * g.rows + r0) * g.dk + e]
+                   : 0.0f;
+  }
+  if (tid < kTQ) {
+    row_m[tid] = -INFINITY;
+    row_l[tid] = 0.0f;
+  }
+  float acc[kAcc], pv[kAcc];
+#pragma unroll
+  for (int u = 0; u < kAcc; ++u) acc[u] = 0.0f;
+  const int qpos_hi = qpos_of(r0 + nr - 1, g);
+  const size_t kv_base = static_cast<size_t>(kvrow) * g.kv_rows;
+  const int n_k = (g.kv_rows + g.kb - 1) / g.kb;
+  __syncthreads();
+
+  for (int j = 0; j < n_k; ++j) {
+    const int k0 = j * g.kb, k1 = min(k0 + g.kb, g.kv_rows);
+    if (tid < kTQ) row_t[tid] = -INFINITY;
+#pragma unroll
+    for (int u = 0; u < kAcc; ++u) pv[u] = 0.0f;
+    for (int pass = 0; pass < 2; ++pass) {
+      for (int t0 = k0; t0 < k1; t0 += kTK) {
+        if (t0 >= kv_len(g) || (g.causal && t0 > qpos_hi)) break;
+        const int t1 = min(t0 + kTK, k1);
+        __syncthreads();
+        for (int e = tid; e < kTK * g.dk; e += kThreads) {
+          const int c = e / g.dk, t = e % g.dk;
+          Ks[c * ldk + t] =
+              t0 + c < t1 ? load_kv(a.k, (kv_base + t0 + c) * g.dk + t,
+                                    a.code_bytes, a.pack)
+                          : 0.0f;
+        }
+        if (pass == 1) {
+          const int v_end = min(t1, kv_len(g));
+          for (int e = tid; e < kTK * g.dv; e += kThreads) {
+            const int c = e / g.dv, t = e % g.dv;
+            Vs[e] = t0 + c < v_end
+                        ? load_kv(a.v, (kv_base + t0 + c) * g.dv + t,
+                                  a.code_bytes, a.pack)
+                        : 0.0f;
+          }
+        }
+        __syncthreads();
+        for (int e = tid; e < kTQ * kTK; e += kThreads) {
+          const int r = e / kTK, c = e % kTK, kpos = t0 + c;
+          float s = -INFINITY;
+          if (r < nr && kpos < t1) {
+            if (valid(qpos_of(r0 + r, g), kpos, g))
+              s = qk_logit(Qs + r * g.dk, Ks + c * ldk, g, p_qk, w,
+                           drow_of(r0 + r, g), kpos);
+            if (pass == 0 && a.s_out != nullptr)
+              a.s_out[(static_cast<size_t>(bh) * g.rows + r0 + r) *
+                          g.kv_rows + kpos] = s;
+          }
+          Ss[e] = pass == 0 ? s
+                            : (isfinite(s) ? expf(__fsub_rn(s, row_safe[r]))
+                                           : 0.0f);
+        }
+        __syncthreads();
+        for (int r = warp; r < kTQ; r += kWarps) {
+          const float x0 = Ss[r * kTK + lane], x1 = Ss[r * kTK + lane + 32];
+          if (pass == 0) {
+            const float mx = warp_max(fmaxf(x0, x1));
+            if (lane == 0) row_t[r] = fmaxf(row_t[r], mx);
+          } else {
+            const float sm = warp_sum(__fadd_rn(x0, x1));
+            if (lane == 0) row_t[r] = __fadd_rn(row_t[r], sm);
+          }
+        }
+        if (pass == 1) {
+#pragma unroll
+          for (int u = 0; u < kAcc; ++u) {
+            const int e = tid + kThreads * u;
+            if (e < kTQ * g.dv) {
+              const int r = e / g.dv, c = e % g.dv;
+              float x = pv[u];
+              for (int kk = 0; kk < t1 - t0; ++kk)
+                x = fmaf(Ss[r * kTK + kk], Vs[kk * g.dv + c], x);
+              pv[u] = x;
+            }
+          }
+        }
+      }
+      __syncthreads();
+      if (pass == 0 && tid < kTQ) {
+        // the block's max is known: m_new, m_safe and corr of each row
+        const float m_old = row_m[tid];
+        const float m_new = fmaxf(m_old, row_t[tid]);
+        const float safe = isfinite(m_new) ? m_new : 0.0f;
+        row_safe[tid] = safe;
+        row_corr[tid] = isfinite(m_old) ? expf(__fsub_rn(m_old, safe)) : 0.0f;
+        row_m[tid] = m_new;
+        row_t[tid] = 0.0f;
+      }
+      __syncthreads();
+    }
+    // close the logical block: round its P.V partial once (av site, stream
+    // j), rescale the running sums
+#pragma unroll
+    for (int u = 0; u < kAcc; ++u) {
+      const int e = tid + kThreads * u;
+      if (e < kTQ * g.dv) {
+        const int r = e / g.dv, c = e % g.dv;
+        const float pr = round_site(pv[u], a.sites.p[1], w + 2,
+                                    static_cast<uint32_t>(j),
+                                    drow_of(r0 + r, g), c);
+        acc[u] = __fadd_rn(__fmul_rn(acc[u], row_corr[r]), pr);
+      }
+    }
+    __syncthreads();
+    if (tid < kTQ)
+      row_l[tid] = __fadd_rn(__fmul_rn(row_l[tid], row_corr[tid]), row_t[tid]);
+    __syncthreads();
+  }
+
+#pragma unroll
+  for (int u = 0; u < kAcc; ++u) {
+    const int e = tid + kThreads * u;
+    if (e < kTQ * g.dv) {
+      const int r = e / g.dv, c = e % g.dv;
+      if (r < nr) {
+        const float o = __fdiv_rn(acc[u], fmaxf(row_l[r], 1e-30f));
+        a.out[(static_cast<size_t>(bh) * g.rows + r0 + r) * g.dv + c] =
+            round_site(o, a.sites.p[2], w + 4, 0u, drow_of(r0 + r, g), c);
+      }
+    }
+  }
+  if (!g.decode && tid < nr) {
+    a.m[static_cast<size_t>(bh) * g.rows + r0 + tid] = row_m[tid];
+    a.l[static_cast<size_t>(bh) * g.rows + r0 + tid] = row_l[tid];
+  }
+}
+
+// ---------------------------------------------------------------------------
+// K7 / K7': backward.
+// ---------------------------------------------------------------------------
+struct BwdArgs {
+  const float* q;
+  const float* k;
+  const float* v;
+  const float* dO;
+  const float* m;
+  const float* l;
+  const float* d;
+  const uint32_t* seeds;   // dq: [qk | dq]; dkv: [qk | dk | dv]
+  float* dq;
+  float* dk;
+  float* dv;
+  Geo g;
+  Sites sites;
+};
+
+// Row statistics of query row q (global index within the head): m_safe,
+// 1 / l (0 where l = 0) and d.
+__device__ __forceinline__ void load_row_stats(const BwdArgs& a, size_t idx,
+                                               float* safe, float* linv,
+                                               float* dd) {
+  const float m = a.m[idx], l = a.l[idx];
+  *safe = isfinite(m) ? m : 0.0f;
+  *linv = l > 0.0f ? __fdiv_rn(1.0f, l) : 0.0f;
+  *dd = a.d[idx];
+}
+
+// p and ds of one valid (query, key) pair: the reference's _bwd_p_ds.
+__device__ __forceinline__ void p_ds(const float* q, const float* k,
+                                     const float* dO, const float* v,
+                                     float safe, float linv, float dd,
+                                     const Geo& g, const rt::RoundParams& pq,
+                                     const uint32_t* w, uint32_t qpos,
+                                     uint32_t kpos, float* p, float* ds) {
+  const float s = qk_logit(q, k, g, pq, w, qpos, kpos);
+  *p = __fmul_rn(expf(__fsub_rn(s, safe)), linv);
+  const float dp = dot(dO, v, g.dv);
+  *ds = __fmul_rn(__fmul_rn(*p, __fsub_rn(dp, dd)), g.scale);
+}
+
+__global__ void __launch_bounds__(kThreads) dq_kernel(BwdArgs a) {
+  extern __shared__ float smem[];
+  const Geo& g = a.g;
+  const int bh = blockIdx.y;
+  const int r0 = blockIdx.x * kTQ;
+  const int nr = min(kTQ, g.rows - r0);
+  const int ldk = g.dk + 1, ldv = g.dv + 1;
+  float* Qs = smem;                  // kTQ x dk
+  float* dOs = Qs + kTQ * g.dk;      // kTQ x dv
+  float* Ks = dOs + kTQ * g.dv;      // kTK x ldk
+  float* Vs = Ks + kTK * ldk;        // kTK x ldv
+  float* Ds = Vs + kTK * ldv;        // kTQ x kTK
+  float* row_safe = Ds + kTQ * kTK;
+  float* row_linv = row_safe + kTQ;
+  float* row_d = row_linv + kTQ;
+  const int tid = threadIdx.x;
+  const uint32_t* w = a.seeds + static_cast<size_t>(bh) * 4;
+  const size_t qbase = static_cast<size_t>(bh) * g.rows + r0;
+  const size_t kv_base = static_cast<size_t>(kv_of(bh, g)) * g.kv_rows;
+
+  for (int e = tid; e < kTQ * g.dk; e += kThreads)
+    Qs[e] = e / g.dk < nr ? a.q[qbase * g.dk + e] : 0.0f;
+  for (int e = tid; e < kTQ * g.dv; e += kThreads)
+    dOs[e] = e / g.dv < nr ? a.dO[qbase * g.dv + e] : 0.0f;
+  if (tid < nr)
+    load_row_stats(a, qbase + tid, row_safe + tid, row_linv + tid,
+                   row_d + tid);
+  float acc[kAcc], part[kAcc];
+#pragma unroll
+  for (int u = 0; u < kAcc; ++u) acc[u] = 0.0f;
+  const int qpos_hi = g.q_offset + r0 + nr - 1;
+  const int n_k = (g.kv_rows + g.kb - 1) / g.kb;
+
+  for (int j = 0; j < n_k; ++j) {
+    const int k0 = j * g.kb, k1 = min(k0 + g.kb, g.kv_rows);
+#pragma unroll
+    for (int u = 0; u < kAcc; ++u) part[u] = 0.0f;
+    for (int t0 = k0; t0 < k1; t0 += kTK) {
+      if (g.causal && t0 > qpos_hi) break;
+      const int t1 = min(t0 + kTK, k1);
+      __syncthreads();
+      for (int e = tid; e < kTK * g.dk; e += kThreads) {
+        const int c = e / g.dk, t = e % g.dk;
+        Ks[c * ldk + t] = t0 + c < t1 ? a.k[(kv_base + t0 + c) * g.dk + t]
+                                      : 0.0f;
+      }
+      for (int e = tid; e < kTK * g.dv; e += kThreads) {
+        const int c = e / g.dv, t = e % g.dv;
+        Vs[c * ldv + t] = t0 + c < t1 ? a.v[(kv_base + t0 + c) * g.dv + t]
+                                      : 0.0f;
+      }
+      __syncthreads();
+      for (int e = tid; e < kTQ * kTK; e += kThreads) {
+        const int r = e / kTK, c = e % kTK, kpos = t0 + c;
+        const int qpos = g.q_offset + r0 + r;
+        float p = 0.0f, ds = 0.0f;
+        if (r < nr && kpos < t1 && valid(qpos, kpos, g))
+          p_ds(Qs + r * g.dk, Ks + c * ldk, dOs + r * g.dv, Vs + c * ldv,
+               row_safe[r], row_linv[r], row_d[r], g, a.sites.p[0], w, qpos,
+               kpos, &p, &ds);
+        Ds[e] = ds;
+      }
+      __syncthreads();
+#pragma unroll
+      for (int u = 0; u < kAcc; ++u) {
+        const int e = tid + kThreads * u;
+        if (e < kTQ * g.dk) {
+          const int r = e / g.dk, c = e % g.dk;
+          float x = part[u];
+          for (int kk = 0; kk < t1 - t0; ++kk)
+            x = fmaf(Ds[r * kTK + kk], Ks[kk * ldk + c], x);
+          part[u] = x;
+        }
+      }
+    }
+    // the kv block's dq contribution, rounded once (stream j)
+#pragma unroll
+    for (int u = 0; u < kAcc; ++u) {
+      const int e = tid + kThreads * u;
+      if (e < kTQ * g.dk) {
+        const int r = e / g.dk, c = e % g.dk;
+        acc[u] = __fadd_rn(acc[u], round_site(part[u], a.sites.p[1], w + 2,
+                                              static_cast<uint32_t>(j),
+                                              g.q_offset + r0 + r, c));
+      }
+    }
+  }
+#pragma unroll
+  for (int u = 0; u < kAcc; ++u) {
+    const int e = tid + kThreads * u;
+    if (e < kTQ * g.dk && e / g.dk < nr) a.dq[qbase * g.dk + e] = acc[u];
+  }
+}
+
+__global__ void __launch_bounds__(kThreads) dkv_kernel(BwdArgs a) {
+  extern __shared__ float smem[];
+  const Geo& g = a.g;
+  const int bh = blockIdx.y;
+  const int c0 = blockIdx.x * kTKV;
+  const int nc = min(kTKV, g.kv_rows - c0);
+  const int ldk = g.dk + 1, ldv = g.dv + 1, ldp = kTKV + 1;
+  float* Ks = smem;                  // kTKV x ldk
+  float* Vs = Ks + kTKV * ldk;       // kTKV x ldv
+  float* Qs = Vs + kTKV * ldv;       // kTQB x dk
+  float* dOs = Qs + kTQB * g.dk;     // kTQB x dv
+  float* Ps = dOs + kTQB * g.dv;     // kTQB x ldp
+  float* Ds = Ps + kTQB * ldp;       // kTQB x ldp
+  float* row_safe = Ds + kTQB * ldp;
+  float* row_linv = row_safe + kTQB;
+  float* row_d = row_linv + kTQB;
+  const int tid = threadIdx.x;
+  const uint32_t* w = a.seeds + static_cast<size_t>(bh) * 6;
+  const size_t kv_base = static_cast<size_t>(kv_of(bh, g)) * g.kv_rows + c0;
+  const size_t qhead = static_cast<size_t>(bh) * g.rows;
+
+  for (int e = tid; e < kTKV * g.dk; e += kThreads) {
+    const int c = e / g.dk, t = e % g.dk;
+    Ks[c * ldk + t] = c < nc ? a.k[(kv_base + c) * g.dk + t] : 0.0f;
+  }
+  for (int e = tid; e < kTKV * g.dv; e += kThreads) {
+    const int c = e / g.dv, t = e % g.dv;
+    Vs[c * ldv + t] = c < nc ? a.v[(kv_base + c) * g.dv + t] : 0.0f;
+  }
+  float acc_k[kAccKV], part_k[kAccKV], acc_v[kAccKV], part_v[kAccKV];
+#pragma unroll
+  for (int u = 0; u < kAccKV; ++u) acc_k[u] = acc_v[u] = 0.0f;
+  const int n_q = (g.rows + g.qb - 1) / g.qb;
+
+  for (int i = 0; i < n_q; ++i) {
+    const int q0 = i * g.qb, q1 = min(q0 + g.qb, g.rows);
+#pragma unroll
+    for (int u = 0; u < kAccKV; ++u) part_k[u] = part_v[u] = 0.0f;
+    for (int rq0 = q0; rq0 < q1; rq0 += kTQB) {
+      const int nq = min(kTQB, q1 - rq0);
+      if (g.causal && g.q_offset + rq0 + nq - 1 < c0) continue;
+      __syncthreads();
+      for (int e = tid; e < kTQB * g.dk; e += kThreads)
+        Qs[e] = e / g.dk < nq ? a.q[(qhead + rq0) * g.dk + e] : 0.0f;
+      for (int e = tid; e < kTQB * g.dv; e += kThreads)
+        dOs[e] = e / g.dv < nq ? a.dO[(qhead + rq0) * g.dv + e] : 0.0f;
+      if (tid < nq)
+        load_row_stats(a, qhead + rq0 + tid, row_safe + tid, row_linv + tid,
+                       row_d + tid);
+      __syncthreads();
+      for (int e = tid; e < kTQB * kTKV; e += kThreads) {
+        const int r = e / kTKV, c = e % kTKV;
+        const int qpos = g.q_offset + rq0 + r, kpos = c0 + c;
+        float p = 0.0f, ds = 0.0f;
+        if (r < nq && c < nc && valid(qpos, kpos, g))
+          p_ds(Qs + r * g.dk, Ks + c * ldk, dOs + r * g.dv, Vs + c * ldv,
+               row_safe[r], row_linv[r], row_d[r], g, a.sites.p[0], w, qpos,
+               kpos, &p, &ds);
+        Ps[r * ldp + c] = p;
+        Ds[r * ldp + c] = ds;
+      }
+      __syncthreads();
+#pragma unroll
+      for (int u = 0; u < kAccKV; ++u) {
+        const int e = tid + kThreads * u;
+        if (e < kTKV * g.dv) {
+          const int c = e / g.dv, cc = e % g.dv;
+          float x = part_v[u];
+          for (int r = 0; r < nq; ++r)
+            x = fmaf(Ps[r * ldp + c], dOs[r * g.dv + cc], x);
+          part_v[u] = x;
+        }
+        if (e < kTKV * g.dk) {
+          const int c = e / g.dk, cc = e % g.dk;
+          float x = part_k[u];
+          for (int r = 0; r < nq; ++r)
+            x = fmaf(Ds[r * ldp + c], Qs[r * g.dk + cc], x);
+          part_k[u] = x;
+        }
+      }
+    }
+    // the q block's dk (qk spec) and dv (av spec) contributions, rounded
+    // once each, keyed by (k position, column) on stream i
+#pragma unroll
+    for (int u = 0; u < kAccKV; ++u) {
+      const int e = tid + kThreads * u;
+      if (e < kTKV * g.dv) {
+        const int c = e / g.dv, cc = e % g.dv;
+        acc_v[u] = __fadd_rn(acc_v[u],
+                             round_site(part_v[u], a.sites.p[2], w + 4,
+                                        static_cast<uint32_t>(i), c0 + c, cc));
+      }
+      if (e < kTKV * g.dk) {
+        const int c = e / g.dk, cc = e % g.dk;
+        acc_k[u] = __fadd_rn(acc_k[u],
+                             round_site(part_k[u], a.sites.p[1], w + 2,
+                                        static_cast<uint32_t>(i), c0 + c, cc));
+      }
+    }
+  }
+  const size_t obase = static_cast<size_t>(bh) * g.kv_rows + c0;
+#pragma unroll
+  for (int u = 0; u < kAccKV; ++u) {
+    const int e = tid + kThreads * u;
+    if (e < kTKV * g.dv && e / g.dv < nc) a.dv[obase * g.dv + e] = acc_v[u];
+    if (e < kTKV * g.dk && e / g.dk < nc) a.dk[obase * g.dk + e] = acc_k[u];
+  }
+}
+
+// ---------------------------------------------------------------------------
+// Host side.
+// ---------------------------------------------------------------------------
+Sites make_sites(const int* ints, const float* xmax, int n) {
+  Sites s{};
+  for (int i = 0; i < n; ++i) {
+    const int* p = ints + 6 * i;
+    s.p[i] = rt::RoundParams{p[0], p[1], p[2], xmax[i], p[3], p[4], p[5]};
+  }
+  return s;
+}
+
+Geo make_geo(int rows, int kv_rows, int dk, int dv, int n_heads, int n_kv,
+             int qb, int kb, int q_offset, int causal, int window,
+             float scale) {
+  return Geo{rows,     kv_rows, dk,     dv,    n_heads, n_kv, qb, kb,
+             q_offset, causal,  window, scale, 0,       0};
+}
+
+template <typename Kernel, typename Args>
+int launch(Kernel kernel, dim3 grid, size_t smem, const Args& args,
+           void* stream) {
+  if (smem > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(smem));
+    if (e != cudaSuccess) return static_cast<int>(e);
+  }
+  kernel<<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(args);
+  return static_cast<int>(cudaGetLastError());
+}
+
+size_t fwd_smem(int dk, int dv) {
+  return sizeof(float) * (kTQ * dk + kTK * (dk + 1) + kTK * dv + kTQ * kTK +
+                          5 * kTQ);
+}
+
+}  // namespace
+
+// Each entry point launches on `stream` and returns cudaGetLastError().
+// site_ints: per site precision, emin, emax, mode, rand_bits, enabled;
+// site_xmax: per site xmax.
+extern "C" int flash_fwd(const float* q, const float* k, const float* v,
+                         const uint32_t* seeds, float* out, float* m,
+                         float* l, float* s_out, int BH, int Sq, int Skv,
+                         int dk, int dv, int n_heads, int n_kv, int qb,
+                         int kb, int q_offset, int causal, int window,
+                         float scale, const int* site_ints,
+                         const float* site_xmax, void* stream) {
+  if (dk > kDMax || dv > kDMax) return static_cast<int>(cudaErrorInvalidValue);
+  FwdArgs a{q,     k, v,     0,     rt::PackParams{}, seeds,
+            out,   m, l,     s_out,
+            make_geo(Sq, Skv, dk, dv, n_heads, n_kv, qb, kb, q_offset,
+                     causal, window, scale),
+            make_sites(site_ints, site_xmax, 3)};
+  const dim3 grid((Sq + kTQ - 1) / kTQ, BH);
+  return launch(fwd_kernel, grid, fwd_smem(dk, dv), a, stream);
+}
+
+// pack: code bytes (0 = float32 cache), ebits, mbits, emin, has_nf.
+extern "C" int flash_decode(const float* q, const void* k, const void* v,
+                            const int* pack, const uint32_t* seeds,
+                            float* out, int BKV, int G, int Smax, int dk,
+                            int dv, int length, int kb, int window,
+                            float scale, const int* site_ints,
+                            const float* site_xmax, void* stream) {
+  if (dk > kDMax || dv > kDMax) return static_cast<int>(cudaErrorInvalidValue);
+  Geo g = make_geo(G, Smax, dk, dv, 1, 1, G, kb, 0, 1, window, scale);
+  g.decode = 1;
+  g.length = length;
+  FwdArgs a{q,
+            k,
+            v,
+            pack[0],
+            rt::PackParams{pack[1], pack[2], pack[3], pack[4]},
+            seeds,
+            out,
+            nullptr,
+            nullptr,
+            nullptr,
+            g,
+            make_sites(site_ints, site_xmax, 3)};
+  const dim3 grid((G + kTQ - 1) / kTQ, BKV);
+  return launch(fwd_kernel, grid, fwd_smem(dk, dv), a, stream);
+}
+
+extern "C" int flash_bwd_dq(const float* q, const float* k, const float* v,
+                            const float* dO, const float* m, const float* l,
+                            const float* d, const uint32_t* seeds, float* dq,
+                            int BH, int Sq, int Skv, int dk, int dv,
+                            int n_heads, int n_kv, int qb, int kb,
+                            int q_offset, int causal, int window, float scale,
+                            const int* site_ints, const float* site_xmax,
+                            void* stream) {
+  if (dk > kDMax || dv > kDMax) return static_cast<int>(cudaErrorInvalidValue);
+  BwdArgs a{q,  k,       v,       dO, m, l, d, seeds, dq, nullptr, nullptr,
+            make_geo(Sq, Skv, dk, dv, n_heads, n_kv, qb, kb, q_offset,
+                     causal, window, scale),
+            make_sites(site_ints, site_xmax, 2)};
+  const size_t smem =
+      sizeof(float) * (kTQ * dk + kTQ * dv + kTK * (dk + 1) + kTK * (dv + 1) +
+                       kTQ * kTK + 3 * kTQ);
+  const dim3 grid((Sq + kTQ - 1) / kTQ, BH);
+  return launch(dq_kernel, grid, smem, a, stream);
+}
+
+extern "C" int flash_bwd_dkv(const float* q, const float* k, const float* v,
+                             const float* dO, const float* m, const float* l,
+                             const float* d, const uint32_t* seeds,
+                             float* dk_out, float* dv_out, int BH, int Sq,
+                             int Skv, int dk, int dv, int n_heads, int n_kv,
+                             int qb, int kb, int q_offset, int causal,
+                             int window, float scale, const int* site_ints,
+                             const float* site_xmax, void* stream) {
+  if (dk > kDMax || dv > kDMax) return static_cast<int>(cudaErrorInvalidValue);
+  BwdArgs a{q, k, v, dO, m, l, d, seeds, nullptr, dk_out, dv_out,
+            make_geo(Sq, Skv, dk, dv, n_heads, n_kv, qb, kb, q_offset,
+                     causal, window, scale),
+            make_sites(site_ints, site_xmax, 3)};
+  const size_t smem =
+      sizeof(float) * (kTKV * (dk + 1) + kTKV * (dv + 1) + kTQB * dk +
+                       kTQB * dv + 2 * kTQB * (kTKV + 1) + 3 * kTQB);
+  const dim3 grid((Skv + kTKV - 1) / kTKV, BH);
+  return launch(dkv_kernel, grid, smem, a, stream);
+}

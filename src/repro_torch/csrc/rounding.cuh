@@ -182,6 +182,36 @@ __device__ __forceinline__ float round_value(float x, uint32_t bits,
   return isfinite(x) ? out : x;
 }
 
+// A packed code word's layout (repro_torch.kernels.common.pack_spec):
+// sign | biased exponent (ebits) | mantissa (mbits); field 0 holds the
+// subnormals, and the all-ones field encodes +-inf / NaN where the format
+// has a spare one (has_nf).
+struct PackParams {
+  int ebits;
+  int mbits;
+  int emin;
+  int has_nf;
+};
+
+// A code word back to its exact float32 grid value: the device twin of
+// repro_torch.kernels.common.unpack_block, bit for bit (NaN is the
+// canonical quiet NaN 0x7FC00000).
+__device__ __forceinline__ float unpack(uint32_t c, const PackParams& p) {
+  const uint32_t sign = (c >> (p.ebits + p.mbits)) & 1u;
+  const uint32_t emask = (1u << p.ebits) - 1u;
+  const uint32_t field = (c >> p.mbits) & emask;
+  const uint32_t m = c & ((1u << p.mbits) - 1u);
+  if (p.has_nf && field == emask) {
+    if (m != 0u) return __int_as_float(0x7FC00000);
+    return sign ? -INFINITY : INFINITY;
+  }
+  const int e = field == 0u ? p.emin
+                            : static_cast<int>(field) - 1 + p.emin;
+  const uint32_t sig = field == 0u ? m : m + (1u << p.mbits);
+  const float mag = exact_scale(static_cast<float>(sig), e - p.mbits);
+  return sign ? -mag : mag;
+}
+
 // One rounding site of the eq.-8 chain: the identity when disabled.
 __device__ __forceinline__ float apply_site(float x, uint32_t bits,
                                             const RoundParams& p,

@@ -19,12 +19,13 @@ from __future__ import annotations
 
 from typing import Optional, Tuple
 
+import numpy as np
 import torch
 
 from repro_torch.core.grids import get_grid
 from repro_torch.core.prng import M32, threefry2x32_tensor as threefry2x32
 from repro_torch.core.rounding import (RoundingSpec, _ceil_from_decompose,
-                                       _finish, _flush_tiny,
+                                       _exact_scale, _finish, _flush_tiny,
                                        _uniform_from_bits,
                                        magnitude_decompose)
 from repro_torch.core.schemes import get_scheme
@@ -168,3 +169,110 @@ def counter_bits_reduced(k0: int, k1: int, shape: Tuple[int, int],
     sub = (torch.arange(cols, dtype=torch.int64, device=device) + off) \
         % ratio
     return (rep >> (sub * rand_bits)) & ((1 << rand_bits) - 1)
+
+
+def element_bits(k0, k1, rows, cols, rand_bits: int, stream: int = 0):
+    """The random field of each element at global (row, col), computed
+    element by element as the CUDA kernels do (``element_bits`` in
+    ``csrc/rounding.cuh``): word ``c' % 2`` of ``threefry(k0, k1 + GOLDEN *
+    stream, row, c' // 2)`` with ``c' = col // ratio``, then field
+    ``col % ratio`` of it (``ratio = 32 // rand_bits``).  The same values as
+    :func:`counter_bits_reduced` on any block.  Works on int64 torch
+    tensors or numpy arrays; ``k0``/``k1`` (ints or per-slice arrays),
+    ``rows`` and ``cols`` broadcast."""
+    ratio = 32 // rand_bits
+    wc = cols // ratio
+    x0, x1 = threefry2x32(k0, (k1 + GOLDEN * stream) & M32, rows, wc >> 1)
+    w = x0 + (x1 - x0) * (wc & 1)
+    if rand_bits == 32:
+        return w
+    return (w >> ((cols % ratio) * rand_bits)) & ((1 << rand_bits) - 1)
+
+
+def host_to_device(arr: np.ndarray, device) -> torch.Tensor:
+    """A host array on ``device``.  To a card it goes through pinned
+    memory and a non-blocking copy: a copy from pageable memory would
+    make the host wait for the card's queue, which stalls a decode step
+    that draws words on the host for every layer."""
+    t = torch.from_numpy(np.ascontiguousarray(arr))
+    if torch.device(device).type != "cuda":
+        return t
+    return t.pin_memory().to(device, non_blocking=True)
+
+
+# ---------------------------------------------------------------------------
+# Packed low-precision storage: grid values <-> integer code words
+# (``repro.kernels.common.pack_block``/``unpack_block``).
+# ---------------------------------------------------------------------------
+def pack_spec(fmt):
+    """(ebits, mbits, width_bytes, has_nonfinite_field) of a packable
+    grid: the code word is sign | biased exponent | mantissa with ``mbits =
+    precision - 1`` and the smallest exponent field covering ``emin..emax``
+    plus the subnormal field 0 (IEEE's layout for binary8, binary16 and
+    bfloat16; e4m3 uses all 16 fields for finite values, so non-finite
+    inputs saturate to ±xmax).  Raises for grids wider than 16 bits."""
+    fmt = get_grid(fmt).fmt
+    mbits = fmt.precision - 1
+    n_fields = fmt.emax - fmt.emin + 2
+    ebits = max(1, (n_fields - 1).bit_length())
+    total = 1 + ebits + mbits
+    if total > 16:
+        raise ValueError(f"format {fmt.name!r} does not fit a packed "
+                         f"16-bit code word ({total} bits)")
+    return ebits, mbits, 1 if total <= 8 else 2, (1 << ebits) - 1 >= n_fields
+
+
+def pack_bytes(fmt) -> int:
+    """Bytes per element of the packed representation of ``fmt``."""
+    return pack_spec(fmt)[2]
+
+
+def pack_dtype(fmt) -> torch.dtype:
+    return torch.uint8 if pack_bytes(fmt) == 1 else torch.uint16
+
+
+def pack_block(x: torch.Tensor, fmt) -> torch.Tensor:
+    """Encode float32 values already on the grid of ``fmt`` as code words
+    (uint8 or uint16).  Non-finite values take the spare all-ones exponent
+    field where the format has one, else saturate to ±xmax.  A normal
+    value's field and mantissa are its float32 exponent rebased and the
+    top ``mbits`` of its float32 mantissa; a subnormal's mantissa is its
+    magnitude over the grid's smallest step (both exact on grid values)."""
+    fmt = get_grid(fmt).fmt
+    ebits, mbits, _, has_nf = pack_spec(fmt)
+    x = x.float()
+    finite = torch.isfinite(x)
+    mag = torch.where(finite, torch.abs(x), fmt.xmax)
+    bits = mag.view(torch.int32)
+    n = mbits - fmt.emin                 # mag * 2**n: the subnormal code
+    sub = (mag * 2.0 ** (n // 2) * 2.0 ** (n - n // 2)).to(torch.int32)
+    normal = (((bits >> 23) - (126 + fmt.emin)) << mbits) \
+        | ((bits & 0x7FFFFF) >> (23 - mbits))
+    code = torch.where(mag >= fmt.xmin, normal, sub) \
+        | (torch.signbit(x).to(torch.int32) << (ebits + mbits))
+    if has_nf:
+        nf = (torch.signbit(x).to(torch.int32) << (ebits + mbits)) \
+            | (((1 << ebits) - 1) << mbits) \
+            | torch.where(torch.isnan(x), (1 << mbits) - 1, 0)
+        code = torch.where(finite, code, nf)
+    return code.to(pack_dtype(fmt))
+
+
+def unpack_block(codes: torch.Tensor, fmt) -> torch.Tensor:
+    """Decode code words back to exact float32 grid values."""
+    fmt = get_grid(fmt).fmt
+    ebits, mbits, _, has_nf = pack_spec(fmt)
+    c = codes.to(torch.int64)
+    sign = (c >> (ebits + mbits)) & 1
+    field = (c >> mbits) & ((1 << ebits) - 1)
+    m = c & ((1 << mbits) - 1)
+    is_sub = field == 0
+    e = torch.where(is_sub, fmt.emin, field - 1 + fmt.emin)
+    sig = torch.where(is_sub, m, m + (1 << mbits)).to(torch.float32)
+    mag = _exact_scale(sig, e - mbits)
+    out = torch.where(sign == 1, -mag, mag)
+    if has_nf:
+        inf = torch.where(sign == 1, -float("inf"), float("inf"))
+        nf = torch.where(m == 0, inf, float("nan"))
+        out = torch.where(field == (1 << ebits) - 1, nf.float(), out)
+    return out

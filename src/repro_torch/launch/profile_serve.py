@@ -1,0 +1,79 @@
+"""Where a serving step's time goes: ``torch.profiler`` over the serve cell
+(``serve.SERVE_RUN``: tinyllama-1.1b at full size, batch 4, prompt 32, gen
+16, the seeded weights and prompts of ``serve.run``) on the card, under
+``binary8-paper`` and ``binary8-paper-attn``.
+
+  PYTHONPATH=src python -m repro_torch.launch.profile_serve \\
+      [--out chiprun_out/profile_serve.json]
+
+For each policy, after a warm-up batch, the cell's whole batch (32 prompt
+tokens absorbed, 16 decoded, each a one-token ``decode_step``) runs under
+the profiler; it prints per step the host-clock wall time, the device time
+summed over kernels (one stream: their sum over the wall time is the
+device busy share), the kernel launches and the host time inside PyTorch
+operators, then the kernels by device time, and writes them as JSON.  It
+needs a card: without one it raises.
+"""
+from __future__ import annotations
+
+import argparse
+import json
+from pathlib import Path
+
+import torch
+
+from repro_torch.launch import serve
+from repro_torch.launch.profile_train import kernel_rows
+
+POLICIES = ("binary8-paper", "binary8-paper-attn")
+
+
+def profile(policy: str) -> dict:
+    run = dict(serve.SERVE_RUN)
+    gen = run.pop("gen")
+    _, model, params, prompts = serve.setup(**run, gemm_policy=policy)
+    serve.serve_batch(model, params, prompts, 2)
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        out = serve.serve_batch(model, params, prompts, gen)
+    events = prof.key_averages()
+    rows = kernel_rows(events)
+    steps = prompts.shape[1] + gen
+    wall_ms = 1e3 * (out["t_prefill"] + out["t_decode"])
+    device_ms = sum(r["device_ms"] for r in rows)
+    launches = sum(e.count for e in events if e.key == "cudaLaunchKernel")
+    host_ms = sum(e.self_cpu_time_total for e in events) / 1e3
+    return {**serve.SERVE_RUN, "policy": policy, "steps": steps,
+            "device": torch.cuda.get_device_name(0),
+            "wall_ms_per_step": wall_ms / steps,
+            "device_ms_per_step": device_ms / steps,
+            "busy_share": device_ms / wall_ms,
+            "launches_per_step": launches / steps,
+            "op_host_ms_per_step": host_ms / steps, "kernels": rows}
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--out", default="chiprun_out/profile_serve.json")
+    args = ap.parse_args(argv)
+    res = [profile(p) for p in POLICIES]
+    for r in res:
+        print(f"{r['device']} {r['policy']}: {r['steps']} steps; per step "
+              f"wall {r['wall_ms_per_step']:.1f} ms, device "
+              f"{r['device_ms_per_step']:.1f} ms (busy share "
+              f"{r['busy_share']:.3f}), {r['launches_per_step']:.0f} kernel "
+              f"launches, host time in operators "
+              f"{r['op_host_ms_per_step']:.1f} ms")
+        for k in r["kernels"][:8]:
+            print(f"  {k['device_ms']:10.3f} ms  {k['calls']:6d}x  "
+                  f"{k['name'][:100]}")
+    out = Path(args.out)
+    out.parent.mkdir(parents=True, exist_ok=True)
+    out.write_text(json.dumps(res, indent=1))
+    return res
+
+
+if __name__ == "__main__":
+    main()

@@ -32,6 +32,15 @@ def _device_us(event) -> float:
     return 0.0
 
 
+def kernel_rows(events) -> list:
+    """The profiled kernels by device time (name, calls, device ms)."""
+    kernels = [e for e in events
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    return sorted(({"name": e.key, "calls": e.count,
+                    "device_ms": _device_us(e) / 1e3} for e in kernels),
+                  key=lambda r: -r["device_ms"])
+
+
 def profile(steps: int) -> dict:
     tr = train.setup(**train.PAPER_RUN)
     tr.step(tr.batch(0))
@@ -44,11 +53,7 @@ def profile(steps: int) -> dict:
             tr.step(tr.batch(1 + i))
         torch.cuda.synchronize()
         wall_ms = 1e3 * (time.perf_counter() - t0)
-    kernels = [e for e in prof.key_averages()
-               if e.device_type == torch.autograd.DeviceType.CUDA]
-    rows = sorted(({"name": e.key, "calls": e.count,
-                    "device_ms": _device_us(e) / 1e3} for e in kernels),
-                  key=lambda r: -r["device_ms"])
+    rows = kernel_rows(prof.key_averages())
     device_ms = sum(r["device_ms"] for r in rows)
     return {**train.PAPER_RUN, "steps": steps,
             "device": torch.cuda.get_device_name(0), "wall_ms": wall_ms,

@@ -4,6 +4,8 @@ cache (counterpart of ``repro.launch.serve``).
 Example (on the card; add ``--device cpu --reduced`` for a CPU smoke run):
   PYTHONPATH=src python -m repro_torch.launch.serve --arch tinyllama-1.1b \
       --batch 4 --prompt-len 32 --gen 16 --gemm-policy binary8-paper
+(``--gemm-policy binary8-paper-attn`` also rounds the attention op and
+stores the KV cache as packed e4m3 codes.)
 
 As in the reference, the prompt is absorbed one token at a time with
 ``decode_step(compute_logits=False)`` (prompt absorption and decode are the
@@ -21,7 +23,7 @@ import torch
 
 from repro_torch.configs import get_config, reduced as reduce_cfg
 from repro_torch.device import resolve_device
-from repro_torch.models import build_model
+from repro_torch.models import attention, build_model
 from repro_torch.precision import PRESETS
 
 
@@ -38,7 +40,8 @@ def serve_batch(model, params, prompts: torch.Tensor, gen: int,
     ``forced`` (B, gen): teacher forcing -- feed these tokens instead of
     the argmax (the tests hold both packages to the same inputs).
     Returns ``tokens`` (B, gen) argmax picks, ``logits`` (B, gen, V) as
-    float32, and host-clock timings taken after a device synchronize.
+    float32, the final ``caches``, and host-clock timings taken after a
+    device synchronize.
     """
     batch, prompt_len = prompts.shape
     dev = prompts.device
@@ -66,17 +69,21 @@ def serve_batch(model, params, prompts: torch.Tensor, gen: int,
     _sync(dev)
     t_decode = time.perf_counter() - t1
     return {"tokens": toks, "logits": torch.stack(logits_all, dim=1),
-            "t_prefill": t_prefill, "t_decode": t_decode,
+            "caches": caches, "t_prefill": t_prefill, "t_decode": t_decode,
             "prefill_tokps": batch * prompt_len / max(t_prefill, 1e-9),
             "decode_tokps": batch * gen / max(t_decode, 1e-9)}
 
 
-def run(arch: str, *, reduced: bool = False, batch: int = 4,
-        prompt_len: int = 32, gen: int = 16, seed: int = 0,
-        gemm_policy: Optional[str] = None, device=None) -> Dict:
-    """Build ``arch`` with random weights from a seeded generator on the
-    device, serve one random batch, print a summary and return the
-    serve_batch result."""
+# The full-size target run: the serve cell that ``chip_smoke.py`` drives
+# and ``profile_serve`` traces.
+SERVE_RUN = dict(arch="tinyllama-1.1b", batch=4, prompt_len=32, gen=16)
+
+
+def setup(arch: str, *, reduced: bool = False, batch: int = 4,
+          prompt_len: int = 32, seed: int = 0,
+          gemm_policy: Optional[str] = None, device=None):
+    """``arch`` with random weights from a seeded generator on the device,
+    and one random prompt batch: (cfg, model, params, prompts)."""
     dev = resolve_device(device)
     cfg = get_config(arch)
     if reduced:
@@ -89,9 +96,25 @@ def run(arch: str, *, reduced: bool = False, batch: int = 4,
     gen_p = torch.Generator(device=dev).manual_seed(seed + 1)
     prompts = torch.randint(0, cfg.vocab_size, (batch, prompt_len),
                             generator=gen_p, device=dev)
+    return cfg, model, params, prompts
+
+
+def run(arch: str, *, reduced: bool = False, batch: int = 4,
+        prompt_len: int = 32, gen: int = 16, seed: int = 0,
+        gemm_policy: Optional[str] = None, device=None) -> Dict:
+    """Serve one random batch of ``setup``'s model, print a summary and
+    return the serve_batch result."""
+    cfg, model, params, prompts = setup(
+        arch, reduced=reduced, batch=batch, prompt_len=prompt_len,
+        seed=seed, gemm_policy=gemm_policy, device=device)
     out = serve_batch(model, params, prompts, gen)
+    out["cache_dtype"] = attention.cache_dtype(cfg)
+    out["cache_bytes"] = 2 * cfg.n_layers * batch * (prompt_len + gen) \
+        * cfg.n_kv_heads * cfg.resolved_head_dim \
+        * out["cache_dtype"].itemsize
     print(f"arch={cfg.name} batch={batch} prompt={prompt_len} gen={gen} "
-          f"policy={gemm_policy} device={dev}")
+          f"policy={gemm_policy} device={prompts.device}")
+    print(f"kv cache {out['cache_dtype']} {out['cache_bytes']} bytes")
     print(f"prefill {out['t_prefill']:.3f}s ({out['prefill_tokps']:.1f} "
           f"tok/s); decode {out['t_decode']:.3f}s "
           f"({out['decode_tokps']:.1f} tok/s)")

@@ -5,6 +5,8 @@ Example (on the card; add ``--device cpu --reduced`` for a CPU run):
   PYTHONPATH=src python -m repro_torch.launch.train --arch tinyllama-1.1b \\
       --steps 4 --batch 4 --seq 256 --gemm-policy binary8-paper \\
       --rounding signed_sr_eps --fmt binary8 --update-path fused
+(``--gemm-policy binary8-paper-attn`` also rounds the attention op: its
+forward and backward run the rounded flash kernels.)
 
 It computes what ``repro.launch.train`` computes with the same flags: the
 same parameter tree (its values drawn from ``torch.Generator`` seed 0),

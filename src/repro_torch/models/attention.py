@@ -3,13 +3,18 @@ contiguous-KV-cache decode branch (counterpart of
 ``repro.models.attention``).
 
 Without a cache, ``attn_apply`` is causal attention over the whole
-sequence through ``flash_attention``, the reference's blocked
-online-softmax recurrence in plain float32 ops (its jnp path: the policy's
-attention sites are the identity in every preset ported so far).  With a
-cache, one or more new tokens attend to a (B, S_max, n_kv, hd) cache per
-layer, updated in place (the reference returns a new array), which saves a
-full cache copy per token.  The paged branch, the rounded flash kernels,
-M-RoPE and sliding windows wait for later slices.
+sequence: ``precision.attention.qattention`` (the rounded flash kernels)
+when the policy rounds the attention sites, else ``flash_attention``, the
+reference's blocked online-softmax recurrence in plain float32 ops.  With
+a cache, new tokens go through ``kv_store`` (rounded onto the policy's
+cache grid and packed) into a (B, n_kv, S_max, hd) cache per layer,
+updated in place (the reference returns a new (B, S_max, n_kv, hd) array,
+which would copy the cache per token; this layout is the one K9 reads, so
+decode passes the cache to it without a transpose); a single new token
+under a rounded attention policy attends through ``qattn_decode`` (K9,
+decoding packed codes on load), anything else through plain attention
+over the unpacked cache.  The paged branch, M-RoPE and sliding windows
+wait for later slices.
 """
 from __future__ import annotations
 
@@ -18,13 +23,15 @@ from typing import Dict, Optional
 
 import torch
 
+from repro_torch.kernels import common
 from repro_torch.models import layers as L
+from repro_torch.precision import attention as PA
 from repro_torch.precision import policy as QP
 
 
 @dataclasses.dataclass
 class KVCache:
-    """Stacked over layers: k, v (n_layers, B, S_max, n_kv, hd); ``length``
+    """Stacked over layers: k, v (n_layers, B, n_kv, S_max, hd); ``length``
     tokens already cached (shared by every layer)."""
     k: torch.Tensor
     v: torch.Tensor
@@ -111,11 +118,20 @@ def flash_attention(q, k, v, scale: float, *, causal: bool = True,
     return o.movedim(3, 1).reshape(B, Sq, H, dv).to(q.dtype)
 
 
+def cache_dtype(cfg, dtype=torch.bfloat16) -> torch.dtype:
+    """Storage dtype of the KV cache under ``cfg.gemm_policy``: code words
+    (uint8/uint16) under a ``kv_cache_fmt``, else ``dtype``."""
+    spec = PA.kv_cache_spec(QP.resolve_policy(cfg.gemm_policy))
+    return dtype if spec is None else common.pack_dtype(spec.fmt)
+
+
 def init_cache(cfg, batch: int, max_len: int, dtype=torch.bfloat16,
                device=None) -> KVCache:
-    shape = (cfg.n_layers, batch, max_len, cfg.n_kv_heads, cfg.resolved_head_dim)
-    return KVCache(k=torch.zeros(shape, dtype=dtype, device=device),
-                   v=torch.zeros(shape, dtype=dtype, device=device))
+    shape = (cfg.n_layers, batch, cfg.n_kv_heads, max_len,
+             cfg.resolved_head_dim)
+    dt = cache_dtype(cfg, dtype)
+    return KVCache(k=torch.zeros(shape, dtype=dt, device=device),
+                   v=torch.zeros(shape, dtype=dt, device=device))
 
 
 def attn_apply(params, x, positions, cfg, *, cache: Optional[KVCache] = None,
@@ -127,27 +143,48 @@ def attn_apply(params, x, positions, cfg, *, cache: Optional[KVCache] = None,
     B, S, _ = x.shape
     hd = cfg.resolved_head_dim
     nh, nkv = cfg.n_heads, cfg.n_kv_heads
+    scale = 1.0 / hd ** 0.5
+    pol = quant.policy if quant is not None else None
     q = L.qdense(x, params["wq"], quant, QP.TAG_ATTN_Q).reshape(B, S, nh, hd)
     k = L.qdense(x, params["wk"], quant, QP.TAG_ATTN_K).reshape(B, S, nkv, hd)
     v = L.qdense(x, params["wv"], quant, QP.TAG_ATTN_V).reshape(B, S, nkv, hd)
     q = L.apply_rope(q, positions, cfg.rope_theta)
     k = L.apply_rope(k, positions, cfg.rope_theta)
     if cache is None:
-        out = flash_attention(q, k, v, 1.0 / hd ** 0.5, causal=True)
+        if pol is not None and not pol.attn_sites_identity:
+            out = PA.qattention(q, k, v, quant, scale=scale, causal=True,
+                                q_block=cfg.attn_q_block,
+                                kv_block=cfg.attn_kv_block)
+        else:
+            out = flash_attention(q, k, v, scale, causal=True)
         return L.qdense(out.reshape(B, S, nh * hd), params["wo"], quant,
                         QP.TAG_ATTN_O)
 
     start = cache.length
-    Skv = cache.k.shape[2]
+    Skv = cache.k.shape[3]
     if start + S > Skv:
         raise ValueError(f"KV cache full: {start} + {S} > capacity {Skv}")
-    cache.k[layer, :, start:start + S] = k.to(cache.k.dtype)
-    cache.v[layer, :, start:start + S] = v.to(cache.v.dtype)
-    q_pos = start + torch.arange(S, device=x.device)
-    k_pos = torch.arange(Skv, device=x.device)
-    valid = k_pos[None, :] <= q_pos[:, None]
-    mask = valid[None].expand(B, S, Skv)
-    out = _sdpa(q, cache.k[layer].to(x.dtype), cache.v[layer].to(x.dtype),
-                mask, 1.0 / hd ** 0.5)
+    # k (stream 0) and v (stream 1) rounded and packed in one pass
+    kv = PA.kv_store(torch.stack([k, v]), quant, pos0=start,
+                     stream=(0, 1)).to(cache.k.dtype)
+    cache.k[layer, :, :, start:start + S] = kv[0].transpose(1, 2)
+    cache.v[layer, :, :, start:start + S] = kv[1].transpose(1, 2)
+    kv_spec = PA.kv_cache_spec(pol)
+    if S == 1 and pol is not None and not pol.attn_identity:
+        out = PA.qattn_decode(q, cache.k[layer], cache.v[layer], start + S,
+                              quant, scale=scale,
+                              kv_fmt=None if kv_spec is None else kv_spec.fmt,
+                              kv_block=cfg.attn_kv_block)
+    else:
+        k_f, v_f = cache.k[layer], cache.v[layer]
+        if kv_spec is not None:
+            k_f = common.unpack_block(k_f, kv_spec.fmt)
+            v_f = common.unpack_block(v_f, kv_spec.fmt)
+        k_f, v_f = k_f.transpose(1, 2), v_f.transpose(1, 2)
+        q_pos = start + torch.arange(S, device=x.device)
+        k_pos = torch.arange(Skv, device=x.device)
+        valid = k_pos[None, :] <= q_pos[:, None]
+        mask = valid[None].expand(B, S, Skv)
+        out = _sdpa(q, k_f.to(x.dtype), v_f.to(x.dtype), mask, scale)
     return L.qdense(out.reshape(B, S, nh * hd), params["wo"], quant,
                     QP.TAG_ATTN_O)

@@ -66,6 +66,8 @@ class Model:
 
     def init_decode_cache(self, batch: int, max_len: int, device=None
                           ) -> Dict[str, attention.KVCache]:
+        """The stacked KV cache in the policy's storage dtype (uint8 codes
+        under an e4m3 ``kv_cache_fmt``, else bf16)."""
         return {"attn": attention.init_cache(self.cfg, batch, max_len,
                                              device=device)}
 

@@ -11,16 +11,22 @@ host; the kernels draw their bits from them on the device.
 ``qdot`` is differentiable: its backward runs the dgrad and wgrad GEMMs
 through the same rounded kernel (K3') at the DGRAD/WGRAD sites, as the
 reference's ``custom_vjp`` does.  ``qact`` is not ported yet.
+
+The attention sites (the QKᵀ logits, each kv block's P·V partial product,
+the normalised output) and the KV-cache storage spec ride on the same
+policy; ``precision/attention.py`` wires them to the flash kernels.
 """
 from __future__ import annotations
 
 import dataclasses
 from typing import Any, NamedTuple, Optional
 
+import numpy as np
 import torch
 
 from repro_torch.core import prng
 from repro_torch.core.rounding import IDENTITY, RoundingSpec, parse_spec, spec
+from repro_torch.kernels import common
 from repro_torch.kernels.qmatmul import Words, qmatmul_prng
 
 # GEMM/activation sites (folded into the per-call seed words).
@@ -31,18 +37,29 @@ SITE_FWD, SITE_DGRAD, SITE_WGRAD, SITE_ACT = 0, 1, 2, 3
 TAG_ATTN_Q, TAG_ATTN_K, TAG_ATTN_V, TAG_ATTN_O = 0, 1, 2, 3
 TAG_FFN_UP, TAG_FFN_GATE, TAG_FFN_DOWN, TAG_FFN_ACT = 4, 5, 6, 7
 TAG_LOGITS = 18
+# flash-attention rounding sites (folded off the block context words: one
+# attention op per block) and the KV-cache store site
+TAG_ATTN_QK, TAG_ATTN_AV, TAG_ATTN_OUT, TAG_ATTN_KV = 36, 37, 38, 39
 
 
 @dataclasses.dataclass(frozen=True)
 class QuantPolicy:
     """Per-site rounding policy.  The reference's oracle, packed, block
-    size and attention/KV-cache fields are not ported yet (their sites
-    are identity in every preset this slice carries)."""
+    size and ``kv_cache_packed`` fields are not ported yet (no preset this
+    port carries sets them): a rounded KV cache is always packed."""
 
     fwd: RoundingSpec = IDENTITY
     dgrad: RoundingSpec = IDENTITY
     wgrad: RoundingSpec = IDENTITY
     act: RoundingSpec = IDENTITY
+    # flash-attention sites: the QKᵀ logits, each kv block's P·V partial
+    # product, the normalised output
+    attn_qk: RoundingSpec = IDENTITY
+    attn_av: RoundingSpec = IDENTITY
+    attn_out: RoundingSpec = IDENTITY
+    # KV-cache storage: a canonical spec name; appended k/v round through
+    # it and are stored as packed code words
+    kv_cache_fmt: Optional[str] = None
 
     @property
     def gemm_identity(self) -> bool:
@@ -50,8 +67,19 @@ class QuantPolicy:
                 and self.wgrad.is_identity)
 
     @property
+    def attn_sites_identity(self) -> bool:
+        """The three in-op attention sites alone."""
+        return (self.attn_qk.is_identity and self.attn_av.is_identity
+                and self.attn_out.is_identity)
+
+    @property
+    def attn_identity(self) -> bool:
+        return self.attn_sites_identity and self.kv_cache_fmt is None
+
+    @property
     def is_identity(self) -> bool:
-        return self.gemm_identity and self.act.is_identity
+        return (self.gemm_identity and self.act.is_identity
+                and self.attn_identity)
 
 
 _SITE_ATTR = {SITE_FWD: "fwd", SITE_DGRAD: "dgrad", SITE_WGRAD: "wgrad",
@@ -67,18 +95,36 @@ def _check_gemm_spec(s: RoundingSpec, site: str) -> RoundingSpec:
     return s
 
 
+def _check_kv_fmt(name: Optional[str]) -> Optional[str]:
+    """A KV-cache storage spec name, validated (None for an identity
+    spec); the cache is packed, so its grid must be packable."""
+    if name is None:
+        return None
+    s = _check_gemm_spec(parse_spec(name), "kv_cache")
+    if s.is_identity:
+        return None
+    common.pack_spec(s.fmt)              # raises for unpackable grids
+    return name
+
+
 def make_policy(fwd=None, dgrad=None, wgrad=None, act=None, *, fmt=None,
-                mode: str = "sr", eps: float = 0.0,
-                rand_bits: int = 32) -> QuantPolicy:
-    """Build a QuantPolicy; ``fmt`` fills every unspecified GEMM site."""
+                mode: str = "sr", eps: float = 0.0, rand_bits: int = 32,
+                attn=None, kv_cache_fmt: Optional[str] = None
+                ) -> QuantPolicy:
+    """Build a QuantPolicy; ``fmt`` fills every unspecified GEMM site,
+    ``attn`` all three attention sites, ``kv_cache_fmt`` names the
+    KV-cache storage spec."""
     default = spec(fmt, mode, eps, rand_bits) if fmt is not None else IDENTITY
+    attn_s = _check_gemm_spec(attn if attn is not None else IDENTITY, "attn")
     return QuantPolicy(
         fwd=_check_gemm_spec(fwd if fwd is not None else default, "fwd"),
         dgrad=_check_gemm_spec(dgrad if dgrad is not None else default,
                                "dgrad"),
         wgrad=_check_gemm_spec(wgrad if wgrad is not None else default,
                                "wgrad"),
-        act=_check_gemm_spec(act if act is not None else IDENTITY, "act"))
+        act=_check_gemm_spec(act if act is not None else IDENTITY, "act"),
+        attn_qk=attn_s, attn_av=attn_s, attn_out=attn_s,
+        kv_cache_fmt=_check_kv_fmt(kv_cache_fmt))
 
 
 # The reference's presets whose policies this slice can express (the same
@@ -96,9 +142,16 @@ PRESETS = {
     "binary8-sr": make_policy(fmt="binary8", mode="sr",
                               act=spec("binary8", "sr")),
     "bf16-sr": make_policy(fmt="bfloat16", mode="sr"),
+    # the paper regime carried into the attention op: rounded QKᵀ/AV/out
+    # sites and an e4m3-SR KV cache stored packed (1 B per element)
+    "binary8-paper-attn": make_policy(fmt="binary8", mode="sr",
+                                      act=spec("binary8", "sr"),
+                                      attn=spec("binary8", "sr"),
+                                      kv_cache_fmt="e4m3-sr"),
+    "e4m3-attn": make_policy(fmt="e4m3", mode="sr", attn=spec("e4m3", "sr"),
+                             kv_cache_fmt="e4m3-sr"),
 }
-_NOT_PORTED = ("binary8-paper-packed", "e4m3-sr-oracle",
-               "binary8-paper-attn", "e4m3-attn")
+_NOT_PORTED = ("binary8-paper-packed", "e4m3-sr-oracle")
 
 
 def get_policy(name: str) -> QuantPolicy:
@@ -138,6 +191,19 @@ _CTX_SALT = 0x71D07          # "qdot" context salt folded into the base key
 def fold_words(words: Words, tag: int) -> Words:
     """Fold a static tag into seed words (one Threefry evaluation)."""
     return prng.threefry2x32(words[0], words[1], tag, _FOLD_CONST)
+
+
+def slice_words(words, n: int) -> np.ndarray:
+    """Per-slice seed words: row e of the (n, 2) result is
+    ``fold_words(words, e)``.  ``words`` may also be a sequence of P
+    pairs: then the result is (n, 2P), pair j in columns 2j and 2j + 1.
+    One vectorised Threefry on the host (numpy int64 holding uint32)."""
+    k = np.asarray(words, dtype=np.int64).reshape(-1, 2)
+    w0, w1 = prng.threefry2x32_tensor(k[:, :1], k[:, 1:],
+                                      np.arange(n, dtype=np.int64)[None],
+                                      _FOLD_CONST)
+    return np.stack([w0, np.broadcast_to(w1, w0.shape)], axis=-1) \
+        .transpose(1, 0, 2).reshape(n, -1)
 
 
 class QuantCtx(NamedTuple):

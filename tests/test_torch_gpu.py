@@ -13,7 +13,11 @@ elements may differ (the summation order differs from the twin's
 torch.matmul).  A qmatmul output then differs by one grid step
 (``rounding.grid_flips``); in the fused kernel a flip of a rounded branch
 propagates through silu(g) * u, so only the share is bounded for its
-hidden.
+hidden.  The attention kernels: the rounded logits and their row max
+bitwise on exact-sum inputs; out, dq, dk, dv at most max(1, 1e-4 n)
+elements different on N(0, 1) inputs (float32 sums in another order, a
+value within an ulp of a rounding decision); K9 over packed codes bitwise
+K9 over the same values unpacked.
 """
 import numpy as np
 import pytest
@@ -21,6 +25,8 @@ import torch
 
 from repro_torch.core import gd
 from repro_torch.core.rounding import grid_flips, parse_spec, spec
+from repro_torch.kernels import common as tcommon
+from repro_torch.kernels import flash_attention as tfa
 from repro_torch.kernels import fused_update as tfu
 from repro_torch.kernels import qmatmul as tq
 
@@ -202,3 +208,106 @@ def test_momentum_fma_kernel_matches_plain(cuda, n):
     got = tfu.momentum_fma(0.9, m.to(cuda), g.to(cuda))
     torch.cuda.synchronize()
     assert torch.equal(ref.view(torch.int32), got.cpu().view(torch.int32))
+
+
+# (B·H, B·KV, S, q_block, kv_block, q_offset, causal, spec): one logical
+# block; multi-block with ragged tails; r16 / r8 draws; e4m3 sites
+FLASH_CASES = [
+    (16, 4, 50, 1024, 1024, 0, True, "binary8-sr"),
+    (16, 4, 50, 16, 32, 0, True, "binary8-sr"),
+    (8, 2, 200, 64, 64, 5, True, "binary8-sr-r16"),
+    (8, 8, 77, 32, 16, 0, False, "binary8-sr-r8"),
+    (16, 4, 64, 64, 64, 0, True, "e4m3-rn"),
+]
+
+
+def _flash_inputs(BH, BKV, S, q_offset, exact, dev):
+    make = (lambda sh, sd: _exact(sh, 8.0, sd)) if exact else _normal
+    return [make(sh, sd).to(dev) for sd, sh in enumerate((
+        (BH, S, 64), (BKV, S + q_offset, 64), (BKV, S + q_offset, 64),
+        (BH, S, 64)))]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", FLASH_CASES, ids=lambda c: "-".join(map(
+    str, c)))
+def test_flash_kernels_match_plain(cuda, case):
+    BH, BKV, S, qb, kb, q_offset, causal, name = case
+    fmt = name.split("-")[0]
+    specs = [parse_spec(name)] * 3
+    seeds = np.random.default_rng(S).integers(0, 2 ** 32, (BH, 6),
+                                              dtype=np.uint64)
+    kw = dict(scale=0.125, n_heads=BH // 2, n_kv=BKV // 2, causal=causal,
+              q_block=qb, kv_block=kb, q_offset=q_offset)   # batch 2
+    # exact sums: the rounded logits and their row max bitwise
+    q, k, v, _ = _flash_inputs(BH, BKV, S, q_offset, True, cuda)
+    got = tfa.flash_fwd(q, k, v, seeds, specs, return_logits=True, **kw)
+    ref = tfa.flash_fwd_plain(q, k, v, seeds, specs, return_logits=True,
+                              **kw)
+    torch.cuda.synchronize()
+    for i in (1, 3):
+        assert torch.equal(got[i].view(torch.int32), ref[i].view(torch.int32))
+    # N(0, 1) inputs: forward and both backward kernels
+    q, k, v, do = _flash_inputs(BH, BKV, S, q_offset, False, cuda)
+    out, m, l = tfa.flash_fwd(q, k, v, seeds, specs, **kw)
+    r_out, r_m, r_l = tfa.flash_fwd_plain(q, k, v, seeds, specs, **kw)
+    torch.cuda.synchronize()
+    _assert_flips(r_out, out, fmt, adjacent_only=False,
+                  share=max(1e-4, 1.0 / out.numel()))
+    assert torch.allclose(l, r_l, rtol=1e-5, atol=0)
+    d = (do * r_out).sum(-1)
+    sq = np.concatenate([seeds[:, :2], seeds[:, 4:]], axis=1)
+    dq = tfa.flash_bwd_dq(q, k, v, do, r_m, r_l, d, sq, specs[0], specs[0],
+                          **kw)
+    r_dq = tfa.flash_bwd_dq_plain(q, k, v, do, r_m, r_l, d, sq, specs[0],
+                                  specs[0], **kw)
+    dk, dv = tfa.flash_bwd_dkv(q, k, v, do, r_m, r_l, d, seeds, specs[0],
+                               specs[0], specs[1], **kw)
+    r_dk, r_dv = tfa.flash_bwd_dkv_plain(q, k, v, do, r_m, r_l, d, seeds,
+                                         specs[0], specs[0], specs[1], **kw)
+    torch.cuda.synchronize()
+    for r, g in ((r_dq, dq), (r_dk, dk), (r_dv, dv)):
+        _assert_flips(r, g, fmt, adjacent_only=False,
+                      share=max(1e-4, 1.0 / g.numel()))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kb", [16, 1024])
+def test_flash_decode_kernel_matches_plain(cuda, kb):
+    BKV, G, Smax = 16, 8, 48
+    specs = [parse_spec("binary8-sr")] * 3
+    seeds = np.random.default_rng(kb).integers(0, 2 ** 32, (BKV, 6),
+                                               dtype=np.uint64)
+    q = _normal((BKV, G, 64), 1).to(cuda)
+    codes = [tcommon.pack_block(parse_spec("e4m3-rn")(
+        _normal((BKV, Smax, 64), s)), "e4m3").to(cuda) for s in (2, 3)]
+    floats = [tcommon.unpack_block(c, "e4m3") for c in codes]
+    for length in (1, 17, 48):
+        got = tfa.flash_decode(q, *codes, seeds, length, specs, scale=0.125,
+                               kv_block=kb, kv_fmt="e4m3")
+        unpacked = tfa.flash_decode(q, *floats, seeds, length, specs,
+                                    scale=0.125, kv_block=kb)
+        ref = tfa.flash_decode_plain(q, *codes, seeds, length, specs,
+                                     scale=0.125, kv_block=kb, kv_fmt="e4m3")
+        torch.cuda.synchronize()
+        assert torch.equal(got.view(torch.int32), unpacked.view(torch.int32))
+        _assert_flips(ref, got, "binary8", adjacent_only=False,
+                      share=max(1e-4, 1.0 / got.numel()))
+
+
+@pytest.mark.gpu
+def test_flash_kernels_count_their_launches(cuda):
+    tfa.reset_launches()
+    specs = [parse_spec("binary8-sr")] * 3
+    q, k, v, do = _flash_inputs(4, 2, 10, 0, False, cuda)
+    seeds = np.zeros((4, 6), np.int64)
+    kw = dict(scale=0.125, n_heads=2, n_kv=1)
+    out, m, l = tfa.flash_fwd(q, k, v, seeds, specs, **kw)
+    tfa.flash_fwd_plain(q, k, v, seeds, specs, **kw)
+    d = (do * out).sum(-1)
+    tfa.flash_bwd_dq(q, k, v, do, m, l, d, seeds[:, :4], specs[0], specs[0],
+                     **kw)
+    tfa.flash_bwd_dkv(q, k, v, do, m, l, d, seeds, *specs, **kw)
+    tfa.flash_decode(q[:2, :3], k, v, seeds[:2], 5, specs, scale=0.125)
+    assert tfa.LAUNCHES == {"flash_fwd": 1, "flash_bwd_dq": 1,
+                            "flash_bwd_dkv": 1, "flash_decode": 1}

@@ -156,4 +156,4 @@ def test_unported_arch_and_policy_raise():
         get_config("qwen3-moe-30b-a3b")
     from repro_torch.precision import policy as tp
     with pytest.raises(NotImplementedError):
-        tp.get_policy("binary8-paper-attn")
+        tp.get_policy("binary8-paper-packed")
