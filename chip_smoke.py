@@ -52,7 +52,21 @@ Phases (any failed check exits non-zero; there is no CPU fallback):
 13. train tinyllama-1.1b under ``binary8-paper-attn`` (4 steps, batch 4 x
    256): K6, K7, K7' once per layer per step, finite losses;
 14. its agreement: reduced tinyllama, 2 steps card vs CPU;
-15. one JSON line of per-kernel numbers, then the result line.
+15. MoE kernels vs plain: K1' (the SR cast, 128-lane bits) bitwise at
+   n = 2**24 + 37 and at the path's (128, 1, 768) for binary8 sr with 32-,
+   16- and 8-bit draws and rn; K8' (the batched GEMM) at the path's two
+   shapes (128 experts x 1 row: 2048 -> 768 and 768 -> 2048) and a ragged
+   one (5 x 3 x 70 x 50), bf16 and float32 b, bitwise on exact-sum inputs
+   and within the 1e-4 one-ulp contract on N(0, 1) inputs; timed beside
+   the bound, the twin and an unrounded yardstick (a bf16 cast for K1',
+   bf16 ``torch.bmm`` for K8');
+16. MoE agreement: reduced qwen3-moe-30b-a3b on the card against the same
+   weights on the CPU, teacher-forced: logits and greedy picks;
+17. MoE serve: ``serve.run(**serve.MOE_SERVE_RUN)``, qwen3-moe-30b-a3b at
+   full width and depth (48 layers, 128 experts, 30.5 B parameters) under
+   ``binary8-paper``, run after the dense phases released their models:
+   launch counts against the code's prediction, tok/s, peak memory;
+18. one JSON line of per-kernel numbers, then the result line.
 
 Detailed numbers also go to ``chiprun_out/chip_smoke.json``.
 """
@@ -80,6 +94,7 @@ THREEFRY_OPS = 60
 L2_BYTES = 50 * 2 ** 20
 
 TINYLLAMA = dict(d=2048, n_layers=22, q=2048, kv=256, ff=5632, vocab=32000)
+MOE_ARCH = "qwen3-moe-30b-a3b"
 LAYERS = TINYLLAMA["n_layers"]
 # (K, N, launches per decode step) of each kernel's calls on the path
 QMATMUL_SHAPES = [(2048, 2048, 2 * 22), (2048, 256, 2 * 22),
@@ -125,6 +140,19 @@ ATTN_POLICY = "binary8-paper-attn"
 # equal losses, held to phase 9's limits): a GEMM sum flipped upstream
 # would move whole rows of later layers' codes
 ATTN_AGREE_MAX_CODE_SHARE = 0.01
+# the MoE serve cell (phases 15-17): qwen3-moe-30b-a3b, decode at batch 4
+# gives T = 4 tokens per layer and step, top-8 of 128 experts, capacity
+# C = max(1, int(4 * 8 * 1.25 / 128)) = 1 row per expert
+MOE = dict(d=2048, n_layers=48, q=4096, kv=512, n_experts=128, top_k=8,
+           d_expert=768, vocab=151936)
+MOE_LAYERS = MOE["n_layers"]
+# (E, M, K, N, launches per decode step) of K8' on the path: gate and up,
+# then down; and K1''s rounding of the (E, C, d_expert) hidden
+BATCHED_SHAPES = [(128, 1, 2048, 768, 2 * MOE_LAYERS),
+                  (128, 1, 768, 2048, MOE_LAYERS)]
+BATCHED_RAGGED = (5, 3, 70, 50)
+SR_CAST_PATH = (128, 1, 768)
+SR_CAST_SIZES = [(UPDATE_N_SMALL,), SR_CAST_PATH]
 # (grad, mul, sub) spec names of the extra update configs of phase 4
 UPDATE_CONFIGS = {
     "sr_eps-binary8": ("binary8-rn", "binary8-sr_eps-e0.1", "binary8-sr"),
@@ -692,28 +720,30 @@ def momentum_fma_check(torch, tfu, m, g, timed: bool):
     return row
 
 
-def serve_phase(torch, tq, tfa, serve, policy="binary8-paper"):
+def serve_phase(torch, mods, serve, policy="binary8-paper"):
     """The full-size serve run under ``policy``; every launch count
     checked."""
     gc.collect()          # an earlier phase's cycles hold device memory
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
-    tq.reset_launches()
-    tfa.reset_launches()
+    reset_all(*mods)
     run = serve.SERVE_RUN
     if (run["arch"], run["batch"], run["prompt_len"], run["gen"]) != (
             "tinyllama-1.1b", BATCH, PROMPT, GEN):
         fail(f"serve.SERVE_RUN {run} is not the run whose shapes phases 3 and 10 "
              "checks")
     out = serve.run(**run, gemm_policy=policy, device="cuda")
-    launches = {**tq.LAUNCHES, **tfa.LAUNCHES}
+    launches = all_launches(*mods)
     peak = torch.cuda.max_memory_allocated()
     steps = PROMPT + GEN
     attn = policy == ATTN_POLICY
     want = {"qmatmul_sr": 5 * LAYERS * steps + GEN,
-            "qmatmul_swiglu_sr": LAYERS * steps, "flash_fwd": 0,
-            "flash_bwd_dq": 0, "flash_bwd_dkv": 0,
-            "flash_decode": LAYERS * steps if attn else 0}
+            "qmatmul_swiglu_sr": LAYERS * steps, "qmatmul_batched_sr": 0,
+            "fused_qupdate_prng": 0, "fused_qupdate_bits": 0,
+            "momentum_fma": 0, "flash_fwd": 0, "flash_bwd_dq": 0,
+            "flash_bwd_dkv": 0,
+            "flash_decode": LAYERS * steps if attn else 0,
+            "sr_cast_prng": 0}
     if launches != want:
         fail(f"launch counts {launches} != expected {want}")
     toks, logits = out["tokens"], out["logits"]
@@ -803,6 +833,7 @@ def train_phase(torch, mods, train, policy="binary8-paper"):
     n_attn = TRAIN_STEPS * LAYERS if policy == ATTN_POLICY else 0
     want = {"qmatmul_sr": TRAIN_STEPS * TRAIN_QMATMUL_PER_STEP,
             "qmatmul_swiglu_sr": TRAIN_STEPS * LAYERS,
+            "qmatmul_batched_sr": 0, "sr_cast_prng": 0,
             "fused_qupdate_prng": TRAIN_STEPS, "fused_qupdate_bits": 0,
             "momentum_fma": TRAIN_STEPS, "flash_fwd": n_attn,
             "flash_bwd_dq": n_attn, "flash_bwd_dkv": n_attn,
@@ -887,7 +918,258 @@ def train_agreement_phase(torch, mods, train, policy="binary8-paper",
 def _to(tree, device):
     if isinstance(tree, dict):
         return {k: _to(v, device) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_to(v, device) for v in tree]
     return tree.to(device)
+
+
+def moe_params() -> int:
+    """Parameters of qwen3-moe-30b-a3b: embedding, lm head, final norm and
+    per layer two norms, q/k/v/o, the router and three expert stacks."""
+    d, q, kv, E, F = (MOE[k] for k in ("d", "q", "kv", "n_experts",
+                                       "d_expert"))
+    per_layer = 2 * d + d * q + 2 * d * kv + q * d + d * E + 3 * E * d * F
+    return 2 * MOE["vocab"] * d + d + MOE_LAYERS * per_layer
+
+
+def sr_cast_bound(n: int, rand_bits: int):
+    """(ms, bound_by) of one K1' call over n elements: 8 bytes each
+    against one Threefry (>= 60 int32 operations) per two 32-bit words of
+    random fields on the 128-lane layout."""
+    rows = -(-n // 128)
+    n_threefry = rows * 64 * rand_bits // 32
+    t_bytes = 8 * n / PEAK_BYTES_PER_S
+    t_ops = n_threefry * THREEFRY_OPS / PEAK_INT32_OPS
+    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
+                                       else "operations")
+
+
+def sr_cast_phase(torch, tsr):
+    """K1' against its plain twin (bitwise) and timed; returns rows."""
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(77)
+    words = (0x6A09E667, 0xBB67AE85)
+    rows = []
+    for shape in SR_CAST_SIZES:
+        n = math.prod(shape)
+        n_copies = max(1, math.ceil(2 * L2_BYTES / (8 * n)))
+        xs = [torch.randn(shape, generator=gen, device=dev) * 4
+              for _ in range(n_copies)]
+        max_err = 0.0
+        for fmt, mode, rb in (("binary8", "sr", 32), ("binary8", "sr", 16),
+                              ("binary8", "sr", 8), ("binary8", "rn", 32)):
+            got = tsr.sr_cast_prng(xs[0], words, fmt, mode, rand_bits=rb)
+            ref = tsr.sr_cast_prng_plain(xs[0], words, fmt, mode, rb)
+            torch.cuda.synchronize()
+            if tuple(got.shape) != shape or not bitwise(torch, got, ref):
+                fail(f"sr_cast_prng {shape} {fmt}-{mode}-r{rb}: not bitwise "
+                     "equal to the plain twin")
+            max_err = max(max_err, float((got - ref).abs().max()))
+        # timed under the path's spec (binary8 sr, 32-bit draws)
+        ms = time_ms(torch, lambda i: tsr.sr_cast_prng(xs[i], words,
+                                                       "binary8"), n_copies)
+        plain = time_ms(torch, lambda i: tsr.sr_cast_prng_plain(
+            xs[i], words, "binary8"), n_copies, iters=3, warmup=1)
+        lib = time_ms(torch, lambda i: xs[i].to(torch.bfloat16), n_copies)
+        bms, by = sr_cast_bound(n, 32)
+        per_step = MOE_LAYERS if shape == SR_CAST_PATH else 0
+        rows.append(dict(kernel="sr_cast_prng", shape=list(shape), n=n,
+                         per_step=per_step, max_abs_err=max_err,
+                         mismatch_share=0.0, ms=ms, plain_ms=plain,
+                         library_ms=lib, bound_ms=bms, bound_by=by))
+        print(f"  sr_cast_prng n={n:9d} {str(shape):16s} kernel {ms:8.4f} "
+              f"ms  bound {bms:8.5f} ms ({by})  plain {plain:8.3f} ms  "
+              f"bf16 cast {lib:8.4f} ms  bitwise", flush=True)
+        del xs
+    return rows
+
+
+def batched_bound(E, M, K, N, b_bytes):
+    """(ms, bound_by) of one K8' call: each input read once, the output
+    written once, against the fp32 flops at the fp32 peak."""
+    nbytes = E * M * K * 4 + E * K * N * b_bytes + E * M * N * 4
+    t_bytes = nbytes / PEAK_BYTES_PER_S
+    t_ops = 2 * E * M * N * K / PEAK_FP32_FLOPS
+    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
+                                       else "operations")
+
+
+def batched_phase(torch, tq):
+    """K8' against its plain twin at the MoE path's shapes and a ragged
+    one; returns rows."""
+    import numpy as np
+    from repro_torch.core.rounding import grid_flips
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(4321)
+    rows = []
+
+    def ints(shape, div):
+        return (torch.randint(-8, 9, shape, generator=gen, device=dev)
+                .float() / div)
+
+    cases = BATCHED_SHAPES + [(*BATCHED_RAGGED, 0)]
+    for E, M, K, N, per_step in cases:
+        seeds = np.random.default_rng(E * K + N).integers(
+            0, 2 ** 32, (E, 2), dtype=np.int64)
+        a = ints((E, M, K), 8.0)
+        b = ints((E, K, N), 4.0)
+        variants = [("binary8", "sr", 32), ("binary8", "sr", 16),
+                    ("binary8", "sr", 8), ("binary8", "rn", 32)]
+        if (E, M, K, N) == BATCHED_RAGGED:
+            variants.append(("e4m3", "sr", 16))
+        for b_dtype in (torch.bfloat16, torch.float32):
+            bt = b.to(b_dtype)
+            for fmt, mode, rb in variants:
+                got = tq.qmatmul_batched_prng(a, bt, seeds, fmt, mode, rb)
+                ref = tq.qmatmul_batched_plain(a, bt, seeds, fmt, mode, rb)
+                torch.cuda.synchronize()
+                if not bitwise(torch, got, ref):
+                    fail(f"qmatmul_batched_sr {E}x{M}x{K}x{N} {b_dtype} "
+                         f"{fmt}-{mode}-r{rb}: not bitwise equal to the "
+                         "plain twin on exact-sum inputs")
+            del bt
+        del a, b
+        # N(0, 1) inputs, bf16 experts as the path stores them
+        n_copies = max(1, math.ceil(2 * L2_BYTES / (E * K * N * 2)))
+        a = torch.randn((E, M, K), generator=gen, device=dev)
+        ws = [(torch.randn((E, K, N), generator=gen, device=dev)
+               / math.sqrt(K)).to(torch.bfloat16) for _ in range(n_copies)]
+        got = tq.qmatmul_batched_prng(a, ws[0], seeds, "binary8")
+        ref = tq.qmatmul_batched_plain(a, ws[0], seeds, "binary8")
+        torch.cuda.synchronize()
+        n_bad, adjacent = grid_flips(ref, got, "binary8")
+        share = n_bad / ref.numel()
+        if share > 1e-4 or not adjacent:
+            fail(f"qmatmul_batched_sr {E}x{M}x{K}x{N}: {n_bad} mismatches "
+                 f"({share:.2e}), adjacent on the grid: {adjacent}")
+        max_err = float((got - ref).abs().max())
+        steps = max_steps(torch, ref, got, "binary8")
+        ms = time_ms(torch, lambda i: tq.qmatmul_batched_prng(
+            a, ws[i], seeds, "binary8"), n_copies)
+        plain = time_ms(torch, lambda i: tq.qmatmul_batched_plain(
+            a, ws[i], seeds, "binary8"), n_copies, iters=3, warmup=1)
+        a16 = a.to(torch.bfloat16)
+        lib = time_ms(torch, lambda i: torch.bmm(a16, ws[i]), n_copies)
+        bms, by = batched_bound(E, M, K, N, 2)
+        rows.append(dict(kernel="qmatmul_batched_sr", E=E, M=M, K=K, N=N,
+                         b="bf16", per_step=per_step, mismatches=n_bad,
+                         mismatch_share=share, max_grid_steps=steps,
+                         max_abs_err=max_err, ms=ms, plain_ms=plain,
+                         library_ms=lib, bound_ms=bms, bound_by=by))
+        print(f"  qmatmul_batched_sr E={E:3d} M={M} K={K:5d} N={N:5d} "
+              f"B=bf16  kernel {ms:8.4f} ms  bound {bms:8.4f} ms ({by})  "
+              f"plain {plain:8.3f} ms  bmm(bf16) {lib:8.4f} ms  flips "
+              f"{n_bad}/{ref.numel()} (max {steps:g} steps)", flush=True)
+        del a, a16, ws, got, ref
+    return rows
+
+
+def moe_agreement_phase(torch, serve):
+    """Reduced qwen3-moe-30b-a3b on the card against the same weights on
+    the CPU (plain twins), teacher-forced on the CPU's picks: the logits
+    within the serve tolerance and the card's own picks within 0.1 of the
+    CPU's best logit (bf16 logits tie often)."""
+    import dataclasses
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.models import build_model
+    cfg = dataclasses.replace(reduced(get_config(MOE_ARCH)),
+                              gemm_policy="binary8-paper")
+    model = build_model(cfg)
+    params = model.init(torch.Generator().manual_seed(9))
+    prompts = torch.randint(0, cfg.vocab_size, (2, 8),
+                            generator=torch.Generator().manual_seed(10))
+    cpu = serve.serve_batch(model, params, prompts, 4)
+    card = serve.serve_batch(model, _to(params, "cuda"), prompts.cuda(), 4,
+                             forced=cpu["tokens"].cuda())
+    lc = cpu["logits"]
+    d = (card["logits"].cpu() - lc).abs()
+    med, share = float(d.median()), float((d > 0.05).float().mean())
+    chosen = torch.gather(lc, -1, card["tokens"].cpu()[..., None])[..., 0]
+    gap = float((lc.max(-1).values - chosen).max())
+    print(f"  reduced {MOE_ARCH} binary8-paper card vs cpu: median "
+          f"|dlogit| {med:.4g}, share > 0.05 {share:.4g}, picks equal "
+          f"{int((card['tokens'].cpu() == cpu['tokens']).sum())}/"
+          f"{cpu['tokens'].numel()}, largest gap of a card pick to the "
+          f"best cpu logit {gap:.4g}", flush=True)
+    if not (med < 0.02 and share <= 0.10 and gap <= 0.1):
+        fail("MoE card and CPU paths disagree beyond the stated tolerance")
+    return dict(median_abs_dlogit=med, share_over_0_05=share,
+                max_pick_gap=gap)
+
+
+def moe_serve_phase(torch, mods, serve):
+    """The full-size qwen3-moe-30b-a3b serve run under binary8-paper;
+    every launch count checked against the prediction from the code."""
+    gc.collect()          # the dense phases' models and caches
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    run = serve.MOE_SERVE_RUN
+    if (run["arch"], run["batch"], run["prompt_len"], run["gen"]) != (
+            MOE_ARCH, BATCH, PROMPT, GEN):
+        fail(f"serve.MOE_SERVE_RUN {run} is not the run whose shapes phase "
+             "15 checks")
+    reset_all(*mods)
+    out = serve.run(**run, gemm_policy="binary8-paper", device="cuda")
+    launches = all_launches(*mods)
+    peak = torch.cuda.max_memory_allocated()
+    steps = PROMPT + GEN
+    # per layer and step: q, k, v, o and the router through K3', gate, up
+    # and down through K8', the hidden through K1'; the lm head per
+    # generated token
+    want = {"qmatmul_sr": 5 * MOE_LAYERS * steps + GEN,
+            "qmatmul_swiglu_sr": 0,
+            "qmatmul_batched_sr": 3 * MOE_LAYERS * steps,
+            "sr_cast_prng": MOE_LAYERS * steps, "flash_fwd": 0,
+            "flash_bwd_dq": 0, "flash_bwd_dkv": 0, "flash_decode": 0,
+            "fused_qupdate_prng": 0, "fused_qupdate_bits": 0,
+            "momentum_fma": 0}
+    if launches != want:
+        fail(f"MoE serve launch counts {launches} != expected {want}")
+    if out["n_params"] != moe_params():
+        fail(f"MoE serve run has {out['n_params']} parameters, not "
+             f"{moe_params()}")
+    toks, logits = out["tokens"], out["logits"]
+    if tuple(toks.shape) != (BATCH, GEN) or int(toks.min()) < 0 \
+            or int(toks.max()) >= MOE["vocab"]:
+        fail(f"bad tokens {toks.tolist()}")
+    if not bool(torch.isfinite(logits).all()):
+        fail("non-finite logits")
+    print(f"  params {out['n_params']}, prefill {out['prefill_tokps']:.2f} "
+          f"tok/s, decode {out['decode_tokps']:.2f} tok/s, peak memory "
+          f"{peak / 2 ** 30:.2f} GiB, kv cache {out['cache_dtype']} "
+          f"{out['cache_bytes']} bytes, launches {launches}, sample "
+          f"{toks[0].tolist()}", flush=True)
+    res = dict(prefill_tokps=out["prefill_tokps"],
+               decode_tokps=out["decode_tokps"], t_prefill=out["t_prefill"],
+               t_decode=out["t_decode"], peak_bytes=peak,
+               n_params=out["n_params"],
+               cache_dtype=str(out["cache_dtype"]),
+               cache_bytes=out["cache_bytes"], launches=launches)
+    del out
+    gc.collect()
+    torch.cuda.empty_cache()
+    return res
+
+
+def moe_kernel_entry(rows, name, source, replaces, launches, library):
+    """A kernel of the MoE path: times per decode step (per-call time x
+    launches per step at each path shape)."""
+    path = [r for r in rows if r["per_step"]]
+
+    def per_step(key):
+        return sum(r[key] * r["per_step"] for r in path)
+    return dict(
+        name=name, route="cuda", source=source, replaces=replaces,
+        launches=launches, max_abs_err=max(r["max_abs_err"] for r in rows),
+        ms=per_step("ms"), plain_ms=per_step("plain_ms"),
+        bound_ms=per_step("bound_ms"),
+        bound_by="bytes" if all(r["bound_by"] == "bytes" for r in path)
+        else "operations",
+        library_ms=per_step("library_ms"), library=library,
+        mismatch_share=max(r["mismatch_share"] for r in rows),
+        timed=f"one {MOE_ARCH} decode step's launches (batch {BATCH}, "
+              f"{MOE_LAYERS} layers)",
+        launches_path=f"serve {MOE_ARCH} binary8-paper")
 
 
 def kernel_entry(rows, name, source, replaces, launches, path_rows, timed,
@@ -914,7 +1196,7 @@ def main() -> None:
     sys.path.insert(0, str(HERE / "src"))
     try:
         from repro_torch.kernels import build, flash_attention as tfa, \
-            fused_update as tfu, qmatmul as tq
+            fused_update as tfu, qmatmul as tq, sr_cast as tsr
         from repro_torch.launch import serve, train
     except ImportError as exc:
         fail(f"cannot import the port ({exc}); run from a checkout")
@@ -955,12 +1237,12 @@ def main() -> None:
     train_rows = gemm_phase(torch, tq, gemm_cases(train=True))
 
     print("== phase 6: serve tinyllama-1.1b binary8-paper", flush=True)
-    served = serve_phase(torch, tq, tfa, serve)
+    mods = (tq, tfu, tfa, tsr)
+    served = serve_phase(torch, mods, serve)
 
     print("== phase 7: serve agreement card vs cpu", flush=True)
     agree = agreement_phase(torch, serve)
 
-    mods = (tq, tfu, tfa)
     print(f"== phase 8: train tinyllama-1.1b, batch {TRAIN_BATCH} x "
           f"{TRAIN_SEQ}, {TRAIN_STEPS} steps, binary8-paper, signed-SRe "
           "binary8 update (fused)", flush=True)
@@ -973,7 +1255,7 @@ def main() -> None:
     attn_rows = attention_phase(torch, tfa)
 
     print(f"== phase 11: serve tinyllama-1.1b {ATTN_POLICY}", flush=True)
-    served_attn = serve_phase(torch, tq, tfa, serve, ATTN_POLICY)
+    served_attn = serve_phase(torch, mods, serve, ATTN_POLICY)
 
     print(f"== phase 12: serve agreement card vs cpu ({ATTN_POLICY})",
           flush=True)
@@ -988,6 +1270,17 @@ def main() -> None:
     train_agree_attn, _ = train_agreement_phase(torch, mods, train,
                                                 ATTN_POLICY, ("fused",))
 
+    print("== phase 15: MoE kernels (K1', K8') vs plain twins", flush=True)
+    sr_cast_rows = sr_cast_phase(torch, tsr)
+    batched_rows = batched_phase(torch, tq)
+
+    print(f"== phase 16: serve agreement card vs cpu (reduced {MOE_ARCH})",
+          flush=True)
+    agree_moe = moe_agreement_phase(torch, serve)
+
+    print(f"== phase 17: serve {MOE_ARCH} binary8-paper", flush=True)
+    served_moe = moe_serve_phase(torch, mods, serve)
+
     kernels = []
     replaces = {"qmatmul_sr": "src/repro/kernels/qmatmul.py:360",
                 "qmatmul_swiglu_sr": "src/repro/kernels/qmatmul.py:846"}
@@ -1001,6 +1294,7 @@ def main() -> None:
             replaces[name], trained["launches"][name], path_rows,
             "sum over one batch-4 x 256 train step's launches",
             launches_serve=served["launches"][name],
+            launches_moe_serve=served_moe["launches"][name],
             serve_step_ms=sum(r["ms"] * r["per_step"] for r in serve_rows),
             serve_step_bound_ms=sum(r["bound_ms"] * r["per_step"]
                                     for r in serve_rows),
@@ -1066,6 +1360,17 @@ def main() -> None:
                    f"{LAYERS} launches"),
             launches_path=f"{'serve' if serve_path else 'train'} "
                           f"{ATTN_POLICY}"))
+    kernels.append(moe_kernel_entry(
+        sr_cast_rows, "sr_cast_prng", "src/repro_torch/csrc/sr_cast.cu",
+        "src/repro/kernels/sr_cast.py:148",
+        served_moe["launches"]["sr_cast_prng"],
+        "x.to(torch.bfloat16) (a cast, not the rounding)"))
+    kernels.append(moe_kernel_entry(
+        batched_rows, "qmatmul_batched_sr",
+        "src/repro_torch/csrc/qmatmul_batched_sr.cu",
+        "src/repro/kernels/qmatmul.py:599",
+        served_moe["launches"]["qmatmul_batched_sr"],
+        "torch.bmm over bf16 operands, unrounded"))
     report = dict(device=kind, nvidia_smi=smi[0], build_s=t_build,
                   rows=rows, train_rows=train_rows, update_rows=update_rows,
                   serve=served, agreement=agree, train=trained,
@@ -1074,6 +1379,8 @@ def main() -> None:
                   attention_rows=attn_rows, serve_attn=served_attn,
                   agreement_attn=agree_attn, train_attn=trained_attn,
                   train_agreement_attn=train_agree_attn,
+                  sr_cast_rows=sr_cast_rows, batched_rows=batched_rows,
+                  agreement_moe=agree_moe, serve_moe=served_moe,
                   t_total_s=time.time() - T_START, kernels=kernels)
     out_dir = HERE / "chiprun_out"
     out_dir.mkdir(exist_ok=True)

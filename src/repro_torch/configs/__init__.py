@@ -1,7 +1,7 @@
 """Architecture registry (counterpart of ``repro.configs``).
 
-Only the dense decoder family is ported; ``get_config`` raises for the
-reference's other architectures with "not ported yet".
+The dense decoder and MoE families are ported; ``get_config`` raises for
+the reference's other architectures with "not ported yet".
 """
 from __future__ import annotations
 
@@ -9,15 +9,15 @@ import dataclasses
 from typing import Dict
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.configs.qwen3_moe_30b_a3b import CONFIG as QWEN3_MOE_30B_A3B
 from repro_torch.configs.smollm_360m import CONFIG as SMOLLM_360M
 from repro_torch.configs.tinyllama_1_1b import CONFIG as TINYLLAMA_1_1B
 
 REGISTRY: Dict[str, ModelConfig] = {
-    c.name: c for c in [SMOLLM_360M, TINYLLAMA_1_1B]
+    c.name: c for c in [QWEN3_MOE_30B_A3B, SMOLLM_360M, TINYLLAMA_1_1B]
 }
 NOT_PORTED = ("gemma-7b", "phi3-medium-14b", "rwkv6-7b", "zamba2-1.2b",
-              "deepseek-v2-236b", "qwen3-moe-30b-a3b", "qwen2-vl-7b",
-              "seamless-m4t-medium")
+              "deepseek-v2-236b", "qwen2-vl-7b", "seamless-m4t-medium")
 ARCH_NAMES = sorted(REGISTRY)
 
 
@@ -33,9 +33,16 @@ def get_config(name: str) -> ModelConfig:
 
 
 def reduced(cfg: ModelConfig) -> ModelConfig:
-    """Tiny same-family config for CPU tests (the reference's reduction)."""
+    """Tiny same-family config for CPU tests (the reference's reduction,
+    MoE included: 4 experts, top-2, d_expert 32)."""
+    moe = cfg.moe
+    if moe is not None:
+        moe = dataclasses.replace(moe, n_experts=4, top_k=2, d_expert=32,
+                                  n_shared=min(moe.n_shared, 1),
+                                  first_dense=min(moe.first_dense, 1))
     return dataclasses.replace(
         cfg,
+        moe=moe,
         n_layers=2,
         d_model=64,
         n_heads=4,

@@ -1,13 +1,24 @@
 """Model configuration (counterpart of ``repro.configs.base``).
 
-The fields the dense decoder family needs, named as in the reference; the
-reference's MoE/MLA/SSM/RWKV/encoder/frontend/sliding-window fields arrive
-with the families that use them.
+The fields the dense decoder and MoE families need, named as in the
+reference; the reference's MLA/SSM/RWKV/encoder/frontend/sliding-window
+fields arrive with the families that use them.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Optional
+from typing import Any, Optional, Tuple
+
+
+@dataclasses.dataclass(frozen=True)
+class MoEConfig:
+    n_experts: int
+    top_k: int
+    d_expert: int              # per-expert FFN width
+    n_shared: int = 0          # always-on shared experts
+    capacity_factor: float = 1.25
+    router_noise: float = 0.0
+    first_dense: int = 0       # leading layers with a dense FFN instead
 
 
 @dataclasses.dataclass(frozen=True)
@@ -25,6 +36,7 @@ class ModelConfig:
     pos: str = "rope"
     rope_theta: float = 10000.0
     tie_embeddings: bool = False
+    moe: Optional[MoEConfig] = None
     # quantized-GEMM precision policy (paper eq. 8a): a preset name of
     # repro_torch.precision or a QuantPolicy; None keeps GEMMs unrounded
     gemm_policy: Optional[Any] = None
@@ -36,3 +48,11 @@ class ModelConfig:
     @property
     def resolved_head_dim(self) -> int:
         return self.head_dim if self.head_dim else self.d_model // self.n_heads
+
+    def plan(self) -> Tuple[str, ...]:
+        """The block sequence: "attn" (attention + FFN, the MoE FFN under
+        ``moe``) and "attn_dense" (an MoE model's leading dense layers)."""
+        if self.moe is not None:
+            return ("attn_dense",) * self.moe.first_dense + \
+                   ("attn",) * (self.n_layers - self.moe.first_dense)
+        return ("attn",) * self.n_layers

@@ -189,6 +189,39 @@ def element_bits(k0, k1, rows, cols, rand_bits: int, stream: int = 0):
     return (w >> ((cols % ratio) * rand_bits)) & ((1 << rand_bits) - 1)
 
 
+def counter_bits_batch(words, shape: Tuple[int, int, int], rand_bits: int,
+                       stream: int = 0, device=None) -> torch.Tensor:
+    """Per-slice counter bits of an (E, rows, cols) block
+    (``repro.kernels.common.counter_bits_batch``): slice ``e`` draws
+    exactly :func:`counter_bits_reduced` of its own seed pair
+    ``words[e]`` at within-slice coordinates, so a batched result is
+    recomputable slice by slice.  ``words``: (E, 2) uint32 values (numpy
+    array, tensor or nested sequence)."""
+    E, rows, cols = shape
+    w = torch.as_tensor(np.asarray(words, dtype=np.int64).reshape(E, 2),
+                        device=device)
+    r = torch.arange(rows, dtype=torch.int64, device=device)[None, :, None]
+    c = torch.arange(cols, dtype=torch.int64, device=device)[None, None, :]
+    return element_bits(w[:, 0, None, None], w[:, 1, None, None], r, c,
+                        rand_bits, stream)
+
+
+LANES = 128                  # the flat 128-lane layout of the sr_cast family
+
+
+def lane_bits(k0: int, k1: int, n: int, rand_bits: int,
+              device=None) -> torch.Tensor:
+    """The random fields of a flat tensor of ``n`` elements under the
+    sr_cast kernels' layout (``repro.kernels.sr_cast.sr_cast_prng_p``):
+    the tensor is laid out as (ceil(n / 128), 128) rows and element ``i``
+    draws :func:`counter_bits_reduced`'s field at (i // 128, i % 128),
+    stream 0."""
+    rows = -(-n // LANES)
+    bits = counter_bits_reduced(k0, k1, (rows, LANES), rand_bits,
+                                device=device)
+    return bits.reshape(-1)[:n]
+
+
 def host_to_device(arr: np.ndarray, device) -> torch.Tensor:
     """A host array on ``device``.  To a card it goes through pinned
     memory and a non-blocking copy: a copy from pageable memory would

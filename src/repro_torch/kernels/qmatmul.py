@@ -5,6 +5,10 @@
                            ``repro/kernels/qmatmul.py:qmatmul_prng_p``.
 ``qmatmul_swiglu_prng`` -> CUDA kernel ``csrc/qmatmul_swiglu_sr.cu``,
                            replacing ``qmatmul_swiglu_prng_p``.
+``qmatmul_batched_prng`` -> CUDA kernel ``csrc/qmatmul_batched_sr.cu``,
+                           replacing ``qmatmul_batched_prng_p`` (K8'): a
+                           stack of GEMMs, each slice with its own seed
+                           words.
 
 A tensor on the CPU goes to the plain PyTorch twin (``*_plain``), which
 computes the same function: an fp32 GEMM, then ``common.round_block`` fed
@@ -12,7 +16,7 @@ the counter bits the kernel draws in-kernel.  A CUDA tensor launches the
 kernel; anything the kernel does not take raises.  ``LAUNCHES`` counts the
 kernel launches, one per wrapper call that reaches a kernel.
 
-Both kernels are bound by bytes at decode (they stream each weight once);
+The kernels are bound by bytes at decode (they stream each weight once);
 see the notes at the top of the CUDA sources for their design.
 """
 from __future__ import annotations
@@ -20,6 +24,7 @@ from __future__ import annotations
 import ctypes
 from typing import Dict, Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 
 from repro_torch.core.grids import get_grid
@@ -33,7 +38,8 @@ STREAM_FWD, STREAM_ACT = 0, 1
 _MODES = {"rn": 0, "sr": 1}
 
 # kernel launches since the last reset_launches(), by kernel name
-LAUNCHES: Dict[str, int] = {"qmatmul_sr": 0, "qmatmul_swiglu_sr": 0}
+LAUNCHES: Dict[str, int] = {"qmatmul_sr": 0, "qmatmul_swiglu_sr": 0,
+                            "qmatmul_batched_sr": 0}
 
 
 def reset_launches() -> None:
@@ -175,7 +181,10 @@ def _lib_qmatmul():
 # qmatmul_swiglu_prng: h = round_act(silu(round(x@wg)) * round(x@wu))
 # ---------------------------------------------------------------------------
 def silu(g: torch.Tensor) -> torch.Tensor:
-    """SiLU exactly as the kernel computes it: g * (1 / (1 + exp(-g)))."""
+    """SiLU exactly as the kernel computes it: g * (1 / (1 + exp(-g))).
+    On a bf16 tensor each operation rounds to bf16, which is how the
+    reference's ``jax.nn.silu`` computes it op by op (``F.silu`` would
+    round once): the MoE experts and the unfused FFN use it so."""
     return g * (1.0 / (1.0 + torch.exp(-g)))
 
 
@@ -279,5 +288,98 @@ def _lib_swiglu():
                        + [c.c_int] * 3 + [c.c_float] + [c.c_int] * 2
                        + [c.c_int] * 4 + [c.c_float] + [c.c_int] * 2
                        + [c.c_void_p])
+        fn.restype = c.c_int
+    return lib
+
+
+# ---------------------------------------------------------------------------
+# qmatmul_batched_prng: rounded a[e] @ b[e], per-slice seed words
+# ---------------------------------------------------------------------------
+def qmatmul_batched_plain(a: torch.Tensor, b: torch.Tensor, seeds, fmt,
+                          mode: str = "sr", rand_bits: int = 32
+                          ) -> torch.Tensor:
+    """The plain twin: a batched fp32 GEMM, then round_block fed slice
+    e's counter bits from ``seeds[e]`` at within-slice (row, col), stream
+    0 (``common.counter_bits_batch``)."""
+    acc = torch.bmm(a.float(), b.float())
+    bits = None
+    if get_scheme(mode).stochastic:
+        bits = common.counter_bits_batch(_host_seeds(seeds, acc.shape[0]),
+                                         tuple(acc.shape), rand_bits,
+                                         stream=STREAM_FWD,
+                                         device=acc.device)
+    return common.round_block(acc, bits, fmt, mode, rand_bits=rand_bits)
+
+
+def _host_seeds(seeds, E: int) -> np.ndarray:
+    """Per-slice seed words as an (E, 2) int64 array of uint32 values."""
+    if isinstance(seeds, torch.Tensor):
+        seeds = seeds.cpu().numpy()
+    arr = np.asarray(seeds, dtype=np.int64) & 0xFFFFFFFF
+    if arr.shape != (E, 2):
+        raise ValueError(f"seeds must be ({E}, 2) uint32 words, got "
+                         f"{arr.shape}")
+    return arr
+
+
+def qmatmul_batched_prng(a: torch.Tensor, b: torch.Tensor, seeds, fmt,
+                         mode: str = "sr", rand_bits: int = 32, *,
+                         eps: float = 0.0, overflow: str = "saturate",
+                         act=None, act_spec=None, out_packed=False,
+                         a_fmt=None) -> torch.Tensor:
+    """Rounded ``a[e] @ b[e]`` for every slice e (a: (E, M, K) float32;
+    b: (E, K, N) float32 or bf16); ``seeds``: (E, 2) uint32 words, one
+    pair per slice (numpy array or tensor; ``policy.slice_words``).
+    Returns (E, M, N) float32 grid values."""
+    _check_unsupported(None, act, act_spec, out_packed, a_fmt, eps, overflow)
+    grid = _check_fmt_mode(fmt, mode, rand_bits, "qmatmul_batched_prng")
+    if a.dim() != 3 or a.dtype != torch.float32:
+        raise ValueError("qmatmul_batched_prng: a must be a 3-D float32 "
+                         f"tensor, got {tuple(a.shape)} {a.dtype}")
+    if b.dim() != 3 or b.shape[0] != a.shape[0] or b.shape[1] != a.shape[2]:
+        raise ValueError("qmatmul_batched_prng: shape mismatch "
+                         f"{tuple(a.shape)} x {tuple(b.shape)}")
+    if b.dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError("qmatmul_batched_prng: b must be float32 or "
+                         f"bfloat16, got {b.dtype}")
+    if b.device != a.device:
+        raise ValueError("qmatmul_batched_prng: operands on different "
+                         "devices")
+    E, M, K = a.shape
+    N = b.shape[2]
+    host = _host_seeds(seeds, E)
+    if a.device.type == "cpu":
+        return qmatmul_batched_plain(a, b, host, grid, mode, rand_bits)
+    if a.device.type != "cuda":
+        raise ValueError(f"qmatmul_batched_prng: unsupported device "
+                         f"{a.device}")
+    if E > 65535 or -(-M // 4) > 65535:
+        raise ValueError(f"qmatmul_batched_prng: E={E}, M={M} exceed the "
+                         "kernel's grid")
+    a, b = a.contiguous(), b.contiguous()
+    out = torch.empty((E, M, N), dtype=torch.float32, device=a.device)
+    if out.numel() == 0:
+        return out                       # nothing to launch
+    dev_seeds = common.host_to_device(
+        host.astype(np.uint32).view(np.int32), a.device)
+    rc = _lib_batched().qmatmul_batched_sr(
+        a.data_ptr(), b.data_ptr(), int(b.dtype == torch.bfloat16),
+        dev_seeds.data_ptr(), out.data_ptr(), E, M, N, K,
+        *_round_args(grid, mode, rand_bits),
+        torch.cuda.current_stream(a.device).cuda_stream)
+    _launch_check(rc, "qmatmul_batched_sr")
+    LAUNCHES["qmatmul_batched_sr"] += 1
+    return out
+
+
+def _lib_batched():
+    lib = build.load("qmatmul_batched_sr")
+    fn = lib.qmatmul_batched_sr
+    if fn.argtypes is None:
+        c = ctypes
+        fn.argtypes = [c.c_void_p, c.c_void_p, c.c_int, c.c_void_p,
+                       c.c_void_p, c.c_int, c.c_int, c.c_int, c.c_int,
+                       c.c_int, c.c_int, c.c_int, c.c_float, c.c_int,
+                       c.c_int, c.c_void_p]
         fn.restype = c.c_int
     return lib

@@ -1,12 +1,14 @@
-"""Where a serving step's time goes: ``torch.profiler`` over the serve cell
-(``serve.SERVE_RUN``: tinyllama-1.1b at full size, batch 4, prompt 32, gen
-16, the seeded weights and prompts of ``serve.run``) on the card, under
-``binary8-paper`` and ``binary8-paper-attn``.
+"""Where a serving step's time goes: ``torch.profiler`` over the serve
+cells on the card: ``serve.SERVE_RUN`` (tinyllama-1.1b at full size, batch
+4, prompt 32, gen 16, the seeded weights and prompts of ``serve.run``)
+under ``binary8-paper`` and ``binary8-paper-attn``, then
+``serve.MOE_SERVE_RUN`` (qwen3-moe-30b-a3b, the same batch) under
+``binary8-paper``.
 
   PYTHONPATH=src python -m repro_torch.launch.profile_serve \\
       [--out chiprun_out/profile_serve.json]
 
-For each policy, after a warm-up batch, the cell's whole batch (32 prompt
+For each cell, after a warm-up batch, the cell's whole batch (32 prompt
 tokens absorbed, 16 decoded, each a one-token ``decode_step``) runs under
 the profiler; it prints per step the host-clock wall time, the device time
 summed over kernels (one stream: their sum over the wall time is the
@@ -17,6 +19,7 @@ needs a card: without one it raises.
 from __future__ import annotations
 
 import argparse
+import gc
 import json
 from pathlib import Path
 
@@ -25,11 +28,15 @@ import torch
 from repro_torch.launch import serve
 from repro_torch.launch.profile_train import kernel_rows
 
-POLICIES = ("binary8-paper", "binary8-paper-attn")
+CELLS = ((serve.SERVE_RUN, "binary8-paper"),
+         (serve.SERVE_RUN, "binary8-paper-attn"),
+         (serve.MOE_SERVE_RUN, "binary8-paper"))
 
 
-def profile(policy: str) -> dict:
-    run = dict(serve.SERVE_RUN)
+def profile(cell: dict, policy: str) -> dict:
+    gc.collect()                  # the previous cell's weights
+    torch.cuda.empty_cache()
+    run = dict(cell)
     gen = run.pop("gen")
     _, model, params, prompts = serve.setup(**run, gemm_policy=policy)
     serve.serve_batch(model, params, prompts, 2)
@@ -45,7 +52,7 @@ def profile(policy: str) -> dict:
     device_ms = sum(r["device_ms"] for r in rows)
     launches = sum(e.count for e in events if e.key == "cudaLaunchKernel")
     host_ms = sum(e.self_cpu_time_total for e in events) / 1e3
-    return {**serve.SERVE_RUN, "policy": policy, "steps": steps,
+    return {**cell, "policy": policy, "steps": steps,
             "device": torch.cuda.get_device_name(0),
             "wall_ms_per_step": wall_ms / steps,
             "device_ms_per_step": device_ms / steps,
@@ -58,9 +65,10 @@ def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--out", default="chiprun_out/profile_serve.json")
     args = ap.parse_args(argv)
-    res = [profile(p) for p in POLICIES]
+    res = [profile(cell, p) for cell, p in CELLS]
     for r in res:
-        print(f"{r['device']} {r['policy']}: {r['steps']} steps; per step "
+        print(f"{r['device']} {r['arch']} {r['policy']}: {r['steps']} "
+              "steps; per step "
               f"wall {r['wall_ms_per_step']:.1f} ms, device "
               f"{r['device_ms_per_step']:.1f} ms (busy share "
               f"{r['busy_share']:.3f}), {r['launches_per_step']:.0f} kernel "

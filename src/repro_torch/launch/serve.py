@@ -5,7 +5,9 @@ Example (on the card; add ``--device cpu --reduced`` for a CPU smoke run):
   PYTHONPATH=src python -m repro_torch.launch.serve --arch tinyllama-1.1b \
       --batch 4 --prompt-len 32 --gen 16 --gemm-policy binary8-paper
 (``--gemm-policy binary8-paper-attn`` also rounds the attention op and
-stores the KV cache as packed e4m3 codes.)
+stores the KV cache as packed e4m3 codes.)  The MoE decoder serves the same
+way: ``--arch qwen3-moe-30b-a3b`` (30.5 B parameters, 57 GiB of bf16
+weights on one 80 GB card).
 
 As in the reference, the prompt is absorbed one token at a time with
 ``decode_step(compute_logits=False)`` (prompt absorption and decode are the
@@ -23,6 +25,7 @@ import torch
 
 from repro_torch.configs import get_config, reduced as reduce_cfg
 from repro_torch.device import resolve_device
+from repro_torch.kernels.tree_update import tree_leaves
 from repro_torch.models import attention, build_model
 from repro_torch.precision import PRESETS
 
@@ -74,9 +77,11 @@ def serve_batch(model, params, prompts: torch.Tensor, gen: int,
             "decode_tokps": batch * gen / max(t_decode, 1e-9)}
 
 
-# The full-size target run: the serve cell that ``chip_smoke.py`` drives
-# and ``profile_serve`` traces.
+# The full-size target runs: the serve cells that ``chip_smoke.py`` drives
+# and ``profile_serve`` traces, for the dense and the MoE decoder.
 SERVE_RUN = dict(arch="tinyllama-1.1b", batch=4, prompt_len=32, gen=16)
+MOE_SERVE_RUN = dict(arch="qwen3-moe-30b-a3b", batch=4, prompt_len=32,
+                     gen=16)
 
 
 def setup(arch: str, *, reduced: bool = False, batch: int = 4,
@@ -108,13 +113,15 @@ def run(arch: str, *, reduced: bool = False, batch: int = 4,
         arch, reduced=reduced, batch=batch, prompt_len=prompt_len,
         seed=seed, gemm_policy=gemm_policy, device=device)
     out = serve_batch(model, params, prompts, gen)
+    out["n_params"] = sum(t.numel() for t in tree_leaves(params))
     out["cache_dtype"] = attention.cache_dtype(cfg)
     out["cache_bytes"] = 2 * cfg.n_layers * batch * (prompt_len + gen) \
         * cfg.n_kv_heads * cfg.resolved_head_dim \
         * out["cache_dtype"].itemsize
     print(f"arch={cfg.name} batch={batch} prompt={prompt_len} gen={gen} "
           f"policy={gemm_policy} device={prompts.device}")
-    print(f"kv cache {out['cache_dtype']} {out['cache_bytes']} bytes")
+    print(f"parameters {out['n_params']}; kv cache {out['cache_dtype']} "
+          f"{out['cache_bytes']} bytes")
     print(f"prefill {out['t_prefill']:.3f}s ({out['prefill_tokps']:.1f} "
           f"tok/s); decode {out['t_decode']:.3f}s "
           f"({out['decode_tokps']:.1f} tok/s)")

@@ -38,16 +38,16 @@ class KVCache:
     length: int = 0
 
 
-def attn_init(gen: torch.Generator, cfg, n: Optional[int] = None
-              ) -> Dict[str, torch.Tensor]:
+def attn_init(gen: torch.Generator, cfg, n: Optional[int] = None,
+              dtype: torch.dtype = torch.float32) -> Dict[str, torch.Tensor]:
     d, hd = cfg.d_model, cfg.resolved_head_dim
     nh, nkv = cfg.n_heads, cfg.n_kv_heads
     return {
-        "wq": L.dense_init(gen, d, nh * hd, n=n),
-        "wk": L.dense_init(gen, d, nkv * hd, n=n),
-        "wv": L.dense_init(gen, d, nkv * hd, n=n),
+        "wq": L.dense_init(gen, d, nh * hd, n=n, dtype=dtype),
+        "wk": L.dense_init(gen, d, nkv * hd, n=n, dtype=dtype),
+        "wv": L.dense_init(gen, d, nkv * hd, n=n, dtype=dtype),
         "wo": L.dense_init(gen, nh * hd, d, scale=1.0 / (nh * hd) ** 0.5,
-                           n=n),
+                           n=n, dtype=dtype),
     }
 
 

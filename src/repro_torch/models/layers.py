@@ -34,16 +34,21 @@ def qdense(x: torch.Tensor, w: torch.Tensor,
 
 
 def dense_init(gen: torch.Generator, d_in: int, d_out: int,
-               scale: Optional[float] = None, n: Optional[int] = None
-               ) -> torch.Tensor:
-    """N(0, scale^2) weights, (d_in, d_out) or stacked (n, d_in, d_out)."""
+               scale: Optional[float] = None, n: Optional[int] = None,
+               dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """N(0, scale^2) weights, (d_in, d_out) or stacked (n, d_in, d_out),
+    drawn in float32 and stored as ``dtype`` (one float32 leaf alive at a
+    time: the draw is scaled in place)."""
     scale = scale if scale is not None else 1.0 / np.sqrt(d_in)
     shape = (d_in, d_out) if n is None else (n, d_in, d_out)
-    return torch.randn(shape, generator=gen, device=gen.device) * scale
+    w = torch.randn(shape, generator=gen, device=gen.device).mul_(scale)
+    return w.to(dtype)
 
 
-def embed_init(gen: torch.Generator, vocab: int, d: int) -> torch.Tensor:
-    return torch.randn((vocab, d), generator=gen, device=gen.device) * 0.02
+def embed_init(gen: torch.Generator, vocab: int, d: int,
+               dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    return torch.randn((vocab, d), generator=gen, device=gen.device) \
+        .mul_(0.02).to(dtype)
 
 
 def rms_norm(x: torch.Tensor, scale: torch.Tensor,

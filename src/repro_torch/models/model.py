@@ -1,5 +1,5 @@
-"""Model facade for the dense decoder: init, training loss and cached
-decode (counterpart of ``repro.models.model``).
+"""Model facade for the dense and MoE decoders: init, training loss and
+cached decode (counterpart of ``repro.models.model``).
 
 ``decode_step`` keeps the reference's seed chain: with a GEMM policy the
 step key is ``fold_in(PRNGKey(0), pos)`` (stochastic-rounding streams
@@ -35,6 +35,8 @@ def store_params(tree):
             out[k] = store_params(v)
         elif k.startswith("norm") or k == "final_norm":
             out[k] = v.float()
+        elif isinstance(v, list):            # per-layer expert stacks
+            out[k] = [L.store_weight(t) for t in v]
         else:
             out[k] = L.store_weight(v)
     return out
@@ -46,22 +48,31 @@ class Model:
 
     def init(self, gen: torch.Generator) -> Dict[str, Any]:
         """Random parameters from ``gen``, on ``gen.device``, as the port
-        serves with them (``store_params``); the same tree and initial
-        distributions as the reference's ``Model.init``."""
-        return store_params(self.init_master(gen))
+        serves with them (``store_params``: GEMM weights and the
+        embedding bf16, norm scales float32); the same tree and initial
+        distributions as the reference's ``Model.init``.  Each leaf is
+        drawn in float32 and rounded at once, so the peak is the stored
+        tree plus one float32 leaf (30.5 B parameters fit one card)."""
+        return self._draw(gen, L.COMPUTE_DTYPE)
 
     def init_master(self, gen: torch.Generator) -> Dict[str, Any]:
         """The float32 master parameters the trainer updates: the same
         draws as ``init``, unrounded."""
+        return self._draw(gen, torch.float32)
+
+    def _draw(self, gen: torch.Generator, dtype: torch.dtype
+              ) -> Dict[str, Any]:
         cfg = self.cfg
         params: Dict[str, Any] = {
-            "embed": L.embed_init(gen, cfg.vocab_size, cfg.d_model),
-            "blocks": transformer.init_blocks(gen, cfg),
+            "embed": L.embed_init(gen, cfg.vocab_size, cfg.d_model,
+                                  dtype=dtype),
+            "blocks": transformer.init_blocks(gen, cfg, dtype=dtype),
             "final_norm": torch.zeros((cfg.d_model,), device=gen.device),
         }
         if not cfg.tie_embeddings:
             params["lm_head"] = L.dense_init(gen, cfg.d_model,
-                                             cfg.vocab_size, scale=0.02)
+                                             cfg.vocab_size, scale=0.02,
+                                             dtype=dtype)
         return params
 
     def init_decode_cache(self, batch: int, max_len: int, device=None

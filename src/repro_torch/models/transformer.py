@@ -1,6 +1,8 @@
-"""Block assembly for the dense decoder (counterpart of
-``repro.models.transformer``): pre-norm attention + pre-norm SwiGLU FFN,
-parameters stacked over layers, run as a Python loop over the layers.
+"""Block assembly for the dense and MoE decoders (counterpart of
+``repro.models.transformer``): pre-norm attention + pre-norm FFN (the MoE
+FFN under ``cfg.moe``), parameters stacked over layers, run as a Python
+loop over the layers.  An MoE block's aux loss is not collected: it
+enters the training loss with MoE training, not ported yet.
 
 Seed chain of the reference's ``apply_blocks``: the plan of "attn" blocks is
 one segment, so ``seg_rng = fold_in(rng, 0)`` and layer i gets
@@ -18,23 +20,31 @@ from typing import Any, Dict
 import torch
 
 from repro_torch.core import prng
-from repro_torch.models import attention, ffn, layers as L
+from repro_torch.models import attention, ffn, layers as L, moe
 from repro_torch.precision.policy import ctx_for
 
 
-def init_blocks(gen: torch.Generator, cfg) -> Dict[str, Any]:
-    """Stacked params of the "attn" blocks (leading dim = layer)."""
-    if cfg.family != "dense":
+def init_blocks(gen: torch.Generator, cfg,
+                dtype: torch.dtype = torch.float32) -> Dict[str, Any]:
+    """Stacked params of the "attn" blocks (leading dim = layer; an MoE
+    block's expert stacks are per-layer lists).  GEMM weights are stored
+    as ``dtype``, norm scales float32."""
+    if cfg.family not in ("dense", "moe") or set(cfg.plan()) != {"attn"}:
         raise NotImplementedError(f"block plan of {cfg.name!r} "
                                   f"({cfg.family}) is not ported yet")
     n, d = cfg.n_layers, cfg.d_model
     dev = gen.device
-    return {"attn": {
+    block = {
         "norm1": torch.zeros((n, d), device=dev),
         "norm2": torch.zeros((n, d), device=dev),
-        "attn": attention.attn_init(gen, cfg, n=n),
-        "mlp": ffn.ffn_init(gen, d, cfg.d_ff, cfg.ffn_act, n=n),
-    }}
+        "attn": attention.attn_init(gen, cfg, n=n, dtype=dtype),
+    }
+    if cfg.moe is not None:
+        block["moe"] = moe.moe_init(gen, cfg, n, dtype=dtype)
+    else:
+        block["mlp"] = ffn.ffn_init(gen, d, cfg.d_ff, cfg.ffn_act, n=n,
+                                    dtype=dtype)
+    return {"attn": block}
 
 
 def _layer(tree, i: int):
@@ -51,6 +61,9 @@ def apply_attn_block(p, x, positions, cfg, cache, layer: int, key):
     x = x + attention.attn_apply(p["attn"], h, positions, cfg, cache=cache,
                                  layer=layer, quant=qc)
     h2 = L.rms_norm(x, p["norm2"])
+    if "moe" in p:
+        y, _ = moe.moe_apply(p["moe"], h2, cfg, quant=qc)
+        return x + y
     return x + ffn.ffn_apply(p["mlp"], h2, cfg.ffn_act, quant=qc)
 
 

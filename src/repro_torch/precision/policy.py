@@ -10,7 +10,11 @@ host; the kernels draw their bits from them on the device.
 
 ``qdot`` is differentiable: its backward runs the dgrad and wgrad GEMMs
 through the same rounded kernel (K3') at the DGRAD/WGRAD sites, as the
-reference's ``custom_vjp`` does.  ``qact`` is not ported yet.
+reference's ``custom_vjp`` does.  ``qeinsum`` is the batched contraction
+(the MoE expert stacks) through the batched rounded kernel (K8'), forward
+only: its backward (dgrad/wgrad through K8') is not ported yet and raises.
+``qact`` rounds an activation tensor onto the ``act`` grid (K1') with a
+straight-through gradient.
 
 The attention sites (the QKᵀ logits, each kv block's P·V partial product,
 the normalised output) and the KV-cache storage spec ride on the same
@@ -19,6 +23,7 @@ policy; ``precision/attention.py`` wires them to the flash kernels.
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Any, NamedTuple, Optional
 
 import numpy as np
@@ -27,7 +32,9 @@ import torch
 from repro_torch.core import prng
 from repro_torch.core.rounding import IDENTITY, RoundingSpec, parse_spec, spec
 from repro_torch.kernels import common
-from repro_torch.kernels.qmatmul import Words, qmatmul_prng
+from repro_torch.kernels.qmatmul import (Words, qmatmul_batched_prng,
+                                         qmatmul_prng)
+from repro_torch.kernels.sr_cast import sr_cast_prng
 
 # GEMM/activation sites (folded into the per-call seed words).
 SITE_FWD, SITE_DGRAD, SITE_WGRAD, SITE_ACT = 0, 1, 2, 3
@@ -36,7 +43,11 @@ SITE_FWD, SITE_DGRAD, SITE_WGRAD, SITE_ACT = 0, 1, 2, 3
 # values for the sites this slice runs.
 TAG_ATTN_Q, TAG_ATTN_K, TAG_ATTN_V, TAG_ATTN_O = 0, 1, 2, 3
 TAG_FFN_UP, TAG_FFN_GATE, TAG_FFN_DOWN, TAG_FFN_ACT = 4, 5, 6, 7
+TAG_ROUTER = 8
 TAG_LOGITS = 18
+# MoE stacked-expert einsums (the expert index is a per-slice fold inside
+# qeinsum, not part of the tag)
+TAG_MOE_GATE, TAG_MOE_UP, TAG_MOE_DOWN, TAG_MOE_ACT = 32, 33, 34, 35
 # flash-attention rounding sites (folded off the block context words: one
 # attention op per block) and the KV-cache store site
 TAG_ATTN_QK, TAG_ATTN_AV, TAG_ATTN_OUT, TAG_ATTN_KV = 36, 37, 38, 39
@@ -294,3 +305,143 @@ def qdot(a: torch.Tensor, b: torch.Tensor, quant: Optional[QuantCtx],
         out = site_matmul(policy, SITE_FWD, a2, b, words)
     out_dtype = torch.promote_types(a.dtype, b.dtype)
     return out.reshape(*lead, b.shape[-1]).to(out_dtype)
+
+
+# ---------------------------------------------------------------------------
+# The rounded batched contraction (einsum-capable), forward only.
+# ---------------------------------------------------------------------------
+def batched_site_matmul(policy: QuantPolicy, site: int, a: torch.Tensor,
+                        b: torch.Tensor, words: Words) -> torch.Tensor:
+    """One rounded batched GEMM (E, M, K) x (E, K, N) -> (E, M, N) float32
+    at ``site``: slice e draws from ``fold_words(fold_words(words, site),
+    e)`` (``slice_words``)."""
+    s: RoundingSpec = getattr(policy, _SITE_ATTR[site])
+    if s.is_identity:
+        return torch.bmm(a.float(), b.float())
+    seeds = slice_words(fold_words(words, site), a.shape[0])
+    return qmatmul_batched_prng(a, b, seeds, s.fmt, s.mode, s.rand_bits,
+                                eps=s.eps, overflow=s.overflow)
+
+
+class _QBmm(torch.autograd.Function):
+    """The forward of the reference's ``_qbmm``; its VJP (dgrad/wgrad as
+    K8' launches on transposed operands) is not ported yet, so a backward
+    raises instead of returning a wrong gradient."""
+
+    @staticmethod
+    def forward(ctx, a, b, policy: QuantPolicy, words: Words):
+        return batched_site_matmul(policy, SITE_FWD, a, b, words)
+
+    @staticmethod
+    def backward(ctx, g):
+        raise NotImplementedError("the backward of qeinsum (MoE training) "
+                                  "is not ported yet")
+
+
+@functools.lru_cache(maxsize=None)
+def _parse_einsum(eqn: str):
+    """Decompose a two-operand einsum into (batch, contract, free_a,
+    free_b) label groups.  Supported: unique labels per operand, no
+    ellipsis, every non-contracted label present in the output."""
+    eqn = eqn.replace(" ", "")
+    if "->" not in eqn or "." in eqn:
+        raise ValueError(f"qeinsum needs an explicit two-operand "
+                         f"'ab,bc->ac'-style equation, got {eqn!r}")
+    lhs, out = eqn.split("->")
+    sa, sb = lhs.split(",")
+    if len(set(sa)) != len(sa) or len(set(sb)) != len(sb) \
+            or len(set(out)) != len(out):
+        raise ValueError(f"qeinsum: repeated labels unsupported in {eqn!r}")
+    batch = tuple(d for d in sa if d in sb and d in out)
+    contract = tuple(d for d in sa if d in sb and d not in out)
+    free_a = tuple(d for d in sa if d not in sb)
+    free_b = tuple(d for d in sb if d not in sa)
+    if set(out) != set(batch + free_a + free_b) or not contract:
+        raise ValueError(f"qeinsum: {eqn!r} is not a pure contraction "
+                         "(summed-out free labels are unsupported)")
+    return sa, sb, out, batch, contract, free_a, free_b
+
+
+def _prod(xs) -> int:
+    out = 1
+    for x in xs:
+        out *= x
+    return out
+
+
+def qeinsum(eqn: str, a: torch.Tensor, b: torch.Tensor,
+            quant: Optional[QuantCtx], tag: int = 0) -> torch.Tensor:
+    """Policy-rounded ``torch.einsum(eqn, a, b)``: the operands are
+    canonicalised to (G, M, K) x (G, K, N) stacks and run through K8'
+    with per-slice seed folds.  a goes to float32; b keeps its dtype
+    (the kernel widens bf16 exactly), as ``qdot``.  The result is cast to
+    the operands' common dtype.  With no policy this is exactly
+    ``torch.einsum(eqn, a, b)``."""
+    if quant is None or quant.policy.gemm_identity:
+        return torch.einsum(eqn, a, b)
+    sa, sb, out, batch, contract, free_a, free_b = _parse_einsum(eqn)
+    dim = {}
+    for labels, shape in ((sa, a.shape), (sb, b.shape)):
+        if len(labels) != len(shape):
+            raise ValueError(f"{eqn!r} rank mismatch for shape "
+                             f"{tuple(shape)}")
+        for d, n in zip(labels, shape):
+            if dim.setdefault(d, n) != n:
+                raise ValueError(f"{eqn!r}: size mismatch on {d!r}")
+    policy, words = quant
+    words = fold_words(words, tag)
+    a3 = a.permute([sa.index(d) for d in batch + free_a + contract]) \
+        .reshape(_prod(dim[d] for d in batch), _prod(dim[d] for d in free_a),
+                 _prod(dim[d] for d in contract)).float()
+    b3 = b.permute([sb.index(d) for d in batch + contract + free_b]) \
+        .reshape(a3.shape[0], a3.shape[2], _prod(dim[d] for d in free_b))
+    if b3.dtype not in (torch.float32, torch.bfloat16):
+        b3 = b3.float()
+    if needs_grad(a3, b3):
+        o3 = _QBmm.apply(a3, b3, policy, words)
+    else:
+        o3 = batched_site_matmul(policy, SITE_FWD, a3, b3, words)
+    o = o3.reshape([dim[d] for d in batch + free_a + free_b])
+    o = o.permute([(batch + free_a + free_b).index(d) for d in out])
+    return o.to(torch.promote_types(a.dtype, b.dtype))
+
+
+# ---------------------------------------------------------------------------
+# Activation rounding (straight-through estimator).
+# ---------------------------------------------------------------------------
+def act_round(policy: QuantPolicy, x: torch.Tensor,
+              words: Words) -> torch.Tensor:
+    """The act site's rounding of float32 ``x`` (K1', bits keyed by the
+    flat 128-lane layout of ``fold_words(words, SITE_ACT)``)."""
+    s = policy.act
+    w = fold_words(words, SITE_ACT)
+    return sr_cast_prng(x, w, s.fmt, s.mode, eps=s.eps,
+                        rand_bits=s.rand_bits, overflow=s.overflow)
+
+
+class _QAct(torch.autograd.Function):
+    """Rounding is piecewise constant; its gradient is taken as the
+    identity on the carrier (the reference's straight-through ``_qact``)."""
+
+    @staticmethod
+    def forward(ctx, x, policy: QuantPolicy, words: Words):
+        return act_round(policy, x, words)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None, None
+
+
+def qact(x: torch.Tensor, quant: Optional[QuantCtx],
+         tag: int = 0) -> torch.Tensor:
+    """Round an activation tensor onto the policy's ``act`` grid (STE);
+    computed in float32 and cast back to ``x``'s dtype."""
+    if quant is None or quant.policy.act.is_identity:
+        return x
+    words = fold_words(quant.words, tag)
+    xf = x.float()
+    if needs_grad(xf):
+        out = _QAct.apply(xf, quant.policy, words)
+    else:
+        out = act_round(quant.policy, xf, words)
+    return out.to(x.dtype)

@@ -17,7 +17,11 @@ hidden.  The attention kernels: the rounded logits and their row max
 bitwise on exact-sum inputs; out, dq, dk, dv at most max(1, 1e-4 n)
 elements different on N(0, 1) inputs (float32 sums in another order, a
 value within an ulp of a rounding decision); K9 over packed codes bitwise
-K9 over the same values unpacked.
+K9 over the same values unpacked.  The SR cast (K1') is bitwise on any
+input; the batched GEMM (K8') is held to the GEMM contract.  The reduced
+qwen3-moe decoder on the card against the CPU twins: the serve test's
+statistical logit bound (a GEMM sum flipped upstream moves an SR
+decision by a grid ulp, which propagates).
 """
 import numpy as np
 import pytest
@@ -29,6 +33,7 @@ from repro_torch.kernels import common as tcommon
 from repro_torch.kernels import flash_attention as tfa
 from repro_torch.kernels import fused_update as tfu
 from repro_torch.kernels import qmatmul as tq
+from repro_torch.kernels import sr_cast as tsr
 
 SEEDS = ((0x12345678, 0x9ABCDEF0), (7, 0xFFFFFFFF), (0xDEADBEEF, 3))
 ACT_SPECS = {"binary8-sr": spec("binary8", "sr"),
@@ -115,7 +120,8 @@ def test_kernels_count_their_launches(cuda):
     tq.qmatmul_plain(a, b, SEEDS[0], "binary8")
     empty = tq.qmatmul_prng(a[:0], b, SEEDS[0], "binary8")
     assert empty.shape == (0, 32)
-    assert tq.LAUNCHES == {"qmatmul_sr": 1, "qmatmul_swiglu_sr": 1}
+    assert tq.LAUNCHES == {"qmatmul_sr": 1, "qmatmul_swiglu_sr": 1,
+                           "qmatmul_batched_sr": 0}
 
 
 @pytest.mark.gpu
@@ -311,3 +317,117 @@ def test_flash_kernels_count_their_launches(cuda):
     tfa.flash_decode(q[:2, :3], k, v, seeds[:2], 5, specs, scale=0.125)
     assert tfa.LAUNCHES == {"flash_fwd": 1, "flash_bwd_dq": 1,
                             "flash_bwd_dkv": 1, "flash_decode": 1}
+
+
+# ---------------------------------------------------------------------------
+# K1' (sr_cast_prng) and K8' (qmatmul_batched_prng): the MoE serve path
+# ---------------------------------------------------------------------------
+SR_CAST_CASES = [("binary8", "sr", 32), ("binary8", "sr", 16),
+                 ("binary8", "sr", 8), ("binary8", "rn", 32),
+                 ("e4m3", "sr", 16), ("bfloat16", "sr", 32)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", [(1,), (5,), (3, 7, 11), (128, 1, 768),
+                                   (2 ** 24 + 37,)],
+                         ids=lambda s: "x".join(map(str, s)))
+def test_sr_cast_kernel_matches_plain(cuda, shape):
+    x = _normal(shape, 9, 4.0).to(cuda)
+    for fmt, mode, rb in SR_CAST_CASES:
+        got = tsr.sr_cast_prng(x, SEEDS[0], fmt, mode, rand_bits=rb)
+        ref = tsr.sr_cast_prng_plain(x, SEEDS[0], fmt, mode, rb)
+        torch.cuda.synchronize()
+        assert got.shape == x.shape
+        assert torch.equal(got.view(torch.int32), ref.view(torch.int32)), \
+            (fmt, mode, rb)
+
+
+@pytest.mark.gpu
+def test_sr_cast_kernel_unaligned_and_counted(cuda):
+    """A view that starts off a 16-byte boundary takes the scalar path."""
+    tsr.reset_launches()
+    x = _normal((1 + 128 * 5 + 3,), 10, 4.0).to(cuda)[1:]
+    assert x.data_ptr() % 16 != 0
+    got = tsr.sr_cast_prng(x, SEEDS[1], "binary8", "sr", rand_bits=8)
+    ref = tsr.sr_cast_prng_plain(x, SEEDS[1], "binary8", "sr", 8)
+    torch.cuda.synchronize()
+    assert torch.equal(got.view(torch.int32), ref.view(torch.int32))
+    assert tsr.sr_cast_prng(x[:0], SEEDS[1], "binary8").numel() == 0
+    assert tsr.LAUNCHES == {"sr_cast_prng": 1}
+
+
+def _batched_seeds(E):
+    return np.random.default_rng(E).integers(0, 2 ** 32, (E, 2),
+                                             dtype=np.int64)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("E,M,K,N", [(128, 1, 2048, 768), (128, 1, 768, 2048),
+                                     (5, 3, 70, 50), (4, 9, 300, 130)])
+def test_qmatmul_batched_kernel_matches_plain(cuda, E, M, K, N):
+    seeds = _batched_seeds(E)
+    a = _exact((E, M, K), 8.0, M).to(cuda)
+    b = _exact((E, K, N), 4.0, N).to(cuda)
+    for b_dtype in (torch.bfloat16, torch.float32):
+        for fmt, mode, rb in (("binary8", "sr", 32), ("binary8", "rn", 32),
+                              ("e4m3", "sr", 16), ("binary8", "sr", 8)):
+            got = tq.qmatmul_batched_prng(a, b.to(b_dtype), seeds, fmt,
+                                          mode, rb)
+            ref = tq.qmatmul_batched_plain(a, b, seeds, fmt, mode, rb)
+            torch.cuda.synchronize()
+            assert torch.equal(got.view(torch.int32),
+                               ref.view(torch.int32)), (b_dtype, fmt, mode)
+    a = _normal((E, M, K), M + 1).to(cuda)
+    b = _normal((E, K, N), N + 1, K ** -0.5).to(cuda).to(torch.bfloat16)
+    got = tq.qmatmul_batched_prng(a, b, seeds, "binary8")
+    ref = tq.qmatmul_batched_plain(a, b, seeds, "binary8")
+    _assert_flips(ref, got, "binary8")
+
+
+@pytest.mark.gpu
+def test_batched_kernel_counts_its_launches(cuda):
+    tq.reset_launches()
+    a = _normal((3, 2, 16), 0).to(cuda)
+    b = _normal((3, 16, 8), 1).to(cuda)
+    tq.qmatmul_batched_prng(a, b, _batched_seeds(3), "binary8")
+    tq.qmatmul_batched_plain(a, b, _batched_seeds(3), "binary8")
+    assert tq.qmatmul_batched_prng(a[:, :0], b, _batched_seeds(3),
+                                   "binary8").numel() == 0
+    assert tq.LAUNCHES == {"qmatmul_sr": 0, "qmatmul_swiglu_sr": 0,
+                           "qmatmul_batched_sr": 1}
+
+
+@pytest.mark.gpu
+def test_moe_decode_card_matches_cpu(cuda):
+    import dataclasses
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.launch import serve
+    from repro_torch.models import build_model
+    cfg = dataclasses.replace(reduced(get_config("qwen3-moe-30b-a3b")),
+                              gemm_policy="binary8-paper")
+    model = build_model(cfg)
+    params = model.init(torch.Generator().manual_seed(5))
+    prompts = torch.randint(0, cfg.vocab_size, (2, 6),
+                            generator=torch.Generator().manual_seed(6))
+    cpu = serve.serve_batch(model, params, prompts, 3)
+
+    def to_cuda(t):
+        if isinstance(t, dict):
+            return {k: to_cuda(v) for k, v in t.items()}
+        if isinstance(t, list):
+            return [to_cuda(v) for v in t]
+        return t.to(cuda)
+
+    tq.reset_launches()
+    tsr.reset_launches()
+    card = serve.serve_batch(model, to_cuda(params), prompts.to(cuda), 3,
+                             forced=cpu["tokens"].to(cuda))
+    torch.cuda.synchronize()
+    steps, L = 6 + 3, cfg.n_layers
+    assert tq.LAUNCHES == {"qmatmul_sr": 5 * L * steps + 3,
+                           "qmatmul_swiglu_sr": 0,
+                           "qmatmul_batched_sr": 3 * L * steps}
+    assert tsr.LAUNCHES == {"sr_cast_prng": L * steps}
+    d = (card["logits"].cpu() - cpu["logits"]).abs()
+    assert float(d.median()) < 0.02
+    assert float((d > 0.05).float().mean()) <= 0.10

@@ -33,3 +33,11 @@ def test_port_file_imports_no_jax_and_no_reference(path):
 
 def test_port_tree_is_nonempty():
     assert len(PORT_FILES) > 10
+
+
+def test_moe_slice_modules_are_checked():
+    """The MoE slice's modules are among the files checked above."""
+    names = {str(p.relative_to(ROOT)) for p in PORT_FILES}
+    for mod in ("models/moe.py", "kernels/sr_cast.py",
+                "configs/qwen3_moe_30b_a3b.py"):
+        assert f"src/repro_torch/{mod}" in names, mod

@@ -209,7 +209,11 @@ def test_cpu_tensors_take_the_plain_twin_and_count_no_launch():
                     "binary8")
     tq.qmatmul_swiglu_prng(torch.from_numpy(a), torch.from_numpy(b),
                            torch.from_numpy(b), SEEDS, "binary8")
-    assert tq.LAUNCHES == {"qmatmul_sr": 0, "qmatmul_swiglu_sr": 0}
+    tq.qmatmul_batched_prng(torch.from_numpy(a)[None],
+                            torch.from_numpy(b)[None], [SEEDS[0]],
+                            "binary8")
+    assert tq.LAUNCHES == {"qmatmul_sr": 0, "qmatmul_swiglu_sr": 0,
+                           "qmatmul_batched_sr": 0}
 
 
 @pytest.mark.parametrize("kwargs", [dict(bias=torch.zeros(8)),

@@ -153,7 +153,7 @@ def test_serve_cli_needs_a_device_or_cpu(capsys):
 
 def test_unported_arch_and_policy_raise():
     with pytest.raises(NotImplementedError):
-        get_config("qwen3-moe-30b-a3b")
+        get_config("deepseek-v2-236b")
     from repro_torch.precision import policy as tp
     with pytest.raises(NotImplementedError):
         tp.get_policy("binary8-paper-packed")
