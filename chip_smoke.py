@@ -29,12 +29,14 @@ Phases (any failed check exits non-zero; there is no CPU fallback):
 7. serve agreement: reduced tinyllama on the card against the same model on
    the CPU (plain twins), teacher-forced;
 8. train: ``repro_torch.launch.train.run`` of ``train.PAPER_RUN``:
-   tinyllama-1.1b at full width and depth, batch 4 x 256 tokens, 4 steps,
+   tinyllama-1.1b at full width and depth, batch 4 x 256 tokens, 4 steps
+   through the TrainLoop (a fresh checkpoint directory, removed after),
    ``binary8-paper`` GEMMs and the signed-SRe binary8 update through K2'
    (``--update-path fused``): launch counts, a finite loss at every step,
    ms/step, tokens/s, memory;
 9. train agreement: reduced tinyllama, 2 steps on the card against the CPU
-   twins from the same parameters and batches, for ``fused`` (K2') and
+   twins from the same parameters and batches (through ``train.run``, each
+   in a fresh checkpoint directory), for ``fused`` (K2') and
    ``fused_bits`` (K2): at most ``AGREE_MAX_PARAMS`` parameters differ and
    the losses agree within ``AGREE_MAX_REL_LOSS``;
 10. attention kernels vs plain: K6, K7 and K7' at the train step's shapes
@@ -66,21 +68,48 @@ Phases (any failed check exits non-zero; there is no CPU fallback):
    full width and depth (48 layers, 128 experts, 30.5 B parameters) under
    ``binary8-paper``, run after the dense phases released their models:
    launch counts against the code's prediction, tok/s, peak memory;
-18. one JSON line of per-kernel numbers, then the result line.
+18. K5 (the fused QAdam step) vs plain: at n = 2**24 + 37 for bf16-sr
+   codes, bf16-sr/e4m3-sr codes, bit-trick bf16 codes, bf16-sr codes with
+   Kahan carries and float32 carries, each under the trainer's chain and
+   phase 4's extra configs, and on a view off a 16-byte boundary: x, the
+   moments and the carries bitwise; then over the 1,100,048,384
+   tinyllama-1.1b parameters with non-zero bf16-sr moment codes under
+   ``ADAM_RUN``'s learning rate, bitwise, and timed beside its bound, the
+   twin and ``torch.optim.Adam(fused=True)`` (float32 moments, unrounded:
+   a yardstick only);
+19. QAdam training: ``train.run(**train.ADAM_RUN)``, tinyllama-1.1b at
+   full size for 4 steps through the TrainLoop (bf16-sr moment codes
+   through K5, binary8-packed checkpoints): launch counts, losses (the
+   last below the first, and step 1's batch below its first reading
+   after the 4 steps), ms/step, peak memory, the checkpoint's bytes
+   and its save and restore seconds; then 2 steps and a resume to 4 in
+   one directory, parameters and moment codes bitwise equal to the
+   uninterrupted run;
+20. QAdam agreement: reduced tinyllama, 2 steps card vs CPU for ``fused``
+   (K5) and ``fused_bits`` (K2 + the plain moments) at phase 9's learning
+   rate, held to phase 9's limits (the moments too); at ``ADAM_RUN``'s
+   learning rate, the card's per-leaf moment step on the CPU's state and
+   gradients bitwise equal to the CPU's; a fault drill on the card
+   (preemptions around a garbled checkpoint) bitwise equal to a clean run;
+21. one JSON line of per-kernel numbers, then the result line.
 
 Detailed numbers also go to ``chiprun_out/chip_smoke.json``.
 """
 from __future__ import annotations
 
+import contextlib
 import gc
 import json
 import math
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
 HERE = Path(__file__).resolve().parent
+BUILD = HERE / "build"
 T_START = time.time()
 # H100 SXM peaks (data sheet): fp32 outside the tensor cores, HBM3 rate
 PEAK_FP32_FLOPS = 67e12
@@ -153,6 +182,18 @@ BATCHED_SHAPES = [(128, 1, 2048, 768, 2 * MOE_LAYERS),
 BATCHED_RAGGED = (5, 3, 70, 50)
 SR_CAST_PATH = (128, 1, 768)
 SR_CAST_SIZES = [(UPDATE_N_SMALL,), SR_CAST_PATH]
+# phase 18: K5's moment cases, (m spec, v spec, packed, Kahan), each under
+# the trainer's chain and phase 4's extra update configs
+ADAM_CASES = [("bf16-sr", "bf16-sr", True, False),
+              ("bf16-sr", "e4m3-sr", True, False),
+              ("bf16-sr-bittrick", "bf16-sr", True, False),
+              ("bf16-sr", "bf16-sr", True, True),
+              ("fp32", "fp32", False, False)]
+# phase 19's resume: this many steps, then the rest in the same directory
+RESUME_AT = 2
+# phase 20's fault drill on the reduced model
+DRILL = dict(steps=8, checkpoint_every=2,
+             fault_schedule="preempt@3,corrupt@4,preempt@5")
 # (grad, mul, sub) spec names of the extra update configs of phase 4
 UPDATE_CONFIGS = {
     "sr_eps-binary8": ("binary8-rn", "binary8-sr_eps-e0.1", "binary8-sr"),
@@ -740,7 +781,8 @@ def serve_phase(torch, mods, serve, policy="binary8-paper"):
     want = {"qmatmul_sr": 5 * LAYERS * steps + GEN,
             "qmatmul_swiglu_sr": LAYERS * steps, "qmatmul_batched_sr": 0,
             "fused_qupdate_prng": 0, "fused_qupdate_bits": 0,
-            "momentum_fma": 0, "flash_fwd": 0, "flash_bwd_dq": 0,
+            "momentum_fma": 0, "fused_qadam_prng": 0, "flash_fwd": 0,
+            "flash_bwd_dq": 0,
             "flash_bwd_dkv": 0,
             "flash_decode": LAYERS * steps if attn else 0,
             "sr_cast_prng": 0}
@@ -806,6 +848,24 @@ def agreement_phase(torch, serve, policy="binary8-paper"):
     return res
 
 
+@contextlib.contextmanager
+def ckpt_dir(tag: str):
+    """A fresh checkpoint directory under the checkout's ``build/``,
+    removed afterwards (a directory holding a checkpoint at the run's
+    total step count would make ``train.run`` resume and take no step)."""
+    BUILD.mkdir(parents=True, exist_ok=True)
+    path = tempfile.mkdtemp(prefix=f"chip_smoke_{tag}_", dir=BUILD)
+    try:
+        yield path
+    finally:
+        shutil.rmtree(path, ignore_errors=True)
+
+
+def dir_bytes(path) -> int:
+    return sum(f.stat().st_size for f in Path(path).rglob("*")
+               if f.is_file())
+
+
 def reset_all(*mods):
     for mod in mods:
         mod.reset_launches()
@@ -827,7 +887,9 @@ def train_phase(torch, mods, train, policy="binary8-paper"):
         fail(f"train.PAPER_RUN {run} is not the run whose shapes phase 5 "
              "checks")
     reset_all(*mods)
-    out = train.run(steps=TRAIN_STEPS, device="cuda", **run)
+    with ckpt_dir("paper") as ckpt:
+        out = train.run(steps=TRAIN_STEPS, device="cuda", ckpt_dir=ckpt,
+                        **run)
     launches = all_launches(*mods)
     peak = torch.cuda.max_memory_allocated()
     n_attn = TRAIN_STEPS * LAYERS if policy == ATTN_POLICY else 0
@@ -835,7 +897,8 @@ def train_phase(torch, mods, train, policy="binary8-paper"):
             "qmatmul_swiglu_sr": TRAIN_STEPS * LAYERS,
             "qmatmul_batched_sr": 0, "sr_cast_prng": 0,
             "fused_qupdate_prng": TRAIN_STEPS, "fused_qupdate_bits": 0,
-            "momentum_fma": TRAIN_STEPS, "flash_fwd": n_attn,
+            "momentum_fma": TRAIN_STEPS, "fused_qadam_prng": 0,
+            "flash_fwd": n_attn,
             "flash_bwd_dq": n_attn, "flash_bwd_dkv": n_attn,
             "flash_decode": 0}
     if launches != want:
@@ -864,55 +927,437 @@ def train_phase(torch, mods, train, policy="binary8-paper"):
 
 
 def train_agreement_phase(torch, mods, train, policy="binary8-paper",
-                          paths=("fused", "fused_bits")):
+                          paths=("fused", "fused_bits"), adam=False):
     """Reduced tinyllama, 2 steps on the card vs the CPU twins from the
     same parameters and batches: the parameters bitwise equal but for a
-    handful (``AGREE_MAX_PARAMS``) and the losses within
-    ``AGREE_MAX_REL_LOSS`` relative.  A GEMM sum that lands within a
-    float32 ulp of a rounding decision would flip and move the stochastic
-    updates behind it (percents of the parameters); this draw has none."""
+    handful (``AGREE_MAX_PARAMS``; with ``adam``, the m and v codes or
+    values too) and the losses within ``AGREE_MAX_REL_LOSS`` relative.  A
+    GEMM sum that lands within a float32 ulp of a rounding decision would
+    flip and move the stochastic updates behind it (percents of the
+    parameters); this draw has none."""
     from repro_torch.configs import get_config, reduced
     from repro_torch.kernels.tree_update import tree_leaves
     from repro_torch.models import build_model
     cfg = reduced(get_config("tinyllama-1.1b"))
     master = build_model(cfg).init_master(torch.Generator().manual_seed(3))
     res, launches = {}, {}
+    # phase 9's learning rate, at which these limits were read
+    opt_kw = {k: train.ADAM_RUN[k] for k in
+              ("optimizer", "moments_spec", "ckpt_fmt")} if adam else {}
     for path in paths:
         kw = dict(reduced=True, steps=2, batch=2, seq=16,
                   gemm_policy=policy, rounding_kind="signed_sr_eps",
-                  fmt="binary8", eps=0.1, update_path=path, verbose=False)
-        cpu = train.run("tinyllama-1.1b", device="cpu", params=master, **kw)
+                  fmt="binary8", eps=0.1, update_path=path, verbose=False,
+                  **opt_kw)
+        with ckpt_dir("agree_cpu") as ckpt:
+            cpu = train.run("tinyllama-1.1b", device="cpu", params=master,
+                            ckpt_dir=ckpt, **kw)
         reset_all(*mods)
-        card = train.run("tinyllama-1.1b", device="cuda",
-                         params=_to(master, "cuda"), **kw)
+        with ckpt_dir("agree_card") as ckpt:
+            card = train.run("tinyllama-1.1b", device="cuda",
+                             params=_to(master, "cuda"), ckpt_dir=ckpt, **kw)
         torch.cuda.synchronize()
         launches[path] = all_launches(*mods)
-        kernel = "fused_qupdate_prng" if path == "fused" \
-            else "fused_qupdate_bits"
-        attn = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv") \
-            if policy == ATTN_POLICY else ()
-        for k in (kernel, "momentum_fma", *attn):
-            if launches[path][k] != 2 * (cfg.n_layers if k in attn else 1):
+        if adam:
+            kernel = "fused_qadam_prng" if path == "fused" \
+                else "fused_qupdate_bits"
+            want = {kernel: 2, "momentum_fma": 0, "fused_qupdate_prng": 0}
+        else:
+            kernel = "fused_qupdate_prng" if path == "fused" \
+                else "fused_qupdate_bits"
+            want = {kernel: 2, "momentum_fma": 2}
+        if policy == ATTN_POLICY:
+            want.update({k: 2 * cfg.n_layers for k in (
+                "flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")})
+        for k, n in want.items():
+            if launches[path][k] != n:
                 fail(f"train agreement {path}: {k} launched "
-                     f"{launches[path][k]} times, not 2")
+                     f"{launches[path][k]} times, not {n}")
         lc = [h["loss"] for h in cpu["history"]]
         lg = [h["loss"] for h in card["history"]]
         rel = max(abs(a - b) / abs(a) for a, b in zip(lc, lg))
-        n_diff = n = 0
-        for a, b in zip(tree_leaves(cpu["params"]),
-                        tree_leaves(card["params"])):
-            n_diff += int((a.view(torch.int32)
-                           != b.cpu().view(torch.int32)).sum())
-            n += a.numel()
-        share = n_diff / n
+        n_diff, n = differing(torch, tree_leaves(cpu["params"]),
+                              tree_leaves(card["params"]))
+        moments = {}
+        if adam:
+            for name in ("m", "v"):
+                moments[name] = differing(
+                    torch, tree_leaves(getattr(cpu["opt_state"], name)),
+                    tree_leaves(getattr(card["opt_state"], name)))[0]
         print(f"  {policy} {path}: losses cpu {lc} card {lg} (max rel diff "
               f"{rel:.3g}), parameters differing {n_diff}/{n} "
-              f"({share:.3g})", flush=True)
-        if rel > AGREE_MAX_REL_LOSS or n_diff > AGREE_MAX_PARAMS:
+              f"({n_diff / n:.3g})"
+              + (f", moments differing {moments}" if adam else ""),
+              flush=True)
+        if rel > AGREE_MAX_REL_LOSS or n_diff > AGREE_MAX_PARAMS \
+                or max(moments.values(), default=0) > AGREE_MAX_PARAMS:
             fail(f"train agreement {path}: beyond the stated tolerance")
         res[path] = dict(losses_cpu=lc, losses_card=lg, max_rel_loss=rel,
-                         params_differing=n_diff, params=n)
+                         params_differing=n_diff, params=n,
+                         moments_differing=moments)
     return res, launches
+
+
+def differing(torch, leaves_a, leaves_b):
+    """(elements whose bits differ, elements) over two lists of tensors on
+    any devices."""
+    n_diff = n = 0
+    for a, b in zip(leaves_a, leaves_b):
+        a, b = a.cpu(), b.cpu()
+        if a.dtype == torch.float32:
+            a, b = a.view(torch.int32), b.view(torch.int32)
+        n_diff += int((a != b).sum())
+        n += a.numel()
+    return n_diff, n
+
+
+def adam_bound(cfg, n: int, m_spec, v_spec, packed: bool, kahan: bool):
+    """(ms, bound_by, bytes, Threefry per element) of one K5 launch over n
+    elements: x, g, the carries (and Kahan carries) read once, x⁺ and the
+    new carries written once; Threefry evaluations: a moment site drawing
+    r-bit fields takes one word pair per 64 / r elements, the chain one
+    per element for every two stochastic steps."""
+    from repro_torch.kernels.common import pack_bytes
+    per = 12 + (16 if kahan else 0)
+    for sp in (m_spec, v_spec):
+        per += 2 * (pack_bytes(sp.fmt) if packed else 4)
+    tf = sum(sp.rand_bits / 64 for sp in (m_spec, v_spec) if sp.stochastic)
+    tf += n_threefry(cfg)
+    t_bytes = n * per / PEAK_BYTES_PER_S
+    t_ops = n * tf * THREEFRY_OPS / PEAK_INT32_OPS
+    return (1e3 * max(t_bytes, t_ops),
+            "bytes" if t_bytes >= t_ops else "operations", n * per, tf)
+
+
+def adam_inputs(torch, n, m_spec, v_spec, packed, kahan, gen, dev):
+    """Mid-trajectory K5 operands: x, g, the carries on their grids (as
+    codes when packed), float32 subnormals and subnormal squares mixed
+    in.  The carries are made 2**26 elements at a time: the plain
+    rounding's temporaries over all of tinyllama's parameters would not
+    fit on the card."""
+    from repro_torch.core.rounding import parse_spec
+    from repro_torch.kernels.common import pack_block
+    x = torch.randn(n, generator=gen, device=dev) * 0.02
+    g = torch.randn(n, generator=gen, device=dev) * 0.3
+    g[3::83] = 2e-39
+    g[5::79] = 1e-20
+
+    def start(sp, vals):
+        vals = vals if sp.is_identity else parse_spec(f"{sp.fmt}-rn")(vals)
+        return pack_block(vals, sp.fmt) if packed else vals
+    parts = [(start(m_spec, 0.1 * gi), start(v_spec, 0.05 * gi * gi + 1e-6))
+             for gi in g.split(1 << 26)]
+    m, v = (torch.cat([p[k] for p in parts]) for k in (0, 1))
+    del parts
+    comp = [torch.randn(n, generator=gen, device=dev) * s
+            for s in (1e-7, 1e-10)] if kahan else [None, None]
+    return x, g, m, v, comp
+
+
+def adam_phase(torch, tfu, n_full: int):
+    """K5 against its plain twin (bitwise in x, the moments and the Kahan
+    carries) at n = 2**24 + 37 for every case and chain, on a view off a
+    16-byte boundary, then bitwise and timed over the tinyllama-1.1b
+    parameter count beside the bound, the twin and
+    ``torch.optim.Adam(fused=True)``."""
+    from repro_torch.core import gd
+    from repro_torch.core.rounding import parse_spec
+    from repro_torch.launch.train import rounding_config
+    from repro_torch.optim import qadam
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(15)
+    configs = {"signed_sr_eps-binary8 (trainer)":
+               rounding_config("signed_sr_eps", "binary8", 0.1)}
+    configs.update({k: gd.GDRounding(*(parse_spec(s) for s in v))
+                    for k, v in UPDATE_CONFIGS.items()})
+    scal = qadam(lr=UPDATE_T, weight_decay=0.01).scalars(UPDATE_T, 3)
+    rows = []
+
+    def check(x, g, m, v, comp, cfg, m_spec, v_spec, packed, what,
+              scal=scal):
+        kw = dict(m_spec=m_spec, v_spec=v_spec, b1=0.9, b2=0.999,
+                  packed=packed, cm=comp[0], cv=comp[1])
+        got = tfu.fused_qadam_prng(x, g, m, v, scal, UPDATE_SEED, cfg, **kw)
+        ref = tfu.fused_qadam_prng_plain(x, g, m, v, scal, UPDATE_SEED, cfg,
+                                         **kw)
+        torch.cuda.synchronize()
+        for a, b in zip(got, ref):
+            if a.dtype == torch.float32:
+                same = bitwise(torch, a, b)
+            else:
+                same = torch.equal(a, b)
+            if not same:
+                fail(f"fused_qadam_prng {what}: not bitwise equal to the "
+                     "plain twin")
+        return float((got[0] - ref[0]).abs().max())
+
+    n = UPDATE_N_SMALL
+    for case in ADAM_CASES:
+        m_spec, v_spec = parse_spec(case[0]), parse_spec(case[1])
+        x, g, m, v, comp = adam_inputs(torch, n, m_spec, v_spec, case[2],
+                                       case[3], gen, dev)
+        for name, cfg in configs.items():
+            err = check(x, g, m, v, comp, cfg, m_spec, v_spec, case[2],
+                        f"n={n} {case} {name}")
+            rows.append(dict(n=n, case=list(case), config=name,
+                             bitwise=True, max_abs_err=err))
+        print(f"  n={n} m={case[0]} v={case[1]} packed={case[2]} "
+              f"kahan={case[3]}: bitwise equal to the twin under "
+              f"{len(configs)} chains", flush=True)
+        if case == ADAM_CASES[0]:
+            # the same operands at an odd element offset: 4-byte aligned
+            # only, as a view of a larger tensor is
+            xo = torch.cat([x[:1], x])[1:]
+            go = torch.cat([g[:1], g])[1:]
+            cfg = configs["signed_sr_eps-binary8 (trainer)"]
+            err = check(xo, go, m, v, comp, cfg, m_spec, v_spec, case[2],
+                        "off a 16-byte boundary")
+            rows.append(dict(n=n, case=list(case), config="unaligned view",
+                             bitwise=True, max_abs_err=err))
+            print("  a view off a 16-byte boundary: bitwise equal",
+                  flush=True)
+        del x, g, m, v, comp
+    torch.cuda.empty_cache()
+
+    # one launch over the tinyllama-1.1b parameters as train.ADAM_RUN
+    # makes it from its step 2 on: bf16-sr codes of moments that are not
+    # zero, the trainer's chain, ADAM_RUN's learning rate at step 3; held
+    # bitwise to the twin at this size (64-bit indexing, rows past 2**24),
+    # then timed
+    from repro_torch.launch.train import ADAM_RUN
+    m_spec = parse_spec(ADAM_RUN["moments_spec"])
+    cfg = configs["signed_sr_eps-binary8 (trainer)"]
+    x, g, m, v, _ = adam_inputs(torch, n_full, m_spec, m_spec, True, False,
+                                gen, dev)
+    torch.cuda.empty_cache()
+    lr = ADAM_RUN["lr"]
+    scal3 = qadam(lr=lr).scalars(lr, 3)
+    kw = dict(m_spec=m_spec, v_spec=m_spec, b1=0.9, b2=0.999, packed=True)
+    err = check(x, g, m, v, [None, None], cfg, m_spec, m_spec, True,
+                f"n={n_full} (ADAM_RUN's operands)", scal=scal3)
+    torch.cuda.empty_cache()
+    print(f"  n={n_full} bf16-sr codes of non-zero moments: x, m and v "
+          "bitwise equal to the twin", flush=True)
+    k5_ms = time_ms(torch, lambda i: tfu.fused_qadam_prng(
+        x, g, m, v, scal3, UPDATE_SEED, cfg, **kw), 1, iters=10)
+    plain_ms = time_ms(torch, lambda i: tfu.fused_qadam_prng_plain(
+        x, g, m, v, scal3, UPDATE_SEED, cfg, **kw), 1, iters=1, warmup=1)
+    del m, v
+    torch.cuda.empty_cache()
+    p = torch.nn.Parameter(x)
+    p.grad = g
+    adam = torch.optim.Adam([p], lr=UPDATE_T, fused=True)
+    lib_ms = time_ms(torch, lambda i: adam.step(), 1, iters=10)
+    del adam, p, x, g
+    gc.collect()
+    torch.cuda.empty_cache()
+    bms, by, nbytes, tf = adam_bound(cfg, n_full, m_spec, m_spec, True,
+                                     False)
+    full = dict(n=n_full, case=list(ADAM_CASES[0]),
+                config="signed_sr_eps-binary8 (trainer)", bitwise=True,
+                max_abs_err=err, ms=k5_ms,
+                plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bms,
+                bound_by=by, bytes=nbytes, threefry_per_elt=tf)
+    print(f"  n={n_full} bf16-sr codes: K5 {k5_ms:.3f} ms (bound "
+          f"{bms:.3f} ms, {by}; {nbytes} bytes, {tf} Threefry per element; "
+          f"plain {plain_ms:.1f} ms)  torch.optim.Adam(fused=True) "
+          f"{lib_ms:.3f} ms (float32 moments, unrounded)", flush=True)
+    return rows, full
+
+
+def adam_train_phase(torch, mods, train):
+    """Phase 19: ``train.ADAM_RUN`` at full size for 4 steps through the
+    TrainLoop, launch counts, the packed checkpoint's bytes and seconds;
+    then 2 steps and the remaining 2 resumed in one directory, bitwise
+    equal to the uninterrupted run."""
+    t_phase = time.time()
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    run = train.ADAM_RUN
+    if (run["arch"], run["batch"], run["seq"]) != ("tinyllama-1.1b",
+                                                   TRAIN_BATCH, TRAIN_SEQ):
+        fail(f"train.ADAM_RUN {run} is not the run whose shapes phase 5 "
+             "checks")
+    reset_all(*mods)
+    with ckpt_dir("adam") as ckpt:
+        out = train.run(steps=TRAIN_STEPS, device="cuda", ckpt_dir=ckpt,
+                        **run)
+        launches = all_launches(*mods)
+        peak = torch.cuda.max_memory_allocated()
+        ckpt_bytes = dir_bytes(Path(ckpt) / f"step_{TRAIN_STEPS}")
+        meta = json.loads((Path(ckpt) / f"step_{TRAIN_STEPS}" / "meta.json")
+                          .read_text())
+    want = {"qmatmul_sr": TRAIN_STEPS * TRAIN_QMATMUL_PER_STEP,
+            "qmatmul_swiglu_sr": TRAIN_STEPS * LAYERS,
+            "qmatmul_batched_sr": 0, "sr_cast_prng": 0,
+            "fused_qupdate_prng": 0, "fused_qupdate_bits": 0,
+            "momentum_fma": 0, "fused_qadam_prng": TRAIN_STEPS,
+            "flash_fwd": 0, "flash_bwd_dq": 0, "flash_bwd_dkv": 0,
+            "flash_decode": 0}
+    if launches != want:
+        fail(f"ADAM_RUN launch counts {launches} != expected {want}")
+    losses = [h["loss"] for h in out["history"]]
+    if len(losses) != TRAIN_STEPS or not all(math.isfinite(v)
+                                             for v in losses):
+        fail(f"ADAM_RUN losses not finite: {losses}")
+    if not losses[-1] < losses[0]:
+        fail(f"ADAM_RUN's loss did not fall over {TRAIN_STEPS} steps: "
+             f"{losses}")
+    # each step reads another batch, so step 1's batch again, through the
+    # trained parameters and step 1's GEMM keys, is where the loss must fall
+    tr = train.setup(device="cuda", params=out["params"], **run)
+    _, metrics = tr.train_step.grads_and_metrics(
+        tr.params, tr.opt_state.key, 0, tr.batch(0))
+    loss_again = float(metrics["loss"])
+    del tr, metrics
+    if not loss_again < losses[0]:
+        fail(f"ADAM_RUN's loss on step 1's batch after {TRAIN_STEPS} steps "
+             f"is {loss_again}, not below its {losses[0]} before them")
+    if out["n_params"] != tinyllama_params():
+        fail(f"ADAM_RUN has {out['n_params']} parameters")
+    n = out["n_params"]
+    # params as uint8 binary8 codes, m and v as uint16 bf16 codes
+    want_bytes = n * (1 + 2 + 2)
+    if not want_bytes <= ckpt_bytes <= 1.001 * want_bytes:
+        fail(f"ADAM_RUN checkpoint holds {ckpt_bytes} bytes, not about "
+             f"{want_bytes} (leaves packed: "
+             f"{[leaf['packed'] for leaf in meta['leaves']]})")
+    step_ms = [h["ms"] for h in out["history"]]
+    steady_ms = sum(step_ms[1:]) / len(step_ms[1:])
+    final = (out["params"], out["opt_state"])
+    save_s = out["save_s"]
+    del out
+    with ckpt_dir("adam_resume") as ckpt:
+        half = train.run(steps=RESUME_AT, device="cuda", ckpt_dir=ckpt,
+                         verbose=False, **run)
+        del half
+        rest = train.run(steps=TRAIN_STEPS, device="cuda", ckpt_dir=ckpt,
+                         verbose=False, **run)
+    if [h["step"] for h in rest["history"]] != list(
+            range(RESUME_AT + 1, TRAIN_STEPS + 1)):
+        fail(f"the resumed run took steps {rest['history']}")
+    from repro_torch.kernels.tree_update import tree_leaves
+    n_diff = differing(torch, tree_leaves(final[0]),
+                       tree_leaves(rest["params"]))[0]
+    m_diff = sum(differing(torch, [getattr(final[1], k)],
+                           [getattr(rest["opt_state"], k)])[0]
+                 for k in ("m", "v"))
+    if n_diff or m_diff:
+        fail(f"resumed run differs from the uninterrupted one: {n_diff} "
+             f"parameters, {m_diff} moment codes")
+    res = dict(losses=losses, step_ms=step_ms, steady_ms=steady_ms,
+               tokens_per_s=TRAIN_BATCH * TRAIN_SEQ / (steady_ms / 1e3),
+               peak_bytes=peak, launches=launches, n_params=n,
+               ckpt_bytes=ckpt_bytes, ckpt_bytes_raw_float32=8 * n,
+               step1_batch_loss_after=loss_again,
+               save_s=save_s, resume_s=rest["resume_s"],
+               resumed_at=RESUME_AT, resumed_losses=[
+                   h["loss"] for h in rest["history"]])
+    del final, rest
+    gc.collect()
+    torch.cuda.empty_cache()
+    res["phase_s"] = time.time() - t_phase
+    print(f"  params {n}, losses {losses} (step 1's batch after them "
+          f"{loss_again}), ms/step {step_ms}, steady "
+          f"{steady_ms:.1f} ms/step, {res['tokens_per_s']:.1f} tok/s, peak "
+          f"memory {peak / 2 ** 30:.2f} GiB, launches {launches}; "
+          f"checkpoint {ckpt_bytes} bytes (raw float32 {8 * n}), final "
+          f"save {res['save_s']:.1f} s, restore {res['resume_s']:.1f} s; "
+          f"resumed at step {RESUME_AT}: parameters and m/v codes bitwise "
+          f"equal; phase {res['phase_s']:.1f} s", flush=True)
+    return res
+
+
+def moment_path_phase(torch, train):
+    """Phase 20 at ``ADAM_RUN``'s learning rate: reduced tinyllama, 2
+    ``fused_bits`` steps on the CPU and on the card from the same
+    parameters.  The card's per-leaf moment step on the CPU's state and
+    gradients must equal the CPU's bitwise, so every moment in which the
+    two runs differ follows from a gradient element that differs (a GEMM
+    or float32 sum on the other side of a rounding decision); the counts
+    of both are reported."""
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.kernels.tree_update import tree_leaves
+    from repro_torch.models import build_model
+    cfg = reduced(get_config("tinyllama-1.1b"))
+    master = build_model(cfg).init_master(torch.Generator().manual_seed(3))
+    kw = {k: train.ADAM_RUN[k] for k in ("optimizer", "moments_spec", "lr",
+                                         "gemm_policy", "rounding_kind",
+                                         "fmt", "eps")}
+    trs = {dev: train.setup("tinyllama-1.1b", reduced=True, batch=2, seq=16,
+                            update_path="fused_bits", device=dev,
+                            params=_to(master, dev), **kw)
+           for dev in ("cpu", "cuda")}
+
+    def on_card(state):
+        return state._replace(m=_to(state.m, "cuda"), v=_to(state.v, "cuda"))
+
+    rows = []
+    for i in range(2):
+        seen = {}
+        for dev, tr in trs.items():
+            ts = tr.train_step
+            grads, _ = ts.grads_and_metrics(tr.params, tr.opt_state.key,
+                                            tr.opt_state.step, tr.batch(i))
+            seen[dev] = (tr.opt_state, grads)
+            tr.params, tr.opt_state = ts.optimizer.apply(tr.params, grads,
+                                                         tr.opt_state)
+        opt = trs["cpu"].train_step.optimizer
+        state, grads = seen["cpu"]
+        ref = opt.moment_trees(state, grads)[:2]
+        card = opt.moment_trees(on_card(state), _to(grads, "cuda"))[:2]
+        path = sum(differing(torch, tree_leaves(a), tree_leaves(b))[0]
+                   for a, b in zip(ref, card))
+        if path:
+            fail(f"QAdam's per-leaf moment step, step {i + 1}: {path} "
+                 "values differ card vs cpu on identical inputs")
+        row = dict(step=i + 1, grads_differing=differing(
+            torch, tree_leaves(seen["cpu"][1]),
+            tree_leaves(seen["cuda"][1]))[0])
+        for name in ("m", "v"):
+            row[f"{name}_differing"] = differing(
+                torch, tree_leaves(getattr(trs["cpu"].opt_state, name)),
+                tree_leaves(getattr(trs["cuda"].opt_state, name)))[0]
+        rows.append(row)
+    print(f"  fused_bits at lr {kw['lr']}: the moment step bitwise equal "
+          f"card vs cpu on identical inputs; the runs differ in {rows}",
+          flush=True)
+    return rows
+
+
+def adam_drill_phase(torch, train):
+    """Phase 20's fault drill on the card: reduced tinyllama under
+    ``ADAM_RUN``'s settings, preemptions around a garbled checkpoint, held
+    bitwise to a clean run."""
+    from repro_torch.kernels.tree_update import tree_leaves
+    kw = dict(train.ADAM_RUN, reduced=True, batch=2, seq=16, device="cuda",
+              verbose=False, steps=DRILL["steps"])
+    del kw["arch"]
+    with ckpt_dir("drill") as ckpt:
+        drill = train.run("tinyllama-1.1b", ckpt_dir=ckpt,
+                          checkpoint_every=DRILL["checkpoint_every"],
+                          fault_schedule=DRILL["fault_schedule"], **kw)
+    with ckpt_dir("clean") as ckpt:
+        clean = train.run("tinyllama-1.1b", ckpt_dir=ckpt, **kw)
+    log = drill["fault_log"]
+    corrupt = [e for e in log if e["kind"] == "corrupt"]
+    if drill["restarts"] != 2 or [e["kind"] for e in log] != [
+            "preempt", "corrupt", "preempt"] or corrupt[0]["ckpt_step"] != 4:
+        fail(f"fault drill: restarts {drill['restarts']}, log {log}")
+    n_diff = differing(torch, tree_leaves(clean["params"]),
+                       tree_leaves(drill["params"]))[0]
+    m_diff = sum(differing(torch, [getattr(clean["opt_state"], k)],
+                           [getattr(drill["opt_state"], k)])[0]
+                 for k in ("m", "v"))
+    if n_diff or m_diff:
+        fail(f"fault drill differs from the clean run: {n_diff} "
+             f"parameters, {m_diff} moment codes")
+    print(f"  fault drill {DRILL['fault_schedule']} over {DRILL['steps']} "
+          f"steps: restarts {drill['restarts']}, log {log}; parameters "
+          "and m/v codes bitwise equal to the clean run", flush=True)
+    return dict(restarts=drill["restarts"], fault_log=log,
+                losses=[h["loss"] for h in drill["history"]])
 
 
 def _to(tree, device):
@@ -1122,7 +1567,7 @@ def moe_serve_phase(torch, mods, serve):
             "sr_cast_prng": MOE_LAYERS * steps, "flash_fwd": 0,
             "flash_bwd_dq": 0, "flash_bwd_dkv": 0, "flash_decode": 0,
             "fused_qupdate_prng": 0, "fused_qupdate_bits": 0,
-            "momentum_fma": 0}
+            "momentum_fma": 0, "fused_qadam_prng": 0}
     if launches != want:
         fail(f"MoE serve launch counts {launches} != expected {want}")
     if out["n_params"] != moe_params():
@@ -1281,6 +1726,22 @@ def main() -> None:
     print(f"== phase 17: serve {MOE_ARCH} binary8-paper", flush=True)
     served_moe = moe_serve_phase(torch, mods, serve)
 
+    print(f"== phase 18: K5 (fused QAdam) vs plain twin (n = "
+          f"{UPDATE_N_SMALL} and {n_full})", flush=True)
+    adam_rows, adam_full = adam_phase(torch, tfu, n_full)
+
+    print(f"== phase 19: train tinyllama-1.1b, train.ADAM_RUN (QAdam, "
+          f"bf16-sr codes through K5), {TRAIN_STEPS} steps + resume",
+          flush=True)
+    trained_adam = adam_train_phase(torch, mods, train)
+
+    print("== phase 20: QAdam train agreement card vs cpu (reduced) and "
+          "the fault drill", flush=True)
+    adam_agree, adam_agree_launches = train_agreement_phase(
+        torch, mods, train, adam=True)
+    moment_path = moment_path_phase(torch, train)
+    drill = adam_drill_phase(torch, train)
+
     kernels = []
     replaces = {"qmatmul_sr": "src/repro/kernels/qmatmul.py:360",
                 "qmatmul_swiglu_sr": "src/repro/kernels/qmatmul.py:846"}
@@ -1360,6 +1821,22 @@ def main() -> None:
                    f"{LAYERS} launches"),
             launches_path=f"{'serve' if serve_path else 'train'} "
                           f"{ATTN_POLICY}"))
+    kernels.append(dict(
+        name="fused_qadam_prng", route="cuda",
+        source="src/repro_torch/csrc/fused_qupdate.cu",
+        replaces="src/repro/kernels/fused_update.py:234",
+        launches=trained_adam["launches"]["fused_qadam_prng"],
+        max_abs_err=max(r["max_abs_err"] for r in adam_rows),
+        ms=adam_full["ms"], plain_ms=adam_full["plain_ms"],
+        bound_ms=adam_full["bound_ms"], bound_by=adam_full["bound_by"],
+        library_ms=adam_full["library_ms"],
+        library="torch.optim.Adam([flat], fused=True).step(), float32 "
+                "moments, unrounded",
+        timed=f"one launch over the {n_full} tinyllama-1.1b parameters "
+              "(one ADAM_RUN step, bf16-sr codes)",
+        launches_path="train ADAM_RUN",
+        launches_agreement_fused_bits=adam_agree_launches["fused_bits"][
+            "fused_qupdate_bits"]))
     kernels.append(moe_kernel_entry(
         sr_cast_rows, "sr_cast_prng", "src/repro_torch/csrc/sr_cast.cu",
         "src/repro/kernels/sr_cast.py:148",
@@ -1381,6 +1858,10 @@ def main() -> None:
                   train_agreement_attn=train_agree_attn,
                   sr_cast_rows=sr_cast_rows, batched_rows=batched_rows,
                   agreement_moe=agree_moe, serve_moe=served_moe,
+                  adam_rows=adam_rows, adam_full=adam_full,
+                  train_adam=trained_adam, train_agreement_adam=adam_agree,
+                  train_agreement_adam_launches=adam_agree_launches,
+                  moment_path_adam=moment_path, fault_drill=drill,
                   t_total_s=time.time() - T_START, kernels=kernels)
     out_dir = HERE / "chiprun_out"
     out_dir.mkdir(exist_ok=True)

@@ -13,6 +13,10 @@ to bf16 and norm scales float32 (models/model.py), so both packages
 compute the same thing.  ``master_params_from_jax`` keeps every leaf
 float32, as views of one flat buffer: the master parameters the trainer
 updates (dense decoder only: MoE training is not ported yet).
+``qadam_state_from_jax`` takes a reference ``QAdamState`` and returns the
+port's: the step and key words as Python ints, the moment carries (flat
+uint8/uint16 codes or float32, or per-leaf trees) and the Kahan carries
+with their dtypes kept, float32 trees flat-backed.
 """
 from __future__ import annotations
 
@@ -22,6 +26,7 @@ import numpy as np
 import torch
 
 from repro_torch.kernels.tree_update import flat_backed
+from repro_torch.optim.adam import QAdamState
 from repro_torch.models.model import store_params
 
 _ATTN_KEYS = {"wq", "wk", "wv", "wo"}
@@ -88,3 +93,29 @@ def master_params_from_jax(tree: Dict[str, Any],
     if "moe" in keep["blocks"]["attn"]:
         raise NotImplementedError("MoE training is not ported yet")
     return flat_backed(_tensors(keep, device))
+
+
+def _keep_dtype(tree, device):
+    """A tree of arrays as tensors of the same dtypes (``()`` stays)."""
+    if isinstance(tree, dict):
+        return {k: _keep_dtype(v, device) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_keep_dtype(v, device) for v in tree)
+    return torch.from_numpy(np.array(tree)).to(device)
+
+
+def _carry(tree, device):
+    """A moment carry: a flat tensor, ``()``, or a per-leaf float32 tree
+    held flat-backed, as the port's optimizers hold it."""
+    out = _keep_dtype(tree, device)
+    return flat_backed(out) if isinstance(out, dict) else out
+
+
+def qadam_state_from_jax(state, device="cpu") -> QAdamState:
+    """The reference's ``QAdamState`` (arrays as numpy, e.g.
+    ``jax.device_get(state)``) as the port's."""
+    key = tuple(int(w) for w in np.asarray(state.key).reshape(-1))
+    return QAdamState(step=int(np.asarray(state.step)),
+                      m=_carry(state.m, device), v=_carry(state.v, device),
+                      key=key, cm=_carry(state.cm, device),
+                      cv=_carry(state.cv, device))

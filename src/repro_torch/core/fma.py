@@ -37,12 +37,14 @@ def _round_to_odd_f32(p, c, s) -> torch.Tensor:
     return s.float()
 
 
-def _flush(v: torch.Tensor) -> torch.Tensor:
+def flush(v: torch.Tensor) -> torch.Tensor:
+    """Float32 subnormals to signed zero, as XLA's CPU backend treats
+    operands and results (flush-to-zero, denormals-are-zero)."""
     return torch.where(v.abs() < _TINY, v * 0.0, v)
 
 
 def _fma_block(a, b, c) -> torch.Tensor:
-    a, b, c = _flush(a), _flush(b), _flush(c)
+    a, b, c = flush(a), flush(b), flush(c)
     p = b.double() * a.double()                       # exact
     c = c.double() if c.dim() == 0 else c
     s = p + c
@@ -51,7 +53,7 @@ def _fma_block(a, b, c) -> torch.Tensor:
     if bool(mid.any()):
         i = mid.nonzero(as_tuple=True)
         out[i] = _round_to_odd_f32(p[i], c.expand_as(s)[i].double(), s[i])
-    return _flush(out)
+    return flush(out)
 
 
 def fma(a, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:

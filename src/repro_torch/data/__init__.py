@@ -1,4 +1,6 @@
-"""Deterministic synthetic data (counterpart of ``repro.data``)."""
-from repro_torch.data.synthetic import SyntheticTokens
+"""Deterministic, checkpointable synthetic data (counterpart of
+``repro.data``)."""
+from repro_torch.data.pipeline import ShardedPipeline
+from repro_torch.data.synthetic import SyntheticTokens, make_token_pipeline
 
-__all__ = ["SyntheticTokens"]
+__all__ = ["ShardedPipeline", "SyntheticTokens", "make_token_pipeline"]

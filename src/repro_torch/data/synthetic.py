@@ -1,5 +1,5 @@
 """Synthetic LM token stream (counterpart of
-``repro.data.synthetic.SyntheticTokens``).
+``repro.data.synthetic.SyntheticTokens`` and ``make_token_pipeline``).
 
 A batch is a pure function of (seed, step): uniforms from
 ``fold_in(PRNGKey(seed), step)`` through ``prng.uniform`` (the reference's
@@ -36,3 +36,8 @@ class SyntheticTokens:
         ranks = torch.floor(float(self.vocab_size) ** (1.0 - u) - 1.0)
         toks = torch.clamp(ranks.to(torch.int64), 0, self.vocab_size - 1)
         return {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+
+
+def make_token_pipeline(vocab_size, seq_len, global_batch, seed=0):
+    return SyntheticTokens(vocab_size=vocab_size, seq_len=seq_len,
+                           global_batch=global_batch, seed=seed)

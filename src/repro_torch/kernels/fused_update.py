@@ -14,24 +14,43 @@ float32 vector: wrappers, plain twins, launch counts (counterpart of
     optimizer's ``momentum * m + g`` with one rounding, as XLA contracts it
     in the reference's step (no Pallas kernel there); its plain twin is the
     float64 emulation ``core.fma.fma``.
+``fused_qadam_prng``   -> the same source's ``fused_qadam_prng`` (K5),
+    replacing ``fused_qadam_prng_p``: one pass of QAdam -- the rounded
+    (optionally packed, optionally Kahan-compensated) m and v EMAs, the
+    bias-corrected direction and the eq.-8 chain on it.
 
 Random bits of K2': element n of the flat vector sits at
 (n // 128, n % 128) of the reference's (rows, 128) layout, and its
 stochastic steps take ``common.kernel_bits3``'s words there, so the result
-does not depend on how the vector is cut into blocks.  A tensor on the CPU
+does not depend on how the vector is cut into blocks.  K5's moment
+sites draw ``counter_bits_reduced`` fields of streams 8 (m) and 9 (v) at
+the same coordinates.  A tensor on the CPU
 goes to the plain twin, which works through the vector in chunks of
 ``CHUNK`` elements (the bits are keyed by position, so chunking changes
-nothing); a CUDA tensor launches the kernel.  Both kernels are bound by
-bytes (12 and 24 per element) or, for K2', by its Threefry integer work.
+nothing); a CUDA tensor launches the kernel.  K2 and K2' are bound by
+bytes (12 and 24 per element) or, for K2', by its Threefry integer work;
+K5 moves 20 bytes per element with bf16 codes and runs two Threefry
+evaluations per element (r = 32 moments, a two-step chain).
+
+K5 computes what the reference's kernel computes *as XLA's CPU backend
+compiles it* (its interpret mode, the port's bitwise reference), found by
+bitwise tests: float32 subnormal operands and results count as zero
+(``core.fma.flush``); ``beta * m + (1 - beta) * a`` is one fused
+multiply-add, ``fma(beta, m, (1 - beta) * a)`` for float32 carries and
+``fma(1 - beta, a, beta * m)`` for unpacked codes; the Kahan update's
+``(1 - beta) * (a - m) - c`` is ``fma(1 - beta, a - m, -c)`` with ``g * g
+- v`` itself ``fma(g, g, -v)``; ``(m / c1) / (sqrt(v / c2) + eps)`` is
+rewritten to ``m / (c1 * (sqrt(v / c2) + eps))``; and ``... + wd * x`` is
+``fma(wd, x, ...)``.  ``1 - beta`` is the Python float rounded to float32.
 """
 from __future__ import annotations
 
 import ctypes
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 
-from repro_torch.core.fma import fma
+from repro_torch.core.fma import flush, fma
 from repro_torch.core.gd import GDRounding, _resolve_v, f32
 from repro_torch.core.grids import get_grid
 from repro_torch.core.prng import M32, int32_words
@@ -45,7 +64,11 @@ _V_SOURCES = {"self": 0, "grad": 1, "neg_grad": 2}
 
 # kernel launches since the last reset_launches(), by kernel name
 LAUNCHES: Dict[str, int] = {"fused_qupdate_prng": 0, "fused_qupdate_bits": 0,
-                            "momentum_fma": 0}
+                            "momentum_fma": 0, "fused_qadam_prng": 0}
+# K5's moment sites draw from these counter streams (the chain takes pair
+# streams 0 and 1), as the reference's kernel does
+STREAM_MOMENT_M = 8
+STREAM_MOMENT_V = 9
 
 Words = Tuple[int, int]
 
@@ -203,6 +226,186 @@ def fused_qupdate(x: torch.Tensor, g: torch.Tensor, t: float,
 
 
 # ---------------------------------------------------------------------------
+# K5: the fused QAdam step
+# ---------------------------------------------------------------------------
+def _check_moment_spec(s: RoundingSpec, what: str) -> None:
+    """A moment site: the identity, a plain-FP-grid site K2' supports, or
+    the bf16 bit-trick SR with 16-bit draws."""
+    if not s.is_identity and s.scheme.randomness == "bittrick":
+        if get_grid(s.fmt).name != "bfloat16" or s.rand_bits != 16 \
+                or s.overflow != "saturate":
+            raise NotImplementedError(f"{what}: bit-trick SR is ported for "
+                                      "bfloat16 with 16-bit draws only")
+        return
+    _check_spec(s, what)
+
+
+def _check_adam(cfg, x, g, m, v, cm, cv, m_spec, v_spec, packed) -> bool:
+    """Validate K5's operands; returns whether the carries are Kahan-
+    compensated."""
+    _check(cfg, x, g)
+    _check_moment_spec(m_spec, "fused QAdam, m")
+    _check_moment_spec(v_spec, "fused QAdam, v")
+    kahan = cm is not None
+    if kahan != (cv is not None):
+        raise ValueError("Kahan compensation needs both cm and cv")
+    if packed and (m_spec.is_identity or v_spec.is_identity):
+        raise ValueError("packed moments require non-identity m/v specs")
+    n = x.numel()
+    for name, c, spec in (("m", m, m_spec), ("v", v, v_spec)):
+        want = common.pack_dtype(spec.fmt) if packed else torch.float32
+        if c.dtype != want or c.numel() != n or c.device != x.device:
+            raise ValueError(f"{name} must be {want} of {n} elements on "
+                             f"{x.device}, got {c.dtype} {tuple(c.shape)} "
+                             f"on {c.device}")
+    for name, c in (("cm", cm), ("cv", cv)):
+        if c is not None and (c.dtype != torch.float32 or c.numel() != n
+                              or c.device != x.device):
+            raise ValueError(f"{name} must be float32 of {n} elements on "
+                             f"{x.device}")
+    return kahan
+
+
+def _scalars(scal) -> Tuple[float, float, float, float, float]:
+    """``[t, c1, c2, eps, wd]`` as the float32 values the kernel reads."""
+    vals = scal.tolist() if torch.is_tensor(scal) else list(scal)
+    if len(vals) != 5:
+        raise ValueError(f"scal must hold [t, c1, c2, eps, wd], got {vals}")
+    return tuple(f32(v) for v in vals)
+
+
+def _moment_ema(spec: RoundingSpec, m, a, beta: float, bits, comp, packed,
+                g=None):
+    """One rounded EMA carry, ``Q(beta * m + (1 - beta) * a)`` (the
+    reference's ``_moment_ema``), with XLA's contractions and flushes.
+    With ``comp`` (Kahan): ``y = (1 - beta)(a - m) - comp``, ``s = Q(m +
+    y)``, ``comp' = (s - m) - y``.  ``g``: for the second moment, the
+    gradient whose square ``a`` is."""
+    b, ob = f32(beta), f32(1.0 - beta)
+    if comp is None:
+        s = fma(ob, a, flush(b * m)) if packed else fma(b, m, flush(ob * a))
+        return common.apply_spec_block(spec, s, bits), None
+    diff = fma(g, g, -m) if g is not None else flush(a - m)
+    y = fma(ob, diff, -comp)
+    s = common.apply_spec_block(spec, flush(m + y), bits)
+    return s, flush(flush(s - m) - y)
+
+
+def adam_quotient(m, v, c1: float, c2: float, eps: float):
+    """``(m / c1) / (sqrt(v / c2) + eps)`` as XLA rewrites it: ``m / (c1 *
+    (sqrt(v / c2) + eps))``, every operation rounded once.  The divisor
+    ``c2`` goes in as a tensor (PyTorch's CUDA division by a Python number
+    multiplies by its reciprocal), and the square root is taken in float64
+    and rounded once, the correctly rounded float32 root (PyTorch's
+    float32 ``sqrt`` on the CPU is off by an ulp on some inputs)."""
+    c2 = torch.tensor(c2, dtype=torch.float32, device=v.device)
+    den = flush(torch.sqrt(flush(v / c2).double()).float() + eps)
+    return flush(m / flush(c1 * den))
+
+
+def _direction(m, v, x, c1, c2, eps, wd):
+    """The Adam direction plus ``wd * x`` as one fused multiply-add."""
+    return fma(wd, x, adam_quotient(m, v, c1, c2, eps))
+
+
+def fused_qadam_prng_plain(x, g, m, v, scal, seed: Words, cfg: GDRounding,
+                           *, m_spec: RoundingSpec, v_spec: RoundingSpec,
+                           b1: float, b2: float, packed: bool, cm=None,
+                           cv=None):
+    """The plain twin of K5, ``CHUNK`` elements at a time; returns
+    ``(x⁺, m', v')`` or ``(x⁺, m', v', cm', cv')``."""
+    t, c1, c2, eps, wd = _scalars(scal)
+    xf, gf = x.reshape(-1), g.reshape(-1)
+    carries = [c.reshape(-1) for c in (m, v)]
+    comps = None if cm is None else [c.reshape(-1) for c in (cm, cv)]
+    outs = [torch.empty_like(xf), torch.empty_like(carries[0]),
+            torch.empty_like(carries[1])]
+    if comps is not None:
+        outs += [torch.empty_like(comps[0]), torch.empty_like(comps[1])]
+    nd = need(cfg)
+    for lo, hi in _chunks(xf.numel()):
+        rows, row0, k = -(-(hi - lo) // LANES), lo // LANES, hi - lo
+
+        def bits(spec, stream):
+            if not spec.stochastic:
+                return None
+            return common.counter_bits_reduced(
+                seed[0], seed[1], (rows, LANES), spec.rand_bits, row0=row0,
+                stream=stream, device=x.device).reshape(-1)[:k]
+
+        xs, gs = flush(xf[lo:hi]), flush(gf[lo:hi])
+        mv = []
+        for i, spec in enumerate((m_spec, v_spec)):
+            c = carries[i][lo:hi]
+            mv.append(flush(common.unpack_block(c, spec.fmt) if packed
+                            else c))
+        cs = (None, None) if comps is None else [flush(c[lo:hi])
+                                                 for c in comps]
+        m_new, cm_new = _moment_ema(m_spec, mv[0], gs, b1,
+                                    bits(m_spec, STREAM_MOMENT_M), cs[0],
+                                    packed)
+        v_new, cv_new = _moment_ema(v_spec, mv[1], flush(gs * gs), b2,
+                                    bits(v_spec, STREAM_MOMENT_V), cs[1],
+                                    packed, g=gs)
+        d = _direction(m_new, v_new, xs, c1, c2, eps, wd)
+        b3 = common.kernel_bits3(seed, (rows, LANES), row0, nd,
+                                 device=x.device)
+        b3 = [None if b is None else b.reshape(-1)[:k] for b in b3]
+        outs[0][lo:hi] = update_chain(cfg, xs, d, t, *b3)
+        for i, (spec, val) in enumerate(((m_spec, m_new), (v_spec, v_new))):
+            outs[1 + i][lo:hi] = common.pack_block(val, spec.fmt) \
+                if packed else val
+        if comps is not None:
+            outs[3][lo:hi], outs[4][lo:hi] = cm_new, cv_new
+    shapes = [x.shape, m.shape, v.shape] + (
+        [] if comps is None else [cm.shape, cv.shape])
+    return tuple(o.view(s) for o, s in zip(outs, shapes))
+
+
+def fused_qadam_prng(x: torch.Tensor, g: torch.Tensor, m: torch.Tensor,
+                     v: torch.Tensor, scal, seed: Words, cfg: GDRounding,
+                     *, m_spec: RoundingSpec, v_spec: RoundingSpec,
+                     b1: float, b2: float, packed: bool,
+                     cm: Optional[torch.Tensor] = None,
+                     cv: Optional[torch.Tensor] = None):
+    """Fused QAdam step with in-kernel bits (the reference's
+    ``fused_qadam_prng_p``).
+
+    ``x``, ``g``: float32 parameters and gradient (same shape); ``m``,
+    ``v``: the moment carries over the same elements, float32 or, when
+    ``packed``, the uint8/uint16 codes of ``common.pack_dtype``; ``scal``:
+    ``[t, c1, c2, eps, weight_decay]``; ``seed``: the (k0, k1) words of
+    ``derive_seed(key, step)``; ``cm``/``cv``: float32 Kahan carries (both
+    or neither).  Returns new tensors ``(x⁺, m', v')`` or ``(x⁺, m', v',
+    cm', cv')``, the moments in the representation they arrived in."""
+    kahan = _check_adam(cfg, x, g, m, v, cm, cv, m_spec, v_spec, packed)
+    if x.device.type == "cpu":
+        return fused_qadam_prng_plain(x, g, m, v, scal, seed, cfg,
+                                      m_spec=m_spec, v_spec=v_spec, b1=b1,
+                                      b2=b2, packed=packed, cm=cm, cv=cv)
+    ins = [c.contiguous() for c in (x, g, m, v)]
+    comps = [c.contiguous() for c in (cm, cv)] if kahan else [None, None]
+    outs = [torch.empty_like(c) for c in ins[:1] + ins[2:]]
+    outs += [torch.empty_like(c) for c in comps] if kahan else [None, None]
+    if x.numel() == 0:
+        return tuple(o for o in outs if o is not None)
+
+    def ptr(c):
+        return None if c is None else c.data_ptr()
+    t, c1, c2, eps, wd = _scalars(scal)
+    rc = _lib().fused_qadam_prng(
+        *(ptr(c) for c in ins + comps + outs), x.numel(), t, c1, c2, eps,
+        wd, f32(b1), f32(1.0 - b1), f32(b2), f32(1.0 - b2),
+        seed[0] & M32, seed[1] & M32, *_site_args(cfg),
+        _moment_args(m_spec, v_spec, packed),
+        torch.cuda.current_stream(x.device).cuda_stream)
+    _launch_check(rc, "fused_qadam_prng")
+    LAUNCHES["fused_qadam_prng"] += 1
+    return tuple(o.view(s.shape) for o, s in zip(
+        outs, [x, m, v, cm, cv]) if o is not None)
+
+
+# ---------------------------------------------------------------------------
 # the momentum step
 # ---------------------------------------------------------------------------
 def momentum_fma_plain(a: float, m: torch.Tensor,
@@ -256,6 +459,31 @@ def _site_args(cfg: GDRounding):
             (ctypes.c_float * 3)(*eps))
 
 
+def _moment_args(m_spec: RoundingSpec, v_spec: RoundingSpec, packed: bool):
+    """int[2 * 16] per moment site: {enabled, precision, emin, emax, mode,
+    rand_bits, bittrick, code bytes (0: float32), ebits, mbits, has_nf,
+    xmax, xmin, eps, 0, 0}, the floats as their bit patterns."""
+    out = []
+    for s in (m_spec, v_spec):
+        site = [0] * 16
+        if not s.is_identity:
+            f = get_grid(s.fmt).fmt
+            bittrick = s.scheme.randomness == "bittrick"
+            site[:7] = [1, f.precision, f.emin, f.emax,
+                        _MODES["sr" if bittrick else s.scheme.name],
+                        s.rand_bits, int(bittrick)]
+            if packed:
+                ebits, mbits, width, has_nf = common.pack_spec(s.fmt)
+                site[7:11] = [width, ebits, mbits, int(has_nf)]
+            site[11:14] = [_float_bits(v) for v in (f.xmax, f.xmin, s.eps)]
+        out += site
+    return (ctypes.c_int * 32)(*out)
+
+
+def _float_bits(v: float) -> int:
+    return int(torch.tensor(v, dtype=torch.float32).view(torch.int32))
+
+
 def _launch_check(rc: int, name: str) -> None:
     if rc != 0:
         raise RuntimeError(f"{name} launch failed: cudaError {rc}")
@@ -278,4 +506,8 @@ def _lib():
         lib.momentum_fma.argtypes = [c.c_void_p, c.c_void_p, c.c_void_p,
                                      c.c_int64, c.c_float, c.c_void_p]
         lib.momentum_fma.restype = c.c_int
+        lib.fused_qadam_prng.argtypes = [c.c_void_p] * 11 + [
+            c.c_int64] + [c.c_float] * 9 + [c.c_uint32, c.c_uint32] \
+            + tail[:3] + [c.POINTER(c.c_int), c.c_void_p]
+        lib.fused_qadam_prng.restype = c.c_int
     return lib

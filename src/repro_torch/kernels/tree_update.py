@@ -16,6 +16,8 @@ none of its three 4.4 GB vectors.
 Modes: ``prng`` (K2', bits drawn in the kernel from
 ``derive_seed(key, step)``, 12 B/elt) and ``bits`` (K2, explicit
 ``bits(fold_in(key, step), (3, n))``, 24 B/elt: the audit mode).
+``fused_tree_adam_update`` runs QAdam's whole step through K5 with the
+moments as flat carries over the raveled vector.
 """
 from __future__ import annotations
 
@@ -25,8 +27,9 @@ import torch
 
 from repro_torch.core import prng
 from repro_torch.core.gd import GDRounding
-from repro_torch.kernels.fused_update import fused_qupdate, \
-    fused_qupdate_prng
+from repro_torch.kernels.fused_update import (fused_qadam_prng,
+                                              fused_qupdate,
+                                              fused_qupdate_prng)
 
 
 # ---------------------------------------------------------------------------
@@ -140,3 +143,30 @@ def fused_tree_update(params, grads, t, cfg: GDRounding, key: prng.Key,
     else:
         raise ValueError(f"unknown tree-update mode {mode!r}")
     return tree_unravel(out, spec)
+
+
+def fused_tree_adam_update(params, grads, m, v, scal, cfg: GDRounding,
+                           key: prng.Key, step: int = 0, *, m_spec, v_spec,
+                           b1: float, b2: float, packed: bool, cm=None,
+                           cv=None):
+    """QAdam's step over a whole parameter tree with one K5 launch: the
+    rounded moment EMAs (``m``/``v``, and ``cm``/``cv`` with Kahan, flat
+    carries over the raveled vector), the bias-corrected direction and the
+    eq.-8 chain.  ``scal``: ``[t, c1, c2, eps, weight_decay]``.  Returns
+    ``(params⁺, m', v', cm', cv')``, ``cm'``/``cv'`` None without Kahan;
+    the new tree's leaves are views of one new flat buffer."""
+    xf, spec = tree_ravel(params)
+    gf, _ = tree_ravel(grads)
+    if xf.numel() == 0:
+        return params, m, v, cm, cv
+    if xf.shape != gf.shape:
+        raise ValueError(f"params/grads size mismatch: {tuple(xf.shape)} vs "
+                         f"{tuple(gf.shape)}")
+    if tuple(m.shape) != tuple(xf.shape) or tuple(v.shape) != tuple(xf.shape):
+        raise ValueError(f"moment carries must be flat {tuple(xf.shape)}, "
+                         f"got {tuple(m.shape)}/{tuple(v.shape)}")
+    outs = fused_qadam_prng(xf, gf, m, v, scal, prng.derive_seed(key, step),
+                            cfg, m_spec=m_spec, v_spec=v_spec, b1=b1, b2=b2,
+                            packed=packed, cm=cm, cv=cv)
+    comp = (outs[3], outs[4]) if cm is not None else (None, None)
+    return (tree_unravel(outs[0], spec), outs[1], outs[2]) + comp

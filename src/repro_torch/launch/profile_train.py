@@ -1,10 +1,12 @@
 """Where a train step's device time goes: ``torch.profiler`` over steps of
-``repro_torch.launch.train``'s target run (``train.PAPER_RUN``:
-tinyllama-1.1b, batch 4 x 256, ``binary8-paper`` GEMMs, signed-SRε binary8
-update through K2') on the card.
+one of ``repro_torch.launch.train``'s target runs on the card:
+``train.PAPER_RUN`` (tinyllama-1.1b, batch 4 x 256, ``binary8-paper``
+GEMMs, QSGD, signed-SRε binary8 update through K2') or, with ``--optimizer
+adam``, ``train.ADAM_RUN`` (QAdam over packed bf16-sr moments through K5).
 
   PYTHONPATH=src python -m repro_torch.launch.profile_train \\
-      [--steps 2] [--out chiprun_out/profile_train.json]
+      [--optimizer adam] [--steps 2] \\
+      [--out chiprun_out/profile_train.json]
 
 After one warm-up step, ``--steps`` steps run under the profiler; it prints
 the host-clock wall time of that window, the device time summed over
@@ -41,8 +43,8 @@ def kernel_rows(events) -> list:
                   key=lambda r: -r["device_ms"])
 
 
-def profile(steps: int) -> dict:
-    tr = train.setup(**train.PAPER_RUN)
+def profile(steps: int, run: dict) -> dict:
+    tr = train.setup(**run)
     tr.step(tr.batch(0))
     torch.cuda.synchronize()
     acts = [torch.profiler.ProfilerActivity.CPU,
@@ -55,7 +57,7 @@ def profile(steps: int) -> dict:
         wall_ms = 1e3 * (time.perf_counter() - t0)
     rows = kernel_rows(prof.key_averages())
     device_ms = sum(r["device_ms"] for r in rows)
-    return {**train.PAPER_RUN, "steps": steps,
+    return {**run, "steps": steps,
             "device": torch.cuda.get_device_name(0), "wall_ms": wall_ms,
             "device_ms": device_ms,
             "busy_share": device_ms / wall_ms if wall_ms else 0.0,
@@ -65,10 +67,14 @@ def profile(steps: int) -> dict:
 def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--steps", type=int, default=2)
+    ap.add_argument("--optimizer", default="sgd", choices=["sgd", "adam"],
+                    help="sgd: train.PAPER_RUN; adam: train.ADAM_RUN")
     ap.add_argument("--out", default="chiprun_out/profile_train.json")
     args = ap.parse_args(argv)
-    res = profile(args.steps)
-    print(f"{res['device']}: {args.steps} steps, wall {res['wall_ms']:.1f} "
+    run = train.PAPER_RUN if args.optimizer == "sgd" else train.ADAM_RUN
+    res = profile(args.steps, run)
+    print(f"{res['device']}: {args.optimizer} {args.steps} steps, wall "
+          f"{res['wall_ms']:.1f} "
           f"ms, device {res['device_ms']:.1f} ms, busy share "
           f"{res['busy_share']:.3f}")
     for r in res["kernels"][:30]:

@@ -65,4 +65,7 @@ def make_train_step(model, optimizer):
         new_params, new_state = optimizer.apply(params, grads, opt_state)
         return new_params, new_state, metrics
 
+    # its two halves, for checks that compare one without the other
+    train_step.grads_and_metrics = grads_and_metrics
+    train_step.optimizer = optimizer
     return train_step

@@ -12,8 +12,8 @@ deterministic function of (key, step).  Three parameter-update paths:
 * ``"fused_bits"`` -- one K2 launch fed explicit bits (24 B/elt): the
                      audit mode.
 
-The reference's mesh branch (a replicated ``shard_map``) and QAdam are not
-ported yet.
+``tree_rounded_adam_update`` is QAdam's fused step (K5).  The reference's
+mesh branches (a replicated ``shard_map``) are not ported yet.
 """
 from __future__ import annotations
 
@@ -22,7 +22,8 @@ import torch
 from repro_torch.core import prng
 from repro_torch.core.gd import GDRounding, _resolve_v, f32
 from repro_torch.core.rounding import RoundingSpec
-from repro_torch.kernels.tree_update import (fused_tree_update, tree_flatten,
+from repro_torch.kernels.tree_update import (fused_tree_adam_update,
+                                             fused_tree_update, tree_flatten,
                                              tree_map, tree_unflatten)
 
 UPDATE_PATHS = ("jnp", "fused", "fused_bits")
@@ -64,3 +65,16 @@ def tree_rounded_update(params, grads, t, cfg: GDRounding, key: prng.Key,
                          f"known: {UPDATE_PATHS}")
     mode = "prng" if update_path == "fused" else "bits"
     return fused_tree_update(params, grads, t, cfg, key, step, mode=mode)
+
+
+def tree_rounded_adam_update(params, grads, m, v, scal, cfg: GDRounding,
+                             key: prng.Key, step: int, *, m_spec, v_spec,
+                             b1: float, b2: float, packed: bool, cm=None,
+                             cv=None):
+    """QAdam's fully-fused step over a tree (``kernels/tree_update.py``):
+    ``m``/``v`` (and ``cm``/``cv``) flat carries, ``scal`` the ``[t, c1,
+    c2, eps, wd]`` vector.  Returns ``(params⁺, m', v', cm', cv')``
+    (``cm'``/``cv'`` None without Kahan)."""
+    return fused_tree_adam_update(params, grads, m, v, scal, cfg, key, step,
+                                  m_spec=m_spec, v_spec=v_spec, b1=b1, b2=b2,
+                                  packed=packed, cm=cm, cv=cv)

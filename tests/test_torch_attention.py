@@ -512,7 +512,7 @@ def test_train_steps_binary8_paper_attn_match_reference(interpret_params):
     assert n_diff <= 8, (n_diff, n)
 
 
-def test_attention_launches_per_path(monkeypatch):
+def test_attention_launches_per_path(monkeypatch, tmp_path):
     """The launch arithmetic the chip run checks, counted at the plain
     twins' call sites: serving runs K9 once per layer per token (prompt
     absorption and decode alike), training K6, K7 and K7' once per layer
@@ -538,7 +538,8 @@ def test_attention_launches_per_path(monkeypatch):
     hist = ttrain.run("tinyllama-1.1b", reduced=True, steps=2, batch=2,
                       seq=8, gemm_policy="binary8-paper-attn",
                       rounding_kind="signed_sr_eps", fmt="binary8",
-                      update_path="fused", device="cpu", verbose=False)
+                      update_path="fused", device="cpu", verbose=False,
+                      ckpt_dir=str(tmp_path))
     assert calls == {"flash_fwd": 2 * L, "flash_bwd_dq": 2 * L,
                      "flash_bwd_dkv": 2 * L, "flash_decode": 0}
     assert all(np.isfinite(h["loss"]) for h in hist["history"])

@@ -18,7 +18,9 @@ bitwise on exact-sum inputs; out, dq, dk, dv at most max(1, 1e-4 n)
 elements different on N(0, 1) inputs (float32 sums in another order, a
 value within an ulp of a rounding decision); K9 over packed codes bitwise
 K9 over the same values unpacked.  The SR cast (K1') is bitwise on any
-input; the batched GEMM (K8') is held to the GEMM contract.  The reduced
+input; the batched GEMM (K8') is held to the GEMM contract.  K5 (the
+fused QAdam step) is bitwise equal to its twin in x, the moment codes or
+values and the Kahan carries, on any input.  The reduced
 qwen3-moe decoder on the card against the CPU twins: the serve test's
 statistical logit bound (a GEMM sum flipped upstream moves an SR
 decision by a grid ulp, which propagates).
@@ -199,7 +201,7 @@ def test_update_kernels_count_their_launches(cuda):
     tfu.momentum_fma(0.9, x, g)
     tfu.momentum_fma_plain(0.9, x, g)
     assert tfu.LAUNCHES == {"fused_qupdate_prng": 1, "fused_qupdate_bits": 1,
-                            "momentum_fma": 1}
+                            "momentum_fma": 1, "fused_qadam_prng": 0}
 
 
 @pytest.mark.gpu
@@ -431,3 +433,86 @@ def test_moe_decode_card_matches_cpu(cuda):
     d = (card["logits"].cpu() - cpu["logits"]).abs()
     assert float(d.median()) < 0.02
     assert float((d > 0.05).float().mean()) <= 0.10
+
+
+K5_CASES = [  # (m spec, v spec, packed, kahan)
+    ("bf16-sr", "bf16-sr", True, False),
+    ("bf16-sr", "e4m3-sr", True, False),
+    ("bf16-sr-bittrick", "bf16-sr", True, False),
+    ("bf16-sr", "bf16-sr", True, True),
+    ("bf16-rn", "bf16-rn", False, True),
+    ("fp32", "fp32", False, False),
+    ("binary8-sr-r8", "e4m3-sr-r16", True, False),
+]
+
+
+def _k5_inputs(n, m_spec, v_spec, packed, kahan, offset=0, seed=3):
+    x = _normal((n + offset,), seed)[offset:]
+    g = _normal((n + offset,), seed + 1, 0.3)[offset:]
+    g[3::83] = 2e-39                       # float32 subnormals: zero
+    g[5::79] = 1e-20                       # g * g below 2**-126
+
+    def start(sp, vals):
+        return vals if sp.is_identity else parse_spec(f"{sp.fmt}-rn")(vals)
+    m = start(m_spec, _normal((n,), seed + 2, 0.03))
+    v = start(v_spec, 0.05 * g * g + 1e-4)
+    if packed:
+        m = tcommon.pack_block(m, m_spec.fmt)
+        v = tcommon.pack_block(v, v_spec.fmt)
+    comp = [_normal((n,), seed + 3, 1e-6), _normal((n,), seed + 4, 1e-9)] \
+        if kahan else [None, None]
+    return x, g, m, v, comp
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n,offset", [(1, 0), (128 * 3 + 5, 0),
+                                      (2 ** 20 + 37, 0), (2 ** 20 + 37, 1)])
+@pytest.mark.parametrize("case", K5_CASES, ids=lambda c: "-".join(map(str, c)))
+@pytest.mark.parametrize("chain", [UPDATE_CONFIGS[i] for i in (0, 2, 5)],
+                         ids=lambda c: "-".join(c[:3]))
+def test_fused_qadam_kernel_matches_plain(cuda, n, offset, case, chain):
+    """K5 against its twin, bitwise; ``offset`` 1: views off a 16-byte
+    boundary."""
+    m_spec, v_spec = parse_spec(case[0]), parse_spec(case[1])
+    packed, kahan = case[2], case[3]
+    cfg = gd.GDRounding(*(parse_spec(s) for s in chain[:3]),
+                        grad_v=chain[3])
+    x, g, m, v, (cm, cv) = _k5_inputs(n, m_spec, v_spec, packed, kahan,
+                                      offset)
+    scal = [0.01, 1 - 0.9 ** 3, 1 - 0.999 ** 3, 1e-8, 0.01]
+    kw = dict(m_spec=m_spec, v_spec=v_spec, b1=0.9, b2=0.999, packed=packed)
+    ref = tfu.fused_qadam_prng_plain(x, g, m, v, scal, SEEDS[0], cfg,
+                                     cm=cm, cv=cv, **kw)
+
+    def dev(t):
+        return None if t is None else t.to(cuda)
+    if offset:      # the card tensors themselves off the boundary
+        x = torch.cat([torch.zeros(1), x]).to(cuda)[1:]
+        g = torch.cat([torch.zeros(1), g]).to(cuda)[1:]
+    got = tfu.fused_qadam_prng(dev(x), dev(g), dev(m), dev(v), scal,
+                               SEEDS[0], cfg, cm=dev(cm), cv=dev(cv), **kw)
+    torch.cuda.synchronize()
+    assert len(got) == len(ref) == (5 if kahan else 3)
+    for r, k in zip(ref, got):
+        assert k.dtype == r.dtype and k.is_cuda
+        k = k.cpu()
+        if r.dtype == torch.float32:
+            r, k = r.view(torch.int32), k.view(torch.int32)
+        assert torch.equal(r, k)
+
+
+@pytest.mark.gpu
+def test_fused_qadam_kernel_counts_its_launches(cuda):
+    m_spec = parse_spec("bf16-sr")
+    cfg = gd.GDRounding(*(parse_spec(s) for s in UPDATE_CONFIGS[0][:3]))
+    x, g, m, v, _ = _k5_inputs(1000, m_spec, m_spec, True, False)
+    tfu.reset_launches()
+    tfu.fused_qadam_prng(x.to(cuda), g.to(cuda), m.to(cuda), v.to(cuda),
+                         [0.1, 0.1, 0.001, 1e-8, 0.0], SEEDS[1], cfg,
+                         m_spec=m_spec, v_spec=m_spec, b1=0.9, b2=0.999,
+                         packed=True)
+    assert tfu.LAUNCHES["fused_qadam_prng"] == 1
+    tfu.fused_qadam_prng(x, g, m, v, [0.1, 0.1, 0.001, 1e-8, 0.0], SEEDS[1],
+                         cfg, m_spec=m_spec, v_spec=m_spec, b1=0.9, b2=0.999,
+                         packed=True)
+    assert tfu.LAUNCHES["fused_qadam_prng"] == 1

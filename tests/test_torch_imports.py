@@ -41,3 +41,12 @@ def test_moe_slice_modules_are_checked():
     for mod in ("models/moe.py", "kernels/sr_cast.py",
                 "configs/qwen3_moe_30b_a3b.py"):
         assert f"src/repro_torch/{mod}" in names, mod
+
+
+def test_qadam_slice_modules_are_checked():
+    """The QAdam / TrainLoop slice's modules are among the files checked
+    above."""
+    names = {str(p.relative_to(ROOT)) for p in PORT_FILES}
+    for mod in ("checkpoint/manager.py", "train/loop.py", "health/inject.py",
+                "optim/adam.py", "data/pipeline.py"):
+        assert f"src/repro_torch/{mod}" in names, mod

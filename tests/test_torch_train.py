@@ -244,7 +244,7 @@ def test_train_step_matches_reference(interpret_params, path):
     assert state.step == 2
 
 
-def test_train_step_launches_per_step(monkeypatch):
+def test_train_step_launches_per_step(monkeypatch, tmp_path):
     """The launch arithmetic the chip run checks, counted at the plain
     twins' call sites: per step K3' runs 19 L + 3 times (5 forward GEMMs,
     8 dgrad/wgrad of the attention projections and 6 of the FFN per layer;
@@ -268,7 +268,7 @@ def test_train_step_launches_per_step(monkeypatch):
     out = ttrain.run("tinyllama-1.1b", reduced=True, steps=2, batch=2, seq=8,
                      rounding_kind="signed_sr_eps", fmt="binary8",
                      update_path="fused", gemm_policy="binary8-paper",
-                     device="cpu", verbose=False)
+                     device="cpu", verbose=False, ckpt_dir=str(tmp_path))
     L = reduced(get_config("tinyllama-1.1b")).n_layers
     assert calls == {"qmatmul": 2 * (19 * L + 3), "swiglu": 2 * L,
                      "update": 2, "momentum": 2}
@@ -287,19 +287,21 @@ def test_synthetic_tokens_match(step):
 
 
 # --------------------------------------------------------------------- CLI --
-def test_train_cli_needs_a_device_or_cpu(capsys):
+def test_train_cli_needs_a_device_or_cpu(capsys, tmp_path):
     args = ["--arch", "tinyllama-1.1b", "--reduced", "--steps", "2",
             "--batch", "1", "--seq", "8", "--gemm-policy", "binary8-paper",
             "--rounding", "signed_sr_eps", "--fmt", "binary8",
-            "--update-path", "fused"]
+            "--update-path", "fused", "--ckpt-dir", str(tmp_path)]
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             ttrain.main(args)
     out = ttrain.main(args + ["--device", "cpu"])
     assert "tok/s" in capsys.readouterr().out
     assert len(out["history"]) == 2
-    with pytest.raises(NotImplementedError):
-        ttrain.build_optimizer("adam", lr=0.1, momentum=0.0, cfg=None,
+    with pytest.raises(NotImplementedError, match="not ported yet"):
+        ttrain.main(args + ["--device", "cpu", "--watchdog"])
+    with pytest.raises(ValueError, match="unknown optimizer"):
+        ttrain.build_optimizer("lion", lr=0.1, momentum=0.0, cfg=None,
                                update_path="fused")
 
 
