@@ -91,13 +91,42 @@ Phases (any failed check exits non-zero; there is no CPU fallback):
    learning rate, the card's per-leaf moment step on the CPU's state and
    gradients bitwise equal to the CPU's; a fault drill on the card
    (preemptions around a garbled checkpoint) bitwise equal to a clean run;
-21. one JSON line of per-kernel numbers, then the result line.
+21. explicit-bits kernels vs plain: K3 and K4 at the oracle path's shapes
+   (M = 4: q/k/v/o, down, lm head; the fused GLU 2048 -> 5632) and a
+   ragged one, K8 at the MoE path's shapes and a ragged one, K1 on
+   (128, 1, 768), a ragged and a 2**20 + 37 tensor: on exact-sum inputs
+   each equal to its plain twin (K4's residuals bitwise, its hidden within
+   the act grid's flips) and every one bitwise equal to its in-kernel-bits
+   kernel fed the same words (``counter_bits_reduced`` /
+   ``counter_bits_batch``), with 32-, 16- and 8-bit draws; packed outputs
+   (e4m3 saturating at 480) the codes of the float ones, packed operands
+   (one view off a 16-byte boundary, -0.0 codes among them) summing as
+   their values; K1 and K1''s signed-SRe branch bitwise on any input; on
+   N(0, 1) inputs the GEMM contract; each timed beside its bound (the
+   bits stream counted), its in-kernel-bits kernel, the twin and the
+   unrounded yardstick of its primed kernel;
+22. serve tinyllama-1.1b under ``e4m3-sr-oracle`` (K3, K4; every
+   in-kernel-bits kernel launched no time) and under ``e4m3-sr``: tokens
+   and logits bitwise equal; the host seconds spent issuing the bits;
+23. serve tinyllama-1.1b under ``binary8-paper-packed``: the hidden
+   stored as uint8 codes in every K4' call and decoded by every down
+   GEMM, tokens and logits bitwise equal to phase 6's;
+24. reduced qwen3-moe under the oracle form of ``binary8-paper`` card vs
+   CPU, held to phase 16's tolerances; reduced tinyllama, 2 train steps
+   under ``binary8-paper-packed`` and ``e4m3-sr-oracle`` card vs CPU, held
+   to phase 9's limits, and bitwise equal on the card to the same run
+   under ``binary8-paper`` / ``e4m3-sr``;
+25. serve qwen3-moe-30b-a3b at full width and depth under the oracle form
+   of ``binary8-paper`` (K3, K8, K1): launch counts, tok/s, peak memory,
+   the host seconds spent issuing the bits;
+26. one JSON line of per-kernel numbers, then the result line.
 
 Detailed numbers also go to ``chiprun_out/chip_smoke.json``.
 """
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import gc
 import json
 import math
@@ -164,6 +193,9 @@ ATTN = dict(BH=TRAIN_BATCH * 32, BKV=TRAIN_BATCH * 4, S=TRAIN_SEQ, d=64,
             n_heads=32, n_kv=4)
 DECODE = dict(BKV=BATCH * 4, G=8, Smax=PROMPT + GEN, d=64)
 ATTN_POLICY = "binary8-paper-attn"
+# phases 21-25: the explicit-bits (oracle) and packed-storage presets
+ORACLE_POLICY = "e4m3-sr-oracle"
+PACKED_POLICY = "binary8-paper-packed"
 # phase 12's limit on the share of differing KV-cache codes per layer, set
 # from its reading (0 of 768 per layer; phase 14 reads 0 parameters and
 # equal losses, held to phase 9's limits): a GEMM sum flipped upstream
@@ -761,9 +793,13 @@ def momentum_fma_check(torch, tfu, m, g, timed: bool):
     return row
 
 
-def serve_phase(torch, mods, serve, policy="binary8-paper"):
-    """The full-size serve run under ``policy``; every launch count
-    checked."""
+def serve_phase(torch, mods, serve, policy="binary8-paper", keep=None):
+    """The full-size serve run under ``policy`` (a preset name or a
+    QuantPolicy); every launch count checked.  Under an oracle policy the
+    explicit-bits kernels run in place of the in-kernel-bits ones, and the
+    host seconds spent issuing the bits are reported.  ``keep``: a dict
+    that receives the run's tokens and logits (on the host)."""
+    from repro_torch.precision.policy import resolve_policy
     gc.collect()          # an earlier phase's cycles hold device memory
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
@@ -773,19 +809,18 @@ def serve_phase(torch, mods, serve, policy="binary8-paper"):
             "tinyllama-1.1b", BATCH, PROMPT, GEN):
         fail(f"serve.SERVE_RUN {run} is not the run whose shapes phases 3 and 10 "
              "checks")
-    out = serve.run(**run, gemm_policy=policy, device="cuda")
+    oracle = resolve_policy(policy).oracle
+    with bits_clock() as bits_s:
+        out = serve.run(**run, gemm_policy=policy, device="cuda")
     launches = all_launches(*mods)
     peak = torch.cuda.max_memory_allocated()
     steps = PROMPT + GEN
     attn = policy == ATTN_POLICY
-    want = {"qmatmul_sr": 5 * LAYERS * steps + GEN,
-            "qmatmul_swiglu_sr": LAYERS * steps, "qmatmul_batched_sr": 0,
-            "fused_qupdate_prng": 0, "fused_qupdate_bits": 0,
-            "momentum_fma": 0, "fused_qadam_prng": 0, "flash_fwd": 0,
-            "flash_bwd_dq": 0,
-            "flash_bwd_dkv": 0,
-            "flash_decode": LAYERS * steps if attn else 0,
-            "sr_cast_prng": 0}
+    q, glu = ("qmatmul_bits", "qmatmul_swiglu_bits") if oracle \
+        else ("qmatmul_sr", "qmatmul_swiglu_sr")
+    want = {q: 5 * LAYERS * steps + GEN, glu: LAYERS * steps,
+            "flash_decode": LAYERS * steps if attn else 0}
+    want = every_kernel(want, launches)
     if launches != want:
         fail(f"launch counts {launches} != expected {want}")
     toks, logits = out["tokens"], out["logits"]
@@ -794,15 +829,50 @@ def serve_phase(torch, mods, serve, policy="binary8-paper"):
         fail(f"bad tokens {toks.tolist()}")
     if not bool(torch.isfinite(logits).all()):
         fail("non-finite logits")
+    if keep is not None:
+        keep.update(tokens=toks.cpu(), logits=logits.cpu())
+    wall = out["t_prefill"] + out["t_decode"]
     print(f"  prefill {out['prefill_tokps']:.1f} tok/s, decode "
           f"{out['decode_tokps']:.1f} tok/s, peak memory "
           f"{peak / 2 ** 30:.2f} GiB, kv cache {out['cache_dtype']} "
-          f"{out['cache_bytes']} bytes, launches {launches}", flush=True)
+          f"{out['cache_bytes']} bytes, launches "
+          f"{ {k: v for k, v in launches.items() if v} }"
+          + (f", bits issued in {bits_s[0]:.3f} s of {wall:.3f} s on the "
+             "host" if oracle else ""), flush=True)
     return dict(prefill_tokps=out["prefill_tokps"],
                 decode_tokps=out["decode_tokps"], t_prefill=out["t_prefill"],
                 t_decode=out["t_decode"], peak_bytes=peak,
                 cache_dtype=str(out["cache_dtype"]),
-                cache_bytes=out["cache_bytes"], launches=launches)
+                cache_bytes=out["cache_bytes"], launches=launches,
+                bits_host_s=bits_s[0], bits_host_share=bits_s[0] / wall)
+
+
+@contextlib.contextmanager
+def bits_clock():
+    """Host seconds spent in the oracle's bits builders
+    (``common.counter_bits_reduced`` / ``counter_bits_batch``, plain
+    tensor code that the explicit-bits sites run before each launch),
+    accumulated into the yielded one-element list."""
+    from repro_torch.kernels import common
+    total = [0.0]
+    saved = {n: getattr(common, n) for n in ("counter_bits_reduced",
+                                             "counter_bits_batch")}
+
+    def timed(fn):
+        def wrapped(*a, **k):
+            t0 = time.perf_counter()
+            try:
+                return fn(*a, **k)
+            finally:
+                total[0] += time.perf_counter() - t0
+        return wrapped
+    for n, fn in saved.items():
+        setattr(common, n, timed(fn))
+    try:
+        yield total
+    finally:
+        for n, fn in saved.items():
+            setattr(common, n, fn)
 
 
 def agreement_phase(torch, serve, policy="binary8-paper"):
@@ -875,6 +945,19 @@ def all_launches(*mods):
     return {k: v for mod in mods for k, v in mod.LAUNCHES.items()}
 
 
+def policy_name(policy) -> str:
+    """A preset name as it is; a QuantPolicy by its oracle form."""
+    if isinstance(policy, str):
+        return policy
+    return f"oracle {policy.fwd}" if policy.oracle else str(policy)
+
+
+def every_kernel(want, launches):
+    """``want`` over every counted kernel: those it does not name were
+    launched no time."""
+    return {**dict.fromkeys(launches, 0), **want}
+
+
 def train_phase(torch, mods, train, policy="binary8-paper"):
     """The full-size train run (``train.PAPER_RUN`` under ``policy``);
     returns its numbers."""
@@ -901,6 +984,7 @@ def train_phase(torch, mods, train, policy="binary8-paper"):
             "flash_fwd": n_attn,
             "flash_bwd_dq": n_attn, "flash_bwd_dkv": n_attn,
             "flash_decode": 0}
+    want = every_kernel(want, launches)
     if launches != want:
         fail(f"train launch counts {launches} != expected {want}")
     losses = [h["loss"] for h in out["history"]]
@@ -1195,6 +1279,7 @@ def adam_train_phase(torch, mods, train):
             "momentum_fma": 0, "fused_qadam_prng": TRAIN_STEPS,
             "flash_fwd": 0, "flash_bwd_dq": 0, "flash_bwd_dkv": 0,
             "flash_decode": 0}
+    want = every_kernel(want, launches)
     if launches != want:
         fail(f"ADAM_RUN launch counts {launches} != expected {want}")
     losses = [h["loss"] for h in out["history"]]
@@ -1429,10 +1514,12 @@ def sr_cast_phase(torch, tsr):
     return rows
 
 
-def batched_bound(E, M, K, N, b_bytes):
-    """(ms, bound_by) of one K8' call: each input read once, the output
-    written once, against the fp32 flops at the fp32 peak."""
-    nbytes = E * M * K * 4 + E * K * N * b_bytes + E * M * N * 4
+def batched_bound(E, M, K, N, b_bytes, bits=False):
+    """(ms, bound_by) of one K8' call (with ``bits``, K8's: the (E, M, N)
+    bits operand read too): each input read once, the output written once,
+    against the fp32 flops at the fp32 peak."""
+    nbytes = E * M * K * 4 + E * K * N * b_bytes + E * M * N * 4 \
+        * (2 if bits else 1)
     t_bytes = nbytes / PEAK_BYTES_PER_S
     t_ops = 2 * E * M * N * K / PEAK_FP32_FLOPS
     return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
@@ -1509,7 +1596,7 @@ def batched_phase(torch, tq):
     return rows
 
 
-def moe_agreement_phase(torch, serve):
+def moe_agreement_phase(torch, serve, policy="binary8-paper"):
     """Reduced qwen3-moe-30b-a3b on the card against the same weights on
     the CPU (plain twins), teacher-forced on the CPU's picks: the logits
     within the serve tolerance and the card's own picks within 0.1 of the
@@ -1518,7 +1605,7 @@ def moe_agreement_phase(torch, serve):
     from repro_torch.configs import get_config, reduced
     from repro_torch.models import build_model
     cfg = dataclasses.replace(reduced(get_config(MOE_ARCH)),
-                              gemm_policy="binary8-paper")
+                              gemm_policy=policy)
     model = build_model(cfg)
     params = model.init(torch.Generator().manual_seed(9))
     prompts = torch.randint(0, cfg.vocab_size, (2, 8),
@@ -1531,7 +1618,7 @@ def moe_agreement_phase(torch, serve):
     med, share = float(d.median()), float((d > 0.05).float().mean())
     chosen = torch.gather(lc, -1, card["tokens"].cpu()[..., None])[..., 0]
     gap = float((lc.max(-1).values - chosen).max())
-    print(f"  reduced {MOE_ARCH} binary8-paper card vs cpu: median "
+    print(f"  reduced {MOE_ARCH} {policy_name(policy)} card vs cpu: median "
           f"|dlogit| {med:.4g}, share > 0.05 {share:.4g}, picks equal "
           f"{int((card['tokens'].cpu() == cpu['tokens']).sum())}/"
           f"{cpu['tokens'].numel()}, largest gap of a card pick to the "
@@ -1542,9 +1629,11 @@ def moe_agreement_phase(torch, serve):
                 max_pick_gap=gap)
 
 
-def moe_serve_phase(torch, mods, serve):
-    """The full-size qwen3-moe-30b-a3b serve run under binary8-paper;
-    every launch count checked against the prediction from the code."""
+def moe_serve_phase(torch, mods, serve, policy="binary8-paper"):
+    """The full-size qwen3-moe-30b-a3b serve run under ``policy``; every
+    launch count checked against the prediction from the code (the
+    explicit-bits kernels under an oracle policy)."""
+    from repro_torch.precision.policy import resolve_policy
     gc.collect()          # the dense phases' models and caches
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
@@ -1554,20 +1643,20 @@ def moe_serve_phase(torch, mods, serve):
         fail(f"serve.MOE_SERVE_RUN {run} is not the run whose shapes phase "
              "15 checks")
     reset_all(*mods)
-    out = serve.run(**run, gemm_policy="binary8-paper", device="cuda")
+    oracle = resolve_policy(policy).oracle
+    with bits_clock() as bits_s:
+        out = serve.run(**run, gemm_policy=policy, device="cuda")
     launches = all_launches(*mods)
     peak = torch.cuda.max_memory_allocated()
     steps = PROMPT + GEN
-    # per layer and step: q, k, v, o and the router through K3', gate, up
-    # and down through K8', the hidden through K1'; the lm head per
-    # generated token
-    want = {"qmatmul_sr": 5 * MOE_LAYERS * steps + GEN,
-            "qmatmul_swiglu_sr": 0,
-            "qmatmul_batched_sr": 3 * MOE_LAYERS * steps,
-            "sr_cast_prng": MOE_LAYERS * steps, "flash_fwd": 0,
-            "flash_bwd_dq": 0, "flash_bwd_dkv": 0, "flash_decode": 0,
-            "fused_qupdate_prng": 0, "fused_qupdate_bits": 0,
-            "momentum_fma": 0, "fused_qadam_prng": 0}
+    # per layer and step: q, k, v, o and the router through K3' (K3), gate,
+    # up and down through K8' (K8), the hidden through K1' (K1); the lm
+    # head per generated token
+    q, bmm, cast = ("qmatmul_bits", "qmatmul_batched_bits", "sr_cast_bits") \
+        if oracle else ("qmatmul_sr", "qmatmul_batched_sr", "sr_cast_prng")
+    want = {q: 5 * MOE_LAYERS * steps + GEN,
+            bmm: 3 * MOE_LAYERS * steps, cast: MOE_LAYERS * steps}
+    want = every_kernel(want, launches)
     if launches != want:
         fail(f"MoE serve launch counts {launches} != expected {want}")
     if out["n_params"] != moe_params():
@@ -1579,20 +1668,500 @@ def moe_serve_phase(torch, mods, serve):
         fail(f"bad tokens {toks.tolist()}")
     if not bool(torch.isfinite(logits).all()):
         fail("non-finite logits")
+    wall = out["t_prefill"] + out["t_decode"]
     print(f"  params {out['n_params']}, prefill {out['prefill_tokps']:.2f} "
           f"tok/s, decode {out['decode_tokps']:.2f} tok/s, peak memory "
           f"{peak / 2 ** 30:.2f} GiB, kv cache {out['cache_dtype']} "
-          f"{out['cache_bytes']} bytes, launches {launches}, sample "
-          f"{toks[0].tolist()}", flush=True)
+          f"{out['cache_bytes']} bytes, launches "
+          f"{ {k: v for k, v in launches.items() if v} }, sample "
+          f"{toks[0].tolist()}"
+          + (f", bits issued in {bits_s[0]:.3f} s of {wall:.3f} s on the "
+             "host" if oracle else ""), flush=True)
     res = dict(prefill_tokps=out["prefill_tokps"],
                decode_tokps=out["decode_tokps"], t_prefill=out["t_prefill"],
                t_decode=out["t_decode"], peak_bytes=peak,
                n_params=out["n_params"],
                cache_dtype=str(out["cache_dtype"]),
-               cache_bytes=out["cache_bytes"], launches=launches)
+               cache_bytes=out["cache_bytes"], launches=launches,
+               bits_host_s=bits_s[0], bits_host_share=bits_s[0] / wall)
     del out
     gc.collect()
     torch.cuda.empty_cache()
+    return res
+
+
+# ---------------------------------------------------------------------------
+# Phases 21-25: the explicit-bits kernels K3, K4, K8, K1, the oracle and
+# packed serve paths
+# ---------------------------------------------------------------------------
+def _bits2d(torch, tc, words, shape, rb, stream=0):
+    return tc.counter_bits_reduced(words[0], words[1], shape, rb,
+                                   stream=stream, device="cuda")
+
+
+def _unaligned(torch, t):
+    """A copy of ``t`` in a buffer that starts one element past a 16-byte
+    boundary."""
+    buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    view = buf[1:].view(t.shape)
+    view.copy_(t)
+    if view.data_ptr() % 16 == 0:
+        fail("the unaligned view is 16-byte aligned")
+    return view
+
+
+def int32_words(bits):
+    """uint32 words (int64) as the int32 bit patterns a kernel reads."""
+    from repro_torch.core.prng import int32_words as to_int32
+    return to_int32(bits)
+
+
+def bits_gemm_phase(torch, tq, tc):
+    """K3 and K4 against their plain twins and against K3'/K4' fed the
+    same words, at the oracle path's shapes (M = 4) and a ragged one;
+    packed operands and outputs; timed.  Returns rows."""
+    from repro_torch.core.rounding import grid_flips, spec
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(2024)
+    words = (0x3C6EF372, 0xA54FF53A)
+    seeds = ((0x510E527F, 0x9B05688C), (0x1F83D9AB, 0x5BE0CD19),
+             (0xCBBB9D5D, 0x629A292A))
+    rows = []
+
+    def ints(shape, div):
+        return (torch.randint(-8, 9, shape, generator=gen, device=dev)
+                .float() / div)
+
+    cases = [("qmatmul_bits", 4, K, N, c) for (K, N, c) in QMATMUL_SHAPES]
+    cases += [("qmatmul_swiglu_bits", 4, K, N, c)
+              for (K, N, c) in SWIGLU_SHAPES]
+    cases += [(k, *RAGGED, 0) for k in ("qmatmul_bits",
+                                        "qmatmul_swiglu_bits")]
+    act8 = spec("binary8", "sr")
+    for name, M, K, N, per_step in cases:
+        glu = name == "qmatmul_swiglu_bits"
+        nw = 2 if glu else 1
+        ragged = (M, K, N) == RAGGED
+
+        def k_bits(a, ws, fmt, mode, rb, act=None, **kw):
+            bg = _bits2d(torch, tc, seeds[0] if glu else words, (M, N), rb)
+            if not glu:
+                return tq.qmatmul(a, ws[0], bg, fmt, mode, rb, **kw)
+            bu = _bits2d(torch, tc, seeds[1], (M, N), rb)
+            ab = _bits2d(torch, tc, seeds[2], (M, N), 32, stream=1) \
+                if act is not None and act.stochastic else None
+            return tq.qmatmul_swiglu(a, ws[0], ws[1], bg, bu, fmt, mode,
+                                     act_spec=act, act_bits=ab,
+                                     rand_bits=rb, residuals=True, **kw)
+
+        def k_prng(a, ws, fmt, mode, rb, act=None, **kw):
+            if not glu:
+                return tq.qmatmul_prng(a, ws[0], words, fmt, mode, rb, **kw)
+            return tq.qmatmul_swiglu_prng(a, ws[0], ws[1], seeds, fmt, mode,
+                                          act_spec=act, rand_bits=rb,
+                                          residuals=True, **kw)
+
+        def k_plain(a, ws, fmt, mode, rb, act=None):
+            bg = _bits2d(torch, tc, seeds[0] if glu else words, (M, N), rb)
+            if not glu:
+                return tq.qmatmul_bits_plain(a, ws[0], bg, fmt, mode, rb)
+            bu = _bits2d(torch, tc, seeds[1], (M, N), rb)
+            ab = _bits2d(torch, tc, seeds[2], (M, N), 32, stream=1) \
+                if act is not None and act.stochastic else None
+            return tq.qmatmul_swiglu_bits_plain(a, ws[0], ws[1], bg, bu, fmt,
+                                                mode, rb, act, ab, True)
+
+        def outs(o):
+            return list(o) if isinstance(o, tuple) else [o]
+
+        # (a) exact sums: K3 == twin == K3' bitwise; K4 == K4' bitwise,
+        # its residuals == twin's, its hidden within the act-grid flips
+        a = ints((M, K), 8.0)
+        ws = [ints((K, N), 4.0).to(torch.bfloat16) for _ in range(nw)]
+        variants = [("e4m3", "sr", 32, None), ("binary8", "sr", 32, act8),
+                    ("binary8", "rn", 32, None)]
+        if ragged:
+            variants += [("binary8", "sr", 16, act8),
+                         ("binary8", "sr", 8, None),
+                         ("bfloat16", "sr", 32, None)]
+        for fmt, mode, rb, act in variants:
+            act = act if glu else None
+            got = outs(k_bits(a, ws, fmt, mode, rb, act))
+            prng = outs(k_prng(a, ws, fmt, mode, rb, act))
+            ref = outs(k_plain(a, ws, fmt, mode, rb, act))
+            torch.cuda.synchronize()
+            if not all(bitwise(torch, g, p) for g, p in zip(got, prng)):
+                fail(f"{name} {M}x{K}x{N} {fmt}-{mode}-r{rb}: not bitwise "
+                     "equal to the in-kernel-bits kernel on the same words")
+            if glu:
+                if not all(bitwise(torch, g, r)
+                           for g, r in zip(got[1:], ref[1:])):
+                    fail(f"{name} {M}x{K}x{N}: residuals not bitwise equal "
+                         "to the twin on exact-sum inputs")
+                # SiLU's expf may differ from the twin's exp by an ulp: an
+                # unrounded hidden within float32 ulps, a rounded one
+                # within the act grid's flips
+                if act is None:
+                    far = (got[0] - ref[0]).abs() > 1e-5 * ref[0].abs() \
+                        + 1e-6
+                    n_bad = int(far.sum())
+                else:
+                    n_bad, _ = grid_flips(ref[0], got[0], act.fmt)
+                if n_bad > 1e-4 * ref[0].numel():
+                    fail(f"{name} {M}x{K}x{N}: {n_bad} hidden mismatches")
+            elif not bitwise(torch, got[0], ref[0]):
+                fail(f"{name} {M}x{K}x{N} {fmt}-{mode}-r{rb}: not bitwise "
+                     "equal to the plain twin on exact-sum inputs")
+        # packed storage: codes of the float results; a packed A (a view
+        # off a 16-byte boundary, -0.0 among its codes) sums as its values
+        for fmt in ("e4m3", "binary8"):
+            act = act8 if glu else None
+            flt = outs(k_bits(a * 64, ws, fmt, "sr", 32, act))
+            kw = dict(out_packed=True, residuals_packed=True) if glu \
+                else dict(out_packed=True)
+            codes = outs(k_bits(a * 64, ws, fmt, "sr", 32, act, **kw))
+            codes_p = outs(k_prng(a * 64, ws, fmt, "sr", 32, act, **kw))
+            grids = [act.fmt, fmt, fmt] if glu else [fmt]
+            if not all(torch.equal(c, tc.pack_block(f, g)) and
+                       torch.equal(c, p)
+                       for c, f, p, g in zip(codes, flt, codes_p, grids)):
+                fail(f"{name} {M}x{K}x{N} {fmt}: packed outputs are not the "
+                     "codes of the float outputs")
+        if not glu:
+            vals = tc.round_block(torch.randn((M, K), generator=gen,
+                                              device=dev), None, "binary8",
+                                  "rn")
+            vals[0, :3] = -0.0
+            ac = _unaligned(torch, tc.pack_block(vals, "binary8"))
+            for fn in (k_bits, k_prng):
+                got = fn(ac, ws, "e4m3", "sr", 32, a_fmt="binary8")
+                if not bitwise(torch, got, fn(vals, ws, "e4m3", "sr", 32)):
+                    fail(f"{name} {M}x{K}x{N}: a_fmt codes do not sum as "
+                         "their values")
+        # (b) N(0, 1) inputs, the oracle path's spec (e4m3 sr, identity
+        # act site): K3 == K3' bitwise; the twin within the GEMM contract
+        a = torch.randn((M, K), generator=gen, device=dev)
+        n_copies = 1 if ragged else max(
+            2, math.ceil(2 * L2_BYTES / (nw * K * N * 2)))
+        wsets = [[(torch.randn((K, N), generator=gen, device=dev)
+                   / math.sqrt(K)).to(torch.bfloat16) for _ in range(nw)]
+                 for _ in range(n_copies)]
+        got = outs(k_bits(a, wsets[0], "e4m3", "sr", 32))
+        prng = outs(k_prng(a, wsets[0], "e4m3", "sr", 32))
+        ref = outs(k_plain(a, wsets[0], "e4m3", "sr", 32))
+        torch.cuda.synchronize()
+        if not all(bitwise(torch, g, p) for g, p in zip(got, prng)):
+            fail(f"{name} {M}x{K}x{N}: K != K' bitwise on N(0, 1) inputs")
+        n_bad, adjacent = grid_flips(ref[-1], got[-1], "e4m3")
+        share = n_bad / ref[-1].numel()
+        if share > 1e-4 or not adjacent:
+            fail(f"{name} {M}x{K}x{N}: {n_bad} mismatches ({share:.2e})")
+        max_err = float((got[0] - ref[0]).abs().max())
+        # the words as the kernels read them (int32 bit patterns), so the
+        # timings below hold no conversion
+        bits = [int32_words(_bits2d(torch, tc, w, (M, N), 32))
+                for w in (seeds[:2] if glu else [words])]
+
+        def run_k(i):
+            if glu:
+                return tq.qmatmul_swiglu(a, *wsets[i], *bits, "e4m3")
+            return tq.qmatmul(a, wsets[i][0], bits[0], "e4m3")
+
+        def run_p(i):
+            if glu:
+                return tq.qmatmul_swiglu_prng(a, *wsets[i], seeds, "e4m3")
+            return tq.qmatmul_prng(a, wsets[i][0], words, "e4m3")
+
+        def run_plain(i):
+            if glu:
+                return tq.qmatmul_swiglu_bits_plain(a, *wsets[i], *bits,
+                                                    "e4m3")
+            return tq.qmatmul_bits_plain(a, wsets[i][0], bits[0], "e4m3")
+        ms = time_ms(torch, run_k, n_copies)
+        prng_ms = time_ms(torch, run_p, n_copies)
+        plain = time_ms(torch, run_plain, n_copies, iters=3, warmup=1)
+        w32 = [[w.float() for w in ws_] for ws_ in wsets]
+        gemm = time_ms(torch, lambda i: [a @ w for w in w32[i]], n_copies)
+        # the bits operands: 4 B per output element each
+        bms, by = bound_ms(M, K, N, nw, 2, nw)
+        row = dict(kernel=name, M=M, K=K, N=N, b="bf16",
+                   per_step=per_step, mismatches=n_bad,
+                   mismatch_share=share, max_abs_err=max_err, ms=ms,
+                   prng_ms=prng_ms, plain_ms=plain, gemm_only_ms=gemm,
+                   bound_ms=bms, bound_by=by)
+        rows.append(row)
+        print(f"  {name:20s} M={M:3d} K={K:5d} N={N:6d}  kernel {ms:8.4f} "
+              f"ms  in-kernel bits {prng_ms:8.4f} ms  bound {bms:8.4f} ms "
+              f"({by})  plain {plain:8.3f} ms  gemm-only(fp32) "
+              f"{gemm:8.4f} ms  flips {n_bad}/{ref[-1].numel()}, bitwise "
+              "equal to the in-kernel-bits kernel", flush=True)
+        del a, ws, wsets, w32, got, prng, ref, bits
+    return rows
+
+
+def bits_batched_phase(torch, tq, tc):
+    """K8 against its twin and against K8' fed the same words, at the MoE
+    path's shapes and a ragged one; packed storage; timed.  Returns
+    rows."""
+    import numpy as np
+    from repro_torch.core.rounding import grid_flips
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(4242)
+    rows = []
+    for E, M, K, N, per_step in BATCHED_SHAPES + [(*BATCHED_RAGGED, 0)]:
+        seeds = np.random.default_rng(E * K + N + 1).integers(
+            0, 2 ** 32, (E, 2), dtype=np.int64)
+        a = (torch.randint(-8, 9, (E, M, K), generator=gen, device=dev)
+             .float() / 8)
+        b = (torch.randint(-8, 9, (E, K, N), generator=gen, device=dev)
+             .float() / 4).to(torch.bfloat16)
+        for fmt, mode, rb in (("binary8", "sr", 32), ("binary8", "sr", 16),
+                              ("binary8", "sr", 8), ("binary8", "rn", 32),
+                              ("e4m3", "sr", 16)):
+            bits = tc.counter_bits_batch(seeds, (E, M, N), rb, device=dev)
+            got = tq.qmatmul_batched(a, b, bits, fmt, mode, rb)
+            ref = tq.qmatmul_batched_bits_plain(a, b, bits, fmt, mode, rb)
+            prng = tq.qmatmul_batched_prng(a, b, seeds, fmt, mode, rb)
+            torch.cuda.synchronize()
+            if not (bitwise(torch, got, ref) and bitwise(torch, got, prng)):
+                fail(f"qmatmul_batched_bits {E}x{M}x{K}x{N} {fmt}-{mode}-"
+                     f"r{rb}: not bitwise equal to the twin and K8'")
+        bits = tc.counter_bits_batch(seeds, (E, M, N), 32, device=dev)
+        codes = tq.qmatmul_batched(a, b, bits, "binary8", out_packed=True)
+        flt = tq.qmatmul_batched(a, b, bits, "binary8")
+        ac = _unaligned(torch, tc.pack_block(a, "binary8"))
+        if not (torch.equal(codes, tc.pack_block(flt, "binary8")) and
+                bitwise(torch, tq.qmatmul_batched(ac, b, bits, "binary8",
+                                                  a_fmt="binary8"), flt)):
+            fail(f"qmatmul_batched_bits {E}x{M}x{K}x{N}: packed storage "
+                 "differs from the float path")
+        del a, b, codes, flt, ac
+        n_copies = max(1, math.ceil(2 * L2_BYTES / (E * K * N * 2)))
+        a = torch.randn((E, M, K), generator=gen, device=dev)
+        ws = [(torch.randn((E, K, N), generator=gen, device=dev)
+               / math.sqrt(K)).to(torch.bfloat16) for _ in range(n_copies)]
+        got = tq.qmatmul_batched(a, ws[0], bits, "binary8")
+        prng = tq.qmatmul_batched_prng(a, ws[0], seeds, "binary8")
+        ref = tq.qmatmul_batched_bits_plain(a, ws[0], bits, "binary8")
+        torch.cuda.synchronize()
+        if not bitwise(torch, got, prng):
+            fail(f"qmatmul_batched_bits {E}x{M}x{K}x{N}: K8 != K8' bitwise "
+                 "on N(0, 1) inputs")
+        n_bad, adjacent = grid_flips(ref, got, "binary8")
+        share = n_bad / ref.numel()
+        if share > 1e-4 or not adjacent:
+            fail(f"qmatmul_batched_bits {E}x{M}x{K}x{N}: {n_bad} mismatches")
+        max_err = float((got - ref).abs().max())
+        bits = int32_words(bits)
+        ms = time_ms(torch, lambda i: tq.qmatmul_batched(
+            a, ws[i], bits, "binary8"), n_copies)
+        prng_ms = time_ms(torch, lambda i: tq.qmatmul_batched_prng(
+            a, ws[i], seeds, "binary8"), n_copies)
+        plain = time_ms(torch, lambda i: tq.qmatmul_batched_bits_plain(
+            a, ws[i], bits, "binary8"), n_copies, iters=3, warmup=1)
+        a16 = a.to(torch.bfloat16)
+        lib = time_ms(torch, lambda i: torch.bmm(a16, ws[i]), n_copies)
+        bms = batched_bound(E, M, K, N, 2, bits=True)
+        rows.append(dict(kernel="qmatmul_batched_bits", E=E, M=M, K=K, N=N,
+                         b="bf16", per_step=per_step, mismatches=n_bad,
+                         mismatch_share=share, max_abs_err=max_err, ms=ms,
+                         prng_ms=prng_ms, plain_ms=plain, library_ms=lib,
+                         bound_ms=bms[0], bound_by=bms[1]))
+        print(f"  qmatmul_batched_bits E={E:3d} M={M} K={K:5d} N={N:5d}  "
+              f"kernel {ms:8.4f} ms  in-kernel bits {prng_ms:8.4f} ms  "
+              f"bound {bms[0]:8.4f} ms ({bms[1]})  plain {plain:8.3f} ms  "
+              f"bmm(bf16) {lib:8.4f} ms  flips {n_bad}/{ref.numel()}",
+              flush=True)
+        del a, a16, ws, got, prng, ref
+    return rows
+
+
+def bits_cast_phase(torch, tsr, tc):
+    """K1 (bits keyed by the flat index, as the oracle's qact draws them)
+    and K1''s signed-SRe branch against their twins, bitwise, on ragged
+    sizes, the path's (128, 1, 768) and a view off a 16-byte boundary;
+    timed at the path's shape.  Returns rows."""
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(99)
+    words = (0x6A09E667, 0xBB67AE85)
+    rows = []
+    for shape in [SR_CAST_PATH, (3, 7, 61), (2 ** 20 + 37,)]:
+        n = math.prod(shape)
+        x = torch.randn(shape, generator=gen, device=dev) * 4
+        v = torch.randn(shape, generator=gen, device=dev)
+        max_err = 0.0
+        for fmt, mode, rb, eps in (("binary8", "sr", 32, 0.0),
+                                   ("binary8", "sr", 16, 0.0),
+                                   ("binary8", "sr", 8, 0.0),
+                                   ("binary8", "rn", 32, 0.0),
+                                   ("e4m3", "sr_eps", 32, 0.1),
+                                   ("binary8", "signed_sr_eps", 32, 0.1)):
+            vv = v if mode == "signed_sr_eps" else None
+            bits = tc.counter_bits_reduced(*words, (n, 1), rb,
+                                           device=dev).reshape(shape)
+            got = tsr.sr_cast(x, bits, fmt, mode, eps, vv, rand_bits=rb)
+            ref = tsr.sr_cast_plain(x, bits, fmt, mode, rb, eps, vv)
+            gp = tsr.sr_cast_prng(x, words, fmt, mode, eps, vv, rand_bits=rb)
+            rp = tsr.sr_cast_prng_plain(x, words, fmt, mode, rb, eps, vv)
+            torch.cuda.synchronize()
+            if not (bitwise(torch, got, ref) and bitwise(torch, gp, rp)):
+                fail(f"sr_cast_bits / sr_cast_prng {shape} {fmt}-{mode}-"
+                     f"r{rb}: not bitwise equal to the plain twins")
+            max_err = max(max_err, float((got - ref).abs().max()))
+        xu, vu = _unaligned(torch, x.reshape(-1)), _unaligned(
+            torch, v.reshape(-1))
+        bits = _unaligned(torch, tc.counter_bits_reduced(
+            *words, (n, 1), 32, device=dev).reshape(-1).to(torch.int32))
+        if not bitwise(torch, tsr.sr_cast(xu, bits, "binary8",
+                                          "signed_sr_eps", 0.2, vu),
+                       tsr.sr_cast_plain(xu, bits, "binary8",
+                                         "signed_sr_eps", 32, 0.2, vu)):
+            fail(f"sr_cast_bits {shape}: an unaligned view differs")
+        bits = int32_words(tc.counter_bits_reduced(
+            *words, (n, 1), 32, device=dev).reshape(shape))
+        n_copies = max(1, math.ceil(2 * L2_BYTES / (12 * n)))
+        xs = [torch.randn(shape, generator=gen, device=dev) * 4
+              for _ in range(n_copies)]
+        ms = time_ms(torch, lambda i: tsr.sr_cast(xs[i], bits, "binary8"),
+                     n_copies)
+        prng_ms = time_ms(torch, lambda i: tsr.sr_cast_prng(
+            xs[i], words, "binary8"), n_copies)
+        plain = time_ms(torch, lambda i: tsr.sr_cast_plain(
+            xs[i], bits, "binary8"), n_copies, iters=3, warmup=1)
+        lib = time_ms(torch, lambda i: xs[i].to(torch.bfloat16), n_copies)
+        bms = 1e3 * 12 * n / PEAK_BYTES_PER_S
+        per_step = MOE_LAYERS if shape == SR_CAST_PATH else 0
+        rows.append(dict(kernel="sr_cast_bits", shape=list(shape), n=n,
+                         per_step=per_step, max_abs_err=max_err,
+                         mismatch_share=0.0, ms=ms, prng_ms=prng_ms,
+                         plain_ms=plain, library_ms=lib, bound_ms=bms,
+                         bound_by="bytes"))
+        print(f"  sr_cast_bits n={n:8d} {str(shape):14s} kernel {ms:8.4f} "
+              f"ms  in-kernel bits {prng_ms:8.4f} ms  bound {bms:8.5f} ms "
+              f"(bytes)  plain {plain:8.3f} ms  bf16 cast {lib:8.4f} ms  "
+              "bitwise", flush=True)
+        del x, v, xs
+    return rows
+
+
+def oracle_serve_phase(torch, mods, serve):
+    """Path 1: tinyllama-1.1b under e4m3-sr-oracle (K3, K4), and under
+    e4m3-sr in the same phase: tokens and logits bitwise equal."""
+    oracle, base = {}, {}
+    res = serve_phase(torch, mods, serve, ORACLE_POLICY, keep=oracle)
+    res_base = serve_phase(torch, mods, serve, "e4m3-sr", keep=base)
+    same = torch.equal(oracle["tokens"], base["tokens"]) and bitwise(
+        torch, oracle["logits"], base["logits"])
+    print(f"  {ORACLE_POLICY} vs e4m3-sr: tokens and logits bitwise "
+          f"{'equal' if same else 'DIFFERENT'}; decode "
+          f"{res['decode_tokps']:.2f} vs {res_base['decode_tokps']:.2f} "
+          "tok/s", flush=True)
+    if not same:
+        fail(f"{ORACLE_POLICY} serve differs from e4m3-sr")
+    return dict(oracle=res, e4m3_sr=res_base, bitwise_equal=same)
+
+
+def packed_serve_phase(torch, mods, serve, unpacked):
+    """Path 2: tinyllama-1.1b under binary8-paper-packed (K4' emits the
+    hidden as uint8 codes, the down GEMM decodes them on load): tokens and
+    logits bitwise equal to phase 6's binary8-paper run."""
+    from repro_torch.precision import fused, policy
+    seen = {"h": [], "down": 0}
+    glu, qmm = fused.qmatmul_swiglu_prng, policy.qmatmul_prng
+
+    def glu_rec(*a, **k):
+        out = glu(*a, **k)
+        seen["h"].append((out.dtype, out.numel() * out.element_size()))
+        return out
+
+    def qmm_rec(a, *rest, **k):
+        seen["down"] += k.get("a_fmt") is not None
+        return qmm(a, *rest, **k)
+    fused.qmatmul_swiglu_prng, policy.qmatmul_prng = glu_rec, qmm_rec
+    try:
+        got = {}
+        res = serve_phase(torch, mods, serve, PACKED_POLICY, keep=got)
+    finally:
+        fused.qmatmul_swiglu_prng, policy.qmatmul_prng = glu, qmm
+    steps = PROMPT + GEN
+    h_bytes = {b for dt, b in seen["h"] if dt == torch.uint8}
+    if len(seen["h"]) != LAYERS * steps or {dt for dt, _ in seen["h"]} != {
+            torch.uint8} or seen["down"] != LAYERS * steps:
+        fail(f"{PACKED_POLICY}: the hidden was not stored as uint8 codes "
+             f"in every call ({len(seen['h'])} calls, down GEMMs decoding "
+             f"{seen['down']})")
+    same = torch.equal(got["tokens"], unpacked["tokens"]) and bitwise(
+        torch, got["logits"], unpacked["logits"])
+    print(f"  {PACKED_POLICY} vs phase 6 (binary8-paper): tokens and logits "
+          f"bitwise {'equal' if same else 'DIFFERENT'}; hidden "
+          f"{sorted(h_bytes)} bytes of uint8 codes per call "
+          f"({BATCH} x {TINYLLAMA['ff']}; float32 would be "
+          f"{4 * BATCH * TINYLLAMA['ff']})", flush=True)
+    if not same:
+        fail(f"{PACKED_POLICY} serve differs from binary8-paper")
+    return dict(res, bitwise_equal=same, hidden_bytes_per_call=max(h_bytes),
+                hidden_bytes_float32=4 * BATCH * TINYLLAMA["ff"])
+
+
+def preset_train_phase(torch, mods, train):
+    """Reduced tinyllama, 2 train steps under binary8-paper-packed and
+    e4m3-sr-oracle: card against the CPU held to phase 9's limits, and the
+    card's run bitwise equal to its run under the unpacked / in-kernel
+    preset (packing and the oracle's bits change nothing)."""
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.kernels.tree_update import tree_leaves
+    from repro_torch.models import build_model
+    cfg = reduced(get_config("tinyllama-1.1b"))
+    master = build_model(cfg).init_master(torch.Generator().manual_seed(3))
+    L, res = cfg.n_layers, {}
+    for preset, base in ((PACKED_POLICY, "binary8-paper"),
+                         (ORACLE_POLICY, "e4m3-sr")):
+        outs = {}
+        for name, pol, dev in ((preset, preset, "cpu"),
+                               (preset, preset, "cuda"),
+                               (base, base, "cuda")):
+            kw = dict(reduced=True, steps=2, batch=2, seq=16,
+                      gemm_policy=pol, rounding_kind="signed_sr_eps",
+                      fmt="binary8", eps=0.1, update_path="fused",
+                      verbose=False)
+            reset_all(*mods)
+            with ckpt_dir("preset") as ckpt:
+                outs[(name, dev)] = train.run(
+                    "tinyllama-1.1b", device=dev, params=_to(master, dev),
+                    ckpt_dir=ckpt, **kw)
+            torch.cuda.synchronize()
+            if dev == "cuda" and name == preset:
+                launches = all_launches(*mods)
+        q, glu = ("qmatmul_bits", "qmatmul_swiglu_bits") \
+            if preset == ORACLE_POLICY else ("qmatmul_sr",
+                                             "qmatmul_swiglu_sr")
+        want = every_kernel({q: 2 * (19 * L + 3), glu: 2 * L,
+                             "fused_qupdate_prng": 2, "momentum_fma": 2},
+                            launches)
+        if launches != want:
+            fail(f"{preset} train launches {launches} != {want}")
+        cpu, card, card_base = (outs[(preset, "cpu")],
+                                outs[(preset, "cuda")], outs[(base, "cuda")])
+        lc = [h["loss"] for h in cpu["history"]]
+        lg = [h["loss"] for h in card["history"]]
+        lb = [h["loss"] for h in card_base["history"]]
+        rel = max(abs(a - b) / abs(a) for a, b in zip(lc, lg))
+        n_diff, n = differing(torch, tree_leaves(cpu["params"]),
+                              tree_leaves(card["params"]))
+        n_base, _ = differing(torch, tree_leaves(card["params"]),
+                              tree_leaves(card_base["params"]))
+        print(f"  {preset}: losses cpu {lc} card {lg} (max rel diff "
+              f"{rel:.3g}), parameters differing card vs cpu {n_diff}/{n}; "
+              f"card vs card {base}: {n_base} parameters differ, losses "
+              f"{'equal' if lg == lb else lb}", flush=True)
+        if rel > AGREE_MAX_REL_LOSS or n_diff > AGREE_MAX_PARAMS:
+            fail(f"{preset} train agreement beyond the stated tolerance")
+        if n_base or lg != lb:
+            fail(f"{preset} train run differs from {base} on the card")
+        res[preset] = dict(losses_cpu=lc, losses_card=lg, max_rel_loss=rel,
+                           params_differing=n_diff, params=n,
+                           params_differing_vs_base=n_base,
+                           launches=launches)
     return res
 
 
@@ -1640,9 +2209,11 @@ def main() -> None:
         fail("torch.cuda.is_available() is false: this script needs a GPU")
     sys.path.insert(0, str(HERE / "src"))
     try:
-        from repro_torch.kernels import build, flash_attention as tfa, \
-            fused_update as tfu, qmatmul as tq, sr_cast as tsr
+        from repro_torch.kernels import build, common as tcommon, \
+            flash_attention as tfa, fused_update as tfu, qmatmul as tq, \
+            sr_cast as tsr
         from repro_torch.launch import serve, train
+        from repro_torch.precision import get_policy
     except ImportError as exc:
         fail(f"cannot import the port ({exc}); run from a checkout")
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -1683,7 +2254,8 @@ def main() -> None:
 
     print("== phase 6: serve tinyllama-1.1b binary8-paper", flush=True)
     mods = (tq, tfu, tfa, tsr)
-    served = serve_phase(torch, mods, serve)
+    unpacked = {}           # its tokens and logits, for phase 23
+    served = serve_phase(torch, mods, serve, keep=unpacked)
 
     print("== phase 7: serve agreement card vs cpu", flush=True)
     agree = agreement_phase(torch, serve)
@@ -1741,6 +2313,30 @@ def main() -> None:
         torch, mods, train, adam=True)
     moment_path = moment_path_phase(torch, train)
     drill = adam_drill_phase(torch, train)
+
+    print("== phase 21: explicit-bits kernels (K3, K4, K8, K1) vs plain "
+          "twins and vs their in-kernel-bits kernels", flush=True)
+    bits_rows = bits_gemm_phase(torch, tq, tcommon)
+    bits_batched_rows = bits_batched_phase(torch, tq, tcommon)
+    bits_cast_rows = bits_cast_phase(torch, tsr, tcommon)
+
+    print(f"== phase 22: serve tinyllama-1.1b {ORACLE_POLICY} (and e4m3-sr)",
+          flush=True)
+    served_oracle = oracle_serve_phase(torch, mods, serve)
+
+    print(f"== phase 23: serve tinyllama-1.1b {PACKED_POLICY}", flush=True)
+    served_packed = packed_serve_phase(torch, mods, serve, unpacked)
+
+    moe_oracle = dataclasses.replace(get_policy("binary8-paper"),
+                                     oracle=True)
+    print(f"== phase 24: agreement card vs cpu: reduced {MOE_ARCH} under "
+          f"oracle binary8-paper; reduced tinyllama train steps under "
+          f"{PACKED_POLICY} and {ORACLE_POLICY}", flush=True)
+    agree_moe_oracle = moe_agreement_phase(torch, serve, moe_oracle)
+    preset_train = preset_train_phase(torch, mods, train)
+
+    print(f"== phase 25: serve {MOE_ARCH} oracle binary8-paper", flush=True)
+    served_moe_oracle = moe_serve_phase(torch, mods, serve, moe_oracle)
 
     kernels = []
     replaces = {"qmatmul_sr": "src/repro/kernels/qmatmul.py:360",
@@ -1848,6 +2444,39 @@ def main() -> None:
         "src/repro/kernels/qmatmul.py:599",
         served_moe["launches"]["qmatmul_batched_sr"],
         "torch.bmm over bf16 operands, unrounded"))
+    k3_rows = [r for r in bits_rows if r["kernel"] == "qmatmul_bits"]
+    k4_rows = [r for r in bits_rows if r["kernel"] == "qmatmul_swiglu_bits"]
+    path1 = f"serve tinyllama-1.1b {ORACLE_POLICY}"
+    for name, rows_, line, path_launches in (
+            ("qmatmul_bits", k3_rows, 332,
+             served_oracle["oracle"]["launches"]["qmatmul_bits"]),
+            ("qmatmul_swiglu_bits", k4_rows, 822,
+             served_oracle["oracle"]["launches"]["qmatmul_swiglu_bits"])):
+        path_rows = [r for r in rows_ if r["per_step"]]
+        source = "qmatmul_sr" if name == "qmatmul_bits" \
+            else "qmatmul_swiglu_sr"
+        kernels.append(kernel_entry(
+            rows_, name, f"src/repro_torch/csrc/{source}.cu",
+            f"src/repro/kernels/qmatmul.py:{line}", path_launches, path_rows,
+            f"one tinyllama-1.1b decode step's launches (batch {BATCH}, "
+            f"{LAYERS} layers)", launches_path=path1,
+            launches_moe_oracle=served_moe_oracle["launches"][name],
+            in_kernel_bits_ms=sum(r["prng_ms"] * r["per_step"]
+                                  for r in path_rows)))
+    for rows_, name, source, line, lib in (
+            (bits_batched_rows, "qmatmul_batched_bits",
+             "qmatmul_batched_sr.cu", "qmatmul.py:578",
+             "torch.bmm over bf16 operands, unrounded"),
+            (bits_cast_rows, "sr_cast_bits", "sr_cast.cu", "sr_cast.py:73",
+             "x.to(torch.bfloat16) (a cast, not the rounding)")):
+        entry = moe_kernel_entry(
+            rows_, name, f"src/repro_torch/csrc/{source}",
+            f"src/repro/kernels/{line}",
+            served_moe_oracle["launches"][name], lib)
+        entry.update(launches_path=f"serve {MOE_ARCH} oracle binary8-paper",
+                     in_kernel_bits_ms=sum(r["prng_ms"] * r["per_step"]
+                                           for r in rows_ if r["per_step"]))
+        kernels.append(entry)
     report = dict(device=kind, nvidia_smi=smi[0], build_s=t_build,
                   rows=rows, train_rows=train_rows, update_rows=update_rows,
                   serve=served, agreement=agree, train=trained,
@@ -1862,6 +2491,12 @@ def main() -> None:
                   train_adam=trained_adam, train_agreement_adam=adam_agree,
                   train_agreement_adam_launches=adam_agree_launches,
                   moment_path_adam=moment_path, fault_drill=drill,
+                  bits_rows=bits_rows, bits_batched_rows=bits_batched_rows,
+                  bits_cast_rows=bits_cast_rows, serve_oracle=served_oracle,
+                  serve_packed=served_packed,
+                  agreement_moe_oracle=agree_moe_oracle,
+                  train_presets=preset_train,
+                  serve_moe_oracle=served_moe_oracle,
                   t_total_s=time.time() - T_START, kernels=kernels)
     out_dir = HERE / "chiprun_out"
     out_dir.mkdir(exist_ok=True)

@@ -164,29 +164,9 @@ struct AdamScalars {
   float t, c1, c2, eps, wd, b1, ob1, b2, ob2;
 };
 
-// A grid value as its code word: the device twin of
-// repro_torch.kernels.common.pack_block, bit for bit.
+// A grid value as its code word (rounding.cuh: pack_code).
 __device__ __forceinline__ uint32_t pack_code(float x, const Moment& s) {
-  const rt::PackParams& p = s.pack;
-  const bool finite = isfinite(x);
-  const float mag = finite ? fabsf(x) : s.xmax;
-  const uint32_t sign = signbit(x) ? 1u : 0u;
-  uint32_t code;
-  if (mag >= s.xmin) {
-    const uint32_t bits = __float_as_uint(mag);
-    code = ((((bits >> 23) - static_cast<uint32_t>(126 + p.emin)))
-            << p.mbits) | ((bits & 0x7FFFFFu) >> (23 - p.mbits));
-  } else {   // a subnormal of the grid: its magnitude over the least step
-    code = static_cast<uint32_t>(
-        __float2int_rz(rt::exact_scale(mag, p.mbits - p.emin)));
-  }
-  code |= sign << (p.ebits + p.mbits);
-  if (p.has_nf && !finite) {
-    code = (sign << (p.ebits + p.mbits)) |
-           (((1u << p.ebits) - 1u) << p.mbits) |
-           (isnan(x) ? (1u << p.mbits) - 1u : 0u);
-  }
-  return code;
+  return rt::pack_code(x, s.pack, s.xmax, s.xmin);
 }
 
 __device__ __forceinline__ float load_moment(const void* p, int64_t i,

@@ -9,10 +9,18 @@
 //
 // Plain fp32 FMAs on the CUDA cores: no TF32 and no tensor cores, because
 // TF32 would change the values the reference computes.  B may be float32 or
-// bfloat16 (weights rounded to bf16 once at load; the upcast is exact).
+// bfloat16 (weights rounded to bf16 once at load; the upcast is exact).  A
+// may be float32 or the code words of one grid (uint8 or uint16: the
+// reference's a_fmt), decoded to their exact float32 values as they are
+// staged into shared memory, so a packed A sums exactly as its float32
+// values would.  Loads are element by element: any alignment will do.
 #pragma once
 
 #include <cuda_bf16.h>
+
+#include <cstdint>
+
+#include "rounding.cuh"
 
 namespace rt {
 
@@ -23,9 +31,22 @@ __device__ __forceinline__ float load_b(const __nv_bfloat16* p) {
   return __bfloat162float(*p);
 }
 
+// An A element as float32: a float32 as it is, a code word decoded with
+// `pack`.  The load itself stays an index of the restrict-qualified A.
+__device__ __forceinline__ float decode_a(float v, const PackParams&) {
+  return v;
+}
+__device__ __forceinline__ float decode_a(uint8_t c, const PackParams& p) {
+  return unpack(c, p);
+}
+__device__ __forceinline__ float decode_a(uint16_t c, const PackParams& p) {
+  return unpack(c, p);
+}
+
 // acc[b][i][j] += sum_k A[m0 + ty + 16 i, k] * B_b[k, n0 + tx + 16 j]
-template <typename TB, int NB>
-__device__ __forceinline__ void gemm_tile(const float* __restrict__ A,
+template <typename TA, typename TB, int NB>
+__device__ __forceinline__ void gemm_tile(const TA* __restrict__ A,
+                                          const PackParams& a_pack,
                                           const TB* const* Bs_global,
                                           int M, int N, int K, int m0, int n0,
                                           float (&acc)[NB][kTM][kTN]) {
@@ -41,25 +62,43 @@ __device__ __forceinline__ void gemm_tile(const float* __restrict__ A,
 #pragma unroll
       for (int j = 0; j < kTN; ++j) acc[b][i][j] = 0.0f;
 
+  constexpr int kLA = (kBM * kBK) / kThreads, kLB = (kBK * kBN) / kThreads;
   for (int kb = 0; kb < K; kb += kBK) {
+    // each operand's global loads are all issued before its shared-memory
+    // stores, so they are in flight together: with few blocks (decode, M =
+    // 4) the loop is bound by their latency (PERF.md, PR 16; the summation
+    // order is untouched)
+    float av[kLA], bv[NB][kLB];
 #pragma unroll
-    for (int l = 0; l < (kBM * kBK) / kThreads; ++l) {
+    for (int l = 0; l < kLA; ++l) {
       const int e = tid + kThreads * l;
-      const int r = e / kBK, c = e % kBK;
-      const int gr = m0 + r, gc = kb + c;
-      As[c][r] = (gr < M && gc < K) ? A[static_cast<size_t>(gr) * K + gc]
-                                    : 0.0f;
+      const int gr = m0 + e / kBK, gc = kb + e % kBK;
+      av[l] = (gr < M && gc < K)
+                  ? decode_a(A[static_cast<size_t>(gr) * K + gc], a_pack)
+                  : 0.0f;
+    }
+#pragma unroll
+    for (int l = 0; l < kLA; ++l) {
+      const int e = tid + kThreads * l;
+      As[e % kBK][e / kBK] = av[l];
     }
 #pragma unroll
     for (int b = 0; b < NB; ++b) {
 #pragma unroll
-      for (int l = 0; l < (kBK * kBN) / kThreads; ++l) {
+      for (int l = 0; l < kLB; ++l) {
         const int e = tid + kThreads * l;
-        const int r = e / kBN, c = e % kBN;
-        const int gr = kb + r, gc = n0 + c;
-        Bs[b][r][c] = (gr < K && gc < N)
+        const int gr = kb + e / kBN, gc = n0 + e % kBN;
+        bv[b][l] = (gr < K && gc < N)
             ? load_b(Bs_global[b] + static_cast<size_t>(gr) * N + gc)
             : 0.0f;
+      }
+    }
+#pragma unroll
+    for (int b = 0; b < NB; ++b) {
+#pragma unroll
+      for (int l = 0; l < kLB; ++l) {
+        const int e = tid + kThreads * l;
+        Bs[b][e / kBN][e % kBN] = bv[b][l];
       }
     }
     __syncthreads();

@@ -18,8 +18,16 @@
 #pragma once
 
 #include <cstdint>
+#include <cstring>
 
 namespace rt {
+
+// A float32 from its bit pattern, on the host.
+inline float float_of_bits(int bits) {
+  float f;
+  std::memcpy(&f, &bits, sizeof f);
+  return f;
+}
 
 constexpr uint32_t kGolden = 0x9E3779B9u;   // stream offset in the key
 constexpr uint32_t kParity = 0x1BD11BDAu;
@@ -210,6 +218,77 @@ __device__ __forceinline__ float unpack(uint32_t c, const PackParams& p) {
   const uint32_t sig = field == 0u ? m : m + (1u << p.mbits);
   const float mag = exact_scale(static_cast<float>(sig), e - p.mbits);
   return sign ? -mag : mag;
+}
+
+// A grid value as its code word: the device twin of
+// repro_torch.kernels.common.pack_block, bit for bit (xmax, xmin: the
+// grid's largest value and smallest normal; a non-finite value takes the
+// spare all-ones field where the layout has one, else saturates to xmax).
+__device__ __forceinline__ uint32_t pack_code(float x, const PackParams& p,
+                                              float xmax, float xmin) {
+  const bool finite = isfinite(x);
+  const float mag = finite ? fabsf(x) : xmax;
+  const uint32_t sign = signbit(x) ? 1u : 0u;
+  uint32_t code;
+  if (mag >= xmin) {
+    const uint32_t bits = __float_as_uint(mag);
+    code = ((((bits >> 23) - static_cast<uint32_t>(126 + p.emin)))
+            << p.mbits) | ((bits & 0x7FFFFFu) >> (23 - p.mbits));
+  } else {   // a subnormal of the grid: its magnitude over the least step
+    code = static_cast<uint32_t>(
+        __float2int_rz(exact_scale(mag, p.mbits - p.emin)));
+  }
+  code |= sign << (p.ebits + p.mbits);
+  if (p.has_nf && !finite) {
+    code = (sign << (p.ebits + p.mbits)) |
+           (((1u << p.ebits) - 1u) << p.mbits) |
+           (isnan(x) ? (1u << p.mbits) - 1u : 0u);
+  }
+  return code;
+}
+
+// How a tensor is stored: float32 (bytes == 0) or code words of one grid,
+// 1 or 2 bytes each (the reference's a_fmt / out_packed storage).
+struct CodeFormat {
+  int bytes;
+  PackParams pack;
+  float xmax;
+  float xmin;
+};
+
+// From the wrappers' int[7] {bytes, ebits, mbits, emin, has_nf, xmax bits,
+// xmin bits}; a null pointer is float32.
+inline CodeFormat code_format(const int* q) {
+  CodeFormat f{0, PackParams{0, 0, 0, 0}, 0.0f, 0.0f};
+  if (q == nullptr || q[0] == 0) return f;
+  f.bytes = q[0];
+  f.pack = PackParams{q[1], q[2], q[3], q[4]};
+  f.xmax = float_of_bits(q[5]);
+  f.xmin = float_of_bits(q[6]);
+  return f;
+}
+
+// Element i of a tensor stored as `f`, as float32.
+__device__ __forceinline__ float load_code(const void* p, size_t i,
+                                           const CodeFormat& f) {
+  if (f.bytes == 0) return static_cast<const float*>(p)[i];
+  const uint32_t c = f.bytes == 1 ? static_cast<const uint8_t*>(p)[i]
+                                  : static_cast<const uint16_t*>(p)[i];
+  return unpack(c, f.pack);
+}
+
+// Store grid value v as element i of a tensor stored as `f`.
+__device__ __forceinline__ void store_code(void* p, size_t i, float v,
+                                           const CodeFormat& f) {
+  if (f.bytes == 0) {
+    static_cast<float*>(p)[i] = v;
+  } else if (f.bytes == 1) {
+    static_cast<uint8_t*>(p)[i] =
+        static_cast<uint8_t>(pack_code(v, f.pack, f.xmax, f.xmin));
+  } else {
+    static_cast<uint16_t*>(p)[i] =
+        static_cast<uint16_t>(pack_code(v, f.pack, f.xmax, f.xmin));
+  }
 }
 
 // One rounding site of the eq.-8 chain: the identity when disabled.

@@ -1,20 +1,42 @@
 """Rounded-result GEMMs (paper eq. 8a): wrappers, plain twins, launch counts
 (counterpart of ``repro.kernels.qmatmul``).
 
-``qmatmul_prng``        -> CUDA kernel ``csrc/qmatmul_sr.cu``, replacing
-                           ``repro/kernels/qmatmul.py:qmatmul_prng_p``.
-``qmatmul_swiglu_prng`` -> CUDA kernel ``csrc/qmatmul_swiglu_sr.cu``,
-                           replacing ``qmatmul_swiglu_prng_p``.
-``qmatmul_batched_prng`` -> CUDA kernel ``csrc/qmatmul_batched_sr.cu``,
-                           replacing ``qmatmul_batched_prng_p`` (K8'): a
-                           stack of GEMMs, each slice with its own seed
-                           words.
+``qmatmul_prng``         -> CUDA kernel ``csrc/qmatmul_sr.cu``
+                            (``qmatmul_sr``, K3'), replacing
+                            ``repro/kernels/qmatmul.py:qmatmul_prng_p``.
+``qmatmul``              -> the same source's ``qmatmul_bits`` (K3),
+                            replacing ``qmatmul_p``: explicit (M, N) bits.
+``qmatmul_swiglu_prng``  -> CUDA kernel ``csrc/qmatmul_swiglu_sr.cu``
+                            (K4'), replacing ``qmatmul_swiglu_prng_p``.
+``qmatmul_swiglu``       -> the same source's ``qmatmul_swiglu_bits``
+                            (K4), replacing ``qmatmul_swiglu_p``.
+``qmatmul_batched_prng`` -> CUDA kernel ``csrc/qmatmul_batched_sr.cu``
+                            (K8'), replacing ``qmatmul_batched_prng_p``: a
+                            stack of GEMMs, each slice with its own seed
+                            words.
+``qmatmul_batched``      -> the same source's ``qmatmul_batched_bits``
+                            (K8), replacing ``qmatmul_batched_p``: explicit
+                            (E, M, N) bits, one plane per slice.
+
+Each explicit-bits kernel runs the main loop of its in-kernel-bits twin
+and differs only in where an output's 32-bit word comes from, so fed
+``common.counter_bits_reduced`` of the same seed words (the reference's
+oracle draw) it equals that twin bit for bit.
 
 A tensor on the CPU goes to the plain PyTorch twin (``*_plain``), which
 computes the same function: an fp32 GEMM, then ``common.round_block`` fed
-the counter bits the kernel draws in-kernel.  A CUDA tensor launches the
-kernel; anything the kernel does not take raises.  ``LAUNCHES`` counts the
-kernel launches, one per wrapper call that reaches a kernel.
+the bits (given, or the counter bits the kernel draws in-kernel), then,
+where asked, ``common.pack_block``.  A CUDA tensor launches the kernel;
+anything the kernel does not take raises.  ``LAUNCHES`` counts the kernel
+launches, one per wrapper call that reaches a kernel.
+
+Storage options of the reference's shared epilogue: ``a_fmt`` (A holds
+code words of that grid, decoded on load) and ``out_packed`` (the result
+leaves as code words of its grid); the fused GLU kernels pack the hidden
+to the act grid (``out_packed``) and the g_r/u_r residuals to the GEMM
+grid (``residuals_packed``).  Bits operands are uint32 words, held in
+int64 tensors (as the port's counter draws make them) or as int32 bit
+patterns; the kernels read 32-bit words.
 
 The kernels are bound by bytes at decode (they stream each weight once);
 see the notes at the top of the CUDA sources for their design.
@@ -28,6 +50,7 @@ import numpy as np
 import torch
 
 from repro_torch.core.grids import get_grid
+from repro_torch.core.prng import int32_words
 from repro_torch.core.rounding import RoundingSpec
 from repro_torch.core.schemes import get_scheme
 from repro_torch.kernels import build, common
@@ -39,7 +62,9 @@ _MODES = {"rn": 0, "sr": 1}
 
 # kernel launches since the last reset_launches(), by kernel name
 LAUNCHES: Dict[str, int] = {"qmatmul_sr": 0, "qmatmul_swiglu_sr": 0,
-                            "qmatmul_batched_sr": 0}
+                            "qmatmul_batched_sr": 0, "qmatmul_bits": 0,
+                            "qmatmul_swiglu_bits": 0,
+                            "qmatmul_batched_bits": 0}
 
 
 def reset_launches() -> None:
@@ -51,8 +76,8 @@ Words = Tuple[int, int]
 
 
 def _check_fmt_mode(fmt, mode: str, rand_bits: int, what: str):
-    """The grids and schemes this slice implements: plain FP grids under
-    rn or sr (r = 32, 16, 8).  Returns the grid."""
+    """The grids and schemes the GEMM kernels implement: plain FP grids
+    under rn or sr (r = 32, 16, 8).  Returns the grid."""
     grid = get_grid(fmt)
     if grid.kind != "fp" or grid.transformed:
         raise NotImplementedError(f"{what}: grid {grid.name!r} is not a "
@@ -63,7 +88,8 @@ def _check_fmt_mode(fmt, mode: str, rand_bits: int, what: str):
     scheme = get_scheme(mode).name
     if scheme not in _MODES:
         raise NotImplementedError(f"{what}: scheme {scheme!r} is not ported "
-                                  "yet (this slice implements rn and sr)")
+                                  "yet (the GEMM kernels implement rn and "
+                                  "sr)")
     if rand_bits not in (32, 16, 8):
         raise ValueError(f"{what}: rand_bits must be 32, 16 or 8")
     return grid
@@ -75,16 +101,44 @@ def _round_args(grid, mode: str, rand_bits: int):
             _MODES[get_scheme(mode).name], rand_bits)
 
 
-def _check_unsupported(bias, act, act_spec, out_packed, a_fmt, eps,
-                       overflow):
+def _site_array(grid, mode: str, rand_bits: int, enabled: bool = True,
+                with_enabled: bool = False):
+    """A rounding site as the C interface's int array: {[enabled,]
+    precision, emin, emax, mode, rand_bits}, and its xmax."""
+    if not enabled:
+        vals, xmax = [0, 0, 0, 0, 32], 0.0
+    else:
+        f = grid.fmt
+        vals = [f.precision, f.emin, f.emax, _MODES[get_scheme(mode).name],
+                rand_bits]
+        xmax = f.xmax
+    if with_enabled:
+        vals = [int(enabled)] + vals
+    return (ctypes.c_int * len(vals))(*vals), ctypes.c_float(xmax)
+
+
+def _float_bits(v: float) -> int:
+    return int(np.array(v, dtype=np.float32).view(np.int32))
+
+
+def _code_arg(fmt):
+    """A tensor's storage as the kernels' int[7] {bytes, ebits, mbits,
+    emin, has_nf, xmax bits, xmin bits}; None (a null pointer) for
+    float32."""
+    if fmt is None:
+        return None
+    f = get_grid(fmt).fmt
+    ebits, mbits, width, has_nf = common.pack_spec(fmt)
+    return (ctypes.c_int * 7)(width, ebits, mbits, f.emin, int(has_nf),
+                              _float_bits(f.xmax), _float_bits(f.xmin))
+
+
+def _check_unsupported(bias, act, act_spec, eps, overflow):
     if bias is not None:
         raise NotImplementedError("qmatmul bias epilogue is not ported yet")
     if act is not None or act_spec is not None:
         raise NotImplementedError("qmatmul activation epilogue is not "
-                                  "ported yet (use qmatmul_swiglu_prng)")
-    if out_packed or a_fmt is not None:
-        raise NotImplementedError("packed operands/outputs are not ported "
-                                  "yet")
+                                  "ported yet (use qmatmul_swiglu*)")
     if eps:
         raise NotImplementedError("eps (sr_eps schemes) is not ported yet")
     if overflow != "saturate":
@@ -92,13 +146,37 @@ def _check_unsupported(bias, act, act_spec, out_packed, a_fmt, eps,
                                   "(the kernels saturate at xmax)")
 
 
-def _check_gemm_operands(a: torch.Tensor, bs: Sequence[torch.Tensor],
-                         what: str):
-    if a.dim() != 2 or a.dtype != torch.float32:
-        raise ValueError(f"{what}: a must be a 2-D float32 tensor, got "
+def _pack_grid(fmt, what: str):
+    """The grid of a packed operand or output (raises ValueError for a
+    grid wider than a 16-bit code word, as the reference's pack_spec)."""
+    grid = get_grid(fmt)
+    common.pack_spec(grid)
+    if grid.kind != "fp" or grid.transformed:
+        raise NotImplementedError(f"{what}: packed grid {grid.name!r} is "
+                                  "not a plain FP grid")
+    return grid
+
+
+def _check_a(a: torch.Tensor, a_fmt, dims: int, what: str):
+    """A float32 A, or code words of ``a_fmt``; returns a_fmt's grid."""
+    if a_fmt is None:
+        want = torch.float32
+        grid = None
+    else:
+        grid = _pack_grid(a_fmt, what)
+        want = common.pack_dtype(grid)
+    if a.dim() != dims or a.dtype != want:
+        raise ValueError(f"{what}: a must be a {dims}-D {want} tensor, got "
                          f"{tuple(a.shape)} {a.dtype}")
+    if a.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"{what}: unsupported device {a.device}")
+    return grid
+
+
+def _check_weights(a: torch.Tensor, bs: Sequence[torch.Tensor], what: str):
     for b in bs:
-        if b.dim() != 2 or b.shape[0] != a.shape[1]:
+        if b.dim() != a.dim() or b.shape[-2] != a.shape[-1] \
+                or b.shape[:-2] != a.shape[:-2]:
             raise ValueError(f"{what}: shape mismatch {tuple(a.shape)} x "
                              f"{tuple(b.shape)}")
         if b.dtype not in (torch.float32, torch.bfloat16):
@@ -108,8 +186,36 @@ def _check_gemm_operands(a: torch.Tensor, bs: Sequence[torch.Tensor],
             raise ValueError(f"{what}: weight operands must match")
         if b.device != a.device:
             raise ValueError(f"{what}: operands on different devices")
-    if a.device.type not in ("cpu", "cuda"):
-        raise ValueError(f"{what}: unsupported device {a.device}")
+
+
+def _a_values(a: torch.Tensor, a_grid) -> torch.Tensor:
+    """A as float32 values (code words decoded)."""
+    return a.float() if a_grid is None else common.unpack_block(a, a_grid)
+
+
+def _bits_words(bits: Optional[torch.Tensor], shape, device,
+                what: str) -> Optional[torch.Tensor]:
+    """A bits operand checked, as int64 uint32 values (CPU) or int32 bit
+    patterns (card); None stays None."""
+    if bits is None:
+        return None
+    if tuple(bits.shape) != tuple(shape) \
+            or bits.dtype not in (torch.int32, torch.int64):
+        raise ValueError(f"{what}: bits must be int32/int64 {tuple(shape)}, "
+                         f"got {bits.dtype} {tuple(bits.shape)}")
+    if bits.device != device:
+        raise ValueError(f"{what}: bits on another device than the "
+                         "operands")
+    if device.type == "cpu":
+        return bits.to(torch.int64) & 0xFFFFFFFF
+    return (bits if bits.dtype == torch.int32
+            else int32_words(bits)).contiguous()
+
+
+def _need_bits(stochastic: bool, what: str, *bits) -> None:
+    if stochastic and any(b is None for b in bits):
+        raise ValueError(f"{what}: a stochastic scheme needs the bits "
+                         "operand")
 
 
 def _launch_check(rc: int, name: str) -> None:
@@ -117,68 +223,148 @@ def _launch_check(rc: int, name: str) -> None:
         raise RuntimeError(f"{name} launch failed: cudaError {rc}")
 
 
+def _ptr(t: Optional[torch.Tensor]):
+    return None if t is None else t.data_ptr()
+
+
+def _stream(t: torch.Tensor):
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def _emit(acc, bits, grid, mode: str, rand_bits: int, out_packed: bool):
+    """The twins' epilogue: round, then pack where asked."""
+    y = common.round_block(acc, bits, grid, mode, rand_bits=rand_bits)
+    return common.pack_block(y, grid) if out_packed else y
+
+
 # ---------------------------------------------------------------------------
-# qmatmul_prng: rounded a @ b
+# K3' / K3: rounded a @ b
 # ---------------------------------------------------------------------------
 def qmatmul_plain(a: torch.Tensor, b: torch.Tensor, seed_words: Words, fmt,
-                  mode: str = "sr", rand_bits: int = 32) -> torch.Tensor:
-    """The plain twin: fp32 GEMM, then round_block with the counter bits
-    of the output's global (row, col), stream 0."""
-    acc = a.float() @ b.float()
+                  mode: str = "sr", rand_bits: int = 32, *, a_fmt=None,
+                  out_packed: bool = False) -> torch.Tensor:
+    """The plain twin of K3': fp32 GEMM, then round_block with the counter
+    bits of the output's global (row, col), stream 0."""
+    a_grid = None if a_fmt is None else get_grid(a_fmt)
+    acc = _a_values(a, a_grid) @ b.float()
     bits = None
     if get_scheme(mode).stochastic:
         bits = common.counter_bits_reduced(
             seed_words[0], seed_words[1], tuple(acc.shape), rand_bits,
             stream=STREAM_FWD, device=acc.device)
-    return common.round_block(acc, bits, fmt, mode, rand_bits=rand_bits)
+    return _emit(acc, bits, get_grid(fmt), mode, rand_bits, out_packed)
+
+
+def qmatmul_bits_plain(a: torch.Tensor, b: torch.Tensor,
+                       bits: Optional[torch.Tensor], fmt, mode: str = "sr",
+                       rand_bits: int = 32, *, a_fmt=None,
+                       out_packed: bool = False) -> torch.Tensor:
+    """The plain twin of K3: fp32 GEMM, then round_block fed ``bits``
+    (uint32 words in int64; the low ``rand_bits`` of each are used)."""
+    a_grid = None if a_fmt is None else get_grid(a_fmt)
+    acc = _a_values(a, a_grid) @ b.float()
+    if bits is not None:
+        bits = bits.to(torch.int64) & 0xFFFFFFFF
+    return _emit(acc, bits if get_scheme(mode).stochastic else None,
+                 get_grid(fmt), mode, rand_bits, out_packed)
+
+
+def _qmatmul_launch(name: str, a, a_grid, b, bits, seed_words, grid, mode,
+                    rand_bits, out_packed):
+    M, K = a.shape
+    N = b.shape[1]
+    a, b = a.contiguous(), b.contiguous()
+    out_dtype = common.pack_dtype(grid) if out_packed else torch.float32
+    out = torch.empty((M, N), dtype=out_dtype, device=a.device)
+    if out.numel() == 0:
+        return out                       # nothing to launch
+    head = (a.data_ptr(), _code_arg(a_grid), b.data_ptr(),
+            int(b.dtype == torch.bfloat16))
+    tail = (M, N, K)
+    out_arg = (out.data_ptr(), _code_arg(grid if out_packed else None))
+    lib = _lib_qmatmul()
+    if name == "qmatmul_sr":
+        rc = lib.qmatmul_sr(*head, *out_arg, *tail, seed_words[0],
+                            seed_words[1], *_round_args(grid, mode, rand_bits),
+                            _stream(a))
+    else:
+        rc = lib.qmatmul_bits(*head, _ptr(bits), *out_arg, *tail,
+                              *_round_args(grid, mode, rand_bits), _stream(a))
+    _launch_check(rc, name)
+    LAUNCHES[name] += 1
+    return out
 
 
 def qmatmul_prng(a: torch.Tensor, b: torch.Tensor, seed_words: Words, fmt,
                  mode: str = "sr", rand_bits: int = 32, *, eps: float = 0.0,
                  overflow: str = "saturate", bias=None, act=None,
-                 act_spec=None, out_packed=False, a_fmt=None
+                 act_spec=None, out_packed: bool = False, a_fmt=None
                  ) -> torch.Tensor:
-    """Rounded ``a @ b`` (a: (M, K) float32; b: (K, N) float32 or bf16);
-    ``seed_words``: the (k0, k1) uint32 pair of this GEMM site.  Returns
-    (M, N) float32 grid values."""
-    _check_unsupported(bias, act, act_spec, out_packed, a_fmt, eps, overflow)
+    """Rounded ``a @ b`` (a: (M, K) float32, or code words of ``a_fmt``;
+    b: (K, N) float32 or bf16); ``seed_words``: the (k0, k1) uint32 pair
+    of this GEMM site.  Returns (M, N) float32 grid values, or their code
+    words with ``out_packed``."""
+    _check_unsupported(bias, act, act_spec, eps, overflow)
     grid = _check_fmt_mode(fmt, mode, rand_bits, "qmatmul_prng")
-    _check_gemm_operands(a, (b,), "qmatmul_prng")
+    a_grid = _check_a(a, a_fmt, 2, "qmatmul_prng")
+    _check_weights(a, (b,), "qmatmul_prng")
+    if out_packed:
+        _pack_grid(grid, "qmatmul_prng")
     if a.device.type == "cpu":
-        return qmatmul_plain(a, b, seed_words, grid, mode, rand_bits)
-    M, K = a.shape
-    N = b.shape[1]
-    a = a.contiguous()
-    b = b.contiguous()
-    out = torch.empty((M, N), dtype=torch.float32, device=a.device)
-    if out.numel() == 0:
-        return out                       # nothing to launch
-    lib = _lib_qmatmul()
-    rc = lib.qmatmul_sr(
-        a.data_ptr(), b.data_ptr(), int(b.dtype == torch.bfloat16),
-        out.data_ptr(), M, N, K, seed_words[0], seed_words[1],
-        *_round_args(grid, mode, rand_bits),
-        torch.cuda.current_stream(a.device).cuda_stream)
-    _launch_check(rc, "qmatmul_sr")
-    LAUNCHES["qmatmul_sr"] += 1
-    return out
+        return qmatmul_plain(a, b, seed_words, grid, mode, rand_bits,
+                             a_fmt=a_grid, out_packed=out_packed)
+    return _qmatmul_launch("qmatmul_sr", a, a_grid, b, None, seed_words,
+                           grid, mode, rand_bits, out_packed)
+
+
+def qmatmul(a: torch.Tensor, b: torch.Tensor, bits: Optional[torch.Tensor],
+            fmt, mode: str = "sr", rand_bits: int = 32, *, eps: float = 0.0,
+            overflow: str = "saturate", bias=None, act=None, act_spec=None,
+            act_bits=None, out_packed: bool = False, a_fmt=None
+            ) -> torch.Tensor:
+    """K3: rounded ``a @ b`` with explicit bits, ``bits`` (M, N) uint32
+    words (int64, or int32 bit patterns; None for a deterministic mode;
+    with ``rand_bits < 32`` the low bits of each word).  Operands, options
+    and result as :func:`qmatmul_prng`."""
+    _check_unsupported(bias, act, act_spec, eps, overflow)
+    if act_bits is not None:
+        raise NotImplementedError("qmatmul act_bits: the activation "
+                                  "epilogue is not ported yet")
+    grid = _check_fmt_mode(fmt, mode, rand_bits, "qmatmul")
+    a_grid = _check_a(a, a_fmt, 2, "qmatmul")
+    _check_weights(a, (b,), "qmatmul")
+    if out_packed:
+        _pack_grid(grid, "qmatmul")
+    stoch = get_scheme(mode).stochastic
+    _need_bits(stoch, "qmatmul", bits)
+    words = _bits_words(bits if stoch else None, (a.shape[0], b.shape[1]),
+                        a.device, "qmatmul")
+    if a.device.type == "cpu":
+        return qmatmul_bits_plain(a, b, words, grid, mode, rand_bits,
+                                  a_fmt=a_grid, out_packed=out_packed)
+    return _qmatmul_launch("qmatmul_bits", a, a_grid, b, words, None, grid,
+                           mode, rand_bits, out_packed)
 
 
 def _lib_qmatmul():
     lib = build.load("qmatmul_sr")
-    fn = lib.qmatmul_sr
-    if fn.argtypes is None:
+    if lib.qmatmul_sr.argtypes is None:
         c = ctypes
-        fn.argtypes = [c.c_void_p, c.c_void_p, c.c_int, c.c_void_p,
-                       c.c_int, c.c_int, c.c_int, c.c_uint32, c.c_uint32,
-                       c.c_int, c.c_int, c.c_int, c.c_float, c.c_int,
-                       c.c_int, c.c_void_p]
-        fn.restype = c.c_int
+        head = [c.c_void_p, c.POINTER(c.c_int), c.c_void_p, c.c_int]
+        out = [c.c_void_p, c.POINTER(c.c_int)]
+        rnd = [c.c_int, c.c_int, c.c_int, c.c_float, c.c_int, c.c_int,
+               c.c_void_p]
+        lib.qmatmul_sr.argtypes = (head + out + [c.c_int] * 3
+                                   + [c.c_uint32] * 2 + rnd)
+        lib.qmatmul_sr.restype = c.c_int
+        lib.qmatmul_bits.argtypes = (head + [c.c_void_p] + out
+                                     + [c.c_int] * 3 + rnd)
+        lib.qmatmul_bits.restype = c.c_int
     return lib
 
 
 # ---------------------------------------------------------------------------
-# qmatmul_swiglu_prng: h = round_act(silu(round(x@wg)) * round(x@wu))
+# K4' / K4: h = round_act(silu(round(x@wg)) * round(x@wu))
 # ---------------------------------------------------------------------------
 def silu(g: torch.Tensor) -> torch.Tensor:
     """SiLU exactly as the kernel computes it: g * (1 / (1 + exp(-g))).
@@ -188,57 +374,84 @@ def silu(g: torch.Tensor) -> torch.Tensor:
     return g * (1.0 / (1.0 + torch.exp(-g)))
 
 
+def _swiglu_emit(accg, accu, bg, bu, ab, grid, mode, rand_bits,
+                 act_spec: Optional[RoundingSpec], residuals: bool,
+                 out_packed: bool, residuals_packed: bool):
+    """The fused GLU epilogue of the twins: round both branches, SiLU and
+    product, the act site, then the storage of h and the residuals."""
+    g_r = common.round_block(accg, bg, grid, mode, rand_bits=rand_bits)
+    u_r = common.round_block(accu, bu, grid, mode, rand_bits=rand_bits)
+    h = silu(g_r) * u_r
+    if act_spec is not None:
+        h = common.apply_spec_block(act_spec, h, ab)
+        if out_packed:
+            h = common.pack_block(h, act_spec.fmt)
+    if not residuals:
+        return h
+    if residuals_packed:
+        g_r, u_r = common.pack_block(g_r, grid), common.pack_block(u_r, grid)
+    return h, g_r, u_r
+
+
 def qmatmul_swiglu_plain(x: torch.Tensor, wg: torch.Tensor,
                          wu: torch.Tensor, seeds: Sequence[Words], fmt,
                          mode: str = "sr", rand_bits: int = 32,
                          act_spec: Optional[RoundingSpec] = None,
-                         residuals: bool = False):
-    """The plain twin of the fused GLU prefix: h, or (h, g_r, u_r) with
-    ``residuals``."""
+                         residuals: bool = False, out_packed: bool = False,
+                         residuals_packed: bool = False):
+    """The plain twin of K4': h, or (h, g_r, u_r) with ``residuals``,
+    drawing the counter bits of the three seed pairs."""
     x = x.float()
     accg = x @ wg.float()
     accu = x @ wu.float()
     shape, dev = tuple(accg.shape), accg.device
-    bg = bu = None
+    bg = bu = ab = None
     if get_scheme(mode).stochastic:
         bg = common.counter_bits_reduced(*seeds[0], shape, rand_bits,
                                          stream=STREAM_FWD, device=dev)
         bu = common.counter_bits_reduced(*seeds[1], shape, rand_bits,
                                          stream=STREAM_FWD, device=dev)
-    g_r = common.round_block(accg, bg, fmt, mode, rand_bits=rand_bits)
-    u_r = common.round_block(accu, bu, fmt, mode, rand_bits=rand_bits)
-    h = silu(g_r) * u_r
-    if act_spec is not None and not act_spec.is_identity:
-        ab = None
-        if act_spec.stochastic:
-            ab = common.counter_bits_reduced(*seeds[2], shape,
-                                             act_spec.rand_bits,
-                                             stream=STREAM_ACT, device=dev)
-        h = common.apply_spec_block(act_spec, h, ab)
-    return (h, g_r, u_r) if residuals else h
+    if act_spec is not None and act_spec.stochastic:
+        ab = common.counter_bits_reduced(*seeds[2], shape,
+                                         act_spec.rand_bits,
+                                         stream=STREAM_ACT, device=dev)
+    return _swiglu_emit(accg, accu, bg, bu, ab, get_grid(fmt), mode,
+                        rand_bits, act_spec, residuals, out_packed,
+                        residuals_packed)
 
 
-def qmatmul_swiglu_prng(x: torch.Tensor, wg: torch.Tensor, wu: torch.Tensor,
-                        seeds: Sequence[Words], fmt, mode: str = "sr", *,
-                        act: str = "silu",
-                        act_spec: Optional[RoundingSpec] = None,
-                        rand_bits: int = 32, eps: float = 0.0,
-                        overflow: str = "saturate", out_packed: bool = False,
-                        residuals: bool = False):
-    """Fused GLU-FFN prefix: x (M, K) float32, wg/wu (K, N) float32 or
-    bf16; ``seeds``: the gate, up and activation-site (k0, k1) pairs.
-    Returns h (M, N) float32, or with ``residuals`` the tuple (h, g_r,
-    u_r): the rounded gate and up branches (float32) the backward needs."""
+def qmatmul_swiglu_bits_plain(x: torch.Tensor, wg: torch.Tensor,
+                              wu: torch.Tensor, bits_g, bits_u, fmt,
+                              mode: str = "sr", rand_bits: int = 32,
+                              act_spec: Optional[RoundingSpec] = None,
+                              act_bits=None, residuals: bool = False,
+                              out_packed: bool = False,
+                              residuals_packed: bool = False):
+    """The plain twin of K4: as :func:`qmatmul_swiglu_plain` with the
+    given (M, N) words for the gate, the up branch and the act site."""
+    x = x.float()
+    accg = x @ wg.float()
+    accu = x @ wu.float()
+    stoch = get_scheme(mode).stochastic
+
+    def words(b):
+        return None if b is None else b.to(torch.int64) & 0xFFFFFFFF
+    return _swiglu_emit(accg, accu, words(bits_g) if stoch else None,
+                        words(bits_u) if stoch else None, words(act_bits),
+                        get_grid(fmt), mode, rand_bits, act_spec, residuals,
+                        out_packed, residuals_packed)
+
+
+def _check_swiglu(x, wg, wu, fmt, mode, act, act_spec, rand_bits, eps,
+                  overflow, out_packed, residuals_packed, what):
+    """The checks both GLU flavours share; returns (grid, act_spec or
+    None, act grid or None)."""
     if act != "silu":
         raise NotImplementedError(f"activation {act!r} is not ported yet")
-    if out_packed:
-        raise NotImplementedError("packed outputs are not ported yet")
     if eps or overflow != "saturate":
         raise NotImplementedError("eps (sr_eps schemes) and overflow='inf' "
                                   "are not ported yet")
-    if len(seeds) != 3:
-        raise ValueError("seeds must hold three (k0, k1) pairs")
-    grid = _check_fmt_mode(fmt, mode, rand_bits, "qmatmul_swiglu_prng")
+    grid = _check_fmt_mode(fmt, mode, rand_bits, what)
     act_grid = None
     if act_spec is not None and act_spec.is_identity:
         act_spec = None
@@ -247,68 +460,176 @@ def qmatmul_swiglu_prng(x: torch.Tensor, wg: torch.Tensor, wu: torch.Tensor,
             raise NotImplementedError("act_spec eps/overflow not ported yet")
         act_grid = _check_fmt_mode(act_spec.fmt, act_spec.mode,
                                    act_spec.rand_bits, "act_spec")
-    _check_gemm_operands(x, (wg, wu), "qmatmul_swiglu_prng")
-    if x.device.type == "cpu":
-        return qmatmul_swiglu_plain(x, wg, wu, seeds, grid, mode, rand_bits,
-                                    act_spec, residuals)
+    if out_packed:
+        if act_spec is None:
+            raise ValueError("out_packed with an activation requires a "
+                             "non-identity act_spec (the packed values "
+                             "must land on a rounding grid)")
+        _pack_grid(act_grid, what)
+    if residuals_packed:
+        _pack_grid(grid, what)
+    _check_a(x, None, 2, what)
+    _check_weights(x, (wg, wu), what)
+    return grid, act_spec, act_grid
+
+
+def _swiglu_launch(name: str, x, wg, wu, bits3, seeds, grid, mode,
+                   rand_bits, act_spec, act_grid, residuals, out_packed,
+                   residuals_packed):
     M, K = x.shape
     N = wg.shape[1]
     x, wg, wu = x.contiguous(), wg.contiguous(), wu.contiguous()
-    outs = [torch.empty((M, N), dtype=torch.float32, device=x.device)
-            for _ in range(3 if residuals else 1)]
+    h_dtype = common.pack_dtype(act_grid) if out_packed else torch.float32
+    r_dtype = common.pack_dtype(grid) if residuals_packed else torch.float32
+    outs = [torch.empty((M, N), dtype=h_dtype, device=x.device)]
+    if residuals:
+        outs += [torch.empty((M, N), dtype=r_dtype, device=x.device)
+                 for _ in range(2)]
+    result = tuple(outs) if residuals else outs[0]
     if outs[0].numel() == 0:
-        return tuple(outs) if residuals else outs[0]   # nothing to launch
+        return result                    # nothing to launch
     res_ptrs = (outs[1].data_ptr(), outs[2].data_ptr()) if residuals \
         else (None, None)
+    fwd_site, xmax = _site_array(grid, mode, rand_bits)
     if act_spec is not None:
-        act_args = (1, *_round_args(act_grid, act_spec.mode,
-                                    act_spec.rand_bits))
+        act_site, act_xmax = _site_array(act_grid, act_spec.mode,
+                                         act_spec.rand_bits,
+                                         with_enabled=True)
     else:
-        act_args = (0, 0, 0, 0, ctypes.c_float(0.0), 0, 32)
+        act_site, act_xmax = _site_array(None, "rn", 32, enabled=False,
+                                         with_enabled=True)
+    head = (x.data_ptr(), wg.data_ptr(), wu.data_ptr(),
+            int(wg.dtype == torch.bfloat16))
+    tail = (outs[0].data_ptr(), _code_arg(act_grid if out_packed else None),
+            *res_ptrs, _code_arg(grid if residuals_packed else None),
+            M, N, K, fwd_site, xmax, act_site, act_xmax, _stream(x))
     lib = _lib_swiglu()
-    rc = lib.qmatmul_swiglu_sr(
-        x.data_ptr(), wg.data_ptr(), wu.data_ptr(),
-        int(wg.dtype == torch.bfloat16), outs[0].data_ptr(), *res_ptrs,
-        M, N, K,
-        *seeds[0], *seeds[1], *seeds[2],
-        *_round_args(grid, mode, rand_bits), *act_args,
-        torch.cuda.current_stream(x.device).cuda_stream)
-    _launch_check(rc, "qmatmul_swiglu_sr")
-    LAUNCHES["qmatmul_swiglu_sr"] += 1
-    return tuple(outs) if residuals else outs[0]
+    if name == "qmatmul_swiglu_sr":
+        words = (ctypes.c_uint32 * 6)(*[w & 0xFFFFFFFF for pair in seeds
+                                        for w in pair])
+        rc = lib.qmatmul_swiglu_sr(*head, words, *tail)
+    else:
+        rc = lib.qmatmul_swiglu_bits(*head, *(_ptr(b) for b in bits3),
+                                     *tail)
+    _launch_check(rc, name)
+    LAUNCHES[name] += 1
+    return result
+
+
+def qmatmul_swiglu_prng(x: torch.Tensor, wg: torch.Tensor, wu: torch.Tensor,
+                        seeds: Sequence[Words], fmt, mode: str = "sr", *,
+                        act: str = "silu",
+                        act_spec: Optional[RoundingSpec] = None,
+                        rand_bits: int = 32, eps: float = 0.0,
+                        overflow: str = "saturate", out_packed: bool = False,
+                        residuals: bool = False,
+                        residuals_packed: bool = False):
+    """Fused GLU-FFN prefix (K4'): x (M, K) float32, wg/wu (K, N) float32
+    or bf16; ``seeds``: the gate, up and activation-site (k0, k1) pairs.
+    Returns h (M, N), or with ``residuals`` the tuple (h, g_r, u_r): the
+    rounded gate and up branches the backward needs.  h is float32, or
+    code words of the act grid with ``out_packed``; g_r/u_r float32, or
+    code words of ``fmt`` with ``residuals_packed``."""
+    if len(seeds) != 3:
+        raise ValueError("seeds must hold three (k0, k1) pairs")
+    grid, act_spec, act_grid = _check_swiglu(
+        x, wg, wu, fmt, mode, act, act_spec, rand_bits, eps, overflow,
+        out_packed, residuals_packed, "qmatmul_swiglu_prng")
+    if x.device.type == "cpu":
+        return qmatmul_swiglu_plain(x, wg, wu, seeds, grid, mode, rand_bits,
+                                    act_spec, residuals, out_packed,
+                                    residuals_packed)
+    return _swiglu_launch("qmatmul_swiglu_sr", x, wg, wu, None, seeds, grid,
+                          mode, rand_bits, act_spec, act_grid, residuals,
+                          out_packed, residuals_packed)
+
+
+def qmatmul_swiglu(x: torch.Tensor, wg: torch.Tensor, wu: torch.Tensor,
+                   bits_g: Optional[torch.Tensor],
+                   bits_u: Optional[torch.Tensor], fmt, mode: str = "sr", *,
+                   act: str = "silu",
+                   act_spec: Optional[RoundingSpec] = None, act_bits=None,
+                   rand_bits: int = 32, eps: float = 0.0,
+                   overflow: str = "saturate", out_packed: bool = False,
+                   residuals: bool = False, residuals_packed: bool = False):
+    """K4: the fused GLU-FFN prefix with explicit bits: ``bits_g`` and
+    ``bits_u`` (M, N) uint32 words for the two GEMM-result roundings (None
+    for a deterministic mode), ``act_bits`` (M, N) for a stochastic act
+    site.  Operands, options and result as :func:`qmatmul_swiglu_prng`."""
+    what = "qmatmul_swiglu"
+    grid, act_spec, act_grid = _check_swiglu(
+        x, wg, wu, fmt, mode, act, act_spec, rand_bits, eps, overflow,
+        out_packed, residuals_packed, what)
+    shape = (x.shape[0], wg.shape[1])
+    stoch = get_scheme(mode).stochastic
+    act_stoch = act_spec is not None and act_spec.stochastic
+    _need_bits(stoch, what, bits_g, bits_u)
+    if act_stoch and act_bits is None:
+        raise ValueError("stochastic act_spec in explicit-bits mode "
+                         "requires act_bits")
+    bits3 = [_bits_words(b, shape, x.device, what)
+             for b in (bits_g if stoch else None, bits_u if stoch else None,
+                       act_bits if act_stoch else None)]
+    if x.device.type == "cpu":
+        return qmatmul_swiglu_bits_plain(x, wg, wu, bits3[0], bits3[1], grid,
+                                         mode, rand_bits, act_spec, bits3[2],
+                                         residuals, out_packed,
+                                         residuals_packed)
+    return _swiglu_launch("qmatmul_swiglu_bits", x, wg, wu, bits3, None,
+                          grid, mode, rand_bits, act_spec, act_grid,
+                          residuals, out_packed, residuals_packed)
 
 
 def _lib_swiglu():
     lib = build.load("qmatmul_swiglu_sr")
-    fn = lib.qmatmul_swiglu_sr
-    if fn.argtypes is None:
+    if lib.qmatmul_swiglu_sr.argtypes is None:
         c = ctypes
-        fn.argtypes = ([c.c_void_p] * 3 + [c.c_int] + [c.c_void_p] * 3
-                       + [c.c_int] * 3 + [c.c_uint32] * 6
-                       + [c.c_int] * 3 + [c.c_float] + [c.c_int] * 2
-                       + [c.c_int] * 4 + [c.c_float] + [c.c_int] * 2
-                       + [c.c_void_p])
-        fn.restype = c.c_int
+        ints = c.POINTER(c.c_int)
+        head = [c.c_void_p] * 3 + [c.c_int]
+        tail = ([c.c_void_p, ints, c.c_void_p, c.c_void_p, ints]
+                + [c.c_int] * 3 + [ints, c.c_float, ints, c.c_float,
+                                   c.c_void_p])
+        lib.qmatmul_swiglu_sr.argtypes = (head + [c.POINTER(c.c_uint32)]
+                                          + tail)
+        lib.qmatmul_swiglu_sr.restype = c.c_int
+        lib.qmatmul_swiglu_bits.argtypes = head + [c.c_void_p] * 3 + tail
+        lib.qmatmul_swiglu_bits.restype = c.c_int
     return lib
 
 
 # ---------------------------------------------------------------------------
-# qmatmul_batched_prng: rounded a[e] @ b[e], per-slice seed words
+# K8' / K8: rounded a[e] @ b[e]
 # ---------------------------------------------------------------------------
 def qmatmul_batched_plain(a: torch.Tensor, b: torch.Tensor, seeds, fmt,
-                          mode: str = "sr", rand_bits: int = 32
+                          mode: str = "sr", rand_bits: int = 32, *,
+                          a_fmt=None, out_packed: bool = False
                           ) -> torch.Tensor:
-    """The plain twin: a batched fp32 GEMM, then round_block fed slice
-    e's counter bits from ``seeds[e]`` at within-slice (row, col), stream
-    0 (``common.counter_bits_batch``)."""
-    acc = torch.bmm(a.float(), b.float())
+    """The plain twin of K8': a batched fp32 GEMM, then round_block fed
+    slice e's counter bits from ``seeds[e]`` at within-slice (row, col),
+    stream 0 (``common.counter_bits_batch``)."""
+    a_grid = None if a_fmt is None else get_grid(a_fmt)
+    acc = torch.bmm(_a_values(a, a_grid), b.float())
     bits = None
     if get_scheme(mode).stochastic:
         bits = common.counter_bits_batch(_host_seeds(seeds, acc.shape[0]),
                                          tuple(acc.shape), rand_bits,
                                          stream=STREAM_FWD,
                                          device=acc.device)
-    return common.round_block(acc, bits, fmt, mode, rand_bits=rand_bits)
+    return _emit(acc, bits, get_grid(fmt), mode, rand_bits, out_packed)
+
+
+def qmatmul_batched_bits_plain(a: torch.Tensor, b: torch.Tensor, bits,
+                               fmt, mode: str = "sr", rand_bits: int = 32,
+                               *, a_fmt=None, out_packed: bool = False
+                               ) -> torch.Tensor:
+    """The plain twin of K8: a batched fp32 GEMM, then round_block fed the
+    (E, M, N) ``bits``."""
+    a_grid = None if a_fmt is None else get_grid(a_fmt)
+    acc = torch.bmm(_a_values(a, a_grid), b.float())
+    if bits is not None:
+        bits = bits.to(torch.int64) & 0xFFFFFFFF
+    return _emit(acc, bits if get_scheme(mode).stochastic else None,
+                 get_grid(fmt), mode, rand_bits, out_packed)
 
 
 def _host_seeds(seeds, E: int) -> np.ndarray:
@@ -322,64 +643,102 @@ def _host_seeds(seeds, E: int) -> np.ndarray:
     return arr
 
 
+def _check_batched(a, b, a_fmt, fmt, mode, rand_bits, out_packed, what):
+    grid = _check_fmt_mode(fmt, mode, rand_bits, what)
+    a_grid = _check_a(a, a_fmt, 3, what)
+    _check_weights(a, (b,), what)
+    if out_packed:
+        _pack_grid(grid, what)
+    E, M, _ = a.shape
+    if a.device.type == "cuda" and (E > 65535 or -(-M // 4) > 65535):
+        raise ValueError(f"{what}: E={E}, M={M} exceed the kernel's grid")
+    return grid, a_grid
+
+
+def _batched_launch(name: str, a, a_grid, b, bits, seeds, grid, mode,
+                    rand_bits, out_packed):
+    E, M, K = a.shape
+    N = b.shape[2]
+    a, b = a.contiguous(), b.contiguous()
+    out_dtype = common.pack_dtype(grid) if out_packed else torch.float32
+    out = torch.empty((E, M, N), dtype=out_dtype, device=a.device)
+    if out.numel() == 0:
+        return out                       # nothing to launch
+    head = (a.data_ptr(), _code_arg(a_grid), b.data_ptr(),
+            int(b.dtype == torch.bfloat16))
+    tail = (out.data_ptr(), _code_arg(grid if out_packed else None), E, M, N,
+            K, *_round_args(grid, mode, rand_bits), _stream(a))
+    lib = _lib_batched()
+    if name == "qmatmul_batched_sr":
+        dev_seeds = common.host_to_device(
+            seeds.astype(np.uint32).view(np.int32), a.device)
+        rc = lib.qmatmul_batched_sr(*head, dev_seeds.data_ptr(), *tail)
+    else:
+        rc = lib.qmatmul_batched_bits(*head, _ptr(bits), *tail)
+    _launch_check(rc, name)
+    LAUNCHES[name] += 1
+    return out
+
+
 def qmatmul_batched_prng(a: torch.Tensor, b: torch.Tensor, seeds, fmt,
                          mode: str = "sr", rand_bits: int = 32, *,
                          eps: float = 0.0, overflow: str = "saturate",
-                         act=None, act_spec=None, out_packed=False,
+                         act=None, act_spec=None, out_packed: bool = False,
                          a_fmt=None) -> torch.Tensor:
-    """Rounded ``a[e] @ b[e]`` for every slice e (a: (E, M, K) float32;
-    b: (E, K, N) float32 or bf16); ``seeds``: (E, 2) uint32 words, one
-    pair per slice (numpy array or tensor; ``policy.slice_words``).
-    Returns (E, M, N) float32 grid values."""
-    _check_unsupported(None, act, act_spec, out_packed, a_fmt, eps, overflow)
-    grid = _check_fmt_mode(fmt, mode, rand_bits, "qmatmul_batched_prng")
-    if a.dim() != 3 or a.dtype != torch.float32:
-        raise ValueError("qmatmul_batched_prng: a must be a 3-D float32 "
-                         f"tensor, got {tuple(a.shape)} {a.dtype}")
-    if b.dim() != 3 or b.shape[0] != a.shape[0] or b.shape[1] != a.shape[2]:
-        raise ValueError("qmatmul_batched_prng: shape mismatch "
-                         f"{tuple(a.shape)} x {tuple(b.shape)}")
-    if b.dtype not in (torch.float32, torch.bfloat16):
-        raise ValueError("qmatmul_batched_prng: b must be float32 or "
-                         f"bfloat16, got {b.dtype}")
-    if b.device != a.device:
-        raise ValueError("qmatmul_batched_prng: operands on different "
-                         "devices")
-    E, M, K = a.shape
-    N = b.shape[2]
-    host = _host_seeds(seeds, E)
+    """Rounded ``a[e] @ b[e]`` for every slice e (a: (E, M, K) float32, or
+    code words of ``a_fmt``; b: (E, K, N) float32 or bf16); ``seeds``: (E,
+    2) uint32 words, one pair per slice (numpy array or tensor;
+    ``policy.slice_words``).  Returns (E, M, N) float32 grid values, or
+    their code words with ``out_packed``."""
+    _check_unsupported(None, act, act_spec, eps, overflow)
+    grid, a_grid = _check_batched(a, b, a_fmt, fmt, mode, rand_bits,
+                                  out_packed, "qmatmul_batched_prng")
+    host = _host_seeds(seeds, a.shape[0])
     if a.device.type == "cpu":
-        return qmatmul_batched_plain(a, b, host, grid, mode, rand_bits)
-    if a.device.type != "cuda":
-        raise ValueError(f"qmatmul_batched_prng: unsupported device "
-                         f"{a.device}")
-    if E > 65535 or -(-M // 4) > 65535:
-        raise ValueError(f"qmatmul_batched_prng: E={E}, M={M} exceed the "
-                         "kernel's grid")
-    a, b = a.contiguous(), b.contiguous()
-    out = torch.empty((E, M, N), dtype=torch.float32, device=a.device)
-    if out.numel() == 0:
-        return out                       # nothing to launch
-    dev_seeds = common.host_to_device(
-        host.astype(np.uint32).view(np.int32), a.device)
-    rc = _lib_batched().qmatmul_batched_sr(
-        a.data_ptr(), b.data_ptr(), int(b.dtype == torch.bfloat16),
-        dev_seeds.data_ptr(), out.data_ptr(), E, M, N, K,
-        *_round_args(grid, mode, rand_bits),
-        torch.cuda.current_stream(a.device).cuda_stream)
-    _launch_check(rc, "qmatmul_batched_sr")
-    LAUNCHES["qmatmul_batched_sr"] += 1
-    return out
+        return qmatmul_batched_plain(a, b, host, grid, mode, rand_bits,
+                                     a_fmt=a_grid, out_packed=out_packed)
+    return _batched_launch("qmatmul_batched_sr", a, a_grid, b, None, host,
+                           grid, mode, rand_bits, out_packed)
+
+
+def qmatmul_batched(a: torch.Tensor, b: torch.Tensor,
+                    bits: Optional[torch.Tensor], fmt, mode: str = "sr",
+                    rand_bits: int = 32, *, eps: float = 0.0,
+                    overflow: str = "saturate", act=None, act_spec=None,
+                    act_bits=None, out_packed: bool = False, a_fmt=None
+                    ) -> torch.Tensor:
+    """K8: rounded ``a[e] @ b[e]`` with explicit bits, ``bits`` (E, M, N)
+    uint32 words, one plane per slice (None for a deterministic mode).
+    Operands, options and result as :func:`qmatmul_batched_prng`."""
+    _check_unsupported(None, act, act_spec, eps, overflow)
+    if act_bits is not None:
+        raise NotImplementedError("qmatmul_batched act_bits: the "
+                                  "activation epilogue is not ported yet")
+    grid, a_grid = _check_batched(a, b, a_fmt, fmt, mode, rand_bits,
+                                  out_packed, "qmatmul_batched")
+    stoch = get_scheme(mode).stochastic
+    _need_bits(stoch, "qmatmul_batched", bits)
+    words = _bits_words(bits if stoch else None,
+                        (a.shape[0], a.shape[1], b.shape[2]), a.device,
+                        "qmatmul_batched")
+    if a.device.type == "cpu":
+        return qmatmul_batched_bits_plain(a, b, words, grid, mode, rand_bits,
+                                          a_fmt=a_grid,
+                                          out_packed=out_packed)
+    return _batched_launch("qmatmul_batched_bits", a, a_grid, b, words,
+                           None, grid, mode, rand_bits, out_packed)
 
 
 def _lib_batched():
     lib = build.load("qmatmul_batched_sr")
-    fn = lib.qmatmul_batched_sr
-    if fn.argtypes is None:
+    if lib.qmatmul_batched_sr.argtypes is None:
         c = ctypes
-        fn.argtypes = [c.c_void_p, c.c_void_p, c.c_int, c.c_void_p,
-                       c.c_void_p, c.c_int, c.c_int, c.c_int, c.c_int,
-                       c.c_int, c.c_int, c.c_int, c.c_float, c.c_int,
-                       c.c_int, c.c_void_p]
-        fn.restype = c.c_int
+        ints = c.POINTER(c.c_int)
+        args = ([c.c_void_p, ints, c.c_void_p, c.c_int, c.c_void_p,
+                 c.c_void_p, ints] + [c.c_int] * 4
+                + [c.c_int, c.c_int, c.c_int, c.c_float, c.c_int, c.c_int,
+                   c.c_void_p])
+        for fn in (lib.qmatmul_batched_sr, lib.qmatmul_batched_bits):
+            fn.argtypes = args
+            fn.restype = c.c_int
     return lib

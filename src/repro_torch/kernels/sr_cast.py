@@ -1,34 +1,40 @@
-"""Rounding a tensor onto a low-precision grid with in-kernel random bits:
-wrapper, plain twin, launch count (counterpart of
-``repro.kernels.sr_cast``).
+"""Rounding a tensor onto a low-precision grid: wrappers, plain twins,
+launch counts (counterpart of ``repro.kernels.sr_cast``).
 
-``sr_cast_prng`` -> CUDA kernel ``csrc/sr_cast.cu``, replacing
-                    ``repro/kernels/sr_cast.py:sr_cast_prng_p`` (K1').
+``sr_cast_prng`` -> CUDA kernel ``csrc/sr_cast.cu`` (``sr_cast_prng``,
+                    K1'), replacing ``repro/kernels/sr_cast.py:
+                    sr_cast_prng_p``: the bits are drawn in the kernel.
+``sr_cast``      -> the same source's ``sr_cast_bits`` (K1), replacing
+                    ``sr_cast_p``: one explicit uint32 word per element.
 
-The tensor is read as its flat 128-lane layout: element ``i`` is rounded
+K1' reads the tensor as its flat 128-lane layout: element ``i`` is rounded
 with the random field at (i // 128, i % 128) of the seed words, stream 0
-(``common.lane_bits``), whatever the tensor's shape.  A tensor on the CPU
-goes to the plain PyTorch twin ``sr_cast_prng_plain`` (``round_block`` fed
-those bits); a CUDA tensor launches the kernel, and what the kernel does
-not take raises.  ``LAUNCHES`` counts the kernel launches.
+(``common.lane_bits``), whatever the tensor's shape.  K1 takes word ``i``
+of the flat bits operand (its low ``rand_bits`` bits).  A tensor on the
+CPU goes to the plain PyTorch twin (``round_block`` fed those bits); a
+CUDA tensor launches the kernel, and what the kernel does not take raises.
+``LAUNCHES`` counts the kernel launches.
 
-Scope: rn and sr on plain FP grids with 32-, 16- or 8-bit draws, as the
-GEMM kernels.  The signed-SRε branch (a ``v`` operand) and the eps schemes
-are not ported yet and raise.
+Scope: rn, sr, sr_eps and signed_sr_eps on plain FP grids, with 32-, 16-
+or 8-bit draws.  signed_sr_eps takes the bias direction ``v`` (broadcast
+to ``x``'s shape) and, as the reference's signed kernels do, draws 32-bit
+fields whatever ``rand_bits`` says.
 """
 from __future__ import annotations
 
 import ctypes
-from typing import Dict
+from typing import Dict, Optional
 
 import torch
 
+from repro_torch.core.grids import get_grid
 from repro_torch.core.schemes import get_scheme
 from repro_torch.kernels import build, common
-from repro_torch.kernels.qmatmul import (Words, _check_fmt_mode,
-                                         _launch_check, _round_args)
+from repro_torch.kernels.qmatmul import (Words, _bits_words, _launch_check,
+                                         _stream)
 
-LAUNCHES: Dict[str, int] = {"sr_cast_prng": 0}
+LAUNCHES: Dict[str, int] = {"sr_cast_prng": 0, "sr_cast_bits": 0}
+_MODES = {"rn": 0, "sr": 1, "sr_eps": 2, "signed_sr_eps": 3}
 
 
 def reset_launches() -> None:
@@ -36,60 +42,151 @@ def reset_launches() -> None:
         LAUNCHES[name] = 0
 
 
+def _check(x: torch.Tensor, fmt, mode: str, v, rand_bits: int,
+           overflow: str, what: str):
+    """The sites the kernels take; returns (grid, flat float32 v or None,
+    the rand_bits the rounding uses)."""
+    grid = get_grid(fmt)
+    if grid.kind != "fp" or grid.transformed or not grid.fmt.subnormals:
+        raise NotImplementedError(f"{what}: grid {grid.name!r} is not a "
+                                  "plain FP grid with subnormals (not ported "
+                                  "yet)")
+    scheme = get_scheme(mode)
+    if scheme.name not in _MODES:
+        raise NotImplementedError(f"{what}: scheme {scheme.name!r} is not "
+                                  "ported yet (rn, sr, sr_eps, "
+                                  "signed_sr_eps)")
+    if overflow != "saturate":
+        raise NotImplementedError(f"{what}: overflow={overflow!r} is not "
+                                  "ported yet")
+    if rand_bits not in (32, 16, 8):
+        raise ValueError(f"{what}: rand_bits must be 32, 16 or 8")
+    if x.dtype != torch.float32:
+        raise ValueError(f"{what}: x must be float32, got {x.dtype}")
+    if x.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"{what}: unsupported device {x.device}")
+    vf = None
+    if scheme.needs_v:
+        if v is None:
+            raise ValueError(f"{mode} requires v")
+        if not torch.is_tensor(v):
+            v = torch.as_tensor(v, dtype=torch.float32, device=x.device)
+        if v.device != x.device:
+            raise ValueError(f"{what}: v on another device than x")
+        vf = v.float().expand(x.shape).reshape(-1)
+        rand_bits = 32        # the reference's signed kernels draw 32 bits
+    return grid, vf, rand_bits
+
+
+def _round_args(grid, mode: str, rand_bits: int, eps: float):
+    f = grid.fmt
+    return (f.precision, f.emin, f.emax, ctypes.c_float(f.xmax),
+            _MODES[get_scheme(mode).name], rand_bits, ctypes.c_float(eps))
+
+
 def sr_cast_prng_plain(x: torch.Tensor, seed_words: Words, fmt,
-                       mode: str = "sr", rand_bits: int = 32
-                       ) -> torch.Tensor:
-    """The plain twin: ``round_block`` of the flat float32 values with the
-    128-lane counter bits; returns float32 of ``x``'s shape."""
+                       mode: str = "sr", rand_bits: int = 32,
+                       eps: float = 0.0,
+                       v: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The plain twin of K1': ``round_block`` of the flat float32 values
+    with the 128-lane counter bits; returns float32 of ``x``'s shape."""
     flat = x.float().reshape(-1)
     bits = None
     if get_scheme(mode).stochastic:
         bits = common.lane_bits(seed_words[0], seed_words[1], flat.numel(),
                                 rand_bits, device=flat.device)
-    return common.round_block(flat, bits, fmt, mode,
+    vf = None if v is None else v.float().reshape(-1)
+    return common.round_block(flat, bits, fmt, mode, eps, v=vf,
                               rand_bits=rand_bits).reshape(x.shape)
+
+
+def sr_cast_plain(x: torch.Tensor, bits: Optional[torch.Tensor], fmt,
+                  mode: str = "sr", rand_bits: int = 32, eps: float = 0.0,
+                  v: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The plain twin of K1: ``round_block`` of the flat float32 values
+    fed word i of ``bits`` (uint32 values in int64) for element i."""
+    flat = x.float().reshape(-1)
+    words = None
+    if get_scheme(mode).stochastic:
+        words = bits.reshape(-1).to(torch.int64) & 0xFFFFFFFF
+    vf = None if v is None else v.float().reshape(-1)
+    return common.round_block(flat, words, fmt, mode, eps, v=vf,
+                              rand_bits=rand_bits).reshape(x.shape)
+
+
+def _launch(name: str, x, bits, vf, seed_words, grid, mode, rand_bits, eps):
+    x = x.contiguous()
+    out = torch.empty_like(x)
+    if out.numel() == 0:
+        return out                       # nothing to launch
+    vf = None if vf is None else vf.contiguous()
+    vec_ok = int(all(t.data_ptr() % 16 == 0
+                     for t in (x, out, bits, vf) if t is not None))
+    lib = _lib()
+    v_ptr = None if vf is None else vf.data_ptr()
+    rnd = _round_args(grid, mode, rand_bits, eps)
+    if name == "sr_cast_prng":
+        rc = lib.sr_cast_prng(x.data_ptr(), v_ptr, out.data_ptr(), x.numel(),
+                              vec_ok, seed_words[0], seed_words[1], *rnd,
+                              _stream(x))
+    else:
+        rc = lib.sr_cast_bits(x.data_ptr(),
+                              None if bits is None else bits.data_ptr(),
+                              v_ptr, out.data_ptr(), x.numel(), vec_ok, *rnd,
+                              _stream(x))
+    _launch_check(rc, name)
+    LAUNCHES[name] += 1
+    return out
 
 
 def sr_cast_prng(x: torch.Tensor, seed_words: Words, fmt, mode: str = "sr",
                  eps: float = 0.0, v=None, *, rand_bits: int = 32,
                  overflow: str = "saturate") -> torch.Tensor:
     """Round float32 ``x`` (any shape) onto ``fmt``; ``seed_words``: the
-    (k0, k1) uint32 pair of this rounding site.  Returns float32 grid
-    values of ``x``'s shape."""
-    if v is not None or get_scheme(mode).needs_v:
-        raise NotImplementedError("sr_cast_prng: the signed-SRε branch (v "
-                                  "operand) is not ported yet")
-    if eps or overflow != "saturate":
-        raise NotImplementedError("sr_cast_prng: eps schemes and "
-                                  "overflow='inf' are not ported yet")
-    grid = _check_fmt_mode(fmt, mode, rand_bits, "sr_cast_prng")
-    if x.dtype != torch.float32:
-        raise ValueError(f"sr_cast_prng: x must be float32, got {x.dtype}")
+    (k0, k1) uint32 pair of this rounding site; ``v``: the bias direction
+    of signed_sr_eps.  Returns float32 grid values of ``x``'s shape."""
+    grid, vf, rand_bits = _check(x, fmt, mode, v, rand_bits, overflow,
+                                 "sr_cast_prng")
     if x.device.type == "cpu":
-        return sr_cast_prng_plain(x, seed_words, grid, mode, rand_bits)
-    if x.device.type != "cuda":
-        raise ValueError(f"sr_cast_prng: unsupported device {x.device}")
-    x = x.contiguous()
-    out = torch.empty_like(x)
-    if out.numel() == 0:
-        return out                       # nothing to launch
-    vec_ok = int(x.data_ptr() % 16 == 0 and out.data_ptr() % 16 == 0)
-    rc = _lib().sr_cast_prng(
-        x.data_ptr(), out.data_ptr(), x.numel(), vec_ok, seed_words[0],
-        seed_words[1], *_round_args(grid, mode, rand_bits),
-        torch.cuda.current_stream(x.device).cuda_stream)
-    _launch_check(rc, "sr_cast_prng")
-    LAUNCHES["sr_cast_prng"] += 1
-    return out
+        return sr_cast_prng_plain(x, seed_words, grid, mode, rand_bits, eps,
+                                  vf)
+    return _launch("sr_cast_prng", x, None, vf, seed_words, grid, mode,
+                   rand_bits, eps)
+
+
+def sr_cast(x: torch.Tensor, bits: Optional[torch.Tensor], fmt,
+            mode: str = "sr", eps: float = 0.0, v=None, *,
+            rand_bits: int = 32, overflow: str = "saturate") -> torch.Tensor:
+    """K1: round float32 ``x`` onto ``fmt`` with explicit ``bits``, uint32
+    words of ``x``'s shape (int64, or int32 bit patterns; None for rn; with
+    ``rand_bits < 32`` the low bits of each).  Options and result as
+    :func:`sr_cast_prng`."""
+    grid, vf, rand_bits = _check(x, fmt, mode, v, rand_bits, overflow,
+                                 "sr_cast")
+    stoch = get_scheme(mode).stochastic
+    if stoch and bits is None:
+        raise ValueError("sr_cast: a stochastic scheme needs the bits "
+                         "operand")
+    words = _bits_words(bits if stoch else None, tuple(x.shape), x.device,
+                        "sr_cast")
+    if x.device.type == "cpu":
+        return sr_cast_plain(x, words, grid, mode, rand_bits, eps, vf)
+    return _launch("sr_cast_bits", x,
+                   None if words is None else words.reshape(-1), vf, None,
+                   grid, mode, rand_bits, eps)
 
 
 def _lib():
     lib = build.load("sr_cast")
-    fn = lib.sr_cast_prng
-    if fn.argtypes is None:
+    if lib.sr_cast_prng.argtypes is None:
         c = ctypes
-        fn.argtypes = [c.c_void_p, c.c_void_p, c.c_longlong, c.c_int,
-                       c.c_uint32, c.c_uint32, c.c_int, c.c_int, c.c_int,
-                       c.c_float, c.c_int, c.c_int, c.c_void_p]
-        fn.restype = c.c_int
+        rnd = [c.c_int, c.c_int, c.c_int, c.c_float, c.c_int, c.c_int,
+               c.c_float, c.c_void_p]
+        lib.sr_cast_prng.argtypes = ([c.c_void_p] * 3
+                                     + [c.c_longlong, c.c_int, c.c_uint32,
+                                        c.c_uint32] + rnd)
+        lib.sr_cast_prng.restype = c.c_int
+        lib.sr_cast_bits.argtypes = ([c.c_void_p] * 4
+                                     + [c.c_longlong, c.c_int] + rnd)
+        lib.sr_cast_bits.restype = c.c_int
     return lib

@@ -19,7 +19,7 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import time
-from typing import Dict, Optional
+from typing import Dict, Optional, Union
 
 import torch
 
@@ -27,7 +27,10 @@ from repro_torch.configs import get_config, reduced as reduce_cfg
 from repro_torch.device import resolve_device
 from repro_torch.kernels.tree_update import tree_leaves
 from repro_torch.models import attention, build_model
-from repro_torch.precision import PRESETS
+from repro_torch.precision import PRESETS, QuantPolicy
+
+# a preset or spec name, or a QuantPolicy (the reference's resolve_policy)
+Policy = Union[str, QuantPolicy]
 
 
 def _sync(device: torch.device) -> None:
@@ -86,9 +89,10 @@ MOE_SERVE_RUN = dict(arch="qwen3-moe-30b-a3b", batch=4, prompt_len=32,
 
 def setup(arch: str, *, reduced: bool = False, batch: int = 4,
           prompt_len: int = 32, seed: int = 0,
-          gemm_policy: Optional[str] = None, device=None):
+          gemm_policy: Optional[Policy] = None, device=None):
     """``arch`` with random weights from a seeded generator on the device,
-    and one random prompt batch: (cfg, model, params, prompts)."""
+    and one random prompt batch: (cfg, model, params, prompts).
+    ``gemm_policy``: a preset or spec name, or a ``QuantPolicy``."""
     dev = resolve_device(device)
     cfg = get_config(arch)
     if reduced:
@@ -106,7 +110,7 @@ def setup(arch: str, *, reduced: bool = False, batch: int = 4,
 
 def run(arch: str, *, reduced: bool = False, batch: int = 4,
         prompt_len: int = 32, gen: int = 16, seed: int = 0,
-        gemm_policy: Optional[str] = None, device=None) -> Dict:
+        gemm_policy: Optional[Policy] = None, device=None) -> Dict:
     """Serve one random batch of ``setup``'s model, print a summary and
     return the serve_batch result."""
     cfg, model, params, prompts = setup(
@@ -118,8 +122,11 @@ def run(arch: str, *, reduced: bool = False, batch: int = 4,
     out["cache_bytes"] = 2 * cfg.n_layers * batch * (prompt_len + gen) \
         * cfg.n_kv_heads * cfg.resolved_head_dim \
         * out["cache_dtype"].itemsize
+    name = gemm_policy if not isinstance(gemm_policy, QuantPolicy) else (
+        f"QuantPolicy(fwd={gemm_policy.fwd}, act={gemm_policy.act}, "
+        f"oracle={gemm_policy.oracle}, packed={gemm_policy.packed})")
     print(f"arch={cfg.name} batch={batch} prompt={prompt_len} gen={gen} "
-          f"policy={gemm_policy} device={prompts.device}")
+          f"policy={name} device={prompts.device}")
     print(f"parameters {out['n_params']}; kv cache {out['cache_dtype']} "
           f"{out['cache_bytes']} bytes")
     print(f"prefill {out['t_prefill']:.3f}s ({out['prefill_tokps']:.1f} "

@@ -151,10 +151,11 @@ def setup(arch: str, *, reduced: bool = False, batch: int = 8,
           seq: int = 128, lr: float = 0.05,
           rounding_kind: str = "signed_sr_eps", fmt: str = "bfloat16",
           eps: float = 0.1, momentum: float = 0.9, update_path: str = "jnp",
-          gemm_policy: Optional[str] = None, device=None, params=None,
+          gemm_policy=None, device=None, params=None,
           optimizer: str = "sgd", moments_spec: Optional[str] = None,
           ckpt_fmt: Optional[str] = None) -> Trainer:
-    """The model, optimizer, state and data of a run; ``moments_spec`` and
+    """The model, optimizer, state and data of a run; ``gemm_policy``: a
+    preset or spec name, or a ``QuantPolicy``; ``moments_spec`` and
     ``ckpt_fmt`` are validated here, at launch.  ``params``: float32
     master parameters to start from (default: drawn from
     ``torch.Generator(device).manual_seed(0)``)."""

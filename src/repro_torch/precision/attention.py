@@ -15,6 +15,14 @@ block context words (one attention op per block), then ``slice_words``
 gives every (batch, head) row its own word pair.  The words are computed
 on the host (numpy Threefry) and reach the card with the launch.
 
+Under ``policy.oracle`` the forward, both backward passes and the decode
+run the kernels' plain twins (``flash_fwd_plain``, ``flash_bwd_dq_plain``,
+``flash_bwd_dkv_plain``, ``flash_decode_plain``) instead of K6, K7, K7'
+and K9: the reference's oracle semantics, which route the same calls to
+its jnp references (``repro/precision/attention.py:99,131,138,201``).  No
+preset sets both oracle and rounded attention sites; the branch keeps
+``oracle=True`` meaning the same thing in both packages.
+
 ``round_kv``/``kv_store`` implement the KV-cache storage site
 (TAG_ATTN_KV): appended k/v round through ``policy.kv_cache_fmt``, keyed
 by (absolute position, flat batch-feature index), and are stored as
@@ -116,7 +124,8 @@ class _QFlash(torch.autograd.Function):
     def forward(ctx, q3, k3, v3, policy: QuantPolicy, dims: _Dims,
                 words: Words):
         seeds = _site_seeds(words, q3.shape[0], _FWD_TAGS)
-        out, m, l = FA.flash_fwd(
+        fwd = FA.flash_fwd_plain if policy.oracle else FA.flash_fwd
+        out, m, l = fwd(
             q3, k3, v3, seeds, attn_specs(policy), scale=dims.scale,
             n_heads=dims.n_heads, n_kv=dims.n_kv, causal=dims.causal,
             window=dims.window, q_block=dims.q_block, kv_block=dims.kv_block)
@@ -140,12 +149,15 @@ class _QFlash(torch.autograd.Function):
                              fold_words(w_qk, SITE_WGRAD),
                              fold_words(w_av, SITE_DGRAD)], BH)
         seeds_dq = seeds[:, :4]
-        dq = FA.flash_bwd_dq(q3, k3, v3, do, m, l, d, seeds_dq,
-                             policy.attn_qk, policy.attn_qk, **kw)
+        dq_fn = FA.flash_bwd_dq_plain if policy.oracle else FA.flash_bwd_dq
+        dkv_fn = FA.flash_bwd_dkv_plain if policy.oracle \
+            else FA.flash_bwd_dkv
+        dq = dq_fn(q3, k3, v3, do, m, l, d, seeds_dq, policy.attn_qk,
+                   policy.attn_qk, **kw)
         seeds_dkv = np.concatenate([seeds[:, :2], seeds[:, 4:]], axis=1)
-        dk_h, dv_h = FA.flash_bwd_dkv(q3, k3, v3, do, m, l, d, seeds_dkv,
-                                      policy.attn_qk, policy.attn_qk,
-                                      policy.attn_av, **kw)
+        dk_h, dv_h = dkv_fn(q3, k3, v3, do, m, l, d, seeds_dkv,
+                            policy.attn_qk, policy.attn_qk, policy.attn_av,
+                            **kw)
         # GQA group-sum in float32: per-query-head (B·H, Skv, ·) ->
         # per-kv-head (B·KV, Skv, ·)
         G = dims.n_heads // dims.n_kv
@@ -193,7 +205,8 @@ def qattn_decode(q, k_cache, v_cache, length: int, quant: QuantCtx, *,
     q3 = q.float().reshape(B * KV, H // KV, dk)
     k3 = k_cache.reshape(B * KV, Smax, dk)
     v3 = v_cache.reshape(B * KV, Smax, dv)
-    out3 = FA.flash_decode(q3, k3, v3, _site_seeds(words, B * KV, _FWD_TAGS),
-                           length, attn_specs(policy), scale=scale,
-                           window=window, kv_block=kv_block, kv_fmt=kv_fmt)
+    fn = FA.flash_decode_plain if policy.oracle else FA.flash_decode
+    out3 = fn(q3, k3, v3, _site_seeds(words, B * KV, _FWD_TAGS), length,
+              attn_specs(policy), scale=scale, window=window,
+              kv_block=kv_block, kv_fmt=kv_fmt)
     return out3.reshape(B, 1, H, dv).to(q.dtype)

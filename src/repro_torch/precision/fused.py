@@ -6,7 +6,16 @@ one kernel (``qmatmul_swiglu_prng``, K4'); the down projection is a
 rounded GEMM (``site_matmul``, K3').  The seed folds are the reference's:
 the gate and up roundings use the (call-site tag, SITE_FWD) double fold,
 the activation site (TAG_FFN_ACT, SITE_ACT) on stream 1, the down GEMM
-TAG_FFN_DOWN.
+TAG_FFN_DOWN.  Under ``policy.oracle`` the GLU prefix runs K4 instead, fed
+``common.counter_bits_reduced`` of the same words (and the down GEMM K3,
+through ``site_matmul``), which equals the in-kernel run bit for bit.
+
+Under ``policy.packed`` the hidden leaves the GLU kernel as code words of
+the act grid (``_h_pack_fmt``) and the down GEMM decodes them on load
+(``a_fmt``); the residuals g_r and u_r are kept as code words of the fwd
+grid.  Every packed value is already on its grid, so the result is the
+unpacked run's, bit for bit, with the (M, d_ff) hidden crossing memory in
+1 B per element instead of 4.
 
 When autograd needs it, the forward also keeps K4''s rounded branches g_r
 and u_r, and the backward is the reference's ``_qffn_glu_bwd``: the down
@@ -16,9 +25,13 @@ K3' launches.
 """
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 
-from repro_torch.kernels.qmatmul import qmatmul_swiglu_prng
+from repro_torch.kernels import common
+from repro_torch.kernels.qmatmul import (STREAM_ACT, qmatmul_swiglu,
+                                         qmatmul_swiglu_prng)
 from repro_torch.precision.policy import (SITE_ACT, SITE_DGRAD, SITE_FWD,
                                           SITE_WGRAD, TAG_FFN_ACT,
                                           TAG_FFN_DOWN, TAG_FFN_GATE,
@@ -27,27 +40,71 @@ from repro_torch.precision.policy import (SITE_ACT, SITE_DGRAD, SITE_FWD,
                                           site_matmul)
 
 
+def _packable(fmt) -> bool:
+    try:
+        return common.pack_bytes(fmt) <= 2
+    except ValueError:
+        return False
+
+
 def _site_words(words: Words, tag: int, site: int) -> Words:
     """The (call-site tag, site id) double fold of the unfused chain."""
     return fold_words(fold_words(words, tag), site)
 
 
+def _h_pack_fmt(policy: QuantPolicy) -> Optional[str]:
+    """The grid the fused hidden is packed to (None: it stays float32)."""
+    if (policy.packed and not policy.act.is_identity
+            and _packable(policy.act.fmt)):
+        return policy.act.fmt
+    return None
+
+
+def _res_pack_fmt(policy: QuantPolicy) -> Optional[str]:
+    """The grid the g_r/u_r residuals are packed to (None: float32)."""
+    if policy.packed and _packable(policy.fwd.fmt):
+        return policy.fwd.fmt
+    return None
+
+
 def _glu(policy: QuantPolicy, act: str, x2, wg, wu, words: Words,
          residuals: bool):
+    """The fused GLU kernel with the policy's seeds (K4') or, under
+    ``policy.oracle``, their counter bits (K4)."""
     s = policy.fwd
     act_spec = None if policy.act.is_identity else policy.act
     seeds = (_site_words(words, TAG_FFN_GATE, SITE_FWD),
              _site_words(words, TAG_FFN_UP, SITE_FWD),
              _site_words(words, TAG_FFN_ACT, SITE_ACT))
-    return qmatmul_swiglu_prng(x2, wg, wu, seeds, s.fmt, s.mode, act=act,
-                               act_spec=act_spec, rand_bits=s.rand_bits,
-                               eps=s.eps, overflow=s.overflow,
-                               residuals=residuals)
+    kw = dict(act=act, act_spec=act_spec, rand_bits=s.rand_bits, eps=s.eps,
+              overflow=s.overflow, residuals=residuals,
+              out_packed=_h_pack_fmt(policy) is not None,
+              residuals_packed=residuals and _res_pack_fmt(policy) is not None)
+    if not policy.oracle:
+        return qmatmul_swiglu_prng(x2, wg, wu, seeds, s.fmt, s.mode, **kw)
+    shape, dev = (x2.shape[0], wg.shape[1]), x2.device
+    bits = [None, None, None]
+    if s.stochastic:
+        bits[:2] = [common.counter_bits_reduced(w[0], w[1], shape,
+                                                s.rand_bits, device=dev)
+                    for w in seeds[:2]]
+    if act_spec is not None and act_spec.stochastic:
+        bits[2] = common.counter_bits_reduced(
+            seeds[2][0], seeds[2][1], shape, act_spec.rand_bits,
+            stream=STREAM_ACT, device=dev)
+    return qmatmul_swiglu(x2, wg, wu, bits[0], bits[1], s.fmt, s.mode,
+                          act_bits=bits[2], **kw)
 
 
 def _down(policy: QuantPolicy, h, wd, words: Words):
+    """The down GEMM, decoding a packed hidden on load."""
     return site_matmul(policy, SITE_FWD, h, wd,
-                       fold_words(words, TAG_FFN_DOWN))
+                       fold_words(words, TAG_FFN_DOWN),
+                       a_fmt=_h_pack_fmt(policy))
+
+
+def _unpacked(t: torch.Tensor, fmt) -> torch.Tensor:
+    return t if fmt is None else common.unpack_block(t, fmt)
 
 
 def silu_pullback(g_r: torch.Tensor, ct: torch.Tensor):
@@ -71,6 +128,10 @@ class _QFfnGlu(torch.autograd.Function):
         x2, wg, wu, wd, h, g_r, u_r = ctx.saved_tensors
         policy, words = ctx.policy, ctx.words
         g = g.float().contiguous()
+        # packed storage: the backward works on the grid values
+        h = _unpacked(h, _h_pack_fmt(policy))
+        g_r = _unpacked(g_r, _res_pack_fmt(policy))
+        u_r = _unpacked(u_r, _res_pack_fmt(policy))
         # down projection, straight through its forward rounding
         w_down = fold_words(words, TAG_FFN_DOWN)
         dh = site_matmul(policy, SITE_DGRAD, g, wd.t().contiguous(), w_down)

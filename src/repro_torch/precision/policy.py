@@ -16,6 +16,15 @@ only: its backward (dgrad/wgrad through K8') is not ported yet and raises.
 ``qact`` rounds an activation tensor onto the ``act`` grid (K1') with a
 straight-through gradient.
 
+Under ``policy.oracle`` (the reference's bit-exact audit mode) every site
+runs the explicit-bits kernel instead -- K3 for ``qdot``, K8 for
+``qeinsum``, K1 for ``qact`` -- fed counter bits made by plain tensor code
+on the operands' device, as the reference leaves them to XLA:
+``common.counter_bits_reduced`` of the site's words over the output (the
+words K3' and K8' draw in-kernel, so an oracle run equals the in-kernel
+run bit for bit), and for ``qact`` over the flat index ``(x.numel(), 1)``
+(another layout than K1''s 128 lanes, so K1 and K1' round differently).
+
 The attention sites (the QKᵀ logits, each kv block's P·V partial product,
 the normalised output) and the KV-cache storage spec ride on the same
 policy; ``precision/attention.py`` wires them to the flash kernels.
@@ -30,11 +39,12 @@ import numpy as np
 import torch
 
 from repro_torch.core import prng
+from repro_torch.core.grids import get_grid
 from repro_torch.core.rounding import IDENTITY, RoundingSpec, parse_spec, spec
 from repro_torch.kernels import common
-from repro_torch.kernels.qmatmul import (Words, qmatmul_batched_prng,
-                                         qmatmul_prng)
-from repro_torch.kernels.sr_cast import sr_cast_prng
+from repro_torch.kernels.qmatmul import (Words, qmatmul, qmatmul_batched,
+                                         qmatmul_batched_prng, qmatmul_prng)
+from repro_torch.kernels.sr_cast import sr_cast, sr_cast_prng
 
 # GEMM/activation sites (folded into the per-call seed words).
 SITE_FWD, SITE_DGRAD, SITE_WGRAD, SITE_ACT = 0, 1, 2, 3
@@ -55,14 +65,26 @@ TAG_ATTN_QK, TAG_ATTN_AV, TAG_ATTN_OUT, TAG_ATTN_KV = 36, 37, 38, 39
 
 @dataclasses.dataclass(frozen=True)
 class QuantPolicy:
-    """Per-site rounding policy.  The reference's oracle, packed, block
-    size and ``kv_cache_packed`` fields are not ported yet (no preset this
-    port carries sets them): a rounded KV cache is always packed."""
+    """Per-site rounding policy.
+
+    ``oracle=True`` switches every site from the in-kernel-bits kernels to
+    the explicit-bits ones fed counter-derived bits -- the reference's
+    bit-exact audit mode (a kernel equals its plain twin given the same
+    words).  ``packed=True`` stores the fused GLU FFN's hidden as code
+    words of the act grid (uint8 for 8-bit grids), which the down
+    projection decodes on load, and its g_r/u_r residuals as code words of
+    the fwd grid: 1 B per element instead of 4 across the widest tensor of
+    the block, the same values.  The reference's block sizes (``bm``,
+    ``bn``, ``bk``) have no counterpart (the CUDA kernels tile
+    themselves), nor has ``kv_cache_packed``: a rounded KV cache is always
+    packed."""
 
     fwd: RoundingSpec = IDENTITY
     dgrad: RoundingSpec = IDENTITY
     wgrad: RoundingSpec = IDENTITY
     act: RoundingSpec = IDENTITY
+    oracle: bool = False
+    packed: bool = False
     # flash-attention sites: the QKᵀ logits, each kv block's P·V partial
     # product, the normalised output
     attn_qk: RoundingSpec = IDENTITY
@@ -118,24 +140,66 @@ def _check_kv_fmt(name: Optional[str]) -> Optional[str]:
     return name
 
 
+# The schemes the kernels round with at each kind of site: the GEMM,
+# attention and fused-GLU act epilogues take rn and sr; the activation
+# casts (K1, K1') also sr_eps.
+_KERNEL_SCHEMES = ("rn", "sr")
+_CAST_SCHEMES = ("rn", "sr", "sr_eps")
+
+
+def _check_ported_site(s: RoundingSpec, site: str, schemes) -> None:
+    """Raise NotImplementedError, naming the site, for a spec the kernels
+    that would run it do not take (checked when the policy is made, not at
+    the first GEMM)."""
+    if s.is_identity:
+        return
+    grid = get_grid(s.fmt)
+    if grid.kind != "fp" or grid.transformed or not grid.fmt.subnormals:
+        raise NotImplementedError(
+            f"site {site!r}: grid {grid.name!r} is not ported yet (the "
+            "kernels take plain FP grids with subnormals)")
+    if s.scheme.name not in schemes:
+        raise NotImplementedError(
+            f"site {site!r}: scheme {s.scheme.name!r} is not ported yet "
+            f"(the kernels of this site take {', '.join(schemes)})")
+    if s.eps and s.scheme.name != "sr_eps":
+        raise NotImplementedError(f"site {site!r}: eps is not ported yet")
+    if s.overflow != "saturate":
+        raise NotImplementedError(f"site {site!r}: overflow={s.overflow!r} "
+                                  "is not ported yet (the kernels "
+                                  "saturate)")
+
+
+def _check_ported(pol: QuantPolicy) -> QuantPolicy:
+    for site in ("fwd", "dgrad", "wgrad", "attn_qk", "attn_av", "attn_out"):
+        _check_ported_site(getattr(pol, site), site, _KERNEL_SCHEMES)
+    # with a rounded fwd site the dense FFN rounds the act site inside the
+    # fused GLU kernel; otherwise it goes through the activation cast
+    _check_ported_site(pol.act, "act", _KERNEL_SCHEMES
+                       if not pol.fwd.is_identity else _CAST_SCHEMES)
+    return pol
+
+
 def make_policy(fwd=None, dgrad=None, wgrad=None, act=None, *, fmt=None,
                 mode: str = "sr", eps: float = 0.0, rand_bits: int = 32,
-                attn=None, kv_cache_fmt: Optional[str] = None
-                ) -> QuantPolicy:
+                oracle: bool = False, packed: bool = False, attn=None,
+                kv_cache_fmt: Optional[str] = None) -> QuantPolicy:
     """Build a QuantPolicy; ``fmt`` fills every unspecified GEMM site,
     ``attn`` all three attention sites, ``kv_cache_fmt`` names the
-    KV-cache storage spec."""
+    KV-cache storage spec.  A site the kernels cannot round raises
+    ``NotImplementedError`` here, naming it."""
     default = spec(fmt, mode, eps, rand_bits) if fmt is not None else IDENTITY
     attn_s = _check_gemm_spec(attn if attn is not None else IDENTITY, "attn")
-    return QuantPolicy(
+    return _check_ported(QuantPolicy(
         fwd=_check_gemm_spec(fwd if fwd is not None else default, "fwd"),
         dgrad=_check_gemm_spec(dgrad if dgrad is not None else default,
                                "dgrad"),
         wgrad=_check_gemm_spec(wgrad if wgrad is not None else default,
                                "wgrad"),
         act=_check_gemm_spec(act if act is not None else IDENTITY, "act"),
+        oracle=oracle, packed=packed,
         attn_qk=attn_s, attn_av=attn_s, attn_out=attn_s,
-        kv_cache_fmt=_check_kv_fmt(kv_cache_fmt))
+        kv_cache_fmt=_check_kv_fmt(kv_cache_fmt)))
 
 
 # The reference's presets whose policies this slice can express (the same
@@ -146,8 +210,14 @@ PRESETS = {
     "e4m3-sr": make_policy(fmt="e4m3", mode="sr"),
     "binary8-paper": make_policy(fmt="binary8", mode="sr",
                                  act=spec("binary8", "sr")),
+    # the fused FFN's hidden and residuals stored as packed uint8 codes
+    "binary8-paper-packed": make_policy(fmt="binary8", mode="sr",
+                                        act=spec("binary8", "sr"),
+                                        packed=True),
     "binary8-paper-r16": make_policy(fmt="binary8", mode="sr", rand_bits=16,
                                      act=spec("binary8", "sr", rand_bits=16)),
+    # the explicit-bits (audit) form of e4m3-sr
+    "e4m3-sr-oracle": make_policy(fmt="e4m3", mode="sr", oracle=True),
     "binary8-rn": make_policy(fmt="binary8", mode="rn",
                               act=spec("binary8", "rn")),
     "binary8-sr": make_policy(fmt="binary8", mode="sr",
@@ -162,16 +232,15 @@ PRESETS = {
     "e4m3-attn": make_policy(fmt="e4m3", mode="sr", attn=spec("e4m3", "sr"),
                              kv_cache_fmt="e4m3-sr"),
 }
-_NOT_PORTED = ("binary8-paper-packed", "e4m3-sr-oracle")
 
 
 def get_policy(name: str) -> QuantPolicy:
-    """Named preset, or any canonical spec name applied to every site."""
+    """Named preset, or any canonical spec name applied to every site
+    (raising ``NotImplementedError`` for a spec the kernels do not
+    take)."""
     hit = PRESETS.get(name)
     if hit is not None:
         return hit
-    if name in _NOT_PORTED:
-        raise NotImplementedError(f"gemm policy {name!r} is not ported yet")
     try:
         s = parse_spec(name)
     except ValueError as exc:
@@ -246,15 +315,29 @@ def fold_ctx(ctx: Optional[QuantCtx], tag: int) -> Optional[QuantCtx]:
 # The differentiable rounded matmul.
 # ---------------------------------------------------------------------------
 def site_matmul(policy: QuantPolicy, site: int, a: torch.Tensor,
-                b: torch.Tensor, words: Words) -> torch.Tensor:
-    """One rounded 2-D GEMM at ``site`` (a float32, b float32 or bf16;
-    float32 out)."""
+                b: torch.Tensor, words: Words, *, a_fmt=None,
+                out_packed: bool = False) -> torch.Tensor:
+    """One rounded 2-D GEMM at ``site`` (a float32, or code words of
+    ``a_fmt`` decoded on load; b float32 or bf16): float32 out, or code
+    words of the site's grid with ``out_packed``.  Under ``policy.oracle``
+    the explicit-bits kernel (K3) is fed the counter bits K3' would draw
+    from the same words."""
     s: RoundingSpec = getattr(policy, _SITE_ATTR[site])
     if s.is_identity:
+        if a_fmt is not None:
+            a = common.unpack_block(a, a_fmt)
         return a.float() @ b.float()
     w = fold_words(words, site)
-    return qmatmul_prng(a, b, w, s.fmt, s.mode, s.rand_bits, eps=s.eps,
-                        overflow=s.overflow)
+    kw = dict(eps=s.eps, overflow=s.overflow, a_fmt=a_fmt,
+              out_packed=out_packed)
+    if policy.oracle:
+        bits = None
+        if s.stochastic:
+            bits = common.counter_bits_reduced(
+                w[0], w[1], (a.shape[0], b.shape[1]), s.rand_bits,
+                device=a.device)
+        return qmatmul(a, b, bits, s.fmt, s.mode, s.rand_bits, **kw)
+    return qmatmul_prng(a, b, w, s.fmt, s.mode, s.rand_bits, **kw)
 
 
 def needs_grad(*tensors: torch.Tensor) -> bool:
@@ -314,13 +397,22 @@ def batched_site_matmul(policy: QuantPolicy, site: int, a: torch.Tensor,
                         b: torch.Tensor, words: Words) -> torch.Tensor:
     """One rounded batched GEMM (E, M, K) x (E, K, N) -> (E, M, N) float32
     at ``site``: slice e draws from ``fold_words(fold_words(words, site),
-    e)`` (``slice_words``)."""
+    e)`` (``slice_words``); under ``policy.oracle`` K8 is fed those
+    slices' counter bits (``common.counter_bits_batch``)."""
     s: RoundingSpec = getattr(policy, _SITE_ATTR[site])
     if s.is_identity:
         return torch.bmm(a.float(), b.float())
     seeds = slice_words(fold_words(words, site), a.shape[0])
+    kw = dict(eps=s.eps, overflow=s.overflow)
+    if policy.oracle:
+        bits = None
+        if s.stochastic:
+            bits = common.counter_bits_batch(
+                seeds, (a.shape[0], a.shape[1], b.shape[2]), s.rand_bits,
+                device=a.device)
+        return qmatmul_batched(a, b, bits, s.fmt, s.mode, s.rand_bits, **kw)
     return qmatmul_batched_prng(a, b, seeds, s.fmt, s.mode, s.rand_bits,
-                                eps=s.eps, overflow=s.overflow)
+                                **kw)
 
 
 class _QBmm(torch.autograd.Function):
@@ -411,12 +503,22 @@ def qeinsum(eqn: str, a: torch.Tensor, b: torch.Tensor,
 # ---------------------------------------------------------------------------
 def act_round(policy: QuantPolicy, x: torch.Tensor,
               words: Words) -> torch.Tensor:
-    """The act site's rounding of float32 ``x`` (K1', bits keyed by the
-    flat 128-lane layout of ``fold_words(words, SITE_ACT)``)."""
+    """The act site's rounding of float32 ``x`` with the words
+    ``fold_words(words, SITE_ACT)``: K1', bits keyed by the flat 128-lane
+    layout; under ``policy.oracle`` K1, one word per element keyed by the
+    flat index (the reference's ``counter_bits_reduced`` over
+    ``(x.size, 1)``)."""
     s = policy.act
     w = fold_words(words, SITE_ACT)
-    return sr_cast_prng(x, w, s.fmt, s.mode, eps=s.eps,
-                        rand_bits=s.rand_bits, overflow=s.overflow)
+    kw = dict(rand_bits=s.rand_bits, overflow=s.overflow)
+    if policy.oracle:
+        bits = None
+        if s.stochastic:
+            bits = common.counter_bits_reduced(
+                w[0], w[1], (x.numel(), 1), s.rand_bits,
+                device=x.device).reshape(x.shape)
+        return sr_cast(x, bits, s.fmt, s.mode, eps=s.eps, **kw)
+    return sr_cast_prng(x, w, s.fmt, s.mode, eps=s.eps, **kw)
 
 
 class _QAct(torch.autograd.Function):

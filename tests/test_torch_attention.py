@@ -42,6 +42,7 @@ from repro.precision import policy as jp
 from repro_torch import convert
 from repro_torch.configs import get_config, reduced
 from repro_torch.core.rounding import grid_flips, parse_spec
+from repro_torch.core.rounding import spec as tr_spec
 from repro_torch.kernels import common as tcommon
 from repro_torch.kernels import flash_attention as TF
 from repro_torch.models import build_model
@@ -286,8 +287,12 @@ def test_presets_resolve_and_unported_raise():
         assert not pol.attn_identity and not pol.is_identity
     assert tp.PRESETS["binary8-paper"].attn_identity
     for name in ("binary8-paper-packed", "e4m3-sr-oracle"):
-        with pytest.raises(NotImplementedError):
-            tp.get_policy(name)
+        ref, pol = jp.PRESETS[name], tp.get_policy(name)
+        assert (pol.oracle, pol.packed) == (ref.oracle, ref.packed)
+        assert pol.attn_identity
+    with pytest.raises(NotImplementedError, match="attn_qk"):
+        tp.make_policy(fmt="binary8", attn=tr_spec("binary8", "sr_eps",
+                                                   eps=0.1))
     with pytest.raises(ValueError):
         tp.make_policy(fmt="binary8", kv_cache_fmt="binary32-rn")
     assert (tp.TAG_ATTN_QK, tp.TAG_ATTN_AV, tp.TAG_ATTN_OUT,

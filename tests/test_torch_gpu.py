@@ -23,7 +23,12 @@ fused QAdam step) is bitwise equal to its twin in x, the moment codes or
 values and the Kahan carries, on any input.  The reduced
 qwen3-moe decoder on the card against the CPU twins: the serve test's
 statistical logit bound (a GEMM sum flipped upstream moves an SR
-decision by a grid ulp, which propagates).
+decision by a grid ulp, which propagates).  The explicit-bits kernels
+(K3, K4, K8) are bitwise equal to their in-kernel-bits kernels fed the
+same words on any input (one main loop), and to their twins under the
+GEMM contract; K1 and K1''s signed-SRe branch bitwise on any input;
+packed outputs are bitwise the codes of the float outputs, packed
+operands sum bitwise as their values.
 """
 import numpy as np
 import pytest
@@ -122,8 +127,8 @@ def test_kernels_count_their_launches(cuda):
     tq.qmatmul_plain(a, b, SEEDS[0], "binary8")
     empty = tq.qmatmul_prng(a[:0], b, SEEDS[0], "binary8")
     assert empty.shape == (0, 32)
-    assert tq.LAUNCHES == {"qmatmul_sr": 1, "qmatmul_swiglu_sr": 1,
-                           "qmatmul_batched_sr": 0}
+    assert tq.LAUNCHES == dict(dict.fromkeys(tq.LAUNCHES, 0), qmatmul_sr=1,
+                               qmatmul_swiglu_sr=1)
 
 
 @pytest.mark.gpu
@@ -355,7 +360,7 @@ def test_sr_cast_kernel_unaligned_and_counted(cuda):
     torch.cuda.synchronize()
     assert torch.equal(got.view(torch.int32), ref.view(torch.int32))
     assert tsr.sr_cast_prng(x[:0], SEEDS[1], "binary8").numel() == 0
-    assert tsr.LAUNCHES == {"sr_cast_prng": 1}
+    assert tsr.LAUNCHES == {"sr_cast_prng": 1, "sr_cast_bits": 0}
 
 
 def _batched_seeds(E):
@@ -395,8 +400,8 @@ def test_batched_kernel_counts_its_launches(cuda):
     tq.qmatmul_batched_plain(a, b, _batched_seeds(3), "binary8")
     assert tq.qmatmul_batched_prng(a[:, :0], b, _batched_seeds(3),
                                    "binary8").numel() == 0
-    assert tq.LAUNCHES == {"qmatmul_sr": 0, "qmatmul_swiglu_sr": 0,
-                           "qmatmul_batched_sr": 1}
+    assert tq.LAUNCHES == dict(dict.fromkeys(tq.LAUNCHES, 0),
+                               qmatmul_batched_sr=1)
 
 
 @pytest.mark.gpu
@@ -426,10 +431,10 @@ def test_moe_decode_card_matches_cpu(cuda):
                              forced=cpu["tokens"].to(cuda))
     torch.cuda.synchronize()
     steps, L = 6 + 3, cfg.n_layers
-    assert tq.LAUNCHES == {"qmatmul_sr": 5 * L * steps + 3,
-                           "qmatmul_swiglu_sr": 0,
-                           "qmatmul_batched_sr": 3 * L * steps}
-    assert tsr.LAUNCHES == {"sr_cast_prng": L * steps}
+    assert tq.LAUNCHES == dict(dict.fromkeys(tq.LAUNCHES, 0),
+                               qmatmul_sr=5 * L * steps + 3,
+                               qmatmul_batched_sr=3 * L * steps)
+    assert tsr.LAUNCHES == {"sr_cast_prng": L * steps, "sr_cast_bits": 0}
     d = (card["logits"].cpu() - cpu["logits"]).abs()
     assert float(d.median()) < 0.02
     assert float((d > 0.05).float().mean()) <= 0.10
@@ -516,3 +521,205 @@ def test_fused_qadam_kernel_counts_its_launches(cuda):
                          cfg, m_spec=m_spec, v_spec=m_spec, b1=0.9, b2=0.999,
                          packed=True)
     assert tfu.LAUNCHES["fused_qadam_prng"] == 1
+
+
+# ---------------------------------------------------------------------------
+# The explicit-bits kernels K3, K4, K8, K1 and the packed storage options
+# ---------------------------------------------------------------------------
+GEMM_VARIANTS = [("binary8", "sr", 32), ("binary8", "rn", 32),
+                 ("e4m3", "sr", 16), ("binary8", "sr", 8),
+                 ("bfloat16", "sr", 32)]
+
+
+def _bits(cuda, words, shape, rb, stream=0):
+    return tcommon.counter_bits_reduced(words[0], words[1], shape, rb,
+                                        stream=stream, device=cuda)
+
+
+def _same(a, b):
+    if a.dtype == torch.float32:
+        a, b = a.view(torch.int32), b.view(torch.int32)
+    return torch.equal(a, b)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("M,K,N", [(4, 2048, 256), (37, 45, 70),
+                                   (4, 5632, 2048)])
+def test_qmatmul_bits_kernel_matches_plain_and_prng(cuda, M, K, N):
+    """K3 equals its twin on exact sums, and K3' bitwise on any input when
+    fed the words K3' draws (one main loop, one summation order)."""
+    a = _exact((M, K), 8.0, M).to(cuda)
+    b = _exact((K, N), 4.0, N).to(cuda).to(torch.bfloat16)
+    for fmt, mode, rb in GEMM_VARIANTS:
+        bits = _bits(cuda, SEEDS[0], (M, N), rb)
+        got = tq.qmatmul(a, b, bits, fmt, mode, rb)
+        ref = tq.qmatmul_bits_plain(a, b, bits, fmt, mode, rb)
+        prng = tq.qmatmul_prng(a, b, SEEDS[0], fmt, mode, rb)
+        torch.cuda.synchronize()
+        assert _same(got, ref) and _same(got, prng), (fmt, mode, rb)
+    a = _normal((M, K), M + 1).to(cuda)
+    b = _normal((K, N), N + 1, K ** -0.5).to(cuda).to(torch.bfloat16)
+    bits = _bits(cuda, SEEDS[1], (M, N), 32)
+    got = tq.qmatmul(a, b, bits, "binary8")
+    assert _same(got, tq.qmatmul_prng(a, b, SEEDS[1], "binary8"))
+    _assert_flips(tq.qmatmul_bits_plain(a, b, bits, "binary8"), got,
+                  "binary8")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("fmt", ["binary8", "e4m3", "bfloat16"])
+def test_qmatmul_packed_operand_and_output(cuda, fmt):
+    """out_packed: the codes of the float result (e4m3 saturating at 480);
+    a_fmt: codes decoded on load sum as their values, read through a view
+    off a 16-byte boundary with a ragged row length."""
+    M, K, N = 5, 70, 37
+    a = (_exact((M, K), 8.0, 1) * 64).to(cuda)       # reaches e4m3's xmax
+    b = _exact((K, N), 4.0, 2).to(cuda)
+    for flavour in ("prng", "bits"):
+        bits = _bits(cuda, SEEDS[2], (M, N), 32)
+
+        def run(x, **kw):
+            if flavour == "prng":
+                return tq.qmatmul_prng(x, b, SEEDS[2], fmt, **kw)
+            return tq.qmatmul(x, b, bits, fmt, **kw)
+        flt = run(a)
+        codes = run(a, out_packed=True)
+        torch.cuda.synchronize()
+        assert codes.dtype == tcommon.pack_dtype(fmt)
+        assert torch.equal(codes, tcommon.pack_block(flt, fmt))
+        # codes of a (with -0.0 words) as the A operand, unaligned
+        width = tcommon.pack_bytes(fmt)
+        ac = tcommon.pack_block(tcommon.round_block(
+            _normal((M, K), 3).to(cuda), None, fmt, "rn"), fmt)
+        ac[0, :3] = 1 << (8 * width - 1)                 # -0.0
+        buf = torch.empty(M * K + 1, dtype=ac.dtype, device=cuda)
+        view = buf[1:].view(M, K)
+        view.copy_(ac)
+        assert view.data_ptr() % 16 != 0
+        got = run(view, a_fmt=fmt)
+        ref = run(tcommon.unpack_block(ac, fmt))
+        torch.cuda.synchronize()
+        assert _same(got, ref), flavour
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("M,K,N", [(4, 2048, 5632), (37, 45, 70)])
+def test_swiglu_bits_kernel_matches_prng_and_packs(cuda, M, K, N):
+    """K4 fed K4''s words equals K4' bitwise (h and the residuals); the
+    packed h and residuals are the codes of the float ones; on exact sums
+    the residuals equal the twin's."""
+    x = _exact((M, K), 8.0, 5).to(cuda)
+    wg = _exact((K, N), 4.0, 6).to(cuda).to(torch.bfloat16)
+    wu = _exact((K, N), 4.0, 7).to(cuda).to(torch.bfloat16)
+    for act_name, rb in (("binary8-sr", 32), ("binary8-rn", 16),
+                         ("binary8-sr", 8)):
+        act = ACT_SPECS[act_name]
+        bg = _bits(cuda, SEEDS[0], (M, N), rb)
+        bu = _bits(cuda, SEEDS[1], (M, N), rb)
+        ab = _bits(cuda, SEEDS[2], (M, N), 32, stream=1)
+        kw = dict(act_spec=act, rand_bits=rb, residuals=True)
+        got = tq.qmatmul_swiglu(x, wg, wu, bg, bu, "binary8", act_bits=ab,
+                                **kw)
+        prng = tq.qmatmul_swiglu_prng(x, wg, wu, SEEDS, "binary8", **kw)
+        ref = tq.qmatmul_swiglu_bits_plain(x, wg, wu, bg, bu, "binary8",
+                                           "sr", rb, act, ab, True)
+        packed = tq.qmatmul_swiglu(x, wg, wu, bg, bu, "binary8",
+                                   act_bits=ab, out_packed=True,
+                                   residuals_packed=True, **kw)
+        torch.cuda.synchronize()
+        assert all(_same(p, g) for p, g in zip(prng, got)), act_name
+        assert all(_same(r, g) for r, g in zip(ref[1:], got[1:]))
+        _assert_flips(ref[0], got[0], "binary8", adjacent_only=False)
+        assert all(p.dtype == torch.uint8 for p in packed)
+        assert all(torch.equal(p, tcommon.pack_block(g, "binary8"))
+                   for p, g in zip(packed, got))
+        prng_packed = tq.qmatmul_swiglu_prng(
+            x, wg, wu, SEEDS, "binary8", out_packed=True,
+            residuals_packed=True, **kw)
+        assert all(torch.equal(p, q) for p, q in zip(prng_packed, packed))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("E,M,K,N", [(128, 1, 2048, 768), (128, 1, 768, 2048),
+                                     (5, 3, 70, 50)])
+def test_qmatmul_batched_bits_kernel_matches_plain_and_prng(cuda, E, M, K,
+                                                            N):
+    seeds = _batched_seeds(E)
+    a = _exact((E, M, K), 8.0, M).to(cuda)
+    b = _exact((E, K, N), 4.0, N).to(cuda).to(torch.bfloat16)
+    for fmt, mode, rb in GEMM_VARIANTS:
+        bits = tcommon.counter_bits_batch(seeds, (E, M, N), rb, device=cuda)
+        got = tq.qmatmul_batched(a, b, bits, fmt, mode, rb)
+        ref = tq.qmatmul_batched_bits_plain(a, b, bits, fmt, mode, rb)
+        prng = tq.qmatmul_batched_prng(a, b, seeds, fmt, mode, rb)
+        torch.cuda.synchronize()
+        assert _same(got, ref) and _same(got, prng), (fmt, mode, rb)
+    bits = tcommon.counter_bits_batch(seeds, (E, M, N), 32, device=cuda)
+    codes = tq.qmatmul_batched(a, b, bits, "binary8", out_packed=True)
+    flt = tq.qmatmul_batched(a, b, bits, "binary8")
+    assert torch.equal(codes, tcommon.pack_block(flt, "binary8"))
+    ac = tcommon.pack_block(a, "binary8")            # dyadic: on the grid
+    assert _same(tq.qmatmul_batched(ac, b, bits, "binary8", a_fmt="binary8"),
+                 flt)
+    a = _normal((E, M, K), M + 2).to(cuda)
+    got = tq.qmatmul_batched(a, b, bits, "binary8")
+    assert _same(got, tq.qmatmul_batched_prng(a, b, seeds, "binary8"))
+
+
+SR_CAST_BITS_CASES = SR_CAST_CASES + [("binary8", "sr_eps", 32),
+                                      ("binary8", "signed_sr_eps", 32),
+                                      ("e4m3", "signed_sr_eps", 16)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", [(5,), (3, 7, 11), (128, 1, 768),
+                                   (2 ** 20 + 37,)],
+                         ids=lambda s: "x".join(map(str, s)))
+def test_sr_cast_bits_kernel_matches_plain(cuda, shape):
+    """K1 and K1''s v branch bitwise equal their twins on any input."""
+    x = _normal(shape, 11, 4.0).to(cuda)
+    v = _normal(shape, 12).to(cuda)
+    v.view(-1)[::7] = 0.0
+    n = x.numel()
+    for fmt, mode, rb in SR_CAST_BITS_CASES:
+        eps = 0.1 if "eps" in mode else 0.0
+        vv = v if mode == "signed_sr_eps" else None
+        bits = tcommon.counter_bits_reduced(*SEEDS[1], (n, 1), rb,
+                                            device=cuda).reshape(shape)
+        got = tsr.sr_cast(x, bits, fmt, mode, eps, vv, rand_bits=rb)
+        ref = tsr.sr_cast_plain(x, bits, fmt, mode, 32 if vv is not None
+                                else rb, eps, vv)
+        prng = tsr.sr_cast_prng(x, SEEDS[1], fmt, mode, eps, vv,
+                                rand_bits=rb)
+        prng_ref = tsr.sr_cast_prng_plain(x, SEEDS[1], fmt, mode,
+                                          32 if vv is not None else rb, eps,
+                                          vv)
+        torch.cuda.synchronize()
+        assert _same(got, ref), (fmt, mode, rb)
+        assert _same(prng, prng_ref), (fmt, mode, rb)
+
+
+@pytest.mark.gpu
+def test_bits_kernels_unaligned_and_counted(cuda):
+    """K1 through views off a 16-byte boundary; every bits kernel counts
+    its launches, and none counts a CPU call."""
+    tq.reset_launches()
+    tsr.reset_launches()
+    n = 128 * 5 + 3
+    x = _normal((n + 1,), 13, 4.0).to(cuda)[1:]
+    bits = tcommon.counter_bits_reduced(*SEEDS[0], (n + 1, 1), 16,
+                                        device=cuda).reshape(-1)[1:]
+    v = _normal((n + 1,), 14).to(cuda)[1:]
+    got = tsr.sr_cast(x, bits, "binary8", "signed_sr_eps", 0.2, v)
+    ref = tsr.sr_cast_plain(x, bits, "binary8", "signed_sr_eps", 32, 0.2, v)
+    torch.cuda.synchronize()
+    assert _same(got, ref)
+    a = _normal((4, 64), 0).to(cuda)
+    b = _normal((64, 32), 1).to(cuda)
+    tq.qmatmul(a, b, _bits(cuda, SEEDS[0], (4, 32), 32), "binary8")
+    tq.qmatmul_swiglu(a, b, b, None, None, "binary8", "rn")
+    tq.qmatmul_batched(a[None], b[None], None, "binary8", "rn")
+    tq.qmatmul(a.cpu(), b.cpu(), None, "binary8", "rn")
+    assert tq.LAUNCHES == dict(dict.fromkeys(tq.LAUNCHES, 0), qmatmul_bits=1,
+                               qmatmul_swiglu_bits=1, qmatmul_batched_bits=1)
+    assert tsr.LAUNCHES == {"sr_cast_prng": 0, "sr_cast_bits": 1}

@@ -50,3 +50,12 @@ def test_qadam_slice_modules_are_checked():
     for mod in ("checkpoint/manager.py", "train/loop.py", "health/inject.py",
                 "optim/adam.py", "data/pipeline.py"):
         assert f"src/repro_torch/{mod}" in names, mod
+
+
+def test_oracle_slice_modules_are_checked():
+    """The oracle / packed slice's modules are among the files checked
+    above."""
+    names = {str(p.relative_to(ROOT)) for p in PORT_FILES}
+    for mod in ("kernels/ops.py", "kernels/ref.py",
+                "launch/split_agreement.py"):
+        assert f"src/repro_torch/{mod}" in names, mod

@@ -101,12 +101,17 @@ def test_sr_cast_twin_matches_reference(fmt):
 
 
 def test_sr_cast_unported_branches_raise():
+    """sr2, overflow='inf' and non-FP grids are not ported (the v branch
+    and sr_eps are: tests/test_torch_oracle.py)."""
     x = torch.ones(5)
     with pytest.raises(NotImplementedError):
-        tsr.sr_cast_prng(x, WORDS, "binary8", "signed_sr_eps", eps=0.1,
-                         v=torch.ones(5))
+        tsr.sr_cast_prng(x, WORDS, "binary8", "sr2")
     with pytest.raises(NotImplementedError):
-        tsr.sr_cast_prng(x, WORDS, "binary8", "sr_eps", eps=0.1)
+        tsr.sr_cast_prng(x, WORDS, "binary8", "sr", overflow="inf")
+    with pytest.raises(NotImplementedError):
+        tsr.sr_cast(x, None, "fxp16.8", "rn")
+    with pytest.raises(ValueError):
+        tsr.sr_cast_prng(x, WORDS, "binary8", "signed_sr_eps", eps=0.1)
 
 
 # ---------------------------------------------------------------------------

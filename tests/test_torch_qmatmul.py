@@ -212,15 +212,23 @@ def test_cpu_tensors_take_the_plain_twin_and_count_no_launch():
     tq.qmatmul_batched_prng(torch.from_numpy(a)[None],
                             torch.from_numpy(b)[None], [SEEDS[0]],
                             "binary8")
-    assert tq.LAUNCHES == {"qmatmul_sr": 0, "qmatmul_swiglu_sr": 0,
-                           "qmatmul_batched_sr": 0}
+    tq.qmatmul(torch.from_numpy(a), torch.from_numpy(b), None, "binary8",
+               "rn")
+    assert tq.LAUNCHES == dict.fromkeys(tq.LAUNCHES, 0)
+    assert set(tq.LAUNCHES) == {"qmatmul_sr", "qmatmul_swiglu_sr",
+                                "qmatmul_batched_sr", "qmatmul_bits",
+                                "qmatmul_swiglu_bits", "qmatmul_batched_bits"}
 
 
 @pytest.mark.parametrize("kwargs", [dict(bias=torch.zeros(8)),
-                                    dict(eps=0.1), dict(out_packed=True),
+                                    dict(eps=0.1),
+                                    dict(act_spec=tr.spec("binary8", "sr")),
                                     dict(overflow="inf"),
-                                    dict(a_fmt="binary8"), dict(act="silu")])
+                                    dict(act="gelu"), dict(act="silu")])
 def test_qmatmul_raises_on_unported_options(kwargs):
+    """The bias and activation epilogues of K3/K3' (no ported config has a
+    non-GLU FFN), eps and overflow='inf' raise; a_fmt and out_packed are
+    ported (tests/test_torch_packed.py)."""
     a, b = _normal_inputs(4, 16, 8, seed=1)
     with pytest.raises(NotImplementedError):
         tq.qmatmul_prng(torch.from_numpy(a), torch.from_numpy(b), SEEDS[0],
@@ -246,17 +254,24 @@ def test_swiglu_raises_on_unported_options():
     a, b = _normal_inputs(4, 16, 8, seed=1)
     args = (torch.from_numpy(a), torch.from_numpy(b), torch.from_numpy(b),
             SEEDS, "binary8")
-    for kwargs in (dict(act="gelu"), dict(out_packed=True),
+    for kwargs in (dict(act="gelu"), dict(eps=0.1),
                    dict(overflow="inf")):
         with pytest.raises(NotImplementedError):
             tq.qmatmul_swiglu_prng(*args, **kwargs)
+    # a packed hidden must land on a rounding grid (the reference's rule)
+    with pytest.raises(ValueError):
+        tq.qmatmul_swiglu_prng(*args, out_packed=True)
 
 
 def test_policies_the_kernels_cannot_honour_raise():
     """A spec the kernels would round differently (overflow to inf) is
-    refused at the GEMM and the fused FFN, not silently saturated."""
+    refused when the policy is made, and at the GEMM and the fused FFN for
+    a policy built around that check: never silently saturated."""
     a, b = _normal_inputs(4, 16, 8, seed=1)
-    ctx = tp.QuantCtx(tp.get_policy("binary8-rn-inf"), SEEDS[0])
+    with pytest.raises(NotImplementedError, match="fwd"):
+        tp.get_policy("binary8-rn-inf")
+    s = tr.parse_spec("binary8-rn-inf")
+    ctx = tp.QuantCtx(tp.QuantPolicy(s, s, s, s), SEEDS[0])
     with pytest.raises(NotImplementedError):
         tp.qdot(torch.from_numpy(a), torch.from_numpy(b), ctx)
     x = torch.from_numpy(a).reshape(1, 4, 16)

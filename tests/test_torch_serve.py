@@ -1,8 +1,8 @@
 """The port's serving slice against the JAX reference, end to end.
 
 Reduced tinyllama (2 layers, d_model 64, the reference's ``reduced()``):
-the reference's ``Model.init`` parameters go through
-``convert.params_from_jax``; both packages absorb the same 8-token prompts
+the reference's ``Model.init`` parameters, with the blocks drawn by numpy
+(``_numpy_blocks``), go through ``convert.params_from_jax``; both packages absorb the same 8-token prompts
 and decode 4 tokens, teacher-forced on the reference's greedy picks, so
 every step sees the same inputs.
 
@@ -52,7 +52,7 @@ def _reference_run(policy, prompts):
     cfg = dataclasses.replace(jreduced(jget_config("tinyllama-1.1b")),
                               gemm_policy=policy)
     model = jbuild_model(cfg)
-    params = model.init(jax.random.PRNGKey(0))
+    params = _numpy_blocks(model.init(jax.random.PRNGKey(0)))
     step = jax.jit(model.decode_step, static_argnames=("compute_logits",))
     caches = model.init_decode_cache(B, PROMPT + GEN)
     p = jnp.asarray(prompts)
@@ -68,6 +68,23 @@ def _reference_run(policy, prompts):
         logits.append(np.asarray(lg[:, -1, :].astype(jnp.float32)))
     return (jax.device_get(params), np.concatenate(picks, 1),
             np.stack(logits, 1))
+
+
+def _numpy_blocks(params):
+    """The reference's parameters with the blocks drawn by numpy as its
+    init draws them (norm scales zero, weights N(0, 1/fan_in)): its block
+    init folds ``hash()`` of a block name, which Python salts per
+    process, so ``init`` alone gives every process other weights."""
+    rng = np.random.default_rng(0)
+    paths, treedef = jax.tree_util.tree_flatten_with_path(params["blocks"])
+    out = []
+    for path, leaf in paths:
+        if "norm" in jax.tree_util.keystr(path):
+            v = np.zeros(leaf.shape)
+        else:
+            v = rng.standard_normal(leaf.shape) / np.sqrt(leaf.shape[-2])
+        out.append(jnp.asarray(v.astype(np.float32)))
+    return dict(params, blocks=jax.tree_util.tree_unflatten(treedef, out))
 
 
 def _port_run(policy, jparams, prompts, forced):
@@ -155,5 +172,6 @@ def test_unported_arch_and_policy_raise():
     with pytest.raises(NotImplementedError):
         get_config("deepseek-v2-236b")
     from repro_torch.precision import policy as tp
-    with pytest.raises(NotImplementedError):
-        tp.get_policy("binary8-paper-packed")
+    # a spec name resolves only where the kernels take its scheme
+    with pytest.raises(NotImplementedError, match="fwd"):
+        tp.get_policy("binary8-sr_eps")
