@@ -119,7 +119,32 @@ Phases (any failed check exits non-zero; there is no CPU fallback):
 25. serve qwen3-moe-30b-a3b at full width and depth under the oracle form
    of ``binary8-paper`` (K3, K8, K1): launch counts, tok/s, peak memory,
    the host seconds spent issuing the bits;
-26. one JSON line of per-kernel numbers, then the result line.
+26. K10 (the paged decode) vs plain: B.KV = 32 (8 requests x 4 kv heads),
+   G = 8, d = 64, n_max = 4, pages of 8, 16 and 64 at random placements,
+   lengths 1, page-1, page, page+1, the full table and random ones, 32-,
+   16- and 8-bit draws: bitwise equal to its twin on exact-sum inputs
+   (every key of a request equal: each row's logits equal, every exp
+   exactly 1, every sum exact), within the attention contract on N(0, 1)
+   inputs, over packed e4m3 codes bitwise equal to over their values,
+   bitwise equal to K9 on each request's contiguous cache with
+   ``kv_block == page``, the same bits at two placements; timed at the
+   engine's decode shape beside the bound, the twin and
+   ``scaled_dot_product_attention`` over the gathered float32 cache
+   (unrounded: a yardstick only);
+27. the continuous-batching engine at full width and depth:
+   ``serve.run_engine`` over ``serve.ENGINE_RUN`` (tinyllama-1.1b, 16
+   requests, 4 slots, pages of 64) under ``serve.ENGINE_POLICY``: every
+   request drains, every page comes back, K10 launched 22 times per
+   decode step and nothing else; the same requests under two other slot
+   counts, pools and arrival schedules give the same streams bit for bit;
+   tok/s, time to first token, pool bytes, peak memory; then one run
+   under ``binary8-paper-attn`` with K3', K4' and K10 counted against the
+   engine's calls;
+28. engine agreement: the reduced engine on the card against the same
+   weights on the CPU, teacher-forced on the CPU's picks: logits held to
+   phase 12's limits, the card's own picks within 0.1 of the CPU's best
+   logit, the pools' codes at most 1 % different per layer;
+29. one JSON line of per-kernel numbers, then the result line.
 
 Detailed numbers also go to ``chiprun_out/chip_smoke.json``.
 """
@@ -193,6 +218,9 @@ ATTN = dict(BH=TRAIN_BATCH * 32, BKV=TRAIN_BATCH * 4, S=TRAIN_SEQ, d=64,
             n_heads=32, n_kv=4)
 DECODE = dict(BKV=BATCH * 4, G=8, Smax=PROMPT + GEN, d=64)
 ATTN_POLICY = "binary8-paper-attn"
+# the engine's run (serve.ENGINE_RUN, phases 26-27): 4 slots, pages of 64
+# tokens, 12 short requests (prompt 4 + 2 generated) and 4 long (48 + 32)
+ENGINE = dict(n_slots=4, page=64, short=(4, 2), long=(48, 32))
 # phases 21-25: the explicit-bits (oracle) and packed-storage presets
 ORACLE_POLICY = "e4m3-sr-oracle"
 PACKED_POLICY = "binary8-paper-packed"
@@ -2165,6 +2193,392 @@ def preset_train_phase(torch, mods, train):
     return res
 
 
+# ---------------------------------------------------------------------------
+# Phases 26-28: K10 (paged decode) and the continuous-batching engine
+# ---------------------------------------------------------------------------
+def paged_case(torch, page, exact, seed, n_kv=4, G=8, d=64, n_max=4, B=8,
+               lengths=None):
+    """K10's inputs on the card: B requests of n_kv kv heads (lengths 1,
+    page-1, page, page+1, the full table and random ones unless given),
+    the logical k/v (B.KV, n_max.page, d) as e4m3 grid values, and a
+    function that scatters a logical cache into a (P.KV, page, d) pool at
+    a random placement (pages among 1..P-1, filler entries 0).  Exact:
+    dyadic q, every key of a request equal (each row's logits equal, every
+    exp exactly 1), dyadic v: every sum exact."""
+    import numpy as np
+    from repro_torch.core.rounding import parse_spec
+    rng = np.random.default_rng(seed)
+    S = n_max * page
+    if lengths is None:
+        lengths = [1, max(1, page - 1), page, page + 1, S] \
+            + list(rng.integers(1, S + 1, B - 5))
+    lengths = np.asarray(lengths, np.int32)
+    if exact:
+        q = rng.integers(-4, 5, (B * n_kv, G, d)) / 4
+        k = np.repeat(rng.integers(-4, 5, (B * n_kv, 1, d)) / 4, S, axis=1)
+        v = rng.integers(-8, 9, (B * n_kv, S, d)) / 8
+    else:
+        q = rng.standard_normal((B * n_kv, G, d))
+        k = rng.standard_normal((B * n_kv, S, d))
+        v = rng.standard_normal((B * n_kv, S, d))
+    grid = parse_spec("e4m3-rn")
+    dev = torch.device("cuda")
+    q = torch.from_numpy(q.astype(np.float32)).to(dev)
+    k, v = (grid(torch.from_numpy(x.astype(np.float32)).to(dev))
+            for x in (k, v))
+    P = B * n_max + 3
+
+    def place(pl_seed):
+        r = np.random.default_rng(pl_seed)
+        free = list(r.permutation(np.arange(1, P)))
+        tables = np.zeros((B, n_max), np.int32)
+        for b, n in enumerate(lengths):
+            for j in range(-(-int(n) // page)):
+                tables[b, j] = free.pop()
+        phys = []
+        for b in range(B):
+            for j in range(n_max):
+                if tables[b, j]:
+                    phys.append((b, j, int(tables[b, j])))
+        return tables, phys
+
+    def pool(x, placed):
+        _, phys = placed
+        out = torch.zeros((P, n_kv, page, d), dtype=x.dtype, device=dev)
+        xv = x.view(B, n_kv, n_max, page, d)
+        for b, j, p in phys:
+            out[p] = xv[b, :, j]
+        return out.view(P * n_kv, page, d)
+    return q, k, v, lengths, place, pool
+
+
+def paged_work(lengths, n_kv, G, d, code_bytes=1):
+    """(flops, Threefry evaluations, bytes) of one K10 call over
+    ``lengths``: the valid keys' logits and P.V products, each logit and
+    each av/out element drawn once (two draws per Threefry), q and out
+    float32, the valid cache rows' codes read once, tables and lengths."""
+    keys = n_kv * int(sum(int(n) for n in lengths))
+    rows = n_kv * len(lengths) * G
+    pairs = G * keys
+    nbytes = 4 * rows * d * 2 + 2 * keys * d * code_bytes \
+        + 4 * len(lengths) * 5
+    return 2 * pairs * 2 * d, (pairs + 2 * rows * d) / 2, nbytes
+
+
+def paged_phase(torch, tfa):
+    """K10 against its plain twin at B.KV = 32, G = 8, d = 64, n_max = 4,
+    pages of 8, 16 and 64, 32-, 16- and 8-bit draws; then timed at the
+    engine's decode shape.  Returns the rows."""
+    import numpy as np
+    import torch.nn.functional as F
+    from repro_torch.core.rounding import grid_flips, parse_spec
+    from repro_torch.kernels import common
+    n_kv, G, d = 4, 8, 64
+    rows = []
+    for page in (8, 16, 64):
+        for name in ("binary8-sr", "binary8-sr-r16", "binary8-sr-r8"):
+            specs = [parse_spec(name)] * 3
+            for exact in (True, False):
+                q, k, v, lengths, place, pool = paged_case(
+                    torch, page, exact, page + len(name))
+                seeds = np.random.default_rng(page).integers(
+                    0, 2 ** 32, (q.shape[0], 6), dtype=np.uint64)
+                kw = dict(scale=d ** -0.5, n_kv=n_kv)
+                outs = []
+                for pl_seed in (0, 1):
+                    placed = place(pl_seed)
+                    tables = placed[0]
+                    kp, vp = pool(k, placed), pool(v, placed)
+                    codes = [common.pack_block(x, "e4m3") for x in (kp, vp)]
+                    got = tfa.flash_decode_paged(q, *codes, seeds, lengths,
+                                                 tables, specs,
+                                                 kv_fmt="e4m3", **kw)
+                    values = tfa.flash_decode_paged(q, kp, vp, seeds,
+                                                    lengths, tables, specs,
+                                                    **kw)
+                    ref = tfa.flash_decode_paged_plain(
+                        q, *codes, seeds, lengths, tables, specs,
+                        kv_fmt="e4m3", **kw)
+                    torch.cuda.synchronize()
+                    tag = (f"page {page} {name} "
+                           f"{'exact' if exact else 'N(0,1)'}")
+                    if not bitwise(torch, got, values):
+                        fail(f"flash_decode_paged {tag}: codes and values "
+                             "differ")
+                    n_bad, adjacent = grid_flips(ref, got, "binary8")
+                    if exact and n_bad:
+                        fail(f"flash_decode_paged {tag}: {n_bad} elements "
+                             "differ from the plain twin on exact sums")
+                    if n_bad > max(1e-4 * got.numel(), 1):
+                        fail(f"flash_decode_paged {tag}: {n_bad} of "
+                             f"{got.numel()} elements differ")
+                    outs.append(got)
+                if not bitwise(torch, outs[0], outs[1]):
+                    fail(f"flash_decode_paged {tag}: two placements differ")
+                for b, n in enumerate(lengths):
+                    sl = slice(b * n_kv, (b + 1) * n_kv)
+                    k9 = tfa.flash_decode(q[sl], k[sl], v[sl], seeds[sl],
+                                          int(n), specs, scale=d ** -0.5,
+                                          kv_block=page)
+                    if not bitwise(torch, k9, outs[0][sl]):
+                        fail(f"flash_decode_paged {tag}: request {b} "
+                             f"(length {n}) differs from K9 with kv_block "
+                             "= page")
+                rows.append(dict(
+                    case=tag, main=False, mismatches=n_bad,
+                    mismatch_share=n_bad / got.numel(), adjacent=adjacent,
+                    max_abs_err=float((got - ref).abs().max())))
+        print(f"  page {page}: 32/16/8-bit draws, exact sums bitwise, "
+              f"N(0,1) within the contract, codes == values, placement-"
+              f"invariant, == K9 (kv_block = page)", flush=True)
+    # timed at the engine's decode shape: 4 slots x 4 kv heads, pages of
+    # 64, n_max 4, every slot at a long request's last length (48 + 32)
+    eng = ENGINE
+    lengths = [eng["long"][0] + eng["long"][1]] * eng["n_slots"]
+    specs = [parse_spec("binary8-sr")] * 3
+    q, k, v, lengths, place, pool = paged_case(
+        torch, eng["page"], False, 99, B=eng["n_slots"], lengths=lengths)
+    placed = place(5)
+    codes = [common.pack_block(pool(x, placed), "e4m3") for x in (k, v)]
+    seeds = np.random.default_rng(99).integers(0, 2 ** 32, (q.shape[0], 6),
+                                               dtype=np.uint64)
+    dev = torch.device("cuda")
+    lens_d = torch.from_numpy(lengths).to(dev)
+    tbl_d = torch.from_numpy(placed[0]).to(dev)
+    # int32 bit patterns on the card, as the engine passes them
+    seeds_d = torch.from_numpy(seeds.astype(np.uint32).view(np.int32)).to(dev)
+    kw = dict(scale=d ** -0.5, n_kv=n_kv, kv_fmt="e4m3")
+    got = tfa.flash_decode_paged(q, *codes, seeds_d, lens_d, tbl_d, specs,
+                                 **kw)
+    ref = tfa.flash_decode_paged_plain(q, *codes, seeds, lengths, placed[0],
+                                       specs, **kw)
+    torch.cuda.synchronize()
+    n_bad, adjacent = grid_flips(ref, got, "binary8")
+    ms = time_ms(torch, lambda i: tfa.flash_decode_paged(
+        q, *codes, seeds_d, lens_d, tbl_d, specs, **kw), 1, iters=50)
+    plain_ms = time_ms(torch, lambda i: tfa.flash_decode_paged_plain(
+        q, *codes, seeds, lengths, placed[0], specs, **kw), 1, iters=3,
+        warmup=1)
+    S = int(max(lengths))
+    B = len(lengths)
+    q4 = q.view(B, n_kv * G, 1, d)
+    k4, v4 = (x.view(B, n_kv, -1, d)[:, :, :S] for x in (k, v))
+    lib = time_ms(torch, lambda i: F.scaled_dot_product_attention(
+        q4, k4, v4, enable_gqa=True), 1, iters=50)
+    flops, n_tf, nbytes = paged_work(lengths, n_kv, G, d)
+    bms, by = attn_bound(flops, n_tf, nbytes)
+    rows.append(dict(
+        case=f"engine decode B={B} KV={n_kv} page {eng['page']} lengths "
+             f"{S}", main=True, ms=ms, plain_ms=plain_ms, bound_ms=bms,
+        bound_by=by, library_ms=lib,
+        library="scaled_dot_product_attention over the gathered float32 "
+                "cache, unrounded",
+        mismatches=n_bad, mismatch_share=n_bad / got.numel(),
+        adjacent=adjacent, max_abs_err=float((got - ref).abs().max())))
+    print(f"  engine decode shape B={B} KV={n_kv} G={G} length {S}: kernel "
+          f"{ms:.4f} ms  bound {bms:.5f} ms ({by})  plain {plain_ms:.3f} ms"
+          f"  sdpa {lib:.4f} ms; mismatches vs plain {n_bad}", flush=True)
+    return rows
+
+
+def engine_phase(torch, mods, serve):
+    """The engine at full width and depth under ENGINE_POLICY: every
+    request drains, every page comes back, K10 launched once per layer per
+    decode step (no one-token prefill chunk in this mix), nothing else
+    launched; the streams equal under other slot counts, pools and
+    arrivals; then one run under binary8-paper-attn with K3', K4' and K10
+    counted against the engine's calls."""
+    from repro_torch.precision.policy import get_policy
+    gc.collect()
+    torch.cuda.empty_cache()
+    run = {k: v for k, v in serve.ENGINE_RUN.items() if k != "arch"}
+    ec = run["engine"]
+    if (serve.ENGINE_RUN["arch"], ec.n_slots, ec.page_size, run["long"],
+            run["short"], run["n_short"], run["n_long"]) != (
+            "tinyllama-1.1b", ENGINE["n_slots"], ENGINE["page"],
+            ENGINE["long"], ENGINE["short"], 12, 4):
+        fail(f"serve.ENGINE_RUN {serve.ENGINE_RUN} is not the run whose "
+             "shapes phase 26 times")
+    built = serve.build("tinyllama-1.1b", gemm_policy=serve.ENGINE_POLICY,
+                        device="cuda")
+    n_req = run["n_short"] + run["n_long"]
+    want_len = {}
+    schedules = [("ENGINE_RUN", ec, None),
+                 ("2 slots, 5 pages, staggered arrivals",
+                  dataclasses.replace(ec, n_slots=2, total_pages=5),
+                  [i // 2 for i in range(n_req)]),
+                 ("3 slots, 7 pages, late arrivals first",
+                  dataclasses.replace(ec, n_slots=3, total_pages=7),
+                  [(n_req - i) % 5 for i in range(n_req)])]
+    res, streams = {}, None
+    for label, cfg, arrivals in schedules:
+        reset_all(*mods)
+        kw = dict(run, engine=cfg)
+        out = serve.run_engine(built=built, arrivals=arrivals,
+                               device="cuda", verbose=False, **kw)
+        launches = all_launches(*mods)
+        eng = out["engine"]
+        if not want_len:
+            want_len = {r.rid: r.max_new_tokens for r in
+                        serve.engine_workload(TINYLLAMA["vocab"],
+                                              run["n_short"], run["n_long"],
+                                              run["short"], run["long"],
+                                              run["workload_seed"],
+                                              run["long_every"])}
+        got_len = {rid: len(t) for rid, t in out["tokens"].items()}
+        if got_len != want_len:
+            fail(f"engine ({label}): streams {got_len} != {want_len}")
+        if eng.free_pages != cfg.total_pages - 1:
+            fail(f"engine ({label}): {eng.free_pages} free pages of "
+                 f"{cfg.total_pages - 1}")
+        want = every_kernel({"flash_decode_paged": LAYERS * (
+            eng.decode_steps + eng.single_token_chunks)}, launches)
+        if eng.single_token_chunks or launches != want:
+            fail(f"engine ({label}): launches {launches} != {want} "
+                 f"({eng.decode_steps} decode steps, "
+                 f"{eng.single_token_chunks} one-token chunks)")
+        toks = out["tokens"]
+        if any(t < 0 or t >= TINYLLAMA["vocab"] for s in toks.values()
+               for t in s):
+            fail(f"engine ({label}): bad tokens")
+        if streams is None:
+            streams = toks
+        elif toks != streams:
+            fail(f"engine ({label}): streams differ from ENGINE_RUN's")
+        res[label] = dict(
+            tokps=out["tokps"], ttft_p50_s=out["ttft_p50_s"],
+            ttft_p99_s=out["ttft_p99_s"], wall_s=out["wall_s"],
+            pool_bytes=out["pool_bytes"], peak_bytes=out["peak_bytes"],
+            iterations=eng.iterations, decode_steps=eng.decode_steps,
+            prefill_calls=eng.prefill_calls, launches=launches)
+        print(f"  {label}: {eng.iterations} iterations, {eng.decode_steps} "
+              f"decode steps, {out['tokps']:.1f} tok/s, ttft p50 "
+              f"{out['ttft_p50_s'] * 1e3:.1f} ms p99 "
+              f"{out['ttft_p99_s'] * 1e3:.1f} ms, pool {out['pool_bytes']} "
+              f"bytes, peak {out['peak_bytes'] / 2 ** 30:.2f} GiB, K10 "
+              f"launches {launches['flash_decode_paged']}", flush=True)
+        del out, eng
+    del built
+    gc.collect()
+    torch.cuda.empty_cache()
+    # rounded GEMMs too: the streams now depend on the schedule, the
+    # launch arithmetic does not
+    reset_all(*mods)
+    out = serve.run_engine(gemm_policy=get_policy(ATTN_POLICY),
+                           device="cuda", verbose=False, **run)
+    launches = all_launches(*mods)
+    eng = out["engine"]
+    calls = eng.decode_steps + eng.prefill_calls
+    logit_calls = eng.decode_steps + n_req
+    want = every_kernel({
+        "qmatmul_sr": 5 * LAYERS * calls + logit_calls,
+        "qmatmul_swiglu_sr": LAYERS * calls,
+        "flash_decode_paged": LAYERS * (eng.decode_steps
+                                        + eng.single_token_chunks)},
+        launches)
+    if launches != want:
+        fail(f"engine {ATTN_POLICY}: launches {launches} != {want}")
+    if eng.free_pages != ec.total_pages - 1 or \
+            {rid: len(t) for rid, t in out["tokens"].items()} != want_len:
+        fail(f"engine {ATTN_POLICY}: did not drain")
+    res[ATTN_POLICY] = dict(
+        tokps=out["tokps"], ttft_p50_s=out["ttft_p50_s"],
+        ttft_p99_s=out["ttft_p99_s"], wall_s=out["wall_s"],
+        pool_bytes=out["pool_bytes"], peak_bytes=out["peak_bytes"],
+        iterations=eng.iterations, decode_steps=eng.decode_steps,
+        prefill_calls=eng.prefill_calls, launches=launches)
+    print(f"  {ATTN_POLICY}: {eng.decode_steps} decode steps, "
+          f"{eng.prefill_calls} prefill chunks, {out['tokps']:.1f} tok/s, "
+          f"launches {launches}", flush=True)
+    del out, eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    return res
+
+
+def engine_agreement_phase(torch, serve):
+    """The reduced engine on the card against the same weights on the
+    CPU, teacher-forced on the CPU's picks (the same schedule on both):
+    logits within phase 12's limits, the card's own picks within 0.1 of
+    the CPU's best logit, and the pools' codes (scratch page 0 aside)
+    differing in at most ATTN_AGREE_MAX_CODE_SHARE per layer."""
+    import numpy as np
+    from repro_torch.serving.engine import (ContinuousBatchingEngine,
+                                            EngineConfig)
+
+    class Recording(ContinuousBatchingEngine):
+        forced = None
+
+        def _pick(self, logits, rows):
+            own = super()._pick(logits, rows)
+            last = logits[:, -1].float().cpu()
+            picks = own.copy()
+            for row, i in enumerate(rows):
+                if i is None:
+                    continue
+                rid = self._slots[i].req.rid
+                t = len(self.results[rid].tokens)
+                self.logits.setdefault(rid, []).append(last[row])
+                self.own.setdefault(rid, []).append(int(own[row]))
+                if self.forced is not None:
+                    picks[row] = self.forced[rid][t]
+            return picks
+
+    cfg_run = dict(n_short=6, n_long=2, short=(8, 3), long=(48, 32),
+                   long_every=4, workload_seed=7)
+    ec = EngineConfig(n_slots=4, page_size=8, total_pages=40,
+                      max_pages_per_request=12, prefill_chunk=8,
+                      token_budget=16)
+    cpu = serve.build("tinyllama-1.1b", reduced=True,
+                      gemm_policy=serve.ENGINE_POLICY, seed=7, device="cpu")
+    cfg, model, params = cpu
+    card_params = _to(params, torch.device("cuda"))
+    reqs = serve.engine_workload(cfg.vocab_size, cfg_run["n_short"],
+                                 cfg_run["n_long"], cfg_run["short"],
+                                 cfg_run["long"], cfg_run["workload_seed"],
+                                 cfg_run["long_every"])
+    engines = []
+    for prm, forced in ((params, None), (card_params, "cpu")):
+        eng = Recording(model, prm, ec)
+        eng.logits, eng.own = {}, {}
+        if forced:
+            eng.forced = {rid: r.tokens for rid, r in
+                          engines[0].results.items()}
+        eng.run([dataclasses.replace(r) for r in reqs])
+        engines.append(eng)
+    e_cpu, e_card = engines
+    ref = torch.stack([x for rid in sorted(e_cpu.logits)
+                       for x in e_cpu.logits[rid]])
+    got = torch.stack([x for rid in sorted(e_card.logits)
+                       for x in e_card.logits[rid]])
+    d = (got - ref).abs()
+    med, share = float(d.median()), float((d > 0.05).float().mean())
+    own = torch.tensor([t for rid in sorted(e_card.own)
+                        for t in e_card.own[rid]])
+    chosen = ref.gather(1, own[:, None])[:, 0]
+    picks_ok = bool((chosen >= ref.max(1).values - 0.1).all())
+    pick_diff = int((own != ref.argmax(1)).sum())
+    per_layer = []
+    for a, b in ((e_cpu._k_pages, e_card._k_pages),
+                 (e_cpu._v_pages, e_card._v_pages)):
+        for i in range(a.shape[0]):
+            per_layer.append(float((a[i, 1:] != b[i, 1:].cpu())
+                                   .float().mean()))
+    print(f"  reduced engine card vs cpu ({len(reqs)} requests, "
+          f"{ref.shape[0]} picks): median |dlogit| {med:.4g}, share > 0.05 "
+          f"{share:.4g}, card picks differing {pick_diff} (all within 0.1 "
+          f"of the best: {picks_ok}), pool codes differing by layer (k, "
+          f"then v) {per_layer}", flush=True)
+    if not (med < 0.02 and share <= 0.10 and picks_ok):
+        fail("engine card and CPU disagree beyond the stated tolerance")
+    if max(per_layer) > ATTN_AGREE_MAX_CODE_SHARE:
+        fail("engine card and CPU pool codes disagree beyond the stated "
+             "tolerance")
+    return dict(median_abs_dlogit=med, share_over_0_05=share,
+                picks=int(ref.shape[0]), card_picks_differing=pick_diff,
+                code_share_by_layer=per_layer)
+
+
 def moe_kernel_entry(rows, name, source, replaces, launches, library):
     """A kernel of the MoE path: times per decode step (per-call time x
     launches per step at each path shape)."""
@@ -2338,6 +2752,16 @@ def main() -> None:
     print(f"== phase 25: serve {MOE_ARCH} oracle binary8-paper", flush=True)
     served_moe_oracle = moe_serve_phase(torch, mods, serve, moe_oracle)
 
+    print("== phase 26: K10 (paged decode) vs plain twin", flush=True)
+    paged_rows = paged_phase(torch, tfa)
+
+    print("== phase 27: engine serve tinyllama-1.1b (ENGINE_RUN, "
+          "ENGINE_POLICY)", flush=True)
+    engine_runs = engine_phase(torch, mods, serve)
+
+    print("== phase 28: engine agreement card vs cpu (reduced)", flush=True)
+    engine_agree = engine_agreement_phase(torch, serve)
+
     kernels = []
     replaces = {"qmatmul_sr": "src/repro/kernels/qmatmul.py:360",
                 "qmatmul_swiglu_sr": "src/repro/kernels/qmatmul.py:846"}
@@ -2477,6 +2901,23 @@ def main() -> None:
                      in_kernel_bits_ms=sum(r["prng_ms"] * r["per_step"]
                                            for r in rows_ if r["per_step"]))
         kernels.append(entry)
+    main_row = [r for r in paged_rows if r["main"]][0]
+    kernels.append(dict(
+        name="flash_decode_paged", route="cuda",
+        source="src/repro_torch/csrc/flash_attention.cu",
+        replaces="src/repro/kernels/flash_attention.py:743",
+        launches=engine_runs["ENGINE_RUN"]["launches"]["flash_decode_paged"],
+        max_abs_err=max(r["max_abs_err"] for r in paged_rows),
+        ms=LAYERS * main_row["ms"], plain_ms=LAYERS * main_row["plain_ms"],
+        bound_ms=LAYERS * main_row["bound_ms"],
+        bound_by=main_row["bound_by"],
+        library_ms=LAYERS * main_row["library_ms"],
+        library=main_row["library"],
+        mismatch_share=max(r["mismatch_share"] for r in paged_rows),
+        timed=f"one engine decode step's {LAYERS} launches ("
+              f"{main_row['case']})",
+        launches_path="engine serve tinyllama-1.1b ENGINE_RUN, "
+                      "ENGINE_POLICY"))
     report = dict(device=kind, nvidia_smi=smi[0], build_s=t_build,
                   rows=rows, train_rows=train_rows, update_rows=update_rows,
                   serve=served, agreement=agree, train=trained,
@@ -2497,6 +2938,8 @@ def main() -> None:
                   agreement_moe_oracle=agree_moe_oracle,
                   train_presets=preset_train,
                   serve_moe_oracle=served_moe_oracle,
+                  paged_rows=paged_rows, engine=engine_runs,
+                  engine_agreement=engine_agree,
                   t_total_s=time.time() - T_START, kernels=kernels)
     out_dir = HERE / "chiprun_out"
     out_dir.mkdir(exist_ok=True)

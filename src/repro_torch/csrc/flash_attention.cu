@@ -7,6 +7,8 @@
 //   flash_bwd_dkv  <- flash_bwd_dkv_p  (K7', per-query-head dk, dv)
 //   flash_decode   <- flash_decode_p   (K9, one-token decode over a float
 //                                        or packed KV cache)
+//   flash_decode_paged <- flash_decode_paged_p (K10, one-token decode over
+//                                        a paged float or packed KV cache)
 // Plain twins: repro_torch/kernels/flash_attention.py (*_plain).
 //
 // What each kernel must reproduce:
@@ -43,6 +45,16 @@
 // twins still agree, one Threefry per two logits and a single-pass
 // forward are left for later work.  Decode (K9) is latency-bound: one
 // block per (batch, kv head), G = 8 query rows.
+//
+// Paged decode (K10) is K9's decode path with two changes: the logical
+// block is one page, and each K/V tile's rows are found through the
+// request's block table (physical page p of kv head h is row p.KV + h of
+// the (P.KV, page, d) pool); each request's length is read from device
+// memory, so a serving step needs no host round trip.  Draws keep the
+// logical coordinates (column = logical position, av stream = logical
+// page), so a result does not depend on where the pages lie.  Blocks past
+// a request's length are skipped, as K9 skips them: table entries there
+// (scratch page 0) are never read.
 #include <cuda_runtime.h>
 
 #include <cstdint>
@@ -169,7 +181,25 @@ struct FwdArgs {
   float* s_out;            // optional: the rounded masked logits
   Geo g;
   Sites sites;
+  // K10 only (null for K6 and K9): (B, n_max) logical -> physical pages,
+  // (B,) lengths; kv heads per request
+  const int* tables;
+  const int* lengths;
+  int n_max;
+  int page_kv;
 };
+
+// Row of the (rows, d) K/V array that holds logical position `pos` of
+// kv row `kvrow` (contiguous cache) or of cache row `bh` (paged pool).
+__device__ __forceinline__ size_t kv_row_of(const FwdArgs& a, int bh,
+                                            int kvrow, int pos) {
+  if (a.tables == nullptr)
+    return static_cast<size_t>(kvrow) * a.g.kv_rows + pos;
+  const int j = pos / a.g.kb;
+  const int phys =
+      a.tables[(bh / a.page_kv) * a.n_max + j] * a.page_kv + bh % a.page_kv;
+  return static_cast<size_t>(phys) * a.g.kb + (pos - j * a.g.kb);
+}
 
 __device__ __forceinline__ float load_kv(const void* base, size_t idx,
                                          int code_bytes,
@@ -183,8 +213,9 @@ __device__ __forceinline__ float load_kv(const void* base, size_t idx,
 
 __global__ void __launch_bounds__(kThreads) fwd_kernel(FwdArgs a) {
   extern __shared__ float smem[];
-  const Geo& g = a.g;
   const int bh = blockIdx.y;
+  Geo g = a.g;
+  if (a.tables != nullptr) g.length = a.lengths[bh / a.page_kv];
   const int r0 = blockIdx.x * kTQ;
   const int nr = min(kTQ, g.rows - r0);
   const int kvrow = g.decode ? bh : kv_of(bh, g);
@@ -215,7 +246,6 @@ __global__ void __launch_bounds__(kThreads) fwd_kernel(FwdArgs a) {
 #pragma unroll
   for (int u = 0; u < kAcc; ++u) acc[u] = 0.0f;
   const int qpos_hi = qpos_of(r0 + nr - 1, g);
-  const size_t kv_base = static_cast<size_t>(kvrow) * g.kv_rows;
   const int n_k = (g.kv_rows + g.kb - 1) / g.kb;
   __syncthreads();
 
@@ -228,11 +258,13 @@ __global__ void __launch_bounds__(kThreads) fwd_kernel(FwdArgs a) {
       for (int t0 = k0; t0 < k1; t0 += kTK) {
         if (t0 >= kv_len(g) || (g.causal && t0 > qpos_hi)) break;
         const int t1 = min(t0 + kTK, k1);
+        // the tile lies inside one logical block, hence inside one page
+        const size_t row0 = kv_row_of(a, bh, kvrow, t0);
         __syncthreads();
         for (int e = tid; e < kTK * g.dk; e += kThreads) {
           const int c = e / g.dk, t = e % g.dk;
           Ks[c * ldk + t] =
-              t0 + c < t1 ? load_kv(a.k, (kv_base + t0 + c) * g.dk + t,
+              t0 + c < t1 ? load_kv(a.k, (row0 + c) * g.dk + t,
                                     a.code_bytes, a.pack)
                           : 0.0f;
         }
@@ -241,7 +273,7 @@ __global__ void __launch_bounds__(kThreads) fwd_kernel(FwdArgs a) {
           for (int e = tid; e < kTK * g.dv; e += kThreads) {
             const int c = e / g.dv, t = e % g.dv;
             Vs[e] = t0 + c < v_end
-                        ? load_kv(a.v, (kv_base + t0 + c) * g.dv + t,
+                        ? load_kv(a.v, (row0 + c) * g.dv + t,
                                   a.code_bytes, a.pack)
                         : 0.0f;
           }
@@ -665,6 +697,41 @@ extern "C" int flash_decode(const float* q, const void* k, const void* v,
             nullptr,
             g,
             make_sites(site_ints, site_xmax, 3)};
+  const dim3 grid((G + kTQ - 1) / kTQ, BKV);
+  return launch(fwd_kernel, grid, fwd_smem(dk, dv), a, stream);
+}
+
+// K10.  pages: (P.KV, page, d) float32 or code words (pack as above);
+// lengths (B,) and tables (B, n_max) int32 on the device.
+extern "C" int flash_decode_paged(const float* q, const void* k,
+                                  const void* v, const int* pack,
+                                  const uint32_t* seeds, const int* lengths,
+                                  const int* tables, float* out, int BKV,
+                                  int G, int n_kv, int n_max, int page,
+                                  int dk, int dv, int window, float scale,
+                                  const int* site_ints,
+                                  const float* site_xmax, void* stream) {
+  if (dk > kDMax || dv > kDMax || page < 1 || n_kv < 1)
+    return static_cast<int>(cudaErrorInvalidValue);
+  Geo g = make_geo(G, n_max * page, dk, dv, 1, 1, G, page, 0, 1, window,
+                   scale);
+  g.decode = 1;
+  FwdArgs a{q,
+            k,
+            v,
+            pack[0],
+            rt::PackParams{pack[1], pack[2], pack[3], pack[4]},
+            seeds,
+            out,
+            nullptr,
+            nullptr,
+            nullptr,
+            g,
+            make_sites(site_ints, site_xmax, 3),
+            tables,
+            lengths,
+            n_max,
+            n_kv};
   const dim3 grid((G + kTQ - 1) / kTQ, BKV);
   return launch(fwd_kernel, grid, fwd_smem(dk, dv), a, stream);
 }

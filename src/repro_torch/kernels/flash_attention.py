@@ -5,7 +5,9 @@
                      ``repro/kernels/flash_attention.py:flash_fwd_p`` (K6);
 ``flash_bwd_dq``  -> ``flash_bwd_dq``, replacing ``flash_bwd_dq_p`` (K7);
 ``flash_bwd_dkv`` -> ``flash_bwd_dkv``, replacing ``flash_bwd_dkv_p`` (K7');
-``flash_decode``  -> ``flash_decode``, replacing ``flash_decode_p`` (K9).
+``flash_decode``  -> ``flash_decode``, replacing ``flash_decode_p`` (K9);
+``flash_decode_paged`` -> ``flash_decode_paged``, replacing
+                     ``flash_decode_paged_p`` (K10).
 
 Three rounding sites per attention op: the QKᵀ logits (``qk``), each
 logical kv block's P·V partial product (``av``) and the normalised output
@@ -16,7 +18,10 @@ position, column) on stream = kv-block index, so the av bits depend on
 logits from the forward's qk words (stream 0, global coordinates) and
 rounds dq per kv block, dk and dv per q block.  Decode rows are the G
 query heads of one kv group: its draws are keyed by (head in group, k
-position), its out draw by (head in group, column).
+position), its out draw by (head in group, column).  Paged decode (K10)
+keys its draws by the *logical* kv block (one page): stream = logical page
+index, column = logical position, never the physical page, so a request's
+result does not depend on where its pages lie in the pool.
 
 Seeds are (rows, 2·sites) uint32 words (int64 tensors or numpy arrays
 holding them): site ``s`` of row ``bh`` reads ``seeds[bh, 2s:2s+2]``.
@@ -48,7 +53,8 @@ _MODES = {"rn": 0, "sr": 1}
 _D_MAX = 128                     # head dims the kernels take
 
 LAUNCHES: Dict[str, int] = {"flash_fwd": 0, "flash_bwd_dq": 0,
-                            "flash_bwd_dkv": 0, "flash_decode": 0}
+                            "flash_bwd_dkv": 0, "flash_decode": 0,
+                            "flash_decode_paged": 0}
 
 
 def reset_launches() -> None:
@@ -333,6 +339,63 @@ def flash_decode_plain(q, k, v, seeds, length: int, specs, *, scale,
     return _fwd_finish(specs, acc, l, rows, seeds)
 
 
+def _int_rows(x, shape, what: str, device) -> torch.Tensor:
+    """An int32 operand (numpy array, sequence or tensor) on ``device``."""
+    if isinstance(x, torch.Tensor):
+        t = x.to(device=device, dtype=torch.int32)
+    else:
+        t = common.host_to_device(np.asarray(x, dtype=np.int32), device)
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{what} must be {tuple(shape)}, got "
+                         f"{tuple(t.shape)}")
+    return t
+
+
+def flash_decode_paged_plain(q, k_pages, v_pages, seeds, lengths, tables,
+                             specs, *, scale, n_kv: int, window: int = 0,
+                             kv_fmt=None):
+    """One-token decode over a paged cache: q (B·KV, G, dk); k/v pages
+    (P·KV, page, d), float values or code words of ``kv_fmt``, page ``p``
+    of kv head ``h`` at row ``p·KV + h``; lengths (B,) valid rows per
+    request including the new token; tables (B, n_max) logical ->
+    physical page ids.  Each request's logical blocks (one page each) are
+    replayed through the reference's ``_fwd_block`` / ``_fwd_finish``.
+    Returns (B·KV, G, dv) float32."""
+    specs = AttnSpecs(*specs)
+    q = q.float()
+    if kv_fmt is not None:
+        k_pages = common.unpack_block(k_pages, kv_fmt)
+        v_pages = common.unpack_block(v_pages, kv_fmt)
+    k_pages, v_pages = k_pages.float(), v_pages.float()
+    BKV, G, _ = q.shape
+    page, dv = k_pages.shape[1], v_pages.shape[-1]
+    dev = q.device
+    B = BKV // n_kv
+    seeds = _seeds(seeds, BKV, 6, dev)
+    lens = _int_rows(lengths, (B,), "lengths", dev).long()
+    tables = torch.as_tensor(tables, device=dev).long()
+    n_max = tables.shape[1]
+    b_of = torch.arange(BKV, device=dev) // n_kv
+    lens_r = lens[b_of][:, None, None]                 # (B·KV, 1, 1)
+    rows = torch.arange(G, device=dev)
+    m = torch.full((BKV, G, 1), -float("inf"), device=dev)
+    l = torch.zeros((BKV, G, 1), device=dev)
+    acc = torch.zeros((BKV, G, dv), device=dev)
+    for j in range(n_max):
+        phys = tables[b_of, j] * n_kv + torch.arange(BKV, device=dev) % n_kv
+        cols = torch.arange(page, device=dev) + j * page
+        valid = cols[None, None, :] < lens_r            # (B·KV, 1, page)
+        if window:
+            valid = valid & (cols[None, None, :] > lens_r - 1 - window)
+        valid = valid.expand(BKV, G, page)
+        v_blk = torch.where((cols[None, :, None] < lens_r), v_pages[phys],
+                            0.0)
+        m, l, acc, _ = _fwd_block(
+            specs, scale, q, k_pages[phys], v_blk, valid, rows, cols,
+            (j + 1) * page, j, seeds, m, l, acc)
+    return _fwd_finish(specs, acc, l, rows, seeds)
+
+
 # ---------------------------------------------------------------------------
 # Wrappers.
 # ---------------------------------------------------------------------------
@@ -385,8 +448,12 @@ def _f32(t: torch.Tensor) -> torch.Tensor:
 
 
 def _dev_seeds(seeds, n: int, cols: int, dev) -> torch.Tensor:
-    """Seed words as int32 bit patterns on the card."""
+    """Seed words as int32 bit patterns on the card (an int32 tensor there
+    already is taken as it is)."""
     if isinstance(seeds, torch.Tensor):
+        if seeds.device == dev and seeds.dtype == torch.int32 \
+                and tuple(seeds.shape) == (n, cols):
+            return seeds.contiguous()
         seeds = seeds.cpu().numpy()
     arr = np.asarray(seeds).astype(np.int64).astype(np.uint32).view(np.int32)
     if arr.shape != (n, cols):
@@ -555,5 +622,63 @@ def flash_decode(q, k, v, seeds, length: int, specs, *, scale,
                 _ptr(_dev_seeds(seeds, BKV, 6, dev)), _ptr(out),
                 *[ctypes.c_int(x) for x in (BKV, G, Smax, dk, dv, length,
                                             min(kv_block, Smax), window)],
+                ctypes.c_float(scale), site_ints, site_xmax)
+    return out
+
+
+def flash_decode_paged(q, k_pages, v_pages, seeds, lengths, tables, specs, *,
+                       scale, n_kv: int, window: int = 0, kv_fmt=None):
+    """Rounded one-token decode over a paged cache (K10).  q: (B·KV, G,
+    dk); k/v pages (P·KV, page, dk/dv), float values or code words of
+    ``kv_fmt``, page ``p`` of kv head ``h`` at row ``p·KV + h``; lengths
+    (B,) valid rows per request including the new token; tables (B,
+    n_max) logical -> physical page ids, every entry a page of the pool
+    (filler entries past a request's pages point at scratch page 0, whose
+    rows are masked).  lengths and tables may be int32 tensors on the card
+    (the kernel reads them there: no host round trip per step) or host
+    arrays.  Returns (B·KV, G, dv) float32."""
+    specs = AttnSpecs(*specs)
+    BKV, G, dk = q.shape
+    PKV, page, _ = k_pages.shape
+    dv = v_pages.shape[-1]
+    if BKV % n_kv or PKV % n_kv:
+        raise ValueError(f"B·KV={BKV} / P·KV={PKV} not multiples of "
+                         f"n_kv={n_kv}")
+    B = BKV // n_kv
+    site_ints, site_xmax = _site_args(specs)
+    pack = (ctypes.c_int * 5)(0, 0, 0, 0, 0)
+    if kv_fmt is not None:
+        want = common.pack_dtype(kv_fmt)
+        if k_pages.dtype != want or v_pages.dtype != want:
+            raise ValueError(f"packed {kv_fmt} pages must hold {want} codes")
+        ebits, mbits, width, has_nf = common.pack_spec(kv_fmt)
+        pack = (ctypes.c_int * 5)(width, ebits, mbits,
+                                  get_grid(kv_fmt).fmt.emin, int(has_nf))
+    if _check((q, k_pages, v_pages), "flash_decode_paged", max(dk, dv)):
+        return flash_decode_paged_plain(q, k_pages, v_pages, seeds, lengths,
+                                        tables, specs, scale=scale,
+                                        n_kv=n_kv, window=window,
+                                        kv_fmt=kv_fmt)
+    dev = q.device
+    lens = _int_rows(lengths, (B,), "lengths", dev).contiguous()
+    if not isinstance(tables, torch.Tensor):
+        tables = np.asarray(tables, dtype=np.int32)
+    if len(tables.shape) != 2 or tables.shape[0] != B:
+        raise ValueError(f"tables must be ({B}, n_max), got "
+                         f"{tuple(tables.shape)}")
+    n_max = tables.shape[1]
+    tbl = _int_rows(tables, (B, n_max), "tables", dev).contiguous()
+    q = _f32(q)
+    if kv_fmt is None:
+        k_pages, v_pages = _f32(k_pages), _f32(v_pages)
+    else:
+        k_pages, v_pages = k_pages.contiguous(), v_pages.contiguous()
+    out = torch.empty((BKV, G, dv), device=dev)
+    if out.numel():
+        _launch("flash_decode_paged", _ptr(q), _ptr(k_pages), _ptr(v_pages),
+                pack, _ptr(_dev_seeds(seeds, BKV, 6, dev)), _ptr(lens),
+                _ptr(tbl), _ptr(out),
+                *[ctypes.c_int(x) for x in (BKV, G, n_kv, n_max, page, dk,
+                                            dv, window)],
                 ctypes.c_float(scale), site_ints, site_xmax)
     return out

@@ -3,10 +3,12 @@ cells on the card: ``serve.SERVE_RUN`` (tinyllama-1.1b at full size, batch
 4, prompt 32, gen 16, the seeded weights and prompts of ``serve.run``)
 under ``binary8-paper`` and ``binary8-paper-attn``, then
 ``serve.MOE_SERVE_RUN`` (qwen3-moe-30b-a3b, the same batch) under
-``binary8-paper``.
+``binary8-paper``; with ``--engine`` only the engine cell instead,
+``serve.ENGINE_RUN`` under ``serve.ENGINE_POLICY`` (per model call: the
+engine's decode steps and prefill chunks).
 
   PYTHONPATH=src python -m repro_torch.launch.profile_serve \\
-      [--out chiprun_out/profile_serve.json]
+      [--engine] [--out chiprun_out/profile_serve.json]
 
 For each cell, after a warm-up batch, the cell's whole batch (32 prompt
 tokens absorbed, 16 decoded, each a one-token ``decode_step``) runs under
@@ -61,11 +63,44 @@ def profile(cell: dict, policy: str) -> dict:
             "op_host_ms_per_step": host_ms / steps, "kernels": rows}
 
 
+def profile_engine() -> dict:
+    """The engine cell: one untraced run, then ``serve.ENGINE_RUN`` under
+    the profiler; "steps" are its model calls."""
+    run = {k: v for k, v in serve.ENGINE_RUN.items() if k != "arch"}
+    built = serve.build(serve.ENGINE_RUN["arch"],
+                        gemm_policy=serve.ENGINE_POLICY)
+    serve.run_engine(built=built, verbose=False, **run)
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        out = serve.run_engine(built=built, verbose=False, **run)
+    events = prof.key_averages()
+    rows = kernel_rows(events)
+    eng = out["engine"]
+    steps = eng.decode_steps + eng.prefill_calls
+    wall_ms = 1e3 * out["wall_s"]
+    device_ms = sum(r["device_ms"] for r in rows)
+    launches = sum(e.count for e in events if e.key == "cudaLaunchKernel")
+    host_ms = sum(e.self_cpu_time_total for e in events) / 1e3
+    return {"arch": serve.ENGINE_RUN["arch"], "policy": "ENGINE_POLICY",
+            "steps": steps, "device": torch.cuda.get_device_name(0),
+            "tokps": out["tokps"], "wall_ms_per_step": wall_ms / steps,
+            "device_ms_per_step": device_ms / steps,
+            "busy_share": device_ms / wall_ms,
+            "launches_per_step": launches / steps,
+            "op_host_ms_per_step": host_ms / steps, "kernels": rows}
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--out", default="chiprun_out/profile_serve.json")
+    ap.add_argument("--engine", action="store_true",
+                    help="trace the engine cell only")
     args = ap.parse_args(argv)
-    res = [profile(cell, p) for cell, p in CELLS]
+    if args.engine:
+        res = [profile_engine()]
+    else:
+        res = [profile(cell, p) for cell, p in CELLS]
     for r in res:
         print(f"{r['device']} {r['arch']} {r['policy']}: {r['steps']} "
               "steps; per step "

@@ -1,32 +1,43 @@
-"""GQA attention with RoPE: the full-sequence (training) branch and the
-contiguous-KV-cache decode branch (counterpart of
-``repro.models.attention``).
+"""GQA attention with RoPE: the full-sequence (training) branch, the
+contiguous-KV-cache decode branch and the paged (serving) branch
+(counterpart of ``repro.models.attention``).
 
 Without a cache, ``attn_apply`` is causal attention over the whole
 sequence: ``precision.attention.qattention`` (the rounded flash kernels)
 when the policy rounds the attention sites, else ``flash_attention``, the
 reference's blocked online-softmax recurrence in plain float32 ops.  With
 a cache, new tokens go through ``kv_store`` (rounded onto the policy's
-cache grid and packed) into a (B, n_kv, S_max, hd) cache per layer,
+cache grid and packed, unless the policy keeps float32 values) into a
+(B, n_kv, S_max, hd) cache per layer,
 updated in place (the reference returns a new (B, S_max, n_kv, hd) array,
 which would copy the cache per token; this layout is the one K9 reads, so
 decode passes the cache to it without a transpose); a single new token
 under a rounded attention policy attends through ``qattn_decode`` (K9,
 decoding packed codes on load), anything else through plain attention
-over the unpacked cache.  The paged branch, M-RoPE and sliding windows
-wait for later slices.
+over the unpacked cache.
+
+With a ``serving.PagedKVCache`` the new tokens' k/v are rounded keyed by
+their request (``round_kv_request`` under the request×layer words, never
+the batch slot or ``quant.words``), appended into the shared page pool
+through each slot's block table, and attended either by K10
+(``qattn_decode_paged``: one token under a rounded-attention policy) or
+through the gathered logical view with a causal mask per slot and row
+(chunked prefill, unrounded attention sites).  RoPE runs at each slot's
+own positions.  M-RoPE and sliding windows wait for later slices.
 """
 from __future__ import annotations
 
 import dataclasses
 from typing import Dict, Optional
 
+import numpy as np
 import torch
 
 from repro_torch.kernels import common
 from repro_torch.models import layers as L
 from repro_torch.precision import attention as PA
 from repro_torch.precision import policy as QP
+from repro_torch.serving import paged_cache as PC
 
 
 @dataclasses.dataclass
@@ -120,9 +131,20 @@ def flash_attention(q, k, v, scale: float, *, causal: bool = True,
 
 def cache_dtype(cfg, dtype=torch.bfloat16) -> torch.dtype:
     """Storage dtype of the KV cache under ``cfg.gemm_policy``: code words
-    (uint8/uint16) under a ``kv_cache_fmt``, else ``dtype``."""
-    spec = PA.kv_cache_spec(QP.resolve_policy(cfg.gemm_policy))
-    return dtype if spec is None else common.pack_dtype(spec.fmt)
+    (uint8/uint16) under a packed ``kv_cache_fmt``, float32 grid values
+    under an unpacked one, else ``dtype``."""
+    pol = QP.resolve_policy(cfg.gemm_policy)
+    spec = PA.kv_cache_spec(pol)
+    if spec is None:
+        return dtype
+    return common.pack_dtype(spec.fmt) if pol.kv_cache_packed \
+        else torch.float32
+
+
+def _kv_fmt(pol) -> Optional[str]:
+    """The grid whose code words the cache holds, or None (values)."""
+    spec = PA.kv_cache_spec(pol)
+    return spec.fmt if spec is not None and pol.kv_cache_packed else None
 
 
 def init_cache(cfg, batch: int, max_len: int, dtype=torch.bfloat16,
@@ -135,11 +157,15 @@ def init_cache(cfg, batch: int, max_len: int, dtype=torch.bfloat16,
 
 
 def attn_apply(params, x, positions, cfg, *, cache: Optional[KVCache] = None,
-               layer: int = 0, quant=None) -> torch.Tensor:
+               layer: int = 0, quant=None,
+               emit: Optional[KVCache] = None) -> torch.Tensor:
     """x: (B, S, D).  Without ``cache``: causal attention over the whole
     sequence.  With it: x are new tokens, their k/v go to layer ``layer``
-    of the cache at ``cache.length``, and they attend to the whole
-    prefix."""
+    of the cache at ``cache.length`` (a ``PagedKVCache``: at each slot's
+    length), and they attend to the whole prefix.  ``positions`` (B, S)
+    or broadcastable: the tokens' RoPE positions.  ``emit`` (prefill,
+    without ``cache``): a contiguous cache that receives this layer's k/v
+    at positions 0..S-1, stored as a decode step would store them."""
     B, S, _ = x.shape
     hd = cfg.resolved_head_dim
     nh, nkv = cfg.n_heads, cfg.n_kv_heads
@@ -150,7 +176,18 @@ def attn_apply(params, x, positions, cfg, *, cache: Optional[KVCache] = None,
     v = L.qdense(x, params["wv"], quant, QP.TAG_ATTN_V).reshape(B, S, nkv, hd)
     q = L.apply_rope(q, positions, cfg.rope_theta)
     k = L.apply_rope(k, positions, cfg.rope_theta)
+    if isinstance(cache, PC.PagedKVCache):
+        out = _paged_attention(q, k, v, cache, layer, pol, scale)
+        return L.qdense(out.reshape(B, S, nh * hd), params["wo"], quant,
+                        QP.TAG_ATTN_O)
     if cache is None:
+        if emit is not None:
+            kv = torch.stack([k, v])
+            if PA.kv_cache_spec(pol) is not None:
+                kv = PA.kv_store(kv, quant, pos0=0, stream=(0, 1))
+            kv = kv.to(emit.k.dtype).transpose(2, 3)
+            emit.k[layer, :, :, :S] = kv[0]
+            emit.v[layer, :, :, :S] = kv[1]
         if pol is not None and not pol.attn_sites_identity:
             out = PA.qattention(q, k, v, quant, scale=scale, causal=True,
                                 q_block=cfg.attn_q_block,
@@ -169,17 +206,16 @@ def attn_apply(params, x, positions, cfg, *, cache: Optional[KVCache] = None,
                      stream=(0, 1)).to(cache.k.dtype)
     cache.k[layer, :, :, start:start + S] = kv[0].transpose(1, 2)
     cache.v[layer, :, :, start:start + S] = kv[1].transpose(1, 2)
-    kv_spec = PA.kv_cache_spec(pol)
+    kv_fmt = _kv_fmt(pol)
     if S == 1 and pol is not None and not pol.attn_identity:
         out = PA.qattn_decode(q, cache.k[layer], cache.v[layer], start + S,
-                              quant, scale=scale,
-                              kv_fmt=None if kv_spec is None else kv_spec.fmt,
+                              quant, scale=scale, kv_fmt=kv_fmt,
                               kv_block=cfg.attn_kv_block)
     else:
         k_f, v_f = cache.k[layer], cache.v[layer]
-        if kv_spec is not None:
-            k_f = common.unpack_block(k_f, kv_spec.fmt)
-            v_f = common.unpack_block(v_f, kv_spec.fmt)
+        if kv_fmt is not None:
+            k_f = common.unpack_block(k_f, kv_fmt)
+            v_f = common.unpack_block(v_f, kv_fmt)
         k_f, v_f = k_f.transpose(1, 2), v_f.transpose(1, 2)
         q_pos = start + torch.arange(S, device=x.device)
         k_pos = torch.arange(Skv, device=x.device)
@@ -188,3 +224,44 @@ def attn_apply(params, x, positions, cfg, *, cache: Optional[KVCache] = None,
         out = _sdpa(q, k_f.to(x.dtype), v_f.to(x.dtype), mask, scale)
     return L.qdense(out.reshape(B, S, nh * hd), params["wo"], quant,
                     QP.TAG_ATTN_O)
+
+
+def _paged_attention(q, k, v, cache, layer: int, pol, scale: float):
+    """The paged branch for layer ``layer``: request-keyed KV rounding,
+    the append into the pool, then K10 (one token, rounded attention
+    sites) or attention over the gathered view.  Returns (B, S, H, dv)."""
+    B, S = q.shape[:2]
+    spec = PA.kv_cache_spec(pol)
+    kv_fmt = _kv_fmt(pol)
+    words = cache.words[layer]                               # (B, 2)
+    kv = torch.stack([k, v])
+    if spec is not None:
+        F = kv.shape[3] * kv.shape[4]                       # KV · d
+        bits = cache.kv_bits(layer, spec, S, F) if spec.stochastic else None
+        kv = PA.round_kv_request(kv, spec, PA.fold_words_vec(
+            words, QP.TAG_ATTN_KV), cache.lengths, stream=(0, 1), bits=bits)
+        if kv_fmt is not None:
+            kv = common.pack_block(kv, kv_fmt)
+    k_pages, v_pages = cache.k_pages[layer], cache.v_pages[layer]
+    index = cache.append_index(S)
+    PC.paged_append(k_pages, cache.tables, cache.lengths, cache.append,
+                    kv[0], index)
+    PC.paged_append(v_pages, cache.tables, cache.lengths, cache.append,
+                    kv[1], index)
+    if S == 1 and pol is not None and not pol.attn_sites_identity:
+        return PA.qattn_decode_paged(
+            q, k_pages, v_pages, cache.device_lengths(S), cache.tables,
+            words, pol, scale=scale, kv_fmt=kv_fmt,
+            seeds=cache.site_seeds(layer, k_pages.shape[1]))
+    k_f = PC.paged_gather(k_pages, cache.tables)
+    v_f = PC.paged_gather(v_pages, cache.tables)
+    if kv_fmt is not None:
+        k_f = common.unpack_block(k_f, kv_fmt)
+        v_f = common.unpack_block(v_f, kv_fmt)
+    # each appended row attends to its own slot's logical prefix
+    q_pos = common.host_to_device(
+        cache.lengths.astype(np.int64)[:, None] + np.arange(S)[None],
+        q.device)
+    k_pos = torch.arange(k_f.shape[1], device=q.device)
+    valid = k_pos[None, None, :] <= q_pos[:, :, None]
+    return _sdpa(q, k_f.to(q.dtype), v_f.to(q.dtype), valid, scale)

@@ -1,23 +1,28 @@
 """Model facade for the dense and MoE decoders: init, training loss and
 cached decode (counterpart of ``repro.models.model``).
 
-``decode_step`` keeps the reference's seed chain: with a GEMM policy the
-step key is ``fold_in(PRNGKey(0), pos)`` (stochastic-rounding streams
-decorrelate across positions), each layer's context comes from
-``transformer.apply_blocks``, and the lm head runs under
-``ctx_for(cfg, rng)``.  ``loss_fn`` is the reference's chunked next-token
-cross-entropy: the lm head runs over ``LOSS_CHUNK`` positions at a time
-under ``fold_ctx(ctx_for(cfg, rng), chunk)``.
+``decode_step`` keeps the reference's seed chain: with a GEMM policy and
+a scalar position the step key is ``fold_in(PRNGKey(0), pos)``
+(stochastic-rounding streams decorrelate across positions), each layer's
+context comes from ``transformer.apply_blocks``, and the lm head runs
+under ``ctx_for(cfg, rng)``.  Serving passes a (B,) position vector (every
+slot at its own depth of a paged cache) and its own per-call ``rng``.
+``prefill`` is the full-sequence forward that also emits the KV cache.
+``loss_fn`` is the reference's chunked next-token cross-entropy: the lm
+head runs over ``LOSS_CHUNK`` positions at a time under
+``fold_ctx(ctx_for(cfg, rng), chunk)``.
 """
 from __future__ import annotations
 
 import dataclasses
 from typing import Any, Dict, Optional, Tuple
 
+import numpy as np
 import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core import prng
+from repro_torch.kernels import common
 from repro_torch.models import attention, layers as L, transformer
 from repro_torch.precision.policy import TAG_LOGITS, ctx_for, fold_ctx
 
@@ -121,23 +126,69 @@ class Model:
         loss = total / count
         return loss, {"ce": loss, "moe_aux": torch.zeros((), device=h.device)}
 
-    def decode_step(self, params, caches, tokens: torch.Tensor, pos: int,
+    def prefill(self, params, batch, rng: Optional[prng.Key] = None,
+                max_len: Optional[int] = None
+                ) -> Tuple[torch.Tensor, Dict[str, attention.KVCache]]:
+        """Full-sequence forward that also emits the KV cache (each layer's
+        k/v stored as decode would store them, in a cache of capacity
+        ``max_len``, default the prompt length) and the next-token logits
+        (B, 1, V)."""
+        tokens = batch["tokens"]
+        B, S = tokens.shape
+        cap = S if max_len is None else int(max_len)
+        if cap < S:
+            raise ValueError(f"max_len={cap} is smaller than the prefill "
+                             f"length {S}")
+        rng = rng if rng is not None else prng.PRNGKey(0)
+        caches = self.init_decode_cache(B, cap, device=tokens.device)
+        x = params["embed"][tokens].to(L.COMPUTE_DTYPE)
+        positions = torch.arange(S, device=tokens.device)[None].expand(B, S)
+        x = transformer.apply_blocks(params["blocks"], x, positions,
+                                     self.cfg, rng=rng, emit=caches["attn"])
+        caches["attn"].length = S
+        x = L.rms_norm(x, params["final_norm"])
+        return self._logits(params, x[:, -1:, :],
+                            quant=ctx_for(self.cfg, rng)), caches
+
+    @staticmethod
+    def prime_cache_lengths(caches, length: int):
+        """Mark ``length`` tokens as already present in the contiguous
+        caches (decode-shape dry runs start from a full prefix)."""
+        for c in caches.values():
+            if isinstance(c, attention.KVCache):
+                c.length = int(length)
+        return caches
+
+    def decode_step(self, params, caches, tokens: torch.Tensor, pos,
+                    rng: Optional[prng.Key] = None,
                     compute_logits: bool = True
                     ) -> Tuple[Optional[torch.Tensor], Dict]:
-        """Cached decode of ``tokens`` (B, S) at positions pos..pos+S-1.
+        """Cached decode of ``tokens`` (B, S) (S > 1: a chunk of a prompt).
+        ``pos``: the first new token's position, an int shared by the
+        batch, or a (B,) host array of per-slot positions (a paged cache,
+        every slot at its own depth).  ``rng``: the call's key (default
+        ``PRNGKey(0)``, folded with a scalar ``pos`` under a GEMM policy).
         ``compute_logits=False`` skips the lm head (prompt absorption).
         The caches are updated in place and returned."""
         cfg = self.cfg
-        rng = prng.PRNGKey(0)
-        if cfg.gemm_policy is not None:
-            rng = prng.fold_in(rng, pos)
+        scalar = np.ndim(pos) == 0
+        if rng is None:
+            rng = prng.PRNGKey(0)
+            if cfg.gemm_policy is not None and scalar:
+                rng = prng.fold_in(rng, int(pos))
         x = params["embed"][tokens].to(L.COMPUTE_DTYPE)
         B, S = tokens.shape
-        positions = (pos + torch.arange(S, device=tokens.device))[None] \
-            .expand(B, S)
+        if scalar:
+            positions = (int(pos) + torch.arange(S, device=tokens.device)
+                         )[None].expand(B, S)
+        else:
+            p = np.asarray(pos, dtype=np.int64).reshape(B)
+            positions = common.host_to_device(
+                p[:, None] + np.arange(S)[None], tokens.device)
         x = transformer.apply_blocks(params["blocks"], x, positions, cfg,
                                      caches=caches, rng=rng)
-        caches["attn"].length += S
+        if isinstance(caches["attn"], attention.KVCache):
+            caches["attn"].length += S
         x = L.rms_norm(x, params["final_norm"])
         if not compute_logits:
             return None, caches

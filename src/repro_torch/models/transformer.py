@@ -55,11 +55,12 @@ def _layer(tree, i: int):
     return tree[i]
 
 
-def apply_attn_block(p, x, positions, cfg, cache, layer: int, key):
+def apply_attn_block(p, x, positions, cfg, cache, layer: int, key,
+                     emit=None):
     qc = ctx_for(cfg, key)
     h = L.rms_norm(x, p["norm1"])
     x = x + attention.attn_apply(p["attn"], h, positions, cfg, cache=cache,
-                                 layer=layer, quant=qc)
+                                 layer=layer, quant=qc, emit=emit)
     h2 = L.rms_norm(x, p["norm2"])
     if "moe" in p:
         y, _ = moe.moe_apply(p["moe"], h2, cfg, quant=qc)
@@ -68,15 +69,16 @@ def apply_attn_block(p, x, positions, cfg, cache, layer: int, key):
 
 
 def apply_blocks(blocks, x, positions, cfg, *, caches=None,
-                 rng: prng.Key):
+                 rng: prng.Key, emit=None):
     """Run every layer over ``x`` (B, S, D): the whole sequence (no
-    caches), or new tokens appended to the stacked KV cache
-    ``caches["attn"]``."""
+    caches; ``emit``, a contiguous KV cache, receives every layer's k/v),
+    or new tokens appended to the KV cache ``caches["attn"]`` (contiguous
+    or paged)."""
     seg_rng = prng.fold_in(rng, 0)
     keys = prng.split(seg_rng, cfg.n_layers)
     stacked = blocks["attn"]
     cache = None if caches is None else caches["attn"]
     for i in range(cfg.n_layers):
         x = apply_attn_block(_layer(stacked, i), x, positions, cfg, cache,
-                             i, keys[i])
+                             i, keys[i], emit)
     return x

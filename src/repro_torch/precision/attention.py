@@ -26,7 +26,21 @@ preset sets both oracle and rounded attention sites; the branch keeps
 ``round_kv``/``kv_store`` implement the KV-cache storage site
 (TAG_ATTN_KV): appended k/v round through ``policy.kv_cache_fmt``, keyed
 by (absolute position, flat batch-feature index), and are stored as
-packed code words.  They are plain tensor code, as in the reference.
+packed code words (or float32 values without ``kv_cache_packed``).  They
+are plain tensor code, as in the reference.
+
+Serving (``repro_torch.serving``) keys every draw by the request instead
+of the batch slot.  The fold chain, each depth in its own salted
+namespace: request words --(_SALT_LAYER + layer)--> layer words; layer
+words --(TAG_ATTN_KV)--> kv-store words, whose bits are keyed by
+(absolute position, feature within the request) (``round_kv_request``);
+layer words --(_SALT_POS + position)--(_SALT_HEAD + kv head)--(site
+tag)--> the [qk | av | out] words of one paged decode step
+(``request_site_seeds``).  Nothing in the chain names the batch slot, the
+physical page or the co-scheduled requests, so a request's stream is the
+same under any schedule.  ``qattn_decode_paged`` runs K10 over the page
+pool with these seeds.  The words are numpy int64 arrays holding uint32
+values, computed on the host like every other seed word of the port.
 """
 from __future__ import annotations
 
@@ -38,7 +52,8 @@ import torch
 from repro_torch.core.rounding import RoundingSpec, parse_spec
 from repro_torch.kernels import common
 from repro_torch.kernels import flash_attention as FA
-from repro_torch.precision.policy import (SITE_DGRAD, SITE_WGRAD,
+from repro_torch.core import prng
+from repro_torch.precision.policy import (_FOLD_CONST, SITE_DGRAD, SITE_WGRAD,
                                           TAG_ATTN_AV, TAG_ATTN_KV,
                                           TAG_ATTN_OUT, TAG_ATTN_QK,
                                           QuantCtx, QuantPolicy, Words,
@@ -103,14 +118,108 @@ def round_kv(x: torch.Tensor, spec: Optional[RoundingSpec], words: Words,
 def kv_store(x: torch.Tensor, quant: Optional[QuantCtx], pos0: int = 0,
              stream=0) -> torch.Tensor:
     """A k/v append ready for the cache: rounded on the policy's cache
-    grid and packed into code words; unchanged without a cache spec.
-    ``stream`` decorrelates k (0) and v (1); a sequence of streams stores
-    a stack of appends at once (see ``round_kv``)."""
+    grid and packed into code words (float32 values without
+    ``kv_cache_packed``); unchanged without a cache spec.  ``stream``
+    decorrelates k (0) and v (1); a sequence of streams stores a stack of
+    appends at once (see ``round_kv``)."""
     spec = kv_cache_spec(quant.policy) if quant is not None else None
     if spec is None:
         return x
     g = round_kv(x, spec, fold_words(quant.words, TAG_ATTN_KV), pos0, stream)
-    return common.pack_block(g, spec.fmt)
+    return common.pack_block(g, spec.fmt) if quant.policy.kv_cache_packed \
+        else g
+
+
+# ---------------------------------------------------------------------------
+# Request-keyed seeds (serving).
+# ---------------------------------------------------------------------------
+_SALT_LAYER = 0x5E471                         # serving layer-fold namespace
+_SALT_POS = 0x705170                          # position-fold namespace
+_SALT_HEAD = 0x4EAD0                          # kv-head-fold namespace
+
+
+def _words(w) -> np.ndarray:
+    return np.asarray(w, dtype=np.int64) & prng.M32
+
+
+def fold_words_vec(words, tags) -> np.ndarray:
+    """``fold_words`` over arrays: words (..., 2) uint32 values, tags
+    broadcastable against ``words[..., 0]`` -> (..., 2) folded words."""
+    w = _words(words)
+    w0, w1 = prng.threefry2x32_tensor(w[..., 0], w[..., 1], _words(tags),
+                                      _FOLD_CONST)
+    w0, w1 = np.broadcast_arrays(w0, w1)
+    return np.stack([w0, w1], axis=-1)
+
+
+def request_layer_words(req_words, n_layers: int) -> np.ndarray:
+    """Per-layer serving words: (B, 2) request words -> (L, B, 2)."""
+    tags = _SALT_LAYER + np.arange(n_layers, dtype=np.int64)
+    return fold_words_vec(_words(req_words)[None], tags[:, None])
+
+
+def request_site_seeds(layer_words, positions, n_kv: int) -> np.ndarray:
+    """The (B·KV, 6) [qk | av | out] words of one paged decode step:
+    layer_words (B, 2) request×layer words, positions (B,) the decoded
+    token's absolute position (an int32 position, -1 for an empty slot,
+    folds as its uint32 pattern).  A pure function of (request seed,
+    layer, position, kv head, site).  Leading axes of ``layer_words``
+    (every layer at once: (L, B, 2)) lead the result."""
+    lw = _words(layer_words)
+    B = lw.shape[-2]
+    pos = np.asarray(positions, dtype=np.int64).reshape(B)
+    w_pos = fold_words_vec(lw, (_SALT_POS + (pos & prng.M32)) & prng.M32)
+    heads = _SALT_HEAD + np.arange(n_kv, dtype=np.int64)
+    w_h = fold_words_vec(w_pos[..., None, :], heads)     # (..., B, KV, 2)
+    cols = [fold_words_vec(w_h, t) for t in _FWD_TAGS]
+    return np.concatenate(cols, axis=-1).reshape(lw.shape[:-2]
+                                                 + (B * n_kv, 6))
+
+
+def kv_request_bits(words, pos0, S: int, F: int, rand_bits: int,
+                    streams=(0,)) -> np.ndarray:
+    """The bits ``round_kv_request`` draws: (..., n_streams, B, S, F) for
+    kv-store words (..., B, 2) (leading axes: every layer at once) and
+    first positions pos0 (B,): element (b, s, f) of a stream is keyed by
+    (row ``pos0[b] + s``, col ``f``) under request b's words."""
+    w = _words(words)
+    B = w.shape[-2]
+    p0 = np.asarray(pos0, dtype=np.int64).reshape(B)
+    rows = (p0[:, None] + np.arange(S, dtype=np.int64)[None])[..., None]
+    cols = np.arange(F, dtype=np.int64)
+    k0 = w[..., None, :, None, None, 0]            # (..., 1, B, 1, 1)
+    k1 = w[..., None, :, None, None, 1]
+    st = np.asarray(streams, dtype=np.int64)[:, None, None, None]
+    bits = common.element_bits(k0, k1, rows, cols, rand_bits, st)
+    shape = w.shape[:-2] + (len(st), B, S, F)
+    return bits if bits.shape == shape else np.ascontiguousarray(
+        np.broadcast_to(bits, shape))
+
+
+def round_kv_request(x: torch.Tensor, spec: Optional[RoundingSpec], words,
+                     pos0, stream=0, bits=None) -> torch.Tensor:
+    """``round_kv`` keyed by the request: ``x`` (B, S, ...), ``words`` (B,
+    2) per-request kv-store words, ``pos0`` (B,) the absolute position of
+    each request's first appended row.  Element (b, s, f) draws the bits
+    of (row ``pos0[b] + s``, col ``f``) under request b's words, so a
+    cache cell's bits do not depend on the slot, the chunking or the
+    co-scheduled requests.  ``stream`` may be a sequence of streams: ``x``
+    then stacks that many appends on a new leading axis (k and v in one
+    pass).  ``bits``: these bits (``kv_request_bits``) already on x's
+    device.  Float32 grid values out."""
+    if spec is None or spec.is_identity:
+        return x.float()
+    if not spec.stochastic:
+        return common.apply_spec_block(spec, x, None)
+    if bits is None:
+        many = isinstance(stream, (tuple, list))
+        streams = stream if many else [stream]
+        B, S = x.shape[int(many)], x.shape[int(many) + 1]
+        F = x.numel() // (len(streams) * B * S)
+        bits = common.host_to_device(
+            kv_request_bits(words, pos0, S, F, spec.rand_bits, streams),
+            x.device)
+    return common.apply_spec_block(spec, x, bits.reshape(x.shape))
 
 
 # ---------------------------------------------------------------------------
@@ -209,4 +318,37 @@ def qattn_decode(q, k_cache, v_cache, length: int, quant: QuantCtx, *,
     out3 = fn(q3, k3, v3, _site_seeds(words, B * KV, _FWD_TAGS), length,
               attn_specs(policy), scale=scale, window=window,
               kv_block=kv_block, kv_fmt=kv_fmt)
+    return out3.reshape(B, 1, H, dv).to(q.dtype)
+
+
+def qattn_decode_paged(q, k_pages, v_pages, lengths, tables, layer_words,
+                       policy: QuantPolicy, *, scale: float,
+                       window: int = 0, kv_fmt=None,
+                       seeds=None) -> torch.Tensor:
+    """Rounded paged-decode attention for one new token per request (K10).
+    q: (B, 1, H, dk); k/v pages (P, KV, page, d) pools, float values or
+    code words of ``kv_fmt``; lengths (B,) valid rows including the new
+    token (a tensor on q's device, or a host array); tables (B, n_max)
+    logical -> physical page ids; layer_words (B, 2) request×layer words.
+    The site seeds are derived per (request, position, kv head), so the
+    output does not depend on slot order or page placement.  ``seeds``:
+    those site seeds (``request_site_seeds``), when the caller has them
+    (a serving step derives every layer's at once).  Under
+    ``policy.oracle`` the plain twin runs, as the reference's oracle
+    branch takes its jnp reference."""
+    B, S1, H, dk = q.shape
+    if S1 != 1:
+        raise ValueError(f"qattn_decode_paged is single-token (got {S1})")
+    P, KV, page = k_pages.shape[:3]
+    dv = v_pages.shape[-1]
+    if seeds is None:
+        seeds = request_site_seeds(layer_words, np.asarray(
+            lengths, dtype=np.int64) - 1, KV)
+    q3 = q.float().reshape(B * KV, H // KV, dk)
+    k3 = k_pages.reshape(P * KV, page, dk)
+    v3 = v_pages.reshape(P * KV, page, dv)
+    fn = FA.flash_decode_paged_plain if policy.oracle \
+        else FA.flash_decode_paged
+    out3 = fn(q3, k3, v3, seeds, lengths, tables, attn_specs(policy),
+              scale=scale, n_kv=KV, window=window, kv_fmt=kv_fmt)
     return out3.reshape(B, 1, H, dv).to(q.dtype)

@@ -76,8 +76,9 @@ class QuantPolicy:
     the fwd grid: 1 B per element instead of 4 across the widest tensor of
     the block, the same values.  The reference's block sizes (``bm``,
     ``bn``, ``bk``) have no counterpart (the CUDA kernels tile
-    themselves), nor has ``kv_cache_packed``: a rounded KV cache is always
-    packed."""
+    themselves).  ``kv_cache_packed`` stores a rounded KV cache as code
+    words of its grid (1 B per element for 8-bit grids); without it the
+    cache holds the rounded values as float32."""
 
     fwd: RoundingSpec = IDENTITY
     dgrad: RoundingSpec = IDENTITY
@@ -91,8 +92,10 @@ class QuantPolicy:
     attn_av: RoundingSpec = IDENTITY
     attn_out: RoundingSpec = IDENTITY
     # KV-cache storage: a canonical spec name; appended k/v round through
-    # it and are stored as packed code words
+    # it and are stored as packed code words (``kv_cache_packed``) or as
+    # float32 grid values
     kv_cache_fmt: Optional[str] = None
+    kv_cache_packed: bool = True
 
     @property
     def gemm_identity(self) -> bool:
@@ -128,16 +131,37 @@ def _check_gemm_spec(s: RoundingSpec, site: str) -> RoundingSpec:
     return s
 
 
-def _check_kv_fmt(name: Optional[str]) -> Optional[str]:
+def _check_kv_fmt(name: Optional[str], packed: bool = True
+                  ) -> Optional[str]:
     """A KV-cache storage spec name, validated (None for an identity
-    spec); the cache is packed, so its grid must be packable."""
+    spec); a packed cache's grid must be packable."""
     if name is None:
         return None
     s = _check_gemm_spec(parse_spec(name), "kv_cache")
     if s.is_identity:
         return None
-    common.pack_spec(s.fmt)              # raises for unpackable grids
+    if packed:
+        common.pack_spec(s.fmt)          # raises for unpackable grids
     return name
+
+
+def resolve_kv_cache_fmt(name: Optional[str],
+                         packed: bool = True) -> Optional[str]:
+    """A KV-cache storage spec name as ``QuantPolicy.kv_cache_fmt`` takes
+    it: None passes, an identity spec becomes None (an unrounded cache),
+    schemes that need a bias-direction operand raise, and a packed cache
+    needs a packable grid (<= 16-bit codes).  For callers that build
+    policies from CLI strings."""
+    return _check_kv_fmt(name, packed)
+
+
+def policy_with_kv_fmt(base, kv_cache_fmt: Optional[str]) -> QuantPolicy:
+    """A copy of ``base`` (a policy, a preset name or None) with its
+    KV-cache storage spec replaced by the validated ``kv_cache_fmt``."""
+    pol = resolve_policy(base) or PRESETS["fp32"]
+    return dataclasses.replace(
+        pol, kv_cache_fmt=resolve_kv_cache_fmt(kv_cache_fmt,
+                                               pol.kv_cache_packed))
 
 
 # The schemes the kernels round with at each kind of site: the GEMM,
@@ -183,11 +207,13 @@ def _check_ported(pol: QuantPolicy) -> QuantPolicy:
 def make_policy(fwd=None, dgrad=None, wgrad=None, act=None, *, fmt=None,
                 mode: str = "sr", eps: float = 0.0, rand_bits: int = 32,
                 oracle: bool = False, packed: bool = False, attn=None,
-                kv_cache_fmt: Optional[str] = None) -> QuantPolicy:
+                kv_cache_fmt: Optional[str] = None,
+                kv_cache_packed: bool = True) -> QuantPolicy:
     """Build a QuantPolicy; ``fmt`` fills every unspecified GEMM site,
     ``attn`` all three attention sites, ``kv_cache_fmt`` names the
-    KV-cache storage spec.  A site the kernels cannot round raises
-    ``NotImplementedError`` here, naming it."""
+    KV-cache storage spec (stored as codes with ``kv_cache_packed``).  A
+    site the kernels cannot round raises ``NotImplementedError`` here,
+    naming it."""
     default = spec(fmt, mode, eps, rand_bits) if fmt is not None else IDENTITY
     attn_s = _check_gemm_spec(attn if attn is not None else IDENTITY, "attn")
     return _check_ported(QuantPolicy(
@@ -199,7 +225,8 @@ def make_policy(fwd=None, dgrad=None, wgrad=None, act=None, *, fmt=None,
         act=_check_gemm_spec(act if act is not None else IDENTITY, "act"),
         oracle=oracle, packed=packed,
         attn_qk=attn_s, attn_av=attn_s, attn_out=attn_s,
-        kv_cache_fmt=_check_kv_fmt(kv_cache_fmt)))
+        kv_cache_fmt=_check_kv_fmt(kv_cache_fmt, kv_cache_packed),
+        kv_cache_packed=kv_cache_packed))
 
 
 # The reference's presets whose policies this slice can express (the same

@@ -521,13 +521,14 @@ def test_attention_launches_per_path(monkeypatch, tmp_path):
     """The launch arithmetic the chip run checks, counted at the plain
     twins' call sites: serving runs K9 once per layer per token (prompt
     absorption and decode alike), training K6, K7 and K7' once per layer
-    per step."""
+    per step; neither runs the paged decode (K10)."""
     from repro_torch.launch import serve as tserve, train as ttrain
     calls = {k: 0 for k in TF.LAUNCHES}
     for name, fn in (("flash_fwd", "flash_fwd_plain"),
                      ("flash_bwd_dq", "flash_bwd_dq_plain"),
                      ("flash_bwd_dkv", "flash_bwd_dkv_plain"),
-                     ("flash_decode", "flash_decode_plain")):
+                     ("flash_decode", "flash_decode_plain"),
+                     ("flash_decode_paged", "flash_decode_paged_plain")):
         def counted(*a, _n=name, _f=getattr(TF, fn), **k):
             calls[_n] += 1
             return _f(*a, **k)
@@ -536,7 +537,7 @@ def test_attention_launches_per_path(monkeypatch, tmp_path):
     out = tserve.run("tinyllama-1.1b", reduced=True, batch=2, prompt_len=5,
                      gen=3, gemm_policy="binary8-paper-attn", device="cpu")
     assert calls == {"flash_fwd": 0, "flash_bwd_dq": 0, "flash_bwd_dkv": 0,
-                     "flash_decode": L * (5 + 3)}
+                     "flash_decode": L * (5 + 3), "flash_decode_paged": 0}
     assert out["cache_dtype"] == torch.uint8
     assert out["cache_bytes"] == 2 * L * 2 * 8 * 2 * 16
     calls.update({k: 0 for k in calls})
@@ -546,7 +547,8 @@ def test_attention_launches_per_path(monkeypatch, tmp_path):
                       update_path="fused", device="cpu", verbose=False,
                       ckpt_dir=str(tmp_path))
     assert calls == {"flash_fwd": 2 * L, "flash_bwd_dq": 2 * L,
-                     "flash_bwd_dkv": 2 * L, "flash_decode": 0}
+                     "flash_bwd_dkv": 2 * L, "flash_decode": 0,
+                     "flash_decode_paged": 0}
     assert all(np.isfinite(h["loss"]) for h in hist["history"])
 
 

@@ -17,8 +17,14 @@ hidden.  The attention kernels: the rounded logits and their row max
 bitwise on exact-sum inputs; out, dq, dk, dv at most max(1, 1e-4 n)
 elements different on N(0, 1) inputs (float32 sums in another order, a
 value within an ulp of a rounding decision); K9 over packed codes bitwise
-K9 over the same values unpacked.  The SR cast (K1') is bitwise on any
-input; the batched GEMM (K8') is held to the GEMM contract.  K5 (the
+K9 over the same values unpacked.  K10 (paged decode) bitwise equal to its
+twin on exact-sum inputs (every key of a request equal: each logit of a
+row equal, every exp exactly 1, every sum exact), within the attention
+contract on N(0, 1) inputs, bitwise equal to K9 on each request's
+contiguous cache with ``kv_block == page``, the same bits at two
+placements of the same content and over codes as over their values.
+The SR cast (K1') is bitwise on any input; the batched GEMM (K8') is held
+to the GEMM contract.  K5 (the
 fused QAdam step) is bitwise equal to its twin in x, the moment codes or
 values and the Kahan carries, on any input.  The reduced
 qwen3-moe decoder on the card against the CPU twins: the serve test's
@@ -322,8 +328,111 @@ def test_flash_kernels_count_their_launches(cuda):
                      **kw)
     tfa.flash_bwd_dkv(q, k, v, do, m, l, d, seeds, *specs, **kw)
     tfa.flash_decode(q[:2, :3], k, v, seeds[:2], 5, specs, scale=0.125)
+    tfa.flash_decode_paged(q[:2, :3], k.reshape(-1, 5, k.shape[-1]),
+                           v.reshape(-1, 5, v.shape[-1]), seeds[:2],
+                           np.array([5, 3], np.int32),
+                           np.array([[1, 0], [0, 1]], np.int32), specs,
+                           scale=0.125, n_kv=1)
+    tfa.flash_decode_paged_plain(q[:2, :3], k.reshape(-1, 5, k.shape[-1]),
+                                 v.reshape(-1, 5, v.shape[-1]), seeds[:2],
+                                 np.array([5, 3], np.int32),
+                                 np.array([[1, 0], [0, 1]], np.int32), specs,
+                                 scale=0.125, n_kv=1)
     assert tfa.LAUNCHES == {"flash_fwd": 1, "flash_bwd_dq": 1,
-                            "flash_bwd_dkv": 1, "flash_decode": 1}
+                            "flash_bwd_dkv": 1, "flash_decode": 1,
+                            "flash_decode_paged": 1}
+
+
+def _paged_case(page, exact, seed, n_kv=4, G=8, d=64, n_max=4, B=8):
+    """K10's inputs: B requests of n_kv kv heads at lengths 1, page-1,
+    page, page+1, the full table and three random ones; pages placed at
+    random among 1..P-1 (filler entries 0).  Returns q, the logical k/v
+    (B·KV, n_max·page, d) as e4m3 grid values, lengths and a function
+    that scatters a logical cache into a pool for a given placement."""
+    rng = np.random.default_rng(seed)
+    S = n_max * page
+    lengths = np.array([1, max(1, page - 1), page, page + 1, S]
+                       + list(rng.integers(1, S + 1, B - 5)), np.int32)
+    if exact:
+        q = (rng.integers(-4, 5, (B * n_kv, G, d)) / 4).astype(np.float32)
+        k = np.repeat(rng.integers(-4, 5, (B * n_kv, 1, d)) / 4, S, axis=1)
+        v = rng.integers(-8, 9, (B * n_kv, S, d)) / 8
+    else:
+        q = rng.standard_normal((B * n_kv, G, d)).astype(np.float32)
+        k = rng.standard_normal((B * n_kv, S, d))
+        v = rng.standard_normal((B * n_kv, S, d))
+    grid = parse_spec("e4m3-rn")
+    k, v = (grid(torch.from_numpy(x.astype(np.float32))) for x in (k, v))
+    P = B * n_max + 3
+
+    def place(pl_seed):
+        r = np.random.default_rng(pl_seed)
+        free = list(r.permutation(np.arange(1, P)))
+        tables = np.zeros((B, n_max), np.int32)
+        for b, n in enumerate(lengths):
+            for j in range(-(-int(n) // page)):
+                tables[b, j] = free.pop()
+        return tables
+
+    def pool(x, tables):
+        out = torch.zeros((P * n_kv, page, d), dtype=x.dtype)
+        for b in range(B):
+            for j in range(n_max):
+                if tables[b, j]:
+                    for h in range(n_kv):
+                        out[tables[b, j] * n_kv + h] = \
+                            x[b * n_kv + h, j * page:(j + 1) * page]
+        return out
+    return torch.from_numpy(q), k, v, lengths, place, pool
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("page", [8, 16, 64])
+@pytest.mark.parametrize("name", ["binary8-sr", "binary8-sr-r16",
+                                  "binary8-sr-r8"])
+def test_flash_decode_paged_kernel_matches_plain(cuda, page, name):
+    specs = [parse_spec(name)] * 3
+    n_kv = 4
+    for exact in (True, False):
+        q, k, v, lengths, place, pool = _paged_case(page, exact, page)
+        seeds = np.random.default_rng(page + 1).integers(
+            0, 2 ** 32, (q.shape[0], 6), dtype=np.uint64)
+        outs = []
+        for pl_seed in (0, 1):
+            tables = place(pl_seed)
+            kp, vp = (pool(x, tables).to(cuda) for x in (k, v))
+            codes = [tcommon.pack_block(x, "e4m3") for x in (kp, vp)]
+            kw = dict(scale=0.125, n_kv=n_kv)
+            got = tfa.flash_decode_paged(q.to(cuda), *codes, seeds,
+                                         lengths, tables, specs,
+                                         kv_fmt="e4m3", **kw)
+            values = tfa.flash_decode_paged(
+                q.to(cuda), kp, vp, seeds,
+                torch.from_numpy(lengths).to(cuda),
+                torch.from_numpy(tables).to(cuda), specs, **kw)
+            ref = tfa.flash_decode_paged_plain(q.to(cuda), *codes, seeds,
+                                               lengths, tables, specs,
+                                               kv_fmt="e4m3", **kw)
+            torch.cuda.synchronize()
+            assert torch.equal(got.view(torch.int32),
+                               values.view(torch.int32))
+            if exact:
+                assert torch.equal(got.view(torch.int32),
+                                   ref.view(torch.int32))
+            else:
+                _assert_flips(ref, got, "binary8", adjacent_only=False,
+                              share=max(1e-4, 1.0 / got.numel()))
+            outs.append(got)
+        assert torch.equal(outs[0].view(torch.int32),
+                           outs[1].view(torch.int32))
+        for b, n in enumerate(lengths):
+            sl = slice(b * n_kv, (b + 1) * n_kv)
+            k9 = tfa.flash_decode(q[sl].to(cuda), k[sl].to(cuda),
+                                  v[sl].to(cuda), seeds[sl], int(n), specs,
+                                  scale=0.125, kv_block=page)
+            torch.cuda.synchronize()
+            assert torch.equal(k9.view(torch.int32),
+                               outs[0][sl].view(torch.int32))
 
 
 # ---------------------------------------------------------------------------

@@ -59,3 +59,13 @@ def test_oracle_slice_modules_are_checked():
     for mod in ("kernels/ops.py", "kernels/ref.py",
                 "launch/split_agreement.py"):
         assert f"src/repro_torch/{mod}" in names, mod
+
+
+def test_serving_slice_modules_are_checked():
+    """The serving-engine slice's modules are among the files checked
+    above."""
+    names = {str(p.relative_to(ROOT)) for p in PORT_FILES}
+    for mod in ("serving/__init__.py", "serving/paged_cache.py",
+                "serving/engine.py", "launch/time_attention.py",
+                "launch/compare_failed_sets.py"):
+        assert f"src/repro_torch/{mod}" in names, mod
