@@ -45,9 +45,13 @@ Phases (any failed check exits non-zero; there is no CPU fallback):
    at the decode shapes (B.KV = 16, G = 8, S_max = 48, packed e4m3 codes,
    lengths 1, 17, 48): the rounded logits and m bitwise on exact-sum
    inputs, out/dq/dk/dv at most 1e-4 of the elements different on N(0, 1)
-   inputs, K9 over codes bitwise K9 over the unpacked values; timed beside
+   inputs, K9 over codes bitwise K9 over the unpacked values; K6's single
+   pass bitwise equal to its two-pass kernel in out, m, l and the logits
+   on N(0, 1) inputs, and a block too large for the single pass (S = 1024,
+   d = 128) run by the two-pass kernel and counted apart; timed beside
    the bound, the twin and ``scaled_dot_product_attention`` (float32,
-   unrounded: a yardstick only);
+   unrounded: a yardstick only), K9 and SDPA also by CUDA-graph replay
+   (``device_ms``: device time without the host's cost per call);
 11. serve tinyllama-1.1b under ``binary8-paper-attn`` (rounded attention,
    packed e4m3 KV cache): launch counts (K9 once per layer per token);
 12. its agreement: reduced tinyllama card vs CPU, logits and cache codes;
@@ -61,7 +65,8 @@ Phases (any failed check exits non-zero; there is no CPU fallback):
    one (5 x 3 x 70 x 50), bf16 and float32 b, bitwise on exact-sum inputs
    and within the 1e-4 one-ulp contract on N(0, 1) inputs; timed beside
    the bound, the twin and an unrounded yardstick (a bf16 cast for K1',
-   bf16 ``torch.bmm`` for K8');
+   bf16 ``torch.bmm`` for K8'), K1' and the cast at the path's shape also
+   by CUDA-graph replay (``device_ms``);
 16. MoE agreement: reduced qwen3-moe-30b-a3b on the card against the same
    weights on the CPU, teacher-forced: logits and greedy picks;
 17. MoE serve: ``serve.run(**serve.MOE_SERVE_RUN)``, qwen3-moe-30b-a3b at
@@ -74,9 +79,9 @@ Phases (any failed check exits non-zero; there is no CPU fallback):
    phase 4's extra configs, and on a view off a 16-byte boundary: x, the
    moments and the carries bitwise; then over the 1,100,048,384
    tinyllama-1.1b parameters with non-zero bf16-sr moment codes under
-   ``ADAM_RUN``'s learning rate, bitwise, and timed beside its bound, the
-   twin and ``torch.optim.Adam(fused=True)`` (float32 moments, unrounded:
-   a yardstick only);
+   ``ADAM_RUN``'s learning rate through K5's trainer instance, bitwise,
+   and timed beside its bound, the twin and ``torch.optim.Adam(fused=
+   True)`` (float32 moments, unrounded: a yardstick only);
 19. QAdam training: ``train.run(**train.ADAM_RUN)``, tinyllama-1.1b at
    full size for 4 steps through the TrainLoop (bf16-sr moment codes
    through K5, binary8-packed checkpoints): launch counts, losses (the
@@ -104,7 +109,8 @@ Phases (any failed check exits non-zero; there is no CPU fallback):
    their values; K1 and K1''s signed-SRe branch bitwise on any input; on
    N(0, 1) inputs the GEMM contract; each timed beside its bound (the
    bits stream counted), its in-kernel-bits kernel, the twin and the
-   unrounded yardstick of its primed kernel;
+   unrounded yardstick of its primed kernel, K1 and the cast at the
+   path's shape also by CUDA-graph replay (``device_ms``);
 22. serve tinyllama-1.1b under ``e4m3-sr-oracle`` (K3, K4; every
    in-kernel-bits kernel launched no time) and under ``e4m3-sr``: tokens
    and logits bitwise equal; the host seconds spent issuing the bits;
@@ -130,7 +136,8 @@ Phases (any failed check exits non-zero; there is no CPU fallback):
    ``kv_block == page``, the same bits at two placements; timed at the
    engine's decode shape beside the bound, the twin and
    ``scaled_dot_product_attention`` over the gathered float32 cache
-   (unrounded: a yardstick only);
+   (unrounded: a yardstick only), both also by CUDA-graph replay
+   (``device_ms``);
 27. the continuous-batching engine at full width and depth:
    ``serve.run_engine`` over ``serve.ENGINE_RUN`` (tinyllama-1.1b, 16
    requests, 4 slots, pages of 64) under ``serve.ENGINE_POLICY``: every
@@ -293,6 +300,35 @@ def time_ms(torch, fn, n_copies, iters=20, warmup=3):
         fn(i % n_copies)
     end.record()
     torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def graph_ms(torch, fn, n_copies, iters=20, warmup=3):
+    """Device ms per call: ``iters`` calls (cycling over ``n_copies``
+    operand sets) captured in one CUDA graph and replayed between two CUDA
+    events, so the host's cost of issuing each call drops out.  ``time_ms``
+    beside it includes that cost: for a kernel that moves little, the two
+    differ by the wrapper's Python."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for i in range(warmup):
+            fn(i % n_copies)
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for i in range(iters):
+            fn(i % n_copies)
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    del graph
     return start.elapsed_time(end) / iters
 
 
@@ -537,6 +573,16 @@ def attention_phase(torch, tfa):
         res = {"flash_fwd": check_flips(f"flash_fwd out {tag}", r_out, out,
                                         "binary8")}
         rel_l = float(((l - r_l).abs() / r_l.abs()).max())
+        # the single pass against the two-pass kernel: every output bitwise
+        one = tfa.flash_fwd(q, k, v, seeds, specs, return_logits=True, **kw)
+        two = tfa.flash_fwd(q, k, v, seeds, specs, return_logits=True,
+                            kernel="flash_fwd_two_pass", **kw)
+        torch.cuda.synchronize()
+        for nm, a, b in zip(("out", "m", "l", "logits"), one, two):
+            if not bitwise(torch, a, b):
+                fail(f"flash_fwd {nm} {tag}: the single pass differs from "
+                     "the two-pass kernel")
+        del one, two
         dd = (do * r_out).sum(-1)
         seeds_dq = np.concatenate([seeds[:, :2], seeds[:, 4:]], axis=1)
         bwd = dict(dq=(tfa.flash_bwd_dq, tfa.flash_bwd_dq_plain,
@@ -624,6 +670,35 @@ def attention_phase(torch, tfa):
         del q, k, v, do, out, r_out, qg, kg, vg
         torch.cuda.empty_cache()
 
+    # --- a logical block whose logits do not fit in shared memory: the
+    # two-pass kernel, counted apart ---
+    nf_bh, nf_s, nf_d = 4, 1024, 128
+    if tfa.fwd_kernel_for(nf_s, nf_d, nf_d, nf_s) != "flash_fwd_two_pass":
+        fail(f"flash_fwd: S={nf_s} d={nf_d} in one block was expected not "
+             "to fit the single pass")
+    before = dict(tfa.LAUNCHES)
+    q, k, v = ints((nf_bh, nf_s, nf_d)), ints((1, nf_s, nf_d)), \
+        ints((1, nf_s, nf_d))
+    seeds = rng.integers(0, 2 ** 32, (nf_bh, 6), dtype=np.uint64)
+    kw = dict(scale=nf_d ** -0.5, n_heads=nf_bh, n_kv=1, causal=True,
+              q_block=nf_s, kv_block=nf_s)
+    specs = [parse_spec("binary8-sr")] * 3
+    got = tfa.flash_fwd(q, k, v, seeds, specs, return_logits=True, **kw)
+    ref = tfa.flash_fwd_plain(q, k, v, seeds, specs, return_logits=True,
+                              **kw)
+    torch.cuda.synchronize()
+    check_bitwise(f"flash_fwd_two_pass logits S={nf_s} d={nf_d}", ref[3],
+                  got[3])
+    check_bitwise(f"flash_fwd_two_pass m S={nf_s} d={nf_d}", ref[1], got[1])
+    launched = {n: tfa.LAUNCHES[n] - before[n] for n in before}
+    if launched["flash_fwd_two_pass"] != 1 or launched["flash_fwd"] != 0:
+        fail(f"flash_fwd S={nf_s} d={nf_d}: launches {launched}, not one "
+             "two-pass launch")
+    print(f"  B.H={nf_bh} S={nf_s} d={nf_d} in one block: the two-pass "
+          "kernel, counted apart; logits and m bitwise (exact sums)",
+          flush=True)
+    del q, k, v, got, ref
+
     # --- K9 at the decode shapes: packed e4m3 codes ---
     BKVd, G, Smax = (DECODE[k] for k in ("BKV", "G", "Smax"))
     specs = [parse_spec("binary8-sr")] * 3
@@ -632,6 +707,7 @@ def attention_phase(torch, tfa):
     codes = [common.pack_block(parse_spec("e4m3-rn")(normal((BKVd, Smax, d))),
                                "e4m3") for _ in range(2)]
     floats = [common.unpack_block(c, "e4m3") for c in codes]
+    seeds_d = torch.from_numpy(seeds.astype(np.uint32).view(np.int32)).to(dev)
     rows["flash_decode"] = []
     for length in (1, 17, Smax):
         kw = dict(scale=d ** -0.5, kv_fmt="e4m3")
@@ -652,6 +728,11 @@ def attention_phase(torch, tfa):
                   for f in floats)
         lib = time_ms(torch, lambda i: F.scaled_dot_product_attention(
             q4, k4, v4, enable_gqa=True), 1, iters=50)
+        # device times (graph replay; the seed words already on the card)
+        dev_ms = graph_ms(torch, lambda i: tfa.flash_decode(
+            q, *codes, seeds_d, length, specs, **kw), 1)
+        lib_dev_ms = graph_ms(torch, lambda i: F.scaled_dot_product_attention(
+            q4, k4, v4, enable_gqa=True), 1)
         flops, n_tf, nbytes = attn_work("flash_decode", None, BKVd, length,
                                         d, BKVd * G * length, G)
         bms, by = attn_bound(flops, n_tf, nbytes)
@@ -659,11 +740,14 @@ def attention_phase(torch, tfa):
             case=f"length {length}", main=length == Smax, ms=ms,
             plain_ms=plain_ms, bound_ms=bms, bound_by=by, library_ms=lib,
             library="scaled_dot_product_attention (float32 cache, "
-                    "unrounded)", **r))
+                    "unrounded)", device_ms=dev_ms,
+            library_device_ms=lib_dev_ms, **r))
         print(f"  flash_decode B.KV={BKVd} G={G} length={length}: packed == "
               f"unpacked bitwise; mismatches vs plain {r['mismatches']}; "
               f"kernel {ms:.4f} ms  bound {bms:.5f} ms ({by})  plain "
-              f"{plain_ms:.3f} ms  sdpa {lib:.4f} ms", flush=True)
+              f"{plain_ms:.3f} ms  sdpa {lib:.4f} ms; device (graph replay) "
+              f"kernel {dev_ms:.5f} ms, sdpa {lib_dev_ms:.5f} ms",
+              flush=True)
     return rows
 
 
@@ -1212,10 +1296,14 @@ def adam_phase(torch, tfu, n_full: int):
             err = check(x, g, m, v, comp, cfg, m_spec, v_spec, case[2],
                         f"n={n} {case} {name}")
             rows.append(dict(n=n, case=list(case), config=name,
-                             bitwise=True, max_abs_err=err))
+                             bitwise=True, max_abs_err=err,
+                             instance=tfu.k5_instance(cfg, m_spec, v_spec,
+                                                      case[2], case[3])))
+        insts = sorted({r["instance"] for r in rows
+                        if r["case"] == list(case)})
         print(f"  n={n} m={case[0]} v={case[1]} packed={case[2]} "
               f"kahan={case[3]}: bitwise equal to the twin under "
-              f"{len(configs)} chains", flush=True)
+              f"{len(configs)} chains (instances {insts})", flush=True)
         if case == ADAM_CASES[0]:
             # the same operands at an odd element offset: 4-byte aligned
             # only, as a view of a larger tensor is
@@ -1245,6 +1333,9 @@ def adam_phase(torch, tfu, n_full: int):
     lr = ADAM_RUN["lr"]
     scal3 = qadam(lr=lr).scalars(lr, 3)
     kw = dict(m_spec=m_spec, v_spec=m_spec, b1=0.9, b2=0.999, packed=True)
+    instance = tfu.k5_instance(cfg, m_spec, m_spec, True, False)
+    if instance != "trainer":
+        fail(f"K5 runs ADAM_RUN's case through its {instance} instance")
     err = check(x, g, m, v, [None, None], cfg, m_spec, m_spec, True,
                 f"n={n_full} (ADAM_RUN's operands)", scal=scal3)
     torch.cuda.empty_cache()
@@ -1267,7 +1358,7 @@ def adam_phase(torch, tfu, n_full: int):
                                      False)
     full = dict(n=n_full, case=list(ADAM_CASES[0]),
                 config="signed_sr_eps-binary8 (trainer)", bitwise=True,
-                max_abs_err=err, ms=k5_ms,
+                max_abs_err=err, ms=k5_ms, instance=instance,
                 plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bms,
                 bound_by=by, bytes=nbytes, threefry_per_elt=tf)
     print(f"  n={n_full} bf16-sr codes: K5 {k5_ms:.3f} ms (bound "
@@ -1531,13 +1622,23 @@ def sr_cast_phase(torch, tsr):
         lib = time_ms(torch, lambda i: xs[i].to(torch.bfloat16), n_copies)
         bms, by = sr_cast_bound(n, 32)
         per_step = MOE_LAYERS if shape == SR_CAST_PATH else 0
+        dev_ms = lib_dev_ms = None
+        if per_step:    # device time at the path's shape: graph replay
+            dev_ms = graph_ms(torch, lambda i: tsr.sr_cast_prng(
+                xs[i], words, "binary8"), n_copies)
+            lib_dev_ms = graph_ms(torch, lambda i: xs[i].to(torch.bfloat16),
+                                  n_copies)
         rows.append(dict(kernel="sr_cast_prng", shape=list(shape), n=n,
                          per_step=per_step, max_abs_err=max_err,
                          mismatch_share=0.0, ms=ms, plain_ms=plain,
-                         library_ms=lib, bound_ms=bms, bound_by=by))
+                         library_ms=lib, bound_ms=bms, bound_by=by,
+                         device_ms=dev_ms, library_device_ms=lib_dev_ms))
         print(f"  sr_cast_prng n={n:9d} {str(shape):16s} kernel {ms:8.4f} "
               f"ms  bound {bms:8.5f} ms ({by})  plain {plain:8.3f} ms  "
-              f"bf16 cast {lib:8.4f} ms  bitwise", flush=True)
+              f"bf16 cast {lib:8.4f} ms  bitwise"
+              + (f"; device (graph replay) kernel {dev_ms:.5f} ms, bf16 "
+                 f"cast {lib_dev_ms:.5f} ms" if per_step else ""),
+              flush=True)
         del xs
     return rows
 
@@ -2059,15 +2160,25 @@ def bits_cast_phase(torch, tsr, tc):
         lib = time_ms(torch, lambda i: xs[i].to(torch.bfloat16), n_copies)
         bms = 1e3 * 12 * n / PEAK_BYTES_PER_S
         per_step = MOE_LAYERS if shape == SR_CAST_PATH else 0
+        dev_ms = lib_dev_ms = None
+        if per_step:    # device time at the path's shape: graph replay
+            dev_ms = graph_ms(torch, lambda i: tsr.sr_cast(
+                xs[i], bits, "binary8"), n_copies)
+            lib_dev_ms = graph_ms(torch, lambda i: xs[i].to(torch.bfloat16),
+                                  n_copies)
         rows.append(dict(kernel="sr_cast_bits", shape=list(shape), n=n,
                          per_step=per_step, max_abs_err=max_err,
                          mismatch_share=0.0, ms=ms, prng_ms=prng_ms,
                          plain_ms=plain, library_ms=lib, bound_ms=bms,
-                         bound_by="bytes"))
+                         bound_by="bytes", device_ms=dev_ms,
+                         library_device_ms=lib_dev_ms))
         print(f"  sr_cast_bits n={n:8d} {str(shape):14s} kernel {ms:8.4f} "
               f"ms  in-kernel bits {prng_ms:8.4f} ms  bound {bms:8.5f} ms "
               f"(bytes)  plain {plain:8.3f} ms  bf16 cast {lib:8.4f} ms  "
-              "bitwise", flush=True)
+              "bitwise"
+              + (f"; device (graph replay) kernel {dev_ms:.5f} ms, bf16 "
+                 f"cast {lib_dev_ms:.5f} ms" if per_step else ""),
+              flush=True)
         del x, v, xs
     return rows
 
@@ -2365,19 +2476,26 @@ def paged_phase(torch, tfa):
     k4, v4 = (x.view(B, n_kv, -1, d)[:, :, :S] for x in (k, v))
     lib = time_ms(torch, lambda i: F.scaled_dot_product_attention(
         q4, k4, v4, enable_gqa=True), 1, iters=50)
+    dev_ms = graph_ms(torch, lambda i: tfa.flash_decode_paged(
+        q, *codes, seeds_d, lens_d, tbl_d, specs, **kw), 1)
+    lib_dev_ms = graph_ms(torch, lambda i: F.scaled_dot_product_attention(
+        q4, k4, v4, enable_gqa=True), 1)
     flops, n_tf, nbytes = paged_work(lengths, n_kv, G, d)
     bms, by = attn_bound(flops, n_tf, nbytes)
     rows.append(dict(
         case=f"engine decode B={B} KV={n_kv} page {eng['page']} lengths "
              f"{S}", main=True, ms=ms, plain_ms=plain_ms, bound_ms=bms,
-        bound_by=by, library_ms=lib,
+        bound_by=by, library_ms=lib, device_ms=dev_ms,
+        library_device_ms=lib_dev_ms,
         library="scaled_dot_product_attention over the gathered float32 "
                 "cache, unrounded",
         mismatches=n_bad, mismatch_share=n_bad / got.numel(),
         adjacent=adjacent, max_abs_err=float((got - ref).abs().max())))
     print(f"  engine decode shape B={B} KV={n_kv} G={G} length {S}: kernel "
           f"{ms:.4f} ms  bound {bms:.5f} ms ({by})  plain {plain_ms:.3f} ms"
-          f"  sdpa {lib:.4f} ms; mismatches vs plain {n_bad}", flush=True)
+          f"  sdpa {lib:.4f} ms; device (graph replay) kernel {dev_ms:.5f} "
+          f"ms, sdpa {lib_dev_ms:.5f} ms; mismatches vs plain {n_bad}",
+          flush=True)
     return rows
 
 
@@ -2594,6 +2712,9 @@ def moe_kernel_entry(rows, name, source, replaces, launches, library):
         bound_by="bytes" if all(r["bound_by"] == "bytes" for r in path)
         else "operations",
         library_ms=per_step("library_ms"), library=library,
+        **({"device_ms": per_step("device_ms"),
+            "library_device_ms": per_step("library_device_ms")}
+           if all(r.get("device_ms") is not None for r in path) else {}),
         mismatch_share=max(r["mismatch_share"] for r in rows),
         timed=f"one {MOE_ARCH} decode step's launches (batch {BATCH}, "
               f"{MOE_LAYERS} layers)",
@@ -2834,6 +2955,11 @@ def main() -> None:
             bound_by=main_row["bound_by"],
             library_ms=LAYERS * main_row["library_ms"],
             library=main_row["library"] + ", float32, unrounded",
+            **({"device_ms": LAYERS * main_row["device_ms"],
+                "library_device_ms": LAYERS * main_row["library_device_ms"]}
+               if serve_path else
+               {"launches_two_pass": trained_attn["launches"][
+                   "flash_fwd_two_pass"]} if name == "flash_fwd" else {}),
             mismatch_share=max(r["mismatch_share"] for r in attn_rows[name]),
             timed=(f"one decode step's {LAYERS} launches at length "
                    f"{DECODE['Smax']}" if serve_path else
@@ -2913,6 +3039,8 @@ def main() -> None:
         bound_by=main_row["bound_by"],
         library_ms=LAYERS * main_row["library_ms"],
         library=main_row["library"],
+        device_ms=LAYERS * main_row["device_ms"],
+        library_device_ms=LAYERS * main_row["library_device_ms"],
         mismatch_share=max(r["mismatch_share"] for r in paged_rows),
         timed=f"one engine decode step's {LAYERS} launches ("
               f"{main_row['case']})",

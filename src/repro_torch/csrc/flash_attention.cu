@@ -15,12 +15,13 @@
 // * The reference's online softmax runs once per *logical* kv block
 //   (kv_block keys): the block's row max before its exps, one P.V partial
 //   product per block rounded on the av site with stream = block index.
-//   A CUDA tile is smaller than a logical block, so the forward makes two
-//   passes over each block's tiles (row max of the rounded logits, then
-//   p = exp(s - m_safe), its row sum and the unrounded P.V partial) and
-//   rounds the partial once when the block is done.  The backward kernels
-//   likewise sum a whole logical block's dq (or q block's dk, dv)
-//   contribution before rounding it.
+//   A CUDA tile is smaller than a logical block, so the forward either
+//   holds the block's logits in shared memory (fwd1_kernel) or makes two
+//   passes over the block's tiles (fwd_kernel: row max of the rounded
+//   logits, then p = exp(s - m_safe), its row sum and the unrounded P.V
+//   partial), and rounds the partial once when the block is done.  The
+//   backward kernels likewise sum a whole logical block's dq (or q
+//   block's dk, dv) contribution before rounding it.
 // * The same logits everywhere: qk_logit below is the one function that
 //   computes q.k (fmaf in index order, times scale, rounded on the qk site
 //   keyed by global (q position, k position), stream 0) in all four
@@ -37,14 +38,18 @@
 //
 // What bounds them on an H100: at the training shape (B.H = 128, S = 256,
 // d = 64) the forward does 2 S^2 d flops per head for QK^T and as many for
-// P.V (half of them masked): operations, not bytes, bound it.  This simple
-// design stages q, K and V tiles in shared memory and runs fp32 FMAs from
-// there (two shared loads per FMA), computes the forward's logits twice
-// (two passes), and draws one Threefry per logit (the pair-word
-// interleaving would serve two).  bf16/tf32 mma for q.k and p.v where the
-// twins still agree, one Threefry per two logits and a single-pass
-// forward are left for later work.  Decode (K9) is latency-bound: one
-// block per (batch, kv head), G = 8 query rows.
+// P.V (half of them masked): operations, not bytes, bound it.  K6 runs
+// fwd1_kernel, a single pass that holds a block's logits in shared memory
+// (each computed, rounded and drawn once), tiles the products in registers
+// from float4 shared loads, shares Threefry evaluations between four
+// adjacent keys and stages K and V with cp.async; where a logical block's
+// logits do not fit, the wrapper launches fwd_kernel's two passes
+// (flash_fwd_two_pass).  The products stay on the CUDA cores in float32:
+// TF32 or bf16 mma would change the logits that K7 and K7' recompute.
+// fwd_kernel stages q, K and V tiles in shared memory and runs fp32 FMAs
+// from there (two shared loads per FMA), computing each logit twice.  The
+// backward kernels keep that simple design.  Decode (K9) is latency-bound:
+// one block per (batch, kv head), G = 8 query rows.
 //
 // Paged decode (K10) is K9's decode path with two changes: the logical
 // block is one page, and each K/V tile's rows are found through the
@@ -55,6 +60,7 @@
 // page), so a result does not depend on where the pages lie.  Blocks past
 // a request's length are skipped, as K9 skips them: table entries there
 // (scratch page 0) are never read.
+#include <cuda_pipeline.h>
 #include <cuda_runtime.h>
 
 #include <cstdint>
@@ -166,7 +172,7 @@ __device__ __forceinline__ float warp_sum(float v) {
 }
 
 // ---------------------------------------------------------------------------
-// K6 / K9: forward and decode.
+// K9 / K10: decode, and K6 where fwd1_kernel does not fit (two passes).
 // ---------------------------------------------------------------------------
 struct FwdArgs {
   const float* q;
@@ -364,6 +370,336 @@ __global__ void __launch_bounds__(kThreads) fwd_kernel(FwdArgs a) {
     }
   }
   if (!g.decode && tid < nr) {
+    a.m[static_cast<size_t>(bh) * g.rows + r0 + tid] = row_m[tid];
+    a.l[static_cast<size_t>(bh) * g.rows + r0 + tid] = row_l[tid];
+  }
+}
+
+// ---------------------------------------------------------------------------
+// K6: the single-pass training forward.
+// ---------------------------------------------------------------------------
+// A block takes 32 query rows of one head and, per logical kv block, holds
+// their logits over the keys fwd_kernel visits (its 64-key tiles up to the
+// causal edge) in shared memory: each logit is computed, rounded and drawn
+// once, and the row max, the exps, the row sums and P.V read them there.
+// Every value is the one fwd_kernel computes, in the same order: a logit
+// is qk_logit's fmaf chain over t = 0..d-1, each row sum runs over the same
+// 64-key chunks with the same pairing and butterfly, and each P.V output
+// sums its keys in order.  So out, m, l and the logits equal fwd_kernel's
+// bit for bit, and K7 / K7' recompute the same logits.
+//
+// Logits: thread (warp w, lane x) owns rows 4w..4w+3 and keys 4x..4x+3 of
+// a 128-key tile, reads q and k as float4 (k rows swizzled by 16-byte
+// chunk so the eight lanes of a quarter-warp hit distinct banks), and
+// draws its four keys' fields from one or two Threefry evaluations
+// (element_bits4).  P.V: a thread owns 4 consecutive output columns of
+// kFRows rows.  K and V tiles are staged with cp.async into two buffers,
+// the next tile loading while the current one computes.
+constexpr int kFTK = 128;          // keys per tile
+constexpr int kSmemMax = 232448;   // the H100's shared memory per block
+
+template <int D>
+struct FwdShape {
+  static constexpr int kChunks = D / 4;   // 16-byte chunks per key row
+  static constexpr int kSwizzle = (kChunks < 8 ? kChunks : 8) - 1;
+  static constexpr int kRowGroups = 256 / kChunks < kTQ ? 256 / kChunks : kTQ;
+  static constexpr int kRows = kTQ / kRowGroups;   // P.V rows per thread
+};
+
+// Row stride of the logits: the largest logical block, in whole tiles, and
+// 4 more floats so P.V's row pairs fall in different banks.
+__host__ __device__ inline int logits_stride(int kb) {
+  return (kb + kFTK - 1) / kFTK * kFTK + 4;
+}
+
+size_t fwd1_smem(int kb, int d) {
+  return sizeof(float) *
+         (static_cast<size_t>(kTQ) * d + 2 * kFTK * d +
+          static_cast<size_t>(kTQ) * logits_stride(kb) + 4 * kTQ);
+}
+
+// element_bits at columns c0..c0+3, shared evaluations where c0 % 4 == 0.
+__device__ __forceinline__ void site_bits4(const rt::RoundParams& p,
+                                           const uint32_t* w,
+                                           uint32_t stream, uint32_t row,
+                                           uint32_t c0, uint32_t (&b)[4]) {
+  if (!p.enabled || p.mode == rt::kRN) {
+    b[0] = b[1] = b[2] = b[3] = 0u;
+  } else if ((c0 & 3u) == 0u) {
+    rt::element_bits4(w[0], w[1], stream, p.rand_bits, row, c0, b);
+  } else {
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+      b[j] = rt::element_bits(w[0], w[1], stream, p.rand_bits, row, c0 + j);
+  }
+}
+
+__device__ __forceinline__ float round_bits(float x,
+                                            const rt::RoundParams& p,
+                                            uint32_t bits) {
+  return p.enabled ? rt::round_value(x, bits, p) : x;
+}
+
+// Rows [key0, key0 + n) of a (rows, D) float32 array into a kFTK x D
+// stage buffer, 16 bytes per cp.async; K rows swizzled (chunk ^ (row / 4)).
+template <int D, bool kSwizzled>
+__device__ __forceinline__ void stage_tile(float* buf, const float* src,
+                                           int key0, int n) {
+  using S = FwdShape<D>;
+  for (int e = threadIdx.x; e < n * S::kChunks; e += kThreads) {
+    const int c = e / S::kChunks, ch = e % S::kChunks;
+    const int pch = kSwizzled ? ch ^ ((c >> 2) & S::kSwizzle) : ch;
+    __pipeline_memcpy_async(buf + c * D + 4 * pch,
+                            src + static_cast<size_t>(key0 + c) * D + 4 * ch,
+                            16);
+  }
+  __pipeline_commit();
+}
+
+template <int D>
+__global__ void __launch_bounds__(kThreads) fwd1_kernel(FwdArgs a) {
+  using S = FwdShape<D>;
+  extern __shared__ float smem[];
+  const Geo& g = a.g;
+  const int bh = blockIdx.y;
+  const int r0 = blockIdx.x * kTQ;
+  const int nr = min(kTQ, g.rows - r0);
+  const int lds = logits_stride(g.kb);
+  float* Qs = smem;                    // kTQ x D
+  float* Bs = Qs + kTQ * D;            // 2 x (kFTK x D): K, then V tiles
+  float* Ss = Bs + 2 * kFTK * D;       // kTQ x lds: logits, then p
+  float* row_m = Ss + kTQ * lds;
+  float* row_l = row_m + kTQ;
+  float* row_corr = row_l + kTQ;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const uint32_t* w = a.seeds + static_cast<size_t>(bh) * 6;
+  const rt::RoundParams& p_qk = a.sites.p[0];
+  const float* kbase = static_cast<const float*>(a.k) +
+                       static_cast<size_t>(kv_of(bh, g)) * g.kv_rows * D;
+  const float* vbase = static_cast<const float*>(a.v) +
+                       static_cast<size_t>(kv_of(bh, g)) * g.kv_rows * D;
+
+  for (int e = tid; e < kTQ * D; e += kThreads)
+    Qs[e] = e / D < nr ? a.q[(static_cast<size_t>(bh) * g.rows + r0) * D + e]
+                       : 0.0f;
+  if (tid < kTQ) {
+    row_m[tid] = -INFINITY;
+    row_l[tid] = 0.0f;
+  }
+  // P.V's outputs: columns 4 pc.. of rows pr * kRows..
+  const int pc = tid % S::kChunks, pr = tid / S::kChunks;
+  const bool pv_thread = pr < S::kRowGroups;
+  float acc[S::kRows][4];
+#pragma unroll
+  for (int i = 0; i < S::kRows; ++i)
+    acc[i][0] = acc[i][1] = acc[i][2] = acc[i][3] = 0.0f;
+  const int qpos_hi = g.q_offset + r0 + nr - 1;
+  const int n_k = (g.kv_rows + g.kb - 1) / g.kb;
+  __syncthreads();
+
+  for (int j = 0; j < n_k; ++j) {
+    const int k0 = j * g.kb, k1 = min(k0 + g.kb, g.kv_rows);
+    // the keys of fwd_kernel's 64-key tiles up to the causal edge
+    int nkeys = k1 - k0;
+    if (g.causal)
+      nkeys = k0 > qpos_hi ? 0 : min(nkeys, ((qpos_hi - k0) / kTK + 1) * kTK);
+    const int ntiles = (nkeys + kFTK - 1) / kFTK;
+
+    // logits, rounded once, into Ss
+    if (ntiles > 0) stage_tile<D, true>(Bs, kbase, k0, min(kFTK, nkeys));
+    for (int i = 0; i < ntiles; ++i) {
+      if (i + 1 < ntiles) {
+        stage_tile<D, true>(Bs + ((i + 1) & 1) * kFTK * D, kbase,
+                            k0 + (i + 1) * kFTK,
+                            min(kFTK, nkeys - (i + 1) * kFTK));
+        __pipeline_wait_prior(1);
+      } else {
+        __pipeline_wait_prior(0);
+      }
+      __syncthreads();
+      const float* Kt = Bs + (i & 1) * kFTK * D;
+      float s[4][4];
+#pragma unroll
+      for (int r = 0; r < 4; ++r)
+        s[r][0] = s[r][1] = s[r][2] = s[r][3] = 0.0f;
+#pragma unroll 4
+      for (int t = 0; t < D; t += 4) {
+        float4 qf[4], kf[4];
+#pragma unroll
+        for (int r = 0; r < 4; ++r)
+          qf[r] = *reinterpret_cast<const float4*>(Qs + (4 * warp + r) * D +
+                                                   t);
+        const int pch = (t / 4) ^ (lane & S::kSwizzle);
+#pragma unroll
+        for (int c = 0; c < 4; ++c)
+          kf[c] = *reinterpret_cast<const float4*>(Kt + (4 * lane + c) * D +
+                                                   4 * pch);
+#pragma unroll
+        for (int r = 0; r < 4; ++r)
+#pragma unroll
+          for (int c = 0; c < 4; ++c) {
+            s[r][c] = fmaf(qf[r].x, kf[c].x, s[r][c]);
+            s[r][c] = fmaf(qf[r].y, kf[c].y, s[r][c]);
+            s[r][c] = fmaf(qf[r].z, kf[c].z, s[r][c]);
+            s[r][c] = fmaf(qf[r].w, kf[c].w, s[r][c]);
+          }
+      }
+      const int loc = i * kFTK + 4 * lane;   // column in Ss
+      const int kpos0 = k0 + loc;
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {
+        const int rr = 4 * warp + r;
+        const int qpos = g.q_offset + r0 + rr;
+        uint32_t bits[4];
+        site_bits4(p_qk, w, 0u, static_cast<uint32_t>(qpos),
+                   static_cast<uint32_t>(kpos0), bits);
+        float sv[4];
+#pragma unroll
+        for (int c = 0; c < 4; ++c) {
+          sv[c] = -INFINITY;
+          if (rr < nr && loc + c < nkeys && valid(qpos, kpos0 + c, g))
+            sv[c] = round_bits(__fmul_rn(s[r][c], g.scale), p_qk, bits[c]);
+          if (a.s_out != nullptr && rr < nr && loc + c < nkeys)
+            a.s_out[(static_cast<size_t>(bh) * g.rows + r0 + rr) *
+                        g.kv_rows + kpos0 + c] = sv[c];
+        }
+        *reinterpret_cast<float4*>(Ss + rr * lds + loc) =
+            make_float4(sv[0], sv[1], sv[2], sv[3]);
+      }
+      __syncthreads();
+    }
+
+    // V's first tile loads while each warp reduces its rows: the block's
+    // max, m_new, m_safe and corr, then p = exp(s - m_safe) in place and
+    // the row sum in fwd_kernel's order (64-key chunks, lanes c and c + 32
+    // paired, then the butterfly)
+    if (ntiles > 0) stage_tile<D, false>(Bs, vbase, k0, min(kFTK, nkeys));
+    for (int r = warp; r < kTQ; r += kWarps) {
+      float* row = Ss + r * lds;
+      float mx = -INFINITY;
+      for (int c = lane; c < nkeys; c += 32) mx = fmaxf(mx, row[c]);
+      mx = warp_max(mx);
+      const float m_old = row_m[r];
+      const float m_new = fmaxf(m_old, mx);
+      const float safe = isfinite(m_new) ? m_new : 0.0f;
+      const float corr = isfinite(m_old) ? expf(__fsub_rn(m_old, safe)) : 0.0f;
+      float sum = 0.0f;
+      for (int c0 = 0; c0 < nkeys; c0 += kTK) {
+        float p[2];
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int c = c0 + 32 * h + lane;
+          const float x = c < nkeys ? row[c] : -INFINITY;
+          p[h] = isfinite(x) ? expf(__fsub_rn(x, safe)) : 0.0f;
+          if (c < nkeys) row[c] = p[h];
+        }
+        sum = __fadd_rn(sum, warp_sum(__fadd_rn(p[0], p[1])));
+      }
+      __syncwarp();
+      if (lane == 0) {
+        row_m[r] = m_new;
+        row_corr[r] = corr;
+        row_l[r] = __fadd_rn(__fmul_rn(row_l[r], corr), sum);
+      }
+    }
+
+    // P.V over the same keys, in order
+    float pv[S::kRows][4];
+#pragma unroll
+    for (int i = 0; i < S::kRows; ++i)
+      pv[i][0] = pv[i][1] = pv[i][2] = pv[i][3] = 0.0f;
+    for (int i = 0; i < ntiles; ++i) {
+      if (i + 1 < ntiles) {
+        stage_tile<D, false>(Bs + ((i + 1) & 1) * kFTK * D, vbase,
+                             k0 + (i + 1) * kFTK,
+                             min(kFTK, nkeys - (i + 1) * kFTK));
+        __pipeline_wait_prior(1);
+      } else {
+        __pipeline_wait_prior(0);
+      }
+      __syncthreads();
+      const float* Vt = Bs + (i & 1) * kFTK * D;
+      const int tl = min(kFTK, nkeys - i * kFTK);
+      if (pv_thread) {
+        const float* prow = Ss + pr * S::kRows * lds + i * kFTK;
+        int kk = 0;
+        for (; kk + 4 <= tl; kk += 4) {
+          float4 pf[S::kRows], vf[4];
+#pragma unroll
+          for (int r = 0; r < S::kRows; ++r)
+            pf[r] = *reinterpret_cast<const float4*>(prow + r * lds + kk);
+#pragma unroll
+          for (int u = 0; u < 4; ++u)
+            vf[u] = *reinterpret_cast<const float4*>(Vt + (kk + u) * D +
+                                                     4 * pc);
+#pragma unroll
+          for (int r = 0; r < S::kRows; ++r) {
+            const float pu[4] = {pf[r].x, pf[r].y, pf[r].z, pf[r].w};
+#pragma unroll
+            for (int u = 0; u < 4; ++u) {
+              pv[r][0] = fmaf(pu[u], vf[u].x, pv[r][0]);
+              pv[r][1] = fmaf(pu[u], vf[u].y, pv[r][1]);
+              pv[r][2] = fmaf(pu[u], vf[u].z, pv[r][2]);
+              pv[r][3] = fmaf(pu[u], vf[u].w, pv[r][3]);
+            }
+          }
+        }
+        for (; kk < tl; ++kk) {
+          const float4 vf = *reinterpret_cast<const float4*>(Vt + kk * D +
+                                                             4 * pc);
+#pragma unroll
+          for (int r = 0; r < S::kRows; ++r) {
+            const float pu = prow[r * lds + kk];
+            pv[r][0] = fmaf(pu, vf.x, pv[r][0]);
+            pv[r][1] = fmaf(pu, vf.y, pv[r][1]);
+            pv[r][2] = fmaf(pu, vf.z, pv[r][2]);
+            pv[r][3] = fmaf(pu, vf.w, pv[r][3]);
+          }
+        }
+      }
+      __syncthreads();
+    }
+    if (ntiles == 0) __syncthreads();   // the row statistics are written
+
+    // close the logical block: round its P.V partial once (av site, stream
+    // j), rescale the running sums
+    if (pv_thread) {
+#pragma unroll
+      for (int r = 0; r < S::kRows; ++r) {
+        const int rr = pr * S::kRows + r;
+        const uint32_t drow = static_cast<uint32_t>(g.q_offset + r0 + rr);
+        uint32_t bits[4];
+        site_bits4(a.sites.p[1], w + 2, static_cast<uint32_t>(j), drow,
+                   static_cast<uint32_t>(4 * pc), bits);
+#pragma unroll
+        for (int c = 0; c < 4; ++c)
+          acc[r][c] = __fadd_rn(__fmul_rn(acc[r][c], row_corr[rr]),
+                                round_bits(pv[r][c], a.sites.p[1], bits[c]));
+      }
+    }
+    __syncthreads();
+  }
+
+  if (pv_thread) {
+#pragma unroll
+    for (int r = 0; r < S::kRows; ++r) {
+      const int rr = pr * S::kRows + r;
+      if (rr >= nr) continue;
+      const uint32_t drow = static_cast<uint32_t>(g.q_offset + r0 + rr);
+      uint32_t bits[4];
+      site_bits4(a.sites.p[2], w + 4, 0u, drow,
+                 static_cast<uint32_t>(4 * pc), bits);
+      float o[4];
+#pragma unroll
+      for (int c = 0; c < 4; ++c)
+        o[c] = round_bits(__fdiv_rn(acc[r][c], fmaxf(row_l[rr], 1e-30f)),
+                          a.sites.p[2], bits[c]);
+      *reinterpret_cast<float4*>(
+          a.out + (static_cast<size_t>(bh) * g.rows + r0 + rr) * D + 4 * pc) =
+          make_float4(o[0], o[1], o[2], o[3]);
+    }
+  }
+  if (tid < nr) {
     a.m[static_cast<size_t>(bh) * g.rows + r0 + tid] = row_m[tid];
     a.l[static_cast<size_t>(bh) * g.rows + r0 + tid] = row_l[tid];
   }
@@ -657,6 +993,10 @@ size_t fwd_smem(int dk, int dv) {
 // Each entry point launches on `stream` and returns cudaGetLastError().
 // site_ints: per site precision, emin, emax, mode, rand_bits, enabled;
 // site_xmax: per site xmax.
+//
+// K6: the single-pass forward (fwd1_kernel), for dk == dv in {16, 32, 64,
+// 128} where a block's logits fit in shared memory (fwd1_smem); any other
+// shape is refused, and the wrapper launches flash_fwd_two_pass instead.
 extern "C" int flash_fwd(const float* q, const float* k, const float* v,
                          const uint32_t* seeds, float* out, float* m,
                          float* l, float* s_out, int BH, int Sq, int Skv,
@@ -664,6 +1004,34 @@ extern "C" int flash_fwd(const float* q, const float* k, const float* v,
                          int kb, int q_offset, int causal, int window,
                          float scale, const int* site_ints,
                          const float* site_xmax, void* stream) {
+  const size_t smem = fwd1_smem(kb, dk);
+  if (dk != dv || kb < 1 || smem > static_cast<size_t>(kSmemMax))
+    return static_cast<int>(cudaErrorInvalidValue);
+  FwdArgs a{q,     k, v,     0,     rt::PackParams{}, seeds,
+            out,   m, l,     s_out,
+            make_geo(Sq, Skv, dk, dv, n_heads, n_kv, qb, kb, q_offset,
+                     causal, window, scale),
+            make_sites(site_ints, site_xmax, 3)};
+  const dim3 grid((Sq + kTQ - 1) / kTQ, BH);
+  switch (dk) {
+    case 16: return launch(fwd1_kernel<16>, grid, smem, a, stream);
+    case 32: return launch(fwd1_kernel<32>, grid, smem, a, stream);
+    case 64: return launch(fwd1_kernel<64>, grid, smem, a, stream);
+    case 128: return launch(fwd1_kernel<128>, grid, smem, a, stream);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+// K6's two-pass form (fwd_kernel), for the shapes flash_fwd refuses.
+extern "C" int flash_fwd_two_pass(const float* q, const float* k,
+                                  const float* v, const uint32_t* seeds,
+                                  float* out, float* m, float* l,
+                                  float* s_out, int BH, int Sq, int Skv,
+                                  int dk, int dv, int n_heads, int n_kv,
+                                  int qb, int kb, int q_offset, int causal,
+                                  int window, float scale,
+                                  const int* site_ints,
+                                  const float* site_xmax, void* stream) {
   if (dk > kDMax || dv > kDMax) return static_cast<int>(cudaErrorInvalidValue);
   FwdArgs a{q,     k, v,     0,     rt::PackParams{}, seeds,
             out,   m, l,     s_out,

@@ -45,12 +45,29 @@
 // What bounds it on an H100: K2' moves 12 bytes per element (x, g in, x_new
 // out) and K2 24; K2' also runs one Threefry-2x32 (~80 integer operations)
 // per element for every two stochastic steps, which at the card's int32
-// rate costs about as much as the bytes.  This first version is one thread
-// per element in a grid-stride loop with plain 4-byte loads.
+// rate costs about as much as the bytes.  K2', K2 and momentum_fma are one
+// thread per element in a grid-stride loop with plain 4-byte loads.
+//
+// K5 moves 20 bytes per element with bf16 codes but issues more
+// instructions than that takes: two Threefry evaluations, five roundings,
+// two IEEE divisions and a square root per element, most of it on the
+// half-rate integer and compare pipe.  So its design cuts instructions and
+// keeps the loads wide: a thread takes groups of four consecutive elements
+// (a warp covers a row of the 128-lane layout), moves each array of a
+// group as one 16-, 8- or 4-byte access where every operand is aligned
+// (the scalar path serves the tail and views off the boundary), draws all
+// of a group's words before its arithmetic, and is compiled twice over:
+// an instance for train.ADAM_RUN's case with every scheme, the storage and
+// the absence of Kahan carries fixed at compile time (its bf16 SR and
+// codes as integer operations, its chain roundings without the runtime
+// scheme and draw-width tests), and a generic instance for every other
+// case.  The floating-point operations and their order are the same in
+// both.
 #include <cuda_runtime.h>
 
 #include <cstdint>
 #include <cstring>
+#include <initializer_list>
 
 #include "rounding.cuh"
 
@@ -88,9 +105,15 @@ __device__ __forceinline__ float update_chain(const Chain& c, float x,
 }
 
 // Float32 subnormals to signed zero, as XLA's CPU backend treats operands
-// and results.
+// and results: a multiply by 1 with the hardware's flush, one instruction
+// on the FMA pipe.  A subnormal becomes the zero of its sign and every
+// other value passes exactly, but a NaN comes out as the canonical NaN:
+// every flushed value here is next an operand of arithmetic, which would
+// make that NaN of it anyway.
 __device__ __forceinline__ float ftz(float v) {
-  return fabsf(v) < rt::kTiny ? __fmul_rn(v, 0.0f) : v;   // keeps the sign
+  float r;
+  asm("mul.rn.ftz.f32 %0, %1, 0f3F800000;" : "=f"(r) : "f"(v));
+  return r;
 }
 
 __global__ void __launch_bounds__(kThreads)
@@ -151,11 +174,13 @@ momentum_fma_kernel(const float* __restrict__ m,
 // K5
 // ---------------------------------------------------------------------------
 // One moment site: its rounding, whether it is the bf16 bit-trick SR, and
-// its storage (code bytes 0 = float32, else packed with `pack`).
+// its storage (code bytes 0 = float32, else packed with `pack`; bf16: the
+// layout is bfloat16's, whose codes are the top half of the float32 word).
 struct Moment {
   rt::RoundParams round;
   int bittrick;
   int code_bytes;
+  int bf16;
   rt::PackParams pack;
   float xmax, xmin;
 };
@@ -164,28 +189,129 @@ struct AdamScalars {
   float t, c1, c2, eps, wd, b1, ob1, b2, ob2;
 };
 
-// A grid value as its code word (rounding.cuh: pack_code).
-__device__ __forceinline__ uint32_t pack_code(float x, const Moment& s) {
-  return rt::pack_code(x, s.pack, s.xmax, s.xmin);
+// bf16 codes as shifts: rt::unpack and rt::pack_code bit for bit on that
+// layout (every NaN code unpacks to the canonical quiet NaN, a NaN packs
+// to the all-ones field and mantissa).
+__device__ __forceinline__ float unpack_bf16(uint32_t c) {
+  const uint32_t w = c << 16;
+  return (w & 0x7FFFFFFFu) > 0x7F800000u ? __int_as_float(0x7FC00000)
+                                         : __uint_as_float(w);
 }
 
-__device__ __forceinline__ float load_moment(const void* p, int64_t i,
-                                             const Moment& s) {
-  if (s.code_bytes == 0) return ftz(static_cast<const float*>(p)[i]);
-  const uint32_t c = s.code_bytes == 1
-                         ? static_cast<const uint8_t*>(p)[i]
-                         : static_cast<const uint16_t*>(p)[i];
-  return ftz(rt::unpack(c, s.pack));
+__device__ __forceinline__ uint32_t pack_bf16(float x) {
+  const uint32_t c = __float_as_uint(x) >> 16;
+  return isnan(x) ? (c & 0x8000u) | 0x7FFFu : c;
 }
 
-__device__ __forceinline__ void store_moment(void* p, int64_t i, float v,
-                                             const Moment& s) {
-  if (s.code_bytes == 0) {
-    static_cast<float*>(p)[i] = v;
-  } else if (s.code_bytes == 1) {
-    static_cast<uint8_t*>(p)[i] = static_cast<uint8_t>(pack_code(v, s));
+__device__ __forceinline__ float unpack_moment(uint32_t c, const Moment& s,
+                                               bool bf16) {
+  return ftz(bf16 ? unpack_bf16(c) : rt::unpack(c, s.pack));
+}
+
+__device__ __forceinline__ uint32_t pack_moment(float x, const Moment& s,
+                                                bool bf16) {
+  return bf16 ? pack_bf16(x) : rt::pack_code(x, s.pack, s.xmax, s.xmin);
+}
+
+// Four consecutive float32 elements from i0 (`count` of them in range):
+// one 16-byte access when `vec`.
+__device__ __forceinline__ void load4(const float* p, int64_t i0, int count,
+                                      bool vec, float (&out)[4]) {
+  if (vec) {
+    const float4 t = *reinterpret_cast<const float4*>(p + i0);
+    out[0] = t.x; out[1] = t.y; out[2] = t.z; out[3] = t.w;
   } else {
-    static_cast<uint16_t*>(p)[i] = static_cast<uint16_t>(pack_code(v, s));
+#pragma unroll
+    for (int j = 0; j < 4; ++j) out[j] = j < count ? p[i0 + j] : 0.0f;
+  }
+}
+
+__device__ __forceinline__ void store4(float* p, int64_t i0, int count,
+                                       bool vec, const float (&v)[4]) {
+  if (vec) {
+    *reinterpret_cast<float4*>(p + i0) = make_float4(v[0], v[1], v[2], v[3]);
+  } else {
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+      if (j < count) p[i0 + j] = v[j];
+  }
+}
+
+// Four carries as float32 (flushed), from float32 or 1- or 2-byte codes:
+// one 16-, 4- or 8-byte access when `vec`.  kBf16: the storage is known
+// at compile time to be bf16 codes.
+template <bool kBf16>
+__device__ __forceinline__ void load_moment4(const void* p, int64_t i0,
+                                             int count, bool vec,
+                                             const Moment& s,
+                                             float (&out)[4]) {
+  const int bytes = kBf16 ? 2 : s.code_bytes;
+  if (bytes == 0) {
+    load4(static_cast<const float*>(p), i0, count, vec, out);
+#pragma unroll
+    for (int j = 0; j < 4; ++j) out[j] = ftz(out[j]);
+    return;
+  }
+  uint32_t c[4];
+  if (bytes == 1) {
+    const uint8_t* b = static_cast<const uint8_t*>(p);
+    if (vec) {
+      const uint32_t w = *reinterpret_cast<const uint32_t*>(b + i0);
+#pragma unroll
+      for (int j = 0; j < 4; ++j) c[j] = (w >> (8 * j)) & 0xFFu;
+    } else {
+#pragma unroll
+      for (int j = 0; j < 4; ++j) c[j] = j < count ? b[i0 + j] : 0u;
+    }
+  } else {
+    const uint16_t* h = static_cast<const uint16_t*>(p);
+    if (vec) {
+      const uint2 w = *reinterpret_cast<const uint2*>(h + i0);
+      c[0] = w.x & 0xFFFFu; c[1] = w.x >> 16;
+      c[2] = w.y & 0xFFFFu; c[3] = w.y >> 16;
+    } else {
+#pragma unroll
+      for (int j = 0; j < 4; ++j) c[j] = j < count ? h[i0 + j] : 0u;
+    }
+  }
+  const bool bf16 = kBf16 || s.bf16;
+#pragma unroll
+  for (int j = 0; j < 4; ++j) out[j] = unpack_moment(c[j], s, bf16);
+}
+
+template <bool kBf16>
+__device__ __forceinline__ void store_moment4(void* p, int64_t i0, int count,
+                                              bool vec, const Moment& s,
+                                              const float (&v)[4]) {
+  const int bytes = kBf16 ? 2 : s.code_bytes;
+  if (bytes == 0) {
+    store4(static_cast<float*>(p), i0, count, vec, v);
+    return;
+  }
+  const bool bf16 = kBf16 || s.bf16;
+  uint32_t c[4];
+#pragma unroll
+  for (int j = 0; j < 4; ++j) c[j] = pack_moment(v[j], s, bf16);
+  if (bytes == 1) {
+    uint8_t* b = static_cast<uint8_t*>(p);
+    if (vec) {
+      *reinterpret_cast<uint32_t*>(b + i0) =
+          c[0] | (c[1] << 8) | (c[2] << 16) | (c[3] << 24);
+    } else {
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        if (j < count) b[i0 + j] = static_cast<uint8_t>(c[j]);
+    }
+  } else {
+    uint16_t* h = static_cast<uint16_t*>(p);
+    if (vec) {
+      *reinterpret_cast<uint2*>(h + i0) =
+          make_uint2(c[0] | (c[1] << 16), c[2] | (c[3] << 16));
+    } else {
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        if (j < count) h[i0 + j] = static_cast<uint16_t>(c[j]);
+    }
   }
 }
 
@@ -200,120 +326,256 @@ __device__ __forceinline__ float bittrick_bf16(float x, uint32_t bits,
   return isfinite(x) ? out : x;
 }
 
+// rt::round_value under SR onto bfloat16 with 32-bit draws, in integer form,
+// for an input already flushed (as every caller's is): a finite one is 0
+// or normal, so its grid quantum is 2^(e - 7) for every exponent, frac is
+// the low 16 bits of the word over 2^16, and u = (bits >> 8) 2^-24 < frac
+// exactly when bits >> 16 < those 16 bits: the round-up is a carry into
+// the top half.  Magnitudes past xmax (and the carry into the exponent's
+// all-ones field) saturate.
+__device__ __forceinline__ float sr_bf16(float x, uint32_t bits, float xmax) {
+  const uint32_t w = __float_as_uint(x);
+  if ((w & 0x7F800000u) == 0x7F800000u) return x;   // +-inf, NaN
+  const uint32_t r =
+      (w & 0xFFFF0000u) + ((bits >> 16) < (w & 0xFFFFu) ? 0x10000u : 0u);
+  return __uint_as_float((r & 0x80000000u) |
+                         min(r & 0x7FFFFFFFu, __float_as_uint(xmax)));
+}
+
+// The instances.  kTrainer: train.ADAM_RUN's case, fixed at compile time
+// -- bf16 codes rounded by SR with 32-bit draws, no Kahan carries, the
+// chain rn / sr / signed-SRe with 32-bit draws on grids whose scaled
+// values stay in float32 range (rounding.cuh's `narrow`); the generic
+// instance reads every fact from its arguments.  The host checks that a
+// launch fits its instance.
+template <bool kTrainer>
 __device__ __forceinline__ float round_moment(float x, uint32_t bits,
                                               const Moment& s) {
+  if (kTrainer) return sr_bf16(x, bits, s.round.xmax);
   if (!s.round.enabled) return x;
   if (s.bittrick) return bittrick_bf16(x, bits, s.round.xmax);
   return rt::round_value(x, bits, s.round);
 }
 
-// The random fields of columns c0..c0+3 (c0 % 4 == 0) of one row:
-// counter_bits_reduced(k0, k1, stream, rand_bits) at (row, c).
-__device__ __forceinline__ void moment_bits(uint32_t k0, uint32_t k1,
-                                            uint32_t stream, int rand_bits,
-                                            uint32_t row, uint32_t c0,
-                                            uint32_t out[4]) {
-  const uint32_t key1 = k1 + rt::kGolden * stream;
-  uint32_t w0, w1;
-  if (rand_bits == 32) {      // word c % 2 of pair c / 2
-    rt::threefry2x32(k0, key1, row, c0 >> 1, w0, w1);
-    out[0] = w0;
-    out[1] = w1;
-    rt::threefry2x32(k0, key1, row, (c0 >> 1) + 1u, w0, w1);
-    out[2] = w0;
-    out[3] = w1;
-  } else if (rand_bits == 16) {   // word (c / 2) % 2 of pair c / 4
-    rt::threefry2x32(k0, key1, row, c0 >> 2, w0, w1);
-    out[0] = w0 & 0xFFFFu;
-    out[1] = w0 >> 16;
-    out[2] = w1 & 0xFFFFu;
-    out[3] = w1 >> 16;
-  } else {                    // r = 8: word (c / 4) % 2 of pair c / 8
-    rt::threefry2x32(k0, key1, row, c0 >> 3, w0, w1);
-    const uint32_t w = ((c0 >> 2) & 1u) ? w1 : w0;
-    for (int j = 0; j < 4; ++j) out[j] = (w >> (8 * j)) & 0xFFu;
-  }
-}
-
 // One rounded EMA carry (the twin's _moment_ema).  `g` is the gradient
 // (for the second moment, a = g * g); kahan carries in `comp`.
+template <bool kTrainer, bool kKahan>
 __device__ __forceinline__ float moment_ema(const Moment& s, float m,
                                             float g, bool square, float b,
                                             float ob, uint32_t bits,
-                                            bool kahan, float* comp) {
+                                            float& comp) {
   const float a = square ? ftz(__fmul_rn(g, g)) : g;
-  if (!kahan) {
-    const float sum =
-        s.code_bytes ? ftz(__fmaf_rn(ob, a, ftz(__fmul_rn(b, m))))
-                     : ftz(__fmaf_rn(b, m, ftz(__fmul_rn(ob, a))));
-    return round_moment(sum, bits, s);
+  if (!kKahan) {
+    const bool packed = kTrainer || s.code_bytes;
+    const float sum = packed ? ftz(__fmaf_rn(ob, a, ftz(__fmul_rn(b, m))))
+                             : ftz(__fmaf_rn(b, m, ftz(__fmul_rn(ob, a))));
+    return round_moment<kTrainer>(sum, bits, s);
   }
   const float diff = square ? ftz(__fmaf_rn(g, g, -m)) : ftz(__fsub_rn(g, m));
-  const float y = ftz(__fmaf_rn(ob, diff, -*comp));
-  const float out = round_moment(ftz(__fadd_rn(m, y)), bits, s);
-  *comp = ftz(__fsub_rn(ftz(__fsub_rn(out, m)), y));
+  const float y = ftz(__fmaf_rn(ob, diff, -comp));
+  const float out = round_moment<kTrainer>(ftz(__fadd_rn(m, y)), bits, s);
+  comp = ftz(__fsub_rn(ftz(__fsub_rn(out, m)), y));
   return out;
 }
 
-__global__ void __launch_bounds__(kThreads)
-fused_qadam_prng_kernel(const float* x, const float* __restrict__ g,
-                        const void* m, const void* v,
-                        const float* __restrict__ cm,
-                        const float* __restrict__ cv, float* ox, void* om,
-                        void* ov, float* ocm, float* ocv, int64_t n,
-                        AdamScalars sc, uint32_t k0, uint32_t k1, Chain c,
-                        Moment ms, Moment vs) {
-  const bool need[3] = {stochastic(c.grad), stochastic(c.mul),
-                        stochastic(c.sub)};
-  const int n_stoch = int(need[0]) + int(need[1]) + int(need[2]);
-  const bool kahan = cm != nullptr;
-  const bool m_draw = ms.round.enabled && ms.round.mode != rt::kRN;
-  const bool v_draw = vs.round.enabled && vs.round.mode != rt::kRN;
-  const int64_t groups = (n + 3) / 4;
-  const int64_t stride = int64_t(gridDim.x) * blockDim.x;
-  for (int64_t q = int64_t(blockIdx.x) * blockDim.x + threadIdx.x;
-       q < groups; q += stride) {
-    const int64_t i0 = 4 * q;
-    const uint32_t row = static_cast<uint32_t>(i0 / kLanes);
-    const uint32_t c0 = static_cast<uint32_t>(i0 % kLanes);
-    uint32_t bm[4] = {0u, 0u, 0u, 0u}, bv[4] = {0u, 0u, 0u, 0u};
-    if (m_draw)
-      moment_bits(k0, k1, 8u, ms.round.rand_bits, row, c0, bm);
-    if (v_draw)
-      moment_bits(k0, k1, 9u, vs.round.rand_bits, row, c0, bv);
-    for (int j = 0; j < 4; ++j) {
-      const int64_t i = i0 + j;
-      if (i >= n) break;
-      const float xi = ftz(x[i]);
-      const float gi = ftz(g[i]);
-      float cmi = kahan ? ftz(cm[i]) : 0.0f;
-      float cvi = kahan ? ftz(cv[i]) : 0.0f;
-      const float mi = moment_ema(ms, load_moment(m, i, ms), gi, false,
-                                  sc.b1, sc.ob1, bm[j], kahan, &cmi);
-      const float vi = moment_ema(vs, load_moment(v, i, vs), gi, true,
-                                  sc.b2, sc.ob2, bv[j], kahan, &cvi);
-      const float den = ftz(__fadd_rn(ftz(__fsqrt_rn(ftz(__fdiv_rn(vi,
-                                                                   sc.c2)))),
-                                      sc.eps));
-      const float d = ftz(__fmaf_rn(
-          sc.wd, xi, ftz(__fdiv_rn(mi, ftz(__fmul_rn(sc.c1, den))))));
-      // the chain's words, as fused_qupdate_prng_kernel deals them
-      uint32_t q0 = 0u, q1 = 0u, q2 = 0u, unused;
-      if (n_stoch > 0) rt::threefry2x32(k0, k1, row, c0 + j, q0, q1);
-      if (n_stoch > 2)
-        rt::threefry2x32(k0, k1 + rt::kGolden, row, c0 + j, q2, unused);
-      uint32_t b1 = 0u, b2 = 0u, b3 = 0u;
-      if (need[0]) { b1 = q0; q0 = q1; q1 = q2; }
-      if (need[1]) { b2 = q0; q0 = q1; }
-      if (need[2]) b3 = q0;
-      ox[i] = update_chain(c, xi, d, sc.t, b1, b2, b3);
-      store_moment(om, i, mi, ms);
-      store_moment(ov, i, vi, vs);
-      if (kahan) {
-        ocm[i] = cmi;
-        ocv[i] = cvi;
-      }
+// rt::round_value on a narrow grid (its scaled values stay in float32's
+// exponent range) with the scheme fixed at compile time and 32-bit draws,
+// as the trainer instance's chain runs it: the same floating-point steps
+// and choice, with two integer shortcuts -- the exponent of the flushed
+// |z| (0 or normal) is its biased field minus 127, -127 for 0 as before,
+// and the sign comes back by copysignf, which gives -mag, -0 and +0
+// exactly where round_value's two steps do (the magnitude is never
+// negative).
+template <int kMode>
+__device__ __forceinline__ float round_narrow(float x, uint32_t bits,
+                                              const rt::RoundParams& p,
+                                              float sign_v = 0.0f) {
+  const float z = ftz(x);
+  const float mag_in = fabsf(z);
+  const int e = static_cast<int>(__float_as_uint(mag_in) >> 23) - 127;
+  const int qe = min(max(e, p.emin), p.emax) - (p.precision - 1);
+  const float quantum = rt::pow2i(qe);
+  const float y = __fmul_rn(mag_in, rt::pow2i(-qe));
+  const float fy = floorf(y);
+  const float frac = __fadd_rn(y, -fy);
+  const float floor_mag = __fmul_rn(fy, quantum);
+  float mag;
+  if (kMode == rt::kSR) {   // round_value's pure-SR path
+    mag = rt::uniform_from_bits(bits, 32) < frac
+              ? __fadd_rn(floor_mag, quantum)
+              : floor_mag;
+  } else {
+    const float ceil_mag = __fmul_rn(__fadd_rn(fy, 1.0f), quantum);
+    float u = 0.5f, p_up;
+    if (kMode == rt::kSignedSREps) {
+      u = rt::uniform_from_bits(bits, 32);
+      const float bias = __fmul_rn(__fmul_rn(rt::sign_of(z), sign_v), p.eps);
+      p_up = fminf(fmaxf(__fadd_rn(frac, -bias), 0.0f), 1.0f);
+    } else {   // rn, ties to even
+      const float odd = (static_cast<int>(fy) & 1) ? 1.0f : 0.0f;
+      p_up = frac > 0.5f ? 1.0f : (frac < 0.5f ? 0.0f : odd);
     }
+    mag = (u < p_up) ? ceil_mag : floor_mag;
+    if (frac == 0.0f) mag = mag_in;
+  }
+  return isfinite(x) ? copysignf(fminf(mag, p.xmax), z) : x;
+}
+
+// The eq.-8 chain with the trainer's modes fixed.
+__device__ __forceinline__ float trainer_chain(const Chain& c, float x,
+                                               float g, float t, uint32_t b2,
+                                               uint32_t b3) {
+  const float g_hat = round_narrow<rt::kRN>(g, 0u, c.grad);
+  const float upd = round_narrow<rt::kSR>(__fmul_rn(t, g_hat), b2, c.mul);
+  const float z = __fadd_rn(x, -upd);
+  return round_narrow<rt::kSignedSREps>(z, b3, c.sub,
+                                        sign_v(c.sub_v, g_hat));
+}
+
+// Four consecutive elements of the flat vector and their carries.
+struct Group {
+  int64_t i0;
+  int count;   // elements in range: 4, fewer at the tail, 0 past the end
+  bool vec;    // every access of the group is one vector access
+  float x[4], g[4], m[4], v[4], cm[4], cv[4];
+};
+
+struct K5Args {
+  const float* x;
+  const float* g;
+  const void* m;
+  const void* v;
+  const float* cm;
+  const float* cv;
+  float* ox;
+  void* om;
+  void* ov;
+  float* ocm;
+  float* ocv;
+  int64_t n;
+  int vec;     // every pointer aligned for the vector accesses
+  AdamScalars sc;
+  uint32_t k0, k1;
+  Chain c;
+  Moment ms, vs;
+};
+
+template <bool kTrainer, bool kKahan>
+__device__ __forceinline__ void load_group(const K5Args& a, Group& q) {
+  load4(a.x, q.i0, q.count, q.vec, q.x);
+  load4(a.g, q.i0, q.count, q.vec, q.g);
+  load_moment4<kTrainer>(a.m, q.i0, q.count, q.vec, a.ms, q.m);
+  load_moment4<kTrainer>(a.v, q.i0, q.count, q.vec, a.vs, q.v);
+  if (kKahan) {
+    load4(a.cm, q.i0, q.count, q.vec, q.cm);
+    load4(a.cv, q.i0, q.count, q.vec, q.cv);
+  }
+}
+
+// Draw every word of the group first (the moments' fields of streams 8 and
+// 9, the chain's pair words of each element), then run its arithmetic and
+// store it.
+template <bool kTrainer, bool kKahan>
+__device__ __forceinline__ void update_group(const K5Args& a, Group& q) {
+  const Chain& c = a.c;
+  const AdamScalars& sc = a.sc;
+  const uint32_t row = static_cast<uint32_t>(static_cast<uint64_t>(q.i0) /
+                                             kLanes);
+  const uint32_t c0 = static_cast<uint32_t>(q.i0) % kLanes;
+  uint32_t bm[4] = {0u, 0u, 0u, 0u}, bv[4] = {0u, 0u, 0u, 0u};
+  if (kTrainer || (a.ms.round.enabled && a.ms.round.mode != rt::kRN))
+    rt::element_bits4(a.k0, a.k1, 8u, kTrainer ? 32 : a.ms.round.rand_bits,
+                      row, c0, bm);
+  if (kTrainer || (a.vs.round.enabled && a.vs.round.mode != rt::kRN))
+    rt::element_bits4(a.k0, a.k1, 9u, kTrainer ? 32 : a.vs.round.rand_bits,
+                      row, c0, bv);
+  // the chain's words, as fused_qupdate_prng_kernel deals them
+  uint32_t b1[4], b2[4], b3[4];
+  const bool need[3] = {kTrainer ? false : stochastic(c.grad),
+                        kTrainer ? true : stochastic(c.mul),
+                        kTrainer ? true : stochastic(c.sub)};
+  const int n_stoch = int(need[0]) + int(need[1]) + int(need[2]);
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    uint32_t w0 = 0u, w1 = 0u, w2 = 0u, unused;
+    if (n_stoch > 0) rt::threefry2x32(a.k0, a.k1, row, c0 + j, w0, w1);
+    if (n_stoch > 2)
+      rt::threefry2x32(a.k0, a.k1 + rt::kGolden, row, c0 + j, w2, unused);
+    b1[j] = b2[j] = b3[j] = 0u;
+    if (need[0]) { b1[j] = w0; w0 = w1; w1 = w2; }
+    if (need[1]) { b2[j] = w0; w0 = w1; }
+    if (need[2]) b3[j] = w0;
+  }
+  float xo[4], mo[4], vo[4];
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    const float xi = ftz(q.x[j]);
+    const float gi = ftz(q.g[j]);
+    float cmi = kKahan ? ftz(q.cm[j]) : 0.0f;
+    float cvi = kKahan ? ftz(q.cv[j]) : 0.0f;
+    mo[j] = moment_ema<kTrainer, kKahan>(a.ms, q.m[j], gi, false, sc.b1,
+                                         sc.ob1, bm[j], cmi);
+    vo[j] = moment_ema<kTrainer, kKahan>(a.vs, q.v[j], gi, true, sc.b2,
+                                         sc.ob2, bv[j], cvi);
+    const float den = ftz(__fadd_rn(
+        ftz(__fsqrt_rn(ftz(__fdiv_rn(vo[j], sc.c2)))), sc.eps));
+    const float d = ftz(__fmaf_rn(
+        sc.wd, xi, ftz(__fdiv_rn(mo[j], ftz(__fmul_rn(sc.c1, den))))));
+    xo[j] = kTrainer ? trainer_chain(c, xi, d, sc.t, b2[j], b3[j])
+                     : update_chain(c, xi, d, sc.t, b1[j], b2[j], b3[j]);
+    q.cm[j] = cmi;
+    q.cv[j] = cvi;
+  }
+  store4(a.ox, q.i0, q.count, q.vec, xo);
+  store_moment4<kTrainer>(a.om, q.i0, q.count, q.vec, a.ms, mo);
+  store_moment4<kTrainer>(a.ov, q.i0, q.count, q.vec, a.vs, vo);
+  if (kKahan) {
+    store4(a.ocm, q.i0, q.count, q.vec, q.cm);
+    store4(a.ocv, q.i0, q.count, q.vec, q.cv);
+  }
+}
+
+// Each thread takes groups of 4 consecutive elements (a warp covers one
+// row of the 128-lane layout), kInFlight of them kThreads groups apart per
+// iteration, all their loads issued before any arithmetic.  One group per
+// iteration keeps the trainer instance at 48 registers, so 5 blocks of 256
+// threads share an SM; two in flight (71 registers, 3 blocks) read 16 %
+// slower on an H100 (launch/k5_variants.py): the warps, not the loads in
+// flight, hide the latency of this instruction-bound loop.
+constexpr int kInFlight = 1;
+
+template <bool kTrainer, bool kKahan>
+__global__ void __launch_bounds__(kThreads)
+fused_qadam_prng_kernel(const float* __restrict__ x,
+                        const float* __restrict__ g,
+                        const void* __restrict__ m,
+                        const void* __restrict__ v,
+                        const float* __restrict__ cm,
+                        const float* __restrict__ cv, float* __restrict__ ox,
+                        void* __restrict__ om, void* __restrict__ ov,
+                        float* __restrict__ ocm, float* __restrict__ ocv,
+                        int64_t n, int vec, AdamScalars sc, uint32_t k0,
+                        uint32_t k1, Chain c, Moment ms, Moment vs) {
+  const K5Args a{x, g, m, v, cm, cv, ox, om, ov, ocm, ocv, n, vec, sc,
+                 k0, k1, c, ms, vs};
+  const int64_t groups = (n + 3) / 4;
+  const int64_t span = int64_t(gridDim.x) * kThreads * kInFlight;
+  for (int64_t q0 = int64_t(blockIdx.x) * kThreads * kInFlight +
+                    threadIdx.x;
+       q0 < groups; q0 += span) {
+    Group q[kInFlight];
+#pragma unroll
+    for (int u = 0; u < kInFlight; ++u) {
+      const int64_t gi = q0 + int64_t(u) * kThreads;
+      q[u].i0 = 4 * gi;
+      const int64_t left = n - 4 * gi;   // elements from the group on
+      q[u].count = left >= 4 ? 4 : (left > 0 ? static_cast<int>(left) : 0);
+      q[u].vec = vec && q[u].count == 4;
+      if (q[u].count > 0) load_group<kTrainer, kKahan>(a, q[u]);
+    }
+#pragma unroll
+    for (int u = 0; u < kInFlight; ++u)
+      if (q[u].count > 0) update_group<kTrainer, kKahan>(a, q[u]);
   }
 }
 
@@ -333,6 +595,8 @@ Moment make_moment(const int* q) {
   s.bittrick = q[6];
   s.code_bytes = q[7];
   s.pack = rt::PackParams{q[8], q[9], q[2], q[10]};
+  s.bf16 = s.code_bytes == 2 && s.pack.ebits == 8 && s.pack.mbits == 7 &&
+           s.pack.emin == -126 && s.pack.has_nf;
   s.xmax = float_from_bits(q[11]);
   s.xmin = float_from_bits(q[12]);
   return s;
@@ -357,6 +621,32 @@ unsigned grid_for(int64_t n) {
   const int64_t blocks = (n + kThreads - 1) / kThreads;
   const int64_t cap = 132 * 64;   // a few waves of resident blocks
   return static_cast<unsigned>(blocks < cap ? blocks : cap);
+}
+
+// round_value's `narrow`: the site's scaled values stay in float32 range.
+bool narrow(const rt::RoundParams& p) {
+  return p.emin - p.precision + 1 >= -126 && p.emax - p.precision < 126;
+}
+
+bool site_is(const rt::RoundParams& p, int mode) {
+  return p.enabled && p.mode == mode && narrow(p) &&
+         (mode == rt::kRN || p.rand_bits == 32);
+}
+
+// Whether a launch is the trainer instance's case (fused_qadam_prng_kernel).
+bool trainer_case(const Chain& c, const Moment& ms, const Moment& vs,
+                  bool kahan) {
+  for (const Moment* s : {&ms, &vs})
+    if (!s->round.enabled || s->round.mode != rt::kSR || s->bittrick ||
+        s->round.rand_bits != 32 || !s->bf16)
+      return false;
+  return !kahan && site_is(c.grad, rt::kRN) && site_is(c.mul, rt::kSR) &&
+         site_is(c.sub, rt::kSignedSREps);
+}
+
+bool aligned(const void* p, int bytes) {
+  return reinterpret_cast<uintptr_t>(p) % static_cast<uintptr_t>(bytes) ==
+         0;
 }
 
 }  // namespace
@@ -402,6 +692,8 @@ extern "C" int momentum_fma(const float* m, const float* g, float* out,
 // K5.  m, v (and the outputs om, ov): float32 or uint8/uint16 codes per
 // moment[7]; cm, cv, ocm, ocv: float32 Kahan carries or all null.
 // scal order: t, c1, c2, eps, wd, b1, 1 - b1, b2, 1 - b2 (float32).
+// instance: 0 generic, 1 the trainer's (fused_update.k5_instance); a
+// launch that does not fit the trainer instance is refused.
 extern "C" int fused_qadam_prng(const float* x, const float* g,
                                 const void* m, const void* v,
                                 const float* cm, const float* cv, float* ox,
@@ -411,14 +703,41 @@ extern "C" int fused_qadam_prng(const float* x, const float* g,
                                 float b2, float ob2, uint32_t k0,
                                 uint32_t k1, const int* sites,
                                 const float* xmax, const float* site_eps,
-                                const int* moment, void* stream) {
+                                const int* moment, int instance,
+                                void* stream) {
   if (n <= 0) return 0;
   if ((cm == nullptr) != (ocv == nullptr)) return -1;
+  const bool kahan = cm != nullptr;
   const Chain c = make_chain(sites, xmax, site_eps);
   const AdamScalars sc{t, c1, c2, eps, wd, b1, ob1, b2, ob2};
-  fused_qadam_prng_kernel<<<grid_for((n + 3) / 4), kThreads, 0,
-                            static_cast<cudaStream_t>(stream)>>>(
-      x, g, m, v, cm, cv, ox, om, ov, ocm, ocv, n, sc, k0, k1, c,
-      make_moment(moment), make_moment(moment + 16));
+  const Moment ms = make_moment(moment), vs = make_moment(moment + 16);
+  if (instance == 1 && !trainer_case(c, ms, vs, kahan))
+    return static_cast<int>(cudaErrorInvalidValue);
+  // a group of four moves as 16-byte float32 accesses and 4- or 8-byte
+  // code accesses where every operand allows it
+  bool vec = true;
+  for (const float* p : {x, g, cm, cv, static_cast<const float*>(ox),
+                         static_cast<const float*>(ocm),
+                         static_cast<const float*>(ocv)})
+    vec = vec && aligned(p, 16);
+  for (int i = 0; i < 2; ++i) {
+    const Moment& s = i ? vs : ms;
+    const int width = 4 * (s.code_bytes ? s.code_bytes : 4);
+    vec = vec && aligned(i ? v : m, width) && aligned(i ? ov : om, width);
+  }
+  const dim3 grid(grid_for(((n + 3) / 4 + kInFlight - 1) / kInFlight));
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (instance == 1)
+    fused_qadam_prng_kernel<true, false><<<grid, kThreads, 0, st>>>(
+        x, g, m, v, cm, cv, ox, om, ov, ocm, ocv, n, vec, sc, k0, k1, c, ms,
+        vs);
+  else if (kahan)
+    fused_qadam_prng_kernel<false, true><<<grid, kThreads, 0, st>>>(
+        x, g, m, v, cm, cv, ox, om, ov, ocm, ocv, n, vec, sc, k0, k1, c, ms,
+        vs);
+  else
+    fused_qadam_prng_kernel<false, false><<<grid, kThreads, 0, st>>>(
+        x, g, m, v, cm, cv, ox, om, ov, ocm, ocv, n, vec, sc, k0, k1, c, ms,
+        vs);
   return static_cast<int>(cudaGetLastError());
 }

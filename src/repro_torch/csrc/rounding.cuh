@@ -93,6 +93,37 @@ __device__ __forceinline__ uint32_t element_bits(uint32_t k0, uint32_t k1,
          ((1u << rand_bits) - 1u);
 }
 
+// element_bits at columns c0..c0+3 of one row (c0 % 4 == 0) from the
+// fewest Threefry evaluations: one word pair covers 2, 4 or 8 columns at
+// r = 32, 16 or 8, so the four take two evaluations at r = 32 and one
+// otherwise.
+__device__ __forceinline__ void element_bits4(uint32_t k0, uint32_t k1,
+                                              uint32_t stream, int rand_bits,
+                                              uint32_t row, uint32_t c0,
+                                              uint32_t (&out)[4]) {
+  const uint32_t key1 = k1 + kGolden * stream;
+  uint32_t w0, w1;
+  if (rand_bits == 32) {      // word c % 2 of pair c / 2
+    threefry2x32(k0, key1, row, c0 >> 1, w0, w1);
+    out[0] = w0;
+    out[1] = w1;
+    threefry2x32(k0, key1, row, (c0 >> 1) + 1u, w0, w1);
+    out[2] = w0;
+    out[3] = w1;
+  } else if (rand_bits == 16) {   // word (c / 2) % 2 of pair c / 4
+    threefry2x32(k0, key1, row, c0 >> 2, w0, w1);
+    out[0] = w0 & 0xFFFFu;
+    out[1] = w0 >> 16;
+    out[2] = w1 & 0xFFFFu;
+    out[3] = w1 >> 16;
+  } else {                    // r = 8: word (c / 4) % 2 of pair c / 8
+    threefry2x32(k0, key1, row, c0 >> 3, w0, w1);
+    const uint32_t w = ((c0 >> 2) & 1u) ? w1 : w0;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) out[j] = (w >> (8 * j)) & 0xFFu;
+  }
+}
+
 // Random bits -> uniform in [0, 1): top 24 bits for r = 32, the centred
 // (b + 1/2) * 2^-r for r in {8, 16}.
 __device__ __forceinline__ float uniform_from_bits(uint32_t bits,

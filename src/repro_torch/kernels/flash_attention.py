@@ -2,7 +2,10 @@
 (counterpart of ``repro.kernels.flash_attention``).
 
 ``flash_fwd``     -> ``csrc/flash_attention.cu:flash_fwd``, replacing
-                     ``repro/kernels/flash_attention.py:flash_fwd_p`` (K6);
+                     ``repro/kernels/flash_attention.py:flash_fwd_p`` (K6):
+                     the single-pass kernel, or ``flash_fwd_two_pass``
+                     where a block's logits do not fit in shared memory
+                     (``fwd_kernel_for``; counted apart);
 ``flash_bwd_dq``  -> ``flash_bwd_dq``, replacing ``flash_bwd_dq_p`` (K7);
 ``flash_bwd_dkv`` -> ``flash_bwd_dkv``, replacing ``flash_bwd_dkv_p`` (K7');
 ``flash_decode``  -> ``flash_decode``, replacing ``flash_decode_p`` (K9);
@@ -52,9 +55,15 @@ _DEF_BLOCK = 512
 _MODES = {"rn": 0, "sr": 1}
 _D_MAX = 128                     # head dims the kernels take
 
-LAUNCHES: Dict[str, int] = {"flash_fwd": 0, "flash_bwd_dq": 0,
-                            "flash_bwd_dkv": 0, "flash_decode": 0,
-                            "flash_decode_paged": 0}
+LAUNCHES: Dict[str, int] = {"flash_fwd": 0, "flash_fwd_two_pass": 0,
+                            "flash_bwd_dq": 0, "flash_bwd_dkv": 0,
+                            "flash_decode": 0, "flash_decode_paged": 0}
+# K6's single-pass kernel: head dims it is compiled for, keys per staged
+# tile, query rows per block, and the shared memory a block may take
+FWD_DIMS = (16, 32, 64, 128)
+FWD_TILE_KEYS = 128
+FWD_ROWS = 32
+SMEM_MAX = 232448
 
 
 def reset_launches() -> None:
@@ -483,21 +492,57 @@ def _ptr(t: Optional[torch.Tensor]):
     return ctypes.c_void_p(None if t is None else t.data_ptr())
 
 
+def fwd_smem_bytes(kb: int, d: int) -> int:
+    """Shared memory of one block of K6's single-pass kernel
+    (``csrc/flash_attention.cu:fwd1_smem``): q rows, two staged k/v tiles,
+    the logits over a logical block of ``kb`` keys, row statistics."""
+    stride = -(-kb // FWD_TILE_KEYS) * FWD_TILE_KEYS + 4
+    return 4 * (FWD_ROWS * d + 2 * FWD_TILE_KEYS * d + FWD_ROWS * stride
+                + 4 * FWD_ROWS)
+
+
+def fwd_kernel_for(Skv: int, dk: int, dv: int, kv_block: int) -> str:
+    """The kernel K6 launches for a shape: ``"flash_fwd"``, the single
+    pass, where ``dk == dv`` is one of ``FWD_DIMS`` and a block's logits
+    over a logical kv block fit in shared memory; else
+    ``"flash_fwd_two_pass"``, which recomputes each logit in a second pass
+    instead of holding it.  Both give the same bits."""
+    kb = min(kv_block, Skv)
+    if dk != dv or dk not in FWD_DIMS or kb < 1 \
+            or fwd_smem_bytes(kb, dk) > SMEM_MAX:
+        return "flash_fwd_two_pass"
+    return "flash_fwd"
+
+
+def _aligned16(t: torch.Tensor) -> torch.Tensor:
+    """``t``, or a copy where its data does not start on 16 bytes (the
+    single-pass kernel stages k and v rows with 16-byte copies)."""
+    return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
 def flash_fwd(q, k, v, seeds, specs, *, scale, n_heads: int, n_kv: int,
               causal: bool = True, window: int = 0,
               q_block: int = _DEF_BLOCK, kv_block: int = _DEF_BLOCK,
-              q_offset: int = 0, return_logits: bool = False):
+              q_offset: int = 0, return_logits: bool = False,
+              kernel: Optional[str] = None):
     """Rounded flash-attention forward.  q: (B·H, Sq, dk); k/v: (B·KV,
     Skv, dk/dv); seeds: (B·H, 6) [qk | av | out] words.  Returns (out
     (B·H, Sq, dv), m (B·H, Sq), l (B·H, Sq)) float32, and with
     ``return_logits`` the rounded masked logits (B·H, Sq, Skv) (-inf
-    where masked), which the checks compare bitwise."""
+    where masked), which the checks compare bitwise.  ``kernel``: on the
+    card, ``"flash_fwd_two_pass"`` launches the two-pass kernel whatever
+    ``fwd_kernel_for`` chooses (the checks hold the two against each
+    other)."""
     specs = AttnSpecs(*specs)
     BH, Sq, dk = q.shape
     BKV, Skv, _ = k.shape
     dv = v.shape[-1]
     _check_gqa(BH, BKV, n_heads, n_kv)
     site_ints, site_xmax = _site_args(specs)
+    name = fwd_kernel_for(Skv, dk, dv, kv_block)
+    if kernel not in (None, name, "flash_fwd_two_pass"):
+        raise ValueError(f"flash_fwd: cannot launch {kernel!r} for this "
+                         f"shape (it takes {name!r})")
     if _check((q, k, v), "flash_fwd", max(dk, dv)):
         return flash_fwd_plain(q, k, v, seeds, specs, scale=scale,
                                n_heads=n_heads, n_kv=n_kv, causal=causal,
@@ -505,14 +550,14 @@ def flash_fwd(q, k, v, seeds, specs, *, scale, n_heads: int, n_kv: int,
                                kv_block=kv_block, q_offset=q_offset,
                                return_logits=return_logits)
     dev = q.device
-    q, k, v = _f32(q), _f32(k), _f32(v)
+    q, k, v = _f32(q), _aligned16(_f32(k)), _aligned16(_f32(v))
     out = torch.empty((BH, Sq, dv), device=dev)
     m = torch.empty((BH, Sq), device=dev)
     l = torch.empty((BH, Sq), device=dev)
     s_out = torch.full((BH, Sq, Skv), -float("inf"), device=dev) \
         if return_logits else None
     if out.numel():
-        _launch("flash_fwd", _ptr(q), _ptr(k), _ptr(v),
+        _launch(kernel or name, _ptr(q), _ptr(k), _ptr(v),
                 _ptr(_dev_seeds(seeds, BH, 6, dev)), _ptr(out), _ptr(m),
                 _ptr(l), _ptr(s_out),
                 *_common_args(BH, Sq, Skv, dk, dv, n_heads, n_kv, q_block,

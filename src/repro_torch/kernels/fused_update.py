@@ -308,6 +308,38 @@ def _direction(m, v, x, c1, c2, eps, wd):
     return fma(wd, x, adam_quotient(m, v, c1, c2, eps))
 
 
+# K5's compiled instances, by the index its entry point takes
+K5_INSTANCES = ("generic", "trainer")
+
+
+def _narrow(spec: RoundingSpec) -> bool:
+    """Whether a grid's scaled values stay in float32's exponent range
+    (``rounding.cuh``'s ``narrow``)."""
+    f = get_grid(spec.fmt).fmt
+    return f.emin - f.precision + 1 >= -126 and f.emax - f.precision < 126
+
+
+def k5_instance(cfg: GDRounding, m_spec: RoundingSpec, v_spec: RoundingSpec,
+                packed: bool, kahan: bool) -> str:
+    """Which compiled instance of K5 a case runs: ``"trainer"`` for
+    ``train.ADAM_RUN``'s case -- bf16 moment codes rounded by SR with
+    32-bit draws, no Kahan carries, the chain rn / sr / signed-SRe on
+    narrow grids with 32-bit draws -- whose schemes and storage are fixed
+    at compile time, else ``"generic"``.  The kernel's entry point
+    refuses a trainer launch that does not fit."""
+    moments = packed and not kahan and all(
+        not s.is_identity and get_grid(s.fmt).fmt.name == "bfloat16"
+        and s.scheme.name == "sr" and s.rand_bits == 32
+        for s in (m_spec, v_spec))
+    chain = list(cfg.step_specs())
+    modes = tuple(None if s.is_identity else s.scheme.name for s in chain)
+    if moments and modes == ("rn", "sr", "signed_sr_eps") \
+            and all(_narrow(s) for s in chain) \
+            and all(s.rand_bits == 32 for s in chain[1:]):
+        return "trainer"
+    return "generic"
+
+
 def fused_qadam_prng_plain(x, g, m, v, scal, seed: Words, cfg: GDRounding,
                            *, m_spec: RoundingSpec, v_spec: RoundingSpec,
                            b1: float, b2: float, packed: bool, cm=None,
@@ -398,6 +430,7 @@ def fused_qadam_prng(x: torch.Tensor, g: torch.Tensor, m: torch.Tensor,
         wd, f32(b1), f32(1.0 - b1), f32(b2), f32(1.0 - b2),
         seed[0] & M32, seed[1] & M32, *_site_args(cfg),
         _moment_args(m_spec, v_spec, packed),
+        K5_INSTANCES.index(k5_instance(cfg, m_spec, v_spec, packed, kahan)),
         torch.cuda.current_stream(x.device).cuda_stream)
     _launch_check(rc, "fused_qadam_prng")
     LAUNCHES["fused_qadam_prng"] += 1
@@ -508,6 +541,6 @@ def _lib():
         lib.momentum_fma.restype = c.c_int
         lib.fused_qadam_prng.argtypes = [c.c_void_p] * 11 + [
             c.c_int64] + [c.c_float] * 9 + [c.c_uint32, c.c_uint32] \
-            + tail[:3] + [c.POINTER(c.c_int), c.c_void_p]
+            + tail[:3] + [c.POINTER(c.c_int), c.c_int, c.c_void_p]
         lib.fused_qadam_prng.restype = c.c_int
     return lib

@@ -212,6 +212,61 @@ def test_k5_rejects_what_it_does_not_support():
 
 
 # -------------------------------------------------------- bias correction --
+# (chain, m spec, v spec, packed, kahan, the K5 instance it runs)
+K5_INSTANCE_CASES = [
+    (CHAIN, "bf16-sr", "bf16-sr", True, False, "trainer"),
+    (("e4m3-rn", "e4m3-sr", "e4m3-signed_sr_eps-e0.2"), "bf16-sr",
+     "bf16-sr", True, False, "trainer"),
+    (CHAIN, "bf16-sr-bittrick", "bf16-sr", True, False, "generic"),
+    (CHAIN, "bf16-sr", "e4m3-sr", True, False, "generic"),
+    (CHAIN, "bf16-sr", "bf16-sr", True, True, "generic"),
+    (CHAIN, "bf16-sr", "bf16-sr", False, False, "generic"),
+    (CHAIN, "fp32", "fp32", False, False, "generic"),
+    (CHAIN, "bf16-sr-r16", "bf16-sr-r16", True, False, "generic"),
+    (CHAIN, "bf16-rn", "bf16-rn", True, False, "generic"),
+    (CHAIN, "binary8-sr", "binary8-sr", True, False, "generic"),
+    (OTHER_CHAINS["sr_eps-r16-binary8"], "bf16-sr", "bf16-sr", True, False,
+     "generic"),
+    (OTHER_CHAINS["e4m3-mul-identity"], "bf16-sr", "bf16-sr", True, False,
+     "generic"),
+    (("binary8-rn", "binary8-sr-r16", "binary8-signed_sr_eps-e0.1"),
+     "bf16-sr", "bf16-sr", True, False, "generic"),
+    # bf16 sites scale past float32's range (not `narrow`)
+    (("bf16-rn", "bf16-sr", "bf16-signed_sr_eps-e0.1"), "bf16-sr", "bf16-sr",
+     True, False, "generic"),
+]
+
+
+@pytest.mark.parametrize("chain,m_name,v_name,packed,kahan,want",
+                         K5_INSTANCE_CASES)
+def test_k5_instance_choice(chain, m_name, v_name, packed, kahan, want):
+    cfg = tgd.GDRounding(*(tr.parse_spec(s) for s in chain), sub_v="grad")
+    got = tfu.k5_instance(cfg, tr.parse_spec(m_name), tr.parse_spec(v_name),
+                          packed, kahan)
+    assert got == want and got in tfu.K5_INSTANCES
+
+
+def test_k5_instance_of_adam_run():
+    """``train.ADAM_RUN``'s optimizer runs K5's trainer instance on the
+    fused path (packed codes) and the generic one on no other."""
+    run = ttrain.ADAM_RUN
+    cfg = ttrain.rounding_config(run["rounding_kind"], run["fmt"], run["eps"])
+    spec, kahan = ttrain.parse_moments_spec(run["moments_spec"])
+    opt = ttrain.build_optimizer("adam", lr=run["lr"], momentum=0.0, cfg=cfg,
+                                 update_path=run["update_path"],
+                                 moments_spec=run["moments_spec"])
+    assert opt.moments_packed and not kahan
+    assert tfu.k5_instance(cfg, spec, spec, True, kahan) == "trainer"
+
+
+def test_k5_narrow_grids():
+    """rounding.cuh's ``narrow``: every scaled value of the site stays in
+    float32's exponent range."""
+    assert tfu._narrow(tr.parse_spec("binary8-sr"))
+    assert tfu._narrow(tr.parse_spec("e4m3-sr"))
+    assert not tfu._narrow(tr.parse_spec("bf16-sr"))
+
+
 def test_bias_corrections_match_reference():
     """``[t, c1, c2, eps, wd]`` as ``QAdam._apply_fused`` builds it, steps
     1 ... 10 000: the powers come from XLA's float32 pow."""

@@ -536,7 +536,8 @@ def test_attention_launches_per_path(monkeypatch, tmp_path):
     L = reduced(get_config("tinyllama-1.1b")).n_layers
     out = tserve.run("tinyllama-1.1b", reduced=True, batch=2, prompt_len=5,
                      gen=3, gemm_policy="binary8-paper-attn", device="cpu")
-    assert calls == {"flash_fwd": 0, "flash_bwd_dq": 0, "flash_bwd_dkv": 0,
+    assert calls == {"flash_fwd": 0, "flash_fwd_two_pass": 0,
+                     "flash_bwd_dq": 0, "flash_bwd_dkv": 0,
                      "flash_decode": L * (5 + 3), "flash_decode_paged": 0}
     assert out["cache_dtype"] == torch.uint8
     assert out["cache_bytes"] == 2 * L * 2 * 8 * 2 * 16
@@ -546,10 +547,73 @@ def test_attention_launches_per_path(monkeypatch, tmp_path):
                       rounding_kind="signed_sr_eps", fmt="binary8",
                       update_path="fused", device="cpu", verbose=False,
                       ckpt_dir=str(tmp_path))
-    assert calls == {"flash_fwd": 2 * L, "flash_bwd_dq": 2 * L,
-                     "flash_bwd_dkv": 2 * L, "flash_decode": 0,
-                     "flash_decode_paged": 0}
+    assert calls == {"flash_fwd": 2 * L, "flash_fwd_two_pass": 0,
+                     "flash_bwd_dq": 2 * L, "flash_bwd_dkv": 2 * L,
+                     "flash_decode": 0, "flash_decode_paged": 0}
     assert all(np.isfinite(h["loss"]) for h in hist["history"])
+
+
+# (Skv, head dim, kv_block, the forward kernel K6 launches): the single
+# pass where the head dim is compiled and a block's logits fit in shared
+# memory, else the two-pass kernel
+FWD_PLANS = [
+    (256, 64, 1024, "flash_fwd"),            # the train step: one block
+    (1024, 64, 1024, "flash_fwd"),
+    (2048, 64, 2048, "flash_fwd_two_pass"),  # 2048 keys' logits: 329 KB
+    (2048, 64, 1024, "flash_fwd"),           # blocks of 1024 keys
+    (256, 128, 1024, "flash_fwd"),
+    (1024, 128, 1024, "flash_fwd_two_pass"),
+    (512, 128, 512, "flash_fwd"),
+    (200, 16, 64, "flash_fwd"),              # the reduced model's head dim
+    (200, 32, 200, "flash_fwd"),
+    (256, 48, 64, "flash_fwd_two_pass"),     # a head dim not compiled
+    (0, 64, 512, "flash_fwd_two_pass"),      # no keys
+]
+
+
+@pytest.mark.parametrize("Skv,d,kb,want", FWD_PLANS)
+def test_fwd_kernel_choice(Skv, d, kb, want):
+    assert TF.fwd_kernel_for(Skv, d, d, kb) == want
+    if d in TF.FWD_DIMS and Skv:
+        fits = TF.fwd_smem_bytes(min(kb, Skv), d) <= TF.SMEM_MAX
+        assert fits == (want == "flash_fwd")
+
+
+def test_fwd_kernel_choice_needs_equal_head_dims():
+    assert TF.fwd_kernel_for(256, 64, 32, 256) == "flash_fwd_two_pass"
+    assert TF.fwd_kernel_for(256, 32, 32, 256) == "flash_fwd"
+
+
+def test_fwd_smem_bytes():
+    """q rows, two 128-key k/v tiles, the logits at a stride of whole
+    tiles plus 4, four row statistics: 105 KB at the train shape, and
+    blocks up to 1152 keys fit at d = 64."""
+    assert TF.fwd_smem_bytes(256, 64) == 4 * (32 * 64 + 2 * 128 * 64
+                                              + 32 * 260 + 4 * 32)
+    assert TF.fwd_smem_bytes(256, 64) == 107520
+    assert TF.fwd_smem_bytes(1152, 64) <= TF.SMEM_MAX \
+        < TF.fwd_smem_bytes(1153, 64)
+    assert TF.fwd_smem_bytes(129, 64) == TF.fwd_smem_bytes(256, 64)
+
+
+def test_flash_fwd_kernel_override_is_checked():
+    """``kernel`` may name the two-pass kernel for any shape, the single
+    pass only where it fits; anything else raises before any work."""
+    rng = np.random.default_rng(5)
+    q, k, v = (torch.from_numpy(rng.standard_normal((2, 9, 16)).astype(
+        np.float32)) for _ in range(3))
+    seeds = rng.integers(0, 2 ** 32, (2, 6), dtype=np.uint64)
+    specs = [parse_spec("binary8-sr")] * 3
+    kw = dict(scale=0.25, n_heads=2, n_kv=2, kv_block=4)
+    ref = TF.flash_fwd(q, k, v, seeds, specs, **kw)
+    for kernel in ("flash_fwd", "flash_fwd_two_pass"):
+        got = TF.flash_fwd(q, k, v, seeds, specs, kernel=kernel, **kw)
+        assert all(torch.equal(a, b) for a, b in zip(ref, got))
+    with pytest.raises(ValueError, match="cannot launch"):
+        TF.flash_fwd(q, k, v, seeds, specs, kernel="fwd_kernel", **kw)
+    q3, k3, v3 = (x.repeat(1, 1, 3) for x in (q, k, v))   # head dim 48
+    with pytest.raises(ValueError, match="cannot launch"):
+        TF.flash_fwd(q3, k3, v3, seeds, specs, kernel="flash_fwd", **kw)
 
 
 def test_profile_serve_needs_a_card():

@@ -17,7 +17,9 @@ hidden.  The attention kernels: the rounded logits and their row max
 bitwise on exact-sum inputs; out, dq, dk, dv at most max(1, 1e-4 n)
 elements different on N(0, 1) inputs (float32 sums in another order, a
 value within an ulp of a rounding decision); K9 over packed codes bitwise
-K9 over the same values unpacked.  K10 (paged decode) bitwise equal to its
+K9 over the same values unpacked; K6's single pass bitwise equal to its
+two-pass kernel in every output on any input (the same operations in the
+same order).  K10 (paged decode) bitwise equal to its
 twin on exact-sum inputs (every key of a request equal: each logit of a
 row equal, every exp exactly 1, every sum exact), within the attention
 contract on N(0, 1) inputs, bitwise equal to K9 on each request's
@@ -25,8 +27,9 @@ contiguous cache with ``kv_block == page``, the same bits at two
 placements of the same content and over codes as over their values.
 The SR cast (K1') is bitwise on any input; the batched GEMM (K8') is held
 to the GEMM contract.  K5 (the
-fused QAdam step) is bitwise equal to its twin in x, the moment codes or
-values and the Kahan carries, on any input.  The reduced
+fused QAdam step), both its compiled instances, is bitwise equal to its
+twin in x, the moment codes or values and the Kahan carries, on any
+input.  The reduced
 qwen3-moe decoder on the card against the CPU twins: the serve test's
 statistical logit bound (a GEMM sum flipped upstream moves an SR
 decision by a grid ulp, which propagates).  The explicit-bits kernels
@@ -338,9 +341,97 @@ def test_flash_kernels_count_their_launches(cuda):
                                  np.array([5, 3], np.int32),
                                  np.array([[1, 0], [0, 1]], np.int32), specs,
                                  scale=0.125, n_kv=1)
-    assert tfa.LAUNCHES == {"flash_fwd": 1, "flash_bwd_dq": 1,
-                            "flash_bwd_dkv": 1, "flash_decode": 1,
-                            "flash_decode_paged": 1}
+    assert tfa.LAUNCHES == {"flash_fwd": 1, "flash_fwd_two_pass": 0,
+                            "flash_bwd_dq": 1, "flash_bwd_dkv": 1,
+                            "flash_decode": 1, "flash_decode_paged": 1}
+
+
+def _fwd_case(H, KV, S, d, exact, cuda, seed=0):
+    make = (lambda sh, sd: _exact(sh, 8.0, sd)) if exact \
+        else (lambda sh, sd: _normal(sh, sd))
+    return [make(sh, seed + i).to(cuda) for i, sh in enumerate(
+        ((H, S, d), (KV, S, d), (KV, S, d)))]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("H,KV", [(8, 1), (32, 4)])
+@pytest.mark.parametrize("mask", ["causal", "window"])   # window: causal too
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("kb", [64, 128, 256, 1024])
+@pytest.mark.parametrize("S", [200, 256])
+def test_flash_fwd_single_pass_matches_plain(cuda, S, kb, d, mask, H, KV):
+    """K6's single pass on exact-sum inputs: the rounded logits and m
+    bitwise equal to the twin; out within the attention contract."""
+    assert tfa.fwd_kernel_for(S, d, d, kb) == "flash_fwd"
+    specs = [parse_spec("binary8-sr")] * 3
+    seeds = np.random.default_rng(S + kb).integers(0, 2 ** 32, (H, 6),
+                                                   dtype=np.uint64)
+    kw = dict(scale=d ** -0.5, n_heads=H, n_kv=KV, causal=True,
+              window=37 if mask == "window" else 0, kv_block=kb)
+    q, k, v = _fwd_case(H, KV, S, d, True, cuda)
+    tfa.reset_launches()
+    got = tfa.flash_fwd(q, k, v, seeds, specs, return_logits=True, **kw)
+    assert tfa.LAUNCHES["flash_fwd"] == 1
+    assert tfa.LAUNCHES["flash_fwd_two_pass"] == 0
+    ref = tfa.flash_fwd_plain(q, k, v, seeds, specs, return_logits=True,
+                              **kw)
+    torch.cuda.synchronize()
+    for i in (1, 3):
+        assert torch.equal(got[i].view(torch.int32), ref[i].view(torch.int32))
+    _assert_flips(ref[0], got[0], "binary8", adjacent_only=False,
+                  share=max(1e-4, 1.0 / got[0].numel()))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("S,kb,d,causal,qoff,name", [
+    (256, 1024, 64, True, 0, "binary8-sr"),       # the train step's
+    (200, 64, 64, True, 3, "binary8-sr-r16"),
+    (200, 30, 32, True, 0, "binary8-sr-r8"),      # blocks off 4 keys
+    (130, 128, 128, False, 0, "e4m3-rn"),
+    (100, 32, 16, True, 0, "binary8-sr"),         # the reduced head dim
+])
+def test_flash_fwd_single_pass_matches_two_pass(cuda, S, kb, d, causal,
+                                                qoff, name):
+    """On N(0, 1) inputs K6's single pass gives the two-pass kernel's
+    out, m, l and logits bit for bit: each value is computed by the same
+    operations in the same order."""
+    H, KV = 8, 2
+    specs = [parse_spec(name)] * 3
+    seeds = np.random.default_rng(S).integers(0, 2 ** 32, (H, 6),
+                                              dtype=np.uint64)
+    q = _normal((H, S, d), 1).to(cuda)
+    k, v = (_normal((KV, S + qoff, d), sd).to(cuda) for sd in (2, 3))
+    kw = dict(scale=d ** -0.5, n_heads=H, n_kv=KV, causal=causal,
+              kv_block=kb, q_offset=qoff, return_logits=True)
+    one = tfa.flash_fwd(q, k, v, seeds, specs, **kw)
+    two = tfa.flash_fwd(q, k, v, seeds, specs, kernel="flash_fwd_two_pass",
+                        **kw)
+    torch.cuda.synchronize()
+    for a, b in zip(one, two):
+        assert torch.equal(a.view(torch.int32), b.view(torch.int32))
+
+
+@pytest.mark.gpu
+def test_flash_fwd_two_pass_when_block_does_not_fit(cuda):
+    """1024 keys of d = 128 in one logical block do not fit the single
+    pass: the two-pass kernel runs, counted under its own name, and holds
+    the twin's contract."""
+    H, S, d = 4, 1024, 128
+    assert tfa.fwd_kernel_for(S, d, d, S) == "flash_fwd_two_pass"
+    specs = [parse_spec("binary8-sr")] * 3
+    seeds = np.random.default_rng(9).integers(0, 2 ** 32, (H, 6),
+                                              dtype=np.uint64)
+    q, k, v = _fwd_case(H, 1, S, d, True, cuda)
+    kw = dict(scale=d ** -0.5, n_heads=H, n_kv=1, kv_block=S,
+              return_logits=True)
+    tfa.reset_launches()
+    got = tfa.flash_fwd(q, k, v, seeds, specs, **kw)
+    assert tfa.LAUNCHES["flash_fwd_two_pass"] == 1
+    assert tfa.LAUNCHES["flash_fwd"] == 0
+    ref = tfa.flash_fwd_plain(q, k, v, seeds, specs, **kw)
+    torch.cuda.synchronize()
+    for i in (1, 3):
+        assert torch.equal(got[i].view(torch.int32), ref[i].view(torch.int32))
 
 
 def _paged_case(page, exact, seed, n_kv=4, G=8, d=64, n_max=4, B=8):
@@ -579,7 +670,7 @@ def _k5_inputs(n, m_spec, v_spec, packed, kahan, offset=0, seed=3):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("n,offset", [(1, 0), (128 * 3 + 5, 0),
+@pytest.mark.parametrize("n,offset", [(1, 0), (7, 0), (128 * 3 + 5, 0),
                                       (2 ** 20 + 37, 0), (2 ** 20 + 37, 1)])
 @pytest.mark.parametrize("case", K5_CASES, ids=lambda c: "-".join(map(str, c)))
 @pytest.mark.parametrize("chain", [UPDATE_CONFIGS[i] for i in (0, 2, 5)],
@@ -613,6 +704,34 @@ def test_fused_qadam_kernel_matches_plain(cuda, n, offset, case, chain):
         if r.dtype == torch.float32:
             r, k = r.view(torch.int32), k.view(torch.int32)
         assert torch.equal(r, k)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n,offset", [(7, 0), (128 * 3 + 5, 0),
+                                      (2 ** 20 + 37, 0), (2 ** 20 + 37, 1)])
+def test_fused_qadam_trainer_instance_matches_plain(cuda, n, offset):
+    """The trainer's instance (train.ADAM_RUN's case: bf16-sr codes, the
+    rn / sr / signed-SRe chain with sub_v = grad) bitwise equal to the
+    twin, tails and views off a 16-byte boundary included."""
+    from repro_torch.launch.train import rounding_config
+    m_spec = parse_spec("bf16-sr")
+    cfg = rounding_config("signed_sr_eps", "binary8", 0.1)
+    assert tfu.k5_instance(cfg, m_spec, m_spec, True, False) == "trainer"
+    x, g, m, v, _ = _k5_inputs(n, m_spec, m_spec, True, False, offset,
+                               seed=11)
+    scal = [4e-4, 1 - 0.9 ** 3, 1 - 0.999 ** 3, 1e-8, 0.0]
+    kw = dict(m_spec=m_spec, v_spec=m_spec, b1=0.9, b2=0.999, packed=True)
+    ref = tfu.fused_qadam_prng_plain(x, g, m, v, scal, SEEDS[2], cfg, **kw)
+    if offset:
+        x = torch.cat([torch.zeros(1), x]).to(cuda)[1:]
+        g = torch.cat([torch.zeros(1), g]).to(cuda)[1:]
+    got = tfu.fused_qadam_prng(x.to(cuda), g.to(cuda), m.to(cuda),
+                               v.to(cuda), scal, SEEDS[2], cfg, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(ref[0].view(torch.int32), got[0].cpu().view(
+        torch.int32))
+    assert torch.equal(ref[1], got[1].cpu()) and torch.equal(ref[2],
+                                                             got[2].cpu())
 
 
 @pytest.mark.gpu
