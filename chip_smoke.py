@@ -7,7 +7,8 @@ Phases (any failed check exits non-zero; there is no CPU fallback):
 
 1. device: the card's name, count and ``nvidia-smi`` name / power limit;
 2. build: compile every CUDA source of ``src/repro_torch/csrc`` with nvcc
-   (one process per source, all at once);
+   (one process per source, all at once) and print each kernel's
+   registers and spills from ptxas' report;
 3. GEMM kernels vs plain: K3' and K4' at the serving path's shapes (M = 4
    and 128) against their plain PyTorch twins -- bitwise on exact-sum
    inputs, at most 1e-4 one-ulp flips on N(0, 1) inputs -- and timed with
@@ -60,7 +61,8 @@ Phases (any failed check exits non-zero; there is no CPU fallback):
 14. its agreement: reduced tinyllama, 2 steps card vs CPU;
 15. MoE kernels vs plain: K1' (the SR cast, 128-lane bits) bitwise at
    n = 2**24 + 37 and at the path's (128, 1, 768) for binary8 sr with 32-,
-   16- and 8-bit draws and rn; K8' (the batched GEMM) at the path's two
+   16- and 8-bit draws and rn, its sr_r32 instance (the path's spec)
+   bitwise its generic one; K8' (the batched GEMM) at the path's two
    shapes (128 experts x 1 row: 2048 -> 768 and 768 -> 2048) and a ragged
    one (5 x 3 x 70 x 50), bf16 and float32 b, bitwise on exact-sum inputs
    and within the 1e-4 one-ulp contract on N(0, 1) inputs; timed beside
@@ -151,7 +153,9 @@ Phases (any failed check exits non-zero; there is no CPU fallback):
    weights on the CPU, teacher-forced on the CPU's picks: logits held to
    phase 12's limits, the card's own picks within 0.1 of the CPU's best
    logit, the pools' codes at most 1 % different per layer;
-29. one JSON line of per-kernel numbers, then the result line.
+29. one JSON line of per-kernel numbers (K10's and K1''s with the
+   registers and spills ptxas reports for their instances, phase 2), then
+   the result line.
 
 Detailed numbers also go to ``chiprun_out/chip_smoke.json``.
 """
@@ -162,6 +166,7 @@ import dataclasses
 import gc
 import json
 import math
+import re
 import shutil
 import subprocess
 import sys
@@ -1614,6 +1619,15 @@ def sr_cast_phase(torch, tsr):
                 fail(f"sr_cast_prng {shape} {fmt}-{mode}-r{rb}: not bitwise "
                      "equal to the plain twin")
             max_err = max(max_err, float((got - ref).abs().max()))
+        # the path's spec runs the sr_r32 instance: bitwise the generic one
+        path = tsr.sr_cast_prng(xs[0], words, "binary8")
+        generic = tsr.sr_cast_prng(xs[0], words, "binary8",
+                                   instance="generic")
+        torch.cuda.synchronize()
+        if tsr.sr_cast_instance("sr", 32, False) != "sr_r32" \
+                or not bitwise(torch, path, generic):
+            fail(f"sr_cast_prng {shape}: the sr_r32 instance differs from "
+                 "the generic one")
         # timed under the path's spec (binary8 sr, 32-bit draws)
         ms = time_ms(torch, lambda i: tsr.sr_cast_prng(xs[i], words,
                                                        "binary8"), n_copies)
@@ -2738,6 +2752,39 @@ def kernel_entry(rows, name, source, replaces, launches, path_rows, timed,
         timed=timed, **extra)
 
 
+def ptxas_usage(log: str):
+    """{kernel: registers and spill bytes} from ptxas' -v report (the
+    build's log), kernel names demangled where c++filt is found."""
+    usage, current = {}, None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            current = m.group(1)
+            usage[current] = dict(registers=None, spill_stores=0,
+                                  spill_loads=0)
+            continue
+        if current is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m:
+            usage[current]["spill_stores"] = int(m.group(1))
+            usage[current]["spill_loads"] = int(m.group(2))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            usage[current]["registers"] = int(m.group(1))
+    if usage and shutil.which("c++filt"):
+        names = list(usage)
+        out = subprocess.run(["c++filt"], input="\n".join(names),
+                             capture_output=True, text=True).stdout
+        plain = out.splitlines()
+        if len(plain) == len(names):
+            usage = {p.replace("(anonymous namespace)::", "")
+                     .removeprefix("void ").split("(")[0]: usage[n]
+                     for n, p in zip(names, plain)}
+    return usage
+
+
 def main() -> None:
     import torch
     if not torch.cuda.is_available():
@@ -2769,10 +2816,13 @@ def main() -> None:
     paths = build.build_all()
     t_build = time.time() - t0
     print(f"  built {sorted(paths)} in {t_build:.1f} s", flush=True)
-    for name in sorted(paths):
-        for line in build.build_log(name).splitlines():
-            if "registers" in line or "spill" in line:
-                print(f"  {name}: {line.strip()}", flush=True)
+    resources = {name: ptxas_usage(build.build_log(name))
+                 for name in sorted(paths)}
+    for name, kernels_ in resources.items():
+        for fn, use in kernels_.items():
+            print(f"  {name}: {fn}: {use['registers']} registers, spill "
+                  f"{use['spill_stores']}/{use['spill_loads']} B "
+                  "(stores/loads)", flush=True)
 
     print("== phase 3: GEMM kernels vs plain twins (serving shapes)",
           flush=True)
@@ -3046,7 +3096,16 @@ def main() -> None:
               f"{main_row['case']})",
         launches_path="engine serve tinyllama-1.1b ENGINE_RUN, "
                       "ENGINE_POLICY"))
+    for entry in kernels:
+        src = Path(entry["source"]).stem
+        stem = {"flash_decode_paged": "decode_paged_kernel",
+                "sr_cast_prng": "sr_cast_prng_kernel"}.get(entry["name"])
+        if stem:
+            entry["registers"] = {fn: use for fn, use in
+                                  resources.get(src, {}).items()
+                                  if stem in fn}
     report = dict(device=kind, nvidia_smi=smi[0], build_s=t_build,
+                  registers=resources,
                   rows=rows, train_rows=train_rows, update_rows=update_rows,
                   serve=served, agreement=agree, train=trained,
                   train_agreement=train_agree,

@@ -48,21 +48,39 @@
 // TF32 or bf16 mma would change the logits that K7 and K7' recompute.
 // fwd_kernel stages q, K and V tiles in shared memory and runs fp32 FMAs
 // from there (two shared loads per FMA), computing each logit twice.  The
-// backward kernels keep that simple design.  Decode (K9) is latency-bound:
-// one block per (batch, kv head), G = 8 query rows.
+// backward kernels keep that simple design.  Decode (K9) runs fwd_kernel
+// too: one block per (batch, kv head) for G = 8 query rows, 16 blocks at
+// the serve shape; it stays the bitwise reference of K10.
 //
-// Paged decode (K10) is K9's decode path with two changes: the logical
-// block is one page, and each K/V tile's rows are found through the
-// request's block table (physical page p of kv head h is row p.KV + h of
-// the (P.KV, page, d) pool); each request's length is read from device
-// memory, so a serving step needs no host round trip.  Draws keep the
-// logical coordinates (column = logical position, av stream = logical
-// page), so a result does not depend on where the pages lie.  Blocks past
-// a request's length are skipped, as K9 skips them: table entries there
-// (scratch page 0) are never read.
+// Paged decode (K10) has a kernel of its own, decode_paged_kernel: one
+// block per (request, kv head, query row), so the engine's 4 slots x 4
+// kv heads x 8 rows fill 128 of the 132 SMs.  At that shape it moves a
+// few KB and does ~1.3 MFLOP, so neither bytes nor operations bound it:
+// the chain of dependent steps does (the page-table and K loads, a 64-long
+// fmaf chain per logit, the page's max and sum, a 64-long fmaf chain per
+// P.V output, the merge, each behind a barrier) and the launch.  Each
+// logit is computed, rounded and drawn once; the pages' logits, exps and
+// P.V chains run side by side; K rows come as 16-byte words straight into
+// registers, V rows by cp.async while the logits compute.  Its order is
+// fwd_kernel's: the logical block is one page, and each float operation
+// (qk_logit's chain, the block max, m_safe and corr, the 64-key chunk
+// sums with their pairing and butterfly, each output's P.V chain over the
+// page's keys in order, the av rounding with stream = page, the merge,
+// the division) runs on the same operands in the same order, so K10
+// equals K9 with kv_block == page bit for bit.  K/V rows are found
+// through the request's block table (physical page p of kv head h is row
+// p.KV + h of the (P.KV, page, d) pool); each request's length is read
+// from device memory, so a serving step needs no host round trip.  Draws
+// keep the logical coordinates (column = logical position, av stream =
+// logical page), so a result does not depend on where the pages lie.
+// Pages past a request's length are never read: their close step (an
+// idempotent one) is applied once.  Splitting one request's pages across
+// blocks (flash-decoding) is not done: at a few pages a request the block
+// holds them all.
 #include <cuda_pipeline.h>
 #include <cuda_runtime.h>
 
+#include <cmath>
 #include <cstdint>
 
 #include "rounding.cuh"
@@ -172,7 +190,7 @@ __device__ __forceinline__ float warp_sum(float v) {
 }
 
 // ---------------------------------------------------------------------------
-// K9 / K10: decode, and K6 where fwd1_kernel does not fit (two passes).
+// K9: decode, and K6 where fwd1_kernel does not fit (two passes).
 // ---------------------------------------------------------------------------
 struct FwdArgs {
   const float* q;
@@ -187,25 +205,7 @@ struct FwdArgs {
   float* s_out;            // optional: the rounded masked logits
   Geo g;
   Sites sites;
-  // K10 only (null for K6 and K9): (B, n_max) logical -> physical pages,
-  // (B,) lengths; kv heads per request
-  const int* tables;
-  const int* lengths;
-  int n_max;
-  int page_kv;
 };
-
-// Row of the (rows, d) K/V array that holds logical position `pos` of
-// kv row `kvrow` (contiguous cache) or of cache row `bh` (paged pool).
-__device__ __forceinline__ size_t kv_row_of(const FwdArgs& a, int bh,
-                                            int kvrow, int pos) {
-  if (a.tables == nullptr)
-    return static_cast<size_t>(kvrow) * a.g.kv_rows + pos;
-  const int j = pos / a.g.kb;
-  const int phys =
-      a.tables[(bh / a.page_kv) * a.n_max + j] * a.page_kv + bh % a.page_kv;
-  return static_cast<size_t>(phys) * a.g.kb + (pos - j * a.g.kb);
-}
 
 __device__ __forceinline__ float load_kv(const void* base, size_t idx,
                                          int code_bytes,
@@ -220,8 +220,7 @@ __device__ __forceinline__ float load_kv(const void* base, size_t idx,
 __global__ void __launch_bounds__(kThreads) fwd_kernel(FwdArgs a) {
   extern __shared__ float smem[];
   const int bh = blockIdx.y;
-  Geo g = a.g;
-  if (a.tables != nullptr) g.length = a.lengths[bh / a.page_kv];
+  const Geo& g = a.g;
   const int r0 = blockIdx.x * kTQ;
   const int nr = min(kTQ, g.rows - r0);
   const int kvrow = g.decode ? bh : kv_of(bh, g);
@@ -264,8 +263,7 @@ __global__ void __launch_bounds__(kThreads) fwd_kernel(FwdArgs a) {
       for (int t0 = k0; t0 < k1; t0 += kTK) {
         if (t0 >= kv_len(g) || (g.causal && t0 > qpos_hi)) break;
         const int t1 = min(t0 + kTK, k1);
-        // the tile lies inside one logical block, hence inside one page
-        const size_t row0 = kv_row_of(a, bh, kvrow, t0);
+        const size_t row0 = static_cast<size_t>(kvrow) * g.kv_rows + t0;
         __syncthreads();
         for (int e = tid; e < kTK * g.dk; e += kThreads) {
           const int c = e / g.dk, t = e % g.dk;
@@ -706,6 +704,401 @@ __global__ void __launch_bounds__(kThreads) fwd1_kernel(FwdArgs a) {
 }
 
 // ---------------------------------------------------------------------------
+// K10: the paged decode.
+// ---------------------------------------------------------------------------
+// One block of kDecThreads per (request, kv head, query row): the engine's
+// 4 slots x 4 kv heads x G = 8 rows make 128 blocks on the 132 SMs.  A
+// round takes whole logical blocks (pages) of the request, up to kDecKeys
+// keys, and holds their logits in shared memory, each computed, rounded
+// and drawn once by the thread of its key; then, in fwd_kernel's order,
+// each page's max, the exps against the running max, each page's sum (its
+// 64-key chunks, key c paired with c + 32, then warp_sum's butterfly),
+// each page's P.V partial (one fmaf chain per output column over the
+// page's keys in order, rounded once on the av site with stream = page)
+// and the page-by-page merge of m, l and acc.  A page's keys are the ones
+// fwd_kernel visits: its 64-key tiles that start below the length, the
+// masked ones as -inf logits and zero exps, V rows at or past the length
+// as zeros, so every value equals fwd_kernel's bit for bit (and K10 equals
+// K9 with kv_block == page).  The pages' P.V chains, exps and logits run
+// in parallel where fwd_kernel runs them one tile after another.  A page
+// longer than kDecKeys is one round whose V rows are staged in pieces.
+//
+// On the card the block has one warp per scheduler, so every dependent
+// step shows: the block index splits without divisions (a 3-D grid), the
+// draws use shifts, 1-byte codes decode without branches (dec8), and the
+// head dim is known at compile time where dk == dv is 16, 32, 64 or 128
+// and rows are 16-byte aligned: K rows then come as 16-byte words straight
+// into registers, all loads issued before the chain, and V rows by
+// cp.async while the logits compute.  P.V reads sixteen keys' V values
+// ahead of their FMAs.
+constexpr int kDecThreads = 128;
+constexpr int kDecWarps = kDecThreads / 32;
+constexpr int kDecKeys = 128;    // keys per round, V rows per piece
+constexpr int kDecPages = 32;    // pages per round at most
+
+// How the cache holds K and V: float32 values, 1-byte code words decoded
+// by dec8 (without or with a non-finite field), or code words of any width
+// through rt::unpack.
+enum CodeKind : int { kF32 = 0, kByte = 1, kByteNF = 2, kCode = 3 };
+
+struct DecodeArgs {
+  const float* q;
+  const void* k;
+  const void* v;
+  int code_bytes;          // 0: float32 cache
+  rt::PackParams pack;
+  // dec8: the code's sign to bit 31, its field and mantissa to a float32's
+  // exponent and mantissa, the field of +-inf / NaN, 2^(126 + emin)
+  int sign_shift;
+  uint32_t mag_mask;
+  int mag_shift;
+  uint32_t nf_field;
+  float rebase;
+  const uint32_t* seeds;   // (B.KV, 6): [qk | av | out]
+  const int* lengths;      // (B,)
+  const int* tables;       // (B, n_max): logical -> physical page
+  float* out;
+  int G, n_kv, n_max, page, page_shift, dk, dv, window;   // page_shift:
+  float scale;                                            // -1 unless 2^k
+  Sites sites;
+};
+
+// A 1-byte code word as float32, bit for bit rt::unpack.  Sign, field and
+// mantissa placed in a float32's sign, exponent and mantissa give
+// 2^(field - 127) (1 + m 2^-mbits), or for field 0 the subnormal
+// m 2^(-126 - mbits); one multiply by 2^(126 + emin) rebases both onto the
+// grid, exactly where emin lies in [-120, 1] (the host's condition).  Bits
+// of c above the code's sign are ignored.
+template <bool kNF>
+__device__ __forceinline__ float dec8(uint32_t c, const DecodeArgs& a) {
+  const uint32_t body = (c & a.mag_mask) << a.mag_shift;
+  const uint32_t sign = (c << a.sign_shift) & 0x80000000u;
+  const float f = __fmul_rn(__uint_as_float(sign | body), a.rebase);
+  if (!kNF) return f;
+  const uint32_t nf = (body & 0x7FFFFFu) ? 0x7FC00000u : sign | 0x7F800000u;
+  return (body >> 23) == a.nf_field ? __uint_as_float(nf) : f;
+}
+
+template <int kKind>
+__device__ __forceinline__ float code_at(const void* base, size_t i,
+                                         const DecodeArgs& a) {
+  if constexpr (kKind == kF32) {
+    return static_cast<const float*>(base)[i];
+  } else if constexpr (kKind == kCode) {
+    const uint32_t c = a.code_bytes == 1
+                           ? static_cast<const uint8_t*>(base)[i]
+                           : static_cast<const uint16_t*>(base)[i];
+    return rt::unpack(c, a.pack);
+  } else {
+    return dec8<kKind == kByteNF>(static_cast<const uint8_t*>(base)[i], a);
+  }
+}
+
+// rt::element_bits for the draw widths the kernels take (32, 16, 8), its
+// divisions by 32 / rand_bits done as shifts.
+__device__ __forceinline__ uint32_t draw_bits(const rt::RoundParams& p,
+                                              const uint32_t* w,
+                                              uint32_t stream, uint32_t row,
+                                              uint32_t col) {
+  if (!p.enabled || p.mode == rt::kRN) return 0u;
+  const int lg = p.rand_bits == 32 ? 0 : (p.rand_bits == 16 ? 1 : 2);
+  const uint32_t wc = col >> lg;
+  uint32_t o0, o1;
+  rt::threefry2x32(w[0], w[1] + rt::kGolden * stream, row, wc >> 1, o0, o1);
+  const uint32_t word = (wc & 1u) ? o1 : o0;
+  if (lg == 0) return word;
+  return (word >> ((col & ((1u << lg) - 1u)) * p.rand_bits)) &
+         ((1u << p.rand_bits) - 1u);
+}
+
+__device__ __forceinline__ int page_of(int i, const DecodeArgs& a) {
+  return a.page_shift >= 0 ? i >> a.page_shift : i / a.page;
+}
+
+// qk_logit's fmaf chain (t = 0..dk-1) of q against key row `row` of the
+// pool.  DK > 0: rows of DK elements on 16-byte boundaries, read as
+// 16-byte words, all loads issued before the chain.
+template <int kKind, int DK>
+__device__ __forceinline__ float decode_dot(const float* Qs, size_t row,
+                                            const DecodeArgs& a) {
+  float acc = 0.0f;
+  if constexpr (DK > 0 && kKind != kCode) {
+    constexpr int kPer = kKind == kF32 ? 4 : 16;   // elements per word
+    constexpr int kWords = DK / kPer;
+    const uint4* src = reinterpret_cast<const uint4*>(a.k) + row * kWords;
+    uint4 w[kWords];
+#pragma unroll
+    for (int i = 0; i < kWords; ++i) w[i] = __ldg(src + i);
+#pragma unroll
+    for (int i = 0; i < kWords; ++i) {
+      const uint32_t u[4] = {w[i].x, w[i].y, w[i].z, w[i].w};
+#pragma unroll
+      for (int g4 = 0; g4 < kPer / 4; ++g4) {
+        const float4 q4 =
+            reinterpret_cast<const float4*>(Qs)[(i * kPer) / 4 + g4];
+        const float qv[4] = {q4.x, q4.y, q4.z, q4.w};
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          float kv;
+          if constexpr (kKind == kF32)
+            kv = __uint_as_float(u[e]);
+          else
+            kv = dec8<kKind == kByteNF>(u[g4] >> (8 * e), a);
+          acc = fmaf(qv[e], kv, acc);
+        }
+      }
+    }
+  } else {
+    const int dk = DK > 0 ? DK : a.dk;
+    for (int t = 0; t < dk; ++t)
+      acc = fmaf(Qs[t], code_at<kKind>(a.k, row * dk + t, a), acc);
+  }
+  return acc;
+}
+
+// The pool row of key i of a round that starts at logical page j0.
+__device__ __forceinline__ size_t page_row(const DecodeArgs& a,
+                                           const int* table, int h, int j0,
+                                           int i) {
+  const int b = page_of(i, a);
+  return (static_cast<size_t>(table[j0 + b]) * a.n_kv + h) * a.page +
+         (i - b * a.page);
+}
+
+// V rows of round keys [i0, i1) into Vs (row i - i0), raw; rows at or past
+// the length are not read (P.V takes them as zeros).  DK > 0: 16-byte
+// cp.async; else byte copies (made before the next barrier).
+template <int kKind, int DK>
+__device__ __forceinline__ void stage_v(char* Vs, const DecodeArgs& a,
+                                        const int* table, int h, int j0,
+                                        int i0, int i1, int length,
+                                        int vrow) {
+  const char* src = static_cast<const char*>(a.v);
+  const int k0 = j0 * a.page;
+  if constexpr (DK > 0 && kKind != kCode) {
+    constexpr int kChunks = DK * (kKind == kF32 ? 4 : 1) / 16;
+    for (int e = threadIdx.x; e < (i1 - i0) * kChunks; e += kDecThreads) {
+      const int i = i0 + e / kChunks, ch = e % kChunks;
+      if (k0 + i < length)
+        __pipeline_memcpy_async(
+            Vs + static_cast<size_t>(i - i0) * vrow + 16 * ch,
+            src + page_row(a, table, h, j0, i) * vrow + 16 * ch, 16);
+    }
+    __pipeline_commit();
+  } else {
+    for (int e = threadIdx.x; e < (i1 - i0) * vrow; e += kDecThreads) {
+      const int i = i0 + e / vrow, by = e % vrow;
+      if (k0 + i < length)
+        Vs[static_cast<size_t>(i - i0) * vrow + by] =
+            src[page_row(a, table, h, j0, i) * vrow + by];
+    }
+  }
+}
+
+__host__ __device__ inline int round_up(int x, int m) {
+  return (x + m - 1) / m * m;
+}
+
+// Shared memory of one block: staged V rows, q, a round's logits, the
+// pages' maxima and sums, their rounded P.V partials, the request's
+// block table.
+size_t decode_smem(int page, int dk, int dv, int elt_bytes, int n_max) {
+  return round_up(kDecKeys * dv * elt_bytes, 16) +
+         sizeof(float) * (round_up(dk, 4) + (page > kDecKeys ? page : kDecKeys) +
+                          2 * kDecPages + kDecPages * dv + n_max);
+}
+
+// One P.V output's fmaf chain over round keys [i0, i1) in order, V from
+// Vs (row i - v0), keys at or past kv_end as zeros; sixteen keys' loads
+// ahead of their FMAs (rows past kv_end are read and not used).
+template <int kKind, int DV>
+__device__ __forceinline__ float pv_chain(float x, const float* S,
+                                          const char* Vs, int v0, int i0,
+                                          int i1, int c, int kv_end,
+                                          const DecodeArgs& a) {
+  const int dv = DV > 0 ? DV : a.dv;
+  int i = i0;
+  for (; i + 16 <= i1; i += 16) {
+    float p16[16], v16[16];
+#pragma unroll
+    for (int u = 0; u < 16; ++u) {
+      p16[u] = S[i + u];
+      v16[u] = code_at<kKind>(Vs, static_cast<size_t>(i + u - v0) * dv + c,
+                              a);
+    }
+#pragma unroll
+    for (int u = 0; u < 16; ++u)
+      x = fmaf(p16[u], i + u < kv_end ? v16[u] : 0.0f, x);
+  }
+  for (; i < i1; ++i) {
+    const float vv =
+        code_at<kKind>(Vs, static_cast<size_t>(i - v0) * dv + c, a);
+    x = fmaf(S[i], i < kv_end ? vv : 0.0f, x);
+  }
+  return x;
+}
+
+template <int kKind, int DK>
+__global__ void __launch_bounds__(kDecThreads)
+decode_paged_kernel(DecodeArgs a) {
+  extern __shared__ float smem[];
+  constexpr int kElt = kKind == kF32 ? 4 : 1;
+  const int elt = kKind == kCode ? a.code_bytes : kElt;
+  const int dk = DK > 0 ? DK : a.dk, dv = DK > 0 ? DK : a.dv;
+  const int page = a.page;
+  const int r = blockIdx.x, h = blockIdx.y, req = blockIdx.z;
+  const int bh = req * a.n_kv + h;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int vrow = dv * elt;
+  char* Vs = reinterpret_cast<char*>(smem);
+  float* Qs = reinterpret_cast<float*>(Vs + round_up(kDecKeys * vrow, 16));
+  float* S = Qs + round_up(dk, 4);                 // logits, then p
+  float* bmax = S + (page > kDecKeys ? page : kDecKeys);
+  float* bsum = bmax + kDecPages;
+  float* PR = bsum + kDecPages;                    // kDecPages x dv
+  int* table = reinterpret_cast<int*>(PR + kDecPages * dv);   // n_max
+  const uint32_t* w = a.seeds + static_cast<size_t>(bh) * 6;
+  const rt::RoundParams &p_qk = a.sites.p[0], &p_av = a.sites.p[1],
+                        &p_out = a.sites.p[2];
+  // this thread's first P.V output of a round: page b0, column c0
+  const int b0 = tid / dv, c0 = tid - b0 * dv;
+  // the request's length, block table and query row, all loads at once;
+  // the draws of the first round's first key and output and of the
+  // output column meanwhile
+  const int length = a.lengths[req];
+  for (int t = tid; t < a.n_max; t += kDecThreads)
+    table[t] = a.tables[static_cast<size_t>(req) * a.n_max + t];
+  for (int t = tid; t < dk; t += kDecThreads)
+    Qs[t] = a.q[(static_cast<size_t>(bh) * a.G + r) * dk + t];
+  uint32_t qk_bits = draw_bits(p_qk, w, 0u, r, tid);
+  uint32_t av_bits = draw_bits(p_av, w + 2, b0, r, c0);
+  const uint32_t out_bits = draw_bits(p_out, w + 4, 0u, r, tid);
+  // pages that fwd_kernel visits: those starting below the length
+  const int n_vis = length > 0 ? min((length - 1) / page + 1, a.n_max) : 0;
+  const int per_round = page >= kDecKeys ? 1 : min(kDecKeys / page, kDecPages);
+  float m = -INFINITY, l = 0.0f, acc = 0.0f;   // acc: column tid
+  __syncthreads();
+
+  for (int j0 = 0; j0 < n_vis; j0 += per_round) {
+    const int np = min(per_round, n_vis - j0);
+    // the last page's keys: its 64-key tiles that start below the length
+    const int last = (j0 + np - 1) * page;
+    const int nkeys =
+        (np - 1) * page + min(page, round_up(length - last, kTK));
+    const int kv_end = length - j0 * page;     // round keys with a V row
+    stage_v<kKind, DK>(Vs, a, table, h, j0, 0, min(nkeys, kDecKeys), length,
+                       vrow);
+    // the logits, each computed, rounded and drawn once (qk site, keyed
+    // by head row and logical position, stream 0); masked ones -inf
+    for (int i = tid; i < nkeys; i += kDecThreads) {
+      const int kpos = j0 * page + i;
+      float s = -INFINITY;
+      if (kpos < length && (a.window == 0 || kpos > length - 1 - a.window)) {
+        const uint32_t bits =
+            i == tid ? qk_bits : draw_bits(p_qk, w, 0u, r, kpos);
+        s = round_bits(
+            __fmul_rn(decode_dot<kKind, DK>(
+                          Qs, page_row(a, table, h, j0, i), a),
+                      a.scale),
+            p_qk, bits);
+      }
+      S[i] = s;
+    }
+    __syncthreads();
+    // each page's max over its keys
+    for (int b = warp; b < np; b += kDecWarps) {
+      const int nv = b == np - 1 ? nkeys - b * page : page;
+      float mx = -INFINITY;
+      for (int c = lane; c < nv; c += 32) mx = fmaxf(mx, S[b * page + c]);
+      mx = warp_max(mx);
+      if (lane == 0) bmax[b] = mx;
+    }
+    __syncthreads();
+    // p = exp(s - m_safe), m_safe from the running max through the key's
+    // page (a max: the order of the fmaxf is free)
+    for (int i = tid; i < nkeys; i += kDecThreads) {
+      float mm = m;
+      for (int b = 0; b <= page_of(i, a); ++b) mm = fmaxf(mm, bmax[b]);
+      const float safe = isfinite(mm) ? mm : 0.0f;
+      const float s = S[i];
+      S[i] = isfinite(s) ? expf(__fsub_rn(s, safe)) : 0.0f;
+    }
+    if (nkeys <= kDecKeys) __pipeline_wait_prior(0);
+    __syncthreads();
+    // each page's sum in fwd_kernel's order: 64-key chunks, key c with
+    // c + 32, then the butterfly; chunk sums added in order
+    for (int b = warp; b < np; b += kDecWarps) {
+      const int nv = b == np - 1 ? nkeys - b * page : page;
+      const float* row = S + b * page;
+      float sum = 0.0f;
+      for (int cc = 0; cc < nv; cc += kTK) {
+        const float x0 = cc + lane < nv ? row[cc + lane] : 0.0f;
+        const float x1 = cc + 32 + lane < nv ? row[cc + 32 + lane] : 0.0f;
+        sum = __fadd_rn(sum, warp_sum(__fadd_rn(x0, x1)));
+      }
+      if (lane == 0) bsum[b] = sum;
+    }
+    // each page's P.V partial: one fmaf chain per column over the page's
+    // keys in order, rounded once (av site, stream = logical page)
+    if (nkeys <= kDecKeys) {
+      for (int t = tid; t < np * dv; t += kDecThreads) {
+        const int b = t / dv, c = t - b * dv;
+        const int i0 = b * page;
+        const int i1 = i0 + (b == np - 1 ? nkeys - i0 : page);
+        const float x =
+            pv_chain<kKind, DK>(0.0f, S, Vs, 0, i0, i1, c, kv_end, a);
+        const uint32_t bits =
+            t == tid ? av_bits : draw_bits(p_av, w + 2, j0 + b, r, c);
+        PR[t] = round_bits(x, p_av, bits);
+      }
+    } else {   // one page, its V rows staged kDecKeys at a time
+      float x = 0.0f;
+      for (int p0 = 0; p0 < nkeys; p0 += kDecKeys) {
+        const int p1 = min(p0 + kDecKeys, nkeys);
+        if (p0 > 0) {
+          __syncthreads();
+          stage_v<kKind, DK>(Vs, a, table, h, j0, p0, p1, length, vrow);
+        }
+        __pipeline_wait_prior(0);
+        __syncthreads();
+        if (tid < dv)
+          x = pv_chain<kKind, DK>(x, S, Vs, p0, p0, p1, tid, kv_end, a);
+      }
+      if (tid < dv) PR[tid] = round_bits(x, p_av, av_bits);
+    }
+    __syncthreads();
+    // close the pages in order: m_new, corr, l and acc as fwd_kernel does
+    // (every thread keeps m and l)
+    for (int b = 0; b < np; ++b) {
+      const float m_new = fmaxf(m, bmax[b]);
+      const float safe = isfinite(m_new) ? m_new : 0.0f;
+      const float corr = isfinite(m) ? expf(__fsub_rn(m, safe)) : 0.0f;
+      m = m_new;
+      l = __fadd_rn(__fmul_rn(l, corr), bsum[b]);
+      if (tid < dv) acc = __fadd_rn(__fmul_rn(acc, corr), PR[b * dv + tid]);
+    }
+    if (j0 + per_round < n_vis) {   // the next round's first draws
+      qk_bits = draw_bits(p_qk, w, 0u, r, (j0 + per_round) * page + tid);
+      av_bits = draw_bits(p_av, w + 2, j0 + per_round + b0, r, c0);
+    }
+  }
+  // fwd_kernel closes every page past the length too, with no key: max
+  // -inf (m stays), sum 0, partial round_site(+0) = +0.  That step maps
+  // acc to acc * corr + 0 with corr 1 or 0 (m finite or not), and applied
+  // twice it gives what it gives once (-0 becomes +0), so once stands for
+  // all of them.
+  if (n_vis < a.n_max) {
+    const float safe = isfinite(m) ? m : 0.0f;
+    const float corr = isfinite(m) ? expf(__fsub_rn(m, safe)) : 0.0f;
+    l = __fadd_rn(__fmul_rn(l, corr), 0.0f);
+    acc = __fadd_rn(__fmul_rn(acc, corr), 0.0f);
+  }
+  if (tid < dv)
+    a.out[(static_cast<size_t>(bh) * a.G + r) * dv + tid] = round_bits(
+        __fdiv_rn(acc, fmaxf(l, 1e-30f)), p_out, out_bits);
+}
+
+// ---------------------------------------------------------------------------
 // K7 / K7': backward.
 // ---------------------------------------------------------------------------
 struct BwdArgs {
@@ -972,15 +1365,37 @@ Geo make_geo(int rows, int kv_rows, int dk, int dv, int n_heads, int n_kv,
 
 template <typename Kernel, typename Args>
 int launch(Kernel kernel, dim3 grid, size_t smem, const Args& args,
-           void* stream) {
+           void* stream, int threads = kThreads) {
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
         static_cast<int>(smem));
     if (e != cudaSuccess) return static_cast<int>(e);
   }
-  kernel<<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(args);
+  kernel<<<grid, threads, smem, static_cast<cudaStream_t>(stream)>>>(args);
   return static_cast<int>(cudaGetLastError());
+}
+
+// K10's instance for a cache kind and head dim (0: any dk, dv).
+template <int kKind>
+int launch_decode(int d, dim3 grid, size_t smem, const DecodeArgs& a,
+                  void* stream) {
+  switch (d) {
+    case 16: return launch(decode_paged_kernel<kKind, 16>, grid, smem, a,
+                           stream, kDecThreads);
+    case 32: return launch(decode_paged_kernel<kKind, 32>, grid, smem, a,
+                           stream, kDecThreads);
+    case 64: return launch(decode_paged_kernel<kKind, 64>, grid, smem, a,
+                           stream, kDecThreads);
+    case 128: return launch(decode_paged_kernel<kKind, 128>, grid, smem, a,
+                            stream, kDecThreads);
+    default: return launch(decode_paged_kernel<kKind, 0>, grid, smem, a,
+                           stream, kDecThreads);
+  }
+}
+
+bool aligned16(const void* p) {
+  return reinterpret_cast<uintptr_t>(p) % 16 == 0;
 }
 
 size_t fwd_smem(int dk, int dv) {
@@ -1069,8 +1484,10 @@ extern "C" int flash_decode(const float* q, const void* k, const void* v,
   return launch(fwd_kernel, grid, fwd_smem(dk, dv), a, stream);
 }
 
-// K10.  pages: (P.KV, page, d) float32 or code words (pack as above);
-// lengths (B,) and tables (B, n_max) int32 on the device.
+// K10 (decode_paged_kernel).  pages: (P.KV, page, d) float32 or code
+// words (pack as above); lengths (B,) and tables (B, n_max) int32 on the
+// device.  Refused where a block's shared memory would not fit (pages
+// whose logits do not).
 extern "C" int flash_decode_paged(const float* q, const void* k,
                                   const void* v, const int* pack,
                                   const uint32_t* seeds, const int* lengths,
@@ -1079,29 +1496,66 @@ extern "C" int flash_decode_paged(const float* q, const void* k,
                                   int dk, int dv, int window, float scale,
                                   const int* site_ints,
                                   const float* site_xmax, void* stream) {
-  if (dk > kDMax || dv > kDMax || page < 1 || n_kv < 1)
+  if (dk > kDMax || dv > kDMax || dk < 1 || dv < 1 || page < 1 ||
+      n_kv < 1 || n_max < 1 || G < 1 || BKV % n_kv != 0 ||
+      BKV / n_kv > 65535 || n_kv > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
-  Geo g = make_geo(G, n_max * page, dk, dv, 1, 1, G, page, 0, 1, window,
-                   scale);
-  g.decode = 1;
-  FwdArgs a{q,
-            k,
-            v,
-            pack[0],
-            rt::PackParams{pack[1], pack[2], pack[3], pack[4]},
-            seeds,
-            out,
-            nullptr,
-            nullptr,
-            nullptr,
-            g,
-            make_sites(site_ints, site_xmax, 3),
-            tables,
-            lengths,
-            n_max,
-            n_kv};
-  const dim3 grid((G + kTQ - 1) / kTQ, BKV);
-  return launch(fwd_kernel, grid, fwd_smem(dk, dv), a, stream);
+  const Sites sites = make_sites(site_ints, site_xmax, 3);
+  for (const rt::RoundParams& p : sites.p)   // draw_bits' widths
+    if (p.enabled && p.mode != rt::kRN && p.rand_bits != 32 &&
+        p.rand_bits != 16 && p.rand_bits != 8)
+      return static_cast<int>(cudaErrorInvalidValue);
+  const int bytes = pack[0], ebits = pack[1], mbits = pack[2];
+  const int emin = pack[3], has_nf = pack[4];
+  // 1-byte codes by dec8 where its rebasing multiply is exact
+  const bool byte8 = bytes == 1 && emin >= -120 && emin <= 1;
+  const int kind = bytes == 0 ? kF32
+                   : byte8   ? (has_nf ? kByteNF : kByte)
+                             : kCode;
+  const int elt = bytes == 0 ? 4 : bytes;
+  const int nb = ebits + mbits;
+  int page_shift = -1;
+  for (int s = 0; s < 31; ++s)
+    if (page == (1 << s)) page_shift = s;
+  const DecodeArgs a{q,
+                     k,
+                     v,
+                     bytes,
+                     rt::PackParams{ebits, mbits, emin, has_nf},
+                     31 - nb,
+                     (1u << nb) - 1u,
+                     23 - mbits,
+                     (1u << ebits) - 1u,
+                     byte8 ? std::ldexp(1.0f, 126 + emin) : 0.0f,
+                     seeds,
+                     lengths,
+                     tables,
+                     out,
+                     G,
+                     n_kv,
+                     n_max,
+                     page,
+                     page_shift,
+                     dk,
+                     dv,
+                     window,
+                     scale,
+                     sites};
+  const size_t smem = decode_smem(page, dk, dv, elt, n_max);
+  if (smem > static_cast<size_t>(kSmemMax))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const dim3 grid(G, n_kv, BKV / n_kv);
+  // the head dim fixed at compile time where dk == dv and rows start on
+  // 16-byte boundaries
+  const bool vec = aligned16(k) && aligned16(v) && (dk * elt) % 16 == 0;
+  const int d = vec && dk == dv && kind != kCode ? dk : 0;
+  switch (kind) {
+    case kF32: return launch_decode<kF32>(d, grid, smem, a, stream);
+    case kByte: return launch_decode<kByte>(d, grid, smem, a, stream);
+    case kByteNF: return launch_decode<kByteNF>(d, grid, smem, a, stream);
+    default: return launch(decode_paged_kernel<kCode, 0>, grid, smem, a,
+                           stream, kDecThreads);
+  }
 }
 
 extern "C" int flash_bwd_dq(const float* q, const float* k, const float* v,

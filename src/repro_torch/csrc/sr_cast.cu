@@ -1,7 +1,7 @@
 // sr_cast_prng / sr_cast_bits: round a float32 tensor onto a low-precision
 // grid (the activation-site rounding of the precision policy).
 //
-// Two entry points share one kernel body:
+// Two entry points:
 //   sr_cast_prng -- K1', replaces repro/kernels/sr_cast.py:sr_cast_prng_p.
 //     The tensor is read as its flat (ceil(n / 128), 128) layout and
 //     element i is rounded with the bits of Threefry keyed by
@@ -20,12 +20,18 @@
 // What bounds it on an H100: K1' moves 8 bytes per element (read x, write
 // out; 12 with v) against one Threefry (>= 60 int32 operations) per two
 // 32-bit words of random fields; K1 moves 12 (16 with v) and draws
-// nothing.  Each thread takes a group of 8 consecutive elements (one row
-// of the layout holds 16 groups), so K1' evaluates one Threefry per
-// distinct word pair of its group (4 for 32-bit fields, 2 for 16, 1 for
-// 8), and where every operand is 16-byte aligned (vec_ok) a group moves as
-// 16-byte loads and stores.  At the serving path's size (98,304 elements
-// per call) it is bound by the launch, not by either.
+// nothing.  At the serving path's size (98,304 elements per call) neither
+// bounds it: the launch and one thread's dependent chain do.  So a K1'
+// thread takes exactly the elements one Threefry evaluation covers (2 at
+// 32-bit fields, 4 at 16, 8 at 8: 64 / rand_bits consecutive elements,
+// which never straddle a row of the layout) and evaluates it once, with
+// 8-, 16- or 32-byte accesses where every operand is 16-byte aligned
+// (vec_ok); the grid has a thread per group (49,152 at the path's size,
+// 192 blocks) up to 132 x 16 blocks, then strides.  The path's spec (sr,
+// 32-bit draws, no v) has an instance with the scheme and the draw width
+// fixed at compile time (sr_cast.sr_cast_instance); the generic instance
+// reads them from its arguments.  K1 keeps groups of 8 elements per
+// thread, each group's words read as 16-byte loads where aligned.
 #include <cuda_runtime.h>
 
 #include "rounding.cuh"
@@ -35,6 +41,7 @@ namespace {
 constexpr int kGroup = 8;
 constexpr int kThreads = 256;
 constexpr uint32_t kLanes = 128;
+constexpr long long kMaxBlocks = 132 * 16;
 
 __device__ __forceinline__ void load8(const float* p, long long i0,
                                       long long n, bool full,
@@ -50,16 +57,14 @@ __device__ __forceinline__ void load8(const float* p, long long i0,
   }
 }
 
-// bits == nullptr: draw in-kernel (K1'); else read word i (K1).  v: null,
-// or the signed_sr_eps bias direction.
+// K1: element i takes word i of `bits`.  v: null, or the signed_sr_eps
+// bias direction.
 __global__ void __launch_bounds__(kThreads)
 sr_cast_kernel(const float* __restrict__ x, const uint32_t* __restrict__ bits,
                const float* __restrict__ vdir, float* __restrict__ out,
-               long long n, int vec_ok, uint32_t k0, uint32_t k1,
-               rt::RoundParams p) {
+               long long n, int vec_ok, rt::RoundParams p) {
   const long long n_groups = (n + kGroup - 1) / kGroup;
   const long long stride = static_cast<long long>(gridDim.x) * blockDim.x;
-  const uint32_t ratio = 32u / static_cast<uint32_t>(p.rand_bits);
   const bool stochastic = p.mode != rt::kRN;
   for (long long g = blockIdx.x * static_cast<long long>(blockDim.x) +
                      threadIdx.x;
@@ -77,7 +82,7 @@ sr_cast_kernel(const float* __restrict__ x, const uint32_t* __restrict__ bits,
       for (int j = 0; j < kGroup; ++j) sv[j] = 0.0f;
     }
     uint32_t w[kGroup];
-    if (stochastic && bits != nullptr) {
+    if (stochastic) {
       if (full) {
         const uint4* src = reinterpret_cast<const uint4*>(bits + i0);
         const uint4 lo = src[0], hi = src[1];
@@ -87,26 +92,6 @@ sr_cast_kernel(const float* __restrict__ x, const uint32_t* __restrict__ bits,
 #pragma unroll
         for (int j = 0; j < kGroup; ++j)
           w[j] = i0 + j < n ? bits[i0 + j] : 0u;
-      }
-    } else if (stochastic) {
-      // a group never straddles two rows of the 128-lane layout
-      const uint32_t row = static_cast<uint32_t>(i0 / kLanes);
-      const uint32_t col0 = static_cast<uint32_t>(i0 % kLanes);
-      uint32_t pair = 0xFFFFFFFFu, o0 = 0u, o1 = 0u;
-#pragma unroll
-      for (int j = 0; j < kGroup; ++j) {
-        const uint32_t col = col0 + j;
-        const uint32_t wc = col / ratio;
-        if ((wc >> 1) != pair) {
-          pair = wc >> 1;
-          rt::threefry2x32(k0, k1, row, pair, o0, o1);
-        }
-        const uint32_t word = (wc & 1u) ? o1 : o0;
-        w[j] = p.rand_bits == 32
-                   ? word
-                   : (word >> ((col % ratio) *
-                               static_cast<uint32_t>(p.rand_bits))) &
-                         ((1u << p.rand_bits) - 1u);
       }
     } else {
 #pragma unroll
@@ -127,33 +112,140 @@ sr_cast_kernel(const float* __restrict__ x, const uint32_t* __restrict__ bits,
   }
 }
 
-int run(const float* x, const uint32_t* bits, const float* v, float* out,
-        long long n, int vec_ok, uint32_t k0, uint32_t k1, int precision,
-        int emin, int emax, float xmax, int mode, int rand_bits, float eps,
-        void* stream) {
-  if (n <= 0) return 0;
-  const rt::RoundParams p{precision, emin, emax, xmax, mode, rand_bits, 1,
-                          eps};
-  const long long n_groups = (n + kGroup - 1) / kGroup;
+// kE consecutive float32 values from p + i0: one 8-byte or kE / 4
+// 16-byte loads where `full`, else element by element (zeros past n).
+template <int kE>
+__device__ __forceinline__ void load_group(const float* p, long long i0,
+                                           long long n, bool full,
+                                           float (&v)[kE]) {
+  if (full) {
+    if constexpr (kE == 2) {
+      const float2 t = *reinterpret_cast<const float2*>(p + i0);
+      v[0] = t.x;
+      v[1] = t.y;
+    } else {
+#pragma unroll
+      for (int h = 0; h < kE / 4; ++h) {
+        const float4 t = reinterpret_cast<const float4*>(p + i0)[h];
+        v[4 * h] = t.x;
+        v[4 * h + 1] = t.y;
+        v[4 * h + 2] = t.z;
+        v[4 * h + 3] = t.w;
+      }
+    }
+  } else {
+#pragma unroll
+    for (int j = 0; j < kE; ++j) v[j] = i0 + j < n ? p[i0 + j] : 0.0f;
+  }
+}
+
+template <int kE>
+__device__ __forceinline__ void store_group(float* p, long long i0,
+                                            long long n, bool full,
+                                            const float (&v)[kE]) {
+  if (full) {
+    if constexpr (kE == 2) {
+      *reinterpret_cast<float2*>(p + i0) = make_float2(v[0], v[1]);
+    } else {
+#pragma unroll
+      for (int h = 0; h < kE / 4; ++h)
+        reinterpret_cast<float4*>(p + i0)[h] = make_float4(
+            v[4 * h], v[4 * h + 1], v[4 * h + 2], v[4 * h + 3]);
+    }
+  } else {
+#pragma unroll
+    for (int j = 0; j < kE; ++j)
+      if (i0 + j < n) p[i0 + j] = v[j];
+  }
+}
+
+// K1': a thread rounds the kE = 64 / rand_bits elements whose fields come
+// from one Threefry evaluation, keyed (i0 / 128, (i0 % 128) / kE): element
+// i0 + j takes word j / (kE / 2) of it, field j % (kE / 2) (element_bits
+// at (i / 128, i % 128), stream 0).  kMode >= 0 fixes the scheme at compile
+// time (the path instance: no v); kMode < 0 reads it from p.
+template <int kE, int kMode>
+__global__ void __launch_bounds__(kThreads)
+sr_cast_prng_kernel(const float* __restrict__ x,
+                    const float* __restrict__ vdir, float* __restrict__ out,
+                    long long n, int vec_ok, uint32_t k0, uint32_t k1,
+                    rt::RoundParams p) {
+  constexpr int kBits = 64 / kE, kRatio = kE / 2;
+  p.rand_bits = kBits;
+  if (kMode >= 0) p.mode = kMode;
+  const bool signed_v = kMode < 0 && vdir != nullptr;
+  const long long n_groups = (n + kE - 1) / kE;
+  const long long stride = static_cast<long long>(gridDim.x) * blockDim.x;
+  for (long long g = blockIdx.x * static_cast<long long>(blockDim.x) +
+                     threadIdx.x;
+       g < n_groups; g += stride) {
+    const long long i0 = g * kE;
+    const bool full = vec_ok && i0 + kE <= n;
+    float v[kE], sv[kE];
+    load_group<kE>(x, i0, n, full, v);
+    if (signed_v) {
+      load_group<kE>(vdir, i0, n, full, sv);
+#pragma unroll
+      for (int j = 0; j < kE; ++j) sv[j] = rt::sign_of(sv[j]);
+    } else {
+#pragma unroll
+      for (int j = 0; j < kE; ++j) sv[j] = 0.0f;
+    }
+    uint32_t o0 = 0u, o1 = 0u;
+    if (p.mode != rt::kRN)
+      rt::threefry2x32(k0, k1, static_cast<uint32_t>(i0 / kLanes),
+                       static_cast<uint32_t>((i0 % kLanes) / kE), o0, o1);
+#pragma unroll
+    for (int j = 0; j < kE; ++j) {
+      uint32_t w = j < kRatio ? o0 : o1;
+      if constexpr (kBits < 32)
+        w = (w >> ((j % kRatio) * kBits)) & ((1u << kBits) - 1u);
+      v[j] = rt::round_value(v[j], w, p, sv[j]);
+    }
+    store_group<kE>(out, i0, n, full, v);
+  }
+}
+
+int blocks_for(long long n_groups) {
   const long long want = (n_groups + kThreads - 1) / kThreads;
-  const int blocks = static_cast<int>(want < 132 * 16 ? want : 132 * 16);
-  sr_cast_kernel<<<blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      x, bits, v, out, n, vec_ok, k0, k1, p);
-  return static_cast<int>(cudaGetLastError());
+  return static_cast<int>(want < kMaxBlocks ? want : kMaxBlocks);
 }
 
 }  // namespace
 
 // K1'.  v: null, or float32 of n elements (signed_sr_eps).  vec_ok: every
-// operand is 16-byte aligned (whole groups move as 16-byte words).  Launch
-// on `stream`; returns cudaGetLastError() (0 on success).
+// operand is 16-byte aligned (groups move as 8-, 16- or 32-byte words).
+// instance: 0 generic, 1 the path's (sr, 32-bit draws, no v:
+// sr_cast.sr_cast_instance); a launch that does not fit it is refused.
+// Launch on `stream`; returns cudaGetLastError() (0 on success).
 extern "C" int sr_cast_prng(const float* x, const float* v, float* out,
                             long long n, int vec_ok, uint32_t k0, uint32_t k1,
                             int precision, int emin, int emax, float xmax,
-                            int mode, int rand_bits, float eps,
+                            int mode, int rand_bits, float eps, int instance,
                             void* stream) {
-  return run(x, nullptr, v, out, n, vec_ok, k0, k1, precision, emin, emax,
-             xmax, mode, rand_bits, eps, stream);
+  if (n <= 0) return 0;
+  if (rand_bits != 32 && rand_bits != 16 && rand_bits != 8)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (instance == 1 && (mode != rt::kSR || rand_bits != 32 || v != nullptr))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const rt::RoundParams p{precision, emin, emax, xmax, mode, rand_bits, 1,
+                          eps};
+  const long long n_groups = (n - 1) / (64 / rand_bits) + 1;
+  const int blocks = blocks_for(n_groups);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (instance == 1)
+    sr_cast_prng_kernel<2, rt::kSR><<<blocks, kThreads, 0, st>>>(
+        x, v, out, n, vec_ok, k0, k1, p);
+  else if (rand_bits == 32)
+    sr_cast_prng_kernel<2, -1><<<blocks, kThreads, 0, st>>>(
+        x, v, out, n, vec_ok, k0, k1, p);
+  else if (rand_bits == 16)
+    sr_cast_prng_kernel<4, -1><<<blocks, kThreads, 0, st>>>(
+        x, v, out, n, vec_ok, k0, k1, p);
+  else
+    sr_cast_prng_kernel<8, -1><<<blocks, kThreads, 0, st>>>(
+        x, v, out, n, vec_ok, k0, k1, p);
+  return static_cast<int>(cudaGetLastError());
 }
 
 // K1.  bits: n uint32 words on the device (read only when stochastic).
@@ -162,6 +254,11 @@ extern "C" int sr_cast_bits(const float* x, const uint32_t* bits,
                             int vec_ok, int precision, int emin, int emax,
                             float xmax, int mode, int rand_bits, float eps,
                             void* stream) {
-  return run(x, bits, v, out, n, vec_ok, 0u, 0u, precision, emin, emax, xmax,
-             mode, rand_bits, eps, stream);
+  if (n <= 0) return 0;
+  const rt::RoundParams p{precision, emin, emax, xmax, mode, rand_bits, 1,
+                          eps};
+  sr_cast_kernel<<<blocks_for((n + kGroup - 1) / kGroup), kThreads, 0,
+                   static_cast<cudaStream_t>(stream)>>>(x, bits, v, out, n,
+                                                        vec_ok, p);
+  return static_cast<int>(cudaGetLastError());
 }

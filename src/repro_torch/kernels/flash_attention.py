@@ -10,7 +10,10 @@
 ``flash_bwd_dkv`` -> ``flash_bwd_dkv``, replacing ``flash_bwd_dkv_p`` (K7');
 ``flash_decode``  -> ``flash_decode``, replacing ``flash_decode_p`` (K9);
 ``flash_decode_paged`` -> ``flash_decode_paged``, replacing
-                     ``flash_decode_paged_p`` (K10).
+                     ``flash_decode_paged_p`` (K10): a decode kernel of
+                     its own, one block per (request, kv head, query
+                     row), whose float operations run in K9's order, so
+                     it equals K9 with ``kv_block == page`` bit for bit.
 
 Three rounding sites per attention op: the QKᵀ logits (``qk``), each
 logical kv block's P·V partial product (``av``) and the normalised output
@@ -64,6 +67,10 @@ FWD_DIMS = (16, 32, 64, 128)
 FWD_TILE_KEYS = 128
 FWD_ROWS = 32
 SMEM_MAX = 232448
+# K10's kernel: keys a round holds (V rows staged per piece), pages a
+# round takes at most
+DEC_KEYS = 128
+DEC_PAGES = 32
 
 
 def reset_launches() -> None:
@@ -514,6 +521,19 @@ def fwd_kernel_for(Skv: int, dk: int, dv: int, kv_block: int) -> str:
     return "flash_fwd"
 
 
+def decode_smem_bytes(page: int, dk: int, dv: int, elt_bytes: int,
+                      n_max: int) -> int:
+    """Shared memory of one K10 block (``csrc/flash_attention.cu:
+    decode_smem``): staged V rows, q, a round's logits (a whole page's
+    where pages are longer than ``DEC_KEYS``), the pages' maxima and sums,
+    their rounded P.V partials and the request's block table."""
+    def up(x, m):
+        return -(-x // m) * m
+    return up(DEC_KEYS * dv * elt_bytes, 16) + 4 * (
+        up(dk, 4) + max(page, DEC_KEYS) + 2 * DEC_PAGES + DEC_PAGES * dv
+        + n_max)
+
+
 def _aligned16(t: torch.Tensor) -> torch.Tensor:
     """``t``, or a copy where its data does not start on 16 bytes (the
     single-pass kernel stages k and v rows with 16-byte copies)."""
@@ -681,7 +701,9 @@ def flash_decode_paged(q, k_pages, v_pages, seeds, lengths, tables, specs, *,
     (filler entries past a request's pages point at scratch page 0, whose
     rows are masked).  lengths and tables may be int32 tensors on the card
     (the kernel reads them there: no host round trip per step) or host
-    arrays.  Returns (B·KV, G, dv) float32."""
+    arrays.  Returns (B·KV, G, dv) float32.  On the card, pages whose
+    logits overflow the kernel's shared memory (``decode_smem_bytes``)
+    raise NotImplementedError; the CPU twin takes any page."""
     specs = AttnSpecs(*specs)
     BKV, G, dk = q.shape
     PKV, page, _ = k_pages.shape
@@ -713,6 +735,10 @@ def flash_decode_paged(q, k_pages, v_pages, seeds, lengths, tables, specs, *,
                          f"{tuple(tables.shape)}")
     n_max = tables.shape[1]
     tbl = _int_rows(tables, (B, n_max), "tables", dev).contiguous()
+    if decode_smem_bytes(page, dk, dv, pack[0] or 4, n_max) > SMEM_MAX:
+        raise NotImplementedError(f"flash_decode_paged: pages of {page} "
+                                  f"keys in tables of {n_max} do not fit "
+                                  "the kernel's shared memory")
     q = _f32(q)
     if kv_fmt is None:
         k_pages, v_pages = _f32(k_pages), _f32(v_pages)

@@ -15,6 +15,12 @@ CPU goes to the plain PyTorch twin (``round_block`` fed those bits); a
 CUDA tensor launches the kernel, and what the kernel does not take raises.
 ``LAUNCHES`` counts the kernel launches.
 
+K1' is compiled twice: an instance for the serving path's spec (sr with
+32-bit draws, no ``v``) with the scheme and the draw width fixed at
+compile time, and a generic one (``sr_cast_instance`` chooses).  Each of
+its threads rounds the ``prng_group(rand_bits)`` consecutive elements
+whose fields one Threefry evaluation gives.
+
 Scope: rn, sr, sr_eps and signed_sr_eps on plain FP grids, with 32-, 16-
 or 8-bit draws.  signed_sr_eps takes the bias direction ``v`` (broadcast
 to ``x``'s shape) and, as the reference's signed kernels do, draws 32-bit
@@ -35,6 +41,8 @@ from repro_torch.kernels.qmatmul import (Words, _bits_words, _launch_check,
 
 LAUNCHES: Dict[str, int] = {"sr_cast_prng": 0, "sr_cast_bits": 0}
 _MODES = {"rn": 0, "sr": 1, "sr_eps": 2, "signed_sr_eps": 3}
+# K1''s compiled instances, by the index its entry point takes
+SR_CAST_INSTANCES = ("generic", "sr_r32")
 
 
 def reset_launches() -> None:
@@ -78,6 +86,25 @@ def _check(x: torch.Tensor, fmt, mode: str, v, rand_bits: int,
     return grid, vf, rand_bits
 
 
+def sr_cast_instance(mode: str, rand_bits: int, has_v: bool) -> str:
+    """Which compiled instance of K1' a call runs: ``"sr_r32"`` (sr, its
+    32-bit draws and no ``v`` fixed at compile time: the MoE act site's
+    spec) or ``"generic"``.  The entry point refuses an ``sr_r32`` launch
+    that does not fit."""
+    if get_scheme(mode).name == "sr" and rand_bits == 32 and not has_v:
+        return "sr_r32"
+    return "generic"
+
+
+def prng_group(rand_bits: int) -> int:
+    """Elements per K1' thread: one Threefry evaluation gives two 32-bit
+    words, so 2 elements at 32-bit fields, 4 at 16, 8 at 8.  Thread ``t``
+    rounds elements ``[t·g, t·g + g)``; with g dividing 128 they lie in
+    one row of the 128-lane layout, and their words are the pair keyed
+    (row, (i % 128) // g) (``common.lane_bits``)."""
+    return 64 // rand_bits
+
+
 def _round_args(grid, mode: str, rand_bits: int, eps: float):
     f = grid.fmt
     return (f.precision, f.emin, f.emax, ctypes.c_float(f.xmax),
@@ -114,7 +141,8 @@ def sr_cast_plain(x: torch.Tensor, bits: Optional[torch.Tensor], fmt,
                               rand_bits=rand_bits).reshape(x.shape)
 
 
-def _launch(name: str, x, bits, vf, seed_words, grid, mode, rand_bits, eps):
+def _launch(name: str, x, bits, vf, seed_words, grid, mode, rand_bits, eps,
+            instance: Optional[str] = None):
     x = x.contiguous()
     out = torch.empty_like(x)
     if out.numel() == 0:
@@ -126,9 +154,10 @@ def _launch(name: str, x, bits, vf, seed_words, grid, mode, rand_bits, eps):
     v_ptr = None if vf is None else vf.data_ptr()
     rnd = _round_args(grid, mode, rand_bits, eps)
     if name == "sr_cast_prng":
+        inst = SR_CAST_INSTANCES.index(instance)
         rc = lib.sr_cast_prng(x.data_ptr(), v_ptr, out.data_ptr(), x.numel(),
                               vec_ok, seed_words[0], seed_words[1], *rnd,
-                              _stream(x))
+                              inst, _stream(x))
     else:
         rc = lib.sr_cast_bits(x.data_ptr(),
                               None if bits is None else bits.data_ptr(),
@@ -141,17 +170,25 @@ def _launch(name: str, x, bits, vf, seed_words, grid, mode, rand_bits, eps):
 
 def sr_cast_prng(x: torch.Tensor, seed_words: Words, fmt, mode: str = "sr",
                  eps: float = 0.0, v=None, *, rand_bits: int = 32,
-                 overflow: str = "saturate") -> torch.Tensor:
+                 overflow: str = "saturate",
+                 instance: Optional[str] = None) -> torch.Tensor:
     """Round float32 ``x`` (any shape) onto ``fmt``; ``seed_words``: the
     (k0, k1) uint32 pair of this rounding site; ``v``: the bias direction
-    of signed_sr_eps.  Returns float32 grid values of ``x``'s shape."""
+    of signed_sr_eps.  Returns float32 grid values of ``x``'s shape.
+    ``instance``: on the card, ``"generic"`` launches the generic instance
+    whatever ``sr_cast_instance`` chooses (the checks hold the two against
+    each other)."""
     grid, vf, rand_bits = _check(x, fmt, mode, v, rand_bits, overflow,
                                  "sr_cast_prng")
+    chosen = sr_cast_instance(mode, rand_bits, vf is not None)
+    if instance not in (None, chosen, "generic"):
+        raise ValueError(f"sr_cast_prng: cannot launch instance "
+                         f"{instance!r} for this spec (it takes {chosen!r})")
     if x.device.type == "cpu":
         return sr_cast_prng_plain(x, seed_words, grid, mode, rand_bits, eps,
                                   vf)
     return _launch("sr_cast_prng", x, None, vf, seed_words, grid, mode,
-                   rand_bits, eps)
+                   rand_bits, eps, instance or chosen)
 
 
 def sr_cast(x: torch.Tensor, bits: Optional[torch.Tensor], fmt,
@@ -184,7 +221,8 @@ def _lib():
                c.c_float, c.c_void_p]
         lib.sr_cast_prng.argtypes = ([c.c_void_p] * 3
                                      + [c.c_longlong, c.c_int, c.c_uint32,
-                                        c.c_uint32] + rnd)
+                                        c.c_uint32] + rnd[:-1]
+                                     + [c.c_int, c.c_void_p])
         lib.sr_cast_prng.restype = c.c_int
         lib.sr_cast_bits.argtypes = ([c.c_void_p] * 4
                                      + [c.c_longlong, c.c_int] + rnd)

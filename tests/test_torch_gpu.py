@@ -23,9 +23,14 @@ same order).  K10 (paged decode) bitwise equal to its
 twin on exact-sum inputs (every key of a request equal: each logit of a
 row equal, every exp exactly 1, every sum exact), within the attention
 contract on N(0, 1) inputs, bitwise equal to K9 on each request's
-contiguous cache with ``kv_block == page``, the same bits at two
-placements of the same content and over codes as over their values.
-The SR cast (K1') is bitwise on any input; the batched GEMM (K8') is held
+contiguous cache with ``kv_block == page`` (pages of 5 to 128 keys, head
+dims 16 to 128, G = 1 to 8, windows, codes and float32 pools, and every
+compiled instance of its kernel: 2-byte codes, head dims outside 16, 32,
+64 and 128, dk != dv, pools off 16-byte boundaries), the same bits at
+two placements of the same content and over codes as over their values;
+pages whose logits overflow shared memory are refused on the card.
+The SR cast (K1') is bitwise on any input, its path instance bitwise its
+generic one; the batched GEMM (K8') is held
 to the GEMM contract.  K5 (the
 fused QAdam step), both its compiled instances, is bitwise equal to its
 twin in x, the moment codes or values and the Kahan carries, on any
@@ -434,12 +439,15 @@ def test_flash_fwd_two_pass_when_block_does_not_fit(cuda):
         assert torch.equal(got[i].view(torch.int32), ref[i].view(torch.int32))
 
 
-def _paged_case(page, exact, seed, n_kv=4, G=8, d=64, n_max=4, B=8):
+def _paged_case(page, exact, seed, n_kv=4, G=8, d=64, n_max=4, B=8,
+                dv=None):
     """K10's inputs: B requests of n_kv kv heads at lengths 1, page-1,
     page, page+1, the full table and three random ones; pages placed at
     random among 1..P-1 (filler entries 0).  Returns q, the logical k/v
-    (B·KV, n_max·page, d) as e4m3 grid values, lengths and a function
-    that scatters a logical cache into a pool for a given placement."""
+    (B·KV, n_max·page, d / dv, dv defaulting to d) as e4m3 grid values,
+    lengths and a function that scatters a logical cache into a pool for
+    a given placement."""
+    dv = d if dv is None else dv
     rng = np.random.default_rng(seed)
     S = n_max * page
     lengths = np.array([1, max(1, page - 1), page, page + 1, S]
@@ -447,11 +455,11 @@ def _paged_case(page, exact, seed, n_kv=4, G=8, d=64, n_max=4, B=8):
     if exact:
         q = (rng.integers(-4, 5, (B * n_kv, G, d)) / 4).astype(np.float32)
         k = np.repeat(rng.integers(-4, 5, (B * n_kv, 1, d)) / 4, S, axis=1)
-        v = rng.integers(-8, 9, (B * n_kv, S, d)) / 8
+        v = rng.integers(-8, 9, (B * n_kv, S, dv)) / 8
     else:
         q = rng.standard_normal((B * n_kv, G, d)).astype(np.float32)
         k = rng.standard_normal((B * n_kv, S, d))
-        v = rng.standard_normal((B * n_kv, S, d))
+        v = rng.standard_normal((B * n_kv, S, dv))
     grid = parse_spec("e4m3-rn")
     k, v = (grid(torch.from_numpy(x.astype(np.float32))) for x in (k, v))
     P = B * n_max + 3
@@ -466,7 +474,7 @@ def _paged_case(page, exact, seed, n_kv=4, G=8, d=64, n_max=4, B=8):
         return tables
 
     def pool(x, tables):
-        out = torch.zeros((P * n_kv, page, d), dtype=x.dtype)
+        out = torch.zeros((P * n_kv, page, x.shape[-1]), dtype=x.dtype)
         for b in range(B):
             for j in range(n_max):
                 if tables[b, j]:
@@ -526,6 +534,109 @@ def test_flash_decode_paged_kernel_matches_plain(cuda, page, name):
                                outs[0][sl].view(torch.int32))
 
 
+def _bitwise(a, b):
+    return torch.equal(a.contiguous().view(torch.int32),
+                       b.contiguous().view(torch.int32))
+
+
+def _off16(t):
+    """A copy of ``t`` whose data starts one element past a 16-byte
+    boundary."""
+    buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    out = buf[1:].view(t.shape)
+    out.copy_(t)
+    assert out.data_ptr() % 16 != 0
+    return out
+
+
+# K10's own kernel against K9 (fwd_kernel) with kv_block == page: pages of
+# 5 to 128 keys (128 spans two 64-key chunks), head dims 16, 64 and 128,
+# G = 1, 3 and 8, windows, e4m3 codes and float32 pools; then every other
+# compiled instance of K10's kernel: 2-byte codes (kCode: bfloat16,
+# binary16), 1-byte codes with a non-finite field (binary8), the head dim
+# fixed at compile time at 32, and the instances that read it at run time
+# (DK = 0: head dims outside 16/32/64/128, dk != dv, rows or pools off
+# 16-byte boundaries)
+@pytest.mark.gpu
+@pytest.mark.parametrize("page,dk,dv,G,window,fmt,offset", [
+    (5, 64, 64, 3, 0, "e4m3", False), (8, 64, 64, 8, 0, "e4m3", False),
+    (16, 64, 64, 8, 0, "e4m3", False), (64, 64, 64, 8, 0, "e4m3", False),
+    (128, 64, 64, 8, 0, "e4m3", False), (8, 16, 16, 1, 0, "e4m3", False),
+    (16, 16, 16, 3, 0, "e4m3", False), (16, 128, 128, 8, 0, "e4m3", False),
+    (128, 128, 128, 1, 0, "e4m3", False), (16, 64, 64, 8, 11, "e4m3", False),
+    (64, 64, 64, 3, 40, "e4m3", False), (128, 64, 64, 8, 100, "e4m3", False),
+    (16, 64, 64, 8, 0, None, False), (128, 128, 128, 3, 0, None, False),
+    (5, 16, 16, 8, 3, None, False),
+    (16, 64, 64, 8, 0, "bfloat16", False),
+    (8, 48, 48, 3, 5, "binary16", False),
+    (128, 128, 128, 3, 0, "bfloat16", True),
+    (16, 64, 64, 8, 0, "binary8", False),
+    (5, 20, 20, 3, 0, "binary8", False),
+    (16, 32, 32, 8, 0, "e4m3", False),
+    (16, 32, 32, 3, 0, None, False),
+    (8, 48, 48, 3, 0, "e4m3", False),
+    (128, 80, 80, 8, 50, "e4m3", False),
+    (16, 80, 80, 8, 0, None, False),
+    (16, 64, 32, 8, 0, "e4m3", False),
+    (5, 32, 64, 3, 0, None, False),
+    (64, 128, 16, 1, 0, "binary8", False),
+    (16, 64, 64, 8, 0, "e4m3", True),
+    (64, 64, 64, 8, 0, None, True),
+    (16, 16, 16, 3, 7, "binary8", True)])
+def test_flash_decode_paged_kernel_matches_k9(cuda, page, dk, dv, G, window,
+                                              fmt, offset):
+    """K10 bitwise K9 (fwd_kernel) with kv_block == page on N(0, 1)
+    inputs on ``fmt``'s grid (pools of ``fmt`` codes, or float32 values
+    where None; off a 16-byte boundary with ``offset``), and bitwise at
+    two placements of the same content."""
+    specs = [parse_spec("binary8-sr")] * 3
+    n_kv = 2
+    q, k, v, lengths, place, pool = _paged_case(page, False, page + dk + G,
+                                                n_kv=n_kv, G=G, d=dk,
+                                                n_max=3, B=6, dv=dv)
+    if fmt is not None:
+        k, v = (parse_spec(f"{fmt}-rn")(x) for x in (k, v))
+    seeds = np.random.default_rng(page + dk).integers(
+        0, 2 ** 32, (q.shape[0], 6), dtype=np.uint64)
+    kw = dict(scale=dk ** -0.5, window=window)
+    outs = []
+    for pl_seed in (0, 1):
+        tables = place(pl_seed)
+        kp, vp = (pool(x, tables).to(cuda) for x in (k, v))
+        if fmt is not None:
+            kp, vp = (tcommon.pack_block(x, fmt) for x in (kp, vp))
+        if offset:
+            kp, vp = _off16(kp), _off16(vp)
+        outs.append(tfa.flash_decode_paged(q.to(cuda), kp, vp, seeds,
+                                           lengths, tables, specs, n_kv=n_kv,
+                                           kv_fmt=fmt, **kw))
+    torch.cuda.synchronize()
+    assert _bitwise(outs[0], outs[1])
+    for b, n in enumerate(lengths):
+        sl = slice(b * n_kv, (b + 1) * n_kv)
+        k9 = tfa.flash_decode(q[sl].to(cuda), k[sl].to(cuda), v[sl].to(cuda),
+                              seeds[sl], int(n), specs, kv_block=page, **kw)
+        torch.cuda.synchronize()
+        assert _bitwise(k9, outs[0][sl]), (b, int(n))
+
+
+@pytest.mark.gpu
+def test_flash_decode_paged_refuses_pages_past_shared_memory(cuda):
+    """A page whose logits overflow the card's shared memory is refused on
+    the card (the CPU twin computes it: test_torch_serving) and counts no
+    launch."""
+    page = 60000
+    q = torch.zeros((2, 4, 16), device=cuda)
+    pool = torch.zeros((2, page, 16), device=cuda)
+    seeds = np.zeros((2, 6), np.uint64)
+    tfa.reset_launches()
+    with pytest.raises(NotImplementedError, match="shared memory"):
+        tfa.flash_decode_paged(q, pool, pool, seeds, [1], [[0]],
+                               [parse_spec("binary8-sr")] * 3, scale=0.25,
+                               n_kv=2)
+    assert tfa.LAUNCHES["flash_decode_paged"] == 0
+
+
 # ---------------------------------------------------------------------------
 # K1' (sr_cast_prng) and K8' (qmatmul_batched_prng): the MoE serve path
 # ---------------------------------------------------------------------------
@@ -561,6 +672,45 @@ def test_sr_cast_kernel_unaligned_and_counted(cuda):
     assert torch.equal(got.view(torch.int32), ref.view(torch.int32))
     assert tsr.sr_cast_prng(x[:0], SEEDS[1], "binary8").numel() == 0
     assert tsr.LAUNCHES == {"sr_cast_prng": 1, "sr_cast_bits": 0}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n", [1, 127, 129, 98304 + 3])
+@pytest.mark.parametrize("offset", [0, 1])
+def test_sr_cast_path_instance_matches_generic(cuda, n, offset):
+    """K1''s sr_r32 instance (the MoE act site's spec) bitwise its generic
+    instance and the twin, on ragged n and on a view off a 16-byte
+    boundary (scalar accesses)."""
+    x = _normal((n + offset,), 11, 4.0).to(cuda)[offset:]
+    assert (x.data_ptr() % 16 != 0) == bool(offset)
+    assert tsr.sr_cast_instance("sr", 32, False) == "sr_r32"
+    path = tsr.sr_cast_prng(x, SEEDS[2], "binary8", "sr")
+    generic = tsr.sr_cast_prng(x, SEEDS[2], "binary8", "sr",
+                               instance="generic")
+    ref = tsr.sr_cast_prng_plain(x, SEEDS[2], "binary8", "sr", 32)
+    torch.cuda.synchronize()
+    assert _bitwise(path, ref)
+    assert _bitwise(generic, ref)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n", [1, 127, 129, 98304 + 3])
+@pytest.mark.parametrize("offset", [0, 1])
+def test_sr_cast_generic_instance_matches_plain(cuda, n, offset):
+    """16- and 8-bit draws and signed_sr_eps through K1''s generic
+    instance, bitwise the twin."""
+    x = _normal((n + offset,), 12, 4.0).to(cuda)[offset:]
+    v = _normal((n,), 13).to(cuda)
+    for mode, rb, eps, vv in (("sr", 16, 0.0, None), ("sr", 8, 0.0, None),
+                              ("sr_eps", 8, 0.1, None),
+                              ("signed_sr_eps", 32, 0.1, v)):
+        assert tsr.sr_cast_instance(mode, rb, vv is not None) == "generic"
+        got = tsr.sr_cast_prng(x, SEEDS[0], "binary8", mode, eps, vv,
+                               rand_bits=rb)
+        ref = tsr.sr_cast_prng_plain(x, SEEDS[0], "binary8", mode, rb, eps,
+                                     vv)
+        torch.cuda.synchronize()
+        assert _bitwise(got, ref), (mode, rb)
 
 
 def _batched_seeds(E):

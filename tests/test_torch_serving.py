@@ -216,6 +216,101 @@ def test_paged_twin_placement_codes_and_contiguous():
                            outs[0][sl].view(torch.int32))
 
 
+@pytest.mark.parametrize("kv_fmt,dk,dv", [("bfloat16", 16, 8),
+                                           ("binary8", 20, 24)])
+def test_paged_twin_codes_and_head_dims_match_k9_twin(kv_fmt, dk, dv):
+    """The twin over 2-byte codes or binary8's, with dk != dv: bitwise
+    K9's twin with ``page == kv_block`` on each request's contiguous
+    cache of the same codes (the shapes K10's kernel reads its head dims
+    at run time for)."""
+    rng = np.random.default_rng(13)
+    page, n_max = 5, 3
+    lengths = np.array([1, page, page + 1, n_max * page], np.int32)
+    B, S = len(lengths), n_max * page
+    q = _t(rng.standard_normal((B * KV, G, dk)))
+    k, v = (tcommon.pack_block(parse_spec(f"{kv_fmt}-rn")(
+        _t(rng.standard_normal((B * KV, S, d)))), kv_fmt) for d in (dk, dv))
+    tables = np.arange(1, B * n_max + 1, dtype=np.int32).reshape(B, n_max)
+    pool_k, pool_v = (torch.zeros(((B * n_max + 1) * KV, page, x.shape[-1]),
+                                  dtype=x.dtype) for x in (k, v))
+    for b in range(B):
+        for j in range(n_max):
+            for h in range(KV):
+                row = tables[b, j] * KV + h
+                pool_k[row] = k[b * KV + h, j * page:(j + 1) * page]
+                pool_v[row] = v[b * KV + h, j * page:(j + 1) * page]
+    seeds = _seeds(rng, B * KV)
+    specs = [parse_spec("binary8-sr")] * 3
+    got = TF.flash_decode_paged(q, pool_k, pool_v, seeds, lengths, tables,
+                                specs, scale=dk ** -0.5, n_kv=KV,
+                                kv_fmt=kv_fmt)
+    assert got.shape == (B * KV, G, dv)
+    for b, n in enumerate(lengths):
+        sl = slice(b * KV, (b + 1) * KV)
+        want = TF.flash_decode(q[sl], k[sl], v[sl], seeds[sl], int(n), specs,
+                               scale=dk ** -0.5, kv_block=page,
+                               kv_fmt=kv_fmt)
+        assert torch.equal(want.view(torch.int32), got[sl].view(torch.int32))
+
+
+@pytest.mark.parametrize("window", [0, 5])
+def test_paged_twin_pages_past_the_length_close_once(window):
+    """K10's kernel closes the pages past a request's length once (the
+    close maps acc to acc * corr + 0 with corr 1 or 0, which repeats to
+    the same bits); the twin replays every one.  Filler entries after the
+    last page leave the twin's bits as they are, and the close repeated
+    on float32 special values gives what it gives once."""
+    rng = np.random.default_rng(9)
+    page = 8
+    q, codes_k, codes_v, lengths = _case(rng, page, False, True)
+    seeds = _seeds(rng, q.shape[0])
+    specs = [parse_spec("binary8-sr")] * 3
+    tables = _placement(rng, lengths, page)
+    kp, vp = (torch.from_numpy(_pool(x, tables, page, 0))
+              for x in (codes_k, codes_v))
+    kw = dict(scale=0.25, n_kv=KV, window=window, kv_fmt="e4m3")
+    base = TF.flash_decode_paged_plain(_t(q), kp, vp, seeds, lengths, tables,
+                                       specs, **kw)
+    wide = TF.flash_decode_paged_plain(
+        _t(q), kp, vp, seeds, lengths,
+        np.concatenate([tables, np.zeros((len(lengths), 3), np.int32)], 1),
+        specs, **kw)
+    assert torch.equal(base.view(torch.int32), wide.view(torch.int32))
+    x = torch.tensor([-0.0, 0.0, 1.5, -2.25, 1e-40, float("inf"),
+                      -float("inf"), float("nan")])
+    for corr in (0.0, 1.0):
+        once = x * corr + 0.0
+        assert torch.equal((once * corr + 0.0).view(torch.int32),
+                           once.view(torch.int32))
+
+
+def test_paged_kernel_shared_memory():
+    """K10's block at the engine's shape (pages of 64, d = 64, e4m3 codes)
+    fits the 48 KB a launch takes without opting in.  A page whose logits
+    overflow the card's shared memory is refused only on the card: on the
+    CPU the twin computes it, bitwise K9's twin with ``kv_block == page``
+    on the same cache."""
+    assert TF.decode_smem_bytes(64, 64, 64, 1, 4) == \
+        128 * 64 + 4 * (64 + 128 + 2 * 32 + 32 * 64 + 4)
+    assert TF.decode_smem_bytes(64, 64, 64, 1, 4) <= 48 * 1024
+    assert TF.decode_smem_bytes(128, 128, 128, 4, 1024) <= TF.SMEM_MAX
+    page = 60000
+    assert TF.decode_smem_bytes(page, DK, DK, 4, 1) > TF.SMEM_MAX
+    rng = np.random.default_rng(0)
+    q = _t(rng.standard_normal((KV, G, DK)))
+    pool = [parse_spec("e4m3-rn")(_t(rng.standard_normal((KV, page, DK))))
+            for _ in range(2)]
+    seeds = _seeds(rng, KV)
+    specs = [parse_spec("binary8-sr")] * 3
+    got = TF.flash_decode_paged(q, *pool, seeds, [5], [[0]], specs,
+                                scale=0.25, n_kv=KV)
+    want = TF.flash_decode_plain(q, *pool, seeds, 5, specs, scale=0.25,
+                                 kv_block=page)
+    assert got.shape == (KV, G, DK)
+    assert torch.isfinite(got).all()
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+
+
 # -------------------------------------------------- request-keyed seeds ---
 def test_request_words_and_seeds_match_reference():
     rng = np.random.default_rng(9)
