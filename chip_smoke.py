@@ -14,7 +14,11 @@ Phases (any failed check exits non-zero; there is no CPU fallback):
    inputs, at most 1e-4 one-ulp flips on N(0, 1) inputs -- and timed with
    CUDA events beside the bound, the twin and the bare fp32 GEMM
    (``torch.matmul``, the GEMM-only yardstick: no single PyTorch call
-   computes the rounded function);
+   computes the rounded function), K3' and the yardstick at the decode
+   shapes also by CUDA-graph replay (``device_ms``); K3''s decode route
+   holds each row bit for bit whatever rows share the call (the same A
+   rows at M = 1, 2, 4, 8 and 16, K3' and K3) and equals its large-M
+   route bit for bit at every decode shape;
 4. update kernels vs plain: K2' and K2 (the eq.-8 update) at n = 2**24 + 37
    under five rounding configs and at the full tinyllama-1.1b parameter
    count under the trainer's config, and the momentum FMA at both sizes,
@@ -111,8 +115,9 @@ Phases (any failed check exits non-zero; there is no CPU fallback):
    their values; K1 and K1''s signed-SRe branch bitwise on any input; on
    N(0, 1) inputs the GEMM contract; each timed beside its bound (the
    bits stream counted), its in-kernel-bits kernel, the twin and the
-   unrounded yardstick of its primed kernel, K1 and the cast at the
-   path's shape also by CUDA-graph replay (``device_ms``);
+   unrounded yardstick of its primed kernel, K3 at the decode shapes (with
+   K3' and the yardstick), K1 and the cast at the path's shape also by
+   CUDA-graph replay (``device_ms``);
 22. serve tinyllama-1.1b under ``e4m3-sr-oracle`` (K3, K4; every
    in-kernel-bits kernel launched no time) and under ``e4m3-sr``: tokens
    and logits bitwise equal; the host seconds spent issuing the bits;
@@ -153,9 +158,10 @@ Phases (any failed check exits non-zero; there is no CPU fallback):
    weights on the CPU, teacher-forced on the CPU's picks: logits held to
    phase 12's limits, the card's own picks within 0.1 of the CPU's best
    logit, the pools' codes at most 1 % different per layer;
-29. one JSON line of per-kernel numbers (K10's and K1''s with the
-   registers and spills ptxas reports for their instances, phase 2), then
-   the result line.
+29. one JSON line of per-kernel numbers (K3''s, K3's, K10's and K1''s
+   with the registers and spills ptxas reports for their instances,
+   phase 2; K3' and K3 with their device time per decode step), then the
+   result line.
 
 Detailed numbers also go to ``chiprun_out/chip_smoke.json``.
 """
@@ -474,14 +480,60 @@ def gemm_phase(torch, tq, cases):
                    max_grid_steps=steps, max_abs_err=max_err, ms=ms,
                    plain_ms=plain, gemm_only_ms=gemm, bound_ms=bms,
                    bound_by=by)
+        dev_note = ""
+        if name == "qmatmul_sr" and M <= tq.DECODE_MAX_M and case["per_step"]:
+            # K3''s decode route: device time by graph replay beside the
+            # yardstick's, since time_ms here reads the wrapper's host cost
+            row["device_ms"] = graph_ms(
+                torch, lambda i: run_kernel(a, wsets[i]), n_copies)
+            row["library_device_ms"] = graph_ms(
+                torch, lambda i: [a @ w for w in w32[i]], n_copies)
+            dev_note = (f"  device {row['device_ms']:8.4f} ms (torch.matmul "
+                        f"{row['library_device_ms']:8.4f})")
         rows.append(row)
         print(f"  {name:18s} M={M:5d} K={K:5d} N={N:6d} B={case['b']:4s}"
               f"{' +res' if res else ''}  kernel {ms:8.4f} ms  bound "
               f"{bms:8.4f} ms ({by})  plain {plain:8.3f} ms  "
-              f"gemm-only(torch.matmul fp32) {gemm:8.4f} ms  flips "
+              f"gemm-only(torch.matmul fp32) {gemm:8.4f} ms{dev_note}  flips "
               f"{n_bad}/{ref.numel()} (max {steps:g} steps)", flush=True)
         del a, ws, wsets, w32, got, ref
     return rows
+
+
+def decode_rows_phase(torch, tq, tc):
+    """K3''s decode route: each row bit for bit the same whatever rows
+    share the call (the same A rows at M = 1, 2, 4, 8 and the route's
+    largest M), for K3' and for K3 on the same words, and the large-M
+    route's result bit for bit, at every decode shape."""
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(77)
+    words = (0x243F6A88, 0x85A308D3)
+    top = tq.DECODE_MAX_M
+    for K, N, _ in QMATMUL_SHAPES:
+        a = torch.randn((top, K), generator=gen, device=dev)
+        w = (torch.randn((K, N), generator=gen, device=dev)
+             / math.sqrt(K)).to(torch.bfloat16)
+        full = tq.qmatmul_prng(a, w, words, "binary8")
+        bits = int32_words(_bits2d(torch, tc, words, (top, N), 32))
+        if not bitwise(torch, tq.qmatmul(a, w, bits, "binary8"), full):
+            fail(f"qmatmul_bits {top}x{K}x{N}: not bitwise equal to "
+                 "qmatmul_sr on the same words")
+        for m in (1, 2, 4, 8):
+            got = tq.qmatmul_prng(a[:m], w, words, "binary8")
+            got_bits = tq.qmatmul(a[:m], w, bits[:m], "binary8")
+            if not (bitwise(torch, got, full[:m])
+                    and bitwise(torch, got_bits, full[:m])):
+                fail(f"qmatmul_sr {m}x{K}x{N}: decode-route rows differ "
+                     f"from the same rows at M = {top}")
+        tq.DECODE_MAX_M = 0                 # the large-M route
+        large = tq.qmatmul_prng(a, w, words, "binary8")
+        tq.DECODE_MAX_M = top
+        if not bitwise(torch, large, full):
+            fail(f"qmatmul_sr {top}x{K}x{N}: the decode route differs from "
+                 "the large-M route")
+        print(f"  decode route K={K:5d} N={N:6d}: rows at M = 1, 2, 4, 8 "
+              f"bitwise equal to the same rows at M = {top} (K3' and K3), "
+              "and to the large-M route", flush=True)
 
 
 def attn_bound(flops, n_threefry, nbytes):
@@ -2032,12 +2084,24 @@ def bits_gemm_phase(torch, tq, tc):
                    mismatch_share=share, max_abs_err=max_err, ms=ms,
                    prng_ms=prng_ms, plain_ms=plain, gemm_only_ms=gemm,
                    bound_ms=bms, bound_by=by)
+        dev_note = ""
+        if not glu and per_step:
+            # K3 at decode: device time by graph replay (K3' and the
+            # yardstick beside it), time_ms reads the wrapper's host cost
+            row.update(device_ms=graph_ms(torch, run_k, n_copies),
+                       prng_device_ms=graph_ms(torch, run_p, n_copies),
+                       library_device_ms=graph_ms(
+                           torch, lambda i: [a @ w for w in w32[i]],
+                           n_copies))
+            dev_note = (f"  device {row['device_ms']:8.4f} ms (in-kernel "
+                        f"bits {row['prng_device_ms']:8.4f}, torch.matmul "
+                        f"{row['library_device_ms']:8.4f})")
         rows.append(row)
         print(f"  {name:20s} M={M:3d} K={K:5d} N={N:6d}  kernel {ms:8.4f} "
               f"ms  in-kernel bits {prng_ms:8.4f} ms  bound {bms:8.4f} ms "
               f"({by})  plain {plain:8.3f} ms  gemm-only(fp32) "
-              f"{gemm:8.4f} ms  flips {n_bad}/{ref[-1].numel()}, bitwise "
-              "equal to the in-kernel-bits kernel", flush=True)
+              f"{gemm:8.4f} ms{dev_note}  flips {n_bad}/{ref[-1].numel()}, "
+              "bitwise equal to the in-kernel-bits kernel", flush=True)
         del a, ws, wsets, w32, got, prng, ref, bits
     return rows
 
@@ -2827,6 +2891,7 @@ def main() -> None:
     print("== phase 3: GEMM kernels vs plain twins (serving shapes)",
           flush=True)
     rows = gemm_phase(torch, tq, gemm_cases(train=False))
+    decode_rows_phase(torch, tq, tcommon)
 
     n_full = tinyllama_params()
     print(f"== phase 4: update kernels vs plain twins (n = "
@@ -2951,7 +3016,15 @@ def main() -> None:
             serve_step_bound_ms=sum(r["bound_ms"] * r["per_step"]
                                     for r in serve_rows),
             serve_step_plain_ms=sum(r["plain_ms"] * r["per_step"]
-                                    for r in serve_rows)))
+                                    for r in serve_rows),
+            serve_step_gemm_only_ms=sum(r["gemm_only_ms"] * r["per_step"]
+                                        for r in serve_rows),
+            **({"serve_step_device_ms": sum(
+                r["device_ms"] * r["per_step"] for r in serve_rows),
+                "serve_step_library_device_ms": sum(
+                    r["library_device_ms"] * r["per_step"]
+                    for r in serve_rows)}
+               if all("device_ms" in r for r in serve_rows) else {})))
     qupdate_rows = [r for r in update_rows if r["config"] != "momentum_fma"]
     full = [r for r in qupdate_rows if r["n"] == n_full][0]
     for name, mode, n_launch, line in (
@@ -3055,6 +3128,10 @@ def main() -> None:
         path_rows = [r for r in rows_ if r["per_step"]]
         source = "qmatmul_sr" if name == "qmatmul_bits" \
             else "qmatmul_swiglu_sr"
+        dev = {key: sum(r[key] * r["per_step"] for r in path_rows)
+               for key in ("device_ms", "prng_device_ms",
+                           "library_device_ms")
+               if all(key in r for r in path_rows)}
         kernels.append(kernel_entry(
             rows_, name, f"src/repro_torch/csrc/{source}.cu",
             f"src/repro/kernels/qmatmul.py:{line}", path_launches, path_rows,
@@ -3062,7 +3139,7 @@ def main() -> None:
             f"{LAYERS} layers)", launches_path=path1,
             launches_moe_oracle=served_moe_oracle["launches"][name],
             in_kernel_bits_ms=sum(r["prng_ms"] * r["per_step"]
-                                  for r in path_rows)))
+                                  for r in path_rows), **dev))
     for rows_, name, source, line, lib in (
             (bits_batched_rows, "qmatmul_batched_bits",
              "qmatmul_batched_sr.cu", "qmatmul.py:578",
@@ -3099,7 +3176,9 @@ def main() -> None:
     for entry in kernels:
         src = Path(entry["source"]).stem
         stem = {"flash_decode_paged": "decode_paged_kernel",
-                "sr_cast_prng": "sr_cast_prng_kernel"}.get(entry["name"])
+                "sr_cast_prng": "sr_cast_prng_kernel",
+                "qmatmul_sr": "_kernel",
+                "qmatmul_bits": "_kernel"}.get(entry["name"])
         if stem:
             entry["registers"] = {fn: use for fn, use in
                                   resources.get(src, {}).items()

@@ -39,7 +39,20 @@ int64 tensors (as the port's counter draws make them) or as int32 bit
 patterns; the kernels read 32-bit words.
 
 The kernels are bound by bytes at decode (they stream each weight once);
-see the notes at the top of the CUDA sources for their design.
+see the notes at the top of the CUDA sources for their design.  K3' and K3
+have two routes (``csrc/qmatmul_sr.cu``): M <= ``DECODE_MAX_M`` runs the
+decode route (a weight stream, one lane per output), larger M the large-M
+route (register tiles); both sum each output in one ascending chain, the
+first version's order, so they equal each other and that kernel bit for
+bit on every input, and the twins on exact sums.  On the card:
+
+  PYTHONPATH=src python -m pytest -q --noconftest -m gpu \
+      tests/test_torch_gpu.py -k qmatmul
+
+(the route is forced in a test by setting ``DECODE_MAX_M``), and an A/B
+of two trees' K3' (times, device times by graph replay and output
+digests) in one call: ``python src/repro_torch/launch/time_gemm.py --src
+<tree>/src --tag <name>`` for parent, change, change, parent.
 """
 from __future__ import annotations
 
@@ -59,6 +72,13 @@ from repro_torch.kernels import build, common
 # activation-site rounding
 STREAM_FWD, STREAM_ACT = 0, 1
 _MODES = {"rn": 0, "sr": 1}
+
+# K3' / K3 calls with M at or below this run the decode route of
+# csrc/qmatmul_sr.cu, larger M its large-M route: every decode step (M =
+# batch) and engine prefill chunk (8 rows) the first, prompts (M = 128) and
+# the train step the second (the threshold from the routes' times at M = 4,
+# 8, 16 and 128: PERF.md)
+DECODE_MAX_M = 16
 
 # kernel launches since the last reset_launches(), by kernel name
 LAUNCHES: Dict[str, int] = {"qmatmul_sr": 0, "qmatmul_swiglu_sr": 0,
@@ -271,6 +291,8 @@ def qmatmul_bits_plain(a: torch.Tensor, b: torch.Tensor,
 
 def _qmatmul_launch(name: str, a, a_grid, b, bits, seed_words, grid, mode,
                     rand_bits, out_packed):
+    """One K3' (``qmatmul_sr``) or K3 (``qmatmul_bits``) launch: the
+    decode route for M <= ``DECODE_MAX_M``, else the large-M route."""
     M, K = a.shape
     N = b.shape[1]
     a, b = a.contiguous(), b.contiguous()
@@ -283,13 +305,13 @@ def _qmatmul_launch(name: str, a, a_grid, b, bits, seed_words, grid, mode,
     tail = (M, N, K)
     out_arg = (out.data_ptr(), _code_arg(grid if out_packed else None))
     lib = _lib_qmatmul()
+    entry = getattr(lib, name + ("_decode" if M <= DECODE_MAX_M else ""))
     if name == "qmatmul_sr":
-        rc = lib.qmatmul_sr(*head, *out_arg, *tail, seed_words[0],
-                            seed_words[1], *_round_args(grid, mode, rand_bits),
-                            _stream(a))
+        rc = entry(*head, *out_arg, *tail, seed_words[0], seed_words[1],
+                   *_round_args(grid, mode, rand_bits), _stream(a))
     else:
-        rc = lib.qmatmul_bits(*head, _ptr(bits), *out_arg, *tail,
-                              *_round_args(grid, mode, rand_bits), _stream(a))
+        rc = entry(*head, _ptr(bits), *out_arg, *tail,
+                   *_round_args(grid, mode, rand_bits), _stream(a))
     _launch_check(rc, name)
     LAUNCHES[name] += 1
     return out
@@ -354,12 +376,13 @@ def _lib_qmatmul():
         out = [c.c_void_p, c.POINTER(c.c_int)]
         rnd = [c.c_int, c.c_int, c.c_int, c.c_float, c.c_int, c.c_int,
                c.c_void_p]
-        lib.qmatmul_sr.argtypes = (head + out + [c.c_int] * 3
-                                   + [c.c_uint32] * 2 + rnd)
-        lib.qmatmul_sr.restype = c.c_int
-        lib.qmatmul_bits.argtypes = (head + [c.c_void_p] + out
-                                     + [c.c_int] * 3 + rnd)
-        lib.qmatmul_bits.restype = c.c_int
+        sr = head + out + [c.c_int] * 3 + [c.c_uint32] * 2 + rnd
+        bits = head + [c.c_void_p] + out + [c.c_int] * 3 + rnd
+        for fn, args in ((lib.qmatmul_sr, sr), (lib.qmatmul_bits, bits),
+                         (lib.qmatmul_sr_decode, sr),
+                         (lib.qmatmul_bits_decode, bits)):
+            fn.argtypes = args
+            fn.restype = c.c_int
     return lib
 
 

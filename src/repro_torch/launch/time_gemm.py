@@ -1,72 +1,173 @@
-"""CUDA-event times of the rounded GEMM kernels K3' and K4' at the serving
-path's shapes (tinyllama-1.1b decode, M = 4) and one train-step shape, for
-comparing two trees of the port on one card.
+"""Times and output digests of the rounded GEMM kernels K3' (and K4' at
+its decode shape) at the serving and train-step shapes, for comparing two
+trees of the port on one card.
 
   python src/repro_torch/launch/time_gemm.py [--src DIR] [--tag NAME]
+      [--routes] [--out FILE]
 
 ``--src`` names the ``src`` directory whose ``repro_torch`` is timed
 (default: the tree this file lives in), so one call can time two
-checkouts in turns (A, B, B, A).  Prints one JSON line: ms per call at
-each shape, and the sums over one decode step's launches.  It needs a
-card.
+checkouts in turns (A, B, B, A).  For every shape it prints ``ms`` (CUDA
+events around 20 wrapper calls: device time plus the wrapper's host
+cost), ``device_ms`` (the same calls replayed from a CUDA graph: device
+time alone), the same two for fp32 ``torch.matmul`` on the same operands
+(the unrounded yardstick) and a digest of the kernel's output on seeded
+N(0, 1) inputs, so two trees whose kernels sum in the same order print
+the same digests.  The shapes: tinyllama-1.1b's decode GEMMs at M = 4, 8
+and 16 and its prompt's at M = 128, the train step's forward, dgrad and
+wgrad GEMMs (chip_smoke.py phases 3 and 5) and a ragged one.
+``--routes`` (a tree with ``qmatmul.DECODE_MAX_M``) also times K3''s two
+routes forced at M = 4, 8, 16 and 128 on the decode shapes, the
+measurement behind the route threshold.  Prints one JSON line (and writes
+it to ``--out``).  It needs a card.
 """
 from __future__ import annotations
 
 import argparse
+import hashlib
 import json
 import math
+import subprocess
 import sys
 from pathlib import Path
 
-# (name, M, K, N, launches per tinyllama decode step)
-SHAPES = [("k3", 4, 2048, 2048, 44), ("k3", 4, 2048, 256, 44),
-          ("k3", 4, 5632, 2048, 22), ("k3", 4, 2048, 32000, 1),
-          ("k4", 4, 2048, 5632, 22), ("k3", 1024, 5632, 2048, 0)]
+DECODE_KN = [(2048, 2048, 44), (2048, 256, 44), (5632, 2048, 22),
+             (2048, 32000, 1)]
+# (name, M, K, N, B dtype, launches per tinyllama decode step)
+SHAPES = ([("k3", m, k, n, "bf16", c if m == 4 else 0)
+           for m in (4, 8, 16, 128) for (k, n, c) in DECODE_KN]
+          + [("k4", 4, 2048, 5632, "bf16", 22), ("k3", 37, 45, 70, "bf16", 0)]
+          + [("k3", 1024, k, n, "bf16", 0) for (k, n) in (
+              (2048, 2048), (2048, 256), (256, 2048), (5632, 2048),
+              (2048, 5632), (2048, 32000), (32000, 2048))]
+          + [("k3", m, 1024, n, "f32", 0) for (m, n) in (
+              (2048, 2048), (2048, 256), (5632, 2048), (2048, 5632),
+              (2048, 32000))])
 L2_BYTES = 50 * 2 ** 20
+SEEDS = ((1, 2), (3, 4), (5, 6))
+
+
+def time_ms(torch, fn, n, iters=20, warmup=3):
+    for i in range(warmup):
+        fn(i % n)
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for i in range(iters):
+        fn(i % n)
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def graph_ms(torch, fn, n, iters=20, warmup=3):
+    """Device ms per call: the calls captured in one CUDA graph and
+    replayed between two events (chip_smoke.py's graph_ms)."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for i in range(warmup):
+            fn(i % n)
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for i in range(iters):
+            fn(i % n)
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    del graph
+    return start.elapsed_time(end) / iters
+
+
+def digest(t) -> str:
+    return hashlib.sha256(t.contiguous().cpu().numpy().tobytes()) \
+        .hexdigest()[:16]
 
 
 def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--src", default=str(Path(__file__).resolve().parents[2]))
     ap.add_argument("--tag", default="")
+    ap.add_argument("--routes", action="store_true")
+    ap.add_argument("--out", default="")
     args = ap.parse_args(argv)
     sys.path.insert(0, args.src)
     import torch
     from repro_torch.kernels import build, qmatmul as tq
     if not torch.cuda.is_available():
         raise RuntimeError("time_gemm needs a CUDA device")
+    torch.backends.cuda.matmul.allow_tf32 = False
     build.build_all()
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True).stdout.strip()
     gen = torch.Generator(device="cuda").manual_seed(0)
-    seeds = ((1, 2), (3, 4), (5, 6))
-    res, step = {}, {"k3": 0.0, "k4": 0.0}
-    for name, M, K, N, per_step in SHAPES:
-        nw = 2 if name == "k4" else 1
+
+    def operands(M, K, N, bdt, nw):
+        dt = torch.bfloat16 if bdt == "bf16" else torch.float32
         a = torch.randn(M, K, generator=gen, device="cuda")
-        n = max(2, math.ceil(2 * L2_BYTES / (nw * K * N * 2)))
-        ws = [[torch.randn(K, N, generator=gen, device="cuda")
-               .to(torch.bfloat16) for _ in range(nw)] for _ in range(n)]
+        n = max(2, math.ceil(2 * L2_BYTES / (nw * K * N * dt.itemsize)))
+        ws = [[(torch.randn(K, N, generator=gen, device="cuda")
+                / math.sqrt(K)).to(dt) for _ in range(nw)] for _ in range(n)]
+        return a, ws, n
+
+    def measure(name, M, K, N, bdt, yardstick=True):
+        nw = 2 if name == "k4" else 1
+        a, ws, n = operands(M, K, N, bdt, nw)
 
         def call(i):
             if name == "k4":
-                return tq.qmatmul_swiglu_prng(a, *ws[i], seeds, "binary8")
-            return tq.qmatmul_prng(a, ws[i][0], seeds[0], "binary8")
-        for i in range(3):
-            call(i % n)
-        torch.cuda.synchronize()
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        for i in range(20):
-            call(i % n)
-        end.record()
-        torch.cuda.synchronize()
-        ms = start.elapsed_time(end) / 20
-        res[f"{name} {M}x{K}x{N}"] = ms
-        step[name] += ms * per_step
+                return tq.qmatmul_swiglu_prng(a, *ws[i], SEEDS, "binary8")
+            return tq.qmatmul_prng(a, ws[i][0], SEEDS[0], "binary8")
+        row = dict(digest=digest(call(0)), ms=time_ms(torch, call, n),
+                   device_ms=graph_ms(torch, call, n))
+        if yardstick:
+            w32 = [[w.float() for w in ws_] for ws_ in ws]
+
+            def lib(i):
+                return [a @ w for w in w32[i]]
+            row.update(library_ms=time_ms(torch, lib, n),
+                       library_device_ms=graph_ms(torch, lib, n))
+            del w32
+        del a, ws
+        return row
+
+    res, step = {}, {"k3": {"ms": 0.0, "device_ms": 0.0},
+                     "k4": {"ms": 0.0, "device_ms": 0.0}}
+    for name, M, K, N, bdt, per_step in SHAPES:
+        row = measure(name, M, K, N, bdt)
+        res[f"{name} {M}x{K}x{N} {bdt}"] = row
+        for key in ("ms", "device_ms"):
+            step[name][key] += row[key] * per_step
+        print(f"  {name} {M}x{K}x{N} {bdt}: {json.dumps(row)}", flush=True)
+    routes = {}
+    if args.routes and hasattr(tq, "DECODE_MAX_M"):
+        keep = tq.DECODE_MAX_M
+        for M in (4, 8, 16, 128):
+            for K, N, _ in DECODE_KN:
+                for route, limit in (("decode", 1 << 30), ("large", 0)):
+                    tq.DECODE_MAX_M = limit
+                    row = measure("k3", M, K, N, "bf16", yardstick=False)
+                    routes[f"{route} {M}x{K}x{N}"] = row
+                    print(f"  route {route} {M}x{K}x{N}: {json.dumps(row)}",
+                          flush=True)
+        tq.DECODE_MAX_M = keep
     out = dict(tag=args.tag, src=args.src,
-               device=torch.cuda.get_device_name(0), ms=res,
-               decode_step_ms=step)
-    print(json.dumps(out), flush=True)
+               device=torch.cuda.get_device_name(0), nvidia_smi=smi,
+               shapes=res, decode_step=step, routes=routes)
+    line = json.dumps(out)
+    print(line, flush=True)
+    if args.out:
+        Path(args.out).parent.mkdir(parents=True, exist_ok=True)
+        Path(args.out).write_text(line + "\n")
     return out
 
 

@@ -13,8 +13,13 @@ elements may differ (the summation order differs from the twin's
 torch.matmul).  A qmatmul output then differs by one grid step
 (``rounding.grid_flips``); in the fused kernel a flip of a rounded branch
 propagates through silu(g) * u, so only the share is bounded for its
-hidden.  The attention kernels: the rounded logits and their row max
-bitwise on exact-sum inputs; out, dq, dk, dv at most max(1, 1e-4 n)
+hidden.  K3' and K3 are held so on both their routes (the decode route and
+the large-M route, a route forced by setting ``qmatmul.DECODE_MAX_M``),
+which sum in one order: they agree bitwise on any input, the decode
+route's rows are bit for bit the same whatever rows share the call, and a
+sum that underflows to -0 keeps its sign exactly where K is a multiple of
+16 (each chain's zero padding).  The attention kernels: the rounded
+logits and their row max bitwise on exact-sum inputs; out, dq, dk, dv at most max(1, 1e-4 n)
 elements different on N(0, 1) inputs (float32 sums in another order, a
 value within an ulp of a rounding decision); K9 over packed codes bitwise
 K9 over the same values unpacked; K6's single pass bitwise equal to its
@@ -87,10 +92,35 @@ def _assert_flips(ref, got, fmt, adjacent_only=True, share=1e-4):
     assert adjacent or not adjacent_only
 
 
+def _route(monkeypatch, route):
+    """K3'/K3's route: "auto" as the wrapper picks it by M, "decode" or
+    "large" (the large-M route) forced."""
+    if route == "decode":
+        monkeypatch.setattr(tq, "DECODE_MAX_M", 1 << 30)
+    elif route == "large":
+        monkeypatch.setattr(tq, "DECODE_MAX_M", 0)
+
+
+# (route, M, K, N): the decode and train shapes, the threshold's
+# neighbours (DECODE_MAX_M = 16), ragged and single-chunk shapes, and each
+# route forced where the wrapper would pick the other
+QMATMUL_CASES = [
+    ("auto", 4, 2048, 256), ("auto", 37, 45, 70), ("auto", 128, 5632, 2048),
+    ("auto", 4, 2048, 32000), ("auto", 4, 2048, 2048),
+    ("auto", 4, 5632, 2048), ("auto", 1, 2048, 256), ("auto", 8, 520, 70),
+    ("auto", 15, 2048, 256), ("auto", 16, 2048, 256),
+    ("auto", 17, 2048, 256), ("auto", 1024, 2048, 256),
+    ("auto", 1024, 256, 2048), ("decode", 37, 45, 70),
+    ("decode", 128, 600, 136), ("decode", 5, 1000, 9),
+    ("decode", 6, 3000, 70), ("large", 4, 2048, 256), ("large", 16, 520, 70)]
+
+
 @pytest.mark.gpu
-@pytest.mark.parametrize("M,K,N", [(4, 2048, 256), (37, 45, 70),
-                                   (128, 5632, 2048), (4, 2048, 32000)])
-def test_qmatmul_kernel_matches_plain(cuda, M, K, N):
+@pytest.mark.parametrize("route,M,K,N", QMATMUL_CASES)
+def test_qmatmul_kernel_matches_plain(cuda, monkeypatch, route, M, K, N):
+    """K3' on both routes: bitwise the twin on exact sums (bf16 and
+    float32 B), the GEMM contract on N(0, 1) inputs."""
+    _route(monkeypatch, route)
     a = _exact((M, K), 8.0, M).to(cuda)
     b = _exact((K, N), 4.0, N).to(cuda)
     for fmt, mode, rb in (("binary8", "sr", 32), ("binary8", "rn", 32),
@@ -102,11 +132,107 @@ def test_qmatmul_kernel_matches_plain(cuda, M, K, N):
         torch.cuda.synchronize()
         assert torch.equal(got.view(torch.int32), ref.view(torch.int32)), \
             (fmt, mode, rb)
+    got = tq.qmatmul_prng(a, b, SEEDS[0], "binary8")
+    assert _same(got, tq.qmatmul_plain(a, b, SEEDS[0], "binary8"))
     a = _normal((M, K), M + 1).to(cuda)
     b = _normal((K, N), N + 1, K ** -0.5).to(cuda)
     got = tq.qmatmul_prng(a, b, SEEDS[1], "binary8")
     ref = tq.qmatmul_plain(a, b, SEEDS[1], "binary8")
     _assert_flips(ref, got, "binary8")
+    again = tq.qmatmul_prng(a, b, SEEDS[1], "binary8")
+    assert _same(got, again)                     # deterministic
+    bf = b.to(torch.bfloat16)
+    _assert_flips(tq.qmatmul_plain(a, bf, SEEDS[1], "binary8"),
+                  tq.qmatmul_prng(a, bf, SEEDS[1], "binary8"), "binary8")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("K,N", [(2048, 256), (5632, 2048), (600, 70),
+                                 (64, 130), (3000, 4)])
+def test_qmatmul_decode_rows_independent_of_m(cuda, K, N):
+    """The decode route's rows are bit for bit the same whatever rows share
+    the call: the same A rows at M = 1, 2, 4, 8 and at the threshold."""
+    m_max = tq.DECODE_MAX_M
+    a = _normal((m_max, K), K).to(cuda)
+    b = _normal((K, N), N, K ** -0.5).to(cuda).to(torch.bfloat16)
+    full = tq.qmatmul_prng(a, b, SEEDS[2], "binary8")
+    bits = _bits(cuda, SEEDS[2], (m_max, N), 32)
+    full_bits = tq.qmatmul(a, b, bits, "binary8")
+    assert _same(full, full_bits)
+    for m in (1, 2, 3, 4, 5, 8, m_max - 1):
+        got = tq.qmatmul_prng(a[:m], b, SEEDS[2], "binary8")
+        assert _same(got, full[:m]), m
+        assert _same(tq.qmatmul(a[:m], b, bits[:m], "binary8"), full[:m]), m
+    # one A row at every position of the call (bits are keyed by the row,
+    # so round to nearest): every row sums the same
+    rows = a[2:3].expand(m_max, K).contiguous()
+    got = tq.qmatmul_prng(rows, b, SEEDS[2], "binary16", "rn")
+    assert all(_same(got[i], got[0]) for i in range(m_max))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("K", [1, 16, 45, 64, 2048, 5632])
+def test_qmatmul_routes_agree(cuda, monkeypatch, K):
+    """The two routes sum each output in the same order: bitwise equal on
+    N(0, 1) inputs, for K3' and K3."""
+    M, N = 9, 200
+    a = _normal((M, K), K).to(cuda)
+    b = _normal((K, N), K + 1, K ** -0.5).to(cuda).to(torch.bfloat16)
+    bits = _bits(cuda, SEEDS[0], (M, N), 32)
+    outs = {}
+    for route in ("decode", "large"):
+        _route(monkeypatch, route)
+        outs[route] = (tq.qmatmul_prng(a, b, SEEDS[0], "binary8"),
+                       tq.qmatmul(a, b, bits, "binary8"))
+    assert _same(outs["decode"][0], outs["large"][0])
+    assert _same(outs["decode"][1], outs["large"][1])
+    assert _same(outs["decode"][0], outs["decode"][1])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("route", ["decode", "large"])
+def test_qmatmul_negative_zero_sums(cuda, monkeypatch, route):
+    """Sums that underflow to -0 leave as -0 where K is a multiple of 16
+    and as +0 otherwise (each chain runs over K rounded up to 16 with
+    zeros, and fmaf(0, 0, -0) is +0), on both routes and on both sides of
+    their stage depths."""
+    _route(monkeypatch, route)
+    for K in (16, 45, 48, 300, 2048, 2050, 2064, 3001):
+        a = torch.full((5, K), -1e-30, device=cuda)
+        b = torch.full((K, 40), 1e-20, device=cuda)
+        got = tq.qmatmul_prng(a, b, SEEDS[0], "binary16", "rn")
+        torch.cuda.synchronize()
+        assert bool((got == 0).all()), K
+        assert bool(torch.signbit(got).all()) == (K % 16 == 0), K
+        assert bool(torch.signbit(got).any()) == (K % 16 == 0), K
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("route", ["decode", "large"])
+@pytest.mark.parametrize("M,K,N,bdt", [(4, 2048, 256, "bf16"),
+                                       (6, 600, 70, "bf16"),
+                                       (40, 300, 136, "f32"),
+                                       (40, 301, 70, "f32")])
+def test_qmatmul_routes_unaligned_views(cuda, monkeypatch, route, M, K, N,
+                                        bdt):
+    """Views at a 4-byte offset (A, B, both) and row lengths that allow no
+    vector loads run the element-load instances: bitwise the aligned
+    call."""
+    _route(monkeypatch, route)
+    dt = torch.bfloat16 if bdt == "bf16" else torch.float32
+    a = _normal((M, K), 1).to(cuda)
+    b = _normal((K, N), 2, K ** -0.5).to(cuda).to(dt)
+    ref = tq.qmatmul_prng(a, b, SEEDS[1], "e4m3")
+    av = torch.empty(M * K + 1, device=cuda)[1:].view(M, K)
+    av.copy_(a)
+    step = 2 if dt == torch.bfloat16 else 1      # 4 bytes
+    bv = torch.empty(K * N + step, dtype=dt, device=cuda)[step:].view(K, N)
+    bv.copy_(b)
+    assert av.data_ptr() % 16 and bv.data_ptr() % 16
+    for x, y in ((av, b), (a, bv), (av, bv)):
+        got = tq.qmatmul_prng(x, y, SEEDS[1], "e4m3")
+        torch.cuda.synchronize()
+        assert _same(got, ref)
 
 
 @pytest.mark.gpu
@@ -921,11 +1047,17 @@ def _same(a, b):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("M,K,N", [(4, 2048, 256), (37, 45, 70),
-                                   (4, 5632, 2048)])
-def test_qmatmul_bits_kernel_matches_plain_and_prng(cuda, M, K, N):
+@pytest.mark.parametrize("route,M,K,N", [
+    ("auto", 4, 2048, 256), ("auto", 37, 45, 70), ("auto", 4, 5632, 2048),
+    ("auto", 16, 2048, 32000), ("auto", 128, 2048, 2048),
+    ("decode", 37, 45, 70), ("decode", 64, 1000, 70),
+    ("large", 4, 5632, 2048)])
+def test_qmatmul_bits_kernel_matches_plain_and_prng(cuda, monkeypatch, route,
+                                                    M, K, N):
     """K3 equals its twin on exact sums, and K3' bitwise on any input when
-    fed the words K3' draws (one main loop, one summation order)."""
+    fed the words K3' draws (one main loop, one summation order), on both
+    routes."""
+    _route(monkeypatch, route)
     a = _exact((M, K), 8.0, M).to(cuda)
     b = _exact((K, N), 4.0, N).to(cuda).to(torch.bfloat16)
     for fmt, mode, rb in GEMM_VARIANTS:
@@ -945,12 +1077,18 @@ def test_qmatmul_bits_kernel_matches_plain_and_prng(cuda, M, K, N):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("route,M,K,N", [("auto", 5, 70, 37),
+                                         ("decode", 5, 700, 136),
+                                         ("large", 5, 700, 136),
+                                         ("auto", 128, 520, 136)])
 @pytest.mark.parametrize("fmt", ["binary8", "e4m3", "bfloat16"])
-def test_qmatmul_packed_operand_and_output(cuda, fmt):
+def test_qmatmul_packed_operand_and_output(cuda, monkeypatch, fmt, route, M,
+                                           K, N):
     """out_packed: the codes of the float result (e4m3 saturating at 480);
     a_fmt: codes decoded on load sum as their values, read through a view
-    off a 16-byte boundary with a ragged row length."""
-    M, K, N = 5, 70, 37
+    off a 16-byte boundary (and with a ragged row length), on both
+    routes."""
+    _route(monkeypatch, route)
     a = (_exact((M, K), 8.0, 1) * 64).to(cuda)       # reaches e4m3's xmax
     b = _exact((K, N), 4.0, 2).to(cuda)
     for flavour in ("prng", "bits"):
