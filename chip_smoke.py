@@ -18,7 +18,9 @@ Phases (any failed check exits non-zero; there is no CPU fallback):
    shapes also by CUDA-graph replay (``device_ms``); K3''s decode route
    holds each row bit for bit whatever rows share the call (the same A
    rows at M = 1, 2, 4, 8 and 16, K3' and K3) and equals its large-M
-   route bit for bit at every decode shape;
+   route bit for bit at every decode shape; K4' run on both its routes
+   (the route forced) at every shape, every output bit for bit equal, and
+   timed by CUDA-graph replay too;
 4. update kernels vs plain: K2' and K2 (the eq.-8 update) at n = 2**24 + 37
    under five rounding configs and at the full tinyllama-1.1b parameter
    count under the trainer's config, and the momentum FMA at both sizes,
@@ -26,8 +28,8 @@ Phases (any failed check exits non-zero; there is no CPU fallback):
    unrounded ``x - t * g`` / ``torch.add(g, m, alpha=0.9)`` (yardsticks
    only);
 5. training GEMMs vs plain: K3' at every forward/dgrad/wgrad shape of a
-   batch-4 x 256 train step and K4' with residuals, checked and timed as in
-   phase 3;
+   batch-4 x 256 train step and K4' with residuals (on both routes, and
+   by graph replay), checked and timed as in phase 3;
 6. serve: ``repro_torch.launch.serve.run`` on tinyllama-1.1b at full width
    and depth (random weights from a seeded generator) under
    ``binary8-paper``, with every kernel's launch count checked;
@@ -115,9 +117,10 @@ Phases (any failed check exits non-zero; there is no CPU fallback):
    their values; K1 and K1''s signed-SRe branch bitwise on any input; on
    N(0, 1) inputs the GEMM contract; each timed beside its bound (the
    bits stream counted), its in-kernel-bits kernel, the twin and the
-   unrounded yardstick of its primed kernel, K3 at the decode shapes (with
-   K3' and the yardstick), K1 and the cast at the path's shape also by
-   CUDA-graph replay (``device_ms``);
+   unrounded yardstick of its primed kernel, K3 and K4 at the decode
+   shapes (with K3'/K4' and the yardstick), K1 and the cast at the path's
+   shape also by CUDA-graph replay (``device_ms``); K4 and K4' on N(0, 1)
+   inputs bitwise equal on both routes (the route forced);
 22. serve tinyllama-1.1b under ``e4m3-sr-oracle`` (K3, K4; every
    in-kernel-bits kernel launched no time) and under ``e4m3-sr``: tokens
    and logits bitwise equal; the host seconds spent issuing the bits;
@@ -158,10 +161,10 @@ Phases (any failed check exits non-zero; there is no CPU fallback):
    weights on the CPU, teacher-forced on the CPU's picks: logits held to
    phase 12's limits, the card's own picks within 0.1 of the CPU's best
    logit, the pools' codes at most 1 % different per layer;
-29. one JSON line of per-kernel numbers (K3''s, K3's, K10's and K1''s
-   with the registers and spills ptxas reports for their instances,
-   phase 2; K3' and K3 with their device time per decode step), then the
-   result line.
+29. one JSON line of per-kernel numbers (K3''s, K3's, K4''s, K4's, K10's
+   and K1''s with the registers and spills ptxas reports for their
+   instances, phase 2; K3', K3, K4' and K4 with their device time per
+   decode step, K4' also per train step), then the result line.
 
 Detailed numbers also go to ``chiprun_out/chip_smoke.json``.
 """
@@ -359,6 +362,32 @@ def bitwise(torch, a, b) -> bool:
                        b.contiguous().view(torch.int32))
 
 
+@contextlib.contextmanager
+def forced_route(tq, route):
+    """K3''s and K4''s route forced: "decode" or "large" (the large-M
+    route), whatever M."""
+    keep = tq.DECODE_MAX_M
+    tq.DECODE_MAX_M = (1 << 30) if route == "decode" else 0
+    try:
+        yield
+    finally:
+        tq.DECODE_MAX_M = keep
+
+
+def glu_routes_agree(torch, tq, run, label):
+    """K4' or K4 run by ``run()`` on both routes: every output (h and the
+    residuals) bitwise equal, or the phase fails."""
+    outs = {}
+    for route in ("decode", "large"):
+        with forced_route(tq, route):
+            o = run()
+        outs[route] = o if isinstance(o, tuple) else (o,)
+    torch.cuda.synchronize()
+    if not all(bitwise(torch, d, g)
+               for d, g in zip(outs["decode"], outs["large"])):
+        fail(f"{label}: the decode route differs from the large-M route")
+
+
 def gemm_cases(train: bool):
     """Phase 3 (serving shapes) or phase 5 (train-step shapes): dicts of
     kernel, M, K, N, B dtype, launches per step, residuals."""
@@ -432,6 +461,10 @@ def gemm_phase(torch, tq, cases):
             got = run_kernel(a, ws, fmt, mode, rb)
             ref = run_plain(a, ws, fmt, mode, rb)
             torch.cuda.synchronize()
+            if swiglu:
+                glu_routes_agree(torch, tq, lambda: run_kernel(
+                    a, ws, fmt, mode, rb), f"{name} {M}x{K}x{N} "
+                    f"{fmt}-{mode}-r{rb}")
             if not swiglu and not bitwise(torch, got, ref):
                 fail(f"{name} {M}x{K}x{N} {fmt}-{mode}-r{rb}: not bitwise "
                      "equal to the plain twin on exact-sum inputs")
@@ -461,6 +494,9 @@ def gemm_phase(torch, tq, cases):
         got = hidden(run_kernel(a, wsets[0]))
         ref = hidden(run_plain(a, wsets[0]))
         torch.cuda.synchronize()
+        if swiglu:
+            glu_routes_agree(torch, tq, lambda: run_kernel(a, wsets[0]),
+                             f"{name} {M}x{K}x{N} N(0, 1)")
         n_bad, adjacent = grid_flips(ref, got, "binary8")
         share = n_bad / ref.numel()
         steps = max_steps(torch, ref, got, "binary8")
@@ -481,9 +517,10 @@ def gemm_phase(torch, tq, cases):
                    plain_ms=plain, gemm_only_ms=gemm, bound_ms=bms,
                    bound_by=by)
         dev_note = ""
-        if name == "qmatmul_sr" and M <= tq.DECODE_MAX_M and case["per_step"]:
-            # K3''s decode route: device time by graph replay beside the
-            # yardstick's, since time_ms here reads the wrapper's host cost
+        if case["per_step"] and (swiglu or M <= tq.DECODE_MAX_M):
+            # K3''s decode route and K4' at every path shape: device time by
+            # graph replay beside the yardstick's, since time_ms here reads
+            # the wrapper's host cost
             row["device_ms"] = graph_ms(
                 torch, lambda i: run_kernel(a, wsets[i]), n_copies)
             row["library_device_ms"] = graph_ms(
@@ -2047,6 +2084,11 @@ def bits_gemm_phase(torch, tq, tc):
         torch.cuda.synchronize()
         if not all(bitwise(torch, g, p) for g, p in zip(got, prng)):
             fail(f"{name} {M}x{K}x{N}: K != K' bitwise on N(0, 1) inputs")
+        if glu:
+            for fn, what in ((k_bits, "K4"), (k_prng, "K4'")):
+                glu_routes_agree(torch, tq, lambda: fn(
+                    a, wsets[0], "e4m3", "sr", 32, act8),
+                    f"{what} {M}x{K}x{N} N(0, 1)")
         n_bad, adjacent = grid_flips(ref[-1], got[-1], "e4m3")
         share = n_bad / ref[-1].numel()
         if share > 1e-4 or not adjacent:
@@ -2085,9 +2127,9 @@ def bits_gemm_phase(torch, tq, tc):
                    prng_ms=prng_ms, plain_ms=plain, gemm_only_ms=gemm,
                    bound_ms=bms, bound_by=by)
         dev_note = ""
-        if not glu and per_step:
-            # K3 at decode: device time by graph replay (K3' and the
-            # yardstick beside it), time_ms reads the wrapper's host cost
+        if per_step:
+            # K3 and K4 at decode: device time by graph replay (K3'/K4' and
+            # the yardstick beside it), time_ms reads the wrapper's host cost
             row.update(device_ms=graph_ms(torch, run_k, n_copies),
                        prng_device_ms=graph_ms(torch, run_p, n_copies),
                        library_device_ms=graph_ms(
@@ -2803,7 +2845,7 @@ def kernel_entry(rows, name, source, replaces, launches, path_rows, timed,
                  **extra):
     def per_step(key):
         return sum(r[key] * r["per_step"] for r in path_rows)
-    return dict(
+    entry = dict(
         name=name, route="cuda", source=source, replaces=replaces,
         launches=launches,
         max_abs_err=max(r["max_abs_err"] for r in rows),
@@ -2813,7 +2855,12 @@ def kernel_entry(rows, name, source, replaces, launches, path_rows, timed,
                                 for r in path_rows) else "operations",
         library_ms=None, gemm_only_ms=per_step("gemm_only_ms"),
         mismatch_share=max(r["mismatch_share"] for r in rows),
-        timed=timed, **extra)
+        timed=timed)
+    if all("device_ms" in r for r in path_rows):
+        entry.update(device_ms=per_step("device_ms"),
+                     library_device_ms=per_step("library_device_ms"))
+    entry.update(extra)
+    return entry
 
 
 def ptxas_usage(log: str):
@@ -3177,8 +3224,9 @@ def main() -> None:
         src = Path(entry["source"]).stem
         stem = {"flash_decode_paged": "decode_paged_kernel",
                 "sr_cast_prng": "sr_cast_prng_kernel",
-                "qmatmul_sr": "_kernel",
-                "qmatmul_bits": "_kernel"}.get(entry["name"])
+                "qmatmul_sr": "_kernel", "qmatmul_bits": "_kernel",
+                "qmatmul_swiglu_sr": "_kernel",
+                "qmatmul_swiglu_bits": "_kernel"}.get(entry["name"])
         if stem:
             entry["registers"] = {fn: use for fn, use in
                                   resources.get(src, {}).items()

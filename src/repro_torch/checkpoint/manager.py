@@ -31,18 +31,31 @@ The same guarantees as the reference:
 The tree structure is the port's own: nested dicts, lists, tuples and
 NamedTuples (an optimizer state) whose leaves are tensors, numpy arrays,
 Python ints, floats and bools, or ``None``.  It is written as JSON
-(``treedef.json``); the reference pickles a jax treedef, so neither
-package reads the other's checkpoint directories.  ``restore(device=)``
-puts tensor leaves on a device and decodes them there (the counterpart of
-the reference's ``shardings``).
+(``treedef.json``).  ``restore(device=)`` puts tensor leaves on a device
+and decodes them there (the counterpart of the reference's
+``shardings``).
+
+``restore`` also reads a checkpoint the reference wrote (format 2 with a
+pickled jax treedef, ``treedef.pkl``), verified by the same digests,
+without importing jax or the reference: a restricted unpickler maps the
+two globals such a pickle names (the treedef class and jax's default
+registry) to stand-ins that keep the treedef's node records, maps the
+reference's optimizer states (``QAdamState``, ``QSGDState``) to the port's
+classes of the same name, and refuses every other global.  Its leaves
+come back as numpy arrays, as the reference's restore gives them; the
+trainer's state then goes through ``repro_torch.convert``
+(``master_params_from_jax``, ``qadam_state_from_jax``).  The port does not
+write that format.
 """
 from __future__ import annotations
 
 import atexit
 import hashlib
 import importlib
+import io
 import json
 import os
+import pickle
 import shutil
 import threading
 import time
@@ -240,6 +253,89 @@ def unflatten(node, leaves):
             cls = getattr(cls, part)
         return cls(*children)
     return build(node)
+
+
+# ---------------------------------------------------------------------------
+# The reference's treedef.pkl, read without jax
+# ---------------------------------------------------------------------------
+# jax pickles a PyTreeDef as this class, its state (the default registry,
+# [records]): one record per node in post-order, (kind, arity, node_data,
+# custom, num_leaves, num_nodes).
+_REF_TREEDEF = ("jaxlib._jax.pytree", "PyTreeDef")
+_REF_REGISTRY = ("jax._src.tree_util", "default_registry")
+# node kinds: a leaf, None (no leaf), tuple, NamedTuple (node_data: the
+# class), list, dict (node_data: the sorted keys)
+_LEAF, _NONE, _TUPLE, _NAMEDTUPLE, _LIST, _DICT = range(6)
+# the reference's NamedTuple states -> the port's classes of the same name
+_REF_NAMEDTUPLES = {
+    ("repro.optim.adam", "QAdamState"): ("repro_torch.optim.adam",
+                                         "QAdamState"),
+    ("repro.optim.sgd", "QSGDState"): ("repro_torch.optim.sgd",
+                                       "QSGDState"),
+}
+
+
+class _RefTreeDef:
+    """A pickled jax treedef's node records."""
+
+    def __setstate__(self, state):
+        _registry, records = state
+        self.records = [tuple(r) for r in records]
+
+
+class _RefUnpickler(pickle.Unpickler):
+    """Unpickles a reference ``treedef.pkl``: the treedef and registry
+    globals become stand-ins, the reference's optimizer states the port's
+    classes; any other global is refused."""
+
+    def find_class(self, module, name):
+        if (module, name) == _REF_TREEDEF:
+            return _RefTreeDef
+        if (module, name) == _REF_REGISTRY:
+            return None
+        if (module, name) in _REF_NAMEDTUPLES:
+            mod, cls = _REF_NAMEDTUPLES[(module, name)]
+            return getattr(importlib.import_module(mod), cls)
+        raise pickle.UnpicklingError(
+            f"treedef.pkl names the global {module}.{name}, which a "
+            "reference checkpoint's tree may not hold")
+
+
+def _ref_unflatten(data: bytes, leaves):
+    """The tree of a reference ``treedef.pkl`` over ``leaves``."""
+    treedef = _RefUnpickler(io.BytesIO(data)).load()
+    if not isinstance(treedef, _RefTreeDef):
+        raise pickle.UnpicklingError("treedef.pkl does not hold a jax "
+                                     "treedef")
+    it = iter(leaves)
+    stack: List[Any] = []
+    for kind, arity, node_data, _custom, _n_leaves, _n_nodes in \
+            treedef.records:
+        if kind == _LEAF:
+            stack.append(next(it))
+            continue
+        if kind == _NONE:
+            stack.append(None)
+            continue
+        if arity > len(stack):
+            raise ValueError("treedef.pkl: a node has more children than "
+                             "the records before it")
+        children = stack[len(stack) - arity:]
+        del stack[len(stack) - arity:]
+        if kind == _TUPLE:
+            stack.append(tuple(children))
+        elif kind == _LIST:
+            stack.append(children)
+        elif kind == _DICT:
+            stack.append(dict(zip(node_data, children)))
+        elif kind == _NAMEDTUPLE:
+            stack.append(node_data(*children))
+        else:
+            raise ValueError(f"treedef.pkl: node kind {kind} (a custom or "
+                             "dataclass node) is not read")
+    if len(stack) != 1 or next(it, None) is not None:
+        raise ValueError("treedef.pkl does not match the stored leaves")
+    return stack[0]
 
 
 def _snap_leaf(x):
@@ -473,10 +569,9 @@ class CheckpointManager:
 
     def _load(self, step: int, device):
         path = os.path.join(self.directory, f"step_{step}")
-        with open(os.path.join(path, "treedef.json")) as f:
-            structure = json.load(f)
         with open(os.path.join(path, "meta.json")) as f:
             meta = json.load(f)
+        reference = not os.path.exists(os.path.join(path, "treedef.json"))
         files, leaves = {}, []
         for i, entry in enumerate(meta["leaves"]):
             arr = None
@@ -485,14 +580,25 @@ class CheckpointManager:
                 if name not in files:
                     files[name] = np.load(os.path.join(path, name))
                 arr = files[name][f"leaf_{i}"]
-            leaves.append(_from_host(arr, entry, device))
-        return step, unflatten(structure, leaves), meta.get("extra", {})
+            if reference:        # numpy leaves, as the reference restores
+                leaves.append(unpack_np(arr, entry["packed"])
+                              if entry.get("packed") else arr)
+            else:
+                leaves.append(_from_host(arr, entry, device))
+        if reference:
+            with open(os.path.join(path, "treedef.pkl"), "rb") as f:
+                tree = _ref_unflatten(f.read(), leaves)
+        else:
+            with open(os.path.join(path, "treedef.json")) as f:
+                tree = unflatten(json.load(f), leaves)
+        return step, tree, meta.get("extra", {})
 
     def restore(self, step: Optional[int] = None, device=None):
         """Load a checkpoint; returns (step, tree, extra), tensor leaves on
-        ``device`` (default: the CPU).  With no ``step``, verifies
-        candidates newest first and loads the newest intact one; an
-        explicit ``step`` that fails verification raises ``IOError``."""
+        ``device`` (default: the CPU; a reference checkpoint's leaves are
+        numpy arrays).  With no ``step``, verifies candidates newest first
+        and loads the newest intact one; an explicit ``step`` that fails
+        verification raises ``IOError``."""
         self.wait()
         if step is not None:
             if not self.verify(step):

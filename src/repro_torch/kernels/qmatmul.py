@@ -39,18 +39,19 @@ int64 tensors (as the port's counter draws make them) or as int32 bit
 patterns; the kernels read 32-bit words.
 
 The kernels are bound by bytes at decode (they stream each weight once);
-see the notes at the top of the CUDA sources for their design.  K3' and K3
-have two routes (``csrc/qmatmul_sr.cu``): M <= ``DECODE_MAX_M`` runs the
-decode route (a weight stream, one lane per output), larger M the large-M
-route (register tiles); both sum each output in one ascending chain, the
-first version's order, so they equal each other and that kernel bit for
-bit on every input, and the twins on exact sums.  On the card:
+see the notes at the top of the CUDA sources for their design.  K3'/K3
+and K4'/K4 have two routes (``csrc/gemm_routes.cuh``): M <=
+``DECODE_MAX_M`` runs the decode route (a weight stream, one lane per
+output), larger M the large-M route (register tiles); both sum each
+output in one ascending chain, the first version's order, so they equal
+each other and that kernel bit for bit on every input, and the twins on
+exact sums.  On the card:
 
   PYTHONPATH=src python -m pytest -q --noconftest -m gpu \
-      tests/test_torch_gpu.py -k qmatmul
+      tests/test_torch_gpu.py -k "qmatmul or swiglu"
 
 (the route is forced in a test by setting ``DECODE_MAX_M``), and an A/B
-of two trees' K3' (times, device times by graph replay and output
+of two trees' K3' and K4' (times, device times by graph replay and output
 digests) in one call: ``python src/repro_torch/launch/time_gemm.py --src
 <tree>/src --tag <name>`` for parent, change, change, parent.
 """
@@ -73,8 +74,8 @@ from repro_torch.kernels import build, common
 STREAM_FWD, STREAM_ACT = 0, 1
 _MODES = {"rn": 0, "sr": 1}
 
-# K3' / K3 calls with M at or below this run the decode route of
-# csrc/qmatmul_sr.cu, larger M its large-M route: every decode step (M =
+# K3'/K3 and K4'/K4 calls with M at or below this run the decode route of
+# csrc/gemm_routes.cuh, larger M its large-M route: every decode step (M =
 # batch) and engine prefill chunk (8 rows) the first, prompts (M = 128) and
 # the train step the second (the threshold from the routes' times at M = 4,
 # 8, 16 and 128: PERF.md)
@@ -499,6 +500,9 @@ def _check_swiglu(x, wg, wu, fmt, mode, act, act_spec, rand_bits, eps,
 def _swiglu_launch(name: str, x, wg, wu, bits3, seeds, grid, mode,
                    rand_bits, act_spec, act_grid, residuals, out_packed,
                    residuals_packed):
+    """One K4' (``qmatmul_swiglu_sr``) or K4 (``qmatmul_swiglu_bits``)
+    launch: the decode route for M <= ``DECODE_MAX_M``, else the large-M
+    route."""
     M, K = x.shape
     N = wg.shape[1]
     x, wg, wu = x.contiguous(), wg.contiguous(), wu.contiguous()
@@ -527,13 +531,13 @@ def _swiglu_launch(name: str, x, wg, wu, bits3, seeds, grid, mode,
             *res_ptrs, _code_arg(grid if residuals_packed else None),
             M, N, K, fwd_site, xmax, act_site, act_xmax, _stream(x))
     lib = _lib_swiglu()
+    entry = getattr(lib, name + ("_decode" if M <= DECODE_MAX_M else ""))
     if name == "qmatmul_swiglu_sr":
         words = (ctypes.c_uint32 * 6)(*[w & 0xFFFFFFFF for pair in seeds
                                         for w in pair])
-        rc = lib.qmatmul_swiglu_sr(*head, words, *tail)
+        rc = entry(*head, words, *tail)
     else:
-        rc = lib.qmatmul_swiglu_bits(*head, *(_ptr(b) for b in bits3),
-                                     *tail)
+        rc = entry(*head, *(_ptr(b) for b in bits3), *tail)
     _launch_check(rc, name)
     LAUNCHES[name] += 1
     return result
@@ -612,11 +616,14 @@ def _lib_swiglu():
         tail = ([c.c_void_p, ints, c.c_void_p, c.c_void_p, ints]
                 + [c.c_int] * 3 + [ints, c.c_float, ints, c.c_float,
                                    c.c_void_p])
-        lib.qmatmul_swiglu_sr.argtypes = (head + [c.POINTER(c.c_uint32)]
-                                          + tail)
-        lib.qmatmul_swiglu_sr.restype = c.c_int
-        lib.qmatmul_swiglu_bits.argtypes = head + [c.c_void_p] * 3 + tail
-        lib.qmatmul_swiglu_bits.restype = c.c_int
+        sr = head + [c.POINTER(c.c_uint32)] + tail
+        bits = head + [c.c_void_p] * 3 + tail
+        for fn, args in ((lib.qmatmul_swiglu_sr, sr),
+                         (lib.qmatmul_swiglu_bits, bits),
+                         (lib.qmatmul_swiglu_sr_decode, sr),
+                         (lib.qmatmul_swiglu_bits_decode, bits)):
+            fn.argtypes = args
+            fn.restype = c.c_int
     return lib
 
 

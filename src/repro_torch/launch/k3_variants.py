@@ -1,17 +1,20 @@
-"""Device times of variants of K3' on one card, for choosing the decode
-route's and the large-M route's shapes by measurement: each variant is
-built by ``nvcc`` from a copy of ``csrc/qmatmul_sr.cu`` with named
-constants changed, held bitwise to the source as it stands (every variant
-keeps the summation order) and to the GEMM contract against the plain
-twin, and timed in turns (forward, then reverse order) by CUDA-graph
-replay at the decode shapes (M = 4 and 8) and at six large-M shapes.
+"""Device times of variants of K3' or K4' on one card, for choosing the
+routes' shapes by measurement: each variant is built by ``nvcc`` from a
+copy of the kernel's source (``csrc/qmatmul_sr.cu`` for K3',
+``csrc/qmatmul_swiglu_sr.cu`` for K4') and of the routes' shared header
+``csrc/gemm_routes.cuh`` with named constants changed, held bitwise to
+the sources as they stand (every variant keeps the summation order) and
+to the GEMM contract against the plain twin, and timed in turns (forward,
+then reverse order) by CUDA-graph replay at the decode shapes (M = 4 and
+8) and at the large-M shapes.
 
-  python src/repro_torch/launch/k3_variants.py [--only NAME ...]
+  python src/repro_torch/launch/k3_variants.py [--kernel k3|k4]
+      [--only NAME ...]
 
 Prints each variant's registers and spills (ptxas) and one JSON line of
-device ms per call (also written to ``chiprun_out/k3_variants.json``).  It
-needs a card and the CUDA toolkit; builds go to ``build/k3_variants/`` at
-the repository root.
+device ms per call (also written to ``chiprun_out/k3_variants.json``, or
+``k4_variants.json``).  It needs a card and the CUDA toolkit; builds go
+to ``build/k3_variants/`` at the repository root.
 """
 from __future__ import annotations
 
@@ -26,49 +29,98 @@ import time
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parents[3]
-# (M, K, N, B dtype): decode-route and large-M shapes
-SHAPES = [(4, 2048, 2048, "bf16"), (4, 2048, 256, "bf16"),
-          (4, 5632, 2048, "bf16"), (4, 2048, 32000, "bf16"),
-          (8, 2048, 2048, "bf16"), (128, 2048, 2048, "bf16"),
-          (1024, 2048, 256, "bf16"), (1024, 2048, 2048, "bf16"),
-          (1024, 5632, 2048, "bf16"), (2048, 1024, 256, "f32"),
-          (2048, 1024, 5632, "f32")]
+HEADER = "gemm_routes.cuh"
+# per kernel: its source and (M, K, N, B dtype) decode-route and large-M
+# shapes (K4' with residuals at the train step's 1024 rows)
+KERNELS = {
+    "k3": ("qmatmul_sr.cu", [
+        (4, 2048, 2048, "bf16"), (4, 2048, 256, "bf16"),
+        (4, 5632, 2048, "bf16"), (4, 2048, 32000, "bf16"),
+        (8, 2048, 2048, "bf16"), (128, 2048, 2048, "bf16"),
+        (1024, 2048, 256, "bf16"), (1024, 2048, 2048, "bf16"),
+        (1024, 5632, 2048, "bf16"), (2048, 1024, 256, "f32"),
+        (2048, 1024, 5632, "f32")]),
+    "k4": ("qmatmul_swiglu_sr.cu", [
+        (4, 2048, 5632, "bf16"), (8, 2048, 5632, "bf16"),
+        (16, 2048, 5632, "bf16"), (128, 2048, 5632, "bf16"),
+        (1024, 2048, 5632, "bf16")]),
+}
 L2_BYTES = 50 * 2 ** 20
-# constant lines of the source the variants change
-KNOBS = {"dstages": "constexpr int kDStages = 8;",
-         "dwarps": "constexpr int kDWarps = 4;",
-         "dstage": "constexpr int kDStage = 64;",
-         "dbatch": "constexpr int kDBatch = 32;",
-         "big": "constexpr int kBigRG = 2, kBigCG = 1;",
-         "bk": "constexpr int kBK = 32;   // a multiple of 16"}
+# constant lines the variants change: knob -> (file, line)
+KNOBS = {"dwarps": (HEADER, "constexpr int kDWarps = 4;"),
+         "dstage": (HEADER, "constexpr int kDStage = 64;"),
+         "dbatch": (HEADER, "constexpr int kDBatch = 32;"),
+         "bk": (HEADER, "constexpr int kBK = 32;   // a multiple of 16"),
+         "wave": (HEADER, "constexpr long kWaveTiles = 120;"),
+         "dstages": ("qmatmul_sr.cu", "constexpr int kDecStages = 8;"),
+         "big": ("qmatmul_sr.cu", "constexpr int kBigRG = 2, kBigCG = 1;"),
+         "glu_dstages": ("qmatmul_swiglu_sr.cu",
+                         "constexpr int kDecStages = 4;"),
+         "glu_big": ("qmatmul_swiglu_sr.cu",
+                     "constexpr int kBigRG = 1, kBigMinBlocks = 3;"),
+         "glu_stages": ("qmatmul_swiglu_sr.cu",
+                        "constexpr int kBigStages = 3, kSmallStages = 6;")}
 
 
-def variants(src: str):
-    """name -> source."""
-    for text in KNOBS.values():
-        if text not in src:
-            raise RuntimeError(f"qmatmul_sr.cu no longer holds {text!r}")
+def variants(kernel: str, srcs):
+    """name -> {file: text} for ``kernel``'s variants."""
+    for f, text in KNOBS.values():
+        if f in srcs and text not in srcs[f]:
+            raise RuntimeError(f"{f} no longer holds {text!r}")
 
-    def edit(knob, line):
-        return src.replace(KNOBS[knob], line)
+    def edit(*changes):
+        out = dict(srcs)
+        for knob, line in changes:
+            f, text = KNOBS[knob]
+            out[f] = out[f].replace(text, line)
+        return out
+    if kernel == "k3":
+        return {
+            "as built": srcs,
+            "decode batch 16": edit(("dbatch", "constexpr int kDBatch = 16;")),
+            "decode batch 64": edit(("dbatch", "constexpr int kDBatch = 64;")),
+            "decode 12 stages": edit(("dstages",
+                                      "constexpr int kDecStages = 12;")),
+            "decode 6 stages": edit(("dstages",
+                                     "constexpr int kDecStages = 6;")),
+            "decode 2 warps": edit(("dwarps", "constexpr int kDWarps = 2;")),
+            "decode 8 warps": edit(("dwarps", "constexpr int kDWarps = 8;")),
+            "big 128x128": edit(("big",
+                                 "constexpr int kBigRG = 2, kBigCG = 2;")),
+            "kBK 16": edit(("bk", "constexpr int kBK = 16;   // a multiple "
+                            "of 16"))}
+
+    def dec(n):
+        return ("glu_dstages", f"constexpr int kDecStages = {n};")
+
+    def big(stages, minb=3, rg=1):
+        return [("glu_stages", f"constexpr int kBigStages = {stages}, "
+                 "kSmallStages = 6;"),
+                ("glu_big", f"constexpr int kBigRG = {rg}, kBigMinBlocks = "
+                 f"{minb};")]
     return {
-        "as built": src,
-        "decode batch 16": edit("dbatch", "constexpr int kDBatch = 16;"),
-        "decode batch 64": edit("dbatch", "constexpr int kDBatch = 64;"),
-        "decode 12 stages": edit("dstages", "constexpr int kDStages = 12;"),
-        "decode 2 warps": edit("dwarps", "constexpr int kDWarps = 2;"),
-        "decode 8 warps": edit("dwarps", "constexpr int kDWarps = 8;"),
-        "big 128x128": edit("big", "constexpr int kBigRG = 2, kBigCG = 2;"),
-        "kBK 16": edit("bk", "constexpr int kBK = 16;   // a multiple of 16"),
+        "as built": srcs,
+        "decode 8 stages": edit(dec(8)),
+        "decode 6 stages": edit(dec(6)),
+        "decode 2 warps": edit(("dwarps", "constexpr int kDWarps = 2;")),
+        "decode batch 16": edit(("dbatch", "constexpr int kDBatch = 16;")),
+        "big 4 stages 2 blocks": edit(*big(4, 2)),
+        "big 3 stages 2 blocks": edit(*big(3, 2)),
+        "big 4 stages": edit(*big(4)),
+        "big 128 rows": edit(*big(3, 1, 2)),
     }
 
 
-def _build(build, name: str, src: str, out: Path):
-    d = out / "".join(ch if ch.isalnum() else "_" for ch in name)
+def _build(build, name: str, kernel: str, srcs, out: Path):
+    d = out / kernel / "".join(ch if ch.isalnum() else "_" for ch in name)
     d.mkdir(parents=True, exist_ok=True)
-    (d / "qmatmul_sr.cu").write_text(src)
+    for f, text in srcs.items():
+        (d / f).write_text(text)
+    main = KERNELS[kernel][0]
+    # the copy's own header is found first (the including file's
+    # directory); rounding.cuh from the source tree
     cmd = [build._nvcc(), *build.NVCC_FLAGS, "-I", str(build.CSRC), "-o",
-           str(d / "lib.so"), str(d / "qmatmul_sr.cu")]
+           str(d / "lib.so"), str(d / main)]
     return d, subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                stderr=subprocess.STDOUT, text=True)
 
@@ -99,22 +151,25 @@ def graph_ms(torch, fn, n, iters=20, warmup=3):
 
 def main(argv=None):
     ap = argparse.ArgumentParser()
+    ap.add_argument("--kernel", choices=sorted(KERNELS), default="k3")
     ap.add_argument("--only", nargs="*", default=None)
     args = ap.parse_args(argv)
     sys.path.insert(0, str(ROOT / "src"))
     import torch
-    from repro_torch.core.rounding import grid_flips
+    from repro_torch.core.rounding import grid_flips, spec
     from repro_torch.kernels import build, qmatmul as tq
     if not torch.cuda.is_available():
         raise RuntimeError("k3_variants needs a CUDA device")
     torch.backends.cuda.matmul.allow_tf32 = False
-    src = (build.CSRC / "qmatmul_sr.cu").read_text()
-    todo = {k: v for k, v in variants(src).items()
+    main_src, shapes = KERNELS[args.kernel]
+    lib_name = main_src[:-len(".cu")]
+    srcs = {f: (build.CSRC / f).read_text() for f in (main_src, HEADER)}
+    todo = {k: v for k, v in variants(args.kernel, srcs).items()
             if args.only is None or k in args.only or k == "as built"}
     out = ROOT / "build" / "k3_variants"
     t0 = time.time()
-    procs = {name: _build(build, name, s, out)
-             for name, s in todo.items()}
+    procs = {name: _build(build, name, args.kernel, v, out)
+             for name, v in todo.items()}
     libs, regs = {}, {}
     for name, (d, proc) in procs.items():
         log = proc.communicate()[0]
@@ -127,35 +182,59 @@ def main(argv=None):
     print(f"  built {len(libs)} variants in {time.time() - t0:.1f} s",
           flush=True)
 
+    glu = args.kernel == "k4"
+    act = spec("binary8", "sr")
     gen = torch.Generator(device="cuda").manual_seed(0)
     words = (0x9E3779B9, 0x7F4A7C15)
+    seeds = (words, (0x3C6EF372, 0xA54FF53A), (0x510E527F, 0x9B05688C))
     res = {name: {} for name in libs}
     digests = {name: {} for name in libs}
-    for M, K, N, bdt in SHAPES:
+    for M, K, N, bdt in shapes:
         dt = torch.bfloat16 if bdt == "bf16" else torch.float32
+        nw = 2 if glu else 1
+        kw = dict(act_spec=act, residuals=M >= 1024)
         a = torch.randn(M, K, generator=gen, device="cuda")
-        n = max(2, math.ceil(2 * L2_BYTES / (K * N * dt.itemsize)))
-        ws = [(torch.randn(K, N, generator=gen, device="cuda")
-               / math.sqrt(K)).to(dt) for _ in range(n)]
-        ref = tq.qmatmul_plain(a, ws[0], words, "binary8")
+        n = max(2, math.ceil(2 * L2_BYTES / (nw * K * N * dt.itemsize)))
+        ws = [[(torch.randn(K, N, generator=gen, device="cuda")
+                / math.sqrt(K)).to(dt) for _ in range(nw)] for _ in range(n)]
+
+        def call(i):
+            if glu:
+                return tq.qmatmul_swiglu_prng(a, *ws[i], seeds, "binary8",
+                                              residuals=True, act_spec=act)
+            return tq.qmatmul_prng(a, ws[i][0], words, "binary8")
+
+        def timed(i):
+            if glu:
+                return tq.qmatmul_swiglu_prng(a, *ws[i], seeds, "binary8",
+                                              **kw)
+            return tq.qmatmul_prng(a, ws[i][0], words, "binary8")
+        if glu:       # the rounded branches hold the GEMM contract
+            ref = tq.qmatmul_swiglu_plain(a, *ws[0], seeds, "binary8",
+                                          act_spec=act, residuals=True)[1]
+        else:
+            ref = tq.qmatmul_plain(a, ws[0][0], words, "binary8")
         key = f"{M}x{K}x{N} {bdt}"
         for name, lib in libs.items():
-            build._LIBS["qmatmul_sr"] = lib
-            got = tq.qmatmul_prng(a, ws[0], words, "binary8")
-            flips, adjacent = grid_flips(ref, got, "binary8")
+            build._LIBS[lib_name] = lib
+            got = call(0)
+            outs = got if isinstance(got, tuple) else (got,)
+            flips, adjacent = grid_flips(ref, outs[1] if glu else outs[0],
+                                         "binary8")
             if flips > 1e-4 * ref.numel() or not adjacent:
                 raise RuntimeError(f"{name} {key}: {flips} flips")
-            digests[name][key] = hashlib.sha256(
-                got.cpu().numpy().tobytes()).hexdigest()[:16]
+            h = hashlib.sha256()
+            for o in outs:
+                h.update(o.cpu().numpy().tobytes())
+            digests[name][key] = h.hexdigest()[:16]
             if digests[name][key] != digests["as built"][key]:
                 raise RuntimeError(f"{name} {key}: not bitwise the source "
                                    "as built")
         order = list(libs)
         for rnd, names in enumerate((order, order[::-1])):
             for name in names:
-                build._LIBS["qmatmul_sr"] = libs[name]
-                ms = graph_ms(torch, lambda i: tq.qmatmul_prng(
-                    a, ws[i], words, "binary8"), n)
+                build._LIBS[lib_name] = libs[name]
+                ms = graph_ms(torch, timed, n)
                 res[name].setdefault(key, []).append(ms)
         print(f"  {key}: " + ", ".join(
             f"{name} {min(res[name][key]) * 1e3:.2f} us" for name in order),
@@ -165,10 +244,12 @@ def main(argv=None):
                           "--format=csv,noheader"], capture_output=True,
                          text=True).stdout.strip()
     report = dict(device=torch.cuda.get_device_name(0), nvidia_smi=smi,
-                  registers=regs, device_ms=res, digests=digests)
+                  kernel=args.kernel, registers=regs, device_ms=res,
+                  digests=digests)
     line = json.dumps(report)
     (ROOT / "chiprun_out").mkdir(exist_ok=True)
-    (ROOT / "chiprun_out" / "k3_variants.json").write_text(line + "\n")
+    (ROOT / "chiprun_out" / f"{args.kernel}_variants.json").write_text(
+        line + "\n")
     print(line, flush=True)
     return report
 

@@ -1,6 +1,6 @@
-"""Times and output digests of the rounded GEMM kernels K3' (and K4' at
-its decode shape) at the serving and train-step shapes, for comparing two
-trees of the port on one card.
+"""Times and output digests of the rounded GEMM kernels K3', K4' and K4 at
+the serving and train-step shapes, for comparing two trees of the port on
+one card.
 
   python src/repro_torch/launch/time_gemm.py [--src DIR] [--tag NAME]
       [--routes] [--out FILE]
@@ -11,15 +11,19 @@ checkouts in turns (A, B, B, A).  For every shape it prints ``ms`` (CUDA
 events around 20 wrapper calls: device time plus the wrapper's host
 cost), ``device_ms`` (the same calls replayed from a CUDA graph: device
 time alone), the same two for fp32 ``torch.matmul`` on the same operands
-(the unrounded yardstick) and a digest of the kernel's output on seeded
-N(0, 1) inputs, so two trees whose kernels sum in the same order print
-the same digests.  The shapes: tinyllama-1.1b's decode GEMMs at M = 4, 8
-and 16 and its prompt's at M = 128, the train step's forward, dgrad and
-wgrad GEMMs (chip_smoke.py phases 3 and 5) and a ragged one.
-``--routes`` (a tree with ``qmatmul.DECODE_MAX_M``) also times K3''s two
-routes forced at M = 4, 8, 16 and 128 on the decode shapes, the
-measurement behind the route threshold.  Prints one JSON line (and writes
-it to ``--out``).  It needs a card.
+(the unrounded yardstick: one product for K3', two for K4') and a digest
+of the kernel's output on seeded N(0, 1) inputs, so two trees whose
+kernels sum in the same order print the same digests.  The shapes:
+tinyllama-1.1b's decode GEMMs at M = 4, 8 and 16 and its prompt's at M =
+128, the train step's forward, dgrad and wgrad GEMMs (chip_smoke.py
+phases 3 and 5) and a ragged one; K4' (``k4``, with the binary8 act site
+of ``binary8-paper``) at M = 4, 8, 16 and 128 and at the train step's
+1024 rows with residuals, and K4 fed K4''s words beside it (``bits_*``:
+its times and digest, which equals K4''s).  ``--routes`` (a tree with
+``qmatmul.DECODE_MAX_M``) also times both routes forced at M = 4, 8, 16
+and 128, K3' on its decode shapes and K4' on its own, the measurement
+behind the route threshold.  Prints one JSON line (and writes it to
+``--out``).  It needs a card.
 """
 from __future__ import annotations
 
@@ -33,10 +37,16 @@ from pathlib import Path
 
 DECODE_KN = [(2048, 2048, 44), (2048, 256, 44), (5632, 2048, 22),
              (2048, 32000, 1)]
-# (name, M, K, N, B dtype, launches per tinyllama decode step)
+# K4''s shape (K, N, launches per decode step)
+GLU_KN = (2048, 5632, 22)
+# (name, M, K, N, B dtype, launches per tinyllama decode step); "k4r":
+# K4' with residuals
 SHAPES = ([("k3", m, k, n, "bf16", c if m == 4 else 0)
            for m in (4, 8, 16, 128) for (k, n, c) in DECODE_KN]
-          + [("k4", 4, 2048, 5632, "bf16", 22), ("k3", 37, 45, 70, "bf16", 0)]
+          + [("k4", m, GLU_KN[0], GLU_KN[1], "bf16",
+              GLU_KN[2] if m == 4 else 0) for m in (4, 8, 16, 128)]
+          + [("k4r", 1024, GLU_KN[0], GLU_KN[1], "bf16", 0),
+             ("k3", 37, 45, 70, "bf16", 0), ("k4", 37, 45, 70, "bf16", 0)]
           + [("k3", 1024, k, n, "bf16", 0) for (k, n) in (
               (2048, 2048), (2048, 256), (256, 2048), (5632, 2048),
               (2048, 5632), (2048, 32000), (32000, 2048))]
@@ -88,8 +98,12 @@ def graph_ms(torch, fn, n, iters=20, warmup=3):
 
 
 def digest(t) -> str:
-    return hashlib.sha256(t.contiguous().cpu().numpy().tobytes()) \
-        .hexdigest()[:16]
+    """A digest of an output, or of a tuple of outputs (h and the
+    residuals)."""
+    h = hashlib.sha256()
+    for x in (t if isinstance(t, tuple) else (t,)):
+        h.update(x.contiguous().cpu().numpy().tobytes())
+    return h.hexdigest()[:16]
 
 
 def main(argv=None):
@@ -119,16 +133,36 @@ def main(argv=None):
                 / math.sqrt(K)).to(dt) for _ in range(nw)] for _ in range(n)]
         return a, ws, n
 
+    from repro_torch.core.prng import int32_words
+    from repro_torch.core.rounding import spec
+    from repro_torch.kernels import common as tc
+    act = spec("binary8", "sr")
+
     def measure(name, M, K, N, bdt, yardstick=True):
-        nw = 2 if name == "k4" else 1
+        glu = name in ("k4", "k4r")
+        kw = dict(act_spec=act, residuals=name == "k4r")
+        nw = 2 if glu else 1
         a, ws, n = operands(M, K, N, bdt, nw)
 
         def call(i):
-            if name == "k4":
-                return tq.qmatmul_swiglu_prng(a, *ws[i], SEEDS, "binary8")
+            if glu:
+                return tq.qmatmul_swiglu_prng(a, *ws[i], SEEDS, "binary8",
+                                              **kw)
             return tq.qmatmul_prng(a, ws[i][0], SEEDS[0], "binary8")
         row = dict(digest=digest(call(0)), ms=time_ms(torch, call, n),
                    device_ms=graph_ms(torch, call, n))
+        if glu:
+            # K4 fed the words K4' draws, as int32 bit patterns
+            bits = [int32_words(tc.counter_bits_reduced(
+                w[0], w[1], (M, N), 32, stream=st, device="cuda"))
+                for w, st in zip(SEEDS, (0, 0, 1))]
+
+            def call_bits(i):
+                return tq.qmatmul_swiglu(a, *ws[i], bits[0], bits[1],
+                                         "binary8", act_bits=bits[2], **kw)
+            row.update(bits_digest=digest(call_bits(0)),
+                       bits_ms=time_ms(torch, call_bits, n),
+                       bits_device_ms=graph_ms(torch, call_bits, n))
         if yardstick:
             w32 = [[w.float() for w in ws_] for ws_ in ws]
 
@@ -140,25 +174,30 @@ def main(argv=None):
         del a, ws
         return row
 
-    res, step = {}, {"k3": {"ms": 0.0, "device_ms": 0.0},
-                     "k4": {"ms": 0.0, "device_ms": 0.0}}
+    keys = ("ms", "device_ms", "library_ms", "library_device_ms",
+            "bits_ms", "bits_device_ms")
+    res, step = {}, {"k3": dict.fromkeys(keys, 0.0),
+                     "k4": dict.fromkeys(keys, 0.0)}
     for name, M, K, N, bdt, per_step in SHAPES:
         row = measure(name, M, K, N, bdt)
         res[f"{name} {M}x{K}x{N} {bdt}"] = row
-        for key in ("ms", "device_ms"):
-            step[name][key] += row[key] * per_step
+        if per_step:
+            for key in keys:
+                if key in row:
+                    step[name][key] += row[key] * per_step
         print(f"  {name} {M}x{K}x{N} {bdt}: {json.dumps(row)}", flush=True)
     routes = {}
     if args.routes and hasattr(tq, "DECODE_MAX_M"):
         keep = tq.DECODE_MAX_M
         for M in (4, 8, 16, 128):
-            for K, N, _ in DECODE_KN:
+            for name, (K, N) in ([("k3", kn[:2]) for kn in DECODE_KN]
+                                 + [("k4", GLU_KN[:2])]):
                 for route, limit in (("decode", 1 << 30), ("large", 0)):
                     tq.DECODE_MAX_M = limit
-                    row = measure("k3", M, K, N, "bf16", yardstick=False)
-                    routes[f"{route} {M}x{K}x{N}"] = row
-                    print(f"  route {route} {M}x{K}x{N}: {json.dumps(row)}",
-                          flush=True)
+                    row = measure(name, M, K, N, "bf16", yardstick=False)
+                    routes[f"{name} {route} {M}x{K}x{N}"] = row
+                    print(f"  route {name} {route} {M}x{K}x{N}: "
+                          f"{json.dumps(row)}", flush=True)
         tq.DECODE_MAX_M = keep
     out = dict(tag=args.tag, src=args.src,
                device=torch.cuda.get_device_name(0), nvidia_smi=smi,

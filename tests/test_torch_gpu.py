@@ -18,7 +18,9 @@ the large-M route, a route forced by setting ``qmatmul.DECODE_MAX_M``),
 which sum in one order: they agree bitwise on any input, the decode
 route's rows are bit for bit the same whatever rows share the call, and a
 sum that underflows to -0 keeps its sign exactly where K is a multiple of
-16 (each chain's zero padding).  The attention kernels: the rounded
+16 (each chain's zero padding).  K4' and K4 run the same two routes and are
+held so too: their routes bitwise equal in h and the residuals, float32 or
+packed, through unaligned views, and for K below 16.  The attention kernels: the rounded
 logits and their row max bitwise on exact-sum inputs; out, dq, dk, dv at most max(1, 1e-4 n)
 elements different on N(0, 1) inputs (float32 sums in another order, a
 value within an ulp of a rounding decision); K9 over packed codes bitwise
@@ -236,9 +238,12 @@ def test_qmatmul_routes_unaligned_views(cuda, monkeypatch, route, M, K, N,
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("route", ["decode", "large"])
 @pytest.mark.parametrize("M,K,N", [(4, 2048, 5632), (37, 45, 70),
                                    (128, 2048, 5632)])
-def test_swiglu_kernel_matches_plain(cuda, M, K, N):
+def test_swiglu_kernel_matches_plain(cuda, monkeypatch, route, M, K, N):
+    """K4' on both routes: the GEMM contract on N(0, 1) inputs."""
+    _route(monkeypatch, route)
     x = _normal((M, K), M).to(cuda)
     wg = _normal((K, N), 1, K ** -0.5).to(cuda)
     wu = _normal((K, N), 2, K ** -0.5).to(cuda)
@@ -272,10 +277,14 @@ def test_kernels_count_their_launches(cuda):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("M,K,N", [(37, 45, 70), (256, 2048, 5632)])
-def test_swiglu_kernel_residuals_match_plain(cuda, M, K, N):
+@pytest.mark.parametrize("route", ["decode", "large"])
+@pytest.mark.parametrize("M,K,N", [(37, 45, 70), (256, 2048, 5632),
+                                   (4, 8, 70), (1024, 96, 5632)])
+def test_swiglu_kernel_residuals_match_plain(cuda, monkeypatch, route, M, K,
+                                             N):
     """The rounded branches g_r, u_r the backward needs: bitwise on
-    exact-sum inputs."""
+    exact-sum inputs, on both routes (K = 8: the chains pad past K)."""
+    _route(monkeypatch, route)
     x = _exact((M, K), 8.0, 3).to(cuda)
     wg = _exact((K, N), 4.0, 4).to(cuda).to(torch.bfloat16)
     wu = _exact((K, N), 4.0, 5).to(cuda).to(torch.bfloat16)
@@ -1119,11 +1128,14 @@ def test_qmatmul_packed_operand_and_output(cuda, monkeypatch, fmt, route, M,
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("route", ["decode", "large"])
 @pytest.mark.parametrize("M,K,N", [(4, 2048, 5632), (37, 45, 70)])
-def test_swiglu_bits_kernel_matches_prng_and_packs(cuda, M, K, N):
+def test_swiglu_bits_kernel_matches_prng_and_packs(cuda, monkeypatch, route,
+                                                   M, K, N):
     """K4 fed K4''s words equals K4' bitwise (h and the residuals); the
     packed h and residuals are the codes of the float ones; on exact sums
-    the residuals equal the twin's."""
+    the residuals equal the twin's; on both routes."""
+    _route(monkeypatch, route)
     x = _exact((M, K), 8.0, 5).to(cuda)
     wg = _exact((K, N), 4.0, 6).to(cuda).to(torch.bfloat16)
     wu = _exact((K, N), 4.0, 7).to(cuda).to(torch.bfloat16)
@@ -1153,6 +1165,102 @@ def test_swiglu_bits_kernel_matches_prng_and_packs(cuda, M, K, N):
             x, wg, wu, SEEDS, "binary8", out_packed=True,
             residuals_packed=True, **kw)
         assert all(torch.equal(p, q) for p, q in zip(prng_packed, packed))
+
+
+def _glu_outputs(x, wg, wu, bits, residuals, packed):
+    """K4' and K4 (on K4''s words) with the binary8 act site; each a tuple
+    of its outputs."""
+    kw = dict(act_spec=ACT_SPECS["binary8-sr"], residuals=residuals,
+              out_packed=packed, residuals_packed=packed)
+    outs = []
+    for o in (tq.qmatmul_swiglu_prng(x, wg, wu, SEEDS, "binary8", **kw),
+              tq.qmatmul_swiglu(x, wg, wu, *bits[:2], "binary8",
+                                act_bits=bits[2], **kw)):
+        outs.append(o if isinstance(o, tuple) else (o,))
+    return outs
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("packed", [False, True])
+@pytest.mark.parametrize("residuals", [False, True])
+@pytest.mark.parametrize("M,K,N", [(4, 2048, 5632), (16, 2048, 5632),
+                                   (128, 2048, 5632), (37, 45, 70),
+                                   (6, 8, 136), (1024, 256, 5632)])
+def test_swiglu_routes_agree(cuda, monkeypatch, M, K, N, residuals, packed):
+    """K4''s two routes sum every output in the same order: h and the
+    residuals bitwise equal on N(0, 1) inputs, float32 or packed, and K4 on
+    K4''s words bitwise K4' on both."""
+    x = _normal((M, K), M + K).to(cuda)
+    wg = _normal((K, N), 1, K ** -0.5).to(cuda).to(torch.bfloat16)
+    wu = _normal((K, N), 2, K ** -0.5).to(cuda).to(torch.bfloat16)
+    bits = (_bits(cuda, SEEDS[0], (M, N), 32),
+            _bits(cuda, SEEDS[1], (M, N), 32),
+            _bits(cuda, SEEDS[2], (M, N), 32, stream=1))
+    outs = {}
+    for route in ("decode", "large"):
+        _route(monkeypatch, route)
+        outs[route] = _glu_outputs(x, wg, wu, bits, residuals, packed)
+    torch.cuda.synchronize()
+    want = outs["decode"][0]
+    assert len(want) == (3 if residuals else 1)
+    for route in ("decode", "large"):
+        for flavour in outs[route]:
+            assert all(_same(w, g) for w, g in zip(want, flavour)), route
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("route", ["decode", "large"])
+@pytest.mark.parametrize("M,K,N,wdt", [(4, 2048, 256, "bf16"),
+                                       (6, 600, 70, "bf16"),
+                                       (40, 300, 136, "f32"),
+                                       (40, 301, 70, "f32")])
+def test_swiglu_routes_unaligned_views(cuda, monkeypatch, route, M, K, N,
+                                       wdt):
+    """x, wg or wu through views at a 4-byte offset, and row lengths that
+    allow no vector loads, run the element-load instances: bitwise the
+    aligned call (h and residuals)."""
+    _route(monkeypatch, route)
+    dt = torch.bfloat16 if wdt == "bf16" else torch.float32
+    x = _normal((M, K), 1).to(cuda)
+    wg = _normal((K, N), 2, K ** -0.5).to(cuda).to(dt)
+    wu = _normal((K, N), 3, K ** -0.5).to(cuda).to(dt)
+
+    def off(t):
+        step = 4 // t.element_size()                 # 4 bytes
+        v = torch.empty(t.numel() + step, dtype=t.dtype,
+                        device=cuda)[step:].view(t.shape)
+        v.copy_(t)
+        assert v.data_ptr() % 16
+        return v
+
+    def run(*ops):
+        return tq.qmatmul_swiglu_prng(*ops, SEEDS, "e4m3", residuals=True,
+                                      act_spec=ACT_SPECS["binary8-sr"])
+    ref = run(x, wg, wu)
+    for ops in ((off(x), wg, wu), (x, off(wg), wu), (x, wg, off(wu)),
+                (off(x), off(wg), off(wu))):
+        got = run(*ops)
+        torch.cuda.synchronize()
+        assert all(_same(r, g) for r, g in zip(ref, got))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("route", ["decode", "large"])
+def test_swiglu_negative_zero_sums(cuda, monkeypatch, route):
+    """Branch sums that underflow to -0 leave the residuals as -0 where K
+    is a multiple of 16 and as +0 otherwise (each chain runs over K rounded
+    up to 16 with zeros), on both routes, K = 8 included."""
+    _route(monkeypatch, route)
+    for K in (8, 16, 45, 48, 300, 2048, 2050, 2064):
+        x = torch.full((5, K), -1e-30, device=cuda)
+        w = torch.full((K, 40), 1e-20, device=cuda)
+        _, g, u = tq.qmatmul_swiglu_prng(x, w, w, SEEDS, "binary16", "rn",
+                                         residuals=True)
+        torch.cuda.synchronize()
+        for t in (g, u):
+            assert bool((t == 0).all()), K
+            assert bool(torch.signbit(t).all()) == (K % 16 == 0), K
+            assert bool(torch.signbit(t).any()) == (K % 16 == 0), K
 
 
 @pytest.mark.gpu
