@@ -26,7 +26,10 @@ Phases (any failed check exits non-zero; there is no CPU fallback):
    count under the trainer's config, and the momentum FMA at both sizes,
    bitwise against their twins, timed beside the bound, the twin and the
    unrounded ``x - t * g`` / ``torch.add(g, m, alpha=0.9)`` (yardsticks
-   only);
+   only); K2' and K2 under each compiled instance a config fits (the
+   trainer's config: its trainer instance and the generic one, both
+   timed), at the tail lengths 1, 3, 5 and 129 and on views one element
+   off a 16-byte boundary too, each config's instance printed;
 5. training GEMMs vs plain: K3' at every forward/dgrad/wgrad shape of a
    batch-4 x 256 train step and K4' with residuals (on both routes, and
    by graph replay), checked and timed as in phase 3;
@@ -228,6 +231,9 @@ TRAIN_QMATMUL_PER_STEP = 19 * LAYERS + 3
 UPDATE_T = 0.05
 UPDATE_SEED = (0x1234ABCD, 0x0BADF00D)
 UPDATE_N_SMALL = 2 ** 24 + 37
+# phase 4's tails: lengths with 1 to 3 elements past the last group of
+# four (and one whole group), each also off a 16-byte boundary
+UPDATE_TAILS = (1, 3, 5, 129)
 MOMENTUM = 0.9
 # phase 9's limits, set from its readings (0 of 90,432 parameters differ,
 # losses within 9.8e-8 relative: one float32 ulp of the cross-entropy sum)
@@ -872,8 +878,55 @@ def update_bound(cfg, n: int, explicit_bits: bool):
                                        else "operations"), nbytes
 
 
+def off_boundary(torch, t, offset: int):
+    """A copy of ``t`` on its device that starts ``offset`` elements past a
+    16-byte boundary (a view of a larger buffer)."""
+    if not offset:
+        return t
+    buf = torch.zeros(t.numel() + offset, dtype=t.dtype, device=t.device)
+    buf[offset:] = t.reshape(-1)
+    return buf[offset:].view(t.shape)
+
+
+def update_instances(tfu, cfg):
+    """The compiled instances of K2' and K2 a config fits: the generic
+    one, and the trainer's where the chain is ``train.PAPER_RUN``'s."""
+    return ["generic"] + (["trainer"] if tfu.k2_instance(cfg) == "trainer"
+                          else [])
+
+
+def update_check(torch, tfu, prng, x, g, cfg, name, offset=0):
+    """K2' and K2 under every instance the config fits against their
+    twins, bitwise, with x, g and the bit rows ``offset`` elements off a
+    16-byte boundary; returns (max abs error of K2', of K2, the bits)."""
+    n = x.numel()
+    bits3 = prng.random_words(prng.fold_in(prng.PRNGKey(5), n), (3, n),
+                              x.device)
+    ref_prng = tfu.fused_qupdate_prng_plain(x, g, UPDATE_T, UPDATE_SEED, cfg)
+    ref_bits = tfu.fused_qupdate_plain(x, g, UPDATE_T, bits3, cfg)
+    xv, gv = off_boundary(torch, x, offset), off_boundary(torch, g, offset)
+    bv = off_boundary(torch, bits3, offset)
+    errs = [0.0, 0.0]
+    for instance in update_instances(tfu, cfg):
+        for k, (got, ref) in enumerate((
+                (tfu.fused_qupdate_prng(xv, gv, UPDATE_T, UPDATE_SEED, cfg,
+                                        instance=instance), ref_prng),
+                (tfu.fused_qupdate(xv, gv, UPDATE_T, bv, cfg,
+                                   instance=instance), ref_bits))):
+            torch.cuda.synchronize()
+            if not bitwise(torch, got, ref):
+                fail(f"{('fused_qupdate_prng', 'fused_qupdate_bits')[k]} "
+                     f"n={n} {name} instance {instance} offset {offset}: "
+                     "not bitwise equal to the plain twin")
+            errs[k] = max(errs[k], float((got - ref).abs().max()))
+            del got
+    del ref_prng, ref_bits, xv, gv, bv
+    return errs[0], errs[1], bits3
+
+
 def update_phase(torch, n_full: int):
-    """K2' and K2 against their plain twins (bitwise) and timed."""
+    """K2' and K2 against their plain twins (bitwise, under each compiled
+    instance a config fits) and timed."""
     from repro_torch.core import gd, prng
     from repro_torch.core.rounding import parse_spec
     from repro_torch.kernels import fused_update as tfu
@@ -885,32 +938,29 @@ def update_phase(torch, n_full: int):
     configs.update({k: gd.GDRounding(*(parse_spec(s) for s in v))
                     for k, v in UPDATE_CONFIGS.items()})
     rows = []
+    for name, cfg in configs.items():
+        for n in UPDATE_TAILS:
+            x = torch.randn(n, generator=gen, device=dev) * 0.02
+            g = torch.randn(n, generator=gen, device=dev) * 0.3
+            for offset in (0, 1):
+                update_check(torch, tfu, prng, x, g, cfg, name, offset)
+        print(f"  {name}: instances {update_instances(tfu, cfg)} (runs "
+              f"{tfu.k2_instance(cfg)}): K2' and K2 bitwise equal to their "
+              f"twins at n = {UPDATE_TAILS}, aligned and one element off a "
+              "16-byte boundary", flush=True)
     for n, names in ((UPDATE_N_SMALL, list(configs)),
                      (n_full, ["signed_sr_eps-binary8 (trainer)"])):
         x = torch.randn(n, generator=gen, device=dev) * 0.02
         g = torch.randn(n, generator=gen, device=dev) * 0.3
         for name in names:
             cfg = configs[name]
-            got = tfu.fused_qupdate_prng(x, g, UPDATE_T, UPDATE_SEED, cfg)
-            ref = tfu.fused_qupdate_prng_plain(x, g, UPDATE_T, UPDATE_SEED,
-                                               cfg)
-            torch.cuda.synchronize()
-            if not bitwise(torch, got, ref):
-                fail(f"fused_qupdate_prng n={n} {name}: not bitwise equal "
-                     "to the plain twin")
-            err_prng = float((got - ref).abs().max())
-            del got, ref
-            bits3 = prng.random_words(prng.fold_in(prng.PRNGKey(5), n),
-                                      (3, n), dev)
-            got = tfu.fused_qupdate(x, g, UPDATE_T, bits3, cfg)
-            ref = tfu.fused_qupdate_plain(x, g, UPDATE_T, bits3, cfg)
-            torch.cuda.synchronize()
-            if not bitwise(torch, got, ref):
-                fail(f"fused_qupdate_bits n={n} {name}: not bitwise equal "
-                     "to the plain twin")
-            err_bits = float((got - ref).abs().max())
-            del got, ref
+            err_prng, err_bits, bits3 = update_check(torch, tfu, prng, x, g,
+                                                     cfg, name)
+            if n == UPDATE_N_SMALL:     # and the view off the boundary
+                update_check(torch, tfu, prng, x, g, cfg, name, offset=1)
             row = dict(n=n, config=name, bitwise=True,
+                       instance=tfu.k2_instance(cfg),
+                       instances_checked=update_instances(tfu, cfg),
                        max_abs_err_prng=err_prng, max_abs_err_bits=err_bits)
             if name.endswith("(trainer)"):
                 iters = 10 if n > UPDATE_N_SMALL else 50
@@ -919,6 +969,15 @@ def update_phase(torch, n_full: int):
                         x, g, UPDATE_T, UPDATE_SEED, cfg), 1, iters=iters),
                     bits_ms=time_ms(torch, lambda i: tfu.fused_qupdate(
                         x, g, UPDATE_T, bits3, cfg), 1, iters=iters),
+                    # the same config through the generic instance
+                    prng_generic_ms=time_ms(
+                        torch, lambda i: tfu.fused_qupdate_prng(
+                            x, g, UPDATE_T, UPDATE_SEED, cfg,
+                            instance="generic"), 1, iters=iters),
+                    bits_generic_ms=time_ms(
+                        torch, lambda i: tfu.fused_qupdate(
+                            x, g, UPDATE_T, bits3, cfg, instance="generic"),
+                        1, iters=iters),
                     prng_plain_ms=time_ms(
                         torch, lambda i: tfu.fused_qupdate_prng_plain(
                             x, g, UPDATE_T, UPDATE_SEED, cfg), 1,
@@ -937,19 +996,23 @@ def update_phase(torch, n_full: int):
                     row[f"{mode}_bound_ms"], row[f"{mode}_bound_by"] = bms, by
                     row[f"{mode}_bytes"] = nbytes
                 row["threefry_per_elt"] = n_threefry(cfg)
-                print(f"  n={n:11d} {name}: K2' {row['prng_ms']:.3f} ms "
-                      f"(bound {row['prng_bound_ms']:.3f} ms, "
+                print(f"  n={n:11d} {name}, instance {row['instance']}: K2' "
+                      f"{row['prng_ms']:.3f} ms (generic instance "
+                      f"{row['prng_generic_ms']:.3f}; bound "
+                      f"{row['prng_bound_ms']:.3f} ms, "
                       f"{row['prng_bound_by']}; plain "
                       f"{row['prng_plain_ms']:.1f} ms)  K2 "
-                      f"{row['bits_ms']:.3f} ms (bound "
+                      f"{row['bits_ms']:.3f} ms (generic "
+                      f"{row['bits_generic_ms']:.3f}; bound "
                       f"{row['bits_bound_ms']:.3f} ms, "
                       f"{row['bits_bound_by']}; plain "
                       f"{row['bits_plain_ms']:.1f} ms)  unrounded x - t*g "
                       f"{row['axpy_ms']:.3f} ms; bf16 cast "
                       f"{row['bf16_cast_ms']:.3f} ms", flush=True)
             else:
-                print(f"  n={n:11d} {name}: K2' and K2 bitwise equal to "
-                      "their twins", flush=True)
+                print(f"  n={n:11d} {name}, instance {row['instance']}: K2' "
+                      "and K2 bitwise equal to their twins (also off a "
+                      "16-byte boundary)", flush=True)
             rows.append(row)
             del bits3
         rows.append(momentum_fma_check(torch, tfu, x, g, n == n_full))
@@ -3088,7 +3151,8 @@ def main() -> None:
             ms=full[f"{mode}_ms"], plain_ms=full[f"{mode}_plain_ms"],
             bound_ms=full[f"{mode}_bound_ms"],
             bound_by=full[f"{mode}_bound_by"], library_ms=None,
-            unrounded_axpy_ms=full["axpy_ms"],
+            unrounded_axpy_ms=full["axpy_ms"], instance=full["instance"],
+            generic_instance_ms=full[f"{mode}_generic_ms"],
             timed=f"one launch over the {n_full} tinyllama-1.1b parameters "
                   "(one train step)",
             launches_path="train" if mode == "prng"
@@ -3223,6 +3287,8 @@ def main() -> None:
     for entry in kernels:
         src = Path(entry["source"]).stem
         stem = {"flash_decode_paged": "decode_paged_kernel",
+                "fused_qupdate_prng": "fused_qupdate_kernel<",
+                "fused_qupdate_bits": "fused_qupdate_kernel<",
                 "sr_cast_prng": "sr_cast_prng_kernel",
                 "qmatmul_sr": "_kernel", "qmatmul_bits": "_kernel",
                 "qmatmul_swiglu_sr": "_kernel",

@@ -28,24 +28,37 @@ The same guarantees as the reference:
   transient I/O errors with capped exponential backoff; ``keep`` bounds
   the checkpoints on disk.
 
-The tree structure is the port's own: nested dicts, lists, tuples and
-NamedTuples (an optimizer state) whose leaves are tensors, numpy arrays,
-Python ints, floats and bools, or ``None``.  It is written as JSON
-(``treedef.json``).  ``restore(device=)`` puts tensor leaves on a device
-and decodes them there (the counterpart of the reference's
-``shardings``).
+The tree structure is written as the reference writes it, a pickled jax
+treedef (``treedef.pkl``), so that ``repro.checkpoint.CheckpointManager``
+restores a checkpoint of the port (and verifies it by the same digests):
+nested dicts, lists, tuples and the optimizer states ``QAdamState`` and
+``QSGDState`` (written as the reference's classes of those names) whose
+leaves are tensors, numpy arrays, Python ints, floats and bools, and
+``None``, which is a node of the tree and not a leaf, as in jax.  An
+optimizer state's ``step`` is stored as the reference's int32 scalar and
+its ``key`` (a pair of Python ints in the port) as the reference's uint32
+(2,) array, so that the tree has the reference's structure; a bfloat16
+tensor is stored as 2-byte void, as numpy saves the reference's bfloat16
+arrays.  Each leaf's meta records what it was in the port (``kind``,
+``dtype``), so ``restore`` gives back the port's own tree:
+``restore(device=)`` puts tensor leaves on a device and decodes them there
+(the counterpart of the reference's ``shardings``).  The pickle is made by
+a small opcode writer and needs neither jax nor the reference: it names
+jax's treedef class and default registry as globals.  A node the
+reference cannot read (any other NamedTuple, a dict key that is not a str
+or int) is refused when saving, naming it.
 
-``restore`` also reads a checkpoint the reference wrote (format 2 with a
-pickled jax treedef, ``treedef.pkl``), verified by the same digests,
-without importing jax or the reference: a restricted unpickler maps the
-two globals such a pickle names (the treedef class and jax's default
-registry) to stand-ins that keep the treedef's node records, maps the
-reference's optimizer states (``QAdamState``, ``QSGDState``) to the port's
-classes of the same name, and refuses every other global.  Its leaves
-come back as numpy arrays, as the reference's restore gives them; the
-trainer's state then goes through ``repro_torch.convert``
-(``master_params_from_jax``, ``qadam_state_from_jax``).  The port does not
-write that format.
+``restore`` also reads a checkpoint the reference wrote, verified by the
+same digests, without importing jax or the reference: a restricted
+unpickler maps the two globals such a pickle names (the treedef class and
+jax's default registry) to stand-ins that keep the treedef's node
+records, maps the reference's optimizer states to the port's classes of
+the same name, and refuses every other global.  A leaf without the port's
+meta (one the reference wrote) comes back as a numpy array, as the
+reference's restore gives it; the trainer's state then goes through
+``repro_torch.convert`` (``master_params_from_jax``,
+``qadam_state_from_jax``).  Checkpoints that earlier versions of the port
+wrote, with their structure as JSON (``treedef.json``), still restore.
 """
 from __future__ import annotations
 
@@ -206,7 +219,8 @@ def unpack_chunked(codes, grid_name: str):
 
 
 # ---------------------------------------------------------------------------
-# The tree: structure as JSON, leaves as arrays
+# The tree, walked as the port's trees are (the structure of checkpoints
+# that earlier versions wrote as JSON, and the loop's device moves)
 # ---------------------------------------------------------------------------
 def _is_namedtuple(x) -> bool:
     return isinstance(x, tuple) and hasattr(x, "_fields")
@@ -256,7 +270,7 @@ def unflatten(node, leaves):
 
 
 # ---------------------------------------------------------------------------
-# The reference's treedef.pkl, read without jax
+# The reference's treedef.pkl, written and read without jax
 # ---------------------------------------------------------------------------
 # jax pickles a PyTreeDef as this class, its state (the default registry,
 # [records]): one record per node in post-order, (kind, arity, node_data,
@@ -273,6 +287,120 @@ _REF_NAMEDTUPLES = {
     ("repro.optim.sgd", "QSGDState"): ("repro_torch.optim.sgd",
                                        "QSGDState"),
 }
+_PORT_NAMEDTUPLES = {port: ref for ref, port in _REF_NAMEDTUPLES.items()}
+
+
+class _Stored:
+    """A leaf stored in the reference's form (an optimizer state's step or
+    key), with the kind that gives the port's value back."""
+
+    def __init__(self, array: np.ndarray, kind: str):
+        self.array, self.kind = array, kind
+
+
+def _state_field(name: str, value):
+    """An optimizer state's field as the reference holds it: the step as an
+    int32 scalar, the key words as a uint32 (2,) array."""
+    if name == "step" and isinstance(value, int) \
+            and not isinstance(value, bool):
+        return _Stored(np.asarray(value, np.int32), "int")
+    if name == "key" and isinstance(value, tuple) and len(value) == 2 \
+            and all(isinstance(w, int) for w in value):
+        return _Stored(np.asarray(value, np.uint32), "key")
+    return value
+
+
+def ref_flatten(tree, path: str = "tree") -> Tuple[List[Any], List[tuple]]:
+    """(leaves, records): the tree as jax flattens the reference's tree of
+    the same data, the records in post-order as ``(kind, arity,
+    node_data, num_leaves, num_nodes)``; a NamedTuple's node_data is the
+    reference class's (module, name).  Raises on a node the reference
+    cannot read, naming its path."""
+    leaves: List[Any] = []
+    records: List[tuple] = []
+
+    def walk(x, where):
+        n_leaves0, n_nodes0 = len(leaves), len(records)
+        if x is None:
+            records.append((_NONE, 0, None, 0, 1))
+            return
+        if isinstance(x, dict):
+            keys = list(x)
+            if not all(isinstance(k, str) for k in keys) \
+                    and not all(isinstance(k, int) and not isinstance(k, bool)
+                                for k in keys):
+                raise TypeError(f"{where}: dict keys {keys!r} are not all "
+                                "str or all int; the reference's treedef "
+                                "cannot hold them")
+            keys = sorted(keys)
+            for k in keys:
+                walk(x[k], f"{where}[{k!r}]")
+            kind, arity, data = _DICT, len(keys), keys
+        elif _is_namedtuple(x):
+            cls = type(x)
+            ref = _PORT_NAMEDTUPLES.get((cls.__module__, cls.__qualname__))
+            if ref is None:
+                raise TypeError(
+                    f"{where}: a {cls.__module__}.{cls.__qualname__} "
+                    "NamedTuple, which the reference cannot read (its "
+                    "checkpoints hold QAdamState and QSGDState)")
+            for name, v in zip(x._fields, x):
+                walk(_state_field(name, v), f"{where}.{name}")
+            kind, arity, data = _NAMEDTUPLE, len(x), ref
+        elif isinstance(x, (list, tuple)):
+            for i, v in enumerate(x):
+                walk(v, f"{where}[{i}]")
+            kind = _LIST if isinstance(x, list) else _TUPLE
+            arity, data = len(x), None
+        else:
+            leaves.append(x)
+            records.append((_LEAF, 0, None, 1, 1))
+            return
+        records.append((kind, arity, data, len(leaves) - n_leaves0,
+                        len(records) - n_nodes0 + 1))
+
+    walk(tree, path)
+    return leaves, records
+
+
+def _pickle_int(v: int) -> bytes:
+    if 0 <= v < 1 << 8:
+        return b"K" + v.to_bytes(1, "little")              # BININT1
+    if 0 <= v < 1 << 16:
+        return b"M" + v.to_bytes(2, "little")              # BININT2
+    return b"J" + v.to_bytes(4, "little", signed=True)     # BININT
+
+
+def _pickle_global(module: str, name: str) -> bytes:
+    return b"c" + module.encode() + b"\n" + name.encode() + b"\n"
+
+
+def treedef_pickle(records: List[tuple]) -> bytes:
+    """The bytes of a pickled jax treedef (protocol 2) over ``records``, as
+    ``pickle.dumps`` of a ``PyTreeDef`` lays them out: the class, NEWOBJ,
+    then BUILD with (registry, [records])."""
+    out = [b"\x80\x02", _pickle_global(*_REF_TREEDEF), b")\x81",
+           _pickle_global(*_REF_REGISTRY), b"]("]
+    for kind, arity, data, n_leaves, n_nodes in records:
+        out.append(b"(" + _pickle_int(kind) + _pickle_int(arity))
+        if kind == _NAMEDTUPLE:
+            out.append(_pickle_global(*data))
+        elif kind == _DICT:
+            out.append(b"](")
+            for k in data:
+                if isinstance(k, str):
+                    raw = k.encode()
+                    out.append(b"X" + len(raw).to_bytes(4, "little") + raw)
+                else:
+                    out.append(b"\x8a" + bytes([8]) + k.to_bytes(
+                        8, "little", signed=True))          # LONG1
+            out.append(b"e")
+        else:
+            out.append(b"N")
+        out.append(b"N" + _pickle_int(n_leaves) + _pickle_int(n_nodes)
+                   + b"t")
+    out.append(b"e\x86b.")
+    return b"".join(out)
 
 
 class _RefTreeDef:
@@ -284,9 +412,9 @@ class _RefTreeDef:
 
 
 class _RefUnpickler(pickle.Unpickler):
-    """Unpickles a reference ``treedef.pkl``: the treedef and registry
-    globals become stand-ins, the reference's optimizer states the port's
-    classes; any other global is refused."""
+    """Unpickles a ``treedef.pkl``: the treedef and registry globals become
+    stand-ins, the reference's optimizer states the port's classes; any
+    other global is refused."""
 
     def find_class(self, module, name):
         if (module, name) == _REF_TREEDEF:
@@ -302,7 +430,7 @@ class _RefUnpickler(pickle.Unpickler):
 
 
 def _ref_unflatten(data: bytes, leaves):
-    """The tree of a reference ``treedef.pkl`` over ``leaves``."""
+    """The tree of a ``treedef.pkl`` over ``leaves``."""
     treedef = _RefUnpickler(io.BytesIO(data)).load()
     if not isinstance(treedef, _RefTreeDef):
         raise pickle.UnpicklingError("treedef.pkl does not hold a jax "
@@ -346,25 +474,28 @@ def _snap_leaf(x):
     return x
 
 
-def _host_leaf(x) -> Tuple[Optional[np.ndarray], dict]:
-    """(array to store or None, leaf meta) of one snapshot leaf, not yet
-    packed."""
+def _host_leaf(x) -> Tuple[np.ndarray, dict]:
+    """(array to store, leaf meta) of one snapshot leaf, not yet packed; a
+    bfloat16 tensor as 2-byte void, the dtype numpy gives the reference's
+    bfloat16 arrays when it saves them."""
     if torch.is_tensor(x):
         t = x.cpu()
         if t.dtype == torch.bfloat16:
-            return t.view(torch.int16).numpy(), {"kind": "tensor",
-                                                 "dtype": "bfloat16"}
+            return t.view(torch.int16).numpy().view(np.void(2).dtype), {
+                "kind": "tensor", "dtype": "bfloat16"}
         return t.numpy(), {"kind": "tensor"}
     if isinstance(x, np.ndarray):
         return x, {"kind": "ndarray"}
-    if x is None:
-        return None, {"kind": "none"}
+    if isinstance(x, _Stored):
+        return x.array, {"kind": x.kind}
     if isinstance(x, (bool, int, float)):
         return np.asarray(x), {"kind": type(x).__name__}
     raise TypeError(f"cannot checkpoint a leaf of type {type(x).__name__}")
 
 
 def _from_host(arr, meta, device):
+    """A stored leaf as the port held it (``None`` is a leaf of this kind
+    only in checkpoints written as JSON)."""
     kind = meta["kind"]
     if kind == "none":
         return None
@@ -372,6 +503,8 @@ def _from_host(arr, meta, device):
         return unpack_chunked(arr, meta["packed"]) if meta.get("packed") \
             else arr
     if kind == "tensor":
+        if meta.get("dtype") == "bfloat16":
+            arr = arr.view(np.int16)
         t = torch.from_numpy(np.ascontiguousarray(arr))
         if device is not None:
             t = t.to(device)
@@ -379,6 +512,8 @@ def _from_host(arr, meta, device):
             return unpack_chunked(t, meta["packed"])
         return t.view(torch.bfloat16) if meta.get("dtype") == "bfloat16" \
             else t
+    if kind == "key":
+        return tuple(int(w) for w in arr.reshape(-1))
     return {"bool": bool, "int": int, "float": float}[kind](arr.item())
 
 
@@ -401,7 +536,7 @@ class CheckpointManager:
         atexit.register(_atexit_fence, weakref.ref(self))
 
     # ------------------------------------------------------------------ save
-    def _encode_leaf(self, x) -> Tuple[Optional[np.ndarray], dict]:
+    def _encode_leaf(self, x) -> Tuple[np.ndarray, dict]:
         """(array to store, leaf meta) of a snapshot leaf: a float32 leaf
         on the ``fmt`` grid as its codes (packed where it lies), anything
         else as it is."""
@@ -443,7 +578,8 @@ class CheckpointManager:
         blocking save writes the leaves as they are: nothing can change
         them before it returns."""
         self.wait()
-        leaves, structure = flatten(tree)
+        leaves, records = ref_flatten(tree)
+        treedef = treedef_pickle(records)
         snap = leaves if blocking else [_snap_leaf(x) for x in leaves]
         ready = None
         if any(torch.is_tensor(x) and x.is_cuda for x in snap):
@@ -457,19 +593,18 @@ class CheckpointManager:
             os.makedirs(tmp)
             stored = [arr for arr, _ in host]
             leaf_meta = [meta for _, meta in host]
-            idx = [i for i, a in enumerate(stored) if a is not None]
-            assign = self._assign_shards([stored[i] for i in idx])
+            assign = self._assign_shards(stored)
             n_shards = (max(assign) + 1) if assign else 1
-            for i, k in zip(idx, assign):
+            for i, k in enumerate(assign):
                 leaf_meta[i]["file"] = self._shard_name(k)
             for k in range(n_shards):
                 np.savez(os.path.join(tmp, self._shard_name(k)),
                          **{f"leaf_{i}": stored[i]
-                            for i, s in zip(idx, assign) if s == k})
-            with open(os.path.join(tmp, "treedef.json"), "w") as f:
-                json.dump(structure, f)
+                            for i, s in enumerate(assign) if s == k})
+            with open(os.path.join(tmp, "treedef.pkl"), "wb") as f:
+                f.write(treedef)
             hashed = [self._shard_name(k) for k in range(n_shards)] \
-                + ["treedef.json"]
+                + ["treedef.pkl"]
             digests = {name: _sha256(os.path.join(tmp, name))
                        for name in hashed}
             with open(os.path.join(tmp, "meta.json"), "w") as f:
@@ -571,7 +706,6 @@ class CheckpointManager:
         path = os.path.join(self.directory, f"step_{step}")
         with open(os.path.join(path, "meta.json")) as f:
             meta = json.load(f)
-        reference = not os.path.exists(os.path.join(path, "treedef.json"))
         files, leaves = {}, []
         for i, entry in enumerate(meta["leaves"]):
             arr = None
@@ -580,17 +714,18 @@ class CheckpointManager:
                 if name not in files:
                     files[name] = np.load(os.path.join(path, name))
                 arr = files[name][f"leaf_{i}"]
-            if reference:        # numpy leaves, as the reference restores
+            if "kind" in entry:        # a leaf the port wrote
+                leaves.append(_from_host(arr, entry, device))
+            else:      # the reference's: numpy, as the reference restores
                 leaves.append(unpack_np(arr, entry["packed"])
                               if entry.get("packed") else arr)
-            else:
-                leaves.append(_from_host(arr, entry, device))
-        if reference:
+        legacy = os.path.join(path, "treedef.json")
+        if os.path.exists(legacy):     # written by an earlier port
+            with open(legacy) as f:
+                tree = unflatten(json.load(f), leaves)
+        else:
             with open(os.path.join(path, "treedef.pkl"), "rb") as f:
                 tree = _ref_unflatten(f.read(), leaves)
-        else:
-            with open(os.path.join(path, "treedef.json")) as f:
-                tree = unflatten(json.load(f), leaves)
         return step, tree, meta.get("extra", {})
 
     def restore(self, step: Optional[int] = None, device=None):

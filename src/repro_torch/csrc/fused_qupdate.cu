@@ -43,10 +43,19 @@
 // two roundings, never one FMA.  Indices are 64-bit (n reaches ~1.1e9).
 //
 // What bounds it on an H100: K2' moves 12 bytes per element (x, g in, x_new
-// out) and K2 24; K2' also runs one Threefry-2x32 (~80 integer operations)
-// per element for every two stochastic steps, which at the card's int32
-// rate costs about as much as the bytes.  K2', K2 and momentum_fma are one
-// thread per element in a grid-stride loop with plain 4-byte loads.
+// out) and K2 12 plus 4 per stochastic step; K2' also runs one
+// Threefry-2x32 (~70 integer operations) per element for every two
+// stochastic steps, which with the chain's roundings makes it bound by
+// the instructions it issues, not by the bytes.  So K2' and K2 take K5's
+// design (below): groups of four consecutive elements per thread (a warp
+// covers one row of the 128-lane layout) with 16-byte accesses of x, g,
+// the output and K2's bit rows where every operand is aligned (the scalar
+// path serves the tail and views off the boundary), a group's words all
+// drawn before its arithmetic, and two instances each: one for
+// train.PAPER_RUN's chain (rn / sr / signed-SRe with 32-bit draws on a
+// narrow grid, sub_v = "grad") with the schemes fixed at compile time,
+// and a generic one.  momentum_fma is one thread per element in a
+// grid-stride loop with plain 4-byte loads.
 //
 // K5 moves 20 bytes per element with bf16 codes but issues more
 // instructions than that takes: two Threefry evaluations, five roundings,
@@ -114,48 +123,6 @@ __device__ __forceinline__ float ftz(float v) {
   float r;
   asm("mul.rn.ftz.f32 %0, %1, 0f3F800000;" : "=f"(r) : "f"(v));
   return r;
-}
-
-__global__ void __launch_bounds__(kThreads)
-fused_qupdate_prng_kernel(const float* x,
-                          const float* __restrict__ g, float* out, int64_t n,
-                          float t, uint32_t k0, uint32_t k1, Chain c) {
-  const bool need[3] = {stochastic(c.grad), stochastic(c.mul),
-                        stochastic(c.sub)};
-  const int n_stoch = int(need[0]) + int(need[1]) + int(need[2]);
-  const int64_t stride = int64_t(gridDim.x) * blockDim.x;
-  for (int64_t i = int64_t(blockIdx.x) * blockDim.x + threadIdx.x; i < n;
-       i += stride) {
-    const uint32_t row = static_cast<uint32_t>(i / kLanes);
-    const uint32_t col = static_cast<uint32_t>(i % kLanes);
-    // words in the order the stochastic steps consume them
-    uint32_t q0 = 0u, q1 = 0u, q2 = 0u, unused;
-    if (n_stoch > 0) rt::threefry2x32(k0, k1, row, col, q0, q1);
-    if (n_stoch > 2)
-      rt::threefry2x32(k0, k1 + rt::kGolden, row, col, q2, unused);
-    uint32_t b1 = 0u, b2 = 0u, b3 = 0u;
-    if (need[0]) { b1 = q0; q0 = q1; q1 = q2; }
-    if (need[1]) { b2 = q0; q0 = q1; }
-    if (need[2]) b3 = q0;
-    out[i] = update_chain(c, x[i], g[i], t, b1, b2, b3);
-  }
-}
-
-__global__ void __launch_bounds__(kThreads)
-fused_qupdate_bits_kernel(const float* x,
-                          const float* __restrict__ g,
-                          const uint32_t* __restrict__ bits3, float* out,
-                          int64_t n, float t, Chain c) {
-  const bool need[3] = {stochastic(c.grad), stochastic(c.mul),
-                        stochastic(c.sub)};
-  const int64_t stride = int64_t(gridDim.x) * blockDim.x;
-  for (int64_t i = int64_t(blockIdx.x) * blockDim.x + threadIdx.x; i < n;
-       i += stride) {
-    const uint32_t b1 = need[0] ? bits3[i] : 0u;
-    const uint32_t b2 = need[1] ? bits3[n + i] : 0u;
-    const uint32_t b3 = need[2] ? bits3[2 * n + i] : 0u;
-    out[i] = update_chain(c, x[i], g[i], t, b1, b2, b3);
-  }
 }
 
 __global__ void __launch_bounds__(kThreads)
@@ -380,56 +347,99 @@ __device__ __forceinline__ float moment_ema(const Moment& s, float m,
 
 // rt::round_value on a narrow grid (its scaled values stay in float32's
 // exponent range) with the scheme fixed at compile time and 32-bit draws,
-// as the trainer instance's chain runs it: the same floating-point steps
-// and choice, with two integer shortcuts -- the exponent of the flushed
-// |z| (0 or normal) is its biased field minus 127, -127 for 0 as before,
-// and the sign comes back by copysignf, which gives -mag, -0 and +0
-// exactly where round_value's two steps do (the magnitude is never
-// negative).
+// as the trainer instances' chain runs it: the same floating-point steps
+// and choice, with the grid's exponent in float form -- 2^e of the flushed
+// |z| (0 or normal) is its exponent field alone, 0 for 0 as round_value's
+// e = -127 clamps to emin, clamped to [2^emin, 2^emax] by fminf/fmaxf, so
+// quantum = 2^qe comes out of one multiply by 2^(1 - p) and 2^-qe out of
+// the biased exponent reflected about 127 (one integer subtraction; qe
+// and -qe stay in the normal range on a narrow grid) -- and the sign back
+// by copysignf, which gives -mag, -0 and +0 exactly where round_value's
+// two steps do (the magnitude is never negative).
 template <int kMode>
 __device__ __forceinline__ float round_narrow(float x, uint32_t bits,
                                               const rt::RoundParams& p,
                                               float sign_v = 0.0f) {
   const float z = ftz(x);
   const float mag_in = fabsf(z);
-  const int e = static_cast<int>(__float_as_uint(mag_in) >> 23) - 127;
-  const int qe = min(max(e, p.emin), p.emax) - (p.precision - 1);
-  const float quantum = rt::pow2i(qe);
-  const float y = __fmul_rn(mag_in, rt::pow2i(-qe));
-  const float fy = floorf(y);
-  const float frac = __fadd_rn(y, -fy);
-  const float floor_mag = __fmul_rn(fy, quantum);
+  const float scale =
+      fminf(fmaxf(__uint_as_float(__float_as_uint(z) & 0x7F800000u),
+                  rt::pow2i(p.emin)),
+            rt::pow2i(p.emax));
+  const float quantum = __fmul_rn(scale, rt::pow2i(1 - p.precision));
+  const float y = __fmul_rn(
+      mag_in, __uint_as_float(0x7F000000u - __float_as_uint(quantum)));
   float mag;
-  if (kMode == rt::kSR) {   // round_value's pure-SR path
-    mag = rt::uniform_from_bits(bits, 32) < frac
-              ? __fadd_rn(floor_mag, quantum)
-              : floor_mag;
+  if (kMode == rt::kRN) {
+    // round_value's choice under rn -- the ceiling above a half, the floor
+    // below, the even one of the two at a half, y itself on the grid -- is
+    // y rounded to the nearest integer, ties to even: rintf, whose product
+    // with the quantum is exact as the floor's and ceiling's are
+    mag = __fmul_rn(rintf(y), quantum);
   } else {
-    const float ceil_mag = __fmul_rn(__fadd_rn(fy, 1.0f), quantum);
-    float u = 0.5f, p_up;
-    if (kMode == rt::kSignedSREps) {
-      u = rt::uniform_from_bits(bits, 32);
-      const float bias = __fmul_rn(__fmul_rn(rt::sign_of(z), sign_v), p.eps);
-      p_up = fminf(fmaxf(__fadd_rn(frac, -bias), 0.0f), 1.0f);
-    } else {   // rn, ties to even
-      const float odd = (static_cast<int>(fy) & 1) ? 1.0f : 0.0f;
-      p_up = frac > 0.5f ? 1.0f : (frac < 0.5f ? 0.0f : odd);
+    const float fy = floorf(y);
+    const float frac = __fadd_rn(y, -fy);
+    const float floor_mag = __fmul_rn(fy, quantum);
+    if (kMode == rt::kSR) {   // round_value's pure-SR path
+      mag = rt::uniform_from_bits(bits, 32) < frac
+                ? __fadd_rn(floor_mag, quantum)
+                : floor_mag;
+    } else {                  // signed-SRe
+      const float ceil_mag = __fmul_rn(__fadd_rn(fy, 1.0f), quantum);
+      const float u = rt::uniform_from_bits(bits, 32);
+      // round_value's sign(z) sign_v eps from the sign bits: +-eps, or a
+      // zero where z or sign_v is (whose sign cannot reach p_up); sign_v is
+      // +-1 or +-0 here, the chain's signs of finite values
+      const float bias =
+          (z == 0.0f || sign_v == 0.0f)
+              ? 0.0f
+              : __uint_as_float(__float_as_uint(p.eps) ^
+                                ((__float_as_uint(z) ^
+                                  __float_as_uint(sign_v)) & 0x80000000u));
+      const float p_up = fminf(fmaxf(__fadd_rn(frac, -bias), 0.0f), 1.0f);
+      mag = (u < p_up) ? ceil_mag : floor_mag;
+      if (frac == 0.0f) mag = mag_in;
     }
-    mag = (u < p_up) ? ceil_mag : floor_mag;
-    if (frac == 0.0f) mag = mag_in;
   }
-  return isfinite(x) ? copysignf(fminf(mag, p.xmax), z) : x;
+  float out = copysignf(fminf(mag, p.xmax), z);
+  // made on every path, so that the pass-through of a non-finite x below is
+  // a select and not a branch around the rounding
+  asm volatile("" : "+f"(out));
+  return isfinite(x) ? out : x;
 }
 
-// The eq.-8 chain with the trainer's modes fixed.
+// The words of element (row, col) in the order the chain's stochastic
+// steps consume them: word 0 and word 1 of threefry(k0, k1, row, col),
+// then word 0 of threefry(k0, k1 + golden, row, col) (kernel_bits3's pair
+// streams); a deterministic step takes none.
+__device__ __forceinline__ void chain_words(uint32_t k0, uint32_t k1,
+                                            uint32_t row, uint32_t col,
+                                            const bool (&need)[3],
+                                            uint32_t& b1, uint32_t& b2,
+                                            uint32_t& b3) {
+  const int n_stoch = int(need[0]) + int(need[1]) + int(need[2]);
+  uint32_t w0 = 0u, w1 = 0u, w2 = 0u, unused;
+  if (n_stoch > 0) rt::threefry2x32(k0, k1, row, col, w0, w1);
+  if (n_stoch > 2) rt::threefry2x32(k0, k1 + rt::kGolden, row, col, w2, unused);
+  b1 = b2 = b3 = 0u;
+  if (need[0]) { b1 = w0; w0 = w1; w1 = w2; }
+  if (need[1]) { b2 = w0; w0 = w1; }
+  if (need[2]) b3 = w0;
+}
+
+// The eq.-8 chain with the trainer's modes fixed: bitwise update_chain
+// for rn / sr / signed-SRe sites on narrow grids with 32-bit draws.
+// kSubGrad: the signed-SRe direction is sign(g_hat) (sub_v = "grad"), fixed
+// at compile time; else read from the chain.
+template <bool kSubGrad>
 __device__ __forceinline__ float trainer_chain(const Chain& c, float x,
                                                float g, float t, uint32_t b2,
                                                uint32_t b3) {
   const float g_hat = round_narrow<rt::kRN>(g, 0u, c.grad);
   const float upd = round_narrow<rt::kSR>(__fmul_rn(t, g_hat), b2, c.mul);
   const float z = __fadd_rn(x, -upd);
-  return round_narrow<rt::kSignedSREps>(z, b3, c.sub,
-                                        sign_v(c.sub_v, g_hat));
+  return round_narrow<rt::kSignedSREps>(
+      z, b3, c.sub, kSubGrad ? rt::sign_of(g_hat) : sign_v(c.sub_v, g_hat));
 }
 
 // Four consecutive elements of the flat vector and their carries.
@@ -489,23 +499,14 @@ __device__ __forceinline__ void update_group(const K5Args& a, Group& q) {
   if (kTrainer || (a.vs.round.enabled && a.vs.round.mode != rt::kRN))
     rt::element_bits4(a.k0, a.k1, 9u, kTrainer ? 32 : a.vs.round.rand_bits,
                       row, c0, bv);
-  // the chain's words, as fused_qupdate_prng_kernel deals them
+  // the chain's words, as K2' deals them
   uint32_t b1[4], b2[4], b3[4];
   const bool need[3] = {kTrainer ? false : stochastic(c.grad),
                         kTrainer ? true : stochastic(c.mul),
                         kTrainer ? true : stochastic(c.sub)};
-  const int n_stoch = int(need[0]) + int(need[1]) + int(need[2]);
 #pragma unroll
-  for (int j = 0; j < 4; ++j) {
-    uint32_t w0 = 0u, w1 = 0u, w2 = 0u, unused;
-    if (n_stoch > 0) rt::threefry2x32(a.k0, a.k1, row, c0 + j, w0, w1);
-    if (n_stoch > 2)
-      rt::threefry2x32(a.k0, a.k1 + rt::kGolden, row, c0 + j, w2, unused);
-    b1[j] = b2[j] = b3[j] = 0u;
-    if (need[0]) { b1[j] = w0; w0 = w1; w1 = w2; }
-    if (need[1]) { b2[j] = w0; w0 = w1; }
-    if (need[2]) b3[j] = w0;
-  }
+  for (int j = 0; j < 4; ++j)
+    chain_words(a.k0, a.k1, row, c0 + j, need, b1[j], b2[j], b3[j]);
   float xo[4], mo[4], vo[4];
 #pragma unroll
   for (int j = 0; j < 4; ++j) {
@@ -521,7 +522,7 @@ __device__ __forceinline__ void update_group(const K5Args& a, Group& q) {
         ftz(__fsqrt_rn(ftz(__fdiv_rn(vo[j], sc.c2)))), sc.eps));
     const float d = ftz(__fmaf_rn(
         sc.wd, xi, ftz(__fdiv_rn(mo[j], ftz(__fmul_rn(sc.c1, den))))));
-    xo[j] = kTrainer ? trainer_chain(c, xi, d, sc.t, b2[j], b3[j])
+    xo[j] = kTrainer ? trainer_chain<false>(c, xi, d, sc.t, b2[j], b3[j])
                      : update_chain(c, xi, d, sc.t, b1[j], b2[j], b3[j]);
     q.cm[j] = cmi;
     q.cv[j] = cvi;
@@ -579,6 +580,98 @@ fused_qadam_prng_kernel(const float* __restrict__ x,
   }
 }
 
+// ---------------------------------------------------------------------------
+// K2' and K2
+// ---------------------------------------------------------------------------
+struct K2Args {
+  const float* x;
+  const float* g;
+  const uint32_t* bits3;   // K2: uint32 (3, n); K2': null
+  float* out;
+  int64_t n;
+  int vec;        // x, g and out aligned for 16-byte accesses
+  int vec_bits;   // bits3 too, and every row's groups (n % 4 == 0)
+  float t;
+  uint32_t k0, k1;
+  Chain c;
+};
+
+// Four consecutive words of a bit row from i0: one 16-byte access when
+// `vec`.
+__device__ __forceinline__ void load_words4(const uint32_t* p, int64_t i0,
+                                            int count, bool vec,
+                                            uint32_t (&out)[4]) {
+  if (vec) {
+    const uint4 w = *reinterpret_cast<const uint4*>(p + i0);
+    out[0] = w.x; out[1] = w.y; out[2] = w.z; out[3] = w.w;
+  } else {
+#pragma unroll
+    for (int j = 0; j < 4; ++j) out[j] = j < count ? p[i0 + j] : 0u;
+  }
+}
+
+// One group of four consecutive elements from i0 (`count` in range): load
+// x and g, take every word of the group (K2: the rows of the stochastic
+// steps; K2': all four elements' Threefry words, drawn before any
+// arithmetic so that the chains overlap), run the chain, store.
+template <bool kTrainer, bool kBits>
+__device__ __forceinline__ void qupdate_group(const K2Args& a, int64_t i0,
+                                              int count) {
+  const bool vec = a.vec && count == 4;
+  float x[4], g[4];
+  load4(a.x, i0, count, vec, x);
+  load4(a.g, i0, count, vec, g);
+  const bool need[3] = {kTrainer ? false : stochastic(a.c.grad),
+                        kTrainer ? true : stochastic(a.c.mul),
+                        kTrainer ? true : stochastic(a.c.sub)};
+  uint32_t b[3][4] = {{0u, 0u, 0u, 0u}, {0u, 0u, 0u, 0u}, {0u, 0u, 0u, 0u}};
+  if (kBits) {
+    const bool vec_bits = a.vec_bits && count == 4;
+#pragma unroll
+    for (int s = 0; s < 3; ++s)
+      if (need[s]) load_words4(a.bits3 + s * a.n, i0, count, vec_bits, b[s]);
+  } else {
+    const uint32_t row = static_cast<uint32_t>(static_cast<uint64_t>(i0) /
+                                               kLanes);
+    const uint32_t c0 = static_cast<uint32_t>(i0) % kLanes;
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+      chain_words(a.k0, a.k1, row, c0 + j, need, b[0][j], b[1][j], b[2][j]);
+  }
+  float o[4];
+#pragma unroll
+  for (int j = 0; j < 4; ++j)
+    o[j] = kTrainer ? trainer_chain<true>(a.c, x[j], g[j], a.t, b[1][j],
+                                          b[2][j])
+                    : update_chain(a.c, x[j], g[j], a.t, b[0][j], b[1][j],
+                                   b[2][j]);
+  store4(a.out, i0, count, vec, o);
+}
+
+// K2' (kBits false) and K2.  Each thread takes groups of four consecutive
+// elements (a warp covers one row of the 128-lane layout), kK2Threads
+// groups apart, in a grid-stride loop over at most kK2PrngBlocks (K2') or
+// kK2BitsBlocks (K2) blocks.  Chosen on an H100 (launch/k5_variants.py
+// --kernel k2, over 1.1e9 elements): 512 threads took 1 % off K2' and K2
+// against 256; K2, bound by its bytes, ran 4 % faster with one group per
+// thread than in 132 x 64 blocks, K2' 4 % slower.
+constexpr int kK2Threads = 512;
+constexpr int64_t kK2PrngBlocks = 132 * 64;
+constexpr int64_t kK2BitsBlocks = 0x7FFFFFFF;
+
+template <bool kTrainer, bool kBits>
+__global__ void __launch_bounds__(kK2Threads)
+fused_qupdate_kernel(const K2Args a) {
+  const int64_t groups = (a.n + 3) / 4;
+  const int64_t span = int64_t(gridDim.x) * kK2Threads;
+  for (int64_t q = int64_t(blockIdx.x) * kK2Threads + threadIdx.x;
+       q < groups; q += span) {
+    const int64_t left = a.n - 4 * q;
+    qupdate_group<kTrainer, kBits>(a, 4 * q,
+                                   left >= 4 ? 4 : static_cast<int>(left));
+  }
+}
+
 float float_from_bits(int bits) {
   float f;
   std::memcpy(&f, &bits, sizeof f);
@@ -633,6 +726,18 @@ bool site_is(const rt::RoundParams& p, int mode) {
          (mode == rt::kRN || p.rand_bits == 32);
 }
 
+// Whether a chain is the trainer instances' (trainer_chain).
+bool trainer_chain_case(const Chain& c) {
+  return site_is(c.grad, rt::kRN) && site_is(c.mul, rt::kSR) &&
+         site_is(c.sub, rt::kSignedSREps);
+}
+
+// Whether a chain is K2' and K2's trainer instance's: the signed-SRe
+// direction fixed too.
+bool k2_trainer_case(const Chain& c) {
+  return trainer_chain_case(c) && c.sub_v == kGrad;
+}
+
 // Whether a launch is the trainer instance's case (fused_qadam_prng_kernel).
 bool trainer_case(const Chain& c, const Moment& ms, const Moment& vs,
                   bool kahan) {
@@ -640,13 +745,35 @@ bool trainer_case(const Chain& c, const Moment& ms, const Moment& vs,
     if (!s->round.enabled || s->round.mode != rt::kSR || s->bittrick ||
         s->round.rand_bits != 32 || !s->bf16)
       return false;
-  return !kahan && site_is(c.grad, rt::kRN) && site_is(c.mul, rt::kSR) &&
-         site_is(c.sub, rt::kSignedSREps);
+  return !kahan && trainer_chain_case(c);
 }
 
 bool aligned(const void* p, int bytes) {
   return reinterpret_cast<uintptr_t>(p) % static_cast<uintptr_t>(bytes) ==
          0;
+}
+
+// K2' and K2 through fused_qupdate_kernel.  instance: 0 generic, 1 the
+// trainer's (fused_update.k2_instance); a trainer launch whose chain does
+// not fit is refused.
+int launch_qupdate(const K2Args& a, int instance, void* stream) {
+  if (a.n <= 0) return 0;
+  if (instance == 1 && !k2_trainer_case(a.c))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const bool bits = a.bits3 != nullptr;
+  const int64_t blocks = ((a.n + 3) / 4 + kK2Threads - 1) / kK2Threads;
+  const int64_t cap = bits ? kK2BitsBlocks : kK2PrngBlocks;
+  const dim3 grid(static_cast<unsigned>(blocks < cap ? blocks : cap));
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (instance == 1 && bits)
+    fused_qupdate_kernel<true, true><<<grid, kK2Threads, 0, st>>>(a);
+  else if (instance == 1)
+    fused_qupdate_kernel<true, false><<<grid, kK2Threads, 0, st>>>(a);
+  else if (bits)
+    fused_qupdate_kernel<false, true><<<grid, kK2Threads, 0, st>>>(a);
+  else
+    fused_qupdate_kernel<false, false><<<grid, kK2Threads, 0, st>>>(a);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -657,13 +784,11 @@ extern "C" int fused_qupdate_prng(const float* x, const float* g, float* out,
                                   int64_t n, float t, uint32_t k0,
                                   uint32_t k1, const int* sites,
                                   const float* xmax, const float* eps,
-                                  void* stream) {
-  if (n <= 0) return 0;
-  const Chain c = make_chain(sites, xmax, eps);
-  fused_qupdate_prng_kernel<<<grid_for(n), kThreads, 0,
-                              static_cast<cudaStream_t>(stream)>>>(
-      x, g, out, n, t, k0, k1, c);
-  return static_cast<int>(cudaGetLastError());
+                                  int instance, void* stream) {
+  const bool vec = aligned(x, 16) && aligned(g, 16) && aligned(out, 16);
+  const K2Args a{x, g, nullptr, out, n, vec, 0, t, k0, k1,
+                 make_chain(sites, xmax, eps)};
+  return launch_qupdate(a, instance, stream);
 }
 
 // K2.  bits3: uint32 (3, n), row s read only where step s is stochastic.
@@ -671,13 +796,11 @@ extern "C" int fused_qupdate_bits(const float* x, const float* g,
                                   const uint32_t* bits3, float* out,
                                   int64_t n, float t, const int* sites,
                                   const float* xmax, const float* eps,
-                                  void* stream) {
-  if (n <= 0) return 0;
-  const Chain c = make_chain(sites, xmax, eps);
-  fused_qupdate_bits_kernel<<<grid_for(n), kThreads, 0,
-                              static_cast<cudaStream_t>(stream)>>>(
-      x, g, bits3, out, n, t, c);
-  return static_cast<int>(cudaGetLastError());
+                                  int instance, void* stream) {
+  const bool vec = aligned(x, 16) && aligned(g, 16) && aligned(out, 16);
+  const K2Args a{x, g, bits3, out, n, vec, aligned(bits3, 16) && n % 4 == 0,
+                 t, 0u, 0u, make_chain(sites, xmax, eps)};
+  return launch_qupdate(a, instance, stream);
 }
 
 // out = a * m + g, one rounding (m, g, out: float32 of n elements).

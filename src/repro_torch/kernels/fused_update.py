@@ -27,9 +27,12 @@ sites draw ``counter_bits_reduced`` fields of streams 8 (m) and 9 (v) at
 the same coordinates.  A tensor on the CPU
 goes to the plain twin, which works through the vector in chunks of
 ``CHUNK`` elements (the bits are keyed by position, so chunking changes
-nothing); a CUDA tensor launches the kernel.  K2 and K2' are bound by
-bytes (12 and 24 per element) or, for K2', by its Threefry integer work;
-K5 moves 20 bytes per element with bf16 codes and runs two Threefry
+nothing); a CUDA tensor launches the kernel.  K2' moves 12 bytes per
+element and runs one Threefry evaluation per two stochastic steps, which
+bounds it; K2 moves 12 bytes plus 4 per stochastic step.  Both are
+compiled twice over, a trainer instance for ``train.PAPER_RUN``'s chain
+and a generic one (``k2_instance``), as K5 is (``k5_instance``).  K5
+moves 20 bytes per element with bf16 codes and runs two Threefry
 evaluations per element (r = 32 moments, a two-step chain).
 
 K5 computes what the reference's kernel computes *as XLA's CPU backend
@@ -152,10 +155,12 @@ def fused_qupdate_prng_plain(x, g, t: float, seed: Words,
 
 
 def fused_qupdate_prng(x: torch.Tensor, g: torch.Tensor, t: float,
-                       seed: Words, cfg: GDRounding) -> torch.Tensor:
+                       seed: Words, cfg: GDRounding,
+                       instance: Optional[str] = None) -> torch.Tensor:
     """Fused rounded GD update with in-kernel bits.  ``x``, ``g``: float32
     of one shape; ``seed``: the (k0, k1) words of ``derive_seed(key,
-    step)``.  Returns x⁺ (a new tensor)."""
+    step)``; ``instance``: the compiled instance to launch (default
+    ``k2_instance(cfg)``).  Returns x⁺ (a new tensor)."""
     _check(cfg, x, g)
     if x.device.type == "cpu":
         return fused_qupdate_prng_plain(x, g, t, seed, cfg)
@@ -167,6 +172,7 @@ def fused_qupdate_prng(x: torch.Tensor, g: torch.Tensor, t: float,
     rc = lib.fused_qupdate_prng(
         x.data_ptr(), g.data_ptr(), res.data_ptr(), x.numel(), f32(t),
         seed[0] & M32, seed[1] & M32, *_site_args(cfg),
+        _k2_index(cfg, instance),
         torch.cuda.current_stream(x.device).cuda_stream)
     _launch_check(rc, "fused_qupdate_prng")
     LAUNCHES["fused_qupdate_prng"] += 1
@@ -196,10 +202,11 @@ def fused_qupdate_plain(x, g, t: float, bits3: torch.Tensor,
 
 
 def fused_qupdate(x: torch.Tensor, g: torch.Tensor, t: float,
-                  bits3: torch.Tensor, cfg: GDRounding) -> torch.Tensor:
+                  bits3: torch.Tensor, cfg: GDRounding,
+                  instance: Optional[str] = None) -> torch.Tensor:
     """Fused rounded GD update with explicit bits: ``bits3`` (3, *x.shape)
     uint32 words in int64 or as int32 bit patterns (rows of deterministic
-    steps are not read)."""
+    steps are not read); ``instance`` as for ``fused_qupdate_prng``."""
     _check(cfg, x, g)
     if tuple(bits3.shape) != (3, *x.shape) \
             or bits3.dtype not in (torch.int32, torch.int64):
@@ -218,7 +225,7 @@ def fused_qupdate(x: torch.Tensor, g: torch.Tensor, t: float,
     lib = _lib()
     rc = lib.fused_qupdate_bits(
         x.data_ptr(), g.data_ptr(), words.data_ptr(), res.data_ptr(),
-        x.numel(), f32(t), *_site_args(cfg),
+        x.numel(), f32(t), *_site_args(cfg), _k2_index(cfg, instance),
         torch.cuda.current_stream(x.device).cuda_stream)
     _launch_check(rc, "fused_qupdate_bits")
     LAUNCHES["fused_qupdate_bits"] += 1
@@ -319,6 +326,38 @@ def _narrow(spec: RoundingSpec) -> bool:
     return f.emin - f.precision + 1 >= -126 and f.emax - f.precision < 126
 
 
+def _trainer_chain(cfg: GDRounding) -> bool:
+    """Whether the eq.-8 chain is ``train.PAPER_RUN``'s kind, which the
+    trainer instances of K2', K2 and K5 compile in: rn / sr / signed-SRe
+    on narrow grids, the stochastic steps with 32-bit draws (``csrc/
+    fused_qupdate.cu``'s ``trainer_chain_case``)."""
+    chain = list(cfg.step_specs())
+    modes = tuple(None if s.is_identity else s.scheme.name for s in chain)
+    return modes == ("rn", "sr", "signed_sr_eps") \
+        and all(_narrow(s) for s in chain) \
+        and all(s.rand_bits == 32 for s in chain[1:])
+
+
+# K2' and K2's compiled instances, by the index their entry points take
+K2_INSTANCES = ("generic", "trainer")
+
+
+def k2_instance(cfg: GDRounding) -> str:
+    """Which compiled instance of K2' and K2 a config runs: ``"trainer"``
+    for ``train.PAPER_RUN``'s chain (every scheme, draw width and the
+    signed-SRe direction ``sub_v="grad"`` fixed at compile time, the
+    sites' grids read at run time), else ``"generic"`` (the ``Chain`` read
+    at run time).  The entry points refuse a trainer launch that does not
+    fit."""
+    return "trainer" if _trainer_chain(cfg) and cfg.sub_v == "grad" \
+        else "generic"
+
+
+def _k2_index(cfg: GDRounding, instance: Optional[str]) -> int:
+    return K2_INSTANCES.index(k2_instance(cfg) if instance is None
+                              else instance)
+
+
 def k5_instance(cfg: GDRounding, m_spec: RoundingSpec, v_spec: RoundingSpec,
                 packed: bool, kahan: bool) -> str:
     """Which compiled instance of K5 a case runs: ``"trainer"`` for
@@ -331,13 +370,7 @@ def k5_instance(cfg: GDRounding, m_spec: RoundingSpec, v_spec: RoundingSpec,
         not s.is_identity and get_grid(s.fmt).fmt.name == "bfloat16"
         and s.scheme.name == "sr" and s.rand_bits == 32
         for s in (m_spec, v_spec))
-    chain = list(cfg.step_specs())
-    modes = tuple(None if s.is_identity else s.scheme.name for s in chain)
-    if moments and modes == ("rn", "sr", "signed_sr_eps") \
-            and all(_narrow(s) for s in chain) \
-            and all(s.rand_bits == 32 for s in chain[1:]):
-        return "trainer"
-    return "generic"
+    return "trainer" if moments and _trainer_chain(cfg) else "generic"
 
 
 def fused_qadam_prng_plain(x, g, m, v, scal, seed: Words, cfg: GDRounding,
@@ -528,13 +561,14 @@ def _lib():
     tail = [c.POINTER(c.c_int), c.POINTER(c.c_float), c.POINTER(c.c_float),
             c.c_void_p]
     if lib.fused_qupdate_prng.argtypes is None:
+        k2_tail = tail[:3] + [c.c_int, c.c_void_p]
         lib.fused_qupdate_prng.argtypes = [
             c.c_void_p, c.c_void_p, c.c_void_p, c.c_int64, c.c_float,
-            c.c_uint32, c.c_uint32] + tail
+            c.c_uint32, c.c_uint32] + k2_tail
         lib.fused_qupdate_prng.restype = c.c_int
         lib.fused_qupdate_bits.argtypes = [
             c.c_void_p, c.c_void_p, c.c_void_p, c.c_void_p, c.c_int64,
-            c.c_float] + tail
+            c.c_float] + k2_tail
         lib.fused_qupdate_bits.restype = c.c_int
         lib.momentum_fma.argtypes = [c.c_void_p, c.c_void_p, c.c_void_p,
                                      c.c_int64, c.c_float, c.c_void_p]

@@ -56,6 +56,7 @@ import pytest
 import torch
 
 from repro_torch.core import gd
+from repro_torch.core.prng import int32_words
 from repro_torch.core.rounding import grid_flips, parse_spec, spec
 from repro_torch.kernels import common as tcommon
 from repro_torch.kernels import flash_attention as tfa
@@ -306,6 +307,7 @@ UPDATE_CONFIGS = [
     ("binary8-rn", "binary8-rn", "binary8-rn", "self"),
     ("bf16-rn", "bf16-sr", "bf16-signed_sr_eps-e0.1", "self"),
     ("e4m3-signed_sr_eps-e0.3", "fp32", "e4m3-sr", "neg_grad"),
+    ("e4m3-rn", "e4m3-sr", "e4m3-signed_sr_eps-e0.2", "self"),
 ]
 
 
@@ -319,27 +321,74 @@ def _update_inputs(n, seed):
     return torch.from_numpy(x), torch.from_numpy(g)
 
 
+def _off_boundary(t, cuda, offset):
+    """``t`` on the card, starting ``offset`` elements past a 16-byte
+    boundary (a view of a larger buffer)."""
+    if not offset:
+        return t.to(cuda)
+    buf = torch.zeros(t.numel() + offset, dtype=t.dtype)
+    buf[offset:] = t.reshape(-1)
+    return buf.to(cuda)[offset:].view(t.shape)
+
+
 @pytest.mark.gpu
-@pytest.mark.parametrize("n", [1, 128 * 3 + 5, 2 ** 20 + 37])
+@pytest.mark.parametrize("offset", [0, 1])
+@pytest.mark.parametrize("n", [1, 3, 5, 129, 128 * 3 + 5, 2 ** 20 + 37])
 @pytest.mark.parametrize("names", UPDATE_CONFIGS,
                          ids=["-".join(c[:3]) for c in UPDATE_CONFIGS])
-def test_update_kernels_match_plain(cuda, n, names):
+def test_update_kernels_match_plain(cuda, n, names, offset):
+    """K2' and K2 bitwise their twins under every compiled instance the
+    config fits (the trainer's chain: both), tails of 1 to 3 elements past
+    the last group of four, and (``offset`` 1) x, g and the bit rows off a
+    16-byte boundary."""
     cfg = gd.GDRounding(*(parse_spec(s) for s in names[:3]),
                         grad_v=names[3])
+    instances = ["generic"] + (["trainer"] if tfu.k2_instance(cfg)
+                               == "trainer" else [])
     x, g = _update_inputs(n, n)
     seed = (0x1234ABCD, 0x0BADF00D)
-    ref = tfu.fused_qupdate_prng(x, g, 0.05, seed, cfg)
-    xc, gc = x.to(cuda), g.to(cuda)
-    got = tfu.fused_qupdate_prng(xc, gc, 0.05, seed, cfg)
-    torch.cuda.synchronize()
-    assert torch.equal(ref.view(torch.int32), got.cpu().view(torch.int32))
     bits3 = torch.from_numpy(np.random.default_rng(n).integers(
         0, 2 ** 32, (3, n), dtype=np.uint64).astype(np.int64))
-    ref = tfu.fused_qupdate(x, g, 0.05, bits3, cfg)
-    got = tfu.fused_qupdate(x.to(cuda), g.to(cuda), 0.05, bits3.to(cuda),
-                            cfg)
-    torch.cuda.synchronize()
-    assert torch.equal(ref.view(torch.int32), got.cpu().view(torch.int32))
+    words = int32_words(bits3)
+    ref_prng = tfu.fused_qupdate_prng(x, g, 0.05, seed, cfg)
+    ref_bits = tfu.fused_qupdate(x, g, 0.05, bits3, cfg)
+    xc, gc = _off_boundary(x, cuda, offset), _off_boundary(g, cuda, offset)
+    wc = _off_boundary(words, cuda, offset)
+    for instance in instances:
+        got = tfu.fused_qupdate_prng(xc, gc, 0.05, seed, cfg,
+                                     instance=instance)
+        torch.cuda.synchronize()
+        assert torch.equal(ref_prng.view(torch.int32),
+                           got.cpu().view(torch.int32)), instance
+        got = tfu.fused_qupdate(xc, gc, 0.05, wc, cfg, instance=instance)
+        torch.cuda.synchronize()
+        assert torch.equal(ref_bits.view(torch.int32),
+                           got.cpu().view(torch.int32)), instance
+    if offset == 0:   # K2 fed int64 words as well
+        got = tfu.fused_qupdate(xc, gc, 0.05, bits3.to(cuda), cfg)
+        torch.cuda.synchronize()
+        assert torch.equal(ref_bits.view(torch.int32),
+                           got.cpu().view(torch.int32))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("names", UPDATE_CONFIGS[1:6],
+                         ids=["-".join(c[:3]) for c in UPDATE_CONFIGS[1:6]])
+def test_update_trainer_instance_refuses_generic_config(cuda, names):
+    """The trainer entry of K2' and K2 refuses a chain that is not the
+    trainer's (the C entry's check, not the wrapper's choice)."""
+    cfg = gd.GDRounding(*(parse_spec(s) for s in names[:3]),
+                        grad_v=names[3])
+    assert tfu.k2_instance(cfg) == "generic"
+    x, g = (t.to(cuda) for t in _update_inputs(300, 2))
+    bits3 = torch.zeros((3, 300), dtype=torch.int32, device=cuda)
+    tfu.reset_launches()
+    with pytest.raises(RuntimeError, match="launch failed"):
+        tfu.fused_qupdate_prng(x, g, 0.05, (1, 2), cfg, instance="trainer")
+    with pytest.raises(RuntimeError, match="launch failed"):
+        tfu.fused_qupdate(x, g, 0.05, bits3, cfg, instance="trainer")
+    assert tfu.LAUNCHES["fused_qupdate_prng"] == 0
+    assert tfu.LAUNCHES["fused_qupdate_bits"] == 0
 
 
 @pytest.mark.gpu

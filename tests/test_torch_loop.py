@@ -15,7 +15,6 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
-from typing import NamedTuple
 
 from repro.checkpoint import manager as jmgr
 from repro.core.rounding import parse_spec as jparse
@@ -31,6 +30,7 @@ from repro_torch.health import inject as tinj
 from repro_torch.health.inject import FaultInjector
 from repro_torch.kernels.tree_update import tree_leaves
 from repro_torch.launch import train as ttrain
+from repro_torch.optim.adam import QAdamState
 from repro_torch.train import TrainLoop, TrainLoopConfig
 
 GRIDS = ["bfloat16", "e4m3", "binary8", "binary16", "fxp8.4"]
@@ -84,13 +84,6 @@ def test_resolve_ckpt_grid_grammar():
 
 
 # ---------------------------------------------------- checkpoint manager --
-class _State(NamedTuple):
-    step: int
-    m: object
-    key: tuple
-    cm: object = ()
-
-
 def _mixed_tree(grid):
     rng = np.random.default_rng(5)
     snap = parse_spec(f"{grid}-rn")
@@ -106,7 +99,8 @@ def _mixed_tree(grid):
         "host": np.asarray(snap(torch.ones(7) / 3).numpy()),
         "bf16": torch.randn(5, generator=torch.Generator().manual_seed(1))
         .bfloat16(),
-        "opt": _State(9, [torch.zeros(3), None], (7, 2 ** 32 - 1)),
+        "opt": QAdamState(step=9, m=[torch.zeros(3), None], v=(),
+                          key=(7, 2 ** 32 - 1)),
         "scale": 0.5,
     }
 
@@ -123,13 +117,13 @@ def test_packed_save_restore_bit_exact_mixed_tree(tmp_path, grid):
     assert packed.count(grid) == 3         # on_grid, host, opt.m[0]
     names = sorted(p.name for p in (tmp_path / "step_9").iterdir())
     assert names == ["leaves.1.npz", "leaves.2.npz", "leaves.npz",
-                     "meta.json", "treedef.json"]
+                     "meta.json", "treedef.pkl"]
     assert set(meta["sha256"]) == set(names) - {"meta.json"}
     step, back, _ = mgr.restore()
     assert step == 9
-    assert back["opt"] == _State(9, [back["opt"].m[0], None],
-                                 (7, 2 ** 32 - 1))
-    assert isinstance(back["opt"], _State) and back["scale"] == 0.5
+    assert back["opt"] == QAdamState(step=9, m=[back["opt"].m[0], None],
+                                     v=(), key=(7, 2 ** 32 - 1))
+    assert isinstance(back["opt"], QAdamState) and back["scale"] == 0.5
     assert isinstance(back["host"], np.ndarray)
     for a, b in zip(tmgr.flatten(tree)[0], tmgr.flatten(back)[0]):
         if torch.is_tensor(a):

@@ -244,6 +244,55 @@ def test_update_raises_on_unported_schemes(names):
                                SEED, tcfg)
 
 
+# the extra update configs of chip_smoke.py's phase 4, and others of the
+# kind: each a chain the trainer instance does not compile in
+GENERIC_CHAINS = [
+    ("binary8-rn", "binary8-sr_eps-e0.1", "binary8-sr"),
+    ("binary8-sr-r16",) * 3,
+    ("binary8-rn",) * 3,
+    ("bf16-rn", "bf16-sr", "bf16-signed_sr_eps-e0.1"),
+    ("binary8-sr",) * 3,
+    ("binary8-rn", "binary8-sr-r16", "binary8-signed_sr_eps-e0.1"),
+    ("binary8-rn", "binary8-sr", "binary8-signed_sr_eps-e0.1-r16"),
+    ("fp32", "binary8-sr", "binary8-signed_sr_eps-e0.1"),
+    ("e4m3-signed_sr_eps-e0.3", "fp32", "e4m3-sr"),
+    ("fp32", "fp32", "fp32"),
+]
+
+
+TRAINER_CHAINS = [   # (grad, mul, sub), sub_v, K2's instance, K5's chain
+    (("binary8-rn", "binary8-sr", "binary8-signed_sr_eps-e0.1"), "grad",
+     "trainer", "trainer"),
+    (("e4m3-rn", "e4m3-sr", "e4m3-signed_sr_eps-e0.2"), "grad", "trainer",
+     "trainer"),
+    (("binary8-rn", "binary8-sr", "binary8-signed_sr_eps-e0.1"), "neg_grad",
+     "generic", "trainer"),
+]
+
+
+@pytest.mark.parametrize(
+    "names,sub_v,want,want_k5",
+    [(None, "grad", "trainer", "trainer")] + TRAINER_CHAINS
+    + [(c, "grad", "generic", "generic") for c in GENERIC_CHAINS],
+    ids=["paper_run"] + ["-".join(c[0]) + f"-{c[1]}" for c in TRAINER_CHAINS]
+    + ["-".join(c) for c in GENERIC_CHAINS])
+def test_k2_instance_choice(names, sub_v, want, want_k5):
+    """K2' and K2 run their trainer instance on ``train.PAPER_RUN``'s
+    chain (rn / sr / signed-SRe on a narrow grid, 32-bit draws, the
+    direction sign(g_hat)) and the generic one on every other chain; K5's
+    trainer instance takes the same chain with any direction."""
+    import dataclasses
+    from repro_torch.launch.train import rounding_config
+    if names is None:
+        cfg = rounding_config("signed_sr_eps", "binary8", 0.1)
+    else:
+        cfg = dataclasses.replace(_cfgs(names)[1], sub_v=sub_v)
+    assert tfu.k2_instance(cfg) == want
+    assert tfu.K2_INSTANCES.index(want) == (want == "trainer")
+    bf16 = tr.parse_spec("bf16-sr")
+    assert tfu.k5_instance(cfg, bf16, bf16, True, False) == want_k5
+
+
 # ------------------------------------------------------- whole-tree update --
 def _tree(seed):
     rng = np.random.default_rng(seed)
