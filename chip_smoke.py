@@ -71,13 +71,17 @@ Phases (any failed check exits non-zero; there is no CPU fallback):
 15. MoE kernels vs plain: K1' (the SR cast, 128-lane bits) bitwise at
    n = 2**24 + 37 and at the path's (128, 1, 768) for binary8 sr with 32-,
    16- and 8-bit draws and rn, its sr_r32 instance (the path's spec)
-   bitwise its generic one; K8' (the batched GEMM) at the path's two
-   shapes (128 experts x 1 row: 2048 -> 768 and 768 -> 2048) and a ragged
-   one (5 x 3 x 70 x 50), bf16 and float32 b, bitwise on exact-sum inputs
-   and within the 1e-4 one-ulp contract on N(0, 1) inputs; timed beside
-   the bound, the twin and an unrounded yardstick (a bf16 cast for K1',
-   bf16 ``torch.bmm`` for K8'), K1' and the cast at the path's shape also
-   by CUDA-graph replay (``device_ms``);
+   bitwise its generic one; K8' (the batched GEMM) at the path's decode
+   shapes (128 experts x 1 row: 2048 -> 768 and 768 -> 2048), a
+   whole-prompt forward's (128 x 10 rows, the capacity of batch 4 x
+   prompt 32 at once; ``serve.run`` absorbs prompts token by token) and a
+   ragged one (5 x 3 x 70 x 50), bf16 and float32 b, bitwise on exact-sum
+   inputs and within the 1e-4 one-ulp contract on N(0, 1) inputs, where
+   its weight-stream and large-M routes (the route forced) are also
+   bitwise equal; timed beside the bound, the twin and an unrounded
+   yardstick (a bf16 cast for K1', bf16 ``torch.bmm`` for K8'), K1', K8'
+   and their yardsticks at the path's shapes also by CUDA-graph replay
+   (``device_ms``);
 16. MoE agreement: reduced qwen3-moe-30b-a3b on the card against the same
    weights on the CPU, teacher-forced: logits and greedy picks;
 17. MoE serve: ``serve.run(**serve.MOE_SERVE_RUN)``, qwen3-moe-30b-a3b at
@@ -109,7 +113,8 @@ Phases (any failed check exits non-zero; there is no CPU fallback):
    (preemptions around a garbled checkpoint) bitwise equal to a clean run;
 21. explicit-bits kernels vs plain: K3 and K4 at the oracle path's shapes
    (M = 4: q/k/v/o, down, lm head; the fused GLU 2048 -> 5632) and a
-   ragged one, K8 at the MoE path's shapes and a ragged one, K1 on
+   ragged one, K8 at the MoE path's decode and whole-prompt shapes and a
+   ragged one (on both its routes, bitwise), K1 on
    (128, 1, 768), a ragged and a 2**20 + 37 tensor: on exact-sum inputs
    each equal to its plain twin (K4's residuals bitwise, its hidden within
    the act grid's flips) and every one bitwise equal to its in-kernel-bits
@@ -121,7 +126,8 @@ Phases (any failed check exits non-zero; there is no CPU fallback):
    N(0, 1) inputs the GEMM contract; each timed beside its bound (the
    bits stream counted), its in-kernel-bits kernel, the twin and the
    unrounded yardstick of its primed kernel, K3 and K4 at the decode
-   shapes (with K3'/K4' and the yardstick), K1 and the cast at the path's
+   shapes (with K3'/K4' and the yardstick), K8 at the MoE path's shapes
+   (with K8' and bf16 ``torch.bmm``), K1 and the cast at the path's
    shape also by CUDA-graph replay (``device_ms``); K4 and K4' on N(0, 1)
    inputs bitwise equal on both routes (the route forced);
 22. serve tinyllama-1.1b under ``e4m3-sr-oracle`` (K3, K4; every
@@ -266,6 +272,12 @@ MOE_LAYERS = MOE["n_layers"]
 # then down; and K1''s rounding of the (E, C, d_expert) hidden
 BATCHED_SHAPES = [(128, 1, 2048, 768, 2 * MOE_LAYERS),
                   (128, 1, 768, 2048, MOE_LAYERS)]
+# the same GEMMs in a whole-prompt forward (batch 4 x prompt 32 = 128
+# tokens at once: capacity C = int(128 * 8 * 1.25 / 128) = 10 rows per
+# expert; serve.run absorbs prompts token by token, at the shapes above),
+# launches per such forward
+BATCHED_PREFILL = [(128, 10, 2048, 768, 2 * MOE_LAYERS),
+                   (128, 10, 768, 2048, MOE_LAYERS)]
 BATCHED_RAGGED = (5, 3, 70, 50)
 SR_CAST_PATH = (128, 1, 768)
 SR_CAST_SIZES = [(UPDATE_N_SMALL,), SR_CAST_PATH]
@@ -366,6 +378,30 @@ def max_steps(torch, ref, got, fmt):
 def bitwise(torch, a, b) -> bool:
     return torch.equal(a.contiguous().view(torch.int32),
                        b.contiguous().view(torch.int32))
+
+
+def batched_cases():
+    """Phases 15 and 21's K8'/K8 cases: (E, M, K, N, launches per decode
+    step, launches per prompt)."""
+    return ([(*c, 0) for c in BATCHED_SHAPES]
+            + [(*c[:4], 0, c[4]) for c in BATCHED_PREFILL]
+            + [(*BATCHED_RAGGED, 0, 0)])
+
+
+def batched_routes_agree(torch, tq, run, label):
+    """K8' or K8 run by ``run()`` on both routes (the route forced): bitwise
+    equal, or the phase fails."""
+    keep, outs = tq.BATCHED_STREAM_MAX_M, []
+    for limit in (1 << 30, 0):
+        tq.BATCHED_STREAM_MAX_M = limit
+        try:
+            outs.append(run())
+        finally:
+            tq.BATCHED_STREAM_MAX_M = keep
+    torch.cuda.synchronize()
+    if not bitwise(torch, *outs):
+        fail(f"{label}: the weight-stream route differs from the large-M "
+             "route")
 
 
 @contextlib.contextmanager
@@ -1834,8 +1870,7 @@ def batched_phase(torch, tq):
         return (torch.randint(-8, 9, shape, generator=gen, device=dev)
                 .float() / div)
 
-    cases = BATCHED_SHAPES + [(*BATCHED_RAGGED, 0)]
-    for E, M, K, N, per_step in cases:
+    for E, M, K, N, per_step, per_prompt in batched_cases():
         seeds = np.random.default_rng(E * K + N).integers(
             0, 2 ** 32, (E, 2), dtype=np.int64)
         a = ints((E, M, K), 8.0)
@@ -1869,24 +1904,43 @@ def batched_phase(torch, tq):
         if share > 1e-4 or not adjacent:
             fail(f"qmatmul_batched_sr {E}x{M}x{K}x{N}: {n_bad} mismatches "
                  f"({share:.2e}), adjacent on the grid: {adjacent}")
+        batched_routes_agree(
+            torch, tq, lambda: tq.qmatmul_batched_prng(a, ws[0], seeds,
+                                                       "binary8"),
+            f"qmatmul_batched_sr {E}x{M}x{K}x{N}")
         max_err = float((got - ref).abs().max())
         steps = max_steps(torch, ref, got, "binary8")
-        ms = time_ms(torch, lambda i: tq.qmatmul_batched_prng(
-            a, ws[i], seeds, "binary8"), n_copies)
+
+        def call(i):
+            return tq.qmatmul_batched_prng(a, ws[i], seeds, "binary8")
+        a16 = a.to(torch.bfloat16)
+
+        def lib_call(i):
+            return torch.bmm(a16, ws[i])
+        ms = time_ms(torch, call, n_copies)
         plain = time_ms(torch, lambda i: tq.qmatmul_batched_plain(
             a, ws[i], seeds, "binary8"), n_copies, iters=3, warmup=1)
-        a16 = a.to(torch.bfloat16)
-        lib = time_ms(torch, lambda i: torch.bmm(a16, ws[i]), n_copies)
+        lib = time_ms(torch, lib_call, n_copies)
         bms, by = batched_bound(E, M, K, N, 2)
-        rows.append(dict(kernel="qmatmul_batched_sr", E=E, M=M, K=K, N=N,
-                         b="bf16", per_step=per_step, mismatches=n_bad,
-                         mismatch_share=share, max_grid_steps=steps,
-                         max_abs_err=max_err, ms=ms, plain_ms=plain,
-                         library_ms=lib, bound_ms=bms, bound_by=by))
-        print(f"  qmatmul_batched_sr E={E:3d} M={M} K={K:5d} N={N:5d} "
-              f"B=bf16  kernel {ms:8.4f} ms  bound {bms:8.4f} ms ({by})  "
-              f"plain {plain:8.3f} ms  bmm(bf16) {lib:8.4f} ms  flips "
-              f"{n_bad}/{ref.numel()} (max {steps:g} steps)", flush=True)
+        row = dict(kernel="qmatmul_batched_sr", E=E, M=M, K=K, N=N,
+                   b="bf16", per_step=per_step, per_prompt=per_prompt,
+                   route=tq.batched_route(M), mismatches=n_bad,
+                   mismatch_share=share, max_grid_steps=steps,
+                   max_abs_err=max_err, ms=ms, plain_ms=plain,
+                   library_ms=lib, bound_ms=bms, bound_by=by)
+        dev_note = ""
+        if per_step or per_prompt:
+            row.update(device_ms=graph_ms(torch, call, n_copies),
+                       library_device_ms=graph_ms(torch, lib_call, n_copies))
+            dev_note = (f"; device (graph replay) kernel "
+                        f"{row['device_ms']:.5f} ms, bmm(bf16) "
+                        f"{row['library_device_ms']:.5f} ms")
+        rows.append(row)
+        print(f"  qmatmul_batched_sr E={E:3d} M={M:2d} K={K:5d} N={N:5d} "
+              f"B=bf16 ({row['route']})  kernel {ms:8.4f} ms  bound "
+              f"{bms:8.4f} ms ({by})  plain {plain:8.3f} ms  bmm(bf16) "
+              f"{lib:8.4f} ms  flips {n_bad}/{ref.numel()} (max {steps:g} "
+              f"steps), routes bitwise{dev_note}", flush=True)
         del a, a16, ws, got, ref
     return rows
 
@@ -2220,7 +2274,7 @@ def bits_batched_phase(torch, tq, tc):
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(4242)
     rows = []
-    for E, M, K, N, per_step in BATCHED_SHAPES + [(*BATCHED_RAGGED, 0)]:
+    for E, M, K, N, per_step, per_prompt in batched_cases():
         seeds = np.random.default_rng(E * K + N + 1).integers(
             0, 2 ** 32, (E, 2), dtype=np.int64)
         a = (torch.randint(-8, 9, (E, M, K), generator=gen, device=dev)
@@ -2259,30 +2313,52 @@ def bits_batched_phase(torch, tq, tc):
         if not bitwise(torch, got, prng):
             fail(f"qmatmul_batched_bits {E}x{M}x{K}x{N}: K8 != K8' bitwise "
                  "on N(0, 1) inputs")
+        batched_routes_agree(
+            torch, tq, lambda: tq.qmatmul_batched(a, ws[0], bits, "binary8"),
+            f"qmatmul_batched_bits {E}x{M}x{K}x{N}")
         n_bad, adjacent = grid_flips(ref, got, "binary8")
         share = n_bad / ref.numel()
         if share > 1e-4 or not adjacent:
             fail(f"qmatmul_batched_bits {E}x{M}x{K}x{N}: {n_bad} mismatches")
         max_err = float((got - ref).abs().max())
         bits = int32_words(bits)
-        ms = time_ms(torch, lambda i: tq.qmatmul_batched(
-            a, ws[i], bits, "binary8"), n_copies)
-        prng_ms = time_ms(torch, lambda i: tq.qmatmul_batched_prng(
-            a, ws[i], seeds, "binary8"), n_copies)
+
+        def call(i):
+            return tq.qmatmul_batched(a, ws[i], bits, "binary8")
+
+        def prng_call(i):
+            return tq.qmatmul_batched_prng(a, ws[i], seeds, "binary8")
+        a16 = a.to(torch.bfloat16)
+
+        def lib_call(i):
+            return torch.bmm(a16, ws[i])
+        ms = time_ms(torch, call, n_copies)
+        prng_ms = time_ms(torch, prng_call, n_copies)
         plain = time_ms(torch, lambda i: tq.qmatmul_batched_bits_plain(
             a, ws[i], bits, "binary8"), n_copies, iters=3, warmup=1)
-        a16 = a.to(torch.bfloat16)
-        lib = time_ms(torch, lambda i: torch.bmm(a16, ws[i]), n_copies)
+        lib = time_ms(torch, lib_call, n_copies)
         bms = batched_bound(E, M, K, N, 2, bits=True)
-        rows.append(dict(kernel="qmatmul_batched_bits", E=E, M=M, K=K, N=N,
-                         b="bf16", per_step=per_step, mismatches=n_bad,
-                         mismatch_share=share, max_abs_err=max_err, ms=ms,
-                         prng_ms=prng_ms, plain_ms=plain, library_ms=lib,
-                         bound_ms=bms[0], bound_by=bms[1]))
-        print(f"  qmatmul_batched_bits E={E:3d} M={M} K={K:5d} N={N:5d}  "
-              f"kernel {ms:8.4f} ms  in-kernel bits {prng_ms:8.4f} ms  "
-              f"bound {bms[0]:8.4f} ms ({bms[1]})  plain {plain:8.3f} ms  "
-              f"bmm(bf16) {lib:8.4f} ms  flips {n_bad}/{ref.numel()}",
+        row = dict(kernel="qmatmul_batched_bits", E=E, M=M, K=K, N=N,
+                   b="bf16", per_step=per_step, per_prompt=per_prompt,
+                   route=tq.batched_route(M), mismatches=n_bad,
+                   mismatch_share=share, max_abs_err=max_err, ms=ms,
+                   prng_ms=prng_ms, plain_ms=plain, library_ms=lib,
+                   bound_ms=bms[0], bound_by=bms[1])
+        dev_note = ""
+        if per_step or per_prompt:
+            row.update(device_ms=graph_ms(torch, call, n_copies),
+                       prng_device_ms=graph_ms(torch, prng_call, n_copies),
+                       library_device_ms=graph_ms(torch, lib_call, n_copies))
+            dev_note = (f"; device (graph replay) kernel "
+                        f"{row['device_ms']:.5f} ms, in-kernel bits "
+                        f"{row['prng_device_ms']:.5f} ms, bmm(bf16) "
+                        f"{row['library_device_ms']:.5f} ms")
+        rows.append(row)
+        print(f"  qmatmul_batched_bits E={E:3d} M={M:2d} K={K:5d} N={N:5d} "
+              f"({row['route']})  kernel {ms:8.4f} ms  in-kernel bits "
+              f"{prng_ms:8.4f} ms  bound {bms[0]:8.4f} ms ({bms[1]})  plain "
+              f"{plain:8.3f} ms  bmm(bf16) {lib:8.4f} ms  flips "
+              f"{n_bad}/{ref.numel()}, routes bitwise{dev_note}",
               flush=True)
         del a, a16, ws, got, prng, ref
     return rows
@@ -2887,6 +2963,17 @@ def moe_kernel_entry(rows, name, source, replaces, launches, library):
 
     def per_step(key):
         return sum(r[key] * r["per_step"] for r in path)
+    prompt = [r for r in rows if r.get("per_prompt")]
+    extra = {}
+    if prompt:
+        extra = {f"prompt_{key}": sum(r[key] * r["per_prompt"]
+                                      for r in prompt)
+                 for key in ("ms", "device_ms", "bound_ms", "library_ms",
+                             "library_device_ms")}
+        extra["prompt_timed"] = (f"one {MOE_ARCH} whole-prompt forward's "
+                                 f"launches (batch {BATCH} x prompt "
+                                 f"{PROMPT} at once, {prompt[0]['M']} rows "
+                                 "per expert)")
     return dict(
         name=name, route="cuda", source=source, replaces=replaces,
         launches=launches, max_abs_err=max(r["max_abs_err"] for r in rows),
@@ -2901,7 +2988,7 @@ def moe_kernel_entry(rows, name, source, replaces, launches, library):
         mismatch_share=max(r["mismatch_share"] for r in rows),
         timed=f"one {MOE_ARCH} decode step's launches (batch {BATCH}, "
               f"{MOE_LAYERS} layers)",
-        launches_path=f"serve {MOE_ARCH} binary8-paper")
+        launches_path=f"serve {MOE_ARCH} binary8-paper", **extra)
 
 
 def kernel_entry(rows, name, source, replaces, launches, path_rows, timed,
@@ -3264,6 +3351,10 @@ def main() -> None:
         entry.update(launches_path=f"serve {MOE_ARCH} oracle binary8-paper",
                      in_kernel_bits_ms=sum(r["prng_ms"] * r["per_step"]
                                            for r in rows_ if r["per_step"]))
+        if all("prng_device_ms" in r for r in rows_ if r["per_step"]):
+            entry["in_kernel_bits_device_ms"] = sum(
+                r["prng_device_ms"] * r["per_step"] for r in rows_
+                if r["per_step"])
         kernels.append(entry)
     main_row = [r for r in paged_rows if r["main"]][0]
     kernels.append(dict(
@@ -3292,7 +3383,9 @@ def main() -> None:
                 "sr_cast_prng": "sr_cast_prng_kernel",
                 "qmatmul_sr": "_kernel", "qmatmul_bits": "_kernel",
                 "qmatmul_swiglu_sr": "_kernel",
-                "qmatmul_swiglu_bits": "_kernel"}.get(entry["name"])
+                "qmatmul_swiglu_bits": "_kernel",
+                "qmatmul_batched_sr": "_kernel",
+                "qmatmul_batched_bits": "_kernel"}.get(entry["name"])
         if stem:
             entry["registers"] = {fn: use for fn, use in
                                   resources.get(src, {}).items()

@@ -1,6 +1,9 @@
 // The two main loops of the rounded GEMMs on an H100, shared by K3'/K3
 // (qmatmul_sr.cu, one weight operand) and K4'/K4 (qmatmul_swiglu_sr.cu, two
-// weight operands wg and wu read against the same A rows).
+// weight operands wg and wu read against the same A rows); the large-M
+// route also runs K8'/K8's stacks of GEMMs (qmatmul_batched_sr.cu:
+// gemm_batched_kernel, one grid plane per slice, A padded with -0 past K so
+// that its chains equal chains of exactly K steps, the first K8's order).
 //
 // Both loops sum in the first version's order: one accumulator per output
 // and weight operand, one fmaf(a[r, k], b[k, c], acc) per k in ascending k
@@ -129,12 +132,14 @@ struct Tile {
 
 // One kBK-deep stage: A rows [m0, m0 + BM) x k [k0, k0 + kBK) into a
 // (BM, kAS) float tile, then for each operand B rows [k0, k0 + kBK) x
-// columns [n0, n0 + BN) into a (kBK, BN) tile; zeros past M, N and K.
+// columns [n0, n0 + BN) into a (kBK, BN) tile; zeros past M, N and K (A's
+// padding -0 with kNegPad: fmaf(-0, +0, acc) is acc for every acc, -0
+// included, so the padded chain equals one of exactly K steps).
 // kVec: 16-byte cp.async (A float32 16-byte aligned with K % 4 == 0, B
 // 16-byte aligned with rows of whole 16-byte chunks), else element loads
 // stored before the next barrier; code words of A are always loaded
 // element by element and decoded.
-template <typename T, typename SB, int NB, bool kVec>
+template <typename T, typename SB, int NB, bool kVec, bool kNegPad = false>
 __device__ __forceinline__ void load_stage(char* stage, const void* A,
                                            const rt::CodeFormat& af,
                                            const Weights<SB, NB>& B, int M,
@@ -143,6 +148,7 @@ __device__ __forceinline__ void load_stage(char* stage, const void* A,
   float* As = reinterpret_cast<float*>(stage);
   SB* Bs = reinterpret_cast<SB*>(stage + T::kABytes);
   const int tid = threadIdx.x;
+  const float pad = kNegPad ? -0.0f : 0.0f;
   if (kVec && af.bytes == 0) {
     constexpr int kRowChunks = kBK / 4;
     for (int e = tid; e < T::BM * kRowChunks; e += T::kThreads) {
@@ -153,7 +159,7 @@ __device__ __forceinline__ void load_stage(char* stage, const void* A,
         cp_async16(dst, static_cast<const float*>(A) +
                             static_cast<size_t>(gr) * K + gk);
       else
-        *reinterpret_cast<float4*>(dst) = make_float4(0.f, 0.f, 0.f, 0.f);
+        *reinterpret_cast<float4*>(dst) = make_float4(pad, pad, pad, pad);
     }
   } else {
     for (int e = tid; e < T::BM * kBK; e += T::kThreads) {
@@ -162,7 +168,7 @@ __device__ __forceinline__ void load_stage(char* stage, const void* A,
       As[r * kAS + kk] =
           (gr < M && gk < K)
               ? rt::load_code(A, static_cast<size_t>(gr) * K + gk, af)
-              : 0.0f;
+              : pad;
     }
   }
 #pragma unroll
@@ -193,7 +199,8 @@ __device__ __forceinline__ void load_stage(char* stage, const void* A,
   }
 }
 
-template <typename T, bool kVec, typename SB, int NB, typename Epi>
+template <typename T, bool kVec, bool kNegPad = false, typename SB, int NB,
+          typename Epi>
 __device__ __forceinline__ void gemm_body(const void* __restrict__ A,
                                           const rt::CodeFormat& af,
                                           const Weights<SB, NB>& B, int M,
@@ -217,8 +224,8 @@ __device__ __forceinline__ void gemm_body(const void* __restrict__ A,
 #pragma unroll
   for (int s = 0; s < S - 1; ++s) {
     if (s < nt)
-      load_stage<T, SB, NB, kVec>(smem + s * T::kStageBytes, A, af, B, M, N,
-                                  K, m0, n0, s * kBK);
+      load_stage<T, SB, NB, kVec, kNegPad>(smem + s * T::kStageBytes, A, af,
+                                           B, M, N, K, m0, n0, s * kBK);
     cp_commit();
   }
   for (int t = 0; t < nt; ++t) {
@@ -228,8 +235,9 @@ __device__ __forceinline__ void gemm_body(const void* __restrict__ A,
     __syncthreads();
     const int tn = t + S - 1;
     if (tn < nt)
-      load_stage<T, SB, NB, kVec>(smem + (tn % S) * T::kStageBytes, A, af, B,
-                                  M, N, K, m0, n0, tn * kBK);
+      load_stage<T, SB, NB, kVec, kNegPad>(smem + (tn % S) * T::kStageBytes,
+                                           A, af, B, M, N, K, m0, n0,
+                                           tn * kBK);
     cp_commit();
     const char* stage = smem + (t % S) * T::kStageBytes;
     const float* As = reinterpret_cast<const float*>(stage);
@@ -301,6 +309,21 @@ __global__ void __launch_bounds__(T::kThreads, T::kMinBlocks)
 gemm_kernel(const void* __restrict__ A, rt::CodeFormat af, Weights<SB, NB> B,
             int M, int N, int K, Epi ep) {
   gemm_body<T, kVec>(A, af, B, M, N, K, ep);
+}
+
+// A stack of GEMMs of one weight operand: slice e = blockIdx.z reads A + e M
+// K elements (A's storage af), B + e K N and stores through ep.slice(e).
+// Every slice sums as gemm_kernel does, with A padded by -0 past K, so each
+// chain equals one of exactly K steps (K8, qmatmul_batched_sr.cu).
+template <typename T, bool kVec, typename SB, typename Epi>
+__global__ void __launch_bounds__(T::kThreads, T::kMinBlocks)
+gemm_batched_kernel(const char* __restrict__ A, rt::CodeFormat af,
+                    const SB* __restrict__ B, int M, int N, int K, Epi ep) {
+  const size_t e = blockIdx.z;
+  const size_t a_elt = af.bytes != 0 ? af.bytes : 4;
+  const Weights<SB, 1> w{{B + e * K * N}};
+  gemm_body<T, kVec, true>(A + e * M * K * a_elt, af, w, M, N, K,
+                           ep.slice(e));
 }
 
 // ---------------------------------------------------------------------------
@@ -513,6 +536,19 @@ int launch_gemm(const void* a, const rt::CodeFormat& af,
   if (const int e = allow_smem(kernel, T::kSmem)) return e;
   const dim3 grid((N + T::BN - 1) / T::BN, (M + T::BM - 1) / T::BM);
   kernel<<<grid, T::kThreads, T::kSmem, s>>>(a, af, b, M, N, K, ep);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// gemm_batched_kernel over E slices.
+template <typename T, bool kVec, typename SB, typename Epi>
+int launch_gemm_batched(const void* a, const rt::CodeFormat& af, const SB* b,
+                        int E, int M, int N, int K, const Epi& ep,
+                        cudaStream_t s) {
+  auto kernel = gemm_batched_kernel<T, kVec, SB, Epi>;
+  if (const int e = allow_smem(kernel, T::kSmem)) return e;
+  const dim3 grid((N + T::BN - 1) / T::BN, (M + T::BM - 1) / T::BM, E);
+  kernel<<<grid, T::kThreads, T::kSmem, s>>>(static_cast<const char*>(a), af,
+                                             b, M, N, K, ep);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -42,18 +42,23 @@ The kernels are bound by bytes at decode (they stream each weight once);
 see the notes at the top of the CUDA sources for their design.  K3'/K3
 and K4'/K4 have two routes (``csrc/gemm_routes.cuh``): M <=
 ``DECODE_MAX_M`` runs the decode route (a weight stream, one lane per
-output), larger M the large-M route (register tiles); both sum each
-output in one ascending chain, the first version's order, so they equal
-each other and that kernel bit for bit on every input, and the twins on
-exact sums.  On the card:
+output), larger M the large-M route (register tiles).  K8'/K8 have a
+weight-stream route for M <= ``BATCHED_STREAM_MAX_M`` (a thread holds
+all rows of its columns, up to 16, so each expert's weights are read
+once per 16 rows) and the same large-M route, one grid plane per slice.
+Every route sums each output in one ascending chain, the first version's
+order, so the routes equal each other and that kernel bit for bit on
+every input, and the twins on exact sums.  On the card:
 
   PYTHONPATH=src python -m pytest -q --noconftest -m gpu \
       tests/test_torch_gpu.py -k "qmatmul or swiglu"
 
-(the route is forced in a test by setting ``DECODE_MAX_M``), and an A/B
-of two trees' K3' and K4' (times, device times by graph replay and output
-digests) in one call: ``python src/repro_torch/launch/time_gemm.py --src
-<tree>/src --tag <name>`` for parent, change, change, parent.
+(a test forces a route by setting ``DECODE_MAX_M`` or
+``BATCHED_STREAM_MAX_M``), and an A/B of two trees' K3' and K4', or with
+``--kernel k8`` K8' and K8 (times, device times by graph replay and
+output digests), in one call: ``python
+src/repro_torch/launch/time_gemm.py --src <tree>/src --tag <name>`` for
+parent, change, change, parent.
 """
 from __future__ import annotations
 
@@ -80,6 +85,18 @@ _MODES = {"rn": 0, "sr": 1}
 # the train step the second (the threshold from the routes' times at M = 4,
 # 8, 16 and 128: PERF.md)
 DECODE_MAX_M = 16
+
+# K8'/K8 calls with M (rows per slice) at or below this run the weight-stream
+# route of csrc/qmatmul_batched_sr.cu (a slice's weights read once per 16
+# rows: every MoE decode step, M = 1, and a whole-prompt forward, M = 10),
+# larger M its large-M route (gemm_routes.cuh's tiles, one grid plane per
+# slice).  From the routes' device times at M = 1 to 128 (128 experts, 2048
+# -> 768): the stream route faster up to M = 96, the large-M route at 128
+# (PERF.md)
+BATCHED_STREAM_MAX_M = 96
+# rows of a slice per block on each route (the large-M route's least tile):
+# the grid's row dimension is at most 65535 blocks
+_BATCHED_TILE_ROWS = {"stream": 16, "large": 32}
 
 # kernel launches since the last reset_launches(), by kernel name
 LAUNCHES: Dict[str, int] = {"qmatmul_sr": 0, "qmatmul_swiglu_sr": 0,
@@ -680,13 +697,22 @@ def _check_batched(a, b, a_fmt, fmt, mode, rand_bits, out_packed, what):
     if out_packed:
         _pack_grid(grid, what)
     E, M, _ = a.shape
-    if a.device.type == "cuda" and (E > 65535 or -(-M // 4) > 65535):
+    rows = _BATCHED_TILE_ROWS[batched_route(M)]
+    if a.device.type == "cuda" and (E > 65535 or -(-M // rows) > 65535):
         raise ValueError(f"{what}: E={E}, M={M} exceed the kernel's grid")
     return grid, a_grid
 
 
+def batched_route(M: int) -> str:
+    """The route a K8'/K8 call of M rows per slice takes: "stream" (the
+    weight-stream route) or "large" (the large-M route)."""
+    return "stream" if M <= BATCHED_STREAM_MAX_M else "large"
+
+
 def _batched_launch(name: str, a, a_grid, b, bits, seeds, grid, mode,
                     rand_bits, out_packed):
+    """One K8' (``qmatmul_batched_sr``) or K8 (``qmatmul_batched_bits``)
+    launch on the route ``batched_route`` picks."""
     E, M, K = a.shape
     N = b.shape[2]
     a, b = a.contiguous(), b.contiguous()
@@ -698,13 +724,14 @@ def _batched_launch(name: str, a, a_grid, b, bits, seeds, grid, mode,
             int(b.dtype == torch.bfloat16))
     tail = (out.data_ptr(), _code_arg(grid if out_packed else None), E, M, N,
             K, *_round_args(grid, mode, rand_bits), _stream(a))
-    lib = _lib_batched()
+    entry = getattr(_lib_batched(), name + (
+        "_stream" if batched_route(M) == "stream" else ""))
     if name == "qmatmul_batched_sr":
         dev_seeds = common.host_to_device(
             seeds.astype(np.uint32).view(np.int32), a.device)
-        rc = lib.qmatmul_batched_sr(*head, dev_seeds.data_ptr(), *tail)
+        rc = entry(*head, dev_seeds.data_ptr(), *tail)
     else:
-        rc = lib.qmatmul_batched_bits(*head, _ptr(bits), *tail)
+        rc = entry(*head, _ptr(bits), *tail)
     _launch_check(rc, name)
     LAUNCHES[name] += 1
     return out
@@ -768,7 +795,9 @@ def _lib_batched():
                  c.c_void_p, ints] + [c.c_int] * 4
                 + [c.c_int, c.c_int, c.c_int, c.c_float, c.c_int, c.c_int,
                    c.c_void_p])
-        for fn in (lib.qmatmul_batched_sr, lib.qmatmul_batched_bits):
+        for fn in (lib.qmatmul_batched_sr, lib.qmatmul_batched_bits,
+                   lib.qmatmul_batched_sr_stream,
+                   lib.qmatmul_batched_bits_stream):
             fn.argtypes = args
             fn.restype = c.c_int
     return lib

@@ -1,20 +1,22 @@
-"""Device times of variants of K3' or K4' on one card, for choosing the
-routes' shapes by measurement: each variant is built by ``nvcc`` from a
+"""Device times of variants of K3', K4' or K8' on one card, for choosing
+the routes' shapes by measurement: each variant is built by ``nvcc`` from a
 copy of the kernel's source (``csrc/qmatmul_sr.cu`` for K3',
-``csrc/qmatmul_swiglu_sr.cu`` for K4') and of the routes' shared header
-``csrc/gemm_routes.cuh`` with named constants changed, held bitwise to
-the sources as they stand (every variant keeps the summation order) and
-to the GEMM contract against the plain twin, and timed in turns (forward,
-then reverse order) by CUDA-graph replay at the decode shapes (M = 4 and
-8) and at the large-M shapes.
+``csrc/qmatmul_swiglu_sr.cu`` for K4', ``csrc/qmatmul_batched_sr.cu`` for
+K8') and of the routes' shared header ``csrc/gemm_routes.cuh`` with named
+constants changed, held bitwise to the sources as they stand (every
+variant keeps the summation order) and to the GEMM contract against the
+plain twin, and timed in turns (forward, then reverse order) by
+CUDA-graph replay at the decode shapes (M = 4 and 8; for K8' the MoE
+path's 128 experts at M = 1 and a whole prompt's M = 10) and at the large-M
+shapes.
 
-  python src/repro_torch/launch/k3_variants.py [--kernel k3|k4]
+  python src/repro_torch/launch/k3_variants.py [--kernel k3|k4|k8]
       [--only NAME ...]
 
 Prints each variant's registers and spills (ptxas) and one JSON line of
 device ms per call (also written to ``chiprun_out/k3_variants.json``, or
-``k4_variants.json``).  It needs a card and the CUDA toolkit; builds go
-to ``build/k3_variants/`` at the repository root.
+``k4_variants.json``, ``k8_variants.json``).  It needs a card and the
+CUDA toolkit; builds go to ``build/k3_variants/`` at the repository root.
 """
 from __future__ import annotations
 
@@ -27,6 +29,8 @@ import subprocess
 import sys
 import time
 from pathlib import Path
+
+import numpy as np
 
 ROOT = Path(__file__).resolve().parents[3]
 HEADER = "gemm_routes.cuh"
@@ -44,6 +48,10 @@ KERNELS = {
         (4, 2048, 5632, "bf16"), (8, 2048, 5632, "bf16"),
         (16, 2048, 5632, "bf16"), (128, 2048, 5632, "bf16"),
         (1024, 2048, 5632, "bf16")]),
+    # (E, M, K, N) with bf16 experts
+    "k8": ("qmatmul_batched_sr.cu", [
+        (128, 1, 2048, 768), (128, 1, 768, 2048), (128, 10, 2048, 768),
+        (128, 10, 768, 2048), (128, 16, 2048, 768)]),
 }
 L2_BYTES = 50 * 2 ** 20
 # constant lines the variants change: knob -> (file, line)
@@ -59,7 +67,16 @@ KNOBS = {"dwarps": (HEADER, "constexpr int kDWarps = 4;"),
          "glu_big": ("qmatmul_swiglu_sr.cu",
                      "constexpr int kBigRG = 1, kBigMinBlocks = 3;"),
          "glu_stages": ("qmatmul_swiglu_sr.cu",
-                        "constexpr int kBigStages = 3, kSmallStages = 6;")}
+                        "constexpr int kBigStages = 3, kSmallStages = 6;"),
+         "swarps": ("qmatmul_batched_sr.cu",
+                    "constexpr int kSWarps = 4;                    // warps "
+                    "per block"),
+         "sk": ("qmatmul_batched_sr.cu",
+                "constexpr int kSK = 32;                       // k rows per "
+                "stage"),
+         "sstages": ("qmatmul_batched_sr.cu",
+                     "constexpr int kSStages = 3;                   // "
+                     "stages in the ring")}
 
 
 def variants(kernel: str, srcs):
@@ -74,6 +91,19 @@ def variants(kernel: str, srcs):
             f, text = KNOBS[knob]
             out[f] = out[f].replace(text, line)
         return out
+    if kernel == "k8":
+        def knob(name, value):
+            text = KNOBS[name][1]
+            head, tail = text.split(" = ", 1)
+            return (name, f"{head} = {value};{tail.split(';', 1)[1]}")
+        return {
+            "as built": srcs,
+            "2 warps": edit(knob("swarps", 2)),
+            "k 16": edit(knob("sk", 16)),
+            "k 64": edit(knob("sk", 64)),
+            "4 stages": edit(knob("sstages", 4)),
+            "2 warps 4 stages": edit(knob("swarps", 2), knob("sstages", 4)),
+        }
     if kernel == "k3":
         return {
             "as built": srcs,
@@ -183,28 +213,41 @@ def main(argv=None):
           flush=True)
 
     glu = args.kernel == "k4"
+    k8 = args.kernel == "k8"
     act = spec("binary8", "sr")
     gen = torch.Generator(device="cuda").manual_seed(0)
     words = (0x9E3779B9, 0x7F4A7C15)
     seeds = (words, (0x3C6EF372, 0xA54FF53A), (0x510E527F, 0x9B05688C))
     res = {name: {} for name in libs}
     digests = {name: {} for name in libs}
-    for M, K, N, bdt in shapes:
+    for shape in shapes:
+        if k8:
+            E, M, K, N = shape
+            bdt, lead = "bf16", (E,)
+        else:
+            (M, K, N, bdt), E, lead = shape, 1, ()
         dt = torch.bfloat16 if bdt == "bf16" else torch.float32
         nw = 2 if glu else 1
         kw = dict(act_spec=act, residuals=M >= 1024)
-        a = torch.randn(M, K, generator=gen, device="cuda")
-        n = max(2, math.ceil(2 * L2_BYTES / (nw * K * N * dt.itemsize)))
-        ws = [[(torch.randn(K, N, generator=gen, device="cuda")
+        a = torch.randn(*lead, M, K, generator=gen, device="cuda")
+        n = max(2, math.ceil(2 * L2_BYTES / (E * nw * K * N * dt.itemsize)))
+        ws = [[(torch.randn(*lead, K, N, generator=gen, device="cuda")
                 / math.sqrt(K)).to(dt) for _ in range(nw)] for _ in range(n)]
+        e_seeds = np.random.default_rng(E).integers(0, 2 ** 32, (E, 2),
+                                                    dtype=np.int64)
 
         def call(i):
+            if k8:
+                return tq.qmatmul_batched_prng(a, ws[i][0], e_seeds,
+                                               "binary8")
             if glu:
                 return tq.qmatmul_swiglu_prng(a, *ws[i], seeds, "binary8",
                                               residuals=True, act_spec=act)
             return tq.qmatmul_prng(a, ws[i][0], words, "binary8")
 
         def timed(i):
+            if k8:
+                return call(i)
             if glu:
                 return tq.qmatmul_swiglu_prng(a, *ws[i], seeds, "binary8",
                                               **kw)
@@ -212,9 +255,11 @@ def main(argv=None):
         if glu:       # the rounded branches hold the GEMM contract
             ref = tq.qmatmul_swiglu_plain(a, *ws[0], seeds, "binary8",
                                           act_spec=act, residuals=True)[1]
+        elif k8:
+            ref = tq.qmatmul_batched_plain(a, ws[0][0], e_seeds, "binary8")
         else:
             ref = tq.qmatmul_plain(a, ws[0][0], words, "binary8")
-        key = f"{M}x{K}x{N} {bdt}"
+        key = f"{E}x{M}x{K}x{N} {bdt}" if k8 else f"{M}x{K}x{N} {bdt}"
         for name, lib in libs.items():
             build._LIBS[lib_name] = lib
             got = call(0)

@@ -1,9 +1,10 @@
 """Times and output digests of the rounded GEMM kernels K3', K4' and K4 at
-the serving and train-step shapes, for comparing two trees of the port on
-one card.
+the serving and train-step shapes (or, with ``--kernel k8``, of the batched
+expert GEMMs K8' and K8 at the MoE path's shapes), for comparing two trees
+of the port on one card.
 
   python src/repro_torch/launch/time_gemm.py [--src DIR] [--tag NAME]
-      [--routes] [--out FILE]
+      [--kernel gemm|k8] [--routes] [--out FILE]
 
 ``--src`` names the ``src`` directory whose ``repro_torch`` is timed
 (default: the tree this file lives in), so one call can time two
@@ -22,8 +23,23 @@ of ``binary8-paper``) at M = 4, 8, 16 and 128 and at the train step's
 its times and digest, which equals K4''s).  ``--routes`` (a tree with
 ``qmatmul.DECODE_MAX_M``) also times both routes forced at M = 4, 8, 16
 and 128, K3' on its decode shapes and K4' on its own, the measurement
-behind the route threshold.  Prints one JSON line (and writes it to
-``--out``).  It needs a card.
+behind the route threshold.
+
+``--kernel k8``: K8' (``qmatmul_batched_prng``) at qwen3-moe-30b-a3b's
+expert GEMMs, 128 experts x M rows, 2048 -> 768 (gate, up) and 768 -> 2048
+(down), at M = 1 (a decode step's capacity) and M = 10 (a whole-prompt
+forward's: batch 4 x prompt 32 at once, top-8, factor 1.25), at M = 16, 17
+and 64, and a ragged 5 x
+3 x 70 x 50; K8 fed K8''s words beside it (``bits_*``; its digest equals
+K8''s) and bf16 ``torch.bmm`` on the same operands (the unrounded
+yardstick); ``decode_step`` and ``prefill`` sum a decode step's 144 calls
+(96 at 2048 -> 768, 48 at 768 -> 2048) and a whole-prompt forward's 144
+at M = 10.
+With ``--routes`` (a tree with ``qmatmul.BATCHED_STREAM_MAX_M``) it also
+times both routes forced at M = 1, 10, 16, 17, 24, 32, 48, 64, 96 and
+128 (2048 -> 768), the measurement behind that threshold.
+
+Prints one JSON line (and writes it to ``--out``).  It needs a card.
 """
 from __future__ import annotations
 
@@ -53,6 +69,14 @@ SHAPES = ([("k3", m, k, n, "bf16", c if m == 4 else 0)
           + [("k3", m, 1024, n, "f32", 0) for (m, n) in (
               (2048, 2048), (2048, 256), (5632, 2048), (2048, 5632),
               (2048, 32000))])
+# K8' shapes (E, M, K, N, launches per decode step, per prompt)
+MOE_LAYERS = 48
+K8_SHAPES = ([(128, m, 2048, 768, 2 * MOE_LAYERS if m == 1 else 0,
+               2 * MOE_LAYERS if m == 10 else 0) for m in (1, 10, 16, 17, 64)]
+             + [(128, m, 768, 2048, MOE_LAYERS if m == 1 else 0,
+                 MOE_LAYERS if m == 10 else 0) for m in (1, 10)]
+             + [(5, 3, 70, 50, 0, 0)])
+K8_ROUTE_M = (1, 10, 16, 17, 24, 32, 48, 64, 96, 128)
 L2_BYTES = 50 * 2 ** 20
 SEEDS = ((1, 2), (3, 4), (5, 6))
 
@@ -110,6 +134,7 @@ def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--src", default=str(Path(__file__).resolve().parents[2]))
     ap.add_argument("--tag", default="")
+    ap.add_argument("--kernel", choices=("gemm", "k8"), default="gemm")
     ap.add_argument("--routes", action="store_true")
     ap.add_argument("--out", default="")
     args = ap.parse_args(argv)
@@ -123,6 +148,11 @@ def main(argv=None):
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True).stdout.strip()
+    if args.kernel == "k8":
+        out = dict(tag=args.tag, src=args.src,
+                   device=torch.cuda.get_device_name(0), nvidia_smi=smi,
+                   **time_k8(torch, tq, args.routes))
+        return _emit(out, args.out)
     gen = torch.Generator(device="cuda").manual_seed(0)
 
     def operands(M, K, N, bdt, nw):
@@ -202,12 +232,81 @@ def main(argv=None):
     out = dict(tag=args.tag, src=args.src,
                device=torch.cuda.get_device_name(0), nvidia_smi=smi,
                shapes=res, decode_step=step, routes=routes)
+    return _emit(out, args.out)
+
+
+def _emit(out, path):
     line = json.dumps(out)
     print(line, flush=True)
-    if args.out:
-        Path(args.out).parent.mkdir(parents=True, exist_ok=True)
-        Path(args.out).write_text(line + "\n")
+    if path:
+        Path(path).parent.mkdir(parents=True, exist_ok=True)
+        Path(path).write_text(line + "\n")
     return out
+
+
+def time_k8(torch, tq, routes):
+    """K8', K8 and bf16 torch.bmm at K8_SHAPES (and both K8' routes forced
+    at K8_ROUTE_M): times, device times and digests."""
+    import numpy as np
+    from repro_torch.core.prng import int32_words
+    from repro_torch.kernels import common as tc
+    gen = torch.Generator(device="cuda").manual_seed(0)
+
+    def measure(E, M, K, N, yardstick=True):
+        seeds = np.random.default_rng(E * K + N).integers(
+            0, 2 ** 32, (E, 2), dtype=np.int64)
+        a = torch.randn(E, M, K, generator=gen, device="cuda")
+        n = max(2, math.ceil(2 * L2_BYTES / (E * K * N * 2)))
+        ws = [(torch.randn(E, K, N, generator=gen, device="cuda")
+               / math.sqrt(K)).to(torch.bfloat16) for _ in range(n)]
+
+        def call(i):
+            return tq.qmatmul_batched_prng(a, ws[i], seeds, "binary8")
+        bits = int32_words(tc.counter_bits_batch(seeds, (E, M, N), 32,
+                                                 device="cuda"))
+
+        def call_bits(i):
+            return tq.qmatmul_batched(a, ws[i], bits, "binary8")
+        row = dict(digest=digest(call(0)), ms=time_ms(torch, call, n),
+                   device_ms=graph_ms(torch, call, n))
+        if yardstick:
+            a16 = a.to(torch.bfloat16)
+
+            def lib(i):
+                return torch.bmm(a16, ws[i])
+            row.update(bits_digest=digest(call_bits(0)),
+                       bits_ms=time_ms(torch, call_bits, n),
+                       bits_device_ms=graph_ms(torch, call_bits, n),
+                       library_ms=time_ms(torch, lib, n),
+                       library_device_ms=graph_ms(torch, lib, n))
+        del a, ws, bits
+        return row
+
+    keys = ("ms", "device_ms", "bits_ms", "bits_device_ms", "library_ms",
+            "library_device_ms")
+    res = {}
+    totals = {"decode_step": dict.fromkeys(keys, 0.0),
+              "prefill": dict.fromkeys(keys, 0.0)}
+    for E, M, K, N, per_step, per_prompt in K8_SHAPES:
+        row = measure(E, M, K, N)
+        res[f"k8 {E}x{M}x{K}x{N}"] = row
+        for total, count in (("decode_step", per_step),
+                             ("prefill", per_prompt)):
+            for key in keys:
+                totals[total][key] += row[key] * count
+        print(f"  k8 {E}x{M}x{K}x{N}: {json.dumps(row)}", flush=True)
+    forced = {}
+    if routes and hasattr(tq, "BATCHED_STREAM_MAX_M"):
+        keep = tq.BATCHED_STREAM_MAX_M
+        for M in K8_ROUTE_M:
+            for route, limit in (("stream", 1 << 30), ("large", 0)):
+                tq.BATCHED_STREAM_MAX_M = limit
+                row = measure(128, M, 2048, 768, yardstick=False)
+                forced[f"k8 {route} 128x{M}x2048x768"] = row
+                print(f"  route k8 {route} 128x{M}x2048x768: "
+                      f"{json.dumps(row)}", flush=True)
+        tq.BATCHED_STREAM_MAX_M = keep
+    return dict(shapes=res, routes=forced, **totals)
 
 
 if __name__ == "__main__":

@@ -38,7 +38,10 @@ two placements of the same content and over codes as over their values;
 pages whose logits overflow shared memory are refused on the card.
 The SR cast (K1') is bitwise on any input, its path instance bitwise its
 generic one; the batched GEMM (K8') is held
-to the GEMM contract.  K5 (the
+to the GEMM contract on both its routes (the weight-stream route and the
+large-M route, a route forced by setting ``qmatmul.BATCHED_STREAM_MAX_M``),
+which sum in one order: they agree bitwise on any input, and a sum that
+underflows to -0 keeps its sign for every K.  K5 (the
 fused QAdam step), both its compiled instances, is bitwise equal to its
 twin in x, the moment codes or values and the Kahan carries, on any
 input.  The reduced
@@ -902,27 +905,103 @@ def _batched_seeds(E):
                                              dtype=np.int64)
 
 
+def _batched_route(monkeypatch, route):
+    """K8'/K8's route forced: "stream" (the weight-stream route) or "large"
+    (the large-M route), whatever M."""
+    monkeypatch.setattr(tq, "BATCHED_STREAM_MAX_M",
+                        1 << 30 if route == "stream" else 0)
+
+
+# (E, M, K, N): the MoE path's decode (M = 1) and whole-prompt (M = 10) shapes,
+# ragged ones, and M on both sides of the weight-stream route's 16-row
+# tiles and of the route threshold (BATCHED_STREAM_MAX_M = 96) at a K past
+# whole stages and an N that is not a whole block; every case runs on both
+# routes
+BATCHED_CASES = [(128, 1, 2048, 768), (128, 1, 768, 2048),
+                 (128, 10, 2048, 768), (128, 10, 768, 2048), (5, 3, 70, 50),
+                 (4, 9, 300, 130)] + [(8, m, 520, 136)
+                                      for m in (1, 4, 10, 16, 17, 96, 97)]
+
+
 @pytest.mark.gpu
-@pytest.mark.parametrize("E,M,K,N", [(128, 1, 2048, 768), (128, 1, 768, 2048),
-                                     (5, 3, 70, 50), (4, 9, 300, 130)])
-def test_qmatmul_batched_kernel_matches_plain(cuda, E, M, K, N):
+@pytest.mark.parametrize("E,M,K,N", BATCHED_CASES)
+def test_qmatmul_batched_kernel_matches_plain(cuda, monkeypatch, E, M, K, N):
+    """K8' on both routes, bf16 and float32 experts: bitwise its twin on
+    exact sums, within the GEMM contract on N(0, 1) inputs, and the two
+    routes bitwise equal there."""
     seeds = _batched_seeds(E)
     a = _exact((E, M, K), 8.0, M).to(cuda)
     b = _exact((E, K, N), 4.0, N).to(cuda)
-    for b_dtype in (torch.bfloat16, torch.float32):
-        for fmt, mode, rb in (("binary8", "sr", 32), ("binary8", "rn", 32),
-                              ("e4m3", "sr", 16), ("binary8", "sr", 8)):
-            got = tq.qmatmul_batched_prng(a, b.to(b_dtype), seeds, fmt,
-                                          mode, rb)
-            ref = tq.qmatmul_batched_plain(a, b, seeds, fmt, mode, rb)
+    an = _normal((E, M, K), M + 1).to(cuda)
+    bn = _normal((E, K, N), N + 1, K ** -0.5).to(cuda).to(torch.bfloat16)
+    ref = tq.qmatmul_batched_plain(an, bn, seeds, "binary8")
+    outs = {}
+    for route in ("stream", "large"):
+        _batched_route(monkeypatch, route)
+        for b_dtype in (torch.bfloat16, torch.float32):
+            for fmt, mode, rb in (("binary8", "sr", 32), ("binary8", "rn", 32),
+                                  ("e4m3", "sr", 16), ("binary8", "sr", 8)):
+                got = tq.qmatmul_batched_prng(a, b.to(b_dtype), seeds, fmt,
+                                              mode, rb)
+                want = tq.qmatmul_batched_plain(a, b, seeds, fmt, mode, rb)
+                torch.cuda.synchronize()
+                assert _same(got, want), (route, b_dtype, fmt, mode)
+        outs[route] = tq.qmatmul_batched_prng(an, bn, seeds, "binary8")
+        _assert_flips(ref, outs[route], "binary8")
+    assert _same(outs["stream"], outs["large"])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("route", ["stream", "large"])
+def test_qmatmul_batched_negative_zero_sums(cuda, monkeypatch, route):
+    """Sums that underflow to -0 leave as -0 for every K, as the first
+    version's chains of exactly K steps did: both routes pad A with -0
+    past K (fmaf(-0, +0, acc) is acc), on both sides of their stage
+    depths, K8' and K8."""
+    _batched_route(monkeypatch, route)
+    for M, K in ((1, 1), (10, 16), (17, 45), (4, 48), (64, 300), (1, 2048),
+                 (10, 2050), (3, 2064), (1, 3001)):
+        a = torch.full((3, M, K), -1e-30, device=cuda)
+        b = torch.full((3, K, 40), 1e-20, device=cuda)
+        for got in (tq.qmatmul_batched_prng(a, b, _batched_seeds(3),
+                                            "binary16", "rn"),
+                    tq.qmatmul_batched(a, b, None, "binary16", "rn")):
             torch.cuda.synchronize()
-            assert torch.equal(got.view(torch.int32),
-                               ref.view(torch.int32)), (b_dtype, fmt, mode)
-    a = _normal((E, M, K), M + 1).to(cuda)
-    b = _normal((E, K, N), N + 1, K ** -0.5).to(cuda).to(torch.bfloat16)
-    got = tq.qmatmul_batched_prng(a, b, seeds, "binary8")
-    ref = tq.qmatmul_batched_plain(a, b, seeds, "binary8")
-    _assert_flips(ref, got, "binary8")
+            assert bool((got == 0).all()), (M, K)
+            assert bool(torch.signbit(got).all()), (M, K)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("route", ["stream", "large"])
+@pytest.mark.parametrize("E,M,K,N,bdt", [(4, 1, 2048, 256, "bf16"),
+                                         (3, 10, 600, 70, "bf16"),
+                                         (2, 40, 300, 136, "f32"),
+                                         (2, 10, 301, 70, "f32")])
+def test_qmatmul_batched_unaligned_views(cuda, monkeypatch, route, E, M, K,
+                                         N, bdt):
+    """Views at a 4-byte offset (A, B, both) and row lengths that allow no
+    vector loads run the element-load instances: bitwise the aligned
+    call, K8' and K8."""
+    _batched_route(monkeypatch, route)
+    dt = torch.bfloat16 if bdt == "bf16" else torch.float32
+    seeds = _batched_seeds(E)
+    bits = tcommon.counter_bits_batch(seeds, (E, M, N), 32, device=cuda)
+    a = _normal((E, M, K), 1).to(cuda)
+    b = _normal((E, K, N), 2, K ** -0.5).to(cuda).to(dt)
+    ref = tq.qmatmul_batched_prng(a, b, seeds, "e4m3")
+
+    def off(t):
+        step = 4 // t.element_size()                 # 4 bytes
+        v = torch.empty(t.numel() + step, dtype=t.dtype,
+                        device=cuda)[step:].view(t.shape)
+        v.copy_(t)
+        assert v.data_ptr() % 16
+        return v
+    for x, y in ((off(a), b), (a, off(b)), (off(a), off(b))):
+        got = tq.qmatmul_batched_prng(x, y, seeds, "e4m3")
+        got_bits = tq.qmatmul_batched(x, y, bits, "e4m3")
+        torch.cuda.synchronize()
+        assert _same(got, ref) and _same(got_bits, ref)
 
 
 @pytest.mark.gpu
@@ -1313,10 +1392,18 @@ def test_swiglu_negative_zero_sums(cuda, monkeypatch, route):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("route", ["stream", "large"])
 @pytest.mark.parametrize("E,M,K,N", [(128, 1, 2048, 768), (128, 1, 768, 2048),
-                                     (5, 3, 70, 50)])
-def test_qmatmul_batched_bits_kernel_matches_plain_and_prng(cuda, E, M, K,
+                                     (5, 3, 70, 50), (128, 10, 2048, 768)]
+                         + [(8, m, 520, 136) for m in (1, 4, 16, 17, 64)])
+def test_qmatmul_batched_bits_kernel_matches_plain_and_prng(cuda, monkeypatch,
+                                                            route, E, M, K,
                                                             N):
+    """K8 on each route: bitwise its twin on exact sums and K8' on the
+    same words on any input; packed outputs the codes of the float ones,
+    packed A (through a view off a 16-byte boundary, -0 codes among them)
+    summing as its values."""
+    _batched_route(monkeypatch, route)
     seeds = _batched_seeds(E)
     a = _exact((E, M, K), 8.0, M).to(cuda)
     b = _exact((E, K, N), 4.0, N).to(cuda).to(torch.bfloat16)
@@ -1332,8 +1419,15 @@ def test_qmatmul_batched_bits_kernel_matches_plain_and_prng(cuda, E, M, K,
     flt = tq.qmatmul_batched(a, b, bits, "binary8")
     assert torch.equal(codes, tcommon.pack_block(flt, "binary8"))
     ac = tcommon.pack_block(a, "binary8")            # dyadic: on the grid
-    assert _same(tq.qmatmul_batched(ac, b, bits, "binary8", a_fmt="binary8"),
-                 flt)
+    ac.view(-1)[:3] = 0x80                           # -0.0 codes
+    view = torch.empty(ac.numel() + 1, dtype=ac.dtype,
+                       device=cuda)[1:].view(ac.shape)
+    view.copy_(ac)
+    assert view.data_ptr() % 16
+    assert _same(tq.qmatmul_batched(view, b, bits, "binary8",
+                                    a_fmt="binary8"),
+                 tq.qmatmul_batched(tcommon.unpack_block(ac, "binary8"), b,
+                                    bits, "binary8"))
     a = _normal((E, M, K), M + 2).to(cuda)
     got = tq.qmatmul_batched(a, b, bits, "binary8")
     assert _same(got, tq.qmatmul_batched_prng(a, b, seeds, "binary8"))

@@ -132,31 +132,52 @@ def _assert_one_ulp(ref, got, fmt, share=1e-4):
 @pytest.mark.parametrize("b_dtype", [torch.bfloat16, torch.float32],
                          ids=["bf16", "f32"])
 def test_qmatmul_batched_twin_matches_reference(interpret_params, b_dtype):
+    """M = 3, a whole prompt's capacity M = 10 and M = 17 (two row tiles of the
+    card's weight-stream route)."""
     rng = np.random.default_rng(1)
-    E, M, K, N = 4, 3, 70, 50
+    E, K, N = 4, 70, 50
     seeds = _seeds(E, 2)
-    a = (rng.integers(-8, 9, (E, M, K)) / 8).astype(np.float32)
-    b = (rng.integers(-8, 9, (E, K, N)) / 4).astype(np.float32)
-    tb = torch.from_numpy(b).to(b_dtype)
-    for fmt, mode, rb in (("binary8", "sr", 32), ("binary8", "rn", 32),
-                          ("e4m3", "sr", 16), ("binary8", "sr", 8)):
-        ref = jq.qmatmul_batched_prng_p(
-            jnp.asarray(a), jnp.asarray(b), jnp.asarray(seeds, jnp.uint32),
-            fmt, mode, rand_bits=rb, interpret=True)
-        got = tq.qmatmul_batched_prng(torch.from_numpy(a), tb, seeds, fmt,
-                                      mode, rb)
-        np.testing.assert_array_equal(_bits(ref), _bits(got.numpy()),
-                                      err_msg=f"{fmt} {mode} r{rb}")
+    for M in (3, 10, 17):
+        a = (rng.integers(-8, 9, (E, M, K)) / 8).astype(np.float32)
+        b = (rng.integers(-8, 9, (E, K, N)) / 4).astype(np.float32)
+        tb = torch.from_numpy(b).to(b_dtype)
+        for fmt, mode, rb in (("binary8", "sr", 32), ("binary8", "rn", 32),
+                              ("e4m3", "sr", 16), ("binary8", "sr", 8)):
+            ref = jq.qmatmul_batched_prng_p(
+                jnp.asarray(a), jnp.asarray(b),
+                jnp.asarray(seeds, jnp.uint32), fmt, mode, rand_bits=rb,
+                interpret=True)
+            got = tq.qmatmul_batched_prng(torch.from_numpy(a), tb, seeds,
+                                          fmt, mode, rb)
+            np.testing.assert_array_equal(_bits(ref), _bits(got.numpy()),
+                                          err_msg=f"M={M} {fmt} {mode} r{rb}")
     # N(0, 1) inputs, b on its bf16 grid so both operands are the same
-    E, M, K, N = 4, 5, 300, 130
-    a = rng.standard_normal((E, M, K)).astype(np.float32)
-    b = torch.from_numpy(rng.standard_normal((E, K, N)).astype(np.float32)
-                         / np.sqrt(K)).to(b_dtype)
-    ref = jq.qmatmul_batched_prng_p(
-        jnp.asarray(a), jnp.asarray(b.float().numpy()),
-        jnp.asarray(seeds, jnp.uint32), "binary8", "sr", interpret=True)
-    got = tq.qmatmul_batched_prng(torch.from_numpy(a), b, seeds, "binary8")
-    _assert_one_ulp(ref, got, "binary8")
+    K, N = 300, 130
+    for M in (5, 10, 17):
+        a = rng.standard_normal((E, M, K)).astype(np.float32)
+        b = torch.from_numpy(rng.standard_normal((E, K, N)).astype(np.float32)
+                             / np.sqrt(K)).to(b_dtype)
+        ref = jq.qmatmul_batched_prng_p(
+            jnp.asarray(a), jnp.asarray(b.float().numpy()),
+            jnp.asarray(seeds, jnp.uint32), "binary8", "sr", interpret=True)
+        got = tq.qmatmul_batched_prng(torch.from_numpy(a), b, seeds,
+                                      "binary8")
+        _assert_one_ulp(ref, got, "binary8")
+
+
+@pytest.mark.parametrize("M,route", [(1, "stream"), (10, "stream"),
+                                     (17, "stream"), (96, "stream"),
+                                     (97, "large"), (1024, "large")])
+def test_qmatmul_batched_route_choice(monkeypatch, M, route):
+    """K8'/K8 take the weight-stream route up to BATCHED_STREAM_MAX_M rows
+    per slice (every MoE decode call, M = 1, and a whole prompt's capacity,
+    M = 10), the large-M route past it; the limit moves the choice."""
+    assert tq.BATCHED_STREAM_MAX_M == 96
+    assert tq.batched_route(M) == route
+    monkeypatch.setattr(tq, "BATCHED_STREAM_MAX_M", 0)
+    assert tq.batched_route(M) == "large"
+    monkeypatch.setattr(tq, "BATCHED_STREAM_MAX_M", 1 << 30)
+    assert tq.batched_route(M) == "stream"
 
 
 def test_qmatmul_batched_slices_draw_their_own_words():

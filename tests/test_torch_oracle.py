@@ -136,19 +136,24 @@ def test_qmatmul_bits_random_inputs_one_ulp(interpret_params):
 @pytest.mark.parametrize("fmt,mode,rb", GEMM_CASES[:3] + GEMM_CASES[5:6])
 def test_qmatmul_batched_bits_twin_matches_reference(interpret_params, fmt,
                                                      mode, rb):
-    E, M, K, N = 5, 3, 70, 50
-    a, b = _exact((E, M, K), 8.0, 5), _exact((E, K, N), 4.0, 6)
+    """M = 3, a whole prompt's capacity M = 10 and M = 17 (two row tiles of the
+    card's weight-stream route)."""
+    E, K, N = 5, 70, 50
     seeds = np.random.default_rng(7).integers(0, 2 ** 32, (E, 2),
                                               dtype=np.int64)
-    bits = tcommon.counter_bits_batch(seeds, (E, M, N), rb)
-    ref = jq.qmatmul_batched_p(jnp.asarray(a), jnp.asarray(b), _u32(bits),
-                               fmt, mode, rand_bits=rb)
-    got = tq.qmatmul_batched(torch.from_numpy(a), torch.from_numpy(b), bits,
-                             fmt, mode, rb)
-    np.testing.assert_array_equal(_i32(ref), _i32(got.numpy()))
-    prng_ = tq.qmatmul_batched_prng(torch.from_numpy(a), torch.from_numpy(b),
-                                    seeds, fmt, mode, rb)
-    assert torch.equal(prng_.view(torch.int32), got.view(torch.int32))
+    for M in (3, 10, 17):
+        a, b = _exact((E, M, K), 8.0, 5 + M), _exact((E, K, N), 4.0, 6 + M)
+        bits = tcommon.counter_bits_batch(seeds, (E, M, N), rb)
+        ref = jq.qmatmul_batched_p(jnp.asarray(a), jnp.asarray(b),
+                                   _u32(bits), fmt, mode, rand_bits=rb)
+        got = tq.qmatmul_batched(torch.from_numpy(a), torch.from_numpy(b),
+                                 bits, fmt, mode, rb)
+        np.testing.assert_array_equal(_i32(ref), _i32(got.numpy()),
+                                      err_msg=f"M={M}")
+        prng_ = tq.qmatmul_batched_prng(torch.from_numpy(a),
+                                        torch.from_numpy(b), seeds, fmt,
+                                        mode, rb)
+        assert torch.equal(prng_.view(torch.int32), got.view(torch.int32))
 
 
 # ---------------------------------------------------------------------------
