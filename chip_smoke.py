@@ -53,17 +53,25 @@ Phases (any failed check exits non-zero; there is no CPU fallback):
    (B.H = 128, S = 256, d = 64, B.KV = 16, causal) and on a multi-block
    ragged case (blocks of 64, S = 200) with 32-, 16- and 8-bit draws, K9
    at the decode shapes (B.KV = 16, G = 8, S_max = 48, packed e4m3 codes,
-   lengths 1, 17, 48): the rounded logits and m bitwise on exact-sum
-   inputs, out/dq/dk/dv at most 1e-4 of the elements different on N(0, 1)
-   inputs, K9 over codes bitwise K9 over the unpacked values; K6's single
-   pass bitwise equal to its two-pass kernel in out, m, l and the logits
-   on N(0, 1) inputs, and a block too large for the single pass (S = 1024,
-   d = 128) run by the two-pass kernel and counted apart; timed beside
-   the bound, the twin and ``scaled_dot_product_attention`` (float32,
-   unrounded: a yardstick only), K9 and SDPA also by CUDA-graph replay
-   (``device_ms``: device time without the host's cost per call);
+   lengths 1, 17, 48) on both its routes (the decode kernel it launches
+   and ``flash_decode_tiled``, forced; each launch counted on its route):
+   the rounded logits and m bitwise on exact-sum inputs, out/dq/dk/dv at
+   most 1e-4 of the elements different on N(0, 1) inputs, K9 over codes
+   bitwise K9 over the unpacked values, K9's decode kernel bitwise its
+   tiled kernel there and at S_max 200 and 300 (blocks of 64 with a ragged
+   last block, a window, blocks of 256), 32-, 16- and 8-bit draws, e4m3
+   and float32 caches; K6's single pass bitwise equal to its two-pass
+   kernel in out, m, l and the logits on N(0, 1) inputs, and a block too
+   large for the single pass (S = 1024, d = 128) run by the two-pass kernel
+   and counted apart; timed beside the bound, the twin and
+   ``scaled_dot_product_attention`` (float32, unrounded: a yardstick
+   only; for K7 and K7' its backward alone, one forward kept, beside the
+   forward + backward), K9 on both routes, K7, K7', SDPA and SDPA's
+   backward also by CUDA-graph replay (``device_ms``: device time without
+   the host's cost per call);
 11. serve tinyllama-1.1b under ``binary8-paper-attn`` (rounded attention,
-   packed e4m3 KV cache): launch counts (K9 once per layer per token);
+   packed e4m3 KV cache): launch counts (K9 once per layer per token, on
+   its decode kernel: the tiled route launched no time);
 12. its agreement: reduced tinyllama card vs CPU, logits and cache codes;
 13. train tinyllama-1.1b under ``binary8-paper-attn`` (4 steps, batch 4 x
    256): K6, K7, K7' once per layer per step, finite losses;
@@ -127,7 +135,9 @@ Phases (any failed check exits non-zero; there is no CPU fallback):
    bits stream counted), its in-kernel-bits kernel, the twin and the
    unrounded yardstick of its primed kernel, K3 and K4 at the decode
    shapes (with K3'/K4' and the yardstick), K8 at the MoE path's shapes
-   (with K8' and bf16 ``torch.bmm``), K1 and the cast at the path's
+   (with K8' and bf16 ``torch.bmm``), K1 (both its instances: ``sr_r32``,
+   the path's spec, and the generic one, each bitwise the twin aligned and
+   through a view off a 16-byte boundary) and the cast at the path's
    shape also by CUDA-graph replay (``device_ms``); K4 and K4' on N(0, 1)
    inputs bitwise equal on both routes (the route forced);
 22. serve tinyllama-1.1b under ``e4m3-sr-oracle`` (K3, K4; every
@@ -151,8 +161,9 @@ Phases (any failed check exits non-zero; there is no CPU fallback):
    (every key of a request equal: each row's logits equal, every exp
    exactly 1, every sum exact), within the attention contract on N(0, 1)
    inputs, over packed e4m3 codes bitwise equal to over their values,
-   bitwise equal to K9 on each request's contiguous cache with
-   ``kv_block == page``, the same bits at two placements; timed at the
+   bitwise equal to K9's tiled kernel (``flash_decode_tiled``, the
+   independent one) on each request's contiguous cache with ``kv_block ==
+   page``, the same bits at two placements; timed at the
    engine's decode shape beside the bound, the twin and
    ``scaled_dot_product_attention`` over the gathered float32 cache
    (unrounded: a yardstick only), both also by CUDA-graph replay
@@ -170,10 +181,12 @@ Phases (any failed check exits non-zero; there is no CPU fallback):
    weights on the CPU, teacher-forced on the CPU's picks: logits held to
    phase 12's limits, the card's own picks within 0.1 of the CPU's best
    logit, the pools' codes at most 1 % different per layer;
-29. one JSON line of per-kernel numbers (K3''s, K3's, K4''s, K4's, K10's
-   and K1''s with the registers and spills ptxas reports for their
-   instances, phase 2; K3', K3, K4' and K4 with their device time per
-   decode step, K4' also per train step), then the result line.
+29. one JSON line of per-kernel numbers (K3''s, K3's, K4''s, K4's, K8''s,
+   K8's, K9's (both routes), K10's, K1''s and K1's with the registers and
+   spills ptxas reports for their instances, phase 2; K3', K3, K4' and K4
+   with their device time per decode step, K4' also per train step; K9's
+   tiled route and K1's generic instance beside the ones the path runs),
+   then the result line.
 
 Detailed numbers also go to ``chiprun_out/chip_smoke.json``.
 """
@@ -335,13 +348,14 @@ def time_ms(torch, fn, n_copies, iters=20, warmup=3):
     return start.elapsed_time(end) / iters
 
 
-def graph_ms(torch, fn, n_copies, iters=20, warmup=3):
+def graph_ms(torch, fn, n_copies, iters=20, warmup=3, stream=None):
     """Device ms per call: ``iters`` calls (cycling over ``n_copies``
     operand sets) captured in one CUDA graph and replayed between two CUDA
     events, so the host's cost of issuing each call drops out.  ``time_ms``
     beside it includes that cost: for a kernel that moves little, the two
-    differ by the wrapper's Python."""
-    side = torch.cuda.Stream()
+    differ by the wrapper's Python.  ``stream``: the stream to warm up and
+    capture on (an autograd backward must run on its forward's)."""
+    side = stream or torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(side):
         for i in range(warmup):
@@ -349,7 +363,7 @@ def graph_ms(torch, fn, n_copies, iters=20, warmup=3):
     torch.cuda.current_stream().wait_stream(side)
     torch.cuda.synchronize()
     graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
+    with torch.cuda.graph(graph, stream=side):
         for i in range(iters):
             fn(i % n_copies)
     graph.replay()
@@ -763,9 +777,23 @@ def attention_phase(torch, tfa):
             o = F.scaled_dot_product_attention(qg, kg, vg, **gqa)
             torch.autograd.grad(o, (qg, kg, vg), do4)
 
+        # SDPA's backward alone, K7 and K7''s yardstick: one forward kept,
+        # its graph retained across the timed calls; the forward on a
+        # stream of its own, which its backward runs on, timed and
+        # captured there
+        def sdpa_bwd(i):
+            torch.autograd.grad(o_kept, (qg, kg, vg), do4, retain_graph=True)
+
         sdpa_fwd = time_ms(torch, lambda i: F.scaled_dot_product_attention(
             q4, k4, v4, **gqa), 1)
         sdpa_both = time_ms(torch, sdpa_fwd_bwd, 1)
+        s_bwd = torch.cuda.Stream()
+        s_bwd.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(s_bwd):
+            o_kept = F.scaled_dot_product_attention(qg, kg, vg, **gqa)
+            sdpa_bwd_ms = time_ms(torch, sdpa_bwd, 1)
+            sdpa_bwd_dev = graph_ms(torch, sdpa_bwd, 1, stream=s_bwd)
+        torch.cuda.current_stream().wait_stream(s_bwd)
         timed = {
             "flash_fwd": (lambda i: tfa.flash_fwd(q, k, v, seeds, specs,
                                                   **kw),
@@ -779,7 +807,7 @@ def attention_phase(torch, tfa):
                 lambda i: tfa.flash_bwd_dq_plain(q, k, v, do, r_m, r_l, dd,
                                                  seeds_dq, specs[0],
                                                  specs[0], **kw),
-                sdpa_both, "scaled_dot_product_attention forward + backward"),
+                sdpa_bwd_ms, "scaled_dot_product_attention backward"),
             "flash_bwd_dkv": (
                 lambda i: tfa.flash_bwd_dkv(q, k, v, do, r_m, r_l, dd, seeds,
                                             specs[0], specs[0], specs[1],
@@ -787,8 +815,20 @@ def attention_phase(torch, tfa):
                 lambda i: tfa.flash_bwd_dkv_plain(q, k, v, do, r_m, r_l, dd,
                                                   seeds, specs[0], specs[0],
                                                   specs[1], **kw),
-                sdpa_both, "scaled_dot_product_attention forward + backward"),
+                sdpa_bwd_ms, "scaled_dot_product_attention backward"),
         }
+        # the backward kernels by graph replay: seed words already on the
+        # card (a host copy cannot be captured)
+        seeds_c, seeds_dq_c = (
+            torch.from_numpy(x.astype(np.uint32).view(np.int32)).to(dev)
+            for x in (seeds, seeds_dq))
+        on_card = {
+            "flash_bwd_dq": lambda i: tfa.flash_bwd_dq(
+                q, k, v, do, r_m, r_l, dd, seeds_dq_c, specs[0], specs[0],
+                **kw),
+            "flash_bwd_dkv": lambda i: tfa.flash_bwd_dkv(
+                q, k, v, do, r_m, r_l, dd, seeds_c, specs[0], specs[0],
+                specs[1], **kw)}
         for kname, (kern, plain, lib, lib_what) in timed.items():
             ms = time_ms(torch, kern, 1)
             plain_ms = time_ms(torch, plain, 1, iters=3, warmup=1)
@@ -798,11 +838,21 @@ def attention_phase(torch, tfa):
                                    bound_by=by, library_ms=lib,
                                    library=lib_what,
                                    tflops=flops / (ms * 1e-3) / 1e12)
+            if kname != "flash_fwd":   # the backward: device times too
+                rows[kname][-1].update(
+                    device_ms=graph_ms(torch, on_card[kname], 1, iters=10),
+                    library_device_ms=sdpa_bwd_dev,
+                    library_fwd_bwd_ms=sdpa_both)
             print(f"  {kname:14s} B.H={bh} S={s_len} d={d}: kernel "
                   f"{ms:.4f} ms ({flops / (ms * 1e-3) / 1e12:.2f} TFLOP/s)"
                   f"  bound {bms:.4f} ms ({by})  plain {plain_ms:.3f} ms  "
-                  f"{lib_what} (float32, unrounded) {lib:.4f} ms",
+                  f"{lib_what} (float32, unrounded) {lib:.4f} ms"
+                  + (f"; device (graph replay) kernel "
+                     f"{rows[kname][-1]['device_ms']:.4f} ms, SDPA backward "
+                     f"{sdpa_bwd_dev:.4f} ms, SDPA forward + backward "
+                     f"{sdpa_both:.4f} ms" if kname != "flash_fwd" else ""),
                   flush=True)
+        del o_kept
         del q, k, v, do, out, r_out, qg, kg, vg
         torch.cuda.empty_cache()
 
@@ -835,7 +885,7 @@ def attention_phase(torch, tfa):
           flush=True)
     del q, k, v, got, ref
 
-    # --- K9 at the decode shapes: packed e4m3 codes ---
+    # --- K9 at the decode shapes: packed e4m3 codes, both routes ---
     BKVd, G, Smax = (DECODE[k] for k in ("BKV", "G", "Smax"))
     specs = [parse_spec("binary8-sr")] * 3
     seeds = rng.integers(0, 2 ** 32, (BKVd, 6), dtype=np.uint64)
@@ -844,19 +894,36 @@ def attention_phase(torch, tfa):
                                "e4m3") for _ in range(2)]
     floats = [common.unpack_block(c, "e4m3") for c in codes]
     seeds_d = torch.from_numpy(seeds.astype(np.uint32).view(np.int32)).to(dev)
+    if tfa.decode_kernel_for(Smax, 512, d, d, 1) != "flash_decode":
+        fail(f"flash_decode: S_max {Smax} was expected to run the decode "
+             "kernel")
+    tiled = dict(kernel="flash_decode_tiled")
     rows["flash_decode"] = []
     for length in (1, 17, Smax):
         kw = dict(scale=d ** -0.5, kv_fmt="e4m3")
+        before = dict(tfa.LAUNCHES)
         got = tfa.flash_decode(q, *codes, seeds, length, specs, **kw)
+        got_t = tfa.flash_decode(q, *codes, seeds, length, specs, **kw,
+                                 **tiled)
+        launched = {n: tfa.LAUNCHES[n] - before[n] for n in before
+                    if tfa.LAUNCHES[n] != before[n]}
         unpacked = tfa.flash_decode(q, *floats, seeds, length, specs,
                                     scale=d ** -0.5)
         ref = tfa.flash_decode_plain(q, *codes, seeds, length, specs, **kw)
         torch.cuda.synchronize()
+        if launched != {"flash_decode": 1, "flash_decode_tiled": 1}:
+            fail(f"flash_decode length {length}: launches {launched}, not "
+                 "one on each route")
         check_bitwise(f"flash_decode length {length}: packed vs unpacked",
                       unpacked, got)
+        if not bitwise(torch, got_t, got):
+            fail(f"flash_decode length {length}: the decode kernel differs "
+                 "from the tiled kernel")
         r = check_flips(f"flash_decode length {length}", ref, got, "binary8")
         ms = time_ms(torch, lambda i: tfa.flash_decode(
             q, *codes, seeds, length, specs, **kw), 1, iters=50)
+        tiled_ms = time_ms(torch, lambda i: tfa.flash_decode(
+            q, *codes, seeds, length, specs, **kw, **tiled), 1, iters=50)
         plain_ms = time_ms(torch, lambda i: tfa.flash_decode_plain(
             q, *codes, seeds, length, specs, **kw), 1, iters=3, warmup=1)
         q4 = q.view(BATCH, DECODE["BKV"] // BATCH * G, 1, d)
@@ -867,6 +934,8 @@ def attention_phase(torch, tfa):
         # device times (graph replay; the seed words already on the card)
         dev_ms = graph_ms(torch, lambda i: tfa.flash_decode(
             q, *codes, seeds_d, length, specs, **kw), 1)
+        tiled_dev_ms = graph_ms(torch, lambda i: tfa.flash_decode(
+            q, *codes, seeds_d, length, specs, **kw, **tiled), 1)
         lib_dev_ms = graph_ms(torch, lambda i: F.scaled_dot_product_attention(
             q4, k4, v4, enable_gqa=True), 1)
         flops, n_tf, nbytes = attn_work("flash_decode", None, BKVd, length,
@@ -877,13 +946,51 @@ def attention_phase(torch, tfa):
             plain_ms=plain_ms, bound_ms=bms, bound_by=by, library_ms=lib,
             library="scaled_dot_product_attention (float32 cache, "
                     "unrounded)", device_ms=dev_ms,
-            library_device_ms=lib_dev_ms, **r))
+            library_device_ms=lib_dev_ms, tiled_ms=tiled_ms,
+            tiled_device_ms=tiled_dev_ms, **r))
         print(f"  flash_decode B.KV={BKVd} G={G} length={length}: packed == "
-              f"unpacked bitwise; mismatches vs plain {r['mismatches']}; "
-              f"kernel {ms:.4f} ms  bound {bms:.5f} ms ({by})  plain "
+              f"unpacked, decode kernel == tiled kernel bitwise; mismatches "
+              f"vs plain {r['mismatches']}; kernel {ms:.4f} ms (tiled "
+              f"{tiled_ms:.4f})  bound {bms:.5f} ms ({by})  plain "
               f"{plain_ms:.3f} ms  sdpa {lib:.4f} ms; device (graph replay) "
-              f"kernel {dev_ms:.5f} ms, sdpa {lib_dev_ms:.5f} ms",
-              flush=True)
+              f"kernel {dev_ms:.5f} ms (tiled {tiled_dev_ms:.5f}), sdpa "
+              f"{lib_dev_ms:.5f} ms", flush=True)
+    # the routes on blocks of 64 with a ragged last block (S_max 200), a
+    # window and blocks longer than one 128-key round, 32-, 16- and 8-bit
+    # draws, e4m3 codes and float32: bitwise
+    n_cases = 0
+    for s_max, kb, lengths, window in ((200, 64, (1, 63, 65, 200), 0),
+                                       (200, 64, (65, 200), 50),
+                                       (300, 256, (129, 257, 300), 0)):
+        kf, vf = (normal((BKVd, s_max, d)) for _ in range(2))
+        cache = {None: (kf, vf), "e4m3": tuple(
+            common.pack_block(parse_spec("e4m3-rn")(x), "e4m3")
+            for x in (kf, vf))}
+        for name in ("binary8-sr", "binary8-sr-r16", "binary8-sr-r8"):
+            sp = [parse_spec(name)] * 3
+            for fmt, (kc, vc) in cache.items():
+                kw = dict(scale=d ** -0.5, kv_block=kb, window=window,
+                          kv_fmt=fmt)
+                for length in lengths:
+                    a = tfa.flash_decode(q, kc, vc, seeds, length, sp, **kw)
+                    b = tfa.flash_decode(q, kc, vc, seeds, length, sp, **kw,
+                                         **tiled)
+                    ref = tfa.flash_decode_plain(q, kc, vc, seeds, length,
+                                                 sp, **kw)
+                    torch.cuda.synchronize()
+                    tag = (f"flash_decode S_max {s_max} kv_block {kb} "
+                           f"window {window} {name} {fmt} length {length}")
+                    if not bitwise(torch, a, b):
+                        fail(f"{tag}: the decode kernel differs from the "
+                             "tiled kernel")
+                    r = check_flips(tag, ref, a, "binary8")
+                    rows["flash_decode"].append(dict(case=tag, main=False,
+                                                     **r))
+                    n_cases += 1
+    print(f"  flash_decode: {n_cases} more cases (S_max 200 / 300, blocks "
+          "of 64 and 256, a window, 32/16/8-bit draws, e4m3 and float32): "
+          "decode kernel == tiled kernel bitwise, within the contract of "
+          "the twin", flush=True)
     return rows
 
 
@@ -2405,13 +2512,28 @@ def bits_cast_phase(torch, tsr, tc):
                        tsr.sr_cast_plain(xu, bits, "binary8",
                                          "signed_sr_eps", 32, 0.2, vu)):
             fail(f"sr_cast_bits {shape}: an unaligned view differs")
+        # the path's instance (sr, 32-bit draws) and the generic one,
+        # aligned and through the unaligned view: bitwise the twin
+        for xx, bb in ((x, tc.counter_bits_reduced(*words, (n, 1), 32,
+                                                   device=dev).reshape(shape)),
+                       (xu, bits)):
+            ref = tsr.sr_cast_plain(xx, bb, "binary8")
+            for inst in ("sr_r32", "generic"):
+                if not bitwise(torch, tsr.sr_cast(xx, bb, "binary8",
+                                                  instance=inst), ref):
+                    fail(f"sr_cast_bits {shape}: instance {inst} differs "
+                         "from the twin")
         bits = int32_words(tc.counter_bits_reduced(
             *words, (n, 1), 32, device=dev).reshape(shape))
         n_copies = max(1, math.ceil(2 * L2_BYTES / (12 * n)))
         xs = [torch.randn(shape, generator=gen, device=dev) * 4
               for _ in range(n_copies)]
+        if tsr.sr_cast_bits_instance("sr", 32, False) != "sr_r32":
+            fail("sr_cast_bits: the path's spec does not take sr_r32")
         ms = time_ms(torch, lambda i: tsr.sr_cast(xs[i], bits, "binary8"),
                      n_copies)
+        generic_ms = time_ms(torch, lambda i: tsr.sr_cast(
+            xs[i], bits, "binary8", instance="generic"), n_copies)
         prng_ms = time_ms(torch, lambda i: tsr.sr_cast_prng(
             xs[i], words, "binary8"), n_copies)
         plain = time_ms(torch, lambda i: tsr.sr_cast_plain(
@@ -2419,10 +2541,12 @@ def bits_cast_phase(torch, tsr, tc):
         lib = time_ms(torch, lambda i: xs[i].to(torch.bfloat16), n_copies)
         bms = 1e3 * 12 * n / PEAK_BYTES_PER_S
         per_step = MOE_LAYERS if shape == SR_CAST_PATH else 0
-        dev_ms = lib_dev_ms = None
+        dev_ms = lib_dev_ms = generic_dev_ms = None
         if per_step:    # device time at the path's shape: graph replay
             dev_ms = graph_ms(torch, lambda i: tsr.sr_cast(
                 xs[i], bits, "binary8"), n_copies)
+            generic_dev_ms = graph_ms(torch, lambda i: tsr.sr_cast(
+                xs[i], bits, "binary8", instance="generic"), n_copies)
             lib_dev_ms = graph_ms(torch, lambda i: xs[i].to(torch.bfloat16),
                                   n_copies)
         rows.append(dict(kernel="sr_cast_bits", shape=list(shape), n=n,
@@ -2430,13 +2554,15 @@ def bits_cast_phase(torch, tsr, tc):
                          mismatch_share=0.0, ms=ms, prng_ms=prng_ms,
                          plain_ms=plain, library_ms=lib, bound_ms=bms,
                          bound_by="bytes", device_ms=dev_ms,
-                         library_device_ms=lib_dev_ms))
+                         library_device_ms=lib_dev_ms, generic_ms=generic_ms,
+                         generic_device_ms=generic_dev_ms))
         print(f"  sr_cast_bits n={n:8d} {str(shape):14s} kernel {ms:8.4f} "
-              f"ms  in-kernel bits {prng_ms:8.4f} ms  bound {bms:8.5f} ms "
-              f"(bytes)  plain {plain:8.3f} ms  bf16 cast {lib:8.4f} ms  "
-              "bitwise"
-              + (f"; device (graph replay) kernel {dev_ms:.5f} ms, bf16 "
-                 f"cast {lib_dev_ms:.5f} ms" if per_step else ""),
+              f"ms (generic instance {generic_ms:8.4f})  in-kernel bits "
+              f"{prng_ms:8.4f} ms  bound {bms:8.5f} ms (bytes)  plain "
+              f"{plain:8.3f} ms  bf16 cast {lib:8.4f} ms  bitwise"
+              + (f"; device (graph replay) kernel {dev_ms:.5f} ms (generic "
+                 f"{generic_dev_ms:.5f}), bf16 cast {lib_dev_ms:.5f} ms"
+                 if per_step else ""),
               flush=True)
         del x, v, xs
     return rows
@@ -2689,18 +2815,20 @@ def paged_phase(torch, tfa):
                     sl = slice(b * n_kv, (b + 1) * n_kv)
                     k9 = tfa.flash_decode(q[sl], k[sl], v[sl], seeds[sl],
                                           int(n), specs, scale=d ** -0.5,
-                                          kv_block=page)
+                                          kv_block=page,
+                                          kernel="flash_decode_tiled")
                     if not bitwise(torch, k9, outs[0][sl]):
                         fail(f"flash_decode_paged {tag}: request {b} "
-                             f"(length {n}) differs from K9 with kv_block "
-                             "= page")
+                             f"(length {n}) differs from K9's tiled kernel "
+                             "with kv_block = page")
                 rows.append(dict(
                     case=tag, main=False, mismatches=n_bad,
                     mismatch_share=n_bad / got.numel(), adjacent=adjacent,
                     max_abs_err=float((got - ref).abs().max())))
         print(f"  page {page}: 32/16/8-bit draws, exact sums bitwise, "
               f"N(0,1) within the contract, codes == values, placement-"
-              f"invariant, == K9 (kv_block = page)", flush=True)
+              f"invariant, == K9's tiled kernel (kv_block = page)",
+              flush=True)
     # timed at the engine's decode shape: 4 slots x 4 kv heads, pages of
     # 64, n_max 4, every slot at a long request's last length (48 + 32)
     eng = ENGINE
@@ -3277,10 +3405,18 @@ def main() -> None:
             library_ms=LAYERS * main_row["library_ms"],
             library=main_row["library"] + ", float32, unrounded",
             **({"device_ms": LAYERS * main_row["device_ms"],
-                "library_device_ms": LAYERS * main_row["library_device_ms"]}
+                "library_device_ms": LAYERS * main_row["library_device_ms"],
+                "tiled_ms": LAYERS * main_row["tiled_ms"],
+                "tiled_device_ms": LAYERS * main_row["tiled_device_ms"],
+                "launches_tiled": served_attn["launches"][
+                    "flash_decode_tiled"]}
                if serve_path else
                {"launches_two_pass": trained_attn["launches"][
-                   "flash_fwd_two_pass"]} if name == "flash_fwd" else {}),
+                   "flash_fwd_two_pass"]} if name == "flash_fwd" else
+               {"device_ms": LAYERS * main_row["device_ms"],
+                "library_device_ms": LAYERS * main_row["library_device_ms"],
+                "library_fwd_bwd_ms": LAYERS * main_row[
+                    "library_fwd_bwd_ms"]}),
             mismatch_share=max(r["mismatch_share"] for r in attn_rows[name]),
             timed=(f"one decode step's {LAYERS} launches at length "
                    f"{DECODE['Smax']}" if serve_path else
@@ -3355,6 +3491,12 @@ def main() -> None:
             entry["in_kernel_bits_device_ms"] = sum(
                 r["prng_device_ms"] * r["per_step"] for r in rows_
                 if r["per_step"])
+        for key, out in (("generic_ms", "generic_instance_ms"),
+                         ("generic_device_ms",
+                          "generic_instance_device_ms")):   # K1's
+            if all(r.get(key) is not None for r in rows_ if r["per_step"]):
+                entry[out] = sum(r[key] * r["per_step"] for r in rows_
+                                 if r["per_step"])
         kernels.append(entry)
     main_row = [r for r in paged_rows if r["main"]][0]
     kernels.append(dict(
@@ -3375,21 +3517,27 @@ def main() -> None:
               f"{main_row['case']})",
         launches_path="engine serve tinyllama-1.1b ENGINE_RUN, "
                       "ENGINE_POLICY"))
+    # each kernel's instances in ptxas' report: names holding all of the
+    # parts (K9: the decode kernel's contiguous instances and the tiled
+    # route's fwd_kernel)
+    stems = {"flash_decode": [("decode_paged_kernel", "true>"),
+                              ("fwd_kernel",)],
+             "flash_decode_paged": [("decode_paged_kernel", "false>")],
+             "fused_qupdate_prng": [("fused_qupdate_kernel<",)],
+             "fused_qupdate_bits": [("fused_qupdate_kernel<",)],
+             "sr_cast_prng": [("sr_cast_prng_kernel",)],
+             "sr_cast_bits": [("sr_cast_bits_kernel",)],
+             **dict.fromkeys(("qmatmul_sr", "qmatmul_bits",
+                              "qmatmul_swiglu_sr", "qmatmul_swiglu_bits",
+                              "qmatmul_batched_sr", "qmatmul_batched_bits"),
+                             [("_kernel",)])}
     for entry in kernels:
         src = Path(entry["source"]).stem
-        stem = {"flash_decode_paged": "decode_paged_kernel",
-                "fused_qupdate_prng": "fused_qupdate_kernel<",
-                "fused_qupdate_bits": "fused_qupdate_kernel<",
-                "sr_cast_prng": "sr_cast_prng_kernel",
-                "qmatmul_sr": "_kernel", "qmatmul_bits": "_kernel",
-                "qmatmul_swiglu_sr": "_kernel",
-                "qmatmul_swiglu_bits": "_kernel",
-                "qmatmul_batched_sr": "_kernel",
-                "qmatmul_batched_bits": "_kernel"}.get(entry["name"])
-        if stem:
-            entry["registers"] = {fn: use for fn, use in
-                                  resources.get(src, {}).items()
-                                  if stem in fn}
+        parts = stems.get(entry["name"])
+        if parts:
+            entry["registers"] = {
+                fn: use for fn, use in resources.get(src, {}).items()
+                if any(all(p in fn for p in alt) for alt in parts)}
     report = dict(device=kind, nvidia_smi=smi[0], build_s=t_build,
                   registers=resources,
                   rows=rows, train_rows=train_rows, update_rows=update_rows,

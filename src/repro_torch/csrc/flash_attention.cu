@@ -6,7 +6,8 @@
 //   flash_bwd_dq   <- flash_bwd_dq_p   (K7, dq)
 //   flash_bwd_dkv  <- flash_bwd_dkv_p  (K7', per-query-head dk, dv)
 //   flash_decode   <- flash_decode_p   (K9, one-token decode over a float
-//                                        or packed KV cache)
+//                                        or packed KV cache; its first
+//                                        kernel stays as flash_decode_tiled)
 //   flash_decode_paged <- flash_decode_paged_p (K10, one-token decode over
 //                                        a paged float or packed KV cache)
 // Plain twins: repro_torch/kernels/flash_attention.py (*_plain).
@@ -48,13 +49,16 @@
 // TF32 or bf16 mma would change the logits that K7 and K7' recompute.
 // fwd_kernel stages q, K and V tiles in shared memory and runs fp32 FMAs
 // from there (two shared loads per FMA), computing each logit twice.  The
-// backward kernels keep that simple design.  Decode (K9) runs fwd_kernel
-// too: one block per (batch, kv head) for G = 8 query rows, 16 blocks at
-// the serve shape; it stays the bitwise reference of K10.
+// backward kernels keep that simple design.  K9's first version ran
+// fwd_kernel too, one block per (batch, kv head) for G = 8 query rows (16
+// blocks at the serve shape); it stays as flash_decode_tiled, the
+// bitwise reference of the decode kernel below and K9's route for blocks
+// whose logits that kernel cannot hold.
 //
-// Paged decode (K10) has a kernel of its own, decode_paged_kernel: one
+// Decode (K9 and K10) has a kernel of its own, decode_paged_kernel: one
 // block per (request, kv head, query row), so the engine's 4 slots x 4
-// kv heads x 8 rows fill 128 of the 132 SMs.  At that shape it moves a
+// kv heads x 8 rows fill 128 of the 132 SMs, and K9's serve shape (B.KV
+// 16 x G 8) the same 128.  At that shape it moves a
 // few KB and does ~1.3 MFLOP, so neither bytes nor operations bound it:
 // the chain of dependent steps does (the page-table and K loads, a 64-long
 // fmaf chain per logit, the page's max and sum, a 64-long fmaf chain per
@@ -67,10 +71,15 @@
 // sums with their pairing and butterfly, each output's P.V chain over the
 // page's keys in order, the av rounding with stream = page, the merge,
 // the division) runs on the same operands in the same order, so K10
-// equals K9 with kv_block == page bit for bit.  K/V rows are found
-// through the request's block table (physical page p of kv head h is row
-// p.KV + h of the (P.KV, page, d) pool); each request's length is read
-// from device memory, so a serving step needs no host round trip.  Draws
+// equals fwd_kernel with kv_block == page bit for bit.  K10's K/V rows
+// are found through the request's block table (physical page p of kv head
+// h is row p.KV + h of the (P.KV, page, d) pool); each request's length
+// is read from device memory, so a serving step needs no host round trip.
+// K9 runs the same kernel in contiguous mode (a template flag, so K10's
+// instances are unchanged): row bh of the (B.KV, S_max, d) cache is read
+// as pages of kv_block keys, key i of page j at row bh.S_max + j.page + i,
+// with one length for every row, no table, and the last page cut at
+// S_max where S_max % kv_block != 0, as fwd_kernel's last block is.  Draws
 // keep the logical coordinates (column = logical position, av stream =
 // logical page), so a result does not depend on where the pages lie.
 // Pages past a request's length are never read: their close step (an
@@ -190,7 +199,8 @@ __device__ __forceinline__ float warp_sum(float v) {
 }
 
 // ---------------------------------------------------------------------------
-// K9: decode, and K6 where fwd1_kernel does not fit (two passes).
+// K9's tiled route (flash_decode_tiled), and K6 where fwd1_kernel does not
+// fit (two passes).
 // ---------------------------------------------------------------------------
 struct FwdArgs {
   const float* q;
@@ -704,7 +714,7 @@ __global__ void __launch_bounds__(kThreads) fwd1_kernel(FwdArgs a) {
 }
 
 // ---------------------------------------------------------------------------
-// K10: the paged decode.
+// K10 and K9: the decode kernel (a paged pool, or a contiguous cache).
 // ---------------------------------------------------------------------------
 // One block of kDecThreads per (request, kv head, query row): the engine's
 // 4 slots x 4 kv heads x G = 8 rows make 128 blocks on the 132 SMs.  A
@@ -718,8 +728,8 @@ __global__ void __launch_bounds__(kThreads) fwd1_kernel(FwdArgs a) {
 // and the page-by-page merge of m, l and acc.  A page's keys are the ones
 // fwd_kernel visits: its 64-key tiles that start below the length, the
 // masked ones as -inf logits and zero exps, V rows at or past the length
-// as zeros, so every value equals fwd_kernel's bit for bit (and K10 equals
-// K9 with kv_block == page).  The pages' P.V chains, exps and logits run
+// as zeros, so every value equals fwd_kernel's bit for bit (K10 equals
+// flash_decode_tiled with kv_block == page, and K9 equals it always).  The pages' P.V chains, exps and logits run
 // in parallel where fwd_kernel runs them one tile after another.  A page
 // longer than kDecKeys is one round whose V rows are staged in pieces.
 //
@@ -761,6 +771,10 @@ struct DecodeArgs {
   int G, n_kv, n_max, page, page_shift, dk, dv, window;   // page_shift:
   float scale;                                            // -1 unless 2^k
   Sites sites;
+  // contiguous mode (K9): rows of the (B.KV, stride, d) cache per B.KV
+  // row, and the length every row shares (no tables, no lengths)
+  int stride;
+  int length;
 };
 
 // A 1-byte code word as float32, bit for bit rt::unpack.  Sign, field and
@@ -856,19 +870,26 @@ __device__ __forceinline__ float decode_dot(const float* Qs, size_t row,
   return acc;
 }
 
-// The pool row of key i of a round that starts at logical page j0.
+// The pool row of key i of a round that starts at logical page j0; in
+// contiguous mode h is the B.KV row and the row follows from the stride.
+template <bool kContig>
 __device__ __forceinline__ size_t page_row(const DecodeArgs& a,
                                            const int* table, int h, int j0,
                                            int i) {
-  const int b = page_of(i, a);
-  return (static_cast<size_t>(table[j0 + b]) * a.n_kv + h) * a.page +
-         (i - b * a.page);
+  if constexpr (kContig) {
+    return static_cast<size_t>(h) * a.stride +
+           static_cast<size_t>(j0) * a.page + i;
+  } else {
+    const int b = page_of(i, a);
+    return (static_cast<size_t>(table[j0 + b]) * a.n_kv + h) * a.page +
+           (i - b * a.page);
+  }
 }
 
 // V rows of round keys [i0, i1) into Vs (row i - i0), raw; rows at or past
 // the length are not read (P.V takes them as zeros).  DK > 0: 16-byte
 // cp.async; else byte copies (made before the next barrier).
-template <int kKind, int DK>
+template <int kKind, int DK, bool kContig>
 __device__ __forceinline__ void stage_v(char* Vs, const DecodeArgs& a,
                                         const int* table, int h, int j0,
                                         int i0, int i1, int length,
@@ -882,7 +903,8 @@ __device__ __forceinline__ void stage_v(char* Vs, const DecodeArgs& a,
       if (k0 + i < length)
         __pipeline_memcpy_async(
             Vs + static_cast<size_t>(i - i0) * vrow + 16 * ch,
-            src + page_row(a, table, h, j0, i) * vrow + 16 * ch, 16);
+            src + page_row<kContig>(a, table, h, j0, i) * vrow + 16 * ch,
+            16);
     }
     __pipeline_commit();
   } else {
@@ -890,7 +912,7 @@ __device__ __forceinline__ void stage_v(char* Vs, const DecodeArgs& a,
       const int i = i0 + e / vrow, by = e % vrow;
       if (k0 + i < length)
         Vs[static_cast<size_t>(i - i0) * vrow + by] =
-            src[page_row(a, table, h, j0, i) * vrow + by];
+            src[page_row<kContig>(a, table, h, j0, i) * vrow + by];
     }
   }
 }
@@ -901,7 +923,7 @@ __host__ __device__ inline int round_up(int x, int m) {
 
 // Shared memory of one block: staged V rows, q, a round's logits, the
 // pages' maxima and sums, their rounded P.V partials, the request's
-// block table.
+// block table (n_max 0 in contiguous mode).
 size_t decode_smem(int page, int dk, int dv, int elt_bytes, int n_max) {
   return round_up(kDecKeys * dv * elt_bytes, 16) +
          sizeof(float) * (round_up(dk, 4) + (page > kDecKeys ? page : kDecKeys) +
@@ -938,7 +960,7 @@ __device__ __forceinline__ float pv_chain(float x, const float* S,
   return x;
 }
 
-template <int kKind, int DK>
+template <int kKind, int DK, bool kContig>
 __global__ void __launch_bounds__(kDecThreads)
 decode_paged_kernel(DecodeArgs a) {
   extern __shared__ float smem[];
@@ -948,6 +970,7 @@ decode_paged_kernel(DecodeArgs a) {
   const int page = a.page;
   const int r = blockIdx.x, h = blockIdx.y, req = blockIdx.z;
   const int bh = req * a.n_kv + h;
+  const int hrow = kContig ? bh : h;    // page_row's head argument
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
   const int vrow = dv * elt;
   char* Vs = reinterpret_cast<char*>(smem);
@@ -965,9 +988,10 @@ decode_paged_kernel(DecodeArgs a) {
   // the request's length, block table and query row, all loads at once;
   // the draws of the first round's first key and output and of the
   // output column meanwhile
-  const int length = a.lengths[req];
-  for (int t = tid; t < a.n_max; t += kDecThreads)
-    table[t] = a.tables[static_cast<size_t>(req) * a.n_max + t];
+  const int length = kContig ? a.length : a.lengths[req];
+  if constexpr (!kContig)
+    for (int t = tid; t < a.n_max; t += kDecThreads)
+      table[t] = a.tables[static_cast<size_t>(req) * a.n_max + t];
   for (int t = tid; t < dk; t += kDecThreads)
     Qs[t] = a.q[(static_cast<size_t>(bh) * a.G + r) * dk + t];
   uint32_t qk_bits = draw_bits(p_qk, w, 0u, r, tid);
@@ -983,11 +1007,12 @@ decode_paged_kernel(DecodeArgs a) {
     const int np = min(per_round, n_vis - j0);
     // the last page's keys: its 64-key tiles that start below the length
     const int last = (j0 + np - 1) * page;
-    const int nkeys =
-        (np - 1) * page + min(page, round_up(length - last, kTK));
+    int nkeys = (np - 1) * page + min(page, round_up(length - last, kTK));
+    // a contiguous cache's last block ends at S_max, as fwd_kernel's does
+    if constexpr (kContig) nkeys = min(nkeys, a.stride - j0 * page);
     const int kv_end = length - j0 * page;     // round keys with a V row
-    stage_v<kKind, DK>(Vs, a, table, h, j0, 0, min(nkeys, kDecKeys), length,
-                       vrow);
+    stage_v<kKind, DK, kContig>(Vs, a, table, hrow, j0, 0,
+                                min(nkeys, kDecKeys), length, vrow);
     // the logits, each computed, rounded and drawn once (qk site, keyed
     // by head row and logical position, stream 0); masked ones -inf
     for (int i = tid; i < nkeys; i += kDecThreads) {
@@ -998,7 +1023,7 @@ decode_paged_kernel(DecodeArgs a) {
             i == tid ? qk_bits : draw_bits(p_qk, w, 0u, r, kpos);
         s = round_bits(
             __fmul_rn(decode_dot<kKind, DK>(
-                          Qs, page_row(a, table, h, j0, i), a),
+                          Qs, page_row<kContig>(a, table, hrow, j0, i), a),
                       a.scale),
             p_qk, bits);
       }
@@ -1057,7 +1082,8 @@ decode_paged_kernel(DecodeArgs a) {
         const int p1 = min(p0 + kDecKeys, nkeys);
         if (p0 > 0) {
           __syncthreads();
-          stage_v<kKind, DK>(Vs, a, table, h, j0, p0, p1, length, vrow);
+          stage_v<kKind, DK, kContig>(Vs, a, table, hrow, j0, p0, p1,
+                                      length, vrow);
         }
         __pipeline_wait_prior(0);
         __syncthreads();
@@ -1376,26 +1402,105 @@ int launch(Kernel kernel, dim3 grid, size_t smem, const Args& args,
   return static_cast<int>(cudaGetLastError());
 }
 
-// K10's instance for a cache kind and head dim (0: any dk, dv).
-template <int kKind>
+// The decode kernel's instance for a cache kind and head dim (0: any dk,
+// dv).
+template <int kKind, bool kContig>
 int launch_decode(int d, dim3 grid, size_t smem, const DecodeArgs& a,
                   void* stream) {
   switch (d) {
-    case 16: return launch(decode_paged_kernel<kKind, 16>, grid, smem, a,
-                           stream, kDecThreads);
-    case 32: return launch(decode_paged_kernel<kKind, 32>, grid, smem, a,
-                           stream, kDecThreads);
-    case 64: return launch(decode_paged_kernel<kKind, 64>, grid, smem, a,
-                           stream, kDecThreads);
-    case 128: return launch(decode_paged_kernel<kKind, 128>, grid, smem, a,
-                            stream, kDecThreads);
-    default: return launch(decode_paged_kernel<kKind, 0>, grid, smem, a,
-                           stream, kDecThreads);
+    case 16: return launch(decode_paged_kernel<kKind, 16, kContig>, grid,
+                           smem, a, stream, kDecThreads);
+    case 32: return launch(decode_paged_kernel<kKind, 32, kContig>, grid,
+                           smem, a, stream, kDecThreads);
+    case 64: return launch(decode_paged_kernel<kKind, 64, kContig>, grid,
+                           smem, a, stream, kDecThreads);
+    case 128: return launch(decode_paged_kernel<kKind, 128, kContig>, grid,
+                            smem, a, stream, kDecThreads);
+    default: return launch(decode_paged_kernel<kKind, 0, kContig>, grid,
+                           smem, a, stream, kDecThreads);
   }
 }
 
 bool aligned16(const void* p) {
   return reinterpret_cast<uintptr_t>(p) % 16 == 0;
+}
+
+// The decode kernel over a paged pool (kContig false: lengths, tables) or
+// a contiguous (B.KV, stride, d) cache read as pages of `page` keys
+// (kContig true: one length, n_kv 1).  pack: code bytes (0 = float32
+// cache), ebits, mbits, emin, has_nf.  Refused where a block's shared
+// memory would not fit or a draw width is not 32, 16 or 8.
+template <bool kContig>
+int decode_launch(const float* q, const void* k, const void* v,
+                  const int* pack, const uint32_t* seeds, const int* lengths,
+                  const int* tables, float* out, int BKV, int G, int n_kv,
+                  int n_max, int page, int stride, int length, int dk,
+                  int dv, int window, float scale, const int* site_ints,
+                  const float* site_xmax, void* stream) {
+  if (dk > kDMax || dv > kDMax || dk < 1 || dv < 1 || page < 1 ||
+      n_kv < 1 || n_max < 1 || G < 1 || BKV % n_kv != 0 ||
+      BKV / n_kv > 65535 || n_kv > 65535)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const Sites sites = make_sites(site_ints, site_xmax, 3);
+  for (const rt::RoundParams& p : sites.p)   // draw_bits' widths
+    if (p.enabled && p.mode != rt::kRN && p.rand_bits != 32 &&
+        p.rand_bits != 16 && p.rand_bits != 8)
+      return static_cast<int>(cudaErrorInvalidValue);
+  const int bytes = pack[0], ebits = pack[1], mbits = pack[2];
+  const int emin = pack[3], has_nf = pack[4];
+  // 1-byte codes by dec8 where its rebasing multiply is exact
+  const bool byte8 = bytes == 1 && emin >= -120 && emin <= 1;
+  const int kind = bytes == 0 ? kF32
+                   : byte8   ? (has_nf ? kByteNF : kByte)
+                             : kCode;
+  const int elt = bytes == 0 ? 4 : bytes;
+  const int nb = ebits + mbits;
+  int page_shift = -1;
+  for (int s = 0; s < 31; ++s)
+    if (page == (1 << s)) page_shift = s;
+  const DecodeArgs a{q,
+                     k,
+                     v,
+                     bytes,
+                     rt::PackParams{ebits, mbits, emin, has_nf},
+                     31 - nb,
+                     (1u << nb) - 1u,
+                     23 - mbits,
+                     (1u << ebits) - 1u,
+                     byte8 ? std::ldexp(1.0f, 126 + emin) : 0.0f,
+                     seeds,
+                     lengths,
+                     tables,
+                     out,
+                     G,
+                     n_kv,
+                     n_max,
+                     page,
+                     page_shift,
+                     dk,
+                     dv,
+                     window,
+                     scale,
+                     sites,
+                     stride,
+                     length};
+  const size_t smem = decode_smem(page, dk, dv, elt, kContig ? 0 : n_max);
+  if (smem > static_cast<size_t>(kSmemMax))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const dim3 grid(G, n_kv, BKV / n_kv);
+  // the head dim fixed at compile time where dk == dv and rows start on
+  // 16-byte boundaries
+  const bool vec = aligned16(k) && aligned16(v) && (dk * elt) % 16 == 0;
+  const int d = vec && dk == dv && kind != kCode ? dk : 0;
+  switch (kind) {
+    case kF32: return launch_decode<kF32, kContig>(d, grid, smem, a, stream);
+    case kByte: return launch_decode<kByte, kContig>(d, grid, smem, a,
+                                                     stream);
+    case kByteNF: return launch_decode<kByteNF, kContig>(d, grid, smem, a,
+                                                         stream);
+    default: return launch(decode_paged_kernel<kCode, 0, kContig>, grid,
+                           smem, a, stream, kDecThreads);
+  }
 }
 
 size_t fwd_smem(int dk, int dv) {
@@ -1457,13 +1562,36 @@ extern "C" int flash_fwd_two_pass(const float* q, const float* k,
   return launch(fwd_kernel, grid, fwd_smem(dk, dv), a, stream);
 }
 
-// pack: code bytes (0 = float32 cache), ebits, mbits, emin, has_nf.
+// K9 (decode_paged_kernel in contiguous mode): k/v (B.KV, Smax, d)
+// float32 or code words, read as pages of kb keys (a ragged last block
+// where Smax % kb != 0), one block per (B.KV row, query row); bit for bit
+// flash_decode_tiled.  pack as decode_launch takes it.  Refused where the
+// logits of kb keys do not fit in shared memory (the wrapper launches
+// flash_decode_tiled there).
 extern "C" int flash_decode(const float* q, const void* k, const void* v,
                             const int* pack, const uint32_t* seeds,
                             float* out, int BKV, int G, int Smax, int dk,
                             int dv, int length, int kb, int window,
                             float scale, const int* site_ints,
                             const float* site_xmax, void* stream) {
+  if (kb < 1 || kb > Smax || length < 1 || length > Smax)
+    return static_cast<int>(cudaErrorInvalidValue);
+  return decode_launch<true>(q, k, v, pack, seeds, nullptr, nullptr, out,
+                             BKV, G, 1, (Smax + kb - 1) / kb, kb, Smax,
+                             length, dk, dv, window, scale, site_ints,
+                             site_xmax, stream);
+}
+
+// K9's first kernel (fwd_kernel, two passes per 64-key tile): the
+// independent reference flash_decode is held against, and the route for
+// blocks whose logits flash_decode cannot hold.
+extern "C" int flash_decode_tiled(const float* q, const void* k,
+                                  const void* v, const int* pack,
+                                  const uint32_t* seeds, float* out, int BKV,
+                                  int G, int Smax, int dk, int dv,
+                                  int length, int kb, int window,
+                                  float scale, const int* site_ints,
+                                  const float* site_xmax, void* stream) {
   if (dk > kDMax || dv > kDMax) return static_cast<int>(cudaErrorInvalidValue);
   Geo g = make_geo(G, Smax, dk, dv, 1, 1, G, kb, 0, 1, window, scale);
   g.decode = 1;
@@ -1484,10 +1612,10 @@ extern "C" int flash_decode(const float* q, const void* k, const void* v,
   return launch(fwd_kernel, grid, fwd_smem(dk, dv), a, stream);
 }
 
-// K10 (decode_paged_kernel).  pages: (P.KV, page, d) float32 or code
-// words (pack as above); lengths (B,) and tables (B, n_max) int32 on the
-// device.  Refused where a block's shared memory would not fit (pages
-// whose logits do not).
+// K10 (decode_paged_kernel over a pool).  pages: (P.KV, page, d) float32
+// or code words (pack as above); lengths (B,) and tables (B, n_max) int32
+// on the device.  Refused where a block's shared memory would not fit
+// (pages whose logits do not).
 extern "C" int flash_decode_paged(const float* q, const void* k,
                                   const void* v, const int* pack,
                                   const uint32_t* seeds, const int* lengths,
@@ -1496,66 +1624,9 @@ extern "C" int flash_decode_paged(const float* q, const void* k,
                                   int dk, int dv, int window, float scale,
                                   const int* site_ints,
                                   const float* site_xmax, void* stream) {
-  if (dk > kDMax || dv > kDMax || dk < 1 || dv < 1 || page < 1 ||
-      n_kv < 1 || n_max < 1 || G < 1 || BKV % n_kv != 0 ||
-      BKV / n_kv > 65535 || n_kv > 65535)
-    return static_cast<int>(cudaErrorInvalidValue);
-  const Sites sites = make_sites(site_ints, site_xmax, 3);
-  for (const rt::RoundParams& p : sites.p)   // draw_bits' widths
-    if (p.enabled && p.mode != rt::kRN && p.rand_bits != 32 &&
-        p.rand_bits != 16 && p.rand_bits != 8)
-      return static_cast<int>(cudaErrorInvalidValue);
-  const int bytes = pack[0], ebits = pack[1], mbits = pack[2];
-  const int emin = pack[3], has_nf = pack[4];
-  // 1-byte codes by dec8 where its rebasing multiply is exact
-  const bool byte8 = bytes == 1 && emin >= -120 && emin <= 1;
-  const int kind = bytes == 0 ? kF32
-                   : byte8   ? (has_nf ? kByteNF : kByte)
-                             : kCode;
-  const int elt = bytes == 0 ? 4 : bytes;
-  const int nb = ebits + mbits;
-  int page_shift = -1;
-  for (int s = 0; s < 31; ++s)
-    if (page == (1 << s)) page_shift = s;
-  const DecodeArgs a{q,
-                     k,
-                     v,
-                     bytes,
-                     rt::PackParams{ebits, mbits, emin, has_nf},
-                     31 - nb,
-                     (1u << nb) - 1u,
-                     23 - mbits,
-                     (1u << ebits) - 1u,
-                     byte8 ? std::ldexp(1.0f, 126 + emin) : 0.0f,
-                     seeds,
-                     lengths,
-                     tables,
-                     out,
-                     G,
-                     n_kv,
-                     n_max,
-                     page,
-                     page_shift,
-                     dk,
-                     dv,
-                     window,
-                     scale,
-                     sites};
-  const size_t smem = decode_smem(page, dk, dv, elt, n_max);
-  if (smem > static_cast<size_t>(kSmemMax))
-    return static_cast<int>(cudaErrorInvalidValue);
-  const dim3 grid(G, n_kv, BKV / n_kv);
-  // the head dim fixed at compile time where dk == dv and rows start on
-  // 16-byte boundaries
-  const bool vec = aligned16(k) && aligned16(v) && (dk * elt) % 16 == 0;
-  const int d = vec && dk == dv && kind != kCode ? dk : 0;
-  switch (kind) {
-    case kF32: return launch_decode<kF32>(d, grid, smem, a, stream);
-    case kByte: return launch_decode<kByte>(d, grid, smem, a, stream);
-    case kByteNF: return launch_decode<kByteNF>(d, grid, smem, a, stream);
-    default: return launch(decode_paged_kernel<kCode, 0>, grid, smem, a,
-                           stream, kDecThreads);
-  }
+  return decode_launch<false>(q, k, v, pack, seeds, lengths, tables, out,
+                              BKV, G, n_kv, n_max, page, 0, 0, dk, dv,
+                              window, scale, site_ints, site_xmax, stream);
 }
 
 extern "C" int flash_bwd_dq(const float* q, const float* k, const float* v,

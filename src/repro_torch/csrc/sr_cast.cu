@@ -30,87 +30,25 @@
 // 192 blocks) up to 132 x 16 blocks, then strides.  The path's spec (sr,
 // 32-bit draws, no v) has an instance with the scheme and the draw width
 // fixed at compile time (sr_cast.sr_cast_instance); the generic instance
-// reads them from its arguments.  K1 keeps groups of 8 elements per
-// thread, each group's words read as 16-byte loads where aligned.
+// reads them from its arguments.  K1 is shaped the same way: a thread
+// rounds 4 elements, one 16-byte load of x and one of their words where
+// every operand is 16-byte aligned (else element by element), in blocks
+// of 128 threads, so the path's 98,304 elements make 24,576 threads in
+// 192 blocks over the 132 SMs (8 elements per thread in 256-thread blocks
+// made 48 blocks); the path's spec (the oracle act site: sr, 32-bit
+// draws, no v) has an instance with both fixed at compile time
+// (sr_cast.sr_cast_bits_instance), beside the generic one.
 #include <cuda_runtime.h>
 
 #include "rounding.cuh"
 
 namespace {
 
-constexpr int kGroup = 8;
 constexpr int kThreads = 256;
+constexpr int kBitsGroup = 4;      // K1: elements per thread
+constexpr int kBitsThreads = 128;  // K1: threads per block
 constexpr uint32_t kLanes = 128;
 constexpr long long kMaxBlocks = 132 * 16;
-
-__device__ __forceinline__ void load8(const float* p, long long i0,
-                                      long long n, bool full,
-                                      float (&v)[kGroup]) {
-  if (full) {
-    const float4* src = reinterpret_cast<const float4*>(p + i0);
-    const float4 lo = src[0], hi = src[1];
-    v[0] = lo.x; v[1] = lo.y; v[2] = lo.z; v[3] = lo.w;
-    v[4] = hi.x; v[5] = hi.y; v[6] = hi.z; v[7] = hi.w;
-  } else {
-#pragma unroll
-    for (int j = 0; j < kGroup; ++j) v[j] = i0 + j < n ? p[i0 + j] : 0.0f;
-  }
-}
-
-// K1: element i takes word i of `bits`.  v: null, or the signed_sr_eps
-// bias direction.
-__global__ void __launch_bounds__(kThreads)
-sr_cast_kernel(const float* __restrict__ x, const uint32_t* __restrict__ bits,
-               const float* __restrict__ vdir, float* __restrict__ out,
-               long long n, int vec_ok, rt::RoundParams p) {
-  const long long n_groups = (n + kGroup - 1) / kGroup;
-  const long long stride = static_cast<long long>(gridDim.x) * blockDim.x;
-  const bool stochastic = p.mode != rt::kRN;
-  for (long long g = blockIdx.x * static_cast<long long>(blockDim.x) +
-                     threadIdx.x;
-       g < n_groups; g += stride) {
-    const long long i0 = g * kGroup;
-    const bool full = vec_ok && i0 + kGroup <= n;
-    float v[kGroup], sv[kGroup];
-    load8(x, i0, n, full, v);
-    if (vdir != nullptr) {
-      load8(vdir, i0, n, full, sv);
-#pragma unroll
-      for (int j = 0; j < kGroup; ++j) sv[j] = rt::sign_of(sv[j]);
-    } else {
-#pragma unroll
-      for (int j = 0; j < kGroup; ++j) sv[j] = 0.0f;
-    }
-    uint32_t w[kGroup];
-    if (stochastic) {
-      if (full) {
-        const uint4* src = reinterpret_cast<const uint4*>(bits + i0);
-        const uint4 lo = src[0], hi = src[1];
-        w[0] = lo.x; w[1] = lo.y; w[2] = lo.z; w[3] = lo.w;
-        w[4] = hi.x; w[5] = hi.y; w[6] = hi.z; w[7] = hi.w;
-      } else {
-#pragma unroll
-        for (int j = 0; j < kGroup; ++j)
-          w[j] = i0 + j < n ? bits[i0 + j] : 0u;
-      }
-    } else {
-#pragma unroll
-      for (int j = 0; j < kGroup; ++j) w[j] = 0u;
-    }
-#pragma unroll
-    for (int j = 0; j < kGroup; ++j)
-      v[j] = rt::round_value(v[j], w[j], p, sv[j]);
-    if (full) {
-      float4* dst = reinterpret_cast<float4*>(out + i0);
-      dst[0] = make_float4(v[0], v[1], v[2], v[3]);
-      dst[1] = make_float4(v[4], v[5], v[6], v[7]);
-    } else {
-#pragma unroll
-      for (int j = 0; j < kGroup; ++j)
-        if (i0 + j < n) out[i0 + j] = v[j];
-    }
-  }
-}
 
 // kE consecutive float32 values from p + i0: one 8-byte or kE / 4
 // 16-byte loads where `full`, else element by element (zeros past n).
@@ -206,8 +144,61 @@ sr_cast_prng_kernel(const float* __restrict__ x,
   }
 }
 
-int blocks_for(long long n_groups) {
-  const long long want = (n_groups + kThreads - 1) / kThreads;
+// K1: element i takes word i of `bits` (its low rand_bits bits); a
+// thread rounds the kBitsGroup elements [i0, i0 + 4).  kMode >= 0 fixes
+// the scheme and 32-bit draws at compile time (the path instance: no v);
+// kMode < 0 reads them from p, v null or the signed_sr_eps bias direction.
+template <int kMode>
+__global__ void __launch_bounds__(kBitsThreads)
+sr_cast_bits_kernel(const float* __restrict__ x,
+                    const uint32_t* __restrict__ bits,
+                    const float* __restrict__ vdir, float* __restrict__ out,
+                    long long n, int vec_ok, rt::RoundParams p) {
+  constexpr int kE = kBitsGroup;
+  if (kMode >= 0) {
+    p.mode = kMode;
+    p.rand_bits = 32;
+  }
+  const bool signed_v = kMode < 0 && vdir != nullptr;
+  const bool stochastic = p.mode != rt::kRN;
+  const long long n_groups = (n + kE - 1) / kE;
+  const long long stride = static_cast<long long>(gridDim.x) * blockDim.x;
+  for (long long g = blockIdx.x * static_cast<long long>(blockDim.x) +
+                     threadIdx.x;
+       g < n_groups; g += stride) {
+    const long long i0 = g * kE;
+    const bool full = vec_ok && i0 + kE <= n;
+    float v[kE], sv[kE];
+    uint32_t w[kE] = {0u, 0u, 0u, 0u};
+    load_group<kE>(x, i0, n, full, v);
+    if (stochastic) {
+      if (full) {
+        const uint4 t = *reinterpret_cast<const uint4*>(bits + i0);
+        w[0] = t.x;
+        w[1] = t.y;
+        w[2] = t.z;
+        w[3] = t.w;
+      } else {
+#pragma unroll
+        for (int j = 0; j < kE; ++j) w[j] = i0 + j < n ? bits[i0 + j] : 0u;
+      }
+    }
+    if (signed_v) {
+      load_group<kE>(vdir, i0, n, full, sv);
+#pragma unroll
+      for (int j = 0; j < kE; ++j) sv[j] = rt::sign_of(sv[j]);
+    } else {
+#pragma unroll
+      for (int j = 0; j < kE; ++j) sv[j] = 0.0f;
+    }
+#pragma unroll
+    for (int j = 0; j < kE; ++j) v[j] = rt::round_value(v[j], w[j], p, sv[j]);
+    store_group<kE>(out, i0, n, full, v);
+  }
+}
+
+int blocks_for(long long n_groups, int threads = kThreads) {
+  const long long want = (n_groups + threads - 1) / threads;
   return static_cast<int>(want < kMaxBlocks ? want : kMaxBlocks);
 }
 
@@ -249,16 +240,26 @@ extern "C" int sr_cast_prng(const float* x, const float* v, float* out,
 }
 
 // K1.  bits: n uint32 words on the device (read only when stochastic).
+// instance: 0 generic, 1 the path's (sr, 32-bit draws, no v:
+// sr_cast.sr_cast_bits_instance); a launch that does not fit it is
+// refused.  Other arguments as sr_cast_prng's.
 extern "C" int sr_cast_bits(const float* x, const uint32_t* bits,
                             const float* v, float* out, long long n,
                             int vec_ok, int precision, int emin, int emax,
                             float xmax, int mode, int rand_bits, float eps,
-                            void* stream) {
+                            int instance, void* stream) {
   if (n <= 0) return 0;
+  if (instance == 1 && (mode != rt::kSR || rand_bits != 32 || v != nullptr))
+    return static_cast<int>(cudaErrorInvalidValue);
   const rt::RoundParams p{precision, emin, emax, xmax, mode, rand_bits, 1,
                           eps};
-  sr_cast_kernel<<<blocks_for((n + kGroup - 1) / kGroup), kThreads, 0,
-                   static_cast<cudaStream_t>(stream)>>>(x, bits, v, out, n,
-                                                        vec_ok, p);
+  const int blocks = blocks_for((n - 1) / kBitsGroup + 1, kBitsThreads);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (instance == 1)
+    sr_cast_bits_kernel<rt::kSR><<<blocks, kBitsThreads, 0, st>>>(
+        x, bits, v, out, n, vec_ok, p);
+  else
+    sr_cast_bits_kernel<-1><<<blocks, kBitsThreads, 0, st>>>(
+        x, bits, v, out, n, vec_ok, p);
   return static_cast<int>(cudaGetLastError());
 }

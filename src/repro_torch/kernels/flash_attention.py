@@ -8,12 +8,19 @@
                      (``fwd_kernel_for``; counted apart);
 ``flash_bwd_dq``  -> ``flash_bwd_dq``, replacing ``flash_bwd_dq_p`` (K7);
 ``flash_bwd_dkv`` -> ``flash_bwd_dkv``, replacing ``flash_bwd_dkv_p`` (K7');
-``flash_decode``  -> ``flash_decode``, replacing ``flash_decode_p`` (K9);
+``flash_decode``  -> ``flash_decode``, replacing ``flash_decode_p`` (K9):
+                     K10's decode kernel over the contiguous cache read
+                     as pages of ``kv_block`` keys, or
+                     ``flash_decode_tiled`` (K9's first kernel, two passes
+                     per 64-key tile) where a block's logits do not fit
+                     in its shared memory (``decode_kernel_for``; counted
+                     apart).  The two give the same bits;
 ``flash_decode_paged`` -> ``flash_decode_paged``, replacing
-                     ``flash_decode_paged_p`` (K10): a decode kernel of
-                     its own, one block per (request, kv head, query
-                     row), whose float operations run in K9's order, so
-                     it equals K9 with ``kv_block == page`` bit for bit.
+                     ``flash_decode_paged_p`` (K10): the decode kernel,
+                     one block per (request, kv head, query row), whose
+                     float operations run in the tiled kernel's order, so
+                     it equals ``flash_decode_tiled`` with ``kv_block ==
+                     page`` bit for bit.
 
 Three rounding sites per attention op: the QKᵀ logits (``qk``), each
 logical kv block's P·V partial product (``av``) and the normalised output
@@ -60,15 +67,16 @@ _D_MAX = 128                     # head dims the kernels take
 
 LAUNCHES: Dict[str, int] = {"flash_fwd": 0, "flash_fwd_two_pass": 0,
                             "flash_bwd_dq": 0, "flash_bwd_dkv": 0,
-                            "flash_decode": 0, "flash_decode_paged": 0}
+                            "flash_decode": 0, "flash_decode_tiled": 0,
+                            "flash_decode_paged": 0}
 # K6's single-pass kernel: head dims it is compiled for, keys per staged
 # tile, query rows per block, and the shared memory a block may take
 FWD_DIMS = (16, 32, 64, 128)
 FWD_TILE_KEYS = 128
 FWD_ROWS = 32
 SMEM_MAX = 232448
-# K10's kernel: keys a round holds (V rows staged per piece), pages a
-# round takes at most
+# the decode kernel (K10, K9): keys a round holds (V rows staged per
+# piece), pages a round takes at most
 DEC_KEYS = 128
 DEC_PAGES = 32
 
@@ -523,15 +531,31 @@ def fwd_kernel_for(Skv: int, dk: int, dv: int, kv_block: int) -> str:
 
 def decode_smem_bytes(page: int, dk: int, dv: int, elt_bytes: int,
                       n_max: int) -> int:
-    """Shared memory of one K10 block (``csrc/flash_attention.cu:
+    """Shared memory of one decode-kernel block (``csrc/flash_attention.cu:
     decode_smem``): staged V rows, q, a round's logits (a whole page's
     where pages are longer than ``DEC_KEYS``), the pages' maxima and sums,
-    their rounded P.V partials and the request's block table."""
+    their rounded P.V partials and the request's block table (``n_max =
+    0`` for K9's contiguous cache)."""
     def up(x, m):
         return -(-x // m) * m
     return up(DEC_KEYS * dv * elt_bytes, 16) + 4 * (
         up(dk, 4) + max(page, DEC_KEYS) + 2 * DEC_PAGES + DEC_PAGES * dv
         + n_max)
+
+
+def decode_kernel_for(Smax: int, kv_block: int, dk: int, dv: int,
+                      elt_bytes: int) -> str:
+    """The kernel K9 launches for a shape: ``"flash_decode"``, the decode
+    kernel reading the cache as pages of ``min(kv_block, Smax)`` keys,
+    where a block's logits over one such page fit in shared memory
+    (``decode_smem_bytes`` with no table); else ``"flash_decode_tiled"``,
+    which walks a block in 64-key tiles twice instead of holding its
+    logits.  ``elt_bytes``: 4 for a float32 cache, else the code width.
+    Both give the same bits."""
+    kb = min(kv_block, Smax)
+    if kb < 1 or decode_smem_bytes(kb, dk, dv, elt_bytes, 0) > SMEM_MAX:
+        return "flash_decode_tiled"
+    return "flash_decode"
 
 
 def _aligned16(t: torch.Tensor) -> torch.Tensor:
@@ -649,12 +673,15 @@ def flash_bwd_dkv(q, k, v, do, m, l, d, seeds, spec_qk: RoundingSpec,
 
 
 def flash_decode(q, k, v, seeds, length: int, specs, *, scale,
-                 window: int = 0, kv_block: int = _DEF_BLOCK, kv_fmt=None):
+                 window: int = 0, kv_block: int = _DEF_BLOCK, kv_fmt=None,
+                 kernel: Optional[str] = None):
     """Rounded one-token decode over the whole cache.  q: (B·KV, G, dk),
     the G query heads of each kv group; k/v: (B·KV, S_max, dk/dv), float
     values or, with ``kv_fmt``, code words of that grid (decoded on load);
     ``length``: valid cache rows including the new token.  Returns (B·KV,
-    G, dv) float32."""
+    G, dv) float32.  ``kernel``: on the card, ``"flash_decode_tiled"``
+    launches the tiled kernel whatever ``decode_kernel_for`` chooses (the
+    checks hold the two against each other)."""
     specs = AttnSpecs(*specs)
     BKV, G, dk = q.shape
     Smax, dv = k.shape[1], v.shape[-1]
@@ -671,6 +698,10 @@ def flash_decode(q, k, v, seeds, length: int, specs, *, scale,
                                   get_grid(kv_fmt).fmt.emin, int(has_nf))
     else:
         pack = (ctypes.c_int * 5)(0, 0, 0, 0, 0)
+    name = decode_kernel_for(Smax, kv_block, dk, dv, pack[0] or 4)
+    if kernel not in (None, name, "flash_decode_tiled"):
+        raise ValueError(f"flash_decode: cannot launch {kernel!r} for this "
+                         f"shape (it takes {name!r})")
     if _check((q, k, v), "flash_decode", max(dk, dv)):
         return flash_decode_plain(q, k, v, seeds, length, specs, scale=scale,
                                   window=window, kv_block=kv_block,
@@ -683,7 +714,7 @@ def flash_decode(q, k, v, seeds, length: int, specs, *, scale,
         k, v = k.contiguous(), v.contiguous()
     out = torch.empty((BKV, G, dv), device=dev)
     if out.numel():
-        _launch("flash_decode", _ptr(q), _ptr(k), _ptr(v), pack,
+        _launch(kernel or name, _ptr(q), _ptr(k), _ptr(v), pack,
                 _ptr(_dev_seeds(seeds, BKV, 6, dev)), _ptr(out),
                 *[ctypes.c_int(x) for x in (BKV, G, Smax, dk, dv, length,
                                             min(kv_block, Smax), window)],

@@ -19,7 +19,9 @@ K1' is compiled twice: an instance for the serving path's spec (sr with
 32-bit draws, no ``v``) with the scheme and the draw width fixed at
 compile time, and a generic one (``sr_cast_instance`` chooses).  Each of
 its threads rounds the ``prng_group(rand_bits)`` consecutive elements
-whose fields one Threefry evaluation gives.
+whose fields one Threefry evaluation gives.  K1 is compiled the same two
+ways (``sr_cast_bits_instance``: the oracle act site's spec is the same
+sr with 32-bit draws), each thread rounding 4 elements.
 
 Scope: rn, sr, sr_eps and signed_sr_eps on plain FP grids, with 32-, 16-
 or 8-bit draws.  signed_sr_eps takes the bias direction ``v`` (broadcast
@@ -41,7 +43,7 @@ from repro_torch.kernels.qmatmul import (Words, _bits_words, _launch_check,
 
 LAUNCHES: Dict[str, int] = {"sr_cast_prng": 0, "sr_cast_bits": 0}
 _MODES = {"rn": 0, "sr": 1, "sr_eps": 2, "signed_sr_eps": 3}
-# K1''s compiled instances, by the index its entry point takes
+# K1''s and K1's compiled instances, by the index their entry points take
 SR_CAST_INSTANCES = ("generic", "sr_r32")
 
 
@@ -96,6 +98,15 @@ def sr_cast_instance(mode: str, rand_bits: int, has_v: bool) -> str:
     return "generic"
 
 
+def sr_cast_bits_instance(mode: str, rand_bits: int, has_v: bool) -> str:
+    """Which compiled instance of K1 a call runs: ``"sr_r32"`` (sr, its
+    32-bit draws and no ``v`` fixed at compile time: the oracle MoE act
+    site's spec, ``policy.act`` of ``binary8-paper``) or ``"generic"``;
+    the same split as K1''s.  The entry point refuses an ``sr_r32``
+    launch that does not fit."""
+    return sr_cast_instance(mode, rand_bits, has_v)
+
+
 def prng_group(rand_bits: int) -> int:
     """Elements per K1' thread: one Threefry evaluation gives two 32-bit
     words, so 2 elements at 32-bit fields, 4 at 16, 8 at 8.  Thread ``t``
@@ -142,7 +153,7 @@ def sr_cast_plain(x: torch.Tensor, bits: Optional[torch.Tensor], fmt,
 
 
 def _launch(name: str, x, bits, vf, seed_words, grid, mode, rand_bits, eps,
-            instance: Optional[str] = None):
+            instance: str):
     x = x.contiguous()
     out = torch.empty_like(x)
     if out.numel() == 0:
@@ -154,15 +165,14 @@ def _launch(name: str, x, bits, vf, seed_words, grid, mode, rand_bits, eps,
     v_ptr = None if vf is None else vf.data_ptr()
     rnd = _round_args(grid, mode, rand_bits, eps)
     if name == "sr_cast_prng":
-        inst = SR_CAST_INSTANCES.index(instance)
         rc = lib.sr_cast_prng(x.data_ptr(), v_ptr, out.data_ptr(), x.numel(),
                               vec_ok, seed_words[0], seed_words[1], *rnd,
-                              inst, _stream(x))
+                              SR_CAST_INSTANCES.index(instance), _stream(x))
     else:
         rc = lib.sr_cast_bits(x.data_ptr(),
                               None if bits is None else bits.data_ptr(),
                               v_ptr, out.data_ptr(), x.numel(), vec_ok, *rnd,
-                              _stream(x))
+                              SR_CAST_INSTANCES.index(instance), _stream(x))
     _launch_check(rc, name)
     LAUNCHES[name] += 1
     return out
@@ -193,13 +203,19 @@ def sr_cast_prng(x: torch.Tensor, seed_words: Words, fmt, mode: str = "sr",
 
 def sr_cast(x: torch.Tensor, bits: Optional[torch.Tensor], fmt,
             mode: str = "sr", eps: float = 0.0, v=None, *,
-            rand_bits: int = 32, overflow: str = "saturate") -> torch.Tensor:
+            rand_bits: int = 32, overflow: str = "saturate",
+            instance: Optional[str] = None) -> torch.Tensor:
     """K1: round float32 ``x`` onto ``fmt`` with explicit ``bits``, uint32
     words of ``x``'s shape (int64, or int32 bit patterns; None for rn; with
     ``rand_bits < 32`` the low bits of each).  Options and result as
-    :func:`sr_cast_prng`."""
+    :func:`sr_cast_prng` (``instance`` picks from ``sr_cast_bits_instance``'s
+    instances)."""
     grid, vf, rand_bits = _check(x, fmt, mode, v, rand_bits, overflow,
                                  "sr_cast")
+    chosen = sr_cast_bits_instance(mode, rand_bits, vf is not None)
+    if instance not in (None, chosen, "generic"):
+        raise ValueError(f"sr_cast: cannot launch instance {instance!r} "
+                         f"for this spec (it takes {chosen!r})")
     stoch = get_scheme(mode).stochastic
     if stoch and bits is None:
         raise ValueError("sr_cast: a stochastic scheme needs the bits "
@@ -210,7 +226,7 @@ def sr_cast(x: torch.Tensor, bits: Optional[torch.Tensor], fmt,
         return sr_cast_plain(x, words, grid, mode, rand_bits, eps, vf)
     return _launch("sr_cast_bits", x,
                    None if words is None else words.reshape(-1), vf, None,
-                   grid, mode, rand_bits, eps)
+                   grid, mode, rand_bits, eps, instance or chosen)
 
 
 def _lib():
@@ -225,6 +241,7 @@ def _lib():
                                      + [c.c_int, c.c_void_p])
         lib.sr_cast_prng.restype = c.c_int
         lib.sr_cast_bits.argtypes = ([c.c_void_p] * 4
-                                     + [c.c_longlong, c.c_int] + rnd)
+                                     + [c.c_longlong, c.c_int] + rnd[:-1]
+                                     + [c.c_int, c.c_void_p])
         lib.sr_cast_bits.restype = c.c_int
     return lib

@@ -229,6 +229,149 @@ def test_twins_match_interpret_kernels(interpret_params):
     _assert_flips(ref, got, "binary8", adjacent=False)
 
 
+# ------------------------------------------ K9 on the decode kernel --
+# K9's card route runs K10's decode kernel over the contiguous cache read
+# as pages of kv_block keys.  Its twin is K10's twin over that view; these
+# cases hold it to K9's twin and to the reference's interpret kernel.
+# (S_max, kv_block, lengths, window): the serve shape's one block of 48,
+# blocks of 64 with a ragged last block of 8, and a window
+K9_PAGED_CASES = [(48, 48, (1, 17, 48), 0),
+                  (200, 64, (1, 63, 64, 65, 200), 0),
+                  (200, 64, (30, 65, 200), 50)]
+
+
+def _contiguous_as_pages(x, n_kv: int, kb: int):
+    """A (B·KV, S_max, d) cache as a (P·KV, kb, d) pool of kb-key pages,
+    the ragged last block padded with zeros (code 0 is +0); page j of
+    request b is physical page b·n_max + j, so the tables count up."""
+    BKV, Smax, d = x.shape
+    n_max = -(-Smax // kb)
+    pad = x.new_zeros((BKV, n_max * kb - Smax, d))
+    xp = torch.cat([x, pad], 1).view(BKV // n_kv, n_kv, n_max, kb, d)
+    pages = xp.permute(0, 2, 1, 3, 4).reshape(-1, kb, d)
+    tables = np.arange(BKV // n_kv * n_max, dtype=np.int32).reshape(
+        BKV // n_kv, n_max)
+    return pages, tables
+
+
+def _exact_decode_inputs(BKV, G, Smax, rng):
+    """q of quarters; each row's keys one key repeated, a signed 1 or 2 on
+    one dim, so with scale 1/4 every logit is on the binary8 and e4m3 grids
+    and equal along the row (every exp 0 or 1); v of eighths: every sum
+    exact, so the three sides agree bit for bit whatever their orders."""
+    q = rng.integers(-4, 5, (BKV, G, DK)) / 4
+    k = np.zeros((BKV, 1, DK))
+    k[np.arange(BKV), 0, rng.integers(0, DK, BKV)] = rng.choice(
+        [-2, -1, 1, 2], BKV)
+    v = rng.integers(-8, 9, (BKV, Smax, DK)) / 8
+    return [x.astype(np.float32) for x in (q, np.repeat(k, Smax, 1), v)]
+
+
+@pytest.mark.parametrize("kv_fmt", [None, "e4m3"])
+@pytest.mark.parametrize("Smax,kb,lengths,window", K9_PAGED_CASES)
+def test_decode_paged_twin_over_contiguous_cache(interpret_params, Smax, kb,
+                                                 lengths, window, kv_fmt):
+    """K10's twin over the contiguous cache viewed as pages of ``kb`` keys
+    (tables counting up, the ragged last block padded) equals K9's twin
+    bit for bit on any input, and the reference's interpret kernel bit for
+    bit on exact inputs (within the attention contract on N(0, 1)): the
+    equality K9's card route rests on."""
+    G = H // KV
+    js, ts = _specs("binary8-sr")
+    for exact in (True, False):
+        rng = np.random.default_rng(Smax + kb + window + int(exact))
+        if exact:
+            q, k, v = _exact_decode_inputs(B * KV, G, Smax, rng)
+        else:
+            q = _inputs((B * KV, G, DK), False, rng)
+            k, v = (_inputs((B * KV, Smax, DK), False, rng)
+                    for _ in range(2))
+        if kv_fmt is not None:
+            k, v = (np.asarray(jcommon.pack_block(
+                jparse("e4m3-rn")(jnp.asarray(x)), kv_fmt)) for x in (k, v))
+        seeds = _seeds(B * KV, 6, rng)
+        kt, vt = torch.from_numpy(k.copy()), torch.from_numpy(v.copy())
+        kp, tables = _contiguous_as_pages(kt, KV, kb)
+        vp, _ = _contiguous_as_pages(vt, KV, kb)
+        kw = dict(scale=0.25, window=window, kv_fmt=kv_fmt)
+        for length in lengths:
+            flat = TF.flash_decode_plain(_t(q), kt, vt, seeds, length, ts,
+                                         kv_block=kb, **kw)
+            paged = TF.flash_decode_paged_plain(
+                _t(q), kp, vp, seeds, np.full(B, length, np.int32), tables,
+                ts, n_kv=KV, **kw)
+            assert torch.equal(flat.view(torch.int32),
+                               paged.view(torch.int32)), (exact, length)
+            ref = JF.flash_decode_p(*map(jnp.asarray, (q, k, v, seeds)),
+                                    length, js, kv_block=kb, interpret=True,
+                                    **kw)
+            if exact:
+                assert _bits_equal(ref, paged), length
+            else:
+                _assert_flips(ref, paged, "binary8", adjacent=False)
+
+
+# (S_max, kv_block, head dim, cache element bytes, the kernel K9 launches):
+# the decode kernel where the logits of one kv block fit in its shared
+# memory (decode_smem_bytes with no table), else the tiled kernel
+DECODE_PLANS = [
+    (48, 512, 64, 1, "flash_decode"),             # the serve shape
+    (200, 64, 64, 4, "flash_decode"),
+    (4096, 4096, 128, 4, "flash_decode"),
+    (60000, 53888, 64, 1, "flash_decode"),        # the last that fits
+    (60000, 53889, 64, 1, "flash_decode_tiled"),
+    (60000, 47744, 64, 4, "flash_decode"),
+    (60000, 47745, 64, 4, "flash_decode_tiled"),
+    (60000, 60000, 16, 2, "flash_decode_tiled"),
+    (10, 0, 64, 1, "flash_decode_tiled"),         # no keys per block
+]
+
+
+@pytest.mark.parametrize("Smax,kb,d,elt,want", DECODE_PLANS)
+def test_decode_kernel_choice(Smax, kb, d, elt, want):
+    assert TF.decode_kernel_for(Smax, kb, d, d, elt) == want
+    if kb:
+        fits = TF.decode_smem_bytes(min(kb, Smax), d, d, elt, 0) \
+            <= TF.SMEM_MAX
+        assert fits == (want == "flash_decode")
+
+
+def test_decode_smem_bytes():
+    """V rows of a 128-key round, q, the logits of a round (or of one
+    longer page), 32 pages' maxima, sums and P.V partials, the table."""
+    assert TF.decode_smem_bytes(48, 64, 64, 1, 0) == 128 * 64 + 4 * (
+        64 + 128 + 64 + 32 * 64)
+    assert TF.decode_smem_bytes(48, 64, 64, 1, 3) \
+        == TF.decode_smem_bytes(48, 64, 64, 1, 0) + 12
+    assert TF.decode_smem_bytes(300, 64, 64, 4, 0) \
+        == TF.decode_smem_bytes(128, 64, 64, 4, 0) + 4 * 172
+
+
+def test_flash_decode_kernel_override_is_checked():
+    """``kernel`` may name the tiled kernel for any shape, the decode
+    kernel only where it fits; anything else raises before any work."""
+    rng = np.random.default_rng(6)
+    q = torch.from_numpy(rng.standard_normal((2, 3, 16)).astype(np.float32))
+    k, v = (torch.from_numpy(rng.standard_normal((2, 9, 16)).astype(
+        np.float32)) for _ in range(2))
+    seeds = rng.integers(0, 2 ** 32, (2, 6), dtype=np.uint64)
+    specs = [parse_spec("binary8-sr")] * 3
+    ref = TF.flash_decode(q, k, v, seeds, 7, specs, scale=0.25, kv_block=4)
+    for kernel in ("flash_decode", "flash_decode_tiled"):
+        got = TF.flash_decode(q, k, v, seeds, 7, specs, scale=0.25,
+                              kv_block=4, kernel=kernel)
+        assert torch.equal(ref, got)
+    with pytest.raises(ValueError, match="cannot launch"):
+        TF.flash_decode(q, k, v, seeds, 7, specs, scale=0.25, kv_block=4,
+                        kernel="fwd_kernel")
+    big = torch.zeros((1, 60000, 16))
+    assert TF.decode_kernel_for(60000, 60000, 16, 16, 4) \
+        == "flash_decode_tiled"
+    with pytest.raises(ValueError, match="cannot launch"):
+        TF.flash_decode(q[:1], big, big, seeds[:1], 3, specs, scale=0.25,
+                        kv_block=60000, kernel="flash_decode")
+
+
 # ------------------------------------------------------- packed KV cache --
 @pytest.mark.parametrize("fmt", ["binary8", "e4m3", "bfloat16", "binary16"])
 def test_pack_block_matches_reference(fmt):
@@ -538,7 +681,8 @@ def test_attention_launches_per_path(monkeypatch, tmp_path):
                      gen=3, gemm_policy="binary8-paper-attn", device="cpu")
     assert calls == {"flash_fwd": 0, "flash_fwd_two_pass": 0,
                      "flash_bwd_dq": 0, "flash_bwd_dkv": 0,
-                     "flash_decode": L * (5 + 3), "flash_decode_paged": 0}
+                     "flash_decode": L * (5 + 3), "flash_decode_tiled": 0,
+                     "flash_decode_paged": 0}
     assert out["cache_dtype"] == torch.uint8
     assert out["cache_bytes"] == 2 * L * 2 * 8 * 2 * 16
     calls.update({k: 0 for k in calls})
@@ -549,7 +693,8 @@ def test_attention_launches_per_path(monkeypatch, tmp_path):
                       ckpt_dir=str(tmp_path))
     assert calls == {"flash_fwd": 2 * L, "flash_fwd_two_pass": 0,
                      "flash_bwd_dq": 2 * L, "flash_bwd_dkv": 2 * L,
-                     "flash_decode": 0, "flash_decode_paged": 0}
+                     "flash_decode": 0, "flash_decode_tiled": 0,
+                     "flash_decode_paged": 0}
     assert all(np.isfinite(h["loss"]) for h in hist["history"])
 
 

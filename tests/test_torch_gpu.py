@@ -26,11 +26,13 @@ elements different on N(0, 1) inputs (float32 sums in another order, a
 value within an ulp of a rounding decision); K9 over packed codes bitwise
 K9 over the same values unpacked; K6's single pass bitwise equal to its
 two-pass kernel in every output on any input (the same operations in the
-same order).  K10 (paged decode) bitwise equal to its
+same order); K9 on the decode kernel bitwise equal to its tiled kernel
+(``kernel="flash_decode_tiled"``) on any input, blocks that do not fit
+the decode kernel going to the tiled one.  K10 (paged decode) bitwise equal to its
 twin on exact-sum inputs (every key of a request equal: each logit of a
 row equal, every exp exactly 1, every sum exact), within the attention
-contract on N(0, 1) inputs, bitwise equal to K9 on each request's
-contiguous cache with ``kv_block == page`` (pages of 5 to 128 keys, head
+contract on N(0, 1) inputs, bitwise equal to K9's tiled kernel on each
+request's contiguous cache with ``kv_block == page`` (pages of 5 to 128 keys, head
 dims 16 to 128, G = 1 to 8, windows, codes and float32 pools, and every
 compiled instance of its kernel: 2-byte codes, head dims outside 16, 32,
 64 and 128, dk != dv, pools off 16-byte boundaries), the same bits at
@@ -50,10 +52,13 @@ statistical logit bound (a GEMM sum flipped upstream moves an SR
 decision by a grid ulp, which propagates).  The explicit-bits kernels
 (K3, K4, K8) are bitwise equal to their in-kernel-bits kernels fed the
 same words on any input (one main loop), and to their twins under the
-GEMM contract; K1 and K1''s signed-SRe branch bitwise on any input;
+GEMM contract; K1 and K1''s signed-SRe branch bitwise on any input, K1's
+path instance bitwise its generic one;
 packed outputs are bitwise the codes of the float outputs, packed
 operands sum bitwise as their values.
 """
+import math
+
 import numpy as np
 import pytest
 import torch
@@ -509,6 +514,80 @@ def test_flash_decode_kernel_matches_plain(cuda, kb):
                       share=max(1e-4, 1.0 / got.numel()))
 
 
+# K9's two routes: (S_max, kv_block, lengths, window); the serve shape's
+# one block of 48 keys (not a power of two), blocks of 64 with a ragged
+# last block of 8, a window, blocks longer than one 128-key round
+K9_ROUTE_CASES = [(48, 48, (1, 17, 48), 0),
+                  (200, 64, (1, 63, 64, 65, 200), 0),
+                  (200, 64, (30, 65, 200), 50),
+                  (300, 256, (1, 129, 256, 257, 300), 0)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("fmt,offset", [("e4m3", False), (None, False),
+                                        ("binary8", False), ("e4m3", True),
+                                        (None, True)])
+@pytest.mark.parametrize("name", ["binary8-sr", "binary8-sr-r16",
+                                  "binary8-sr-r8"])
+@pytest.mark.parametrize("Smax,kb,lengths,window", K9_ROUTE_CASES)
+def test_flash_decode_routes_agree(cuda, Smax, kb, lengths, window, name,
+                                   fmt, offset):
+    """K9 on the decode kernel bitwise its tiled kernel on N(0, 1) inputs
+    (on ``fmt``'s grid: a cache of ``fmt`` codes, or float32 where None;
+    off a 16-byte boundary with ``offset``), each launch counted on its
+    route."""
+    BKV, G, d = 16, 8, 64
+    specs = [parse_spec(name)] * 3
+    q = _normal((BKV, G, d), Smax).to(cuda)
+    k, v = (_normal((BKV, Smax, d), Smax + s).to(cuda) for s in (1, 2))
+    if fmt is not None:
+        k, v = (tcommon.pack_block(parse_spec(f"{fmt}-rn")(x), fmt)
+                for x in (k, v))
+    if offset:
+        k, v = _off16(k), _off16(v)
+    seeds = np.random.default_rng(kb).integers(0, 2 ** 32, (BKV, 6),
+                                               dtype=np.uint64)
+    assert tfa.decode_kernel_for(Smax, kb, d, d, 1) == "flash_decode"
+    kw = dict(scale=0.125, window=window, kv_block=kb, kv_fmt=fmt)
+    for length in lengths:
+        tfa.reset_launches()
+        got = tfa.flash_decode(q, k, v, seeds, length, specs, **kw)
+        tiled = tfa.flash_decode(q, k, v, seeds, length, specs,
+                                 kernel="flash_decode_tiled", **kw)
+        torch.cuda.synchronize()
+        assert _bitwise(got, tiled), length
+        assert tfa.LAUNCHES == dict(dict.fromkeys(tfa.LAUNCHES, 0),
+                                    flash_decode=1, flash_decode_tiled=1)
+
+
+@pytest.mark.gpu
+def test_flash_decode_tiled_when_block_does_not_fit(cuda):
+    """A kv_block whose logits overflow the decode kernel's shared memory
+    runs the tiled kernel, counted apart, within the contract of the twin;
+    forcing the decode kernel there raises before any launch."""
+    Smax, G, d = 60000, 4, 16
+    assert tfa.decode_kernel_for(Smax, Smax, d, d, 4) == "flash_decode_tiled"
+    specs = [parse_spec("binary8-sr")] * 3
+    q = _normal((2, G, d), 1).to(cuda)
+    k, v = (_normal((2, Smax, d), s).to(cuda) for s in (2, 3))
+    seeds = np.random.default_rng(2).integers(0, 2 ** 32, (2, 6),
+                                              dtype=np.uint64)
+    tfa.reset_launches()
+    got = tfa.flash_decode(q, k, v, seeds, 59000, specs, scale=0.25,
+                           kv_block=Smax)
+    ref = tfa.flash_decode_plain(q, k, v, seeds, 59000, specs, scale=0.25,
+                                 kv_block=Smax)
+    torch.cuda.synchronize()
+    _assert_flips(ref, got, "binary8", adjacent_only=False,
+                  share=max(1e-4, 1.0 / got.numel()))
+    assert tfa.LAUNCHES["flash_decode_tiled"] == 1
+    assert tfa.LAUNCHES["flash_decode"] == 0
+    with pytest.raises(ValueError, match="cannot launch"):
+        tfa.flash_decode(q, k, v, seeds, 59000, specs, scale=0.25,
+                         kv_block=Smax, kernel="flash_decode")
+    assert tfa.LAUNCHES["flash_decode"] == 0
+
+
 @pytest.mark.gpu
 def test_flash_kernels_count_their_launches(cuda):
     tfa.reset_launches()
@@ -535,7 +614,8 @@ def test_flash_kernels_count_their_launches(cuda):
                                  scale=0.125, n_kv=1)
     assert tfa.LAUNCHES == {"flash_fwd": 1, "flash_fwd_two_pass": 0,
                             "flash_bwd_dq": 1, "flash_bwd_dkv": 1,
-                            "flash_decode": 1, "flash_decode_paged": 1}
+                            "flash_decode": 1, "flash_decode_tiled": 0,
+                            "flash_decode_paged": 1}
 
 
 def _fwd_case(H, KV, S, d, exact, cuda, seed=0):
@@ -715,7 +795,8 @@ def test_flash_decode_paged_kernel_matches_plain(cuda, page, name):
             sl = slice(b * n_kv, (b + 1) * n_kv)
             k9 = tfa.flash_decode(q[sl].to(cuda), k[sl].to(cuda),
                                   v[sl].to(cuda), seeds[sl], int(n), specs,
-                                  scale=0.125, kv_block=page)
+                                  scale=0.125, kv_block=page,
+                                  kernel="flash_decode_tiled")
             torch.cuda.synchronize()
             assert torch.equal(k9.view(torch.int32),
                                outs[0][sl].view(torch.int32))
@@ -736,7 +817,8 @@ def _off16(t):
     return out
 
 
-# K10's own kernel against K9 (fwd_kernel) with kv_block == page: pages of
+# K10's own kernel against K9's tiled kernel (fwd_kernel) with kv_block ==
+# page: pages of
 # 5 to 128 keys (128 spans two 64-key chunks), head dims 16, 64 and 128,
 # G = 1, 3 and 8, windows, e4m3 codes and float32 pools; then every other
 # compiled instance of K10's kernel: 2-byte codes (kCode: bfloat16,
@@ -772,7 +854,8 @@ def _off16(t):
     (16, 16, 16, 3, 7, "binary8", True)])
 def test_flash_decode_paged_kernel_matches_k9(cuda, page, dk, dv, G, window,
                                               fmt, offset):
-    """K10 bitwise K9 (fwd_kernel) with kv_block == page on N(0, 1)
+    """K10 bitwise K9's tiled kernel (fwd_kernel) with kv_block == page
+    on N(0, 1)
     inputs on ``fmt``'s grid (pools of ``fmt`` codes, or float32 values
     where None; off a 16-byte boundary with ``offset``), and bitwise at
     two placements of the same content."""
@@ -802,7 +885,8 @@ def test_flash_decode_paged_kernel_matches_k9(cuda, page, dk, dv, G, window,
     for b, n in enumerate(lengths):
         sl = slice(b * n_kv, (b + 1) * n_kv)
         k9 = tfa.flash_decode(q[sl].to(cuda), k[sl].to(cuda), v[sl].to(cuda),
-                              seeds[sl], int(n), specs, kv_block=page, **kw)
+                              seeds[sl], int(n), specs, kv_block=page,
+                              kernel="flash_decode_tiled", **kw)
         torch.cuda.synchronize()
         assert _bitwise(k9, outs[0][sl]), (b, int(n))
 
@@ -1464,6 +1548,30 @@ def test_sr_cast_bits_kernel_matches_plain(cuda, shape):
         torch.cuda.synchronize()
         assert _same(got, ref), (fmt, mode, rb)
         assert _same(prng, prng_ref), (fmt, mode, rb)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape,offset", [((128, 1, 768), 0),
+                                          ((2 ** 20 + 37,), 0),
+                                          ((98304 + 3,), 1), ((129,), 1)],
+                         ids=lambda x: str(x))
+def test_sr_cast_bits_path_instance_matches_generic(cuda, shape, offset):
+    """K1's sr_r32 instance (the oracle act site's spec) bitwise its
+    generic instance and the twin, at the path's shape, a ragged length
+    and views off a 16-byte boundary (scalar accesses)."""
+    n = math.prod(shape)
+    x = _normal((n + offset,), 15, 4.0).to(cuda)[offset:].view(shape)
+    bits = int32_words(tcommon.counter_bits_reduced(
+        *SEEDS[2], (n + offset, 1), 32, device=cuda).reshape(-1))[offset:]
+    bits = bits.view(shape)
+    assert (x.data_ptr() % 16 != 0) == bool(offset)
+    assert tsr.sr_cast_bits_instance("sr", 32, False) == "sr_r32"
+    path = tsr.sr_cast(x, bits, "binary8", "sr")
+    generic = tsr.sr_cast(x, bits, "binary8", "sr", instance="generic")
+    ref = tsr.sr_cast_plain(x, bits, "binary8", "sr", 32)
+    torch.cuda.synchronize()
+    assert _same(path, ref)
+    assert _same(generic, ref)
 
 
 @pytest.mark.gpu

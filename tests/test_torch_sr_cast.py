@@ -1,5 +1,5 @@
-"""K1''s launch plan on the CPU: which compiled instance a spec runs, and
-how its threads split a tensor.
+"""K1''s and K1's launch plans on the CPU: which compiled instance a spec
+runs, and how their threads split a tensor.
 
 Each K1' thread rounds ``prng_group(rand_bits)`` consecutive elements and
 evaluates one Threefry for them (``csrc/sr_cast.cu:sr_cast_prng_kernel``).
@@ -28,6 +28,40 @@ WORDS = (0x6A09E667, 0xBB67AE85)
 def test_instance_choice(mode, rand_bits, has_v, want):
     assert tsr.sr_cast_instance(mode, rand_bits, has_v) == want
     assert want in tsr.SR_CAST_INSTANCES
+
+
+@pytest.mark.parametrize("mode,rand_bits,has_v,want", [
+    ("sr", 32, False, "sr_r32"), ("sr", 16, False, "generic"),
+    ("sr", 8, False, "generic"), ("rn", 32, False, "generic"),
+    ("sr_eps", 32, False, "generic"), ("signed_sr_eps", 32, True, "generic"),
+    ("sr", 32, True, "generic")])
+def test_bits_instance_choice(mode, rand_bits, has_v, want):
+    """K1's instances: ``sr_r32`` for the oracle act site's spec, the
+    generic one for everything else."""
+    assert tsr.sr_cast_bits_instance(mode, rand_bits, has_v) == want
+    assert want in tsr.SR_CAST_INSTANCES
+
+
+def test_bits_path_spec_takes_the_path_instance():
+    """The act site of ``binary8-paper`` (whose oracle form the MoE serve
+    runs through K1) is the spec the ``sr_r32`` instance fixes."""
+    from repro_torch.precision import get_policy
+    act = get_policy("binary8-paper").act
+    assert tsr.sr_cast_bits_instance(act.mode, act.rand_bits,
+                                     False) == "sr_r32"
+
+
+def test_bits_instance_override_refused_where_it_does_not_fit():
+    x = torch.linspace(-3, 3, 11)
+    bits = torch.arange(11, dtype=torch.int64) * 0x1F3D5B79
+    with pytest.raises(ValueError, match="sr_r32"):
+        tsr.sr_cast(x, bits, "binary8", "sr", rand_bits=16,
+                    instance="sr_r32")
+    # the generic instance takes every spec; on the CPU the twin runs
+    ref = tsr.sr_cast(x, bits, "binary8", "sr")
+    out = tsr.sr_cast(x, bits, "binary8", "sr", instance="generic")
+    assert torch.equal(out, ref)
+    assert torch.equal(out, tsr.sr_cast_plain(x, bits, "binary8", "sr"))
 
 
 def test_instance_override_refused_where_it_does_not_fit():
