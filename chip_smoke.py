@@ -60,21 +60,27 @@ Phases (any failed check exits non-zero; there is no CPU fallback):
    bitwise K9 over the unpacked values, K9's decode kernel bitwise its
    tiled kernel there and at S_max 200 and 300 (blocks of 64 with a ragged
    last block, a window, blocks of 256), 32-, 16- and 8-bit draws, e4m3
-   and float32 caches; K6's single pass bitwise equal to its two-pass
+   and float32 caches; K7 and K7' on their tiled kernels bitwise equal to
+   their first kernels (``flash_bwd_dq_simple``, ``flash_bwd_dkv_simple``,
+   forced; each launch counted on its route) in dq, dk and dv on N(0, 1)
+   inputs at the train step's shapes and in the three ragged cases; K6's
+   single pass bitwise equal to its two-pass
    kernel in out, m, l and the logits on N(0, 1) inputs, and a block too
    large for the single pass (S = 1024, d = 128) run by the two-pass kernel
    and counted apart; timed beside the bound, the twin and
    ``scaled_dot_product_attention`` (float32, unrounded: a yardstick
    only; for K7 and K7' its backward alone, one forward kept, beside the
-   forward + backward), K9 on both routes, K7, K7', SDPA and SDPA's
-   backward also by CUDA-graph replay (``device_ms``: device time without
-   the host's cost per call);
+   forward + backward), K9 on both routes, K7 and K7' on both routes,
+   SDPA and SDPA's backward also by CUDA-graph replay (``device_ms``:
+   device time without the host's cost per call);
 11. serve tinyllama-1.1b under ``binary8-paper-attn`` (rounded attention,
    packed e4m3 KV cache): launch counts (K9 once per layer per token, on
    its decode kernel: the tiled route launched no time);
 12. its agreement: reduced tinyllama card vs CPU, logits and cache codes;
 13. train tinyllama-1.1b under ``binary8-paper-attn`` (4 steps, batch 4 x
-   256): K6, K7, K7' once per layer per step, finite losses;
+   256): K6, K7, K7' once per layer per step, on their single-pass and
+   tiled kernels (the two-pass and first kernels launched no time), finite
+   losses;
 14. its agreement: reduced tinyllama, 2 steps card vs CPU;
 15. MoE kernels vs plain: K1' (the SR cast, 128-lane bits) bitwise at
    n = 2**24 + 37 and at the path's (128, 1, 768) for binary8 sr with 32-,
@@ -740,9 +746,25 @@ def attention_phase(torch, tfa):
                    dkv=(tfa.flash_bwd_dkv, tfa.flash_bwd_dkv_plain,
                         (seeds, specs[0], specs[0], specs[1])))
         for key, (kern, plain, extra) in bwd.items():
+            before = dict(tfa.LAUNCHES)
             got = kern(q, k, v, do, r_m, r_l, dd, *extra, **kw)
+            first = kern(q, k, v, do, r_m, r_l, dd, *extra, **kw,
+                         kernel=f"{kern.__name__}_simple")
             ref = plain(q, k, v, do, r_m, r_l, dd, *extra, **kw)
             torch.cuda.synchronize()
+            launched = {n: tfa.LAUNCHES[n] - before[n] for n in before
+                        if tfa.LAUNCHES[n] != before[n]}
+            if launched != {kern.__name__: 1, f"{kern.__name__}_simple": 1}:
+                fail(f"{kern.__name__} {tag}: launches {launched}, not one "
+                     "on each route")
+            # the tiled kernel against the first kernel: bitwise
+            for nm, a, b in zip(("dq",) if key == "dq" else ("dk", "dv"),
+                                (got,) if key == "dq" else got,
+                                (first,) if key == "dq" else first):
+                if not bitwise(torch, a, b):
+                    fail(f"flash_bwd {nm} {tag}: the tiled kernel differs "
+                         "from the first kernel")
+            del first
             pairs = zip(("dq",), (got,), (ref,)) if key == "dq" else \
                 zip(("dk", "dv"), got, ref)
             checks = [check_flips(f"flash_bwd {nm} {tag}", r, g, "binary8")
@@ -753,7 +775,8 @@ def attention_phase(torch, tfa):
                 "adjacent": all(c["adjacent"] for c in checks),
                 "max_abs_err": max(c["max_abs_err"] for c in checks)}
             del got, ref
-        print(f"  {tag}: logits and m bitwise (exact sums); N(0,1) "
+        print(f"  {tag}: logits and m bitwise (exact sums); dq, dk, dv of "
+              "the tiled kernels bitwise the first kernels'; N(0,1) "
               f"mismatches out {res['flash_fwd']['mismatches']}, dq "
               f"{res['flash_bwd_dq']['mismatches']}, dk+dv "
               f"{res['flash_bwd_dkv']['mismatches']} (adjacent: "
@@ -822,13 +845,18 @@ def attention_phase(torch, tfa):
         seeds_c, seeds_dq_c = (
             torch.from_numpy(x.astype(np.uint32).view(np.int32)).to(dev)
             for x in (seeds, seeds_dq))
-        on_card = {
-            "flash_bwd_dq": lambda i: tfa.flash_bwd_dq(
-                q, k, v, do, r_m, r_l, dd, seeds_dq_c, specs[0], specs[0],
-                **kw),
-            "flash_bwd_dkv": lambda i: tfa.flash_bwd_dkv(
-                q, k, v, do, r_m, r_l, dd, seeds_c, specs[0], specs[0],
-                specs[1], **kw)}
+
+        def bwd_call(kname, on_card, **route):
+            """One backward launch (``route``: a ``kernel=``), its seed
+            words from the host or, for graph replay, on the card."""
+            if kname == "flash_bwd_dq":
+                return lambda i: tfa.flash_bwd_dq(
+                    q, k, v, do, r_m, r_l, dd,
+                    seeds_dq_c if on_card else seeds_dq, specs[0], specs[0],
+                    **kw, **route)
+            return lambda i: tfa.flash_bwd_dkv(
+                q, k, v, do, r_m, r_l, dd, seeds_c if on_card else seeds,
+                specs[0], specs[0], specs[1], **kw, **route)
         for kname, (kern, plain, lib, lib_what) in timed.items():
             ms = time_ms(torch, kern, 1)
             plain_ms = time_ms(torch, plain, 1, iters=3, warmup=1)
@@ -838,17 +866,26 @@ def attention_phase(torch, tfa):
                                    bound_by=by, library_ms=lib,
                                    library=lib_what,
                                    tflops=flops / (ms * 1e-3) / 1e12)
-            if kname != "flash_fwd":   # the backward: device times too
+            if kname != "flash_fwd":   # the backward: device times too,
+                # and the first kernel's beside the tiled one's
+                first = dict(kernel=f"{kname}_simple")
                 rows[kname][-1].update(
-                    device_ms=graph_ms(torch, on_card[kname], 1, iters=10),
+                    device_ms=graph_ms(torch, bwd_call(kname, True), 1,
+                                       iters=10),
                     library_device_ms=sdpa_bwd_dev,
-                    library_fwd_bwd_ms=sdpa_both)
+                    library_fwd_bwd_ms=sdpa_both,
+                    simple_ms=time_ms(torch, bwd_call(kname, False, **first),
+                                      1),
+                    simple_device_ms=graph_ms(
+                        torch, bwd_call(kname, True, **first), 1, iters=10))
             print(f"  {kname:14s} B.H={bh} S={s_len} d={d}: kernel "
                   f"{ms:.4f} ms ({flops / (ms * 1e-3) / 1e12:.2f} TFLOP/s)"
                   f"  bound {bms:.4f} ms ({by})  plain {plain_ms:.3f} ms  "
                   f"{lib_what} (float32, unrounded) {lib:.4f} ms"
                   + (f"; device (graph replay) kernel "
-                     f"{rows[kname][-1]['device_ms']:.4f} ms, SDPA backward "
+                     f"{rows[kname][-1]['device_ms']:.4f} ms (first kernel "
+                     f"{rows[kname][-1]['simple_device_ms']:.4f}, by events "
+                     f"{rows[kname][-1]['simple_ms']:.4f}), SDPA backward "
                      f"{sdpa_bwd_dev:.4f} ms, SDPA forward + backward "
                      f"{sdpa_both:.4f} ms" if kname != "flash_fwd" else ""),
                   flush=True)
@@ -3416,7 +3453,11 @@ def main() -> None:
                {"device_ms": LAYERS * main_row["device_ms"],
                 "library_device_ms": LAYERS * main_row["library_device_ms"],
                 "library_fwd_bwd_ms": LAYERS * main_row[
-                    "library_fwd_bwd_ms"]}),
+                    "library_fwd_bwd_ms"],
+                "simple_ms": LAYERS * main_row["simple_ms"],
+                "simple_device_ms": LAYERS * main_row["simple_device_ms"],
+                "launches_simple": trained_attn["launches"][
+                    f"{name}_simple"]}),
             mismatch_share=max(r["mismatch_share"] for r in attn_rows[name]),
             timed=(f"one decode step's {LAYERS} launches at length "
                    f"{DECODE['Smax']}" if serve_path else

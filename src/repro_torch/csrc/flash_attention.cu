@@ -3,8 +3,11 @@
 //
 // Replaces the TPU kernels of repro/kernels/flash_attention.py:
 //   flash_fwd      <- flash_fwd_p      (K6, training forward)
-//   flash_bwd_dq   <- flash_bwd_dq_p   (K7, dq)
-//   flash_bwd_dkv  <- flash_bwd_dkv_p  (K7', per-query-head dk, dv)
+//   flash_bwd_dq   <- flash_bwd_dq_p   (K7, dq; its first kernel stays
+//                                        as flash_bwd_dq_simple)
+//   flash_bwd_dkv  <- flash_bwd_dkv_p  (K7', per-query-head dk, dv; its
+//                                        first kernel stays as
+//                                        flash_bwd_dkv_simple)
 //   flash_decode   <- flash_decode_p   (K9, one-token decode over a float
 //                                        or packed KV cache; its first
 //                                        kernel stays as flash_decode_tiled)
@@ -48,12 +51,28 @@
 // (flash_fwd_two_pass).  The products stay on the CUDA cores in float32:
 // TF32 or bf16 mma would change the logits that K7 and K7' recompute.
 // fwd_kernel stages q, K and V tiles in shared memory and runs fp32 FMAs
-// from there (two shared loads per FMA), computing each logit twice.  The
-// backward kernels keep that simple design.  K9's first version ran
-// fwd_kernel too, one block per (batch, kv head) for G = 8 query rows (16
-// blocks at the serve shape); it stays as flash_decode_tiled, the
-// bitwise reference of the decode kernel below and K9's route for blocks
-// whose logits that kernel cannot hold.
+// from there (two shared loads per FMA), computing each logit twice.  K9's
+// first version ran fwd_kernel too, one block per (batch, kv head) for G =
+// 8 query rows (16 blocks at the serve shape); it stays as
+// flash_decode_tiled, the bitwise reference of the decode kernel below and
+// K9's route for blocks whose logits that kernel cannot hold.
+//
+// The backward is bound the same way: per unmasked pair K7 does 3 d FMAs
+// (the logit, dp = dO.v, ds.k) and K7' 4 d (the logit, dp, p.dO, ds.q),
+// plus one qk draw.  The first versions (dq_kernel, dkv_kernel, kept as
+// flash_bwd_dq_simple / flash_bwd_dkv_simple) ran each product as a scalar
+// fmaf loop with two shared loads per FMA, one Threefry evaluation per
+// pair and per rounded output, tiles staged by divisions and scalar loads,
+// accumulators sized for d = 128: the load/store unit, not the FMA pipe,
+// bound them, at 16-21x their bound.  dq_tile_kernel and dkv_tile_kernel
+// (below) keep every sum in the first versions' order and tile it as
+// fwd1_kernel does: 4 x 4 patches of pairs and 4-column output runs from
+// float4 loads (eight shared loads per 64 FMAs), draws shared by four keys
+// or columns, 64-row blocks templated on d, K7's k and v tiles through a
+// two-buffer cp.async ring, and K7's heaviest causal blocks (the last query
+// rows) launched first.  Each tile still recomputes the logits and p that
+// the other kernel also computes: one pass for both would change K7's
+// interface (a ds scratch).
 //
 // Decode (K9 and K10) has a kernel of its own, decode_paged_kernel: one
 // block per (request, kv head, query row), so the engine's 4 slots x 4
@@ -448,19 +467,26 @@ __device__ __forceinline__ float round_bits(float x,
   return p.enabled ? rt::round_value(x, bits, p) : x;
 }
 
-// Rows [key0, key0 + n) of a (rows, D) float32 array into a kFTK x D
-// stage buffer, 16 bytes per cp.async; K rows swizzled (chunk ^ (row / 4)).
+// Rows [0, n) of a (rows, D) float32 array into rows [0, n) of a stage
+// buffer, 16 bytes per cp.async (not committed); K rows swizzled (chunk ^
+// (row / 4)).
 template <int D, bool kSwizzled>
-__device__ __forceinline__ void stage_tile(float* buf, const float* src,
-                                           int key0, int n) {
+__device__ __forceinline__ void copy_rows(float* buf, const float* src,
+                                          int n) {
   using S = FwdShape<D>;
   for (int e = threadIdx.x; e < n * S::kChunks; e += kThreads) {
     const int c = e / S::kChunks, ch = e % S::kChunks;
     const int pch = kSwizzled ? ch ^ ((c >> 2) & S::kSwizzle) : ch;
     __pipeline_memcpy_async(buf + c * D + 4 * pch,
-                            src + static_cast<size_t>(key0 + c) * D + 4 * ch,
-                            16);
+                            src + static_cast<size_t>(c) * D + 4 * ch, 16);
   }
+}
+
+// Rows [key0, key0 + n) into a kFTK x D stage buffer, one commit group.
+template <int D, bool kSwizzled>
+__device__ __forceinline__ void stage_tile(float* buf, const float* src,
+                                           int key0, int n) {
+  copy_rows<D, kSwizzled>(buf, src + static_cast<size_t>(key0) * D, n);
   __pipeline_commit();
 }
 
@@ -1371,6 +1397,455 @@ __global__ void __launch_bounds__(kThreads) dkv_kernel(BwdArgs a) {
 }
 
 // ---------------------------------------------------------------------------
+// K7 / K7': the tiled backward (dq_tile_kernel, dkv_tile_kernel).
+// ---------------------------------------------------------------------------
+// Each block takes 64 rows of one head -- query rows (K7) or keys (K7') --
+// and walks the other side in tiles of 64, the first versions' 64-key
+// tiles in K7.  Per tile, thread (rq, kq) = (tid / 16, tid % 16) computes
+// the 4 x 4 pairs of rows 4 rq.. and keys 4 kq..: 16 logit chains and 16
+// dp chains from float4 shared loads (k and v rows swizzled by 16-byte
+// chunk), the four keys' qk draws of a row from one or two Threefry
+// evaluations (site_bits4), then p and ds exactly as p_ds forms them,
+// written once to shared memory.  The products follow: a thread owns
+// D / 16 rows x 4 columns of dq (K7), or of dk and dv (K7').
+//
+// Bitwise the first versions.  Every chain keeps its operands and order:
+// a logit is qk_logit's fmaf chain over t = 0..d-1, dp is dot's, dq sums
+// its keys in order (fmaf(ds, k, x)), dk and dv their query rows in order;
+// p, ds and the row statistics are p_ds's and load_row_stats'; each
+// logical block's contribution is rounded once where the first version
+// rounds it (dq: stream j at (q position, column); dk, dv: stream i at (k
+// position, column)) and added to a sum that starts at +0.  A chain takes
+// exactly the terms the first version's did, the masked pairs' zeros
+// included, and no other (fmaf(+0, x, -0) is +0): the first versions cut
+// by their 32-row (K7) or 32-key (K7') blocks, so each thread cuts its
+// chains by the 32-row or 32-key block its own rows lie in -- K7 at that
+// block's causal edge in 64-key tiles, K7' after the 32-row tiles whose
+// rows all precede that block's first key.
+constexpr int kBR = 64;   // rows per block: query rows (K7), keys (K7')
+constexpr int kBT = 64;   // rows per tile: keys (K7), query rows (K7')
+static_assert(kBT == kTK, "K7's tiles are the first version's key tiles");
+
+template <int D>
+struct BwdShape {
+  static constexpr int kChunks = D / 4;
+  static constexpr int kSwizzle = FwdShape<D>::kSwizzle;
+  static constexpr int kRows = kBR * kChunks / kThreads;   // output rows
+  // two blocks per SM where their shared memory fits (d <= 64)
+  static constexpr int kMinBlocks = D <= 64 ? 2 : 1;
+};
+
+size_t dq_tile_smem(int d) {   // q, dO; two k and two v tiles; ds; stats
+  return sizeof(float) * (2 * kBR * d + 4 * kBT * d + kBR * kBT + 3 * kBR);
+}
+
+size_t dkv_tile_smem(int d) {  // k, v; a q and a dO tile; p, ds; stats
+  return sizeof(float) * (2 * kBR * d + 2 * kBT * d + 2 * kBT * kBR + 3 * kBT);
+}
+
+// The 4 x 4 dot products of rows 4 rq.. of A (row stride D) with rows
+// 4 kq.. of the swizzled B, each an fmaf chain over t = 0..D-1 in order.
+template <int D>
+__device__ __forceinline__ void patch_dots(const float* A, const float* B,
+                                           int rq, int kq, float (&s)[4][4]) {
+  using S = BwdShape<D>;
+#pragma unroll
+  for (int r = 0; r < 4; ++r)
+    s[r][0] = s[r][1] = s[r][2] = s[r][3] = 0.0f;
+#pragma unroll 4
+  for (int t = 0; t < D; t += 4) {
+    float4 af[4], bf[4];
+#pragma unroll
+    for (int r = 0; r < 4; ++r)
+      af[r] = *reinterpret_cast<const float4*>(A + (4 * rq + r) * D + t);
+    const int pch = (t / 4) ^ (kq & S::kSwizzle);
+#pragma unroll
+    for (int c = 0; c < 4; ++c)
+      bf[c] = *reinterpret_cast<const float4*>(B + (4 * kq + c) * D +
+                                               4 * pch);
+#pragma unroll
+    for (int r = 0; r < 4; ++r)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        s[r][c] = fmaf(af[r].x, bf[c].x, s[r][c]);
+        s[r][c] = fmaf(af[r].y, bf[c].y, s[r][c]);
+        s[r][c] = fmaf(af[r].z, bf[c].z, s[r][c]);
+        s[r][c] = fmaf(af[r].w, bf[c].w, s[r][c]);
+      }
+  }
+}
+
+// p and ds of valid pair (qpos, kpos) from its logit and dp chains: p_ds.
+__device__ __forceinline__ void pair_p_ds(float s, float dp, float safe,
+                                          float linv, float dd,
+                                          const rt::RoundParams& pq,
+                                          uint32_t bits, float scale,
+                                          float* p, float* ds) {
+  const float sv = round_bits(__fmul_rn(s, scale), pq, bits);
+  *p = __fmul_rn(expf(__fsub_rn(sv, safe)), linv);
+  *ds = __fmul_rn(__fmul_rn(*p, __fsub_rn(dp, dd)), scale);
+}
+
+// The keys of [k0, k1) that the first version's K7 visits for query
+// positions up to qpos_hi: its 64-key tiles up to the causal edge.
+__device__ __forceinline__ int dq_keys(int k0, int k1, int qpos_hi,
+                                       const Geo& g) {
+  if (!g.causal) return k1 - k0;
+  return k0 > qpos_hi ? 0 : min(k1 - k0, ((qpos_hi - k0) / kTK + 1) * kTK);
+}
+
+// The first row (from q0) of q block [q0, q1) that the first version's K7'
+// visits for keys from position cs on: its 32-row tiles whose last row
+// precedes cs are skipped; q1 - q0 where all are.
+__device__ __forceinline__ int dkv_first_row(int cs, int q0, int q1,
+                                             const Geo& g) {
+  if (!g.causal) return 0;
+  const int before = cs - g.q_offset - q0;
+  if (q1 - q0 - 1 < before) return q1 - q0;
+  return before > 0 ? before / kTQB * kTQB : 0;
+}
+
+// One logical block's rounded contribution added to the sum in `out`
+// (4 columns from c0 of one row, +0 before the first block).
+__device__ __forceinline__ void add_rounded4(float* out, const float (&x)[4],
+                                             bool first,
+                                             const rt::RoundParams& p,
+                                             const uint32_t* w,
+                                             uint32_t stream, uint32_t row,
+                                             uint32_t c0) {
+  uint32_t bits[4];
+  site_bits4(p, w, stream, row, c0, bits);
+  float4* o = reinterpret_cast<float4*>(out);
+  const float4 prev = first ? make_float4(0.0f, 0.0f, 0.0f, 0.0f) : *o;
+  *o = make_float4(__fadd_rn(prev.x, round_bits(x[0], p, bits[0])),
+                   __fadd_rn(prev.y, round_bits(x[1], p, bits[1])),
+                   __fadd_rn(prev.z, round_bits(x[2], p, bits[2])),
+                   __fadd_rn(prev.w, round_bits(x[3], p, bits[3])));
+}
+
+// N consecutive floats from shared memory, as wide as N allows.
+template <int N>
+__device__ __forceinline__ void load_run(const float* p, float (&x)[N]) {
+  if constexpr (N % 4 == 0) {
+#pragma unroll
+    for (int i = 0; i < N; i += 4) {
+      const float4 f = *reinterpret_cast<const float4*>(p + i);
+      x[i] = f.x;
+      x[i + 1] = f.y;
+      x[i + 2] = f.z;
+      x[i + 3] = f.w;
+    }
+  } else if constexpr (N == 2) {
+    const float2 f = *reinterpret_cast<const float2*>(p);
+    x[0] = f.x;
+    x[1] = f.y;
+  } else {
+#pragma unroll
+    for (int i = 0; i < N; ++i) x[i] = p[i];
+  }
+}
+
+// K7: 64 query rows of one head per block, the last rows' blocks (the
+// heaviest under a causal mask) launched first.
+template <int D>
+__global__ void __launch_bounds__(kThreads, BwdShape<D>::kMinBlocks)
+dq_tile_kernel(BwdArgs a) {
+  using S = BwdShape<D>;
+  constexpr int R = S::kRows;
+  extern __shared__ float smem[];
+  const Geo& g = a.g;
+  const int bh = blockIdx.x;
+  const int r0 = (gridDim.y - 1 - blockIdx.y) * kBR;
+  const int nr = min(kBR, g.rows - r0);
+  float* Qs = smem;                    // kBR x D
+  float* dOs = Qs + kBR * D;           // kBR x D
+  float* Ks = dOs + kBR * D;           // 2 x (kBT x D), swizzled
+  float* Vs = Ks + 2 * kBT * D;        // 2 x (kBT x D), swizzled
+  float* Ds = Vs + 2 * kBT * D;        // kBR x kBT
+  float* row_safe = Ds + kBR * kBT;
+  float* row_linv = row_safe + kBR;
+  float* row_d = row_linv + kBR;
+  const int tid = threadIdx.x;
+  const uint32_t* w = a.seeds + static_cast<size_t>(bh) * 4;
+  const rt::RoundParams& p_qk = a.sites.p[0];
+  const size_t qbase = static_cast<size_t>(bh) * g.rows + r0;
+  const size_t kvbase = static_cast<size_t>(kv_of(bh, g)) * g.kv_rows;
+  const float* kbase = a.k + kvbase * D;
+  const float* vbase = a.v + kvbase * D;
+
+  copy_rows<D, false>(Qs, a.q + qbase * D, nr);
+  copy_rows<D, false>(dOs, a.dO + qbase * D, nr);
+  __pipeline_commit();
+  for (int e = nr * D + tid; e < kBR * D; e += kThreads)
+    Qs[e] = dOs[e] = 0.0f;
+  if (tid < nr)
+    load_row_stats(a, qbase + tid, row_safe + tid, row_linv + tid,
+                   row_d + tid);
+  else if (tid < kBR)
+    row_safe[tid] = row_linv[tid] = row_d[tid] = 0.0f;
+  const int kq = tid % 16, rq = tid / 16;                   // pairs
+  const int pc = tid % S::kChunks, pr = tid / S::kChunks;   // dq outputs
+  // the causal edge of the block, and of the first version's 32-row block
+  // that holds this thread's dq rows
+  const int qpos_hi = g.q_offset + r0 + nr - 1;
+  const int qpos_hi_g = g.q_offset + min(r0 + ((pr * R) & ~31) + 31,
+                                         g.rows - 1);
+  const int n_k = (g.kv_rows + g.kb - 1) / g.kb;
+
+  for (int j = 0; j < n_k; ++j) {
+    const int k0 = j * g.kb, k1 = min(k0 + g.kb, g.kv_rows);
+    const int nkeys = dq_keys(k0, k1, qpos_hi, g);
+    const int mykeys = dq_keys(k0, k1, qpos_hi_g, g);
+    const int ntiles = (nkeys + kBT - 1) / kBT;
+    float part[R][4];
+#pragma unroll
+    for (int r = 0; r < R; ++r)
+      part[r][0] = part[r][1] = part[r][2] = part[r][3] = 0.0f;
+    if (ntiles > 0) {
+      copy_rows<D, true>(Ks, kbase + static_cast<size_t>(k0) * D,
+                         min(kBT, nkeys));
+      copy_rows<D, true>(Vs, vbase + static_cast<size_t>(k0) * D,
+                         min(kBT, nkeys));
+      __pipeline_commit();
+    }
+    for (int i = 0; i < ntiles; ++i) {
+      const int t0 = k0 + i * kBT;
+      const int tl = min(kBT, nkeys - i * kBT);
+      if (i + 1 < ntiles) {
+        const int n1 = min(kBT, nkeys - (i + 1) * kBT);
+        const int nb = ((i + 1) & 1) * kBT * D;
+        copy_rows<D, true>(Ks + nb, kbase + static_cast<size_t>(t0 + kBT) * D,
+                           n1);
+        copy_rows<D, true>(Vs + nb, vbase + static_cast<size_t>(t0 + kBT) * D,
+                           n1);
+        __pipeline_commit();
+        __pipeline_wait_prior(1);
+      } else {
+        __pipeline_wait_prior(0);
+      }
+      __syncthreads();
+      const float* Kt = Ks + (i & 1) * kBT * D;
+      const float* Vt = Vs + (i & 1) * kBT * D;
+      {
+        float s[4][4], dp[4][4];
+        patch_dots<D>(Qs, Kt, rq, kq, s);
+        patch_dots<D>(dOs, Vt, rq, kq, dp);
+        const int kpos0 = t0 + 4 * kq;
+#pragma unroll
+        for (int r = 0; r < 4; ++r) {
+          const int rr = 4 * rq + r;
+          const int qpos = g.q_offset + r0 + rr;
+          uint32_t bits[4];
+          site_bits4(p_qk, w, 0u, static_cast<uint32_t>(qpos),
+                     static_cast<uint32_t>(kpos0), bits);
+          float ds[4];
+#pragma unroll
+          for (int c = 0; c < 4; ++c) {
+            float p = 0.0f;
+            ds[c] = 0.0f;
+            if (rr < nr && 4 * kq + c < tl && valid(qpos, kpos0 + c, g))
+              pair_p_ds(s[r][c], dp[r][c], row_safe[rr], row_linv[rr],
+                        row_d[rr], p_qk, bits[c], g.scale, &p, &ds[c]);
+          }
+          *reinterpret_cast<float4*>(Ds + rr * kBT + 4 * kq) =
+              make_float4(ds[0], ds[1], ds[2], ds[3]);
+        }
+      }
+      __syncthreads();
+      // dq += ds . k over the tile's keys in order, where this thread's
+      // 32-row block visits the tile
+      if (i * kBT < mykeys) {
+        const float* drow = Ds + pr * R * kBT;
+        int kk = 0;
+        for (; kk + 4 <= tl; kk += 4) {
+          float4 df[R], kf[4];
+#pragma unroll
+          for (int r = 0; r < R; ++r)
+            df[r] = *reinterpret_cast<const float4*>(drow + r * kBT + kk);
+          const int pch = pc ^ ((kk >> 2) & S::kSwizzle);
+#pragma unroll
+          for (int u = 0; u < 4; ++u)
+            kf[u] = *reinterpret_cast<const float4*>(Kt + (kk + u) * D +
+                                                     4 * pch);
+#pragma unroll
+          for (int r = 0; r < R; ++r) {
+            const float du[4] = {df[r].x, df[r].y, df[r].z, df[r].w};
+#pragma unroll
+            for (int u = 0; u < 4; ++u) {
+              part[r][0] = fmaf(du[u], kf[u].x, part[r][0]);
+              part[r][1] = fmaf(du[u], kf[u].y, part[r][1]);
+              part[r][2] = fmaf(du[u], kf[u].z, part[r][2]);
+              part[r][3] = fmaf(du[u], kf[u].w, part[r][3]);
+            }
+          }
+        }
+        for (; kk < tl; ++kk) {
+          const int pch = pc ^ ((kk >> 2) & S::kSwizzle);
+          const float4 kf =
+              *reinterpret_cast<const float4*>(Kt + kk * D + 4 * pch);
+#pragma unroll
+          for (int r = 0; r < R; ++r) {
+            const float du = drow[r * kBT + kk];
+            part[r][0] = fmaf(du, kf.x, part[r][0]);
+            part[r][1] = fmaf(du, kf.y, part[r][1]);
+            part[r][2] = fmaf(du, kf.z, part[r][2]);
+            part[r][3] = fmaf(du, kf.w, part[r][3]);
+          }
+        }
+      }
+      __syncthreads();
+    }
+    // the kv block's dq contribution, rounded once (stream j)
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      const int rr = pr * R + r;
+      if (rr < nr)
+        add_rounded4(a.dq + (qbase + rr) * D + 4 * pc, part[r], j == 0,
+                     a.sites.p[1], w + 2, static_cast<uint32_t>(j),
+                     static_cast<uint32_t>(g.q_offset + r0 + rr),
+                     static_cast<uint32_t>(4 * pc));
+    }
+  }
+  __pipeline_wait_prior(0);
+}
+
+// K7': 64 keys of one head per block (the first keys, the heaviest under
+// a causal mask, launched first); per logical q block, q and dO in tiles
+// of 64 rows.
+template <int D>
+__global__ void __launch_bounds__(kThreads, BwdShape<D>::kMinBlocks)
+dkv_tile_kernel(BwdArgs a) {
+  using S = BwdShape<D>;
+  constexpr int R = S::kRows;
+  extern __shared__ float smem[];
+  const Geo& g = a.g;
+  const int bh = blockIdx.x;
+  const int c0 = blockIdx.y * kBR;
+  const int nc = min(kBR, g.kv_rows - c0);
+  float* Ks = smem;                    // kBR x D, swizzled
+  float* Vs = Ks + kBR * D;            // kBR x D, swizzled
+  float* Qs = Vs + kBR * D;            // kBT x D
+  float* dOs = Qs + kBT * D;           // kBT x D
+  float* Ps = dOs + kBT * D;           // kBT x kBR
+  float* Ds = Ps + kBT * kBR;          // kBT x kBR
+  float* row_safe = Ds + kBT * kBR;
+  float* row_linv = row_safe + kBT;
+  float* row_d = row_linv + kBT;
+  const int tid = threadIdx.x;
+  const uint32_t* w = a.seeds + static_cast<size_t>(bh) * 6;
+  const rt::RoundParams& p_qk = a.sites.p[0];
+  const size_t kvrow = static_cast<size_t>(kv_of(bh, g)) * g.kv_rows + c0;
+  const size_t qhead = static_cast<size_t>(bh) * g.rows;
+  const size_t obase = static_cast<size_t>(bh) * g.kv_rows + c0;
+
+  copy_rows<D, true>(Ks, a.k + kvrow * D, nc);
+  copy_rows<D, true>(Vs, a.v + kvrow * D, nc);
+  __pipeline_commit();
+  for (int e = nc * D + tid; e < kBR * D; e += kThreads)
+    Ks[e] = Vs[e] = 0.0f;
+  const int kq = tid % 16, rq = tid / 16;                   // pairs
+  const int pc = tid % S::kChunks, pk = tid / S::kChunks;   // dk, dv
+  // the first key of the first version's 32-key block that holds this
+  // thread's keys
+  const int cs = c0 + ((pk * R) & ~31);
+  const int n_q = (g.rows + g.qb - 1) / g.qb;
+
+  for (int i = 0; i < n_q; ++i) {
+    const int q0 = i * g.qb, q1 = min(q0 + g.qb, g.rows);
+    const int beg = dkv_first_row(c0, q0, q1, g);
+    const int mybeg = q0 + dkv_first_row(cs, q0, q1, g);
+    float part_k[R][4], part_v[R][4];
+#pragma unroll
+    for (int k = 0; k < R; ++k)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) part_k[k][c] = part_v[k][c] = 0.0f;
+    for (int t0 = q0 + (beg < q1 - q0 ? beg / kBT * kBT : q1 - q0); t0 < q1;
+         t0 += kBT) {
+      const int nq = min(kBT, q1 - t0);
+      __syncthreads();   // the previous tile is read
+      copy_rows<D, false>(Qs, a.q + (qhead + t0) * D, nq);
+      copy_rows<D, false>(dOs, a.dO + (qhead + t0) * D, nq);
+      __pipeline_commit();
+      for (int e = nq * D + tid; e < kBT * D; e += kThreads)
+        Qs[e] = dOs[e] = 0.0f;
+      if (tid < nq)
+        load_row_stats(a, qhead + t0 + tid, row_safe + tid, row_linv + tid,
+                       row_d + tid);
+      else if (tid < kBT)
+        row_safe[tid] = row_linv[tid] = row_d[tid] = 0.0f;
+      __pipeline_wait_prior(0);
+      __syncthreads();
+      {
+        float s[4][4], dp[4][4];
+        patch_dots<D>(Qs, Ks, rq, kq, s);
+        patch_dots<D>(dOs, Vs, rq, kq, dp);
+        const int kpos0 = c0 + 4 * kq;
+#pragma unroll
+        for (int r = 0; r < 4; ++r) {
+          const int rr = 4 * rq + r;
+          const int qpos = g.q_offset + t0 + rr;
+          uint32_t bits[4];
+          site_bits4(p_qk, w, 0u, static_cast<uint32_t>(qpos),
+                     static_cast<uint32_t>(kpos0), bits);
+          float p[4], ds[4];
+#pragma unroll
+          for (int c = 0; c < 4; ++c) {
+            p[c] = ds[c] = 0.0f;
+            if (rr < nq && 4 * kq + c < nc && valid(qpos, kpos0 + c, g))
+              pair_p_ds(s[r][c], dp[r][c], row_safe[rr], row_linv[rr],
+                        row_d[rr], p_qk, bits[c], g.scale, &p[c], &ds[c]);
+          }
+          *reinterpret_cast<float4*>(Ps + rr * kBR + 4 * kq) =
+              make_float4(p[0], p[1], p[2], p[3]);
+          *reinterpret_cast<float4*>(Ds + rr * kBR + 4 * kq) =
+              make_float4(ds[0], ds[1], ds[2], ds[3]);
+        }
+      }
+      __syncthreads();
+      // dv += p^T . dO and dk += ds^T . q over the tile's rows in order,
+      // from the first row this thread's 32-key block visits
+#pragma unroll 4
+      for (int r = max(0, mybeg - t0); r < nq; ++r) {
+        float pr[R], dsr[R];   // p and ds of row r at this thread's keys
+        load_run<R>(Ps + r * kBR + pk * R, pr);
+        load_run<R>(Ds + r * kBR + pk * R, dsr);
+        const float4 o = *reinterpret_cast<const float4*>(dOs + r * D +
+                                                          4 * pc);
+        const float4 qv = *reinterpret_cast<const float4*>(Qs + r * D +
+                                                           4 * pc);
+#pragma unroll
+        for (int k = 0; k < R; ++k) {
+          part_v[k][0] = fmaf(pr[k], o.x, part_v[k][0]);
+          part_v[k][1] = fmaf(pr[k], o.y, part_v[k][1]);
+          part_v[k][2] = fmaf(pr[k], o.z, part_v[k][2]);
+          part_v[k][3] = fmaf(pr[k], o.w, part_v[k][3]);
+          part_k[k][0] = fmaf(dsr[k], qv.x, part_k[k][0]);
+          part_k[k][1] = fmaf(dsr[k], qv.y, part_k[k][1]);
+          part_k[k][2] = fmaf(dsr[k], qv.z, part_k[k][2]);
+          part_k[k][3] = fmaf(dsr[k], qv.w, part_k[k][3]);
+        }
+      }
+    }
+    // the q block's dk (qk spec) and dv (av spec) contributions, rounded
+    // once each, keyed by (k position, column) on stream i
+#pragma unroll
+    for (int k = 0; k < R; ++k) {
+      const int kk = pk * R + k;
+      if (kk >= nc) continue;
+      const size_t o = (obase + kk) * D + 4 * pc;
+      const uint32_t kpos = static_cast<uint32_t>(c0 + kk);
+      add_rounded4(a.dk + o, part_k[k], i == 0, a.sites.p[1], w + 2,
+                   static_cast<uint32_t>(i), kpos,
+                   static_cast<uint32_t>(4 * pc));
+      add_rounded4(a.dv + o, part_v[k], i == 0, a.sites.p[2], w + 4,
+                   static_cast<uint32_t>(i), kpos,
+                   static_cast<uint32_t>(4 * pc));
+    }
+  }
+  __pipeline_wait_prior(0);
+}
+
+// ---------------------------------------------------------------------------
 // Host side.
 // ---------------------------------------------------------------------------
 Sites make_sites(const int* ints, const float* xmax, int n) {
@@ -1419,6 +1894,18 @@ int launch_decode(int d, dim3 grid, size_t smem, const DecodeArgs& a,
     default: return launch(decode_paged_kernel<kKind, 0, kContig>, grid,
                            smem, a, stream, kDecThreads);
   }
+}
+
+// The tiled backward kernels: the SM's shared memory all as shared memory,
+// so that two blocks fit where dq_tile_smem / dkv_tile_smem allow.
+template <typename Kernel>
+int launch_bwd(Kernel kernel, dim3 grid, size_t smem, const BwdArgs& a,
+               void* stream) {
+  const cudaError_t e = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
+      cudaSharedmemCarveoutMaxShared);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  return launch(kernel, grid, smem, a, stream);
 }
 
 bool aligned16(const void* p) {
@@ -1629,6 +2116,9 @@ extern "C" int flash_decode_paged(const float* q, const void* k,
                               window, scale, site_ints, site_xmax, stream);
 }
 
+// K7: the tiled kernel (dq_tile_kernel), for dk == dv in {16, 32, 64,
+// 128}; any other shape is refused, and the wrapper launches
+// flash_bwd_dq_simple instead.  Bit for bit flash_bwd_dq_simple.
 extern "C" int flash_bwd_dq(const float* q, const float* k, const float* v,
                             const float* dO, const float* m, const float* l,
                             const float* d, const uint32_t* seeds, float* dq,
@@ -1637,6 +2127,36 @@ extern "C" int flash_bwd_dq(const float* q, const float* k, const float* v,
                             int q_offset, int causal, int window, float scale,
                             const int* site_ints, const float* site_xmax,
                             void* stream) {
+  const size_t smem = dq_tile_smem(dk);
+  const dim3 grid(BH, (Sq + kBR - 1) / kBR);
+  if (dk != dv || kb < 1 || smem > static_cast<size_t>(kSmemMax) ||
+      grid.y > 65535)
+    return static_cast<int>(cudaErrorInvalidValue);
+  BwdArgs a{q,  k,       v,       dO, m, l, d, seeds, dq, nullptr, nullptr,
+            make_geo(Sq, Skv, dk, dv, n_heads, n_kv, qb, kb, q_offset,
+                     causal, window, scale),
+            make_sites(site_ints, site_xmax, 2)};
+  switch (dk) {
+    case 16: return launch_bwd(dq_tile_kernel<16>, grid, smem, a, stream);
+    case 32: return launch_bwd(dq_tile_kernel<32>, grid, smem, a, stream);
+    case 64: return launch_bwd(dq_tile_kernel<64>, grid, smem, a, stream);
+    case 128: return launch_bwd(dq_tile_kernel<128>, grid, smem, a, stream);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+// K7's first kernel (dq_kernel): the independent reference flash_bwd_dq is
+// held against, and the route for the shapes it refuses.
+extern "C" int flash_bwd_dq_simple(const float* q, const float* k,
+                                   const float* v, const float* dO,
+                                   const float* m, const float* l,
+                                   const float* d, const uint32_t* seeds,
+                                   float* dq, int BH, int Sq, int Skv, int dk,
+                                   int dv, int n_heads, int n_kv, int qb,
+                                   int kb, int q_offset, int causal,
+                                   int window, float scale,
+                                   const int* site_ints,
+                                   const float* site_xmax, void* stream) {
   if (dk > kDMax || dv > kDMax) return static_cast<int>(cudaErrorInvalidValue);
   BwdArgs a{q,  k,       v,       dO, m, l, d, seeds, dq, nullptr, nullptr,
             make_geo(Sq, Skv, dk, dv, n_heads, n_kv, qb, kb, q_offset,
@@ -1649,6 +2169,9 @@ extern "C" int flash_bwd_dq(const float* q, const float* k, const float* v,
   return launch(dq_kernel, grid, smem, a, stream);
 }
 
+// K7': the tiled kernel (dkv_tile_kernel), for dk == dv in {16, 32, 64,
+// 128}; any other shape is refused, and the wrapper launches
+// flash_bwd_dkv_simple instead.  Bit for bit flash_bwd_dkv_simple.
 extern "C" int flash_bwd_dkv(const float* q, const float* k, const float* v,
                              const float* dO, const float* m, const float* l,
                              const float* d, const uint32_t* seeds,
@@ -1657,6 +2180,36 @@ extern "C" int flash_bwd_dkv(const float* q, const float* k, const float* v,
                              int qb, int kb, int q_offset, int causal,
                              int window, float scale, const int* site_ints,
                              const float* site_xmax, void* stream) {
+  const size_t smem = dkv_tile_smem(dk);
+  const dim3 grid(BH, (Skv + kBR - 1) / kBR);
+  if (dk != dv || qb < 1 || smem > static_cast<size_t>(kSmemMax) ||
+      grid.y > 65535)
+    return static_cast<int>(cudaErrorInvalidValue);
+  BwdArgs a{q, k, v, dO, m, l, d, seeds, nullptr, dk_out, dv_out,
+            make_geo(Sq, Skv, dk, dv, n_heads, n_kv, qb, kb, q_offset,
+                     causal, window, scale),
+            make_sites(site_ints, site_xmax, 3)};
+  switch (dk) {
+    case 16: return launch_bwd(dkv_tile_kernel<16>, grid, smem, a, stream);
+    case 32: return launch_bwd(dkv_tile_kernel<32>, grid, smem, a, stream);
+    case 64: return launch_bwd(dkv_tile_kernel<64>, grid, smem, a, stream);
+    case 128: return launch_bwd(dkv_tile_kernel<128>, grid, smem, a, stream);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+// K7''s first kernel (dkv_kernel): the independent reference flash_bwd_dkv
+// is held against, and the route for the shapes it refuses.
+extern "C" int flash_bwd_dkv_simple(const float* q, const float* k,
+                                    const float* v, const float* dO,
+                                    const float* m, const float* l,
+                                    const float* d, const uint32_t* seeds,
+                                    float* dk_out, float* dv_out, int BH,
+                                    int Sq, int Skv, int dk, int dv,
+                                    int n_heads, int n_kv, int qb, int kb,
+                                    int q_offset, int causal, int window,
+                                    float scale, const int* site_ints,
+                                    const float* site_xmax, void* stream) {
   if (dk > kDMax || dv > kDMax) return static_cast<int>(cudaErrorInvalidValue);
   BwdArgs a{q, k, v, dO, m, l, d, seeds, nullptr, dk_out, dv_out,
             make_geo(Sq, Skv, dk, dv, n_heads, n_kv, qb, kb, q_offset,

@@ -6,8 +6,13 @@
                      the single-pass kernel, or ``flash_fwd_two_pass``
                      where a block's logits do not fit in shared memory
                      (``fwd_kernel_for``; counted apart);
-``flash_bwd_dq``  -> ``flash_bwd_dq``, replacing ``flash_bwd_dq_p`` (K7);
-``flash_bwd_dkv`` -> ``flash_bwd_dkv``, replacing ``flash_bwd_dkv_p`` (K7');
+``flash_bwd_dq``  -> ``flash_bwd_dq``, replacing ``flash_bwd_dq_p`` (K7),
+                     and ``flash_bwd_dkv`` -> ``flash_bwd_dkv``, replacing
+                     ``flash_bwd_dkv_p`` (K7'): the tiled kernels, or
+                     ``flash_bwd_dq_simple`` / ``flash_bwd_dkv_simple``
+                     (the first kernels) where the head dims are not
+                     compiled (``bwd_kernel_for``; counted apart).  The
+                     two give the same bits;
 ``flash_decode``  -> ``flash_decode``, replacing ``flash_decode_p`` (K9):
                      K10's decode kernel over the contiguous cache read
                      as pages of ``kv_block`` keys, or
@@ -66,7 +71,8 @@ _MODES = {"rn": 0, "sr": 1}
 _D_MAX = 128                     # head dims the kernels take
 
 LAUNCHES: Dict[str, int] = {"flash_fwd": 0, "flash_fwd_two_pass": 0,
-                            "flash_bwd_dq": 0, "flash_bwd_dkv": 0,
+                            "flash_bwd_dq": 0, "flash_bwd_dq_simple": 0,
+                            "flash_bwd_dkv": 0, "flash_bwd_dkv_simple": 0,
                             "flash_decode": 0, "flash_decode_tiled": 0,
                             "flash_decode_paged": 0}
 # K6's single-pass kernel: head dims it is compiled for, keys per staged
@@ -75,6 +81,9 @@ FWD_DIMS = (16, 32, 64, 128)
 FWD_TILE_KEYS = 128
 FWD_ROWS = 32
 SMEM_MAX = 232448
+# the tiled backward (K7, K7'): rows a block owns (query rows, keys) and
+# rows a tile holds (keys, query rows)
+BWD_ROWS = 64
 # the decode kernel (K10, K9): keys a round holds (V rows staged per
 # piece), pages a round takes at most
 DEC_KEYS = 128
@@ -529,6 +538,44 @@ def fwd_kernel_for(Skv: int, dk: int, dv: int, kv_block: int) -> str:
     return "flash_fwd"
 
 
+def bwd_smem_bytes(grads: str, d: int) -> int:
+    """Shared memory of one block of the tiled backward kernels
+    (``csrc/flash_attention.cu:dq_tile_smem``, ``dkv_tile_smem``): for
+    ``"dq"`` (K7) the block's q and dO rows, two k and two v tiles, the
+    tile's ds and three row statistics; for ``"dkv"`` (K7') the block's k
+    and v rows, one q and one dO tile, the tile's p and ds, the tile's row
+    statistics."""
+    r = BWD_ROWS
+    if grads == "dq":
+        return 4 * (2 * r * d + 4 * r * d + r * r + 3 * r)
+    if grads == "dkv":
+        return 4 * (2 * r * d + 2 * r * d + 2 * r * r + 3 * r)
+    raise ValueError(f"grads must be 'dq' or 'dkv', got {grads!r}")
+
+
+def bwd_kernel_for(dk: int, dv: int, grads: str) -> str:
+    """The kernel K7 (``grads="dq"``) or K7' (``"dkv"``) launches for a
+    shape: the tiled kernel (``"flash_bwd_dq"``, ``"flash_bwd_dkv"``)
+    where ``dk == dv`` is one of ``FWD_DIMS`` and its block fits in shared
+    memory, else the first kernel (``"flash_bwd_dq_simple"``,
+    ``"flash_bwd_dkv_simple"``).  Both give the same bits."""
+    name = f"flash_bwd_{grads}"
+    if dk != dv or dk not in FWD_DIMS \
+            or bwd_smem_bytes(grads, dk) > SMEM_MAX:
+        return name + "_simple"
+    return name
+
+
+def _bwd_kernel(name: str, dk: int, dv: int, kernel: Optional[str]) -> str:
+    """The kernel a backward wrapper launches: ``bwd_kernel_for``'s, or
+    ``kernel`` where it names that one or the first kernel."""
+    want = bwd_kernel_for(dk, dv, name.rsplit("_", 1)[1])
+    if kernel not in (None, want, name + "_simple"):
+        raise ValueError(f"{name}: cannot launch {kernel!r} for this shape "
+                         f"(it takes {want!r})")
+    return kernel or want
+
+
 def decode_smem_bytes(page: int, dk: int, dv: int, elt_bytes: int,
                       n_max: int) -> int:
     """Shared memory of one decode-kernel block (``csrc/flash_attention.cu:
@@ -610,18 +657,29 @@ def flash_fwd(q, k, v, seeds, specs, *, scale, n_heads: int, n_kv: int,
     return (out, m, l, s_out) if return_logits else (out, m, l)
 
 
+def _bwd_operands(q, k, v, do, m, l, d):
+    """The backward's float32 operands; q, k, v and dO on 16-byte
+    boundaries (the tiled kernels stage their rows with 16-byte copies)."""
+    return [_aligned16(_f32(t)) for t in (q, k, v, do)] \
+        + [_f32(t) for t in (m, l, d)]
+
+
 def flash_bwd_dq(q, k, v, do, m, l, d, seeds, spec_qk: RoundingSpec,
                  spec_dq: RoundingSpec, *, scale, n_heads: int, n_kv: int,
                  causal: bool = True, window: int = 0,
                  q_block: int = _DEF_BLOCK, kv_block: int = _DEF_BLOCK,
-                 q_offset: int = 0):
+                 q_offset: int = 0, kernel: Optional[str] = None):
     """dq backward.  seeds: (B·H, 4) [qk | dq] words, the qk pair the
-    forward's; m, l: the forward's residuals; d = rowwise sum(do·out)."""
+    forward's; m, l: the forward's residuals; d = rowwise sum(do·out).
+    ``kernel``: on the card, ``"flash_bwd_dq_simple"`` launches the first
+    kernel whatever ``bwd_kernel_for`` chooses (the checks hold the two
+    against each other)."""
     BH, Sq, dk = q.shape
     BKV, Skv, _ = k.shape
     dv = v.shape[-1]
     _check_gqa(BH, BKV, n_heads, n_kv)
     site_ints, site_xmax = _site_args((spec_qk, spec_dq))
+    name = _bwd_kernel("flash_bwd_dq", dk, dv, kernel)
     if _check((q, k, v, do, m, l, d), "flash_bwd_dq", max(dk, dv)):
         return flash_bwd_dq_plain(q, k, v, do, m, l, d, seeds, spec_qk,
                                   spec_dq, scale=scale, n_heads=n_heads,
@@ -631,8 +689,8 @@ def flash_bwd_dq(q, k, v, do, m, l, d, seeds, spec_qk: RoundingSpec,
     dev = q.device
     dq = torch.empty((BH, Sq, dk), device=dev)
     if dq.numel():
-        ops = [_f32(t) for t in (q, k, v, do, m, l, d)]
-        _launch("flash_bwd_dq", *map(_ptr, ops),
+        ops = _bwd_operands(q, k, v, do, m, l, d)
+        _launch(name, *map(_ptr, ops),
                 _ptr(_dev_seeds(seeds, BH, 4, dev)), _ptr(dq),
                 *_common_args(BH, Sq, Skv, dk, dv, n_heads, n_kv, q_block,
                               kv_block, q_offset, causal, window, scale),
@@ -644,15 +702,19 @@ def flash_bwd_dkv(q, k, v, do, m, l, d, seeds, spec_qk: RoundingSpec,
                   spec_dk: RoundingSpec, spec_dv: RoundingSpec, *, scale,
                   n_heads: int, n_kv: int, causal: bool = True,
                   window: int = 0, q_block: int = _DEF_BLOCK,
-                  kv_block: int = _DEF_BLOCK, q_offset: int = 0):
+                  kv_block: int = _DEF_BLOCK, q_offset: int = 0,
+                  kernel: Optional[str] = None):
     """dk/dv backward, per query head: (B·H, Skv, dk), (B·H, Skv, dv).
     seeds: (B·H, 6) [qk | dk | dv] words.  The GQA group-sum to kv heads
-    happens outside, in float32."""
+    happens outside, in float32.  ``kernel``: on the card,
+    ``"flash_bwd_dkv_simple"`` launches the first kernel whatever
+    ``bwd_kernel_for`` chooses."""
     BH, Sq, dk = q.shape
     BKV, Skv, _ = k.shape
     dv = v.shape[-1]
     _check_gqa(BH, BKV, n_heads, n_kv)
     site_ints, site_xmax = _site_args((spec_qk, spec_dk, spec_dv))
+    name = _bwd_kernel("flash_bwd_dkv", dk, dv, kernel)
     if _check((q, k, v, do, m, l, d), "flash_bwd_dkv", max(dk, dv)):
         return flash_bwd_dkv_plain(q, k, v, do, m, l, d, seeds, spec_qk,
                                    spec_dk, spec_dv, scale=scale,
@@ -663,8 +725,8 @@ def flash_bwd_dkv(q, k, v, do, m, l, d, seeds, spec_qk: RoundingSpec,
     dk_h = torch.empty((BH, Skv, dk), device=dev)
     dv_h = torch.empty((BH, Skv, dv), device=dev)
     if dk_h.numel():
-        ops = [_f32(t) for t in (q, k, v, do, m, l, d)]
-        _launch("flash_bwd_dkv", *map(_ptr, ops),
+        ops = _bwd_operands(q, k, v, do, m, l, d)
+        _launch(name, *map(_ptr, ops),
                 _ptr(_dev_seeds(seeds, BH, 6, dev)), _ptr(dk_h), _ptr(dv_h),
                 *_common_args(BH, Sq, Skv, dk, dv, n_heads, n_kv, q_block,
                               kv_block, q_offset, causal, window, scale),

@@ -1,8 +1,9 @@
 """CUDA-event times of the latency-bound kernels, for comparing two trees
 of the port on one card: the rounded attention kernels K9 (decode; its
 tiled route too where the tree has one) at the serve cell's shape, K6
-(training forward), K7 and K7' (backward) at the train step's beside
-SDPA's backward alone (one forward kept: the yardstick of K7 + K7') and
+(training forward), K7 and K7' (backward; their first kernels too where
+the tree has them as a second route) at the train step's beside SDPA's
+backward alone (one forward kept: the yardstick of K7 + K7') and
 K10 (paged decode) at the engine's decode shape where the tree has it,
 and K1' and K1 (the SR cast, in-kernel and explicit bits; K1's generic
 instance too where the tree has one) at the MoE decode path's (128, 1,
@@ -96,10 +97,12 @@ def main(argv=None):
     d = 64
     res, dev_res, digests = {}, {}, {}
 
-    def timed(name, fn, stream=None, **kw):
+    def timed(name, fn, stream=None, out=None, **kw):
+        """``out``: the output to digest from ``fn``'s result (default
+        the result itself)."""
         res[name] = _time(torch, fn, **kw)
         dev_res[name] = _graph(torch, fn, stream=stream, **kw)
-        digests[name] = _digest(torch, fn())
+        digests[name] = _digest(torch, (out or (lambda r: r))(fn()))
 
     def on_card(seed_words):    # int32 bit patterns, as the engine passes
         return torch.from_numpy(seed_words.astype(np.uint32)
@@ -131,12 +134,18 @@ def main(argv=None):
     o6, m6, l6 = tfa.flash_fwd(q6, k6, v6, seeds6, specs, **kw6)
     dd6 = (do6 * o6).sum(-1)
     seeds7 = torch.cat([seeds6[:, :2], seeds6[:, 4:]], 1).contiguous()
-    timed("k7 B.H=128 S=256", lambda: tfa.flash_bwd_dq(
-        q6, k6, v6, do6, m6, l6, dd6, seeds7, specs[0], specs[0], **kw6),
-        iters=10, warmup=2)
-    timed("k7' B.H=128 S=256", lambda: tfa.flash_bwd_dkv(
-        q6, k6, v6, do6, m6, l6, dd6, seeds6, *specs, **kw6)[0], iters=10,
-        warmup=2)
+    routes = {"": {}}
+    if "kernel" in inspect.signature(tfa.flash_bwd_dq).parameters:
+        routes[", first kernel"] = {"dq": {"kernel": "flash_bwd_dq_simple"},
+                                    "dkv": {"kernel": "flash_bwd_dkv_simple"}}
+    for label, kern in routes.items():
+        timed(f"k7 B.H=128 S=256{label}", lambda kern=kern: tfa.flash_bwd_dq(
+            q6, k6, v6, do6, m6, l6, dd6, seeds7, specs[0], specs[0], **kw6,
+            **kern.get("dq", {})), iters=10, warmup=2)
+        timed(f"k7' B.H=128 S=256{label}", lambda kern=kern: tfa.flash_bwd_dkv(
+            q6, k6, v6, do6, m6, l6, dd6, seeds6, *specs, **kw6,
+            **kern.get("dkv", {})), out=lambda r: torch.cat(r, -1), iters=10,
+            warmup=2)
     qg, kg, vg = (x.view(4, -1, 256, d).detach().requires_grad_()
                   for x in (q6, k6, v6))
     do4 = do6.view(4, 32, 256, d)

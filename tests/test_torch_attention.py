@@ -680,7 +680,8 @@ def test_attention_launches_per_path(monkeypatch, tmp_path):
     out = tserve.run("tinyllama-1.1b", reduced=True, batch=2, prompt_len=5,
                      gen=3, gemm_policy="binary8-paper-attn", device="cpu")
     assert calls == {"flash_fwd": 0, "flash_fwd_two_pass": 0,
-                     "flash_bwd_dq": 0, "flash_bwd_dkv": 0,
+                     "flash_bwd_dq": 0, "flash_bwd_dq_simple": 0,
+                     "flash_bwd_dkv": 0, "flash_bwd_dkv_simple": 0,
                      "flash_decode": L * (5 + 3), "flash_decode_tiled": 0,
                      "flash_decode_paged": 0}
     assert out["cache_dtype"] == torch.uint8
@@ -692,7 +693,8 @@ def test_attention_launches_per_path(monkeypatch, tmp_path):
                       update_path="fused", device="cpu", verbose=False,
                       ckpt_dir=str(tmp_path))
     assert calls == {"flash_fwd": 2 * L, "flash_fwd_two_pass": 0,
-                     "flash_bwd_dq": 2 * L, "flash_bwd_dkv": 2 * L,
+                     "flash_bwd_dq": 2 * L, "flash_bwd_dq_simple": 0,
+                     "flash_bwd_dkv": 2 * L, "flash_bwd_dkv_simple": 0,
                      "flash_decode": 0, "flash_decode_tiled": 0,
                      "flash_decode_paged": 0}
     assert all(np.isfinite(h["loss"]) for h in hist["history"])
@@ -759,6 +761,81 @@ def test_flash_fwd_kernel_override_is_checked():
     q3, k3, v3 = (x.repeat(1, 1, 3) for x in (q, k, v))   # head dim 48
     with pytest.raises(ValueError, match="cannot launch"):
         TF.flash_fwd(q3, k3, v3, seeds, specs, kernel="flash_fwd", **kw)
+
+
+# (dk, dv, the kernels K7 and K7' launch): the tiled kernels where dk ==
+# dv is compiled, else the first kernels
+BWD_PLANS = [
+    (64, 64, "flash_bwd_dq", "flash_bwd_dkv"),     # the train step's
+    (16, 16, "flash_bwd_dq", "flash_bwd_dkv"),     # the reduced model's
+    (32, 32, "flash_bwd_dq", "flash_bwd_dkv"),
+    (128, 128, "flash_bwd_dq", "flash_bwd_dkv"),
+    (48, 48, "flash_bwd_dq_simple", "flash_bwd_dkv_simple"),
+    (8, 8, "flash_bwd_dq_simple", "flash_bwd_dkv_simple"),
+    (64, 32, "flash_bwd_dq_simple", "flash_bwd_dkv_simple"),
+    (32, 64, "flash_bwd_dq_simple", "flash_bwd_dkv_simple"),
+]
+
+
+@pytest.mark.parametrize("dk,dv,want_dq,want_dkv", BWD_PLANS)
+def test_bwd_kernel_choice(dk, dv, want_dq, want_dkv):
+    assert TF.bwd_kernel_for(dk, dv, "dq") == want_dq
+    assert TF.bwd_kernel_for(dk, dv, "dkv") == want_dkv
+
+
+def test_bwd_smem_bytes():
+    """K7's block: q and dO rows, two k and two v tiles, ds, three row
+    statistics; K7''s: k and v rows, a q and a dO tile, p and ds, the
+    statistics.  At the train step's d = 64 two blocks of each fit an SM's
+    233,472 bytes (1 KB of them reserved per block); every compiled head
+    dim fits one block."""
+    assert TF.bwd_smem_bytes("dq", 64) == 4 * (2 * 64 * 64 + 4 * 64 * 64
+                                               + 64 * 64 + 3 * 64)
+    assert TF.bwd_smem_bytes("dq", 64) == 115456
+    assert TF.bwd_smem_bytes("dkv", 64) == 4 * (4 * 64 * 64 + 2 * 64 * 64
+                                                + 3 * 64)
+    assert TF.bwd_smem_bytes("dkv", 64) == 99072
+    for grads in ("dq", "dkv"):
+        assert 2 * (TF.bwd_smem_bytes(grads, 64) + 1024) <= 233472
+        for d in TF.FWD_DIMS:
+            assert TF.bwd_smem_bytes(grads, d) <= TF.SMEM_MAX
+    with pytest.raises(ValueError, match="grads"):
+        TF.bwd_smem_bytes("dx", 64)
+
+
+def test_flash_bwd_kernel_override_is_checked():
+    """``kernel`` may name the first kernel for any shape, the tiled one
+    only where it is compiled; anything else raises before any work.  On
+    the CPU every choice is the plain twin."""
+    rng = np.random.default_rng(7)
+    q, k, v, do = (torch.from_numpy(rng.standard_normal((2, 9, 16)).astype(
+        np.float32)) for _ in range(4))
+    m, l = (torch.from_numpy(rng.random((2, 9)).astype(np.float32) + 1)
+            for _ in range(2))
+    d = torch.from_numpy(rng.standard_normal((2, 9)).astype(np.float32))
+    seeds = rng.integers(0, 2 ** 32, (2, 6), dtype=np.uint64)
+    sp = parse_spec("binary8-sr")
+    kw = dict(scale=0.25, n_heads=2, n_kv=2, kv_block=4, q_block=4)
+    ref_dq = TF.flash_bwd_dq(q, k, v, do, m, l, d, seeds[:, :4], sp, sp,
+                             **kw)
+    ref_dkv = TF.flash_bwd_dkv(q, k, v, do, m, l, d, seeds, sp, sp, sp, **kw)
+    for suffix in ("", "_simple"):
+        got = TF.flash_bwd_dq(q, k, v, do, m, l, d, seeds[:, :4], sp, sp,
+                              kernel="flash_bwd_dq" + suffix, **kw)
+        assert torch.equal(got, ref_dq)
+        got = TF.flash_bwd_dkv(q, k, v, do, m, l, d, seeds, sp, sp, sp,
+                               kernel="flash_bwd_dkv" + suffix, **kw)
+        assert all(torch.equal(a, b) for a, b in zip(got, ref_dkv))
+    with pytest.raises(ValueError, match="cannot launch"):
+        TF.flash_bwd_dq(q, k, v, do, m, l, d, seeds[:, :4], sp, sp,
+                        kernel="flash_bwd_dkv", **kw)
+    q3, k3, v3 = (x.repeat(1, 1, 3) for x in (q, k, v))   # head dim 48
+    with pytest.raises(ValueError, match="cannot launch"):
+        TF.flash_bwd_dq(q3, k3, v3, do, m, l, d, seeds[:, :4], sp, sp,
+                        kernel="flash_bwd_dq", **kw)
+    with pytest.raises(ValueError, match="cannot launch"):
+        TF.flash_bwd_dkv(q3, k3, v3, do, m, l, d, seeds, sp, sp, sp,
+                         kernel="flash_bwd_dkv", **kw)
 
 
 def test_profile_serve_needs_a_card():

@@ -28,7 +28,11 @@ K9 over the same values unpacked; K6's single pass bitwise equal to its
 two-pass kernel in every output on any input (the same operations in the
 same order); K9 on the decode kernel bitwise equal to its tiled kernel
 (``kernel="flash_decode_tiled"``) on any input, blocks that do not fit
-the decode kernel going to the tiled one.  K10 (paged decode) bitwise equal to its
+the decode kernel going to the tiled one; K7 and K7' on their tiled
+kernels bitwise equal to their first kernels (``kernel=
+"flash_bwd_dq_simple"`` / ``"flash_bwd_dkv_simple"``) in dq, dk and dv
+on any input, head dims the tiled kernels are not compiled for going to
+the first ones.  K10 (paged decode) bitwise equal to its
 twin on exact-sum inputs (every key of a request equal: each logit of a
 row equal, every exp exactly 1, every sum exact), within the attention
 contract on N(0, 1) inputs, bitwise equal to K9's tiled kernel on each
@@ -613,9 +617,139 @@ def test_flash_kernels_count_their_launches(cuda):
                                  np.array([[1, 0], [0, 1]], np.int32), specs,
                                  scale=0.125, n_kv=1)
     assert tfa.LAUNCHES == {"flash_fwd": 1, "flash_fwd_two_pass": 0,
-                            "flash_bwd_dq": 1, "flash_bwd_dkv": 1,
+                            "flash_bwd_dq": 1, "flash_bwd_dq_simple": 0,
+                            "flash_bwd_dkv": 1, "flash_bwd_dkv_simple": 0,
                             "flash_decode": 1, "flash_decode_tiled": 0,
                             "flash_decode_paged": 1}
+
+
+# K7 and K7''s two routes: (H, KV, batch, S, d, q_block, kv_block,
+# q_offset, causal, window, spec, inputs).  Logical blocks of 64 at S = 200
+# (several streams, ragged last tiles), one block at S = 256 (the train
+# step's), every compiled head dim, G = 8 and G = 1, 32/16/8-bit draws and
+# rn, an offset, blocks off 32 and off 4 rows, a window, no causal mask,
+# partials that underflow to -0, and one infinite key, query row and dO
+# row (a chain that took a term the first version did not, or left one
+# out, would move a NaN).
+BWD_CASES = [
+    (8, 1, 1, 200, 16, 64, 64, 0, True, 0, "binary8-sr", "normal"),
+    (8, 1, 1, 200, 32, 64, 64, 0, True, 0, "binary8-sr", "normal"),
+    (8, 1, 2, 200, 64, 64, 64, 0, True, 0, "binary8-sr", "normal"),
+    (8, 1, 1, 200, 128, 64, 64, 0, True, 0, "binary8-sr", "normal"),
+    (32, 4, 2, 256, 64, 1024, 1024, 0, True, 0, "binary8-sr", "normal"),
+    (4, 4, 2, 200, 64, 64, 64, 0, True, 0, "binary8-sr-r16", "normal"),
+    (4, 4, 1, 200, 64, 64, 64, 0, True, 0, "binary8-sr-r8", "normal"),
+    (8, 1, 1, 200, 64, 64, 64, 0, True, 0, "binary8-rn", "normal"),
+    (8, 2, 1, 150, 32, 48, 30, 7, True, 0, "binary8-sr", "normal"),
+    (8, 2, 1, 130, 64, 40, 100, 3, True, 37, "binary8-sr-r16", "normal"),
+    (8, 2, 1, 77, 16, 32, 16, 0, False, 0, "binary8-sr-r8", "normal"),
+    (4, 1, 1, 120, 128, 16, 32, 0, False, 0, "e4m3-rn", "normal"),
+    (8, 1, 1, 200, 64, 64, 64, 0, True, 0, "binary8-sr", "negzero"),
+    (8, 1, 1, 200, 64, 64, 64, 5, True, 0, "binary8-sr", "inf"),
+    (8, 1, 1, 200, 32, 48, 30, 70, True, 0, "binary8-sr", "inf"),
+]
+
+
+def _bwd_case(H, KV, B, S, d, q_offset, kind, cuda, seed, dv=None):
+    """q, k, v, dO for the backward; ``kind``: N(0, 1), +-1e-30 (every
+    product underflows) or N(0, 1) with key 100, query row 40 and dO row
+    45 infinite."""
+    dv = d if dv is None else dv
+    rng = np.random.default_rng(seed)
+    shapes = ((B * H, S, d), (B * KV, S + q_offset, d),
+              (B * KV, S + q_offset, dv), (B * H, S, dv))
+    if kind == "negzero":
+        xs = [np.where(rng.random(sh) < 0.5, 1e-30, -1e-30) for sh in shapes]
+    else:
+        xs = [rng.standard_normal(sh) for sh in shapes]
+    if kind == "inf":
+        xs[1][:, 100] = xs[0][:, 40] = xs[3][:, 45] = np.inf
+    return [torch.from_numpy(x.astype(np.float32)).to(cuda) for x in xs]
+
+
+def _bwd_both(q, k, v, do, seeds, specs, kw, kernels=(None, None)):
+    """dq, dk, dv of K7 and K7' (``kernels``: their ``kernel=``), on the
+    forward kernel's residuals."""
+    out, m, l = tfa.flash_fwd(q, k, v, seeds, specs, **kw)
+    d = (do * out).sum(-1)
+    sq = np.concatenate([seeds[:, :2], seeds[:, 4:]], axis=1)
+    dq = tfa.flash_bwd_dq(q, k, v, do, m, l, d, sq, specs[0], specs[0],
+                          kernel=kernels[0], **kw)
+    dk, dv = tfa.flash_bwd_dkv(q, k, v, do, m, l, d, seeds, specs[0],
+                               specs[0], specs[1], kernel=kernels[1], **kw)
+    return dq, dk, dv
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", BWD_CASES, ids=lambda c: "-".join(map(
+    str, c)))
+def test_flash_bwd_tiled_matches_first_version(cuda, case):
+    """The tiled K7 and K7' give the first kernels' dq, dk and dv bit for
+    bit (each forced through ``kernel=``), each launch counted on its
+    route.  Every sum starts at +0, so a -0 partial leaves as +0 from both."""
+    H, KV, B, S, d, qb, kb, q_offset, causal, window, name, kind = case
+    assert tfa.bwd_kernel_for(d, d, "dq") == "flash_bwd_dq"
+    assert tfa.bwd_kernel_for(d, d, "dkv") == "flash_bwd_dkv"
+    specs = [parse_spec(name)] * 3
+    q, k, v, do = _bwd_case(H, KV, B, S, d, q_offset, kind, cuda, S + d)
+    seeds = np.random.default_rng(kb).integers(0, 2 ** 32, (B * H, 6),
+                                               dtype=np.uint64)
+    kw = dict(scale=d ** -0.5, n_heads=H, n_kv=KV, causal=causal,
+              window=window, q_block=qb, kv_block=kb, q_offset=q_offset)
+    tfa.reset_launches()
+    tiled = _bwd_both(q, k, v, do, seeds, specs, kw)
+    first = _bwd_both(q, k, v, do, seeds, specs, kw,
+                      ("flash_bwd_dq_simple", "flash_bwd_dkv_simple"))
+    torch.cuda.synchronize()
+    for nm, a, b in zip(("dq", "dk", "dv"), tiled, first):
+        assert _bitwise(a, b), nm
+    fwd = tfa.fwd_kernel_for(S + q_offset, d, d, kb)
+    assert tfa.LAUNCHES == dict(dict.fromkeys(tfa.LAUNCHES, 0), **{fwd: 2},
+                                flash_bwd_dq=1, flash_bwd_dq_simple=1,
+                                flash_bwd_dkv=1, flash_bwd_dkv_simple=1)
+    if kind == "negzero":
+        assert all(bool((x == 0).all()) for x in tiled)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dk,dv", [(48, 48), (64, 32)])
+def test_flash_bwd_first_kernels_where_not_compiled(cuda, dk, dv):
+    """Head dims the tiled kernels are not compiled for (d = 48, dk != dv)
+    launch the first kernels, counted under their own names, within the
+    attention contract of the twins; forcing the tiled kernel there raises
+    before any launch."""
+    H, KV, S = 4, 2, 90
+    specs = [parse_spec("binary8-sr")] * 3
+    q, k, v, do = _bwd_case(H, KV, 1, S, dk, 0, "normal", cuda, 3, dv=dv)
+    seeds = np.random.default_rng(4).integers(0, 2 ** 32, (H, 6),
+                                              dtype=np.uint64)
+    kw = dict(scale=dk ** -0.5, n_heads=H, n_kv=KV, q_block=64, kv_block=64)
+    out, m, l = tfa.flash_fwd_plain(q.cpu(), k.cpu(), v.cpu(), seeds, specs,
+                                    **kw)
+    m, l, out = m.to(cuda), l.to(cuda), out.to(cuda)
+    d = (do * out).sum(-1)
+    sq = np.concatenate([seeds[:, :2], seeds[:, 4:]], axis=1)
+    args = (q, k, v, do, m, l, d)
+    tfa.reset_launches()
+    dq = tfa.flash_bwd_dq(*args, sq, specs[0], specs[0], **kw)
+    dkv = tfa.flash_bwd_dkv(*args, seeds, *specs, **kw)
+    torch.cuda.synchronize()
+    assert tfa.LAUNCHES == dict(dict.fromkeys(tfa.LAUNCHES, 0),
+                                flash_bwd_dq_simple=1,
+                                flash_bwd_dkv_simple=1)
+    cpu = [x.cpu() for x in args]
+    r_dq = tfa.flash_bwd_dq_plain(*cpu, sq, specs[0], specs[0], **kw)
+    r_dkv = tfa.flash_bwd_dkv_plain(*cpu, seeds, *specs, **kw)
+    for r, g in zip((r_dq, *r_dkv), (dq, *dkv)):
+        _assert_flips(r, g.cpu(), "binary8", adjacent_only=False,
+                      share=max(1e-4, 1.0 / g.numel()))
+    with pytest.raises(ValueError, match="cannot launch"):
+        tfa.flash_bwd_dq(*args, sq, specs[0], specs[0],
+                         kernel="flash_bwd_dq", **kw)
+    with pytest.raises(ValueError, match="cannot launch"):
+        tfa.flash_bwd_dkv(*args, seeds, *specs, kernel="flash_bwd_dkv",
+                          **kw)
+    assert tfa.LAUNCHES["flash_bwd_dq"] == tfa.LAUNCHES["flash_bwd_dkv"] == 0
 
 
 def _fwd_case(H, KV, S, d, exact, cuda, seed=0):
