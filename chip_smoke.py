@@ -22,14 +22,21 @@ Phases (any failed check exits non-zero; there is no CPU fallback):
    (the route forced) at every shape, every output bit for bit equal, and
    timed by CUDA-graph replay too;
 4. update kernels vs plain: K2' and K2 (the eq.-8 update) at n = 2**24 + 37
-   under five rounding configs and at the full tinyllama-1.1b parameter
-   count under the trainer's config, and the momentum FMA at both sizes,
-   bitwise against their twins, timed beside the bound, the twin and the
-   unrounded ``x - t * g`` / ``torch.add(g, m, alpha=0.9)`` (yardsticks
-   only); K2' and K2 under each compiled instance a config fits (the
-   trainer's config: its trainer instance and the generic one, both
-   timed), at the tail lengths 1, 3, 5 and 129 and on views one element
-   off a 16-byte boundary too, each config's instance printed;
+   under five rounding configs and the eleven chains of their wide
+   instance (``WIDE_UPDATE_CONFIGS``: fixed point, sr2 at r = 8 and 16,
+   the bf16 bit trick, rz / ra / rd / ru, rn with overflow to +-inf on
+   inputs that overflow, a shifted grid, e4m3 signed-SRe overflowing to
+   +-inf) and at the full tinyllama-1.1b parameter count under the
+   trainer's config, and the momentum FMA at both sizes, bitwise against
+   their twins, timed beside the bound, the twin and the unrounded ``x -
+   t * g`` / ``torch.add(g, m, alpha=0.9)`` (yardsticks only); K2' and K2
+   under each compiled instance a config fits (the wide one takes every
+   chain; the trainer's config: the trainer, generic and wide instances,
+   the first two timed), at the tail lengths 1, 3, 5 and 129 (with -0
+   inputs) and on views one element off a 16-byte boundary too, each
+   config's instances printed; at the full count the generic and the wide
+   instance on ``WIDE_TIMED`` (binary8 rn/sr/sr, a chain both take) by
+   CUDA events and by CUDA-graph replay (``device_ms``), in turns;
 5. training GEMMs vs plain: K3' at every forward/dgrad/wgrad shape of a
    batch-4 x 256 train step and K4' with residuals (on both routes, and
    by graph replay), checked and timed as in phase 3;
@@ -187,12 +194,28 @@ Phases (any failed check exits non-zero; there is no CPU fallback):
    weights on the CPU, teacher-forced on the CPU's picks: logits held to
    phase 12's limits, the card's own picks within 0.1 of the CPU's best
    logit, the pools' codes at most 1 % different per layer;
-29. one JSON line of per-kernel numbers (K3''s, K3's, K4''s, K4's, K8''s,
+29. the paper's GD experiments (``repro_torch.paper``): the convergence
+   harness's smoke run (bfloat16, binary8, fxp16.8 x rn / sr / sr2, 2 sims
+   of the stagnation, PL and Setting-I quadratics) on both engines, the
+   reference's ordering gate on each, K2''s launches against steps x sims
+   x problems x configs (none on the "jnp" engine) and by instance (generic
+   and wide); Fig. 4's MLR (784 x 10, 3000 / 800 synthetic samples, t =
+   0.5) and Fig. 6's NN (784 -> 100 -> 1, t = 0.09375) at full width under
+   binary32 / rn / sr / signed-SRe 0.1, depth cut to 30 and 20 epochs and
+   one simulation (printed); card against CPU: Setting I (n = 1000), 50
+   steps at its t and at t = 0.5 under two chains (a generic one and a
+   wide one), the iterates bitwise on both engines, and 3 MLR epochs at
+   full size (W after epoch 1 at most 1e-3 of its elements one binary8
+   step apart, the test errors within 0.02); ms per GD step and per epoch
+   beside the card's name and power limit;
+30. one JSON line of per-kernel numbers (K3''s, K3's, K4''s, K4's, K8''s,
    K8's, K9's (both routes), K10's, K1''s and K1's with the registers and
    spills ptxas reports for their instances, phase 2; K3', K3, K4' and K4
    with their device time per decode step, K4' also per train step; K9's
-   tiled route and K1's generic instance beside the ones the path runs),
-   then the result line.
+   tiled route and K1's generic instance beside the ones the path runs;
+   K2' and K2 with the wide and the generic instance on ``WIDE_TIMED``
+   under ``wide_timed_chain`` and K2''s launches in phase 29), then the
+   result line.
 
 Detailed numbers also go to ``chiprun_out/chip_smoke.json``.
 """
@@ -309,6 +332,13 @@ ADAM_CASES = [("bf16-sr", "bf16-sr", True, False),
               ("fp32", "fp32", False, False)]
 # phase 19's resume: this many steps, then the rest in the same directory
 RESUME_AT = 2
+# phase 29: the paper's MLR / NN data (train, test samples), depth cut to
+# these epochs (the figures run 150 and 50), and card-vs-CPU GD steps
+PAPER_MLR_DATA = (3000, 800)
+PAPER_NN_DATA = (3000, 800)
+PAPER_MLR_EPOCHS = 30
+PAPER_NN_EPOCHS = 20
+PAPER_AGREE_STEPS = 50
 # phase 20's fault drill on the reduced model
 DRILL = dict(steps=8, checkpoint_every=2,
              fault_schedule="preempt@3,corrupt@4,preempt@5")
@@ -319,6 +349,30 @@ UPDATE_CONFIGS = {
     "rn-binary8": ("binary8-rn",) * 3,
     "signed_sr_eps-bf16": ("bf16-rn", "bf16-sr", "bf16-signed_sr_eps-e0.1"),
 }
+# phase 4's chains of K2' and K2's wide instance: (grad, mul, sub) spec
+# names, the scales of x and g (inputs that overflow where the chain
+# overflows to +-inf).  "shift8" is binary8 shifted by scale 0.5, mu 0.25.
+WIDE_UPDATE_CONFIGS = {
+    "fxp16.8-sr2": (("fxp16.8-rn", "fxp16.8-sr2", "fxp16.8-sr2"), 1.0, 1.0),
+    "fxp16.8-sr": (("fxp16.8-rn", "fxp16.8-sr", "fxp16.8-sr"), 1.0, 1.0),
+    "fxp8.4-rn": (("fxp8.4-rn",) * 3, 50.0, 10.0),
+    "binary8-sr2 (r 8)": (("binary8-rn", "binary8-sr2", "binary8-sr2"),
+                          1.0, 1.0),
+    "binary8-sr2 (r 16)": (("binary8-rn", "binary8-sr2-r16",
+                            "binary8-sr2-r16"), 1.0, 1.0),
+    "bf16-sr_bittrick": (("bf16-rn", "bf16-sr-bittrick", "bf16-sr-bittrick"),
+                         1.0, 1.0),
+    "binary8-rz/ra/rd": (("binary8-rz", "binary8-ra", "binary8-rd"),
+                         1.0, 1.0),
+    "binary8-ru": (("binary8-ru",) * 3, 1.0, 1.0),
+    "binary8-rn-inf": (("binary8-rn-inf",) * 3, 1.0, 1e7),
+    "shift8 rn/sr/signed-SRe": (("shift8-rn", "shift8-sr",
+                                 "shift8-signed_sr_eps-e0.2"), 1.0, 1.0),
+    "e4m3-signed_sr_eps-inf": (("e4m3-rn", "e4m3-sr",
+                                "e4m3-signed_sr_eps-e0.3-inf"), 3e4, 1e4),
+}
+# the chain phase 4 times on both the generic and the wide instance
+WIDE_TIMED = ("binary8-rn", "binary8-sr", "binary8-sr")
 
 
 def fail(msg: str) -> None:
@@ -1069,10 +1123,19 @@ def off_boundary(torch, t, offset: int):
 
 
 def update_instances(tfu, cfg):
-    """The compiled instances of K2' and K2 a config fits: the generic
-    one, and the trainer's where the chain is ``train.PAPER_RUN``'s."""
-    return ["generic"] + (["trainer"] if tfu.k2_instance(cfg) == "trainer"
-                          else [])
+    """The compiled instances of K2' and K2 a config fits: the wide one
+    (every chain), the generic one where no site needs the wide one, and
+    the trainer's where the chain is ``train.PAPER_RUN``'s."""
+    own = tfu.k2_instance(cfg)
+    return ["wide"] + (["generic"] if own != "wide" else []) + (
+        ["trainer"] if own == "trainer" else [])
+
+
+def register_wide_grids():
+    """The shifted grid of ``WIDE_UPDATE_CONFIGS`` (idempotent)."""
+    from repro_torch.core import grids
+    grids.register_grid(grids.shifted_grid("binary8", 0.5, 0.25,
+                                           name="shift8"))
 
 
 def update_check(torch, tfu, prng, x, g, cfg, name, offset=0):
@@ -1113,15 +1176,24 @@ def update_phase(torch, n_full: int):
     from repro_torch.launch.train import rounding_config
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(99)
+    register_wide_grids()
     trainer = rounding_config("signed_sr_eps", "binary8", 0.1)
     configs = {"signed_sr_eps-binary8 (trainer)": trainer}
     configs.update({k: gd.GDRounding(*(parse_spec(s) for s in v))
                     for k, v in UPDATE_CONFIGS.items()})
+    scales = dict.fromkeys(configs, (1.0, 1.0))
+    for k, (v, sx, sg) in WIDE_UPDATE_CONFIGS.items():
+        configs[k] = gd.GDRounding(*(parse_spec(s) for s in v))
+        scales[k] = (sx, sg)
+        if tfu.k2_instance(configs[k]) != "wide":
+            fail(f"{k}: not a chain of the wide instance")
     rows = []
     for name, cfg in configs.items():
+        sx, sg = scales[name]
         for n in UPDATE_TAILS:
-            x = torch.randn(n, generator=gen, device=dev) * 0.02
-            g = torch.randn(n, generator=gen, device=dev) * 0.3
+            x = torch.randn(n, generator=gen, device=dev) * (0.02 * sx)
+            g = torch.randn(n, generator=gen, device=dev) * (0.3 * sg)
+            x[::7] = -0.0
             for offset in (0, 1):
                 update_check(torch, tfu, prng, x, g, cfg, name, offset)
         print(f"  {name}: instances {update_instances(tfu, cfg)} (runs "
@@ -1130,10 +1202,12 @@ def update_phase(torch, n_full: int):
               "16-byte boundary", flush=True)
     for n, names in ((UPDATE_N_SMALL, list(configs)),
                      (n_full, ["signed_sr_eps-binary8 (trainer)"])):
-        x = torch.randn(n, generator=gen, device=dev) * 0.02
-        g = torch.randn(n, generator=gen, device=dev) * 0.3
+        x0 = torch.randn(n, generator=gen, device=dev) * 0.02
+        g0 = torch.randn(n, generator=gen, device=dev) * 0.3
         for name in names:
             cfg = configs[name]
+            sx, sg = scales[name]
+            x, g = (x0, g0) if (sx, sg) == (1.0, 1.0) else (x0 * sx, g0 * sg)
             err_prng, err_bits, bits3 = update_check(torch, tfu, prng, x, g,
                                                      cfg, name)
             if n == UPDATE_N_SMALL:     # and the view off the boundary
@@ -1176,6 +1250,7 @@ def update_phase(torch, n_full: int):
                     row[f"{mode}_bound_ms"], row[f"{mode}_bound_by"] = bms, by
                     row[f"{mode}_bytes"] = nbytes
                 row["threefry_per_elt"] = n_threefry(cfg)
+                row.update(wide_timing(torch, tfu, x, g, bits3, n))
                 print(f"  n={n:11d} {name}, instance {row['instance']}: K2' "
                       f"{row['prng_ms']:.3f} ms (generic instance "
                       f"{row['prng_generic_ms']:.3f}; bound "
@@ -1190,15 +1265,52 @@ def update_phase(torch, n_full: int):
                       f"{row['axpy_ms']:.3f} ms; bf16 cast "
                       f"{row['bf16_cast_ms']:.3f} ms", flush=True)
             else:
-                print(f"  n={n:11d} {name}, instance {row['instance']}: K2' "
-                      "and K2 bitwise equal to their twins (also off a "
-                      "16-byte boundary)", flush=True)
+                print(f"  n={n:11d} {name}, instances "
+                      f"{update_instances(tfu, cfg)}: K2' and K2 bitwise "
+                      "equal to their twins (also off a 16-byte boundary)",
+                      flush=True)
             rows.append(row)
-            del bits3
-        rows.append(momentum_fma_check(torch, tfu, x, g, n == n_full))
-        del x, g
+            del bits3, x, g
+        rows.append(momentum_fma_check(torch, tfu, x0, g0, n == n_full))
+        del x0, g0
         torch.cuda.empty_cache()
     return rows
+
+
+def wide_timing(torch, tfu, x, g, bits3, n: int):
+    """K2' and K2 under ``WIDE_TIMED`` (a chain both instances take) on
+    the generic and the wide instance: ms by CUDA events, ``device_ms`` by
+    graph replay, and the chain's bound."""
+    from repro_torch.core import gd
+    from repro_torch.core.rounding import parse_spec
+    cfg = gd.GDRounding(*(parse_spec(s) for s in WIDE_TIMED))
+    out = dict(wide_timed_chain="/".join(WIDE_TIMED))
+    for mode, explicit in (("prng", False), ("bits", True)):
+        for inst in ("generic", "wide", "wide", "generic"):
+            def call(i, inst=inst):
+                if explicit:
+                    return tfu.fused_qupdate(x, g, UPDATE_T, bits3, cfg,
+                                             instance=inst)
+                return tfu.fused_qupdate_prng(x, g, UPDATE_T, UPDATE_SEED,
+                                              cfg, instance=inst)
+            out.setdefault(f"{mode}_{inst}_rss_ms", []).append(
+                time_ms(torch, call, 1, iters=5, warmup=1))
+            out.setdefault(f"{mode}_{inst}_rss_device_ms", []).append(
+                graph_ms(torch, call, 1, iters=3, warmup=1))
+        bms, by, _ = update_bound(cfg, n, explicit)
+        out[f"{mode}_rss_bound_ms"], out[f"{mode}_rss_bound_by"] = bms, by
+        for inst in ("generic", "wide"):
+            for key in (f"{mode}_{inst}_rss_ms", f"{mode}_{inst}_rss_device_ms"):
+                out[key] = min(out[key])
+        label = "K2" if explicit else "K2'"
+        print(f"  n={n:11d} {out['wide_timed_chain']}: {label}"
+              f" generic {out[f'{mode}_generic_rss_device_ms']:.3f} ms device "
+              f"({out[f'{mode}_generic_rss_ms']:.3f} events), wide "
+              f"{out[f'{mode}_wide_rss_device_ms']:.3f} ms device "
+              f"({out[f'{mode}_wide_rss_ms']:.3f}); ratio "
+              f"{out[f'{mode}_wide_rss_device_ms'] / out[f'{mode}_generic_rss_device_ms']:.3f}; "
+              f"bound {bms:.3f} ms ({by})", flush=True)
+    return out
 
 
 def momentum_fma_check(torch, tfu, m, g, timed: bool):
@@ -3121,6 +3233,151 @@ def engine_agreement_phase(torch, serve):
                 code_share_by_layer=per_layer)
 
 
+def paper_phase(torch, tfu, smi: str):
+    """Phase 29: the paper's GD experiments (``repro_torch.paper``) on the
+    card: the convergence harness's smoke run on both engines (the
+    ordering gate, K2''s launches by instance), MLR and the two-layer NN at
+    full width, and card against CPU."""
+    import numpy as np
+    from repro_torch.core import gd, prng
+    from repro_torch.core.rounding import spec
+    from repro_torch.data import synthetic_binary_mnist, synthetic_mnist
+    from repro_torch.paper import convergence as conv, paper_models as pm
+    dev, cpu = torch.device("cuda"), torch.device("cpu")
+    print(f"  {smi}", flush=True)
+    out = {}
+    # (a) the convergence harness, both engines
+    st = conv.settings(smoke=True)
+    per_cell = st["sims"] * (st["steps_stag"] + st["steps_pl"]
+                             + st["steps_ill"])
+    want = {"generic": 0, "trainer": 0, "wide": 0}
+    for grid in conv.GRIDS:
+        cfgs = conv.scheme_cfgs(grid)
+        for lab in st["labels"]:
+            want[tfu.k2_instance(cfgs[lab])] += per_cell
+    n_steps = sum(want.values())
+    for engine in ("jnp", "kernel"):
+        tfu.reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.time()
+        rows, failures = conv.run(smoke=True, engine=engine, device=dev)
+        torch.cuda.synchronize()
+        wall = time.time() - t0
+        got = tfu.LAUNCHES["fused_qupdate_prng"]
+        by_inst = dict(tfu.INSTANCE_LAUNCHES)
+        expect = n_steps if engine == "kernel" else 0
+        if got != expect or (engine == "kernel" and by_inst != want):
+            fail(f"convergence ({engine}): K2' launched {got} times "
+                 f"{by_inst}, expected {expect} {want}")
+        if failures:
+            fail(f"convergence ({engine}): ordering gate failed {failures}")
+        stag = {name.split("/")[1]: v for name, _, v in rows
+                if name.endswith("stagnation_final_f")}
+        out[f"convergence_{engine}"] = dict(
+            wall_s=wall, gd_steps=n_steps, ms_per_gd_step=1e3 * wall / n_steps,
+            launches=got, by_instance=by_inst,
+            rows={name: v for name, _, v in rows[1:]})
+        print(f"  convergence --smoke, engine {engine}: {n_steps} GD steps "
+              f"in {wall:.1f} s ({1e3 * wall / n_steps:.3f} ms per step), "
+              f"K2' {got} launches {by_inst}; ordering gate passed; "
+              f"stagnation final f {stag}", flush=True)
+    # (b) MLR and (c) the two-layer NN at full width
+    f8, sr8 = "binary8", spec("binary8", "sr")
+    schemes = {
+        "binary32": (gd.fp32_config(), None, None),
+        "rn": (gd.make_config(f8, "rn", "rn", "rn"), spec(f8, "rn"), f8),
+        "sr": (gd.make_config(f8, "sr", "sr", "sr"), sr8, f8),
+        "signed_sr_eps0.1": (gd.GDRounding(
+            grad=sr8, mul=sr8, sub=spec(f8, "signed_sr_eps", 0.1),
+            sub_v="grad"), sr8, f8)}
+    for model, data, cls, t, epochs, every in (
+            ("mlr", synthetic_mnist(*PAPER_MLR_DATA, seed=0), pm.MLRTrainer,
+             0.5, PAPER_MLR_EPOCHS, 10),
+            ("nn", synthetic_binary_mnist(*PAPER_NN_DATA, seed=0),
+             pm.TwoLayerNNTrainer, 0.09375, PAPER_NN_EPOCHS, 5)):
+        X, y, Xte, yte = pm.to_device(data, dev)
+        res = {}
+        for name, (cfg, gspec, pf) in schemes.items():
+            tr = cls(cfg=cfg, t=t, grad_spec=gspec)
+            torch.cuda.synchronize()
+            t0 = time.time()
+            _, hist = tr.train(X, y, Xte, yte, epochs, seed=0,
+                               eval_every=every, param_fmt=pf)
+            wall = time.time() - t0
+            errs = [e for _, e in hist]
+            if not all(0.0 <= e <= 1.0 for e in errs):
+                fail(f"{model} {name}: test errors {errs}")
+            res[name] = dict(test_errors=hist, ms_per_epoch=1e3 * wall
+                             / epochs)
+            print(f"  {model} ({X.shape[1]} -> "
+                  f"{'10' if model == 'mlr' else '100 -> 1'}, "
+                  f"{X.shape[0]} / {Xte.shape[0]} samples, t = {t}, depth "
+                  f"cut to {epochs} epochs and 1 sim) {name}: test errors "
+                  f"{[round(e, 4) for e in errs]}, "
+                  f"{1e3 * wall / epochs:.2f} ms per epoch", flush=True)
+        out[model] = res
+    # (d) card against CPU
+    agree = {}
+    cfgs = {"bf16 sr/signed-SRe 0.4 (Fig. 3)": (
+        gd.GDRounding(grad=spec("bfloat16", "rn"), mul=spec("bfloat16", "sr"),
+                      sub=spec("bfloat16", "signed_sr_eps", 0.4),
+                      sub_v="grad"), "bfloat16"),
+            "binary8 sr2 (convergence)": (
+        conv.scheme_cfgs("binary8")["sr2"], "binary8")}
+    for t_name, t_step in (("Setting I's t", None), ("t = 0.5", 0.5)):
+        for name, (cfg, fmt) in cfgs.items():
+            for engine in ("jnp", "kernel"):
+                res = []
+                for d in (dev, cpu):
+                    diag, x0, xstar, t, _ = pm.setting1(d)
+                    fs, x = gd.run_gd(
+                        lambda v: 0.5 * torch.sum(diag * (v - xstar) ** 2),
+                        lambda v: diag * (v - xstar), x0, t_step or t, cfg,
+                        PAPER_AGREE_STEPS, key=prng.PRNGKey(0),
+                        param_fmt=fmt, engine=engine)
+                    res.append((fs.cpu(), x.cpu()))
+                if not bitwise(torch, res[0][1], res[1][1]):
+                    fail(f"Setting I {name} {t_name} ({engine}): card "
+                         "iterates not bitwise the CPU's")
+                rel = float(((res[0][0] - res[1][0]).abs()
+                             / res[1][0].abs().clamp_min(1e-30)).max())
+                if rel > 1e-6:
+                    fail(f"Setting I {name} ({engine}): f differs by {rel}")
+                agree[f"setting1 {name} {t_name} {engine}"] = dict(
+                    bitwise=True, f_max_rel=rel, final_f=float(res[0][0][-1]))
+    print(f"  Setting I (n = 1000), {PAPER_AGREE_STEPS} steps, card vs CPU: "
+          f"iterates bitwise on both engines under {list(cfgs)} at Setting "
+          "I's t and at t = 0.5", flush=True)
+    X, y, Xte, yte = synthetic_mnist(*PAPER_MLR_DATA, seed=0)
+    tr = pm.MLRTrainer(cfg=schemes["sr"][0], t=0.5, grad_spec=sr8)
+    Ws, errs = [], []
+    for d in (dev, cpu):
+        Xd, Xted, yted = (torch.as_tensor(a).to(d) for a in (X, Xte, yte))
+        Y1h = torch.nn.functional.one_hot(torch.as_tensor(y).long().to(d),
+                                          10).float()
+        W, key = torch.zeros((784, 10), device=d), prng.PRNGKey(0)
+        for e in range(3):
+            key, sub = prng.split(key)
+            W = tr.epoch(W, Xd, Y1h, sub)
+            if e == 0:
+                Ws.append(W.cpu())
+        errs.append(tr.test_error(W, Xted, yted))
+    from repro_torch.core.rounding import grid_flips
+    n_diff, adjacent = grid_flips(Ws[1], Ws[0], "binary8")
+    if n_diff > 1e-3 * Ws[0].numel() or not adjacent \
+            or abs(errs[0] - errs[1]) > 0.02:
+        fail(f"MLR card vs CPU: {n_diff} of W's {Ws[0].numel()} elements "
+             f"differ (adjacent {adjacent}), test errors {errs}")
+    agree["mlr"] = dict(w_epoch1_differing=n_diff, adjacent=adjacent,
+                        test_error_card=errs[0], test_error_cpu=errs[1])
+    print(f"  MLR full size card vs CPU: W after epoch 1 {n_diff} of "
+          f"{Ws[0].numel()} elements one binary8 step apart; test error "
+          f"after 3 epochs {errs[0]:.4f} (card) {errs[1]:.4f} (CPU)",
+          flush=True)
+    out["agreement"] = agree
+    return out
+
+
 def moe_kernel_entry(rows, name, source, replaces, launches, library):
     """A kernel of the MoE path: times per decode step (per-call time x
     launches per step at each path shape)."""
@@ -3360,6 +3617,13 @@ def main() -> None:
     print("== phase 28: engine agreement card vs cpu (reduced)", flush=True)
     engine_agree = engine_agreement_phase(torch, serve)
 
+    print("== phase 29: the paper's GD experiments (repro_torch.paper)",
+          flush=True)
+    t0 = time.time()
+    paper = paper_phase(torch, tfu, smi[0])
+    paper["wall_s"] = time.time() - t0
+    print(f"  phase 29 took {paper['wall_s']:.1f} s", flush=True)
+
     kernels = []
     replaces = {"qmatmul_sr": "src/repro/kernels/qmatmul.py:360",
                 "qmatmul_swiglu_sr": "src/repro/kernels/qmatmul.py:846"}
@@ -3405,8 +3669,24 @@ def main() -> None:
             bound_by=full[f"{mode}_bound_by"], library_ms=None,
             unrounded_axpy_ms=full["axpy_ms"], instance=full["instance"],
             generic_instance_ms=full[f"{mode}_generic_ms"],
+            wide_timed_chain=dict(
+                chain=full["wide_timed_chain"],
+                wide_ms=full[f"{mode}_wide_rss_ms"],
+                generic_ms=full[f"{mode}_generic_rss_ms"],
+                wide_device_ms=full[f"{mode}_wide_rss_device_ms"],
+                generic_device_ms=full[f"{mode}_generic_rss_device_ms"],
+                bound_ms=full[f"{mode}_rss_bound_ms"],
+                bound_by=full[f"{mode}_rss_bound_by"]),
+            launches_paper=(paper["convergence_kernel"]["launches"]
+                            if mode == "prng" else None),
+            launches_paper_by_instance=(
+                paper["convergence_kernel"]["by_instance"]
+                if mode == "prng" else None),
             timed=f"one launch over the {n_full} tinyllama-1.1b parameters "
-                  "(one train step)",
+                  "(one train step) on the trainer's chain, also on the "
+                  "generic instance (generic_instance_ms); wide_timed_chain "
+                  "holds both instances on another chain over the same "
+                  "elements",
             launches_path="train" if mode == "prng"
             else "train agreement, --update-path fused_bits"))
     fma_full = [r for r in update_rows
@@ -3564,8 +3844,10 @@ def main() -> None:
     stems = {"flash_decode": [("decode_paged_kernel", "true>"),
                               ("fwd_kernel",)],
              "flash_decode_paged": [("decode_paged_kernel", "false>")],
-             "fused_qupdate_prng": [("fused_qupdate_kernel<",)],
-             "fused_qupdate_bits": [("fused_qupdate_kernel<",)],
+             "fused_qupdate_prng": [("fused_qupdate_kernel<",),
+                                    ("fused_qupdate_wide_kernel<",)],
+             "fused_qupdate_bits": [("fused_qupdate_kernel<",),
+                                    ("fused_qupdate_wide_kernel<",)],
              "sr_cast_prng": [("sr_cast_prng_kernel",)],
              "sr_cast_bits": [("sr_cast_bits_kernel",)],
              **dict.fromkeys(("qmatmul_sr", "qmatmul_bits",
@@ -3601,7 +3883,7 @@ def main() -> None:
                   train_presets=preset_train,
                   serve_moe_oracle=served_moe_oracle,
                   paged_rows=paged_rows, engine=engine_runs,
-                  engine_agreement=engine_agree,
+                  engine_agreement=engine_agree, paper=paper,
                   t_total_s=time.time() - T_START, kernels=kernels)
     out_dir = HERE / "chiprun_out"
     out_dir.mkdir(exist_ok=True)

@@ -23,6 +23,11 @@ class FPFormat:
     subnormals: bool = True
 
     @property
+    def u(self) -> float:
+        """Unit roundoff ``2**-precision`` (paper Table 2)."""
+        return 2.0 ** (-self.precision)
+
+    @property
     def xmax(self) -> float:
         """Largest finite number ``(2 - 2**(1-p)) * 2**emax``."""
         return (2.0 - 2.0 ** (1 - self.precision)) * 2.0 ** self.emax
@@ -65,3 +70,8 @@ def get_format(name_or_fmt) -> FPFormat:
         raise ValueError(
             f"unknown floating-point format {name_or_fmt!r}; "
             f"known: {sorted(_REGISTRY)}") from exc
+
+
+def register_format(fmt: FPFormat) -> None:
+    """Register a custom format (e.g. one without subnormals)."""
+    _REGISTRY[fmt.name] = fmt

@@ -11,7 +11,8 @@ each with its own ``RoundingSpec``; for signed-SRε the bias direction ``v``
 is wired to the rounded gradient.  ``run_gd`` is the paper's experiment
 loop with both engines: "jnp" (per-step rounding calls drawing
 ``jax.random`` bits, the reference's name kept) and "kernel" (the fused
-eq.-8 update, kernels/fused_update.py).
+eq.-8 update, kernels/fused_update.py).  Also the stagnation diagnostics
+of sec. 3.2 (τ_k and the Scenario-1/2 predicates).
 """
 from __future__ import annotations
 
@@ -21,7 +22,7 @@ from typing import Callable, NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 
-from repro_torch.core import prng, rounding
+from repro_torch.core import prng, rounding, xla_math
 from repro_torch.core.rounding import IDENTITY, RoundingSpec
 
 
@@ -51,6 +52,11 @@ class GDRounding:
 
     def step_specs(self) -> Tuple[RoundingSpec, RoundingSpec, RoundingSpec]:
         return (self.grad, self.mul, self.sub)
+
+
+def fp32_config() -> GDRounding:
+    """Exact-arithmetic baseline (binary32 carrier, no extra rounding)."""
+    return GDRounding()
 
 
 def make_config(fmt, mode_8a="rn", mode_8b="sr", mode_8c="sr",
@@ -121,3 +127,32 @@ def run_gd(f: Callable, grad_f: Callable, x0, t: float, cfg: GDRounding,
             x = gd_step(x, grad_f(x), t, cfg, k).x_new
         fs.append(f(x))
     return torch.stack(fs), x
+
+
+# ---------------------------------------------------------------------------
+# Stagnation diagnostics (paper sec. 3.2).
+# ---------------------------------------------------------------------------
+def tau(z, update, fmt) -> torch.Tensor:
+    """τ_k = max_i 2^{-e_i}·|update_i| with z_i ∈ [2^{e_i−1}, 2^{e_i}).
+
+    ``z`` is the would-be iterate, ``update`` the rounded |t·ĝ|.  RN
+    stagnates when τ_k ≤ u/2 (and the iterate's lsb is even).  2^{-e} is
+    the reference's ``exp2``, XLA's (``core.xla_math``): not exact at most
+    exponents, but the value the reference compares."""
+    z = z.float()
+    e = rounding._float_exponent(torch.abs(z)) + 1
+    return torch.max(torch.abs(update.float())
+                     * xla_math.exp2_f32(-e.float()))
+
+
+def rn_would_stagnate(x, update, fmt) -> torch.Tensor:
+    """Scenario-2 predicate per coordinate: RN(x − update) == x (eq. 12)."""
+    x = rounding.round_to_format(x.float(), fmt, "rn")
+    stepped = rounding.round_to_format(x - update.float(), fmt, "rn")
+    return stepped == x
+
+
+def scenario(x, update, fmt) -> torch.Tensor:
+    """1 if no coordinate stagnates under RN (Scenario 1), else 2 (int32)."""
+    stag = rn_would_stagnate(x, update, fmt)
+    return torch.where(torch.any(stag), 2, 1).to(torch.int32)

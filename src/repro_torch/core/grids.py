@@ -53,6 +53,11 @@ class Grid:
         return y.float() * torch.tensor(self.scale, dtype=torch.float32) \
             + torch.tensor(self.mu, dtype=torch.float32)
 
+    @property
+    def xmax(self) -> float:
+        """Largest representable value (carrier domain)."""
+        return self.fmt.xmax * self.scale + self.mu
+
 
 def fp_grid(fmt) -> Grid:
     fmt = get_format(fmt)
@@ -91,6 +96,12 @@ def shifted_grid(inner, scale: float, mu: float = 0.0,
 
 
 _REGISTRY: Dict[str, Grid] = {}
+
+
+def register_grid(grid: Grid) -> None:
+    """Register a custom grid under its name (so a ``RoundingSpec`` can
+    name it, e.g. a shifted grid)."""
+    _REGISTRY[grid.name] = grid
 
 
 def get_grid(g: Union[Grid, FPFormat, str]) -> Grid:

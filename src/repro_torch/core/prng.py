@@ -12,7 +12,9 @@ the ``jax.random`` key functions reduce to it:
 * ``bits(k, shape)``  = ``x0 ^ x1`` of ``threefry(k, (hi, lo))`` over the
   flat row-major index split into its high and low 32-bit words;
 * ``uniform(k, ...)`` = the top 23 bits of ``bits`` as the mantissa of a
-  float in [1, 2), minus 1, then scaled.
+  float in [1, 2), minus 1, then scaled;
+* ``normal(k, shape)`` = ``√2 · erfinv(u)`` of a uniform on
+  (nextafter(−1, 0), 1), erfinv being XLA's (``core.xla_math``).
 
 Keys are pairs of Python ints: the serving path derives a few hundred seed
 words per decode step, and plain ints are far cheaper than small tensors.
@@ -25,6 +27,7 @@ from typing import List, Optional, Tuple
 
 import torch
 
+from repro_torch.core import xla_math
 from repro_torch.core.fma import fma
 
 M32 = 0xFFFFFFFF
@@ -149,3 +152,12 @@ def uniform(key: Key, shape, minval: float = 0.0, maxval: float = 1.0,
     span = torch.tensor(maxval, dtype=torch.float32, device=device) - lo
     return torch.maximum(lo, fma(span, floats, lo))
 
+
+
+def normal(key: Key, shape, device=None) -> torch.Tensor:
+    """``jax.random.normal(key, shape, float32)``: a uniform on
+    (nextafter(-1, 0), 1) through ``√2 · erfinv``."""
+    lo = float(torch.nextafter(torch.tensor(-1.0), torch.tensor(0.0)))
+    u = uniform(key, shape, lo, 1.0, device)
+    return float(torch.tensor(2.0 ** 0.5, dtype=torch.float32)) \
+        * xla_math.erfinv_f32(u)

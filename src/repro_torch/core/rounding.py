@@ -194,6 +194,56 @@ def ulp(x: torch.Tensor, fmt) -> torch.Tensor:
     return quantum * grid.scale if grid.transformed else quantum
 
 
+def floor_ceil(x: torch.Tensor, fmt):
+    """The directed floor and ceiling (⌊x⌋, ⌈x⌉) on the grid (paper §2.2)."""
+    return round_to_format(x, fmt, "rd"), round_to_format(x, fmt, "ru")
+
+
+def is_representable(x: torch.Tensor, fmt) -> torch.Tensor:
+    """Whether each element of x is exactly representable on the grid
+    (non-finite values count as representable, as in the reference)."""
+    grid = get_grid(fmt)
+    x = x.float()
+    z = grid.to_grid(x)
+    _, _, frac, _ = magnitude_decompose(z, grid.fmt)
+    return ((frac == 0.0) & (torch.abs(z) <= grid.fmt.xmax)) \
+        | ~torch.isfinite(x)
+
+
+def _successor_fmt(x: torch.Tensor, fmt: FPFormat) -> torch.Tensor:
+    """su(x) on an untransformed format grid: a grid point steps up by its
+    quantum when x >= 0 and by the quantum just below |x| when x < 0 (half
+    the quantum at a binade's lower edge above the subnormals); any other
+    value goes to its RU rounding.  Quanta and sums below 2**-126 flush to
+    zero, as the reference's do under XLA (bfloat16's subnormal range)."""
+    x = x.float()
+    _, q, frac, fy = magnitude_decompose(x, fmt)
+    q = _flush_tiny(q)
+    e = _float_exponent(torch.abs(x))
+    boundary = (fy == 2.0 ** (fmt.precision - 1)) & (e > fmt.emin)
+    q_below = _flush_tiny(torch.where(boundary, q * 0.5, q))
+    succ_exact = _flush_tiny(torch.where(x >= 0, x + q, x + q_below))
+    out = torch.where(frac == 0.0, succ_exact, round_to_format(x, fmt, "ru"))
+    return torch.where(torch.isfinite(x), out, x)
+
+
+def successor(x: torch.Tensor, fmt) -> torch.Tensor:
+    """su(x): the smallest grid value strictly greater than x (eq. 10)."""
+    grid = get_grid(fmt)
+    if not grid.transformed:
+        return _successor_fmt(x, grid.fmt)
+    return grid.from_grid(_successor_fmt(grid.to_grid(x), grid.fmt))
+
+
+def predecessor(x: torch.Tensor, fmt) -> torch.Tensor:
+    """pr(x): the largest grid value strictly smaller than x (eq. 10)."""
+    grid = get_grid(fmt)
+    x = x.float()
+    if not grid.transformed:
+        return -_successor_fmt(-x, grid.fmt)
+    return grid.from_grid(-_successor_fmt(-grid.to_grid(x), grid.fmt))
+
+
 def grid_flips(ref: torch.Tensor, got: torch.Tensor, fmt):
     """Compare two tensors of grid values: (number of elements whose
     values differ, whether every such pair is one grid step apart).

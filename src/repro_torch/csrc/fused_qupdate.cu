@@ -51,11 +51,18 @@
 // covers one row of the 128-lane layout) with 16-byte accesses of x, g,
 // the output and K2's bit rows where every operand is aligned (the scalar
 // path serves the tail and views off the boundary), a group's words all
-// drawn before its arithmetic, and two instances each: one for
+// drawn before its arithmetic, and three instances each: one for
 // train.PAPER_RUN's chain (rn / sr / signed-SRe with 32-bit draws on a
-// narrow grid, sub_v = "grad") with the schemes fixed at compile time,
-// and a generic one.  momentum_fma is one thread per element in a
-// grid-stride loop with plain 4-byte loads.
+// narrow grid, sub_v = "grad") with the schemes fixed at compile time, a
+// generic one for rn / sr / sr_eps / signed-SRe sites on plain FP grids
+// with subnormals, saturating (rt::round_value), and a wide one for every
+// scheme x grid x overflow pair the reference's round_block takes
+// (rt::round_value_wide: rz / ra / rd / ru, sr2, the bit trick, fixed-point
+// and shifted grids, formats without subnormals, overflow to +-inf), which
+// the paper's GD experiments run (repro_torch.paper).  The wide instance
+// is a kernel of its own so that the other two compile as before.
+// momentum_fma is one thread per element in a grid-stride loop with plain
+// 4-byte loads.
 //
 // K5 moves 20 bytes per element with bf16 codes but issues more
 // instructions than that takes: two Threefry evaluations, five roundings,
@@ -672,6 +679,94 @@ fused_qupdate_kernel(const K2Args a) {
   }
 }
 
+// ---------------------------------------------------------------------------
+// K2' and K2, the wide instance
+// ---------------------------------------------------------------------------
+struct WideChain {
+  rt::WideParams grad, mul, sub;
+  int grad_v, mul_v, sub_v;
+};
+
+struct K2WideArgs {
+  const float* x;
+  const float* g;
+  const uint32_t* bits3;   // K2: uint32 (3, n); K2': null
+  float* out;
+  int64_t n;
+  int vec;
+  int vec_bits;
+  float t;
+  uint32_t k0, k1;
+  WideChain c;
+};
+
+__device__ __forceinline__ bool wide_stochastic(const rt::WideParams& p) {
+  return p.r.enabled && (p.r.mode == rt::kSR || p.r.mode == rt::kSREps ||
+                         p.r.mode == rt::kSignedSREps);
+}
+
+__device__ __forceinline__ float wide_site(float x, uint32_t bits,
+                                           const rt::WideParams& p,
+                                           float sv) {
+  return p.r.enabled ? rt::round_value_wide(x, bits, p, sv) : x;
+}
+
+// update_chain over wide sites: the same operations in the same order.
+__device__ __forceinline__ float wide_chain(const WideChain& c, float x,
+                                            float g, float t, uint32_t b1,
+                                            uint32_t b2, uint32_t b3) {
+  const float g_hat = wide_site(g, b1, c.grad, sign_v(c.grad_v, g));
+  const float upd = wide_site(__fmul_rn(t, g_hat), b2, c.mul,
+                              sign_v(c.mul_v, g_hat));
+  const float z = __fadd_rn(x, -upd);
+  return wide_site(z, b3, c.sub, sign_v(c.sub_v, g_hat));
+}
+
+// qupdate_group of the wide instance: the same loads, words and stores.
+template <bool kBits>
+__device__ __forceinline__ void wide_group(const K2WideArgs& a, int64_t i0,
+                                           int count) {
+  const bool vec = a.vec && count == 4;
+  float x[4], g[4];
+  load4(a.x, i0, count, vec, x);
+  load4(a.g, i0, count, vec, g);
+  const bool need[3] = {wide_stochastic(a.c.grad), wide_stochastic(a.c.mul),
+                        wide_stochastic(a.c.sub)};
+  uint32_t b[3][4] = {{0u, 0u, 0u, 0u}, {0u, 0u, 0u, 0u}, {0u, 0u, 0u, 0u}};
+  if (kBits) {
+    const bool vec_bits = a.vec_bits && count == 4;
+#pragma unroll
+    for (int s = 0; s < 3; ++s)
+      if (need[s]) load_words4(a.bits3 + s * a.n, i0, count, vec_bits, b[s]);
+  } else {
+    const uint32_t row = static_cast<uint32_t>(static_cast<uint64_t>(i0) /
+                                               kLanes);
+    const uint32_t c0 = static_cast<uint32_t>(i0) % kLanes;
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+      chain_words(a.k0, a.k1, row, c0 + j, need, b[0][j], b[1][j], b[2][j]);
+  }
+  float o[4];
+#pragma unroll
+  for (int j = 0; j < 4; ++j)
+    o[j] = wide_chain(a.c, x[j], g[j], a.t, b[0][j], b[1][j], b[2][j]);
+  store4(a.out, i0, count, vec, o);
+}
+
+// The wide instance of K2' (kBits false) and K2: fused_qupdate_kernel's
+// launch shape and loop.
+template <bool kBits>
+__global__ void __launch_bounds__(kK2Threads)
+fused_qupdate_wide_kernel(const K2WideArgs a) {
+  const int64_t groups = (a.n + 3) / 4;
+  const int64_t span = int64_t(gridDim.x) * kK2Threads;
+  for (int64_t q = int64_t(blockIdx.x) * kK2Threads + threadIdx.x;
+       q < groups; q += span) {
+    const int64_t left = a.n - 4 * q;
+    wide_group<kBits>(a, 4 * q, left >= 4 ? 4 : static_cast<int>(left));
+  }
+}
+
 float float_from_bits(int bits) {
   float f;
   std::memcpy(&f, &bits, sizeof f);
@@ -708,6 +803,43 @@ Chain make_chain(const int* sites, const float* xmax, const float* eps) {
     *vs[s] = q[6];
   }
   return c;
+}
+
+// The flags of a site row's slot 7 (wide sites only): bits 0-1 the
+// Randomness, bit 2 overflow to +-inf, bit 3 a format without subnormals,
+// bit 4 a shifted grid, bit 5 a fixed-point grid (which the wide instance
+// rounds as the FP format it is).
+constexpr int kFlagInf = 4, kFlagNoSubnormals = 8, kFlagShifted = 16;
+
+// make_chain's sites for the wide instance; shift: float[6], (scale, mu)
+// of each site (null: no site is shifted).
+WideChain make_wide_chain(const int* sites, const float* xmax,
+                          const float* eps, const float* shift) {
+  WideChain c;
+  rt::WideParams* ps[3] = {&c.grad, &c.mul, &c.sub};
+  int* vs[3] = {&c.grad_v, &c.mul_v, &c.sub_v};
+  for (int s = 0; s < 3; ++s) {
+    const int* q = sites + 8 * s;
+    const int f = q[7];
+    const bool shifted = (f & kFlagShifted) && shift != nullptr;
+    *ps[s] = rt::WideParams{
+        rt::RoundParams{q[1], q[2], q[3], xmax[s], q[4], q[5], q[0], eps[s]},
+        f & 3, (f & kFlagInf) ? 1 : 0, (f & kFlagNoSubnormals) ? 0 : 1,
+        shifted ? 1 : 0, shifted ? shift[2 * s] : 1.0f,
+        shifted ? shift[2 * s + 1] : 0.0f};
+    *vs[s] = q[6];
+  }
+  return c;
+}
+
+// Whether a chain needs the wide instance: a site with a scheme beyond
+// round_value's or any slot-7 flag.
+bool wide_only(const int* sites) {
+  for (int s = 0; s < 3; ++s) {
+    const int* q = sites + 8 * s;
+    if (q[0] && (q[4] > rt::kSignedSREps || q[7] != 0)) return true;
+  }
+  return false;
 }
 
 unsigned grid_for(int64_t n) {
@@ -753,6 +885,12 @@ bool aligned(const void* p, int bytes) {
          0;
 }
 
+dim3 k2_grid(int64_t n, bool bits) {
+  const int64_t blocks = ((n + 3) / 4 + kK2Threads - 1) / kK2Threads;
+  const int64_t cap = bits ? kK2BitsBlocks : kK2PrngBlocks;
+  return dim3(static_cast<unsigned>(blocks < cap ? blocks : cap));
+}
+
 // K2' and K2 through fused_qupdate_kernel.  instance: 0 generic, 1 the
 // trainer's (fused_update.k2_instance); a trainer launch whose chain does
 // not fit is refused.
@@ -761,9 +899,7 @@ int launch_qupdate(const K2Args& a, int instance, void* stream) {
   if (instance == 1 && !k2_trainer_case(a.c))
     return static_cast<int>(cudaErrorInvalidValue);
   const bool bits = a.bits3 != nullptr;
-  const int64_t blocks = ((a.n + 3) / 4 + kK2Threads - 1) / kK2Threads;
-  const int64_t cap = bits ? kK2BitsBlocks : kK2PrngBlocks;
-  const dim3 grid(static_cast<unsigned>(blocks < cap ? blocks : cap));
+  const dim3 grid = k2_grid(a.n, bits);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (instance == 1 && bits)
     fused_qupdate_kernel<true, true><<<grid, kK2Threads, 0, st>>>(a);
@@ -776,19 +912,52 @@ int launch_qupdate(const K2Args& a, int instance, void* stream) {
   return static_cast<int>(cudaGetLastError());
 }
 
+// K2' and K2 through fused_qupdate_wide_kernel (instance 2).
+int launch_wide(const K2WideArgs& a, void* stream) {
+  if (a.n <= 0) return 0;
+  const bool bits = a.bits3 != nullptr;
+  const dim3 grid = k2_grid(a.n, bits);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (bits)
+    fused_qupdate_wide_kernel<true><<<grid, kK2Threads, 0, st>>>(a);
+  else
+    fused_qupdate_wide_kernel<false><<<grid, kK2Threads, 0, st>>>(a);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// K2' and K2 on any instance: 0 generic, 1 trainer, 2 wide.  The generic
+// and trainer instances refuse a chain that needs the wide one.
+int launch_any(const float* x, const float* g, const uint32_t* bits3,
+               float* out, int64_t n, float t, uint32_t k0, uint32_t k1,
+               const int* sites, const float* xmax, const float* eps,
+               const float* shift, int instance, void* stream) {
+  const bool vec = aligned(x, 16) && aligned(g, 16) && aligned(out, 16);
+  const int vec_bits = bits3 != nullptr && aligned(bits3, 16) && n % 4 == 0;
+  if (instance == 2) {
+    const K2WideArgs a{x, g, bits3, out, n, vec, vec_bits, t, k0, k1,
+                       make_wide_chain(sites, xmax, eps, shift)};
+    return launch_wide(a, stream);
+  }
+  if (wide_only(sites)) return static_cast<int>(cudaErrorInvalidValue);
+  const K2Args a{x, g, bits3, out, n, vec, vec_bits, t, k0, k1,
+                 make_chain(sites, xmax, eps)};
+  return launch_qupdate(a, instance, stream);
+}
+
 }  // namespace
 
-// K2'.  sites: int[24], xmax/eps: float[3] (grad, mul, sub).  Launch on
+// K2'.  sites: int[24], xmax/eps: float[3], shift: float[6] ((scale, mu)
+// per site, read by the wide instance only) for (grad, mul, sub).  instance:
+// 0 generic, 1 trainer, 2 wide (fused_update.K2_INSTANCES).  Launch on
 // `stream`; returns cudaGetLastError() (0 on success).
 extern "C" int fused_qupdate_prng(const float* x, const float* g, float* out,
                                   int64_t n, float t, uint32_t k0,
                                   uint32_t k1, const int* sites,
                                   const float* xmax, const float* eps,
-                                  int instance, void* stream) {
-  const bool vec = aligned(x, 16) && aligned(g, 16) && aligned(out, 16);
-  const K2Args a{x, g, nullptr, out, n, vec, 0, t, k0, k1,
-                 make_chain(sites, xmax, eps)};
-  return launch_qupdate(a, instance, stream);
+                                  const float* shift, int instance,
+                                  void* stream) {
+  return launch_any(x, g, nullptr, out, n, t, k0, k1, sites, xmax, eps,
+                    shift, instance, stream);
 }
 
 // K2.  bits3: uint32 (3, n), row s read only where step s is stochastic.
@@ -796,11 +965,10 @@ extern "C" int fused_qupdate_bits(const float* x, const float* g,
                                   const uint32_t* bits3, float* out,
                                   int64_t n, float t, const int* sites,
                                   const float* xmax, const float* eps,
-                                  int instance, void* stream) {
-  const bool vec = aligned(x, 16) && aligned(g, 16) && aligned(out, 16);
-  const K2Args a{x, g, bits3, out, n, vec, aligned(bits3, 16) && n % 4 == 0,
-                 t, 0u, 0u, make_chain(sites, xmax, eps)};
-  return launch_qupdate(a, instance, stream);
+                                  const float* shift, int instance,
+                                  void* stream) {
+  return launch_any(x, g, bits3, out, n, t, 0u, 0u, sites, xmax, eps, shift,
+                    instance, stream);
 }
 
 // out = a * m + g, one rounding (m, g, out: float32 of n elements).

@@ -1,10 +1,12 @@
 // Device-side rounding core shared by the rounded-GEMM and update kernels.
 //
-// A CUDA port of repro.kernels.common.round_block for plain FP grids under
-// the "rn", "sr", "sr_eps" and "signed_sr_eps" schemes (the GEMM wrappers
-// accept only rn and sr), and of the reference's counter-based random
-// bits (Threefry-2x32 keyed by the element's global (row, col), the
-// interpret-mode derivation of repro.kernels.common.counter_bits_reduced).
+// A CUDA port of repro.kernels.common.round_block: round_value for plain FP
+// grids under the "rn", "sr", "sr_eps" and "signed_sr_eps" schemes (the
+// GEMM wrappers accept only rn and sr), round_value_wide for every scheme x
+// grid x overflow pair round_block takes (the eq.-8 update's wide
+// instance), and the reference's counter-based random bits (Threefry-2x32
+// keyed by the element's global (row, col), the interpret-mode derivation
+// of repro.kernels.common.counter_bits_reduced).
 // The plain PyTorch twin is repro_torch/kernels/common.py; both must give
 // the same bits for the same inputs.
 //
@@ -33,7 +35,17 @@ constexpr uint32_t kGolden = 0x9E3779B9u;   // stream offset in the key
 constexpr uint32_t kParity = 0x1BD11BDAu;
 constexpr float kTiny = 1.17549435082228750797e-38f;   // 2^-126
 
-enum Mode : int { kRN = 0, kSR = 1, kSREps = 2, kSignedSREps = 3 };
+enum Mode : int { kRN = 0, kSR = 1, kSREps = 2, kSignedSREps = 3,
+                  // round_value_wide only: toward zero, away from zero,
+                  // toward -inf, toward +inf
+                  kRZ = 4, kRA = 5, kRD = 6, kRU = 7 };
+
+// How a stochastic scheme turns its word into a uniform (round_value_wide):
+// centred few-bit draws (sr, sr_eps, signed_sr_eps), SR 2.0's uncentred
+// comparison draw (sr2), the complemented uncentred draw of the bit trick
+// (sr_bittrick), and the bit trick's integer path on bfloat16 at r = 16.
+enum Randomness : int { kUniform = 0, kComparison = 1, kBitTrick = 2,
+                        kBitTrickBf16 = 3 };
 
 // One rounding site: an FP grid (precision p, [emin, emax], xmax), the
 // scheme, the random bits a stochastic draw consumes per element, and the
@@ -218,6 +230,127 @@ __device__ __forceinline__ float round_value(float x, uint32_t bits,
   mag = fminf(mag, p.xmax);
   float out = (z < 0.0f) ? -mag : mag;
   if (z == 0.0f && signbit(z)) out = -0.0f;
+  return isfinite(x) ? out : x;
+}
+
+// One rounding site of round_value_wide: round_value's site plus what the
+// reference's round_block reads beyond it.  mode may be any Mode.
+struct WideParams {
+  RoundParams r;
+  int randomness;     // Randomness
+  int overflow_inf;   // 1: magnitudes past xmax become +-inf; 0: saturate
+  int subnormals;     // 0: below 2^emin the quantum stays 2^emin
+  int shifted;        // round (x - mu) / scale, then map back y * scale + mu
+  float scale;
+  float mu;
+};
+
+// _uniform_from_bits for every randomness kind: the bit trick's
+// complemented draw (b ^ (2^r - 1)) 2^-r; else round_value's draws, the
+// comparison draw uncentred, b 2^-r.  r = 32 takes the top 24 bits for all
+// but the bit trick, as the reference does.
+__device__ __forceinline__ float uniform_wide(uint32_t bits, int rand_bits,
+                                              int randomness) {
+  if (randomness >= kBitTrick) {
+    const uint32_t mask =
+        rand_bits == 32 ? 0xFFFFFFFFu : (1u << rand_bits) - 1u;
+    return __fmul_rn(__uint2float_rn((bits & mask) ^ mask),
+                     pow2i(-rand_bits));
+  }
+  if (rand_bits == 32)
+    return __fmul_rn(__uint2float_rn(bits >> 8), 5.9604644775390625e-08f);
+  const float low = __uint2float_rn(bits & ((1u << rand_bits) - 1u));
+  return randomness == kComparison
+             ? __fmul_rn(low, pow2i(-rand_bits))
+             : __fmul_rn(__fadd_rn(low, 0.5f), pow2i(-rand_bits));
+}
+
+// round_block for one value on any grid the reference registers -- FP
+// formats with or without subnormals, fixed point (an FP format with emin
+// == emax), a (scale, mu)-shifted grid around either -- under any scheme,
+// saturating or overflowing to +-inf: round_value's steps with the
+// reference's additions, in its order.  The shift is (x - mu) / scale
+// before, y * scale + mu after, each operation rounded once (no FMA).
+// The bit trick on bfloat16 at r = 16 (kBitTrickBf16) adds the 16 random
+// bits to the word and keeps its top half.  A scheme with p_up == frac
+// (sr, sr2, sr_bittrick) on a grid whose quantum stays a normal float
+// takes the ceiling as floor + quantum; every other rule compares u with
+// p_up and then puts exactly representable inputs back.
+__device__ __forceinline__ float round_value_wide(float x, uint32_t bits,
+                                                  const WideParams& w,
+                                                  float sign_v = 0.0f) {
+  const RoundParams& p = w.r;
+  float z = w.shifted ? __fdiv_rn(__fadd_rn(x, -w.mu), w.scale) : x;
+  if (fabsf(z) < kTiny) z = __fmul_rn(z, 0.0f);   // explicit FTZ, signed
+  if (w.randomness == kBitTrickBf16) {
+    float out = __uint_as_float((__float_as_uint(z) + (bits & 0xFFFFu)) &
+                                0xFFFF0000u);
+    if (!w.overflow_inf && !isfinite(out)) out = __fmul_rn(sign_of(z), p.xmax);
+    return isfinite(x) ? out : x;
+  }
+  const float mag_in = fabsf(z);
+  const int e = float_exponent(mag_in);
+  int qe = min(max(e, p.emin), p.emax) - (p.precision - 1);
+  if (!w.subnormals && e < p.emin) qe = p.emin;
+  const int qmin = p.emin - p.precision + 1;
+  const bool narrow = qmin >= -126 && (p.emax - p.precision) < 126;
+
+  float y, fy, frac, floor_mag, quantum;
+  if (narrow) {
+    quantum = pow2i(qe);
+    y = __fmul_rn(mag_in, pow2i(-qe));
+    fy = floorf(y);
+    frac = __fadd_rn(y, -fy);
+    floor_mag = __fmul_rn(fy, quantum);
+  } else {
+    y = exact_scale(mag_in, -qe);
+    fy = floorf(y);
+    frac = __fadd_rn(y, -fy);
+    floor_mag = exact_scale(fy, qe);
+    quantum = __fmul_rn(pow2i(floor_div2(qe)), pow2i(qe - floor_div2(qe)));
+  }
+
+  const bool stoch =
+      p.mode == kSR || p.mode == kSREps || p.mode == kSignedSREps;
+  const float u = stoch ? uniform_wide(bits, p.rand_bits, w.randomness)
+                        : 0.5f;
+  float mag;
+  if (p.mode == kSR && qmin >= -126) {
+    mag = (u < frac) ? __fadd_rn(floor_mag, quantum) : floor_mag;
+  } else {
+    const float fy1 = __fadd_rn(fy, 1.0f);
+    const float ceil_mag = narrow ? __fmul_rn(fy1, pow2i(qe))
+                                  : exact_scale(fy1, qe);
+    float p_up;
+    if (p.mode == kSR) {
+      p_up = frac;
+    } else if (p.mode == kSREps) {        // min(frac + eps, 1)
+      p_up = fminf(__fadd_rn(frac, p.eps), 1.0f);
+    } else if (p.mode == kSignedSREps) {  // clamp(frac - sx sv eps, 0, 1)
+      const float bias = __fmul_rn(__fmul_rn(sign_of(z), sign_v), p.eps);
+      p_up = fminf(fmaxf(__fadd_rn(frac, -bias), 0.0f), 1.0f);
+    } else if (p.mode == kRZ) {
+      p_up = 0.0f;
+    } else if (p.mode == kRA) {
+      p_up = 1.0f;
+    } else if (p.mode == kRD) {           // away from zero below zero
+      p_up = z < 0.0f ? 1.0f : 0.0f;
+    } else if (p.mode == kRU) {           // away from zero above zero
+      p_up = z > 0.0f ? 1.0f : 0.0f;
+    } else {   // rn, ties to even
+      const float odd = (static_cast<int>(fy) & 1) ? 1.0f : 0.0f;
+      p_up = frac > 0.5f ? 1.0f : (frac < 0.5f ? 0.0f : odd);
+    }
+    mag = (u < p_up) ? ceil_mag : floor_mag;
+    if (frac == 0.0f) mag = mag_in;
+  }
+  if (w.overflow_inf)
+    mag = mag > p.xmax ? INFINITY : mag;
+  else
+    mag = fminf(mag, p.xmax);
+  float out = (z < 0.0f) ? -mag : mag;
+  if (z == 0.0f && signbit(z)) out = -0.0f;
+  if (w.shifted) out = __fadd_rn(__fmul_rn(out, w.scale), w.mu);
   return isfinite(x) ? out : x;
 }
 

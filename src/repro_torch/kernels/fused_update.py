@@ -30,8 +30,14 @@ goes to the plain twin, which works through the vector in chunks of
 nothing); a CUDA tensor launches the kernel.  K2' moves 12 bytes per
 element and runs one Threefry evaluation per two stochastic steps, which
 bounds it; K2 moves 12 bytes plus 4 per stochastic step.  Both are
-compiled twice over, a trainer instance for ``train.PAPER_RUN``'s chain
-and a generic one (``k2_instance``), as K5 is (``k5_instance``).  K5
+compiled three times over (``k2_instance``): a trainer instance for
+``train.PAPER_RUN``'s chain, a generic one for rn / sr / sr_eps /
+signed-SRe sites on plain FP grids with subnormals, saturating, and a wide
+one for every scheme x grid x overflow pair of the reference's
+``round_block`` (rz / ra / rd / ru, sr2, the bit trick, fixed-point and
+shifted grids, formats without subnormals, overflow to ±inf: the paper's
+GD experiments, ``repro_torch.paper``).  K5 has the first two
+(``k5_instance``) and takes the generic instance's sites only.  K5
 moves 20 bytes per element with bf16 codes and runs two Threefry
 evaluations per element (r = 32 moments, a two-step chain).
 
@@ -62,12 +68,21 @@ from repro_torch.kernels import build, common
 
 LANES = 128                 # the reference's flat (rows, LANES) layout
 CHUNK = 1 << 24             # plain twins: elements per pass (LANES | CHUNK)
-_MODES = {"rn": 0, "sr": 1, "sr_eps": 2, "signed_sr_eps": 3}
+# the kernels' scheme codes (``rounding.cuh``'s ``Mode``): sr2 and the bit
+# trick are SR with another draw (``_RANDOMNESS``)
+_MODES = {"rn": 0, "sr": 1, "sr_eps": 2, "signed_sr_eps": 3, "rz": 4,
+          "ra": 5, "rd": 6, "ru": 7, "sr2": 1, "sr_bittrick": 1}
+_GENERIC_MODES = ("rn", "sr", "sr_eps", "signed_sr_eps")
+# ``rounding.cuh``'s ``Randomness`` by scheme randomness; 3 is the bit
+# trick's integer path on bfloat16 at r = 16
+_RANDOMNESS = {"none": 0, "uniform": 0, "comparison": 1, "bittrick": 2}
 _V_SOURCES = {"self": 0, "grad": 1, "neg_grad": 2}
 
 # kernel launches since the last reset_launches(), by kernel name
 LAUNCHES: Dict[str, int] = {"fused_qupdate_prng": 0, "fused_qupdate_bits": 0,
                             "momentum_fma": 0, "fused_qadam_prng": 0}
+# K2' and K2 launches (together) by compiled instance, since the last reset
+INSTANCE_LAUNCHES: Dict[str, int] = {"generic": 0, "trainer": 0, "wide": 0}
 # K5's moment sites draw from these counter streams (the chain takes pair
 # streams 0 and 1), as the reference's kernel does
 STREAM_MOMENT_M = 8
@@ -77,8 +92,9 @@ Words = Tuple[int, int]
 
 
 def reset_launches() -> None:
-    for name in LAUNCHES:
-        LAUNCHES[name] = 0
+    for counts in (LAUNCHES, INSTANCE_LAUNCHES):
+        for name in counts:
+            counts[name] = 0
 
 
 def need(cfg: GDRounding) -> Tuple[bool, bool, bool]:
@@ -87,26 +103,40 @@ def need(cfg: GDRounding) -> Tuple[bool, bool, bool]:
 
 
 def _check_spec(s: RoundingSpec, what: str) -> None:
+    """K2' and K2 take every registered scheme on every grid, saturating
+    or overflowing (the wide instance); only a scheme the kernels do not
+    know is refused."""
+    if not s.is_identity and s.scheme.name not in _MODES:
+        raise NotImplementedError(f"{what}: scheme {s.scheme.name!r} has no "
+                                  "rule in the update kernels")
+
+
+def _generic_spec(s: RoundingSpec) -> bool:
+    """Whether a site is the generic instance's (``rounding.cuh``'s
+    ``round_value``): rn, sr, sr_eps or signed-SRe on a plain FP grid with
+    subnormals, saturating."""
     if s.is_identity:
-        return
+        return True
     grid = get_grid(s.fmt)
-    if grid.kind != "fp" or grid.transformed or not grid.fmt.subnormals:
-        raise NotImplementedError(f"{what}: grid {grid.name!r} is not a "
-                                  "plain FP grid (not ported yet)")
-    if s.scheme.name not in _MODES:
-        raise NotImplementedError(f"{what}: scheme {s.scheme.name!r} is not "
-                                  "ported yet (rn, sr, sr_eps, "
-                                  "signed_sr_eps)")
-    if s.overflow != "saturate":
-        raise NotImplementedError(f"{what}: overflow={s.overflow!r} is not "
-                                  "ported yet")
+    return (grid.kind == "fp" and not grid.transformed
+            and grid.fmt.subnormals and s.scheme.name in _GENERIC_MODES
+            and s.overflow == "saturate")
 
 
-def _check(cfg: GDRounding, x: torch.Tensor, g: torch.Tensor) -> None:
+def _check_generic_spec(s: RoundingSpec, what: str) -> None:
+    """K5's sites: the generic instance's only."""
+    if not _generic_spec(s):
+        raise NotImplementedError(
+            f"{what}: {s} is not ported to K5 (rn, sr, sr_eps, "
+            "signed_sr_eps on a plain FP grid with subnormals, saturating)")
+
+
+def _check(cfg: GDRounding, x: torch.Tensor, g: torch.Tensor,
+           check_spec=_check_spec) -> None:
     for s, v, name in zip(cfg.step_specs(), (cfg.grad_v, cfg.mul_v,
                                              cfg.sub_v),
                           ("grad", "mul", "sub")):
-        _check_spec(s, f"fused update, step {name}")
+        check_spec(s, f"fused update, step {name}")
         if v not in _V_SOURCES:
             raise ValueError(f"unknown v_source {v!r}")
     if x.dtype != torch.float32 or g.dtype != torch.float32:
@@ -171,11 +201,11 @@ def fused_qupdate_prng(x: torch.Tensor, g: torch.Tensor, t: float,
     lib = _lib()
     rc = lib.fused_qupdate_prng(
         x.data_ptr(), g.data_ptr(), res.data_ptr(), x.numel(), f32(t),
-        seed[0] & M32, seed[1] & M32, *_site_args(cfg),
+        seed[0] & M32, seed[1] & M32, *_site_args(cfg), _shift_args(cfg),
         _k2_index(cfg, instance),
         torch.cuda.current_stream(x.device).cuda_stream)
     _launch_check(rc, "fused_qupdate_prng")
-    LAUNCHES["fused_qupdate_prng"] += 1
+    _count_k2("fused_qupdate_prng", cfg, instance)
     return res
 
 
@@ -225,10 +255,11 @@ def fused_qupdate(x: torch.Tensor, g: torch.Tensor, t: float,
     lib = _lib()
     rc = lib.fused_qupdate_bits(
         x.data_ptr(), g.data_ptr(), words.data_ptr(), res.data_ptr(),
-        x.numel(), f32(t), *_site_args(cfg), _k2_index(cfg, instance),
+        x.numel(), f32(t), *_site_args(cfg), _shift_args(cfg),
+        _k2_index(cfg, instance),
         torch.cuda.current_stream(x.device).cuda_stream)
     _launch_check(rc, "fused_qupdate_bits")
-    LAUNCHES["fused_qupdate_bits"] += 1
+    _count_k2("fused_qupdate_bits", cfg, instance)
     return res
 
 
@@ -236,7 +267,7 @@ def fused_qupdate(x: torch.Tensor, g: torch.Tensor, t: float,
 # K5: the fused QAdam step
 # ---------------------------------------------------------------------------
 def _check_moment_spec(s: RoundingSpec, what: str) -> None:
-    """A moment site: the identity, a plain-FP-grid site K2' supports, or
+    """A moment site: the identity, a site of K2''s generic instance, or
     the bf16 bit-trick SR with 16-bit draws."""
     if not s.is_identity and s.scheme.randomness == "bittrick":
         if get_grid(s.fmt).name != "bfloat16" or s.rand_bits != 16 \
@@ -244,13 +275,13 @@ def _check_moment_spec(s: RoundingSpec, what: str) -> None:
             raise NotImplementedError(f"{what}: bit-trick SR is ported for "
                                       "bfloat16 with 16-bit draws only")
         return
-    _check_spec(s, what)
+    _check_generic_spec(s, what)
 
 
 def _check_adam(cfg, x, g, m, v, cm, cv, m_spec, v_spec, packed) -> bool:
     """Validate K5's operands; returns whether the carries are Kahan-
     compensated."""
-    _check(cfg, x, g)
+    _check(cfg, x, g, _check_generic_spec)
     _check_moment_spec(m_spec, "fused QAdam, m")
     _check_moment_spec(v_spec, "fused QAdam, v")
     kahan = cm is not None
@@ -334,21 +365,25 @@ def _trainer_chain(cfg: GDRounding) -> bool:
     chain = list(cfg.step_specs())
     modes = tuple(None if s.is_identity else s.scheme.name for s in chain)
     return modes == ("rn", "sr", "signed_sr_eps") \
-        and all(_narrow(s) for s in chain) \
+        and all(_generic_spec(s) and _narrow(s) for s in chain) \
         and all(s.rand_bits == 32 for s in chain[1:])
 
 
 # K2' and K2's compiled instances, by the index their entry points take
-K2_INSTANCES = ("generic", "trainer")
+K2_INSTANCES = ("generic", "trainer", "wide")
 
 
 def k2_instance(cfg: GDRounding) -> str:
-    """Which compiled instance of K2' and K2 a config runs: ``"trainer"``
-    for ``train.PAPER_RUN``'s chain (every scheme, draw width and the
-    signed-SRe direction ``sub_v="grad"`` fixed at compile time, the
-    sites' grids read at run time), else ``"generic"`` (the ``Chain`` read
-    at run time).  The entry points refuse a trainer launch that does not
-    fit."""
+    """Which compiled instance of K2' and K2 a config runs: ``"wide"``
+    where a site is not the generic instance's (``_generic_spec``);
+    ``"trainer"`` for ``train.PAPER_RUN``'s chain (every scheme, draw width
+    and the signed-SRe direction ``sub_v="grad"`` fixed at compile time, the
+    sites' grids read at run time); else ``"generic"`` (the ``Chain`` read
+    at run time).  The wide instance takes every chain; the entry points
+    refuse a trainer launch that does not fit and a generic or trainer
+    launch of a chain that needs the wide instance."""
+    if not all(_generic_spec(s) for s in cfg.step_specs()):
+        return "wide"
     return "trainer" if _trainer_chain(cfg) and cfg.sub_v == "grad" \
         else "generic"
 
@@ -356,6 +391,11 @@ def k2_instance(cfg: GDRounding) -> str:
 def _k2_index(cfg: GDRounding, instance: Optional[str]) -> int:
     return K2_INSTANCES.index(k2_instance(cfg) if instance is None
                               else instance)
+
+
+def _count_k2(name: str, cfg: GDRounding, instance: Optional[str]) -> None:
+    LAUNCHES[name] += 1
+    INSTANCE_LAUNCHES[K2_INSTANCES[_k2_index(cfg, instance)]] += 1
 
 
 def k5_instance(cfg: GDRounding, m_spec: RoundingSpec, v_spec: RoundingSpec,
@@ -507,6 +547,21 @@ def momentum_fma(a: float, m: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 # the C interface
 # ---------------------------------------------------------------------------
+def _wide_flags(s: RoundingSpec) -> int:
+    """Slot 7 of a site row (``fused_qupdate.cu``'s ``make_wide_chain``):
+    bits 0-1 the draw (``_RANDOMNESS``; 3: the bit trick's integer path,
+    taken as the reference's ``round_block`` takes it), bit 2 overflow to
+    ±inf, bit 3 no subnormals, bit 4 a shifted grid, bit 5 a fixed-point
+    grid.  0 for every site of the generic instance."""
+    grid = get_grid(s.fmt)
+    flags = _RANDOMNESS[s.scheme.randomness]
+    if s.scheme.randomness == "bittrick" and not grid.transformed \
+            and grid.fmt.name == "bfloat16" and s.rand_bits == 16:
+        flags = 3
+    return (flags | 4 * (s.overflow == "inf") | 8 * (not grid.fmt.subnormals)
+            | 16 * grid.transformed | 32 * (grid.kind == "fxp"))
+
+
 def _site_args(cfg: GDRounding):
     """(int[24] sites, float[3] xmax, float[3] eps) host arrays."""
     sites, xmax, eps = [], [], []
@@ -518,11 +573,20 @@ def _site_args(cfg: GDRounding):
             continue
         f = get_grid(s.fmt).fmt
         sites += [1, f.precision, f.emin, f.emax, _MODES[s.scheme.name],
-                  s.rand_bits, _V_SOURCES[v], 0]
+                  s.rand_bits, _V_SOURCES[v], _wide_flags(s)]
         xmax.append(f.xmax)
         eps.append(s.eps)
     return ((ctypes.c_int * 24)(*sites), (ctypes.c_float * 3)(*xmax),
             (ctypes.c_float * 3)(*eps))
+
+
+def _shift_args(cfg: GDRounding):
+    """float[6]: (scale, mu) of each site's grid ((1, 0) unshifted)."""
+    out = []
+    for s in cfg.step_specs():
+        grid = None if s.is_identity else get_grid(s.fmt)
+        out += [1.0, 0.0] if grid is None else [grid.scale, grid.mu]
+    return (ctypes.c_float * 6)(*out)
 
 
 def _moment_args(m_spec: RoundingSpec, v_spec: RoundingSpec, packed: bool):
@@ -561,7 +625,7 @@ def _lib():
     tail = [c.POINTER(c.c_int), c.POINTER(c.c_float), c.POINTER(c.c_float),
             c.c_void_p]
     if lib.fused_qupdate_prng.argtypes is None:
-        k2_tail = tail[:3] + [c.c_int, c.c_void_p]
+        k2_tail = tail[:3] + [c.POINTER(c.c_float), c.c_int, c.c_void_p]
         lib.fused_qupdate_prng.argtypes = [
             c.c_void_p, c.c_void_p, c.c_void_p, c.c_int64, c.c_float,
             c.c_uint32, c.c_uint32] + k2_tail

@@ -350,13 +350,14 @@ def _off_boundary(t, cuda, offset):
                          ids=["-".join(c[:3]) for c in UPDATE_CONFIGS])
 def test_update_kernels_match_plain(cuda, n, names, offset):
     """K2' and K2 bitwise their twins under every compiled instance the
-    config fits (the trainer's chain: both), tails of 1 to 3 elements past
+    config fits (the generic and wide ones; the trainer's chain: all
+    three), tails of 1 to 3 elements past
     the last group of four, and (``offset`` 1) x, g and the bit rows off a
     16-byte boundary."""
     cfg = gd.GDRounding(*(parse_spec(s) for s in names[:3]),
                         grad_v=names[3])
-    instances = ["generic"] + (["trainer"] if tfu.k2_instance(cfg)
-                               == "trainer" else [])
+    instances = ["generic", "wide"] + (["trainer"] if tfu.k2_instance(cfg)
+                                       == "trainer" else [])
     x, g = _update_inputs(n, n)
     seed = (0x1234ABCD, 0x0BADF00D)
     bits3 = torch.from_numpy(np.random.default_rng(n).integers(
@@ -403,6 +404,98 @@ def test_update_trainer_instance_refuses_generic_config(cuda, names):
     assert tfu.LAUNCHES["fused_qupdate_bits"] == 0
 
 
+# the wide instance's spec families (chip_smoke.py's phase 4): fixed
+# point, sr2 at r = 8, 16 and 32, the bit trick (bf16's integer path and
+# the complemented draw elsewhere), the directed roundings, overflow to
+# +-inf on overflowing inputs, a shifted grid, a format without
+# subnormals, signed-SRe under overflow to +-inf
+WIDE_UPDATE_CONFIGS = [
+    ("fxp16.8-sr2", "fxp16.8-sr", "fxp8.4-rn", "self", 1.0),
+    ("binary8-rn", "binary8-sr2", "binary8-sr2-r16", "self", 1.0),
+    ("binary8-sr2-r32", "binary8-sr2-r32", "binary8-sr", "self", 1.0),
+    ("bf16-rn", "bf16-sr-bittrick", "bf16-sr-bittrick-r8", "self", 1.0),
+    ("binary8-rz", "binary8-ra", "binary8-rd", "self", 1.0),
+    ("binary8-ru", "fp32", "binary8-ru", "self", 1.0),
+    ("binary8-rn-inf", "binary8-sr-inf", "binary8-rn-inf", "self", 3e5),
+    ("shift8-rn", "shift8-sr", "shift8-signed_sr_eps-e0.2", "grad", 1.0),
+    ("b8nosub-sr", "b8nosub-rn", "b8nosub-sr_eps-e0.1", "self", 1e-3),
+    ("e4m3-rn", "e4m3-sr", "e4m3-signed_sr_eps-e0.3-inf", "grad", 3e3),
+]
+
+
+def register_wide_grids():
+    """The shifted grid and the format without subnormals of
+    ``WIDE_UPDATE_CONFIGS`` (idempotent)."""
+    from repro_torch.core import formats, grids
+    grids.register_grid(grids.shifted_grid("binary8", 0.5, 0.25,
+                                           name="shift8"))
+    formats.register_format(formats.FPFormat("b8nosub", 3, -14, 15,
+                                             subnormals=False))
+
+
+def _wide_cfg(names):
+    register_wide_grids()
+    return gd.GDRounding(*(parse_spec(s) for s in names[:3]),
+                         sub_v=names[3])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("offset", [0, 1])
+@pytest.mark.parametrize("n", [1, 3, 5, 129, 128 * 3 + 5, 2 ** 20 + 37])
+@pytest.mark.parametrize("names", WIDE_UPDATE_CONFIGS,
+                         ids=["-".join(c[:3]) for c in WIDE_UPDATE_CONFIGS])
+def test_update_wide_instance_matches_plain(cuda, n, names, offset):
+    """K2' and K2 on their wide instance (every scheme x grid x overflow
+    pair of the reference's round_block) bitwise their twins, at ragged
+    tails and off a 16-byte boundary; K2 fed the words K2' draws bitwise
+    K2'."""
+    cfg = _wide_cfg(names)
+    assert tfu.k2_instance(cfg) == "wide"
+    x, g = _update_inputs(n, n)
+    x[5::19] = -0.0
+    g = g * names[4]
+    seed = (0x1234ABCD, 0x0BADF00D)
+    bits3 = torch.from_numpy(np.random.default_rng(n).integers(
+        0, 2 ** 32, (3, n), dtype=np.uint64).astype(np.int64))
+    ref_prng = tfu.fused_qupdate_prng(x, g, 0.05, seed, cfg)
+    ref_bits = tfu.fused_qupdate(x, g, 0.05, bits3, cfg)
+    xc, gc = _off_boundary(x, cuda, offset), _off_boundary(g, cuda, offset)
+    wc = _off_boundary(int32_words(bits3), cuda, offset)
+    got = tfu.fused_qupdate_prng(xc, gc, 0.05, seed, cfg)
+    torch.cuda.synchronize()
+    assert torch.equal(ref_prng.view(torch.int32), got.cpu().view(torch.int32))
+    got = tfu.fused_qupdate(xc, gc, 0.05, wc, cfg)
+    torch.cuda.synchronize()
+    assert torch.equal(ref_bits.view(torch.int32), got.cpu().view(torch.int32))
+    # K2 on K2''s own words: kernel_bits3's planes of the flat layout
+    rows = -(-n // tfu.LANES)
+    planes = tcommon.kernel_bits3(seed, (rows, tfu.LANES), 0, tfu.need(cfg))
+    own = torch.stack([torch.zeros(n, dtype=torch.int64) if p is None
+                       else p.reshape(-1)[:n] for p in planes])
+    got = tfu.fused_qupdate(xc, gc, 0.05,
+                            _off_boundary(int32_words(own), cuda, offset),
+                            cfg)
+    torch.cuda.synchronize()
+    assert torch.equal(ref_prng.view(torch.int32), got.cpu().view(torch.int32))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("instance", ["generic", "trainer"])
+def test_update_narrow_instances_refuse_wide_chain(cuda, instance):
+    """The generic and trainer entries of K2' and K2 refuse a chain that
+    needs the wide instance (the C entry's check)."""
+    cfg = _wide_cfg(WIDE_UPDATE_CONFIGS[0])
+    x, g = (t.to(cuda) for t in _update_inputs(300, 2))
+    bits3 = torch.zeros((3, 300), dtype=torch.int32, device=cuda)
+    tfu.reset_launches()
+    with pytest.raises(RuntimeError, match="launch failed"):
+        tfu.fused_qupdate_prng(x, g, 0.05, (1, 2), cfg, instance=instance)
+    with pytest.raises(RuntimeError, match="launch failed"):
+        tfu.fused_qupdate(x, g, 0.05, bits3, cfg, instance=instance)
+    assert tfu.LAUNCHES["fused_qupdate_prng"] == 0
+    assert tfu.LAUNCHES["fused_qupdate_bits"] == 0
+
+
 @pytest.mark.gpu
 def test_update_kernels_count_their_launches(cuda):
     tfu.reset_launches()
@@ -417,6 +510,10 @@ def test_update_kernels_count_their_launches(cuda):
     tfu.momentum_fma_plain(0.9, x, g)
     assert tfu.LAUNCHES == {"fused_qupdate_prng": 1, "fused_qupdate_bits": 1,
                             "momentum_fma": 1, "fused_qadam_prng": 0}
+    assert tfu.INSTANCE_LAUNCHES == {"generic": 2, "trainer": 0, "wide": 0}
+    tfu.fused_qupdate_prng(x, g, 0.1, (1, 2), _wide_cfg(
+        WIDE_UPDATE_CONFIGS[0]))
+    assert tfu.INSTANCE_LAUNCHES == {"generic": 2, "trainer": 0, "wide": 1}
 
 
 @pytest.mark.gpu

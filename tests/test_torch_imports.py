@@ -69,3 +69,13 @@ def test_serving_slice_modules_are_checked():
                 "serving/engine.py", "launch/time_attention.py",
                 "launch/compare_failed_sets.py"):
         assert f"src/repro_torch/{mod}" in names, mod
+
+
+def test_paper_slice_modules_are_checked():
+    """The paper-experiments slice's modules are among the files checked
+    above."""
+    names = {str(p.relative_to(ROOT)) for p in PORT_FILES}
+    for mod in ("paper/convergence.py", "paper/paper_models.py",
+                "paper/run.py", "core/qarith.py", "core/theory.py",
+                "core/xla_math.py"):
+        assert f"src/repro_torch/{mod}" in names, mod

@@ -12,6 +12,8 @@ within one float32 ulp.  XLA evaluates ``a * b + c`` (the momentum, the
 uniform draw's scaling) as one fused multiply-add; the port does the same
 (``core.fma``), so those compare bitwise too.
 """
+import dataclasses
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -237,11 +239,110 @@ def test_fused_update_twins_chunking_changes_nothing(monkeypatch):
                                    ("fp32", "fp32", "binary8-rn-inf"),
                                    ("fp32", "bf16-sr-bittrick", "fp32")])
 def test_update_raises_on_unported_schemes(names):
-    _, tcfg = _cfgs(names)
-    x, g = _xg(16)
+    """Chains K2' and K2 once refused: now their wide instance's, the twin
+    the reference's interpret kernel; K5 (whose wide chain is not ported)
+    still raises on them.  Each chain has identity steps, so x is kept away
+    from the flushed range and the values compared within one float32 ulp
+    (XLA contracts ``x - t * g`` where both steps are the identity, as in
+    ``test_identity_steps_within_one_ulp``); the two chains whose 8c
+    subtraction has a rounded operand agree bitwise."""
+    jcfg, tcfg = _cfgs(names)
+    x, g = _xg(16 * 128 + 5, seed=16)
+    x = x + np.float32(0.5)
+    ref = jfu.fused_qupdate_prng_p(jnp.asarray(x), jnp.asarray(g), T,
+                                   jnp.asarray(np.array(SEED, np.uint32)),
+                                   jcfg)
+    got = tfu.fused_qupdate_prng(torch.from_numpy(x), torch.from_numpy(g), T,
+                                 SEED, tcfg)
+    assert tfu.k2_instance(tcfg) == "wide"
+    if names[1] == "fp32":
+        assert _within_one_ulp(ref, got.numpy())
+    else:
+        assert _bits_equal(ref, got.numpy()) == 0
+    bf16 = tr.parse_spec("bf16-sr")
     with pytest.raises(NotImplementedError):
-        tfu.fused_qupdate_prng(torch.from_numpy(x), torch.from_numpy(g), T,
-                               SEED, tcfg)
+        tfu.fused_qadam_prng(torch.from_numpy(x), torch.from_numpy(g),
+                             torch.zeros(x.size), torch.zeros(x.size),
+                             [T, 1.0, 1.0, 1e-8, 0.0], SEED, tcfg,
+                             m_spec=bf16, v_spec=bf16, b1=0.9, b2=0.999,
+                             packed=False)
+
+
+# the wide instance's spec families (chip_smoke.py's phase 4), each with its
+# input scale: fixed point, sr2 at r = 8, 16 and 32, the bit trick
+# (bfloat16's integer path at r = 16, the complemented draw elsewhere), the
+# directed roundings, overflow to +-inf on overflowing inputs, a shifted
+# grid, a format without subnormals, signed-SRe under overflow to +-inf
+WIDE_CHAINS = {
+    "fxp": (("fxp16.8-sr2", "fxp16.8-sr", "fxp8.4-rn"), "self", 1.0),
+    "sr2": (("binary8-rn", "binary8-sr2", "binary8-sr2-r16"), "self", 1.0),
+    "bittrick": (("bf16-rn", "bf16-sr-bittrick", "binary8-sr-bittrick-r8"),
+                 "self", 1.0),
+    "rz-ra-rd": (("binary8-rz", "binary8-ra", "binary8-rd"), "self", 1.0),
+    "ru": (("binary8-ru", "fp32", "binary8-ru"), "self", 1.0),
+    "rn-inf": (("binary8-rn-inf", "binary8-sr-inf", "binary8-rn-inf"),
+               "self", 3e5),
+    "shifted": (("shift8-rn", "shift8-sr", "shift8-signed_sr_eps-e0.2"),
+                "grad", 1.0),
+    "no-subnormals": (("b8nosub-sr", "b8nosub-rn", "b8nosub-sr_eps-e0.1"),
+                      "self", 1e-3),
+    "e4m3-ssr-inf": (("e4m3-rn", "e4m3-sr", "e4m3-signed_sr_eps-e0.3-inf"),
+                     "grad", 3e3),
+}
+
+
+def _register_wide_grids():
+    """The shifted grid and the format without subnormals, in both
+    packages (idempotent)."""
+    from repro.core import formats as jf, grids as jg
+    from repro_torch.core import formats as tf_, grids as tg
+    for fm, gr in ((jf, jg), (tf_, tg)):
+        gr.register_grid(gr.shifted_grid("binary8", 0.5, 0.25, name="shift8"))
+        fm.register_format(fm.FPFormat("b8nosub", 3, -14, 15,
+                                       subnormals=False))
+
+
+@pytest.mark.parametrize("family", sorted(WIDE_CHAINS))
+def test_fused_qupdate_wide_twins_bitwise(family):
+    """K2' and K2 twins under the wide instance's chains bitwise the
+    reference's interpret kernels (``fused_qupdate_prng_p``,
+    ``fused_qupdate_p``) at n = 1000 + 37, -0 inputs among them."""
+    _register_wide_grids()
+    names, sub_v, scale = WIDE_CHAINS[family]
+    jcfg, tcfg = (dataclasses.replace(c, sub_v=sub_v) for c in _cfgs(names))
+    assert tfu.k2_instance(tcfg) == "wide"
+    n = 1000 + 37
+    x, g = _xg(n, seed=n)
+    x[5::19] = -0.0
+    g = (g * np.float32(scale)).astype(np.float32)
+    ref = jfu.fused_qupdate_prng_p(jnp.asarray(x), jnp.asarray(g), T,
+                                   jnp.asarray(np.array(SEED, np.uint32)),
+                                   jcfg)
+    got = tfu.fused_qupdate_prng(torch.from_numpy(x), torch.from_numpy(g), T,
+                                 SEED, tcfg)
+    assert _bits_equal(ref, got.numpy()) == 0
+    if family == "rn-inf":
+        assert np.isinf(np.asarray(ref)).sum() > 0
+    bits3 = np.random.default_rng(5).integers(0, 2 ** 32, (3, n),
+                                              dtype=np.uint64)
+    bits3 = bits3.astype(np.uint32)
+    ref = jfu.fused_qupdate_p(jnp.asarray(x), jnp.asarray(g), T,
+                              jnp.asarray(bits3), jcfg)
+    got = tfu.fused_qupdate(torch.from_numpy(x), torch.from_numpy(g), T,
+                            torch.from_numpy(bits3.view(np.int32)), tcfg)
+    assert _bits_equal(ref, got.numpy()) == 0
+
+
+def test_sr2_at_32_bits_is_sr():
+    """sr2 with 32-bit draws is bit for bit sr (the reference's
+    test_new_schemes check), on the wide instance's twin against the
+    generic instance's."""
+    x, g = (torch.from_numpy(a) for a in _xg(128 * 5 + 3, seed=9))
+    _, sr2 = _cfgs(("binary8-rn", "binary8-sr2-r32", "binary8-sr2-r32"))
+    _, sr = _cfgs(("binary8-rn", "binary8-sr", "binary8-sr"))
+    assert (tfu.k2_instance(sr2), tfu.k2_instance(sr)) == ("wide", "generic")
+    assert torch.equal(tfu.fused_qupdate_prng(x, g, T, SEED, sr2),
+                       tfu.fused_qupdate_prng(x, g, T, SEED, sr))
 
 
 # the extra update configs of chip_smoke.py's phase 4, and others of the
@@ -270,25 +371,41 @@ TRAINER_CHAINS = [   # (grad, mul, sub), sub_v, K2's instance, K5's chain
 ]
 
 
+# chains only the wide instance takes: each a site the generic one does not
+WIDE_INSTANCE_CHAINS = [
+    ("binary8-rn", "binary8-sr", "binary8-signed_sr_eps-e0.1-inf"),
+    ("fxp16.8-rn", "fxp16.8-sr", "fxp16.8-signed_sr_eps-e0.1"),
+    ("binary8-rn", "binary8-sr2-r32", "binary8-sr"),
+    ("fp32", "bf16-sr-bittrick", "fp32"),
+    ("binary8-rz", "fp32", "fp32"),
+    ("shift8-rn", "shift8-sr", "shift8-sr"),
+    ("fp32", "fp32", "b8nosub-sr"),
+]
+
+
 @pytest.mark.parametrize(
     "names,sub_v,want,want_k5",
     [(None, "grad", "trainer", "trainer")] + TRAINER_CHAINS
-    + [(c, "grad", "generic", "generic") for c in GENERIC_CHAINS],
+    + [(c, "grad", "generic", "generic") for c in GENERIC_CHAINS]
+    + [(c, "grad", "wide", "generic") for c in WIDE_INSTANCE_CHAINS],
     ids=["paper_run"] + ["-".join(c[0]) + f"-{c[1]}" for c in TRAINER_CHAINS]
-    + ["-".join(c) for c in GENERIC_CHAINS])
+    + ["-".join(c) for c in GENERIC_CHAINS + WIDE_INSTANCE_CHAINS])
 def test_k2_instance_choice(names, sub_v, want, want_k5):
     """K2' and K2 run their trainer instance on ``train.PAPER_RUN``'s
     chain (rn / sr / signed-SRe on a narrow grid, 32-bit draws, the
-    direction sign(g_hat)) and the generic one on every other chain; K5's
-    trainer instance takes the same chain with any direction."""
-    import dataclasses
+    direction sign(g_hat)), the wide one on every chain with a site beyond
+    rn / sr / sr_eps / signed-SRe on a plain FP grid with subnormals,
+    saturating, and the generic one on the rest; K5's trainer instance
+    takes the trainer's chain with any direction."""
     from repro_torch.launch.train import rounding_config
+    _register_wide_grids()
     if names is None:
         cfg = rounding_config("signed_sr_eps", "binary8", 0.1)
     else:
         cfg = dataclasses.replace(_cfgs(names)[1], sub_v=sub_v)
     assert tfu.k2_instance(cfg) == want
-    assert tfu.K2_INSTANCES.index(want) == (want == "trainer")
+    assert tfu.K2_INSTANCES.index(want) == {"generic": 0, "trainer": 1,
+                                            "wide": 2}[want]
     bf16 = tr.parse_spec("bf16-sr")
     assert tfu.k5_instance(cfg, bf16, bf16, True, False) == want_k5
 
