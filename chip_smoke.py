@@ -208,14 +208,54 @@ Phases (any failed check exits non-zero; there is no CPU fallback):
    full size (W after epoch 1 at most 1e-3 of its elements one binary8
    step apart, the test errors within 0.02); ms per GD step and per epoch
    beside the card's name and power limit;
-30. one JSON line of per-kernel numbers (K3''s, K3's, K4''s, K4's, K8''s,
+30. the GLU kernels under every activation (``GLU_ACTS``: silu, gelu, relu,
+   relu_sq, each its own compiled instance) at gemma-7b's FFN shapes (M =
+   4 and 128, 3072 -> 24576, bf16 weights): on exact-sum inputs the
+   residuals and (but for SiLU's ulps) the hidden bitwise the twin, K4 fed
+   K4''s words bitwise K4', both routes bitwise; on N(0, 1) inputs the
+   GEMM contract and both routes bitwise; every activation bitwise its
+   twin on a sweep of 131,072 float32 values (edges of XLA's tanh, the
+   subnormals); timed beside the bound, the twin and two fp32
+   ``torch.matmul``, by CUDA events and graph replay;
+31. K6, K9 and K10 at head dim 256: K6's single pass (64-key tiles, a
+   block of 512 keys) and its two-pass kernel (a block of 1024) against
+   the twin (logits and m bitwise on exact sums) and each other (bitwise
+   on N(0, 1)); K9 at gemma's decode shape (B.KV 64, G 1, S_max 48, e4m3
+   codes) on the decode kernel's d = 256 instance, its generic instance
+   (the cache off a 16-byte boundary), the tiled kernel and over the
+   values, all bitwise, within the twin's contract; K10 at the engine's
+   shape (4 slots x 16 kv heads, pages of 64) bitwise the twin on exact
+   sums, at two placements, on its generic instance, over the values and
+   against K9's tiled kernel per request; each timed beside the bound,
+   the twin and ``scaled_dot_product_attention``;
+32. reduced gemma-7b with its head dim of 256 kept, card against CPU,
+   under ``binary8-paper`` and ``binary8-paper-attn`` (phase 12's
+   limits, the cache codes too);
+33. ``serve.run(**serve.GEMMA_SERVE_RUN)``: gemma-7b at full width and
+   depth (28 layers, 8,537,680,896 parameters, seeded random weights)
+   under ``binary8-paper`` (K3', K4' on its gelu instance) and
+   ``binary8-paper-attn`` (K9 at d = 256 over the e4m3 cache): launch
+   counts, by activation too, finite logits, tok/s, peak memory, and a
+   shorter batch (``PROFILE_CUT``) traced (``profile_serve.profile``) for
+   the device's busy share; then the tied embedding's transpose copy that
+   ``Model._logits`` makes per call, timed, with its transient bytes;
+34. ``serve.run_engine`` over ``ENGINE_RUN``'s mix on gemma-7b under
+   ``ENGINE_POLICY`` (the unfused bf16 GeGLU, K10 at d = 256): drained,
+   K10 once per layer per decode step and nothing else, tok/s, TTFT,
+   peak memory, and a shorter mix (``ENGINE_PROFILE_MIX``) traced
+   (``profile_serve.profile_engine``) for the busy share;
+   ``serve.run(**serve.PHI3_SERVE_RUN)``: phi3-medium-14b at full size
+   (14.7 B parameters) under ``binary8-paper``, gen 4, its memory freed
+   before and after: launch counts, tok/s, peak memory;
+35. one JSON line of per-kernel numbers (K3''s, K3's, K4''s, K4's, K8''s,
    K8's, K9's (both routes), K10's, K1''s and K1's with the registers and
    spills ptxas reports for their instances, phase 2; K3', K3, K4' and K4
    with their device time per decode step, K4' also per train step; K9's
    tiled route and K1's generic instance beside the ones the path runs;
    K2' and K2 with the wide and the generic instance on ``WIDE_TIMED``
-   under ``wide_timed_chain`` and K2''s launches in phase 29), then the
-   result line.
+   under ``wide_timed_chain`` and K2''s launches in phase 29; K4' and K4
+   under gelu, relu and relu_sq per gemma decode step, K6, K9 and K10 at
+   d = 256 per gemma layer stack, phases 30-31), then the result line.
 
 Detailed numbers also go to ``chiprun_out/chip_smoke.json``.
 """
@@ -373,6 +413,33 @@ WIDE_UPDATE_CONFIGS = {
 }
 # the chain phase 4 times on both the generic and the wide instance
 WIDE_TIMED = ("binary8-rn", "binary8-sr", "binary8-sr")
+# phases 30-34: gemma-7b (MHA 16 heads of 256, GeGLU, tied 256000 x 3072
+# embedding; configs/gemma_7b.py) and phi3-medium-14b
+GEMMA_ARCH, PHI3_ARCH = "gemma-7b", "phi3-medium-14b"
+GEMMA = dict(d=3072, n_layers=28, kv=16, hd=256, ff=24576, vocab=256000,
+             params=8_537_680_896)
+GEMMA_LAYERS = GEMMA["n_layers"]
+PHI3 = dict(n_layers=40, vocab=100352, params=14_659_507_200)
+# the GLU kernels' activations (kernels/qmatmul.py: ACT_FNS), each its own
+# compiled instance
+GLU_ACTS = ("silu", "gelu", "relu", "relu_sq")
+# K4' at gemma's FFN: (M, K, N, launches per decode step): a decode step's
+# batch and a whole prompt's rows
+GEMMA_GLU = [(BATCH, GEMMA["d"], GEMMA["ff"], GEMMA_LAYERS),
+             (BATCH * PROMPT, GEMMA["d"], GEMMA["ff"], 0)]
+# phases 33-34 trace a shorter batch than GEMMA_SERVE_RUN's, and a shorter
+# request mix than ENGINE_RUN's (4 short requests and one long of prompt
+# 16 + 8 generated: prefill chunks and decode steps, ~12 model calls), for
+# the device's busy share: the trace's cost grows with its events
+PROFILE_CUT = dict(prompt_len=8, gen=4)
+ENGINE_PROFILE_MIX = dict(n_short=4, n_long=1, long=(16, 8))
+# K9 at gemma's decode step: batch 4 x 16 kv heads, one query row each
+GEMMA_DECODE = dict(BKV=BATCH * GEMMA["kv"], G=1, Smax=PROMPT + GEN)
+
+
+def stamp(*parts, **kw) -> None:
+    """A phase's heading with the seconds since the script started."""
+    print(*parts, f"[{time.time() - T_START:.1f} s]", flush=True)
 
 
 def fail(msg: str) -> None:
@@ -1436,14 +1503,17 @@ def bits_clock():
             setattr(common, n, fn)
 
 
-def agreement_phase(torch, serve, policy="binary8-paper"):
+def agreement_phase(torch, serve, policy="binary8-paper",
+                    arch="tinyllama-1.1b", **over):
     """The whole serving path on the card vs the plain twins on the CPU;
-    under a packed-cache policy the uint8 cache codes are compared too."""
+    under a packed-cache policy the uint8 cache codes are compared too.
+    ``arch`` reduced, with the fields in ``over`` put back (gemma's head
+    dim)."""
     import dataclasses
     from repro_torch.configs import get_config, reduced
     from repro_torch.models import build_model
-    cfg = dataclasses.replace(reduced(get_config("tinyllama-1.1b")),
-                              gemm_policy=policy)
+    cfg = dataclasses.replace(reduced(get_config(arch)), gemm_policy=policy,
+                              **over)
     model = build_model(cfg)
     params = model.init(torch.Generator().manual_seed(7))
     prompts = torch.randint(0, cfg.vocab_size, (2, 8),
@@ -1467,7 +1537,8 @@ def agreement_phase(torch, serve, policy="binary8-paper"):
                      for a, b in ((cc.k, gc.k), (cc.v, gc.v))
                      for i in range(a.shape[0])]
         res["code_share_by_layer"] = per_layer
-    print(f"  reduced tinyllama {policy} card vs cpu: median |dlogit| "
+    print(f"  reduced {arch} {policy} {over or ''} card vs cpu: median "
+          f"|dlogit| "
           f"{med:.4g}, share > 0.05 {share:.4g}"
           + (f", cache codes differing by layer (k, then v) "
              f"{res['code_share_by_layer']}" if "code_share_by_layer" in res
@@ -3378,6 +3449,608 @@ def paper_phase(torch, tfu, smi: str):
     return out
 
 
+# ---------------------------------------------------------------------------
+# Phases 30-34: gemma-7b (GeGLU, head dim 256, tied embeddings) and
+# phi3-medium-14b
+# ---------------------------------------------------------------------------
+def glu_act_phase(torch, tq, tc):
+    """Phase 30: K4' and K4 under each activation (``GLU_ACTS``) at
+    gemma-7b's FFN shapes (``GEMMA_GLU``: a decode step's M = 4 and a
+    prompt's M = 128, 3072 -> 24576, bf16 weights).  Exact-sum inputs:
+    the residuals bitwise the twin, the hidden bitwise (SiLU: within the
+    act grid's flips), K4 fed K4''s words bitwise K4', both routes
+    bitwise; N(0, 1) inputs: the GEMM contract, both routes bitwise; then
+    every activation bitwise its twin on a sweep of float32 values (the
+    binary32 grid: g_r is g itself).  Timed beside the bound, the twin,
+    K4 on the same words and two fp32 ``torch.matmul`` (the yardstick),
+    by CUDA events and by graph replay.  Returns rows."""
+    import numpy as np
+    from repro_torch.core.rounding import grid_flips, spec
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(2828)
+    seeds = ((0x510E527F, 0x9B05688C), (0x1F83D9AB, 0x5BE0CD19),
+             (0xCBBB9D5D, 0x629A292A))
+    act_spec = spec("binary8", "sr")
+    rows = []
+
+    def ints(shape, div):
+        return (torch.randint(-8, 9, shape, generator=gen, device=dev)
+                .float() / div)
+
+    for M, K, N, per_step in GEMMA_GLU:
+        w3 = [int32_words(_bits2d(torch, tc, seeds[i], (M, N), 32,
+                                  stream=i // 2)) for i in range(3)]
+        a = ints((M, K), 8.0)
+        wg, wu = (ints((K, N), 4.0).to(torch.bfloat16) for _ in range(2))
+        an = torch.randn((M, K), generator=gen, device=dev)
+        n_copies = max(2, math.ceil(2 * L2_BYTES / (2 * K * N * 2)))
+        wsets = [[(torch.randn((K, N), generator=gen, device=dev)
+                   / math.sqrt(K)).to(torch.bfloat16) for _ in range(2)]
+                 for _ in range(n_copies)]
+        w32 = [[w.float() for w in ws] for ws in wsets]
+        for act in GLU_ACTS:
+            tag = f"qmatmul_swiglu {act} {M}x{K}x{N}"
+            kw = dict(act=act, act_spec=act_spec, residuals=True)
+
+            def prng(x, g_, u_, **more):
+                return tq.qmatmul_swiglu_prng(x, g_, u_, seeds, "binary8",
+                                              **{**kw, **more})
+
+            def bits(x, g_, u_, **more):
+                return tq.qmatmul_swiglu(x, g_, u_, w3[0], w3[1], "binary8",
+                                         act_bits=w3[2], **{**kw, **more})
+            tq.reset_launches()
+            got = prng(a, wg, wu)
+            if tq.ACT_LAUNCHES[act] != 1 or sum(tq.ACT_LAUNCHES.values()) \
+                    != 1:
+                fail(f"{tag}: launches by activation {tq.ACT_LAUNCHES}")
+            ref = tq.qmatmul_swiglu_plain(a, wg, wu, seeds, "binary8", **kw)
+            from_bits = bits(a, wg, wu)
+            torch.cuda.synchronize()
+            if not all(bitwise(torch, r, g) for r, g in zip(ref[1:], got[1:])):
+                fail(f"{tag}: residuals not bitwise the twin (exact sums)")
+            if act != "silu" and not bitwise(torch, ref[0], got[0]):
+                fail(f"{tag}: hidden not bitwise the twin (exact sums)")
+            n_bad, _ = grid_flips(ref[0], got[0], "binary8")
+            if n_bad > 1e-4 * ref[0].numel():
+                fail(f"{tag}: {n_bad} hidden flips on exact sums")
+            if not all(bitwise(torch, g, b) for g, b in zip(got, from_bits)):
+                fail(f"{tag}: K4 on K4''s words differs from K4'")
+            glu_routes_agree(torch, tq, lambda: prng(a, wg, wu), tag)
+            glu_routes_agree(torch, tq, lambda: bits(a, wg, wu), tag + " K4")
+            # N(0, 1) inputs, the serve path's call (no residuals)
+            got = prng(an, *wsets[0], residuals=False)
+            ref = tq.qmatmul_swiglu_plain(an, *wsets[0], seeds, "binary8",
+                                          act=act, act_spec=act_spec)
+            torch.cuda.synchronize()
+            glu_routes_agree(torch, tq, lambda: prng(an, *wsets[0]),
+                             tag + " N(0, 1)")
+            n_bad, _ = grid_flips(ref, got, "binary8")
+            share = n_bad / ref.numel()
+            if share > 1e-4:
+                fail(f"{tag}: {n_bad} mismatches on N(0, 1) inputs")
+            def call(i):
+                return prng(an, *wsets[i], residuals=False)
+
+            def bcall(i):
+                return bits(an, *wsets[i], residuals=False)
+
+            def yard(i):
+                return [an @ w for w in w32[i]]
+            bms, by = bound_ms(M, K, N, 2, 2)
+            row = dict(kernel="qmatmul_swiglu_sr", act=act, M=M, K=K, N=N,
+                       per_step=per_step, mismatches=n_bad,
+                       mismatch_share=share,
+                       max_abs_err=float((got - ref).abs().max()),
+                       ms=time_ms(torch, call, n_copies),
+                       device_ms=graph_ms(torch, call, n_copies),
+                       bits_ms=time_ms(torch, bcall, n_copies),
+                       bits_device_ms=graph_ms(torch, bcall, n_copies),
+                       plain_ms=time_ms(torch, lambda i: tq.qmatmul_swiglu_plain(
+                           an, *wsets[i], seeds, "binary8", act=act,
+                           act_spec=act_spec), n_copies, iters=3, warmup=1),
+                       library_ms=time_ms(torch, yard, n_copies),
+                       library_device_ms=graph_ms(torch, yard, n_copies),
+                       bound_ms=bms, bound_by=by)
+            rows.append(row)
+            print(f"  {act:7s} M={M:4d} K={K} N={N}: exact sums bitwise "
+                  f"(K4 == K4', routes equal), N(0,1) flips {n_bad}; K4' "
+                  f"{row['ms']:.4f} ms, device {row['device_ms']:.4f} (K4 "
+                  f"{row['bits_device_ms']:.4f})  bound {bms:.4f} ms ({by})"
+                  f"  plain {row['plain_ms']:.3f}  two fp32 torch.matmul "
+                  f"device {row['library_device_ms']:.4f}", flush=True)
+        del a, wg, wu, an, wsets, w32, w3
+    # the activations themselves on a sweep: x the identity, u = 1, the
+    # binary32 grid (rounding a float32 value leaves it), so the
+    # unrounded hidden is act(g) for every g of wg, both routes
+    edges = np.array([0.0, -0.0, 0.0004, -0.0004, 7.99881172180175781,
+                      -7.99881172180175781, 8.0, -8.0], np.float32)
+    edges = np.concatenate([edges, np.nextafter(edges, np.float32(np.inf)),
+                            np.nextafter(edges, np.float32(-np.inf))])
+    vals = np.concatenate([
+        edges, np.float32(2.0) ** -np.arange(1, 150, dtype=np.float32),
+        -np.float32(2.0) ** -np.arange(1, 150, dtype=np.float32),
+        np.linspace(-10, 10, 8192 * 16, dtype=np.float32)])[:16 * 8192]
+    wg = torch.from_numpy(vals.reshape(16, 8192)).to(dev)
+    eye, ones = torch.eye(16, device=dev), torch.ones_like(wg)
+    for act in GLU_ACTS[1:]:
+        ref = tq.qmatmul_swiglu_plain(eye, wg, ones, seeds, "binary32", "rn",
+                                      act=act)
+        for route in ("decode", "large"):
+            with forced_route(tq, route):
+                got = tq.qmatmul_swiglu_prng(eye, wg, ones, seeds,
+                                             "binary32", "rn", act=act)
+            torch.cuda.synchronize()
+            if not bitwise(torch, ref, got):
+                fail(f"{act} on the sweep ({route} route): not bitwise the "
+                     "twin")
+    print(f"  gelu, relu, relu_sq bitwise the twins on {vals.size} float32 "
+          "values (edges, powers of two down to the subnormals), both "
+          "routes", flush=True)
+    return rows
+
+
+def attn_d256_phase(torch, tfa):
+    """Phase 31: K6, K9 and K10 at head dim 256 (gemma-7b's) against their
+    twins on every route, timed at gemma's shapes beside the bound, the
+    twin and ``scaled_dot_product_attention`` (float32, unrounded: a
+    yardstick).  Returns rows keyed by kernel."""
+    import numpy as np
+    import torch.nn.functional as F
+    from repro_torch.core.rounding import grid_flips, parse_spec
+    from repro_torch.kernels import common
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(256)
+    rng = np.random.default_rng(256)
+    d = GEMMA["hd"]
+    specs = [parse_spec("binary8-sr")] * 3
+    rows = {"flash_fwd": [], "flash_decode": [], "flash_decode_paged": []}
+
+    def ints(shape):
+        return torch.randint(-8, 9, shape, generator=gen,
+                             device=dev).float() / 8
+
+    def normal(shape):
+        return torch.randn(shape, generator=gen, device=dev)
+
+    def flips(what, ref, got):
+        n_bad, _ = grid_flips(ref, got, "binary8")
+        if n_bad > max(1e-4 * ref.numel(), 1):
+            fail(f"{what}: {n_bad} of {ref.numel()} elements differ")
+        return dict(mismatches=n_bad, mismatch_share=n_bad / ref.numel(),
+                    max_abs_err=float((got - ref).abs().max()))
+
+    # --- K6: one head group of gemma (16 heads, MHA), 512 keys in one
+    # logical block (the largest the single pass holds at d = 256: 230,400
+    # B), and a block of 1024 keys on the two-pass kernel ---
+    for H, S, kb, want in ((16, 512, 512, "flash_fwd"),
+                           (4, 1024, 1024, "flash_fwd_two_pass")):
+        if tfa.fwd_kernel_for(S, d, d, kb) != want:
+            fail(f"flash_fwd d {d} S {S} kv_block {kb}: not {want}")
+        seeds = rng.integers(0, 2 ** 32, (H, 6), dtype=np.uint64)
+        kw = dict(scale=d ** -0.5, n_heads=H, n_kv=H, kv_block=kb,
+                  return_logits=True)
+        q, k, v = (ints((H, S, d)) for _ in range(3))
+        tfa.reset_launches()
+        got = tfa.flash_fwd(q, k, v, seeds, specs, **kw)
+        if tfa.LAUNCHES[want] != 1:
+            fail(f"flash_fwd d {d}: launches {tfa.LAUNCHES}")
+        ref = tfa.flash_fwd_plain(q, k, v, seeds, specs, **kw)
+        torch.cuda.synchronize()
+        for i in (1, 3):
+            if not bitwise(torch, got[i], ref[i]):
+                fail(f"flash_fwd d {d} S {S}: logits or m not bitwise the "
+                     "twin (exact sums)")
+        r = flips(f"flash_fwd d {d} S {S}", ref[0], got[0])
+        q, k, v = (normal((H, S, d)) for _ in range(3))
+        one = tfa.flash_fwd(q, k, v, seeds, specs, **kw)
+        two = tfa.flash_fwd(q, k, v, seeds, specs,
+                            kernel="flash_fwd_two_pass", **kw)
+        torch.cuda.synchronize()
+        if not all(bitwise(torch, x, y) for x, y in zip(one, two)):
+            fail(f"flash_fwd d {d} S {S}: the single pass differs from the "
+                 "two-pass kernel")
+        row = dict(case=f"H {H} S {S} kv_block {kb} ({want})",
+                   main=want == "flash_fwd", **r)
+        if want == "flash_fwd":
+            kw.pop("return_logits")
+            q4, k4, v4 = (x[None] for x in (q, k, v))
+
+            def call(i):
+                return tfa.flash_fwd(q, k, v, seeds, specs, **kw)
+
+            def lib(i):
+                return F.scaled_dot_product_attention(q4, k4, v4,
+                                                      is_causal=True)
+            flops, n_tf, nbytes = attn_work("flash_fwd", H, H, S, d,
+                                            H * S * (S + 1) // 2)
+            bms, by = attn_bound(flops, n_tf, nbytes)
+            row.update(
+                ms=time_ms(torch, call, 1), device_ms=graph_ms(torch, call, 1),
+                two_pass_ms=time_ms(torch, lambda i: tfa.flash_fwd(
+                    q, k, v, seeds, specs, kernel="flash_fwd_two_pass", **kw),
+                    1),
+                plain_ms=time_ms(torch, lambda i: tfa.flash_fwd_plain(
+                    q, k, v, seeds, specs, **kw), 1, iters=1, warmup=1),
+                library_ms=time_ms(torch, lib, 1),
+                library_device_ms=graph_ms(torch, lib, 1),
+                library="scaled_dot_product_attention forward, float32, "
+                        "unrounded", bound_ms=bms, bound_by=by)
+            print(f"  flash_fwd d {d} H {H} S {S}: logits and m bitwise the "
+                  f"twin, single pass == two-pass; {row['ms']:.4f} ms "
+                  f"(device {row['device_ms']:.4f}, two-pass "
+                  f"{row['two_pass_ms']:.4f})  bound {bms:.4f} ({by})  "
+                  f"plain {row['plain_ms']:.2f}  sdpa device "
+                  f"{row['library_device_ms']:.4f}", flush=True)
+        rows["flash_fwd"].append(row)
+        del q, k, v, got, ref, one, two
+
+    # --- K9 at gemma's decode shape: B.KV 64, G 1, S_max 48, e4m3 codes ---
+    BKV, G, Smax = (GEMMA_DECODE[x] for x in ("BKV", "G", "Smax"))
+    seeds = rng.integers(0, 2 ** 32, (BKV, 6), dtype=np.uint64)
+    seeds_d = torch.from_numpy(seeds.astype(np.uint32).view(np.int32)).to(dev)
+    q = normal((BKV, G, d))
+    codes = [common.pack_block(parse_spec("e4m3-rn")(normal((BKV, Smax, d))),
+                               "e4m3") for _ in range(2)]
+    floats = [common.unpack_block(c, "e4m3") for c in codes]
+    kw = dict(scale=d ** -0.5, kv_fmt="e4m3", kv_block=1024)
+    if tfa.decode_kernel_for(Smax, 1024, d, d, 1) != "flash_decode":
+        fail("flash_decode d 256: expected the decode kernel")
+    for length in (1, 17, Smax):
+        tfa.reset_launches()
+        got = tfa.flash_decode(q, *codes, seeds, length, specs, **kw)
+        tiled = tfa.flash_decode(q, *codes, seeds, length, specs,
+                                 kernel="flash_decode_tiled", **kw)
+        values = tfa.flash_decode(q, *floats, seeds, length, specs,
+                                  scale=d ** -0.5, kv_block=1024)
+        generic = tfa.flash_decode(q, *(_unaligned(torch, c) for c in codes),
+                                   seeds, length, specs, **kw)
+        ref = tfa.flash_decode_plain(q, *codes, seeds, length, specs, **kw)
+        torch.cuda.synchronize()
+        if tfa.LAUNCHES["flash_decode"] != 3 or \
+                tfa.LAUNCHES["flash_decode_tiled"] != 1:
+            fail(f"flash_decode d 256: launches {tfa.LAUNCHES}")
+        for other, what in ((tiled, "the tiled kernel"),
+                            (values, "the unpacked cache"),
+                            (generic, "the generic instance")):
+            if not bitwise(torch, got, other):
+                fail(f"flash_decode d 256 length {length}: differs from "
+                     f"{what}")
+        r = flips(f"flash_decode d 256 length {length}", ref, got)
+        row = dict(case=f"length {length}", main=length == Smax, **r)
+        if length == Smax:
+            q4 = q.view(BATCH, BKV // BATCH * G, 1, d)
+            k4, v4 = (f.view(BATCH, BKV // BATCH, Smax, d) for f in floats)
+
+            def call(i, kernel=None):
+                return tfa.flash_decode(q, *codes, seeds_d, length, specs,
+                                        kernel=kernel, **kw)
+
+            def tcall(i):
+                return call(i, "flash_decode_tiled")
+
+            def lib(i):
+                return F.scaled_dot_product_attention(q4, k4, v4,
+                                                      enable_gqa=True)
+            flops, n_tf, nbytes = attn_work("flash_decode", None, BKV,
+                                            length, d, BKV * G * length, G)
+            bms, by = attn_bound(flops, n_tf, nbytes)
+            row.update(
+                ms=time_ms(torch, call, 1, iters=50),
+                device_ms=graph_ms(torch, call, 1),
+                tiled_ms=time_ms(torch, tcall, 1, iters=50),
+                tiled_device_ms=graph_ms(torch, tcall, 1),
+                plain_ms=time_ms(torch, lambda i: tfa.flash_decode_plain(
+                    q, *codes, seeds, length, specs, **kw), 1, iters=3,
+                    warmup=1),
+                library_ms=time_ms(torch, lib, 1, iters=50),
+                library_device_ms=graph_ms(torch, lib, 1),
+                library="scaled_dot_product_attention (float32 cache, "
+                        "unrounded)", bound_ms=bms, bound_by=by)
+            print(f"  flash_decode d 256 B.KV {BKV} G {G} length {length}: "
+                  f"== tiled, == unpacked, == generic instance; flips "
+                  f"{r['mismatches']}; {row['ms']:.4f} ms, device "
+                  f"{row['device_ms']:.5f} (tiled {row['tiled_device_ms']:.5f})"
+                  f"  bound {bms:.5f} ({by})  plain {row['plain_ms']:.3f}  "
+                  f"sdpa device {row['library_device_ms']:.5f}", flush=True)
+        rows["flash_decode"].append(row)
+
+    # --- K10 at d = 256: the engine's shape (4 slots x 16 kv heads, pages
+    # of 64, G 1), exact and N(0, 1) inputs, codes and values, two
+    # placements, the generic instance, K9's tiled kernel per request ---
+    n_kv, page, B = GEMMA["kv"], ENGINE["page"], ENGINE["n_slots"]
+    for exact in (True, False):
+        q, k, v, lengths, place, pool = paged_case(
+            torch, page, exact, 64 + exact, n_kv=n_kv, G=1, d=d, B=B,
+            lengths=[1, page, page + 1, 4 * page])
+        seeds = rng.integers(0, 2 ** 32, (q.shape[0], 6), dtype=np.uint64)
+        kwp = dict(scale=d ** -0.5, n_kv=n_kv)
+        outs = []
+        for pl_seed, aligned in ((0, True), (1, True), (0, False)):
+            placed = place(pl_seed)
+            codes = [common.pack_block(pool(x, placed), "e4m3")
+                     for x in (k, v)]
+            if not aligned:
+                codes = [_unaligned(torch, c) for c in codes]
+            outs.append(tfa.flash_decode_paged(q, *codes, seeds, lengths,
+                                               placed[0], specs,
+                                               kv_fmt="e4m3", **kwp))
+            if pl_seed == 0 and aligned:
+                values = tfa.flash_decode_paged(q, pool(k, placed),
+                                                pool(v, placed), seeds,
+                                                lengths, placed[0], specs,
+                                                **kwp)
+                ref = tfa.flash_decode_paged_plain(q, *codes, seeds, lengths,
+                                                   placed[0], specs,
+                                                   kv_fmt="e4m3", **kwp)
+        torch.cuda.synchronize()
+        tag = f"flash_decode_paged d 256 {'exact' if exact else 'N(0,1)'}"
+        if not (bitwise(torch, outs[0], outs[1])
+                and bitwise(torch, outs[0], outs[2])
+                and bitwise(torch, outs[0], values)):
+            fail(f"{tag}: placements, the generic instance or the values "
+                 "differ")
+        if exact and not bitwise(torch, outs[0], ref):
+            fail(f"{tag}: not bitwise the twin on exact sums")
+        r = flips(tag, ref, outs[0])
+        for b, n in enumerate(lengths):
+            sl = slice(b * n_kv, (b + 1) * n_kv)
+            k9 = tfa.flash_decode(q[sl], k[sl], v[sl], seeds[sl], int(n),
+                                  specs, scale=d ** -0.5, kv_block=page,
+                                  kernel="flash_decode_tiled")
+            if not bitwise(torch, k9, outs[0][sl]):
+                fail(f"{tag}: request {b} differs from K9's tiled kernel")
+        rows["flash_decode_paged"].append(dict(case=tag, main=False, **r))
+    # timed: every slot at a long request's last length (48 + 32)
+    lengths = [ENGINE["long"][0] + ENGINE["long"][1]] * B
+    q, k, v, lengths, place, pool = paged_case(
+        torch, page, False, 99, n_kv=n_kv, G=1, d=d, B=B, lengths=lengths)
+    placed = place(5)
+    codes = [common.pack_block(pool(x, placed), "e4m3") for x in (k, v)]
+    seeds = rng.integers(0, 2 ** 32, (q.shape[0], 6), dtype=np.uint64)
+    seeds_d = torch.from_numpy(seeds.astype(np.uint32).view(np.int32)).to(dev)
+    lens_d = torch.from_numpy(lengths).to(dev)
+    tbl_d = torch.from_numpy(placed[0]).to(dev)
+    kwp = dict(scale=d ** -0.5, n_kv=n_kv, kv_fmt="e4m3")
+
+    def call(i):
+        return tfa.flash_decode_paged(q, *codes, seeds_d, lens_d, tbl_d,
+                                      specs, **kwp)
+    got = call(0)
+    ref = tfa.flash_decode_paged_plain(q, *codes, seeds, lengths, placed[0],
+                                       specs, **kwp)
+    torch.cuda.synchronize()
+    r = flips("flash_decode_paged d 256 engine shape", ref, got)
+    S = int(max(lengths))
+    q4 = q.view(B, n_kv, 1, d)
+    k4, v4 = (x.view(B, n_kv, -1, d)[:, :, :S] for x in (k, v))
+
+    def lib(i):
+        return F.scaled_dot_product_attention(q4, k4, v4)
+    flops, n_tf, nbytes = paged_work(lengths, n_kv, 1, d)
+    bms, by = attn_bound(flops, n_tf, nbytes)
+    row = dict(case=f"engine decode B={B} KV={n_kv} page {page} lengths {S}",
+               main=True, ms=time_ms(torch, call, 1, iters=50),
+               device_ms=graph_ms(torch, call, 1),
+               plain_ms=time_ms(torch, lambda i: tfa.flash_decode_paged_plain(
+                   q, *codes, seeds, lengths, placed[0], specs, **kwp), 1,
+                   iters=3, warmup=1),
+               library_ms=time_ms(torch, lib, 1, iters=50),
+               library_device_ms=graph_ms(torch, lib, 1),
+               library="scaled_dot_product_attention over the gathered "
+                       "float32 cache, unrounded", bound_ms=bms, bound_by=by,
+               **r)
+    rows["flash_decode_paged"].append(row)
+    print(f"  flash_decode_paged d 256: exact sums bitwise, placements, "
+          f"generic instance, values and K9's tiled kernel bitwise; engine "
+          f"shape {row['ms']:.4f} ms, device {row['device_ms']:.5f}  bound "
+          f"{bms:.5f} ({by})  plain {row['plain_ms']:.3f}  sdpa device "
+          f"{row['library_device_ms']:.5f}", flush=True)
+    return rows
+
+
+def gemma_serve_phase(torch, mods, serve, tq, policy):
+    """Phase 33: ``serve.run(**serve.GEMMA_SERVE_RUN)`` at full width and
+    depth under ``policy``: launch counts (K4' on its gelu instance only),
+    finite logits, tok/s, peak memory; then the same batch traced by
+    ``profile_serve.profile`` for the device's busy share."""
+    from repro_torch.launch import profile_serve
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    run = serve.GEMMA_SERVE_RUN
+    if (run["arch"], run["batch"], run["prompt_len"], run["gen"]) != (
+            GEMMA_ARCH, BATCH, PROMPT, GEN):
+        fail(f"serve.GEMMA_SERVE_RUN {run} is not the run phases 30-31 "
+             "time")
+    reset_all(*mods)
+    t0 = time.time()
+    out = serve.run(**run, gemm_policy=policy, device="cuda")
+    t_run = time.time() - t0
+    launches = all_launches(*mods)
+    acts = dict(tq.ACT_LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    steps, L = PROMPT + GEN, GEMMA_LAYERS
+    want = every_kernel({
+        "qmatmul_sr": 5 * L * steps + GEN, "qmatmul_swiglu_sr": L * steps,
+        "flash_decode": L * steps if policy == ATTN_POLICY else 0},
+        launches)
+    want_acts = dict(dict.fromkeys(acts, 0), gelu=L * steps)
+    if launches != want or acts != want_acts:
+        fail(f"{GEMMA_ARCH} {policy}: launches {launches} / {acts} != "
+             f"{want} / {want_acts}")
+    if out["n_params"] != GEMMA["params"]:
+        fail(f"{GEMMA_ARCH}: {out['n_params']} parameters")
+    toks, logits = out["tokens"], out["logits"]
+    if tuple(toks.shape) != (BATCH, GEN) or int(toks.min()) < 0 \
+            or int(toks.max()) >= GEMMA["vocab"]:
+        fail(f"{GEMMA_ARCH}: bad tokens {toks.tolist()}")
+    if not bool(torch.isfinite(logits).all()):
+        fail(f"{GEMMA_ARCH}: non-finite logits")
+    res = dict(prefill_tokps=out["prefill_tokps"],
+               decode_tokps=out["decode_tokps"], t_prefill=out["t_prefill"],
+               t_decode=out["t_decode"], peak_bytes=peak,
+               n_params=out["n_params"], cache_dtype=str(out["cache_dtype"]),
+               cache_bytes=out["cache_bytes"], launches=launches,
+               act_launches=acts)
+    del out
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.time()
+    prof = profile_serve.profile(dict(run, **PROFILE_CUT), policy)
+    res.update({k: prof[k] for k in ("wall_ms_per_step",
+                                     "device_ms_per_step", "busy_share",
+                                     "launches_per_step")},
+               kernels_by_device_ms=prof["kernels"][:8],
+               phase_s=dict(run=t_run, traced=time.time() - t0))
+    print(f"  params {res['n_params']}, prefill {res['prefill_tokps']:.2f} "
+          f"tok/s, decode {res['decode_tokps']:.2f} tok/s, peak "
+          f"{peak / 2 ** 30:.2f} GiB, kv cache {res['cache_dtype']} "
+          f"{res['cache_bytes']} bytes, launches "
+          f"{ {k: v for k, v in launches.items() if v} } (by activation "
+          f"{ {k: v for k, v in acts.items() if v} }); traced: "
+          f"{res['wall_ms_per_step']:.1f} ms per step, device "
+          f"{res['device_ms_per_step']:.1f} ms, busy share "
+          f"{res['busy_share']:.3f}; seconds "
+          f"{ {k: round(v, 1) for k, v in res['phase_s'].items()} }",
+          flush=True)
+    for k in res["kernels_by_device_ms"][:5]:
+        print(f"    {k['device_ms']:10.3f} ms  {k['calls']:6d}x  "
+              f"{k['name'][:90]}", flush=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    return res
+
+
+def tied_logits_copy(torch):
+    """The tied embedding's transpose copy ``Model._logits`` makes on
+    every call (``params["embed"].T.contiguous()``) at gemma's 256000 x
+    3072 bf16: device ms per copy (CUDA events) and its transient bytes
+    (the peak over the embedding alone)."""
+    V, D = GEMMA["vocab"], GEMMA["d"]
+    gc.collect()
+    torch.cuda.empty_cache()
+    embed = torch.randn((V, D), device="cuda").to(torch.bfloat16)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    ms = time_ms(torch, lambda i: embed.T.contiguous(), 1, iters=10)
+    transient = torch.cuda.max_memory_allocated() - base
+    res = dict(copy_ms=ms, transient_bytes=transient,
+               copy_bound_ms=1e3 * 2 * embed.numel() * 2 / PEAK_BYTES_PER_S)
+    del embed
+    torch.cuda.empty_cache()
+    print(f"  tied embedding copy ({V} x {D} bf16): {ms:.4f} ms per copy "
+          f"(bound {res['copy_bound_ms']:.4f} ms), transient "
+          f"{transient} bytes", flush=True)
+    return res
+
+
+def gemma_engine_phase(torch, mods, serve, tq):
+    """Phase 34a: ``serve.run_engine`` over ``serve.ENGINE_RUN``'s mix on
+    gemma-7b under ``serve.ENGINE_POLICY`` (bf16 GEMMs, the unfused
+    GeGLU; K10 at d = 256 over an e4m3 pool): every request drains, every
+    page comes back, K10 launched once per layer per decode step and
+    nothing else; tok/s, TTFT, pool bytes, peak memory, and the busy
+    share of a shorter mix traced (``ENGINE_PROFILE_MIX``)."""
+    from repro_torch.launch import profile_serve
+    gc.collect()
+    torch.cuda.empty_cache()
+    run = {k: v for k, v in serve.ENGINE_RUN.items() if k != "arch"}
+    t0 = time.time()
+    built = serve.build(GEMMA_ARCH, gemm_policy=serve.ENGINE_POLICY,
+                        device="cuda")
+    t_build = time.time() - t0
+    reset_all(*mods)
+    out = serve.run_engine(built=built, device="cuda", verbose=False, **run)
+    t_run = time.time() - t0 - t_build
+    launches = all_launches(*mods)
+    eng = out["engine"]
+    want_len = {r.rid: r.max_new_tokens for r in serve.engine_workload(
+        GEMMA["vocab"], run["n_short"], run["n_long"], run["short"],
+        run["long"], run["workload_seed"], run["long_every"])}
+    if {rid: len(t) for rid, t in out["tokens"].items()} != want_len:
+        fail(f"{GEMMA_ARCH} engine: streams did not drain")
+    if eng.free_pages != run["engine"].total_pages - 1:
+        fail(f"{GEMMA_ARCH} engine: {eng.free_pages} free pages")
+    want = every_kernel({"flash_decode_paged": GEMMA_LAYERS * (
+        eng.decode_steps + eng.single_token_chunks)}, launches)
+    if launches != want or any(tq.ACT_LAUNCHES.values()):
+        fail(f"{GEMMA_ARCH} engine: launches {launches} != {want}")
+    if any(t < 0 or t >= GEMMA["vocab"] for s in out["tokens"].values()
+           for t in s):
+        fail(f"{GEMMA_ARCH} engine: bad tokens")
+    res = dict(tokps=out["tokps"], ttft_p50_s=out["ttft_p50_s"],
+               ttft_p99_s=out["ttft_p99_s"], wall_s=out["wall_s"],
+               pool_bytes=out["pool_bytes"], peak_bytes=out["peak_bytes"],
+               iterations=eng.iterations, decode_steps=eng.decode_steps,
+               prefill_calls=eng.prefill_calls, launches=launches)
+    del out, eng
+    t0 = time.time()
+    prof = profile_serve.profile_engine(built=built, **ENGINE_PROFILE_MIX)
+    res.update({k: prof[k] for k in ("wall_ms_per_step",
+                                     "device_ms_per_step", "busy_share",
+                                     "launches_per_step")},
+               traced_steps=prof["steps"],
+               phase_s=dict(build=t_build, run=t_run,
+                            traced=time.time() - t0))
+    print(f"  {res['iterations']} iterations, {res['decode_steps']} decode "
+          f"steps, {res['prefill_calls']} prefill chunks, {res['tokps']:.2f} "
+          f"tok/s, ttft p50 {res['ttft_p50_s'] * 1e3:.1f} ms p99 "
+          f"{res['ttft_p99_s'] * 1e3:.1f} ms, pool {res['pool_bytes']} "
+          f"bytes, peak {res['peak_bytes'] / 2 ** 30:.2f} GiB, K10 "
+          f"launches {launches['flash_decode_paged']}; traced (a shorter "
+          f"mix, {res['traced_steps']} model calls): "
+          f"{res['wall_ms_per_step']:.1f} ms per model call, device "
+          f"{res['device_ms_per_step']:.1f} ms, busy share "
+          f"{res['busy_share']:.3f}; seconds "
+          f"{ {k: round(v, 1) for k, v in res['phase_s'].items()} }",
+          flush=True)
+    del built
+    gc.collect()
+    torch.cuda.empty_cache()
+    return res
+
+
+def phi3_serve_phase(torch, mods, serve):
+    """Phase 34b: ``serve.run(**serve.PHI3_SERVE_RUN)``, phi3-medium-14b at
+    full width and depth (14.7 B parameters, 29.3 GB of bf16 weights)
+    under ``binary8-paper``, the card's memory freed before and after:
+    launch counts, finite logits, tok/s, peak memory."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    run = serve.PHI3_SERVE_RUN
+    reset_all(*mods)
+    out = serve.run(**run, device="cuda", gemm_policy="binary8-paper")
+    launches = all_launches(*mods)
+    peak = torch.cuda.max_memory_allocated()
+    steps = run["prompt_len"] + run["gen"]
+    want = every_kernel({"qmatmul_sr": 5 * PHI3["n_layers"] * steps
+                         + run["gen"],
+                         "qmatmul_swiglu_sr": PHI3["n_layers"] * steps},
+                        launches)
+    if launches != want:
+        fail(f"{PHI3_ARCH}: launches {launches} != {want}")
+    if out["n_params"] != PHI3["params"]:
+        fail(f"{PHI3_ARCH}: {out['n_params']} parameters")
+    if not bool(torch.isfinite(out["logits"]).all()) or \
+            int(out["tokens"].max()) >= PHI3["vocab"]:
+        fail(f"{PHI3_ARCH}: non-finite logits or bad tokens")
+    res = dict(prefill_tokps=out["prefill_tokps"],
+               decode_tokps=out["decode_tokps"], peak_bytes=peak,
+               n_params=out["n_params"], launches=launches,
+               steps=steps)
+    print(f"  params {out['n_params']}, prefill {out['prefill_tokps']:.2f} "
+          f"tok/s, decode {out['decode_tokps']:.2f} tok/s ({run['gen']} "
+          f"tokens), peak {peak / 2 ** 30:.2f} GiB, launches "
+          f"{ {k: v for k, v in launches.items() if v} }", flush=True)
+    del out
+    gc.collect()
+    torch.cuda.empty_cache()
+    return res
+
+
 def moe_kernel_entry(rows, name, source, replaces, launches, library):
     """A kernel of the MoE path: times per decode step (per-call time x
     launches per step at each path shape)."""
@@ -3484,7 +4157,7 @@ def main() -> None:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
-    print("== phase 1: device", flush=True)
+    stamp("== phase 1: device", flush=True)
     kind = torch.cuda.get_device_name(0)
     count = torch.cuda.device_count()
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -3494,7 +4167,7 @@ def main() -> None:
           f"{kind} x{count}", flush=True)
     print(smi[0], flush=True)
 
-    print("== phase 2: build", flush=True)
+    stamp("== phase 2: build", flush=True)
     t0 = time.time()
     paths = build.build_all()
     t_build = time.time() - t0
@@ -3507,122 +4180,147 @@ def main() -> None:
                   f"{use['spill_stores']}/{use['spill_loads']} B "
                   "(stores/loads)", flush=True)
 
-    print("== phase 3: GEMM kernels vs plain twins (serving shapes)",
+    stamp("== phase 3: GEMM kernels vs plain twins (serving shapes)",
           flush=True)
     rows = gemm_phase(torch, tq, gemm_cases(train=False))
     decode_rows_phase(torch, tq, tcommon)
 
     n_full = tinyllama_params()
-    print(f"== phase 4: update kernels vs plain twins (n = "
+    stamp(f"== phase 4: update kernels vs plain twins (n = "
           f"{UPDATE_N_SMALL} and {n_full})", flush=True)
     update_rows = update_phase(torch, n_full)
 
-    print("== phase 5: GEMM kernels vs plain twins (train-step shapes)",
+    stamp("== phase 5: GEMM kernels vs plain twins (train-step shapes)",
           flush=True)
     train_rows = gemm_phase(torch, tq, gemm_cases(train=True))
 
-    print("== phase 6: serve tinyllama-1.1b binary8-paper", flush=True)
+    stamp("== phase 6: serve tinyllama-1.1b binary8-paper", flush=True)
     mods = (tq, tfu, tfa, tsr)
     unpacked = {}           # its tokens and logits, for phase 23
     served = serve_phase(torch, mods, serve, keep=unpacked)
 
-    print("== phase 7: serve agreement card vs cpu", flush=True)
+    stamp("== phase 7: serve agreement card vs cpu", flush=True)
     agree = agreement_phase(torch, serve)
 
-    print(f"== phase 8: train tinyllama-1.1b, batch {TRAIN_BATCH} x "
+    stamp(f"== phase 8: train tinyllama-1.1b, batch {TRAIN_BATCH} x "
           f"{TRAIN_SEQ}, {TRAIN_STEPS} steps, binary8-paper, signed-SRe "
           "binary8 update (fused)", flush=True)
     trained = train_phase(torch, mods, train)
 
-    print("== phase 9: train agreement card vs cpu (reduced)", flush=True)
+    stamp("== phase 9: train agreement card vs cpu (reduced)", flush=True)
     train_agree, agree_launches = train_agreement_phase(torch, mods, train)
 
-    print("== phase 10: attention kernels vs plain twins", flush=True)
+    stamp("== phase 10: attention kernels vs plain twins", flush=True)
     attn_rows = attention_phase(torch, tfa)
 
-    print(f"== phase 11: serve tinyllama-1.1b {ATTN_POLICY}", flush=True)
+    stamp(f"== phase 11: serve tinyllama-1.1b {ATTN_POLICY}", flush=True)
     served_attn = serve_phase(torch, mods, serve, ATTN_POLICY)
 
-    print(f"== phase 12: serve agreement card vs cpu ({ATTN_POLICY})",
+    stamp(f"== phase 12: serve agreement card vs cpu ({ATTN_POLICY})",
           flush=True)
     agree_attn = agreement_phase(torch, serve, ATTN_POLICY)
 
-    print(f"== phase 13: train tinyllama-1.1b, batch {TRAIN_BATCH} x "
+    stamp(f"== phase 13: train tinyllama-1.1b, batch {TRAIN_BATCH} x "
           f"{TRAIN_SEQ}, {TRAIN_STEPS} steps, {ATTN_POLICY}", flush=True)
     trained_attn = train_phase(torch, mods, train, ATTN_POLICY)
 
-    print(f"== phase 14: train agreement card vs cpu ({ATTN_POLICY}, "
+    stamp(f"== phase 14: train agreement card vs cpu ({ATTN_POLICY}, "
           "reduced)", flush=True)
     train_agree_attn, _ = train_agreement_phase(torch, mods, train,
                                                 ATTN_POLICY, ("fused",))
 
-    print("== phase 15: MoE kernels (K1', K8') vs plain twins", flush=True)
+    stamp("== phase 15: MoE kernels (K1', K8') vs plain twins", flush=True)
     sr_cast_rows = sr_cast_phase(torch, tsr)
     batched_rows = batched_phase(torch, tq)
 
-    print(f"== phase 16: serve agreement card vs cpu (reduced {MOE_ARCH})",
+    stamp(f"== phase 16: serve agreement card vs cpu (reduced {MOE_ARCH})",
           flush=True)
     agree_moe = moe_agreement_phase(torch, serve)
 
-    print(f"== phase 17: serve {MOE_ARCH} binary8-paper", flush=True)
+    stamp(f"== phase 17: serve {MOE_ARCH} binary8-paper", flush=True)
     served_moe = moe_serve_phase(torch, mods, serve)
 
-    print(f"== phase 18: K5 (fused QAdam) vs plain twin (n = "
+    stamp(f"== phase 18: K5 (fused QAdam) vs plain twin (n = "
           f"{UPDATE_N_SMALL} and {n_full})", flush=True)
     adam_rows, adam_full = adam_phase(torch, tfu, n_full)
 
-    print(f"== phase 19: train tinyllama-1.1b, train.ADAM_RUN (QAdam, "
+    stamp(f"== phase 19: train tinyllama-1.1b, train.ADAM_RUN (QAdam, "
           f"bf16-sr codes through K5), {TRAIN_STEPS} steps + resume",
           flush=True)
     trained_adam = adam_train_phase(torch, mods, train)
 
-    print("== phase 20: QAdam train agreement card vs cpu (reduced) and "
+    stamp("== phase 20: QAdam train agreement card vs cpu (reduced) and "
           "the fault drill", flush=True)
     adam_agree, adam_agree_launches = train_agreement_phase(
         torch, mods, train, adam=True)
     moment_path = moment_path_phase(torch, train)
     drill = adam_drill_phase(torch, train)
 
-    print("== phase 21: explicit-bits kernels (K3, K4, K8, K1) vs plain "
+    stamp("== phase 21: explicit-bits kernels (K3, K4, K8, K1) vs plain "
           "twins and vs their in-kernel-bits kernels", flush=True)
     bits_rows = bits_gemm_phase(torch, tq, tcommon)
     bits_batched_rows = bits_batched_phase(torch, tq, tcommon)
     bits_cast_rows = bits_cast_phase(torch, tsr, tcommon)
 
-    print(f"== phase 22: serve tinyllama-1.1b {ORACLE_POLICY} (and e4m3-sr)",
+    stamp(f"== phase 22: serve tinyllama-1.1b {ORACLE_POLICY} (and e4m3-sr)",
           flush=True)
     served_oracle = oracle_serve_phase(torch, mods, serve)
 
-    print(f"== phase 23: serve tinyllama-1.1b {PACKED_POLICY}", flush=True)
+    stamp(f"== phase 23: serve tinyllama-1.1b {PACKED_POLICY}", flush=True)
     served_packed = packed_serve_phase(torch, mods, serve, unpacked)
 
     moe_oracle = dataclasses.replace(get_policy("binary8-paper"),
                                      oracle=True)
-    print(f"== phase 24: agreement card vs cpu: reduced {MOE_ARCH} under "
+    stamp(f"== phase 24: agreement card vs cpu: reduced {MOE_ARCH} under "
           f"oracle binary8-paper; reduced tinyllama train steps under "
           f"{PACKED_POLICY} and {ORACLE_POLICY}", flush=True)
     agree_moe_oracle = moe_agreement_phase(torch, serve, moe_oracle)
     preset_train = preset_train_phase(torch, mods, train)
 
-    print(f"== phase 25: serve {MOE_ARCH} oracle binary8-paper", flush=True)
+    stamp(f"== phase 25: serve {MOE_ARCH} oracle binary8-paper", flush=True)
     served_moe_oracle = moe_serve_phase(torch, mods, serve, moe_oracle)
 
-    print("== phase 26: K10 (paged decode) vs plain twin", flush=True)
+    stamp("== phase 26: K10 (paged decode) vs plain twin", flush=True)
     paged_rows = paged_phase(torch, tfa)
 
-    print("== phase 27: engine serve tinyllama-1.1b (ENGINE_RUN, "
+    stamp("== phase 27: engine serve tinyllama-1.1b (ENGINE_RUN, "
           "ENGINE_POLICY)", flush=True)
     engine_runs = engine_phase(torch, mods, serve)
 
-    print("== phase 28: engine agreement card vs cpu (reduced)", flush=True)
+    stamp("== phase 28: engine agreement card vs cpu (reduced)", flush=True)
     engine_agree = engine_agreement_phase(torch, serve)
 
-    print("== phase 29: the paper's GD experiments (repro_torch.paper)",
+    stamp("== phase 29: the paper's GD experiments (repro_torch.paper)",
           flush=True)
     t0 = time.time()
     paper = paper_phase(torch, tfu, smi[0])
     paper["wall_s"] = time.time() - t0
     print(f"  phase 29 took {paper['wall_s']:.1f} s", flush=True)
+
+    stamp(f"== phase 30: GLU kernels (K4', K4) under {', '.join(GLU_ACTS)} "
+          f"at {GEMMA_ARCH}'s FFN shapes vs plain twins", flush=True)
+    glu_rows = glu_act_phase(torch, tq, tcommon)
+
+    stamp(f"== phase 31: K6, K9, K10 at head dim {GEMMA['hd']} vs plain "
+          "twins", flush=True)
+    d256_rows = attn_d256_phase(torch, tfa)
+
+    stamp(f"== phase 32: serve agreement card vs cpu (reduced {GEMMA_ARCH}, "
+          f"head dim {GEMMA['hd']})", flush=True)
+    agree_gemma = {p: agreement_phase(torch, serve, p, GEMMA_ARCH,
+                                      head_dim=GEMMA["hd"])
+                   for p in ("binary8-paper", ATTN_POLICY)}
+
+    stamp(f"== phase 33: serve {GEMMA_ARCH} binary8-paper and {ATTN_POLICY}; "
+          "the tied embedding's copy", flush=True)
+    served_gemma = {p: gemma_serve_phase(torch, mods, serve, tq, p)
+                    for p in ("binary8-paper", ATTN_POLICY)}
+    tied = tied_logits_copy(torch)
+
+    stamp(f"== phase 34: engine {GEMMA_ARCH} (ENGINE_RUN, ENGINE_POLICY); "
+          f"serve {PHI3_ARCH} binary8-paper", flush=True)
+    engine_gemma = gemma_engine_phase(torch, mods, serve, tq)
+    served_phi3 = phi3_serve_phase(torch, mods, serve)
 
     kernels = []
     replaces = {"qmatmul_sr": "src/repro/kernels/qmatmul.py:360",
@@ -3838,6 +4536,71 @@ def main() -> None:
               f"{main_row['case']})",
         launches_path="engine serve tinyllama-1.1b ENGINE_RUN, "
                       "ENGINE_POLICY"))
+    # the instances this slice added: K4' and K4 under gelu, relu and
+    # relu_sq (per gemma-7b decode step: 28 launches at M = 4), K6, K9 and
+    # K10 at head dim 256 (per gemma-7b layer stack: 28 launches)
+    for act in GLU_ACTS[1:]:
+        path = [r for r in glu_rows if r["act"] == act and r["per_step"]]
+        prompt = [r for r in glu_rows if r["act"] == act and not
+                  r["per_step"]][0]
+        for flavour, line, prefix in (("sr", 846, ""), ("bits", 822,
+                                                        "bits_")):
+            def per_step(key):
+                return sum(r[key] * r["per_step"] for r in path)
+            on_path = act == "gelu" and flavour == "sr"
+            kernels.append(dict(
+                name=f"qmatmul_swiglu_{flavour}[{act}]", route="cuda",
+                source=f"src/repro_torch/csrc/qmatmul_swiglu_{act}.cu",
+                replaces=f"src/repro/kernels/qmatmul.py:{line}",
+                launches=(served_gemma["binary8-paper"]["act_launches"][act]
+                          if flavour == "sr" else 0),
+                max_abs_err=max(r["max_abs_err"] for r in glu_rows
+                                if r["act"] == act),
+                ms=per_step(prefix + "ms"), plain_ms=per_step("plain_ms"),
+                bound_ms=per_step("bound_ms"),
+                bound_by=path[0]["bound_by"],
+                library_ms=per_step("library_ms"),
+                library="two fp32 torch.matmul (x @ wg, x @ wu), unrounded",
+                device_ms=per_step(prefix + "device_ms"),
+                library_device_ms=per_step("library_device_ms"),
+                prompt_device_ms=prompt[prefix + "device_ms"],
+                prompt_library_device_ms=prompt["library_device_ms"],
+                mismatch_share=max(r["mismatch_share"] for r in glu_rows
+                                   if r["act"] == act),
+                timed=f"one {GEMMA_ARCH} decode step's {GEMMA_LAYERS} "
+                      f"launches (M = {BATCH}, 3072 -> 24576); "
+                      "prompt_device_ms: one call at M = 128",
+                launches_path=(f"serve {GEMMA_ARCH} binary8-paper"
+                               if on_path else None),
+                registers=dict(resources.get(f"qmatmul_swiglu_{act}", {}))))
+    for name, line, runs, parts in (
+            ("flash_fwd", 195, None, ("fwd1_kernel<256>", "fwd_kernel<32>")),
+            ("flash_decode", 649, served_gemma[ATTN_POLICY],
+             ("decode_paged_kernel<1, 256, true>", "fwd_kernel<32>")),
+            ("flash_decode_paged", 743, engine_gemma,
+             ("decode_paged_kernel<1, 256, false>",))):
+        main_row = [r for r in d256_rows[name] if r["main"]][0]
+        kernels.append(dict(
+            name=f"{name}[d256]", route="cuda",
+            source="src/repro_torch/csrc/flash_attention.cu",
+            replaces=f"src/repro/kernels/flash_attention.py:{line}",
+            launches=runs["launches"][name] if runs else 0,
+            max_abs_err=max(r["max_abs_err"] for r in d256_rows[name]),
+            **{k: GEMMA_LAYERS * main_row[k]
+               for k in ("ms", "plain_ms", "bound_ms", "library_ms",
+                         "device_ms", "library_device_ms")},
+            bound_by=main_row["bound_by"], library=main_row["library"],
+            mismatch_share=max(r["mismatch_share"]
+                               for r in d256_rows[name]),
+            timed=f"{GEMMA_LAYERS} launches ({main_row['case']}), one per "
+                  f"{GEMMA_ARCH} layer",
+            launches_path=(f"serve {GEMMA_ARCH} {ATTN_POLICY}"
+                           if name == "flash_decode" else
+                           f"engine {GEMMA_ARCH} ENGINE_RUN, ENGINE_POLICY"
+                           if runs else None),
+            registers={fn: use for fn, use in
+                       resources.get("flash_attention", {}).items()
+                       if any(p in fn for p in parts)}))
     # each kernel's instances in ptxas' report: names holding all of the
     # parts (K9: the decode kernel's contiguous instances and the tiled
     # route's fwd_kernel)
@@ -3884,6 +4647,10 @@ def main() -> None:
                   serve_moe_oracle=served_moe_oracle,
                   paged_rows=paged_rows, engine=engine_runs,
                   engine_agreement=engine_agree, paper=paper,
+                  glu_act_rows=glu_rows, attention_d256_rows=d256_rows,
+                  agreement_gemma=agree_gemma, serve_gemma=served_gemma,
+                  tied_embedding_copy=tied, engine_gemma=engine_gemma,
+                  serve_phi3=served_phi3,
                   t_total_s=time.time() - T_START, kernels=kernels)
     out_dir = HERE / "chiprun_out"
     out_dir.mkdir(exist_ok=True)

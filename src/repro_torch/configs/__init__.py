@@ -1,7 +1,8 @@
 """Architecture registry (counterpart of ``repro.configs``).
 
-The dense decoder and MoE families are ported; ``get_config`` raises for
-the reference's other architectures with "not ported yet".
+The dense decoders (SwiGLU and GeGLU) and the MoE family are ported;
+``get_config`` raises for the reference's other architectures with "not
+ported yet".
 """
 from __future__ import annotations
 
@@ -9,15 +10,18 @@ import dataclasses
 from typing import Dict
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.configs.gemma_7b import CONFIG as GEMMA_7B
+from repro_torch.configs.phi3_medium_14b import CONFIG as PHI3_MEDIUM_14B
 from repro_torch.configs.qwen3_moe_30b_a3b import CONFIG as QWEN3_MOE_30B_A3B
 from repro_torch.configs.smollm_360m import CONFIG as SMOLLM_360M
 from repro_torch.configs.tinyllama_1_1b import CONFIG as TINYLLAMA_1_1B
 
 REGISTRY: Dict[str, ModelConfig] = {
-    c.name: c for c in [QWEN3_MOE_30B_A3B, SMOLLM_360M, TINYLLAMA_1_1B]
+    c.name: c for c in [GEMMA_7B, PHI3_MEDIUM_14B, QWEN3_MOE_30B_A3B,
+                        SMOLLM_360M, TINYLLAMA_1_1B]
 }
-NOT_PORTED = ("gemma-7b", "phi3-medium-14b", "rwkv6-7b", "zamba2-1.2b",
-              "deepseek-v2-236b", "qwen2-vl-7b", "seamless-m4t-medium")
+NOT_PORTED = ("rwkv6-7b", "zamba2-1.2b", "deepseek-v2-236b", "qwen2-vl-7b",
+              "seamless-m4t-medium")
 ARCH_NAMES = sorted(REGISTRY)
 
 

@@ -1,9 +1,11 @@
 """Parameters of the JAX reference -> parameters of the port.
 
 ``params_from_jax`` takes the reference's ``Model.init`` tree (as numpy
-arrays, e.g. ``jax.device_get(params)``) for the dense decoder:
+arrays, e.g. ``jax.device_get(params)``) for the dense decoder (SwiGLU or
+GeGLU: the same three FFN weights; no ``lm_head`` where the embeddings
+are tied, as gemma-7b's):
 ``{"embed", "blocks": {"attn": {norm1, norm2, attn: {wq, wk, wv, wo},
-mlp: {w_gate, w_up, w_down}}}, "final_norm", "lm_head"}`` with the block
+mlp: {w_gate, w_up, w_down}}}, "final_norm"[, "lm_head"]}`` with the block
 leaves stacked over layers, or for the MoE decoder, whose blocks hold
 ``moe: {router (L, D, E), w_gate (L, E, D, F), w_up (L, E, D, F), w_down
 (L, E, F, D)[, shared: {w_gate, w_up, w_down}]}`` in place of ``mlp``.  It

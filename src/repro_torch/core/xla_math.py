@@ -5,11 +5,13 @@ XLA's CPU backend computes ``exp``, ``log`` and ``log1p`` with its own
 polynomials (Cephes' constants, as in J. Pommier's sse_mathfun), fuses
 their multiply-adds, and flushes float32 subnormal results to zero; jax
 lowers ``erf_inv`` to a polynomial in ``log1p`` and ``exp2(x)`` to
-``exp(float32(ln 2) · x)``.  PyTorch's functions differ from these by
-float32 ulps on some inputs, so the port's ``prng.normal`` (Xavier init of
-the paper's NN) and ``gd.tau`` (the stagnation diagnostic) use these:
-bitwise equal to jax's on the inputs the tests draw
-(``tests/test_torch_qarith.py``).  The fused steps go through
+``exp(float32(ln 2) · x)``; ``tanh`` is XLA's rational approximation
+(``tanh_f32``).  PyTorch's functions differ from these by float32 ulps on
+some inputs (``torch.tanh`` on 59 % of N(0, 9) inputs), so the port's
+``prng.normal`` (Xavier init of the paper's NN), ``gd.tau`` (the
+stagnation diagnostic) and the GLU kernels' ``gelu`` (``kernels.qmatmul``)
+use these: bitwise equal to jax's on the inputs the tests draw
+(``tests/test_torch_qarith.py``, ``tests/test_torch_ffn_act.py``).  The fused steps go through
 ``core.fma`` (a float64 emulation, so they run on the card too).
 """
 from __future__ import annotations
@@ -129,3 +131,36 @@ def exp_f32(x: torch.Tensor) -> torch.Tensor:
 def exp2_f32(x: torch.Tensor) -> torch.Tensor:
     """``jnp.exp2`` as jax lowers it: exp(float32(ln 2) · x)."""
     return exp_f32(x.float() * 0.6931471824645996)
+
+
+# XLA's float32 tanh (its polynomial approximation on the CPU): the input
+# clamped to +-_TANH_CLAMP, then x P(x^2) / Q(x^2), each a Horner chain of
+# fused multiply-adds (coefficients highest degree first); |x| below
+# _TANH_TINY returns x itself
+_TANH_CLAMP = 7.99881172180175781
+_TANH_TINY = 0.0004
+_TANH_P = (-2.76076847742355e-16, 2.00018790482477e-13,
+           -8.60467152213735e-11, 5.12229709037114e-08,
+           1.48572235717979e-05, 6.37261928875436e-04,
+           4.89352455891786e-03)
+_TANH_Q = (1.19825839466702e-06, 1.18534705686654e-04,
+           2.26843463243900e-03, 4.89352518554385e-03)
+
+
+def tanh_f32(x: torch.Tensor) -> torch.Tensor:
+    """XLA's CPU float32 ``tanh``, op by op: bitwise ``jnp.tanh`` (jitted
+    or not) on every float32 input the tests give it, signed zeros, the
+    clamp and the 0.0004 edges, subnormals (returned as they are),
+    +-inf and NaN included (``csrc/rounding.cuh:tanh_xla`` on the
+    card)."""
+    x = x.float()
+    c = torch.clamp(x, -_TANH_CLAMP, _TANH_CLAMP)
+    c2 = c * c
+
+    def horner(coefs):
+        r = _full(x, coefs[0])
+        for k in coefs[1:]:
+            r = fma(c2, r, _full(x, k))
+        return r
+    r = flush((c * horner(_TANH_P)) / horner(_TANH_Q))
+    return torch.where(torch.abs(x) < _TANH_TINY, x, r)

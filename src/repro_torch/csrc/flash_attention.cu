@@ -121,9 +121,12 @@ constexpr int kTQ = 32;    // query rows per block (K6, K7, K9)
 constexpr int kTK = 64;    // key rows per tile (K6, K7, K9)
 constexpr int kTKV = 32;   // key rows per block (K7')
 constexpr int kTQB = 32;   // query rows per tile (K7')
-constexpr int kDMax = 128;
+constexpr int kDMax = 128;      // head dims of the backward (K7, K7')
+constexpr int kDMaxFwd = 256;   // and of the forward and decode (K6, K9, K10)
 constexpr int kAcc = kTQ * kDMax / kThreads;    // 16 outputs per thread
 constexpr int kAccKV = kTKV * kDMax / kThreads;
+// fwd_kernel's outputs per thread for d above kDMax
+constexpr int kAccWide = kTQ * kDMaxFwd / kThreads;
 
 struct Sites {
   rt::RoundParams p[3];
@@ -246,6 +249,10 @@ __device__ __forceinline__ float load_kv(const void* base, size_t idx,
   return rt::unpack(c, pack);
 }
 
+// kAccN outputs per thread: kAcc (d up to kDMax) or kAccWide (up to
+// kDMaxFwd), two instances, so the first compiles as it did before the
+// second existed.
+template <int kAccN>
 __global__ void __launch_bounds__(kThreads) fwd_kernel(FwdArgs a) {
   extern __shared__ float smem[];
   const int bh = blockIdx.y;
@@ -276,9 +283,9 @@ __global__ void __launch_bounds__(kThreads) fwd_kernel(FwdArgs a) {
     row_m[tid] = -INFINITY;
     row_l[tid] = 0.0f;
   }
-  float acc[kAcc], pv[kAcc];
+  float acc[kAccN], pv[kAccN];
 #pragma unroll
-  for (int u = 0; u < kAcc; ++u) acc[u] = 0.0f;
+  for (int u = 0; u < kAccN; ++u) acc[u] = 0.0f;
   const int qpos_hi = qpos_of(r0 + nr - 1, g);
   const int n_k = (g.kv_rows + g.kb - 1) / g.kb;
   __syncthreads();
@@ -287,7 +294,7 @@ __global__ void __launch_bounds__(kThreads) fwd_kernel(FwdArgs a) {
     const int k0 = j * g.kb, k1 = min(k0 + g.kb, g.kv_rows);
     if (tid < kTQ) row_t[tid] = -INFINITY;
 #pragma unroll
-    for (int u = 0; u < kAcc; ++u) pv[u] = 0.0f;
+    for (int u = 0; u < kAccN; ++u) pv[u] = 0.0f;
     for (int pass = 0; pass < 2; ++pass) {
       for (int t0 = k0; t0 < k1; t0 += kTK) {
         if (t0 >= kv_len(g) || (g.causal && t0 > qpos_hi)) break;
@@ -340,7 +347,7 @@ __global__ void __launch_bounds__(kThreads) fwd_kernel(FwdArgs a) {
         }
         if (pass == 1) {
 #pragma unroll
-          for (int u = 0; u < kAcc; ++u) {
+          for (int u = 0; u < kAccN; ++u) {
             const int e = tid + kThreads * u;
             if (e < kTQ * g.dv) {
               const int r = e / g.dv, c = e % g.dv;
@@ -368,7 +375,7 @@ __global__ void __launch_bounds__(kThreads) fwd_kernel(FwdArgs a) {
     // close the logical block: round its P.V partial once (av site, stream
     // j), rescale the running sums
 #pragma unroll
-    for (int u = 0; u < kAcc; ++u) {
+    for (int u = 0; u < kAccN; ++u) {
       const int e = tid + kThreads * u;
       if (e < kTQ * g.dv) {
         const int r = e / g.dv, c = e % g.dv;
@@ -385,7 +392,7 @@ __global__ void __launch_bounds__(kThreads) fwd_kernel(FwdArgs a) {
   }
 
 #pragma unroll
-  for (int u = 0; u < kAcc; ++u) {
+  for (int u = 0; u < kAccN; ++u) {
     const int e = tid + kThreads * u;
     if (e < kTQ * g.dv) {
       const int r = e / g.dv, c = e % g.dv;
@@ -419,11 +426,17 @@ __global__ void __launch_bounds__(kThreads) fwd_kernel(FwdArgs a) {
 // a 128-key tile, reads q and k as float4 (k rows swizzled by 16-byte
 // chunk so the eight lanes of a quarter-warp hit distinct banks), and
 // draws its four keys' fields from one or two Threefry evaluations
-// (element_bits4).  P.V: a thread owns 4 consecutive output columns of
-// kFRows rows.  K and V tiles are staged with cp.async into two buffers,
-// the next tile loading while the current one computes.
-constexpr int kFTK = 128;          // keys per tile
+// (element_bits4).  At d = 256 a tile holds 64 keys (the two tiles of
+// 128 would take 256 KB): lane x owns keys 4 (x % 16).. and rows 4w + 2 (x
+// / 16).., two of them.  P.V: a thread owns 4 consecutive output columns
+// of kFRows rows.  K and V tiles are staged with cp.async into two
+// buffers, the next tile loading while the current one computes.
 constexpr int kSmemMax = 232448;   // the H100's shared memory per block
+
+// keys per staged tile
+__host__ __device__ constexpr int fwd1_tile_keys(int d) {
+  return d > 128 ? 64 : 128;
+}
 
 template <int D>
 struct FwdShape {
@@ -431,18 +444,23 @@ struct FwdShape {
   static constexpr int kSwizzle = (kChunks < 8 ? kChunks : 8) - 1;
   static constexpr int kRowGroups = 256 / kChunks < kTQ ? 256 / kChunks : kTQ;
   static constexpr int kRows = kTQ / kRowGroups;   // P.V rows per thread
+  static constexpr int kTileKeys = fwd1_tile_keys(D);
+  // the logits: lanes per row (4 keys each), rows per thread
+  static constexpr int kKeyLanes = kTileKeys / 4;
+  static constexpr int kLRows = 4 * kKeyLanes / 32;
 };
 
 // Row stride of the logits: the largest logical block, in whole tiles, and
 // 4 more floats so P.V's row pairs fall in different banks.
-__host__ __device__ inline int logits_stride(int kb) {
-  return (kb + kFTK - 1) / kFTK * kFTK + 4;
+__host__ __device__ inline int logits_stride(int kb, int d) {
+  const int tk = fwd1_tile_keys(d);
+  return (kb + tk - 1) / tk * tk + 4;
 }
 
 size_t fwd1_smem(int kb, int d) {
   return sizeof(float) *
-         (static_cast<size_t>(kTQ) * d + 2 * kFTK * d +
-          static_cast<size_t>(kTQ) * logits_stride(kb) + 4 * kTQ);
+         (static_cast<size_t>(kTQ) * d + 2 * fwd1_tile_keys(d) * d +
+          static_cast<size_t>(kTQ) * logits_stride(kb, d) + 4 * kTQ);
 }
 
 // element_bits at columns c0..c0+3, shared evaluations where c0 % 4 == 0.
@@ -482,7 +500,8 @@ __device__ __forceinline__ void copy_rows(float* buf, const float* src,
   }
 }
 
-// Rows [key0, key0 + n) into a kFTK x D stage buffer, one commit group.
+// Rows [key0, key0 + n) into a kTileKeys x D stage buffer, one commit
+// group.
 template <int D, bool kSwizzled>
 __device__ __forceinline__ void stage_tile(float* buf, const float* src,
                                            int key0, int n) {
@@ -493,19 +512,24 @@ __device__ __forceinline__ void stage_tile(float* buf, const float* src,
 template <int D>
 __global__ void __launch_bounds__(kThreads) fwd1_kernel(FwdArgs a) {
   using S = FwdShape<D>;
+  constexpr int TK = S::kTileKeys;
   extern __shared__ float smem[];
   const Geo& g = a.g;
   const int bh = blockIdx.y;
   const int r0 = blockIdx.x * kTQ;
   const int nr = min(kTQ, g.rows - r0);
-  const int lds = logits_stride(g.kb);
+  const int lds = logits_stride(g.kb, D);
   float* Qs = smem;                    // kTQ x D
-  float* Bs = Qs + kTQ * D;            // 2 x (kFTK x D): K, then V tiles
-  float* Ss = Bs + 2 * kFTK * D;       // kTQ x lds: logits, then p
+  float* Bs = Qs + kTQ * D;            // 2 x (TK x D): K, then V tiles
+  float* Ss = Bs + 2 * TK * D;         // kTQ x lds: logits, then p
   float* row_m = Ss + kTQ * lds;
   float* row_l = row_m + kTQ;
   float* row_corr = row_l + kTQ;
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  // the logits' keys 4 kg.. and rows lr0..lr0 + kLRows - 1
+  const int kg = S::kKeyLanes == 32 ? lane : lane % S::kKeyLanes;
+  const int lr0 = 4 * warp + (S::kKeyLanes == 32 ? 0 : lane / S::kKeyLanes) *
+                                 S::kLRows;
   const uint32_t* w = a.seeds + static_cast<size_t>(bh) * 6;
   const rt::RoundParams& p_qk = a.sites.p[0];
   const float* kbase = static_cast<const float*>(a.k) +
@@ -537,39 +561,38 @@ __global__ void __launch_bounds__(kThreads) fwd1_kernel(FwdArgs a) {
     int nkeys = k1 - k0;
     if (g.causal)
       nkeys = k0 > qpos_hi ? 0 : min(nkeys, ((qpos_hi - k0) / kTK + 1) * kTK);
-    const int ntiles = (nkeys + kFTK - 1) / kFTK;
+    const int ntiles = (nkeys + TK - 1) / TK;
 
     // logits, rounded once, into Ss
-    if (ntiles > 0) stage_tile<D, true>(Bs, kbase, k0, min(kFTK, nkeys));
+    if (ntiles > 0) stage_tile<D, true>(Bs, kbase, k0, min(TK, nkeys));
     for (int i = 0; i < ntiles; ++i) {
       if (i + 1 < ntiles) {
-        stage_tile<D, true>(Bs + ((i + 1) & 1) * kFTK * D, kbase,
-                            k0 + (i + 1) * kFTK,
-                            min(kFTK, nkeys - (i + 1) * kFTK));
+        stage_tile<D, true>(Bs + ((i + 1) & 1) * TK * D, kbase,
+                            k0 + (i + 1) * TK,
+                            min(TK, nkeys - (i + 1) * TK));
         __pipeline_wait_prior(1);
       } else {
         __pipeline_wait_prior(0);
       }
       __syncthreads();
-      const float* Kt = Bs + (i & 1) * kFTK * D;
-      float s[4][4];
+      const float* Kt = Bs + (i & 1) * TK * D;
+      float s[S::kLRows][4];
 #pragma unroll
-      for (int r = 0; r < 4; ++r)
+      for (int r = 0; r < S::kLRows; ++r)
         s[r][0] = s[r][1] = s[r][2] = s[r][3] = 0.0f;
 #pragma unroll 4
       for (int t = 0; t < D; t += 4) {
-        float4 qf[4], kf[4];
+        float4 qf[S::kLRows], kf[4];
 #pragma unroll
-        for (int r = 0; r < 4; ++r)
-          qf[r] = *reinterpret_cast<const float4*>(Qs + (4 * warp + r) * D +
-                                                   t);
-        const int pch = (t / 4) ^ (lane & S::kSwizzle);
+        for (int r = 0; r < S::kLRows; ++r)
+          qf[r] = *reinterpret_cast<const float4*>(Qs + (lr0 + r) * D + t);
+        const int pch = (t / 4) ^ (kg & S::kSwizzle);
 #pragma unroll
         for (int c = 0; c < 4; ++c)
-          kf[c] = *reinterpret_cast<const float4*>(Kt + (4 * lane + c) * D +
+          kf[c] = *reinterpret_cast<const float4*>(Kt + (4 * kg + c) * D +
                                                    4 * pch);
 #pragma unroll
-        for (int r = 0; r < 4; ++r)
+        for (int r = 0; r < S::kLRows; ++r)
 #pragma unroll
           for (int c = 0; c < 4; ++c) {
             s[r][c] = fmaf(qf[r].x, kf[c].x, s[r][c]);
@@ -578,11 +601,11 @@ __global__ void __launch_bounds__(kThreads) fwd1_kernel(FwdArgs a) {
             s[r][c] = fmaf(qf[r].w, kf[c].w, s[r][c]);
           }
       }
-      const int loc = i * kFTK + 4 * lane;   // column in Ss
+      const int loc = i * TK + 4 * kg;   // column in Ss
       const int kpos0 = k0 + loc;
 #pragma unroll
-      for (int r = 0; r < 4; ++r) {
-        const int rr = 4 * warp + r;
+      for (int r = 0; r < S::kLRows; ++r) {
+        const int rr = lr0 + r;
         const int qpos = g.q_offset + r0 + rr;
         uint32_t bits[4];
         site_bits4(p_qk, w, 0u, static_cast<uint32_t>(qpos),
@@ -607,7 +630,7 @@ __global__ void __launch_bounds__(kThreads) fwd1_kernel(FwdArgs a) {
     // max, m_new, m_safe and corr, then p = exp(s - m_safe) in place and
     // the row sum in fwd_kernel's order (64-key chunks, lanes c and c + 32
     // paired, then the butterfly)
-    if (ntiles > 0) stage_tile<D, false>(Bs, vbase, k0, min(kFTK, nkeys));
+    if (ntiles > 0) stage_tile<D, false>(Bs, vbase, k0, min(TK, nkeys));
     for (int r = warp; r < kTQ; r += kWarps) {
       float* row = Ss + r * lds;
       float mx = -INFINITY;
@@ -644,18 +667,18 @@ __global__ void __launch_bounds__(kThreads) fwd1_kernel(FwdArgs a) {
       pv[i][0] = pv[i][1] = pv[i][2] = pv[i][3] = 0.0f;
     for (int i = 0; i < ntiles; ++i) {
       if (i + 1 < ntiles) {
-        stage_tile<D, false>(Bs + ((i + 1) & 1) * kFTK * D, vbase,
-                             k0 + (i + 1) * kFTK,
-                             min(kFTK, nkeys - (i + 1) * kFTK));
+        stage_tile<D, false>(Bs + ((i + 1) & 1) * TK * D, vbase,
+                             k0 + (i + 1) * TK,
+                             min(TK, nkeys - (i + 1) * TK));
         __pipeline_wait_prior(1);
       } else {
         __pipeline_wait_prior(0);
       }
       __syncthreads();
-      const float* Vt = Bs + (i & 1) * kFTK * D;
-      const int tl = min(kFTK, nkeys - i * kFTK);
+      const float* Vt = Bs + (i & 1) * TK * D;
+      const int tl = min(TK, nkeys - i * TK);
       if (pv_thread) {
-        const float* prow = Ss + pr * S::kRows * lds + i * kFTK;
+        const float* prow = Ss + pr * S::kRows * lds + i * TK;
         int kk = 0;
         for (; kk + 4 <= tl; kk += 4) {
           float4 pf[S::kRows], vf[4];
@@ -762,11 +785,14 @@ __global__ void __launch_bounds__(kThreads) fwd1_kernel(FwdArgs a) {
 // On the card the block has one warp per scheduler, so every dependent
 // step shows: the block index splits without divisions (a 3-D grid), the
 // draws use shifts, 1-byte codes decode without branches (dec8), and the
-// head dim is known at compile time where dk == dv is 16, 32, 64 or 128
-// and rows are 16-byte aligned: K rows then come as 16-byte words straight
-// into registers, all loads issued before the chain, and V rows by
+// head dim is known at compile time where dk == dv is 16, 32, 64, 128 or
+// 256 and rows are 16-byte aligned: K rows then come as 16-byte words
+// straight into registers, all loads issued before the chain (64 words at
+// most at a time: a float32 row of 256 in four batches), and V rows by
 // cp.async while the logits compute.  P.V reads sixteen keys' V values
-// ahead of their FMAs.
+// ahead of their FMAs.  A thread owns output columns tid and, where dv
+// exceeds the block's 128 threads (d = 256, and the generic instance),
+// tid + 128.
 constexpr int kDecThreads = 128;
 constexpr int kDecWarps = kDecThreads / 32;
 constexpr int kDecKeys = 128;    // keys per round, V rows per piece
@@ -865,26 +891,31 @@ __device__ __forceinline__ float decode_dot(const float* Qs, size_t row,
   if constexpr (DK > 0 && kKind != kCode) {
     constexpr int kPer = kKind == kF32 ? 4 : 16;   // elements per word
     constexpr int kWords = DK / kPer;
+    // words loaded ahead of their FMAs: all of a row up to 32, else 16
+    constexpr int kBatch = kWords > 32 ? 16 : kWords;
     const uint4* src = reinterpret_cast<const uint4*>(a.k) + row * kWords;
-    uint4 w[kWords];
 #pragma unroll
-    for (int i = 0; i < kWords; ++i) w[i] = __ldg(src + i);
+    for (int i0 = 0; i0 < kWords; i0 += kBatch) {
+      uint4 w[kBatch];
 #pragma unroll
-    for (int i = 0; i < kWords; ++i) {
-      const uint32_t u[4] = {w[i].x, w[i].y, w[i].z, w[i].w};
+      for (int i = 0; i < kBatch; ++i) w[i] = __ldg(src + i0 + i);
 #pragma unroll
-      for (int g4 = 0; g4 < kPer / 4; ++g4) {
-        const float4 q4 =
-            reinterpret_cast<const float4*>(Qs)[(i * kPer) / 4 + g4];
-        const float qv[4] = {q4.x, q4.y, q4.z, q4.w};
+      for (int i = 0; i < kBatch; ++i) {
+        const uint32_t u[4] = {w[i].x, w[i].y, w[i].z, w[i].w};
 #pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          float kv;
-          if constexpr (kKind == kF32)
-            kv = __uint_as_float(u[e]);
-          else
-            kv = dec8<kKind == kByteNF>(u[g4] >> (8 * e), a);
-          acc = fmaf(qv[e], kv, acc);
+        for (int g4 = 0; g4 < kPer / 4; ++g4) {
+          const float4 q4 = reinterpret_cast<const float4*>(
+              Qs)[((i0 + i) * kPer) / 4 + g4];
+          const float qv[4] = {q4.x, q4.y, q4.z, q4.w};
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            float kv;
+            if constexpr (kKind == kF32)
+              kv = __uint_as_float(u[e]);
+            else
+              kv = dec8<kKind == kByteNF>(u[g4] >> (8 * e), a);
+            acc = fmaf(qv[e], kv, acc);
+          }
         }
       }
     }
@@ -993,6 +1024,10 @@ decode_paged_kernel(DecodeArgs a) {
   constexpr int kElt = kKind == kF32 ? 4 : 1;
   const int elt = kKind == kCode ? a.code_bytes : kElt;
   const int dk = DK > 0 ? DK : a.dk, dv = DK > 0 ? DK : a.dv;
+  // output columns per thread: tid + kDecThreads u, u < kCols
+  constexpr int kCols = DK > kDecThreads ? DK / kDecThreads
+                        : DK > 0        ? 1
+                                        : kDMaxFwd / kDecThreads;
   const int page = a.page;
   const int r = blockIdx.x, h = blockIdx.y, req = blockIdx.z;
   const int bh = req * a.n_kv + h;
@@ -1022,11 +1057,16 @@ decode_paged_kernel(DecodeArgs a) {
     Qs[t] = a.q[(static_cast<size_t>(bh) * a.G + r) * dk + t];
   uint32_t qk_bits = draw_bits(p_qk, w, 0u, r, tid);
   uint32_t av_bits = draw_bits(p_av, w + 2, b0, r, c0);
-  const uint32_t out_bits = draw_bits(p_out, w + 4, 0u, r, tid);
+  uint32_t out_bits[kCols];
+#pragma unroll
+  for (int u = 0; u < kCols; ++u)
+    out_bits[u] = draw_bits(p_out, w + 4, 0u, r, tid + kDecThreads * u);
   // pages that fwd_kernel visits: those starting below the length
   const int n_vis = length > 0 ? min((length - 1) / page + 1, a.n_max) : 0;
   const int per_round = page >= kDecKeys ? 1 : min(kDecKeys / page, kDecPages);
-  float m = -INFINITY, l = 0.0f, acc = 0.0f;   // acc: column tid
+  float m = -INFINITY, l = 0.0f, acc[kCols];   // acc: column tid + 128 u
+#pragma unroll
+  for (int u = 0; u < kCols; ++u) acc[u] = 0.0f;
   __syncthreads();
 
   for (int j0 = 0; j0 < n_vis; j0 += per_round) {
@@ -1103,7 +1143,9 @@ decode_paged_kernel(DecodeArgs a) {
         PR[t] = round_bits(x, p_av, bits);
       }
     } else {   // one page, its V rows staged kDecKeys at a time
-      float x = 0.0f;
+      float x[kCols];
+#pragma unroll
+      for (int u = 0; u < kCols; ++u) x[u] = 0.0f;
       for (int p0 = 0; p0 < nkeys; p0 += kDecKeys) {
         const int p1 = min(p0 + kDecKeys, nkeys);
         if (p0 > 0) {
@@ -1113,10 +1155,21 @@ decode_paged_kernel(DecodeArgs a) {
         }
         __pipeline_wait_prior(0);
         __syncthreads();
-        if (tid < dv)
-          x = pv_chain<kKind, DK>(x, S, Vs, p0, p0, p1, tid, kv_end, a);
+#pragma unroll
+        for (int u = 0; u < kCols; ++u) {
+          const int c = tid + kDecThreads * u;
+          if (c < dv)
+            x[u] = pv_chain<kKind, DK>(x[u], S, Vs, p0, p0, p1, c, kv_end, a);
+        }
       }
-      if (tid < dv) PR[tid] = round_bits(x, p_av, av_bits);
+#pragma unroll
+      for (int u = 0; u < kCols; ++u) {
+        const int c = tid + kDecThreads * u;
+        if (c < dv)
+          PR[c] = round_bits(x[u], p_av,
+                             u == 0 ? av_bits
+                                    : draw_bits(p_av, w + 2, j0, r, c));
+      }
     }
     __syncthreads();
     // close the pages in order: m_new, corr, l and acc as fwd_kernel does
@@ -1127,7 +1180,12 @@ decode_paged_kernel(DecodeArgs a) {
       const float corr = isfinite(m) ? expf(__fsub_rn(m, safe)) : 0.0f;
       m = m_new;
       l = __fadd_rn(__fmul_rn(l, corr), bsum[b]);
-      if (tid < dv) acc = __fadd_rn(__fmul_rn(acc, corr), PR[b * dv + tid]);
+#pragma unroll
+      for (int u = 0; u < kCols; ++u) {
+        const int c = tid + kDecThreads * u;
+        if (c < dv)
+          acc[u] = __fadd_rn(__fmul_rn(acc[u], corr), PR[b * dv + c]);
+      }
     }
     if (j0 + per_round < n_vis) {   // the next round's first draws
       qk_bits = draw_bits(p_qk, w, 0u, r, (j0 + per_round) * page + tid);
@@ -1143,11 +1201,17 @@ decode_paged_kernel(DecodeArgs a) {
     const float safe = isfinite(m) ? m : 0.0f;
     const float corr = isfinite(m) ? expf(__fsub_rn(m, safe)) : 0.0f;
     l = __fadd_rn(__fmul_rn(l, corr), 0.0f);
-    acc = __fadd_rn(__fmul_rn(acc, corr), 0.0f);
+#pragma unroll
+    for (int u = 0; u < kCols; ++u)
+      acc[u] = __fadd_rn(__fmul_rn(acc[u], corr), 0.0f);
   }
-  if (tid < dv)
-    a.out[(static_cast<size_t>(bh) * a.G + r) * dv + tid] = round_bits(
-        __fdiv_rn(acc, fmaxf(l, 1e-30f)), p_out, out_bits);
+#pragma unroll
+  for (int u = 0; u < kCols; ++u) {
+    const int c = tid + kDecThreads * u;
+    if (c < dv)
+      a.out[(static_cast<size_t>(bh) * a.G + r) * dv + c] = round_bits(
+          __fdiv_rn(acc[u], fmaxf(l, 1e-30f)), p_out, out_bits[u]);
+  }
 }
 
 // ---------------------------------------------------------------------------
@@ -1891,6 +1955,8 @@ int launch_decode(int d, dim3 grid, size_t smem, const DecodeArgs& a,
                            smem, a, stream, kDecThreads);
     case 128: return launch(decode_paged_kernel<kKind, 128, kContig>, grid,
                             smem, a, stream, kDecThreads);
+    case 256: return launch(decode_paged_kernel<kKind, 256, kContig>, grid,
+                            smem, a, stream, kDecThreads);
     default: return launch(decode_paged_kernel<kKind, 0, kContig>, grid,
                            smem, a, stream, kDecThreads);
   }
@@ -1924,7 +1990,7 @@ int decode_launch(const float* q, const void* k, const void* v,
                   int n_max, int page, int stride, int length, int dk,
                   int dv, int window, float scale, const int* site_ints,
                   const float* site_xmax, void* stream) {
-  if (dk > kDMax || dv > kDMax || dk < 1 || dv < 1 || page < 1 ||
+  if (dk > kDMaxFwd || dv > kDMaxFwd || dk < 1 || dv < 1 || page < 1 ||
       n_kv < 1 || n_max < 1 || G < 1 || BKV % n_kv != 0 ||
       BKV / n_kv > 65535 || n_kv > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
@@ -1995,6 +2061,17 @@ size_t fwd_smem(int dk, int dv) {
                           5 * kTQ);
 }
 
+// fwd_kernel for a call: its kAcc instance where the head dims allow.
+int launch_fwd_kernel(const FwdArgs& a, dim3 grid, void* stream) {
+  const Geo& g = a.g;
+  if (g.dk > kDMaxFwd || g.dv > kDMaxFwd)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const size_t smem = fwd_smem(g.dk, g.dv);
+  if (g.dk <= kDMax && g.dv <= kDMax)
+    return launch(fwd_kernel<kAcc>, grid, smem, a, stream);
+  return launch(fwd_kernel<kAccWide>, grid, smem, a, stream);
+}
+
 }  // namespace
 
 // Each entry point launches on `stream` and returns cudaGetLastError().
@@ -2002,8 +2079,9 @@ size_t fwd_smem(int dk, int dv) {
 // site_xmax: per site xmax.
 //
 // K6: the single-pass forward (fwd1_kernel), for dk == dv in {16, 32, 64,
-// 128} where a block's logits fit in shared memory (fwd1_smem); any other
-// shape is refused, and the wrapper launches flash_fwd_two_pass instead.
+// 128, 256} where a block's logits fit in shared memory (fwd1_smem); any
+// other shape is refused, and the wrapper launches flash_fwd_two_pass
+// instead (d up to 256).
 extern "C" int flash_fwd(const float* q, const float* k, const float* v,
                          const uint32_t* seeds, float* out, float* m,
                          float* l, float* s_out, int BH, int Sq, int Skv,
@@ -2025,11 +2103,13 @@ extern "C" int flash_fwd(const float* q, const float* k, const float* v,
     case 32: return launch(fwd1_kernel<32>, grid, smem, a, stream);
     case 64: return launch(fwd1_kernel<64>, grid, smem, a, stream);
     case 128: return launch(fwd1_kernel<128>, grid, smem, a, stream);
+    case 256: return launch(fwd1_kernel<256>, grid, smem, a, stream);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
 
-// K6's two-pass form (fwd_kernel), for the shapes flash_fwd refuses.
+// K6's two-pass form (fwd_kernel), for the shapes flash_fwd refuses (dk
+// and dv up to 256).
 extern "C" int flash_fwd_two_pass(const float* q, const float* k,
                                   const float* v, const uint32_t* seeds,
                                   float* out, float* m, float* l,
@@ -2039,14 +2119,12 @@ extern "C" int flash_fwd_two_pass(const float* q, const float* k,
                                   int window, float scale,
                                   const int* site_ints,
                                   const float* site_xmax, void* stream) {
-  if (dk > kDMax || dv > kDMax) return static_cast<int>(cudaErrorInvalidValue);
   FwdArgs a{q,     k, v,     0,     rt::PackParams{}, seeds,
             out,   m, l,     s_out,
             make_geo(Sq, Skv, dk, dv, n_heads, n_kv, qb, kb, q_offset,
                      causal, window, scale),
             make_sites(site_ints, site_xmax, 3)};
-  const dim3 grid((Sq + kTQ - 1) / kTQ, BH);
-  return launch(fwd_kernel, grid, fwd_smem(dk, dv), a, stream);
+  return launch_fwd_kernel(a, dim3((Sq + kTQ - 1) / kTQ, BH), stream);
 }
 
 // K9 (decode_paged_kernel in contiguous mode): k/v (B.KV, Smax, d)
@@ -2079,7 +2157,6 @@ extern "C" int flash_decode_tiled(const float* q, const void* k,
                                   int length, int kb, int window,
                                   float scale, const int* site_ints,
                                   const float* site_xmax, void* stream) {
-  if (dk > kDMax || dv > kDMax) return static_cast<int>(cudaErrorInvalidValue);
   Geo g = make_geo(G, Smax, dk, dv, 1, 1, G, kb, 0, 1, window, scale);
   g.decode = 1;
   g.length = length;
@@ -2095,8 +2172,7 @@ extern "C" int flash_decode_tiled(const float* q, const void* k,
             nullptr,
             g,
             make_sites(site_ints, site_xmax, 3)};
-  const dim3 grid((G + kTQ - 1) / kTQ, BKV);
-  return launch(fwd_kernel, grid, fwd_smem(dk, dv), a, stream);
+  return launch_fwd_kernel(a, dim3((G + kTQ - 1) / kTQ, BKV), stream);
 }
 
 // K10 (decode_paged_kernel over a pool).  pages: (P.KV, page, d) float32

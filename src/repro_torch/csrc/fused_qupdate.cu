@@ -121,16 +121,8 @@ __device__ __forceinline__ float update_chain(const Chain& c, float x,
 }
 
 // Float32 subnormals to signed zero, as XLA's CPU backend treats operands
-// and results: a multiply by 1 with the hardware's flush, one instruction
-// on the FMA pipe.  A subnormal becomes the zero of its sign and every
-// other value passes exactly, but a NaN comes out as the canonical NaN:
-// every flushed value here is next an operand of arithmetic, which would
-// make that NaN of it anyway.
-__device__ __forceinline__ float ftz(float v) {
-  float r;
-  asm("mul.rn.ftz.f32 %0, %1, 0f3F800000;" : "=f"(r) : "f"(v));
-  return r;
-}
+// and results (rounding.cuh).
+using rt::ftz;
 
 __global__ void __launch_bounds__(kThreads)
 momentum_fma_kernel(const float* __restrict__ m,

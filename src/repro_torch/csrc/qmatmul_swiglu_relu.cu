@@ -1,0 +1,8 @@
+// qmatmul_swiglu_sr / qmatmul_swiglu_bits with act = relu: K4' and K4
+// (qmatmul_swiglu_sr.cu describes them) under the reference's "relu"
+// activation, jax.nn.relu (rounding.cuh: relu). Replaces the same TPU kernels
+// as qmatmul_swiglu_sr.cu, repro/kernels/qmatmul.py:qmatmul_swiglu_prng_p and
+// qmatmul_swiglu_p, with act="relu".
+#include "qmatmul_swiglu.cuh"
+
+QMATMUL_SWIGLU_ENTRIES(rt::kRelu)

@@ -470,4 +470,82 @@ __device__ __forceinline__ float silu(float g) {
   return __fmul_rn(g, __fdiv_rn(1.0f, __fadd_rn(1.0f, expf(-g))));
 }
 
+// Float32 subnormals to signed zero, as XLA's CPU backend treats operands
+// and results: a multiply by 1 with the hardware's flush, one instruction
+// on the FMA pipe.  A subnormal becomes the zero of its sign and every
+// other value passes exactly, but a NaN comes out as the canonical NaN:
+// every flushed value is next an operand of arithmetic, which would make
+// that NaN of it anyway.
+__device__ __forceinline__ float ftz(float v) {
+  float r;
+  asm("mul.rn.ftz.f32 %0, %1, 0f3F800000;" : "=f"(r) : "f"(v));
+  return r;
+}
+
+// XLA's CPU float32 tanh, op by op (the twin: repro_torch/core/xla_math.py:
+// tanh_f32): |x| below 0.0004 (and NaN) returns x; else x clamped to
+// +-7.99881172180175781, then x P(x^2) / Q(x^2) with both polynomials as
+// Horner chains of fused multiply-adds and one IEEE division.  No operand
+// or result of the chain can be subnormal there, so it needs no flush.
+__device__ __forceinline__ float tanh_xla(float x) {
+  if (!(fabsf(x) >= 0.0004f)) return x;
+  const float c = fminf(fmaxf(x, -7.99881172180175781f), 7.99881172180175781f);
+  const float c2 = __fmul_rn(c, c);
+  float p = -2.76076847742355e-16f;
+  p = __fmaf_rn(c2, p, 2.00018790482477e-13f);
+  p = __fmaf_rn(c2, p, -8.60467152213735e-11f);
+  p = __fmaf_rn(c2, p, 5.12229709037114e-08f);
+  p = __fmaf_rn(c2, p, 1.48572235717979e-05f);
+  p = __fmaf_rn(c2, p, 6.37261928875436e-04f);
+  p = __fmaf_rn(c2, p, 4.89352455891786e-03f);
+  float q = 1.19825839466702e-06f;
+  q = __fmaf_rn(c2, q, 1.18534705686654e-04f);
+  q = __fmaf_rn(c2, q, 2.26843463243900e-03f);
+  q = __fmaf_rn(c2, q, 4.89352518554385e-03f);
+  return __fdiv_rn(__fmul_rn(c, p), q);
+}
+
+// jax.nn.gelu's tanh form as XLA's CPU code computes it on float32 (the
+// twin: repro_torch/kernels/qmatmul.py:gelu): x * (0.5 * (1 + tanh(c *
+// fma(0.044715, x^3, x)))), c = float32(sqrt(2 / pi)), x^3 = (x x) x, the
+// input and every result flushed.
+__device__ __forceinline__ float gelu(float x) {
+  x = ftz(x);
+  const float x3 = ftz(__fmul_rn(ftz(__fmul_rn(x, x)), x));
+  const float inner = ftz(__fmaf_rn(0.044715f, x3, x));
+  const float t = tanh_xla(ftz(__fmul_rn(0.7978845834732056f, inner)));
+  return ftz(__fmul_rn(x, ftz(__fmul_rn(0.5f, ftz(__fadd_rn(1.0f, t))))));
+}
+
+// jax.nn.relu, max(x, 0) on XLA's CPU: x where x is a positive normal
+// number, NaN kept, else +0 (-0 and positive subnormals: the comparison
+// reads them as 0).
+__device__ __forceinline__ float relu(float x) {
+  return x >= kTiny || x != x ? x : 0.0f;
+}
+
+// jnp.square(jax.nn.relu(x)): relu's result times itself, flushed.
+__device__ __forceinline__ float relu_sq(float x) {
+  const float r = relu(x);
+  return ftz(__fmul_rn(r, r));
+}
+
+// The GLU kernels' activations (repro_torch/kernels/qmatmul.py:ACT_FNS),
+// one compiled library each (qmatmul_swiglu_<act>.cu).
+enum GluAct : int { kSilu = 0, kGelu = 1, kRelu = 2, kReluSq = 3 };
+
+// The GLU hidden act(g) * u before its rounding site.  SiLU keeps the
+// product its twin computes (torch's, no flush); the other activations
+// mirror XLA's float32 product, operands and result flushed.
+template <int kAct>
+__device__ __forceinline__ float glu_hidden(float g, float u) {
+  if constexpr (kAct == kSilu) {
+    return __fmul_rn(silu(g), u);
+  } else {
+    const float a = kAct == kGelu ? gelu(g) : kAct == kRelu ? relu(g)
+                                                           : relu_sq(g);
+    return ftz(__fmul_rn(a, ftz(u)));
+  }
+}
+
 }  // namespace rt

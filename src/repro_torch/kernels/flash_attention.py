@@ -68,21 +68,24 @@ SITE_QK, SITE_AV, SITE_OUT = 0, 1, 2
 SITE_BWD_A, SITE_BWD_B = 1, 2
 _DEF_BLOCK = 512
 _MODES = {"rn": 0, "sr": 1}
-_D_MAX = 128                     # head dims the kernels take
+# head dims each kernel takes (the reference's take any): K6, K9 and K10
+# up to 256 (gemma-7b's), K7 and K7' up to 128
+D_MAX = {"flash_fwd": 256, "flash_decode": 256, "flash_decode_paged": 256,
+         "flash_bwd_dq": 128, "flash_bwd_dkv": 128}
 
 LAUNCHES: Dict[str, int] = {"flash_fwd": 0, "flash_fwd_two_pass": 0,
                             "flash_bwd_dq": 0, "flash_bwd_dq_simple": 0,
                             "flash_bwd_dkv": 0, "flash_bwd_dkv_simple": 0,
                             "flash_decode": 0, "flash_decode_tiled": 0,
                             "flash_decode_paged": 0}
-# K6's single-pass kernel: head dims it is compiled for, keys per staged
-# tile, query rows per block, and the shared memory a block may take
-FWD_DIMS = (16, 32, 64, 128)
-FWD_TILE_KEYS = 128
+# K6's single-pass kernel: head dims it is compiled for, query rows per
+# block, and the shared memory a block may take
+FWD_DIMS = (16, 32, 64, 128, 256)
 FWD_ROWS = 32
 SMEM_MAX = 232448
-# the tiled backward (K7, K7'): rows a block owns (query rows, keys) and
-# rows a tile holds (keys, query rows)
+# the tiled backward (K7, K7'): head dims it is compiled for, rows a block
+# owns (query rows, keys) and rows a tile holds (keys, query rows)
+BWD_DIMS = (16, 32, 64, 128)
 BWD_ROWS = 64
 # the decode kernel (K10, K9): keys a round holds (V rows staged per
 # piece), pages a round takes at most
@@ -464,9 +467,11 @@ def _check(tensors, what: str, d_max: int):
     for t in tensors:
         if t.device != dev:
             raise ValueError(f"{what}: operands on different devices")
-    if d_max > _D_MAX:
-        raise NotImplementedError(f"{what}: head dims above {_D_MAX} are not "
-                                  "ported yet")
+    if d_max > D_MAX[what]:
+        later = (" (training at head dim 256, gemma-7b's, is the next slice "
+                 "of the port)" if what.startswith("flash_bwd") else "")
+        raise NotImplementedError(f"{what}: head dims above {D_MAX[what]} "
+                                  f"are not ported yet{later}")
     return dev.type == "cpu"
 
 
@@ -516,12 +521,20 @@ def _ptr(t: Optional[torch.Tensor]):
     return ctypes.c_void_p(None if t is None else t.data_ptr())
 
 
+def fwd_tile_keys(d: int) -> int:
+    """Keys per staged tile of K6's single-pass kernel (``csrc/
+    flash_attention.cu:fwd1_tile_keys``): 128, or 64 at d = 256."""
+    return 64 if d > 128 else 128
+
+
 def fwd_smem_bytes(kb: int, d: int) -> int:
     """Shared memory of one block of K6's single-pass kernel
     (``csrc/flash_attention.cu:fwd1_smem``): q rows, two staged k/v tiles,
-    the logits over a logical block of ``kb`` keys, row statistics."""
-    stride = -(-kb // FWD_TILE_KEYS) * FWD_TILE_KEYS + 4
-    return 4 * (FWD_ROWS * d + 2 * FWD_TILE_KEYS * d + FWD_ROWS * stride
+    the logits over a logical block of ``kb`` keys (in whole tiles),
+    row statistics."""
+    tk = fwd_tile_keys(d)
+    stride = -(-kb // tk) * tk + 4
+    return 4 * (FWD_ROWS * d + 2 * tk * d + FWD_ROWS * stride
                 + 4 * FWD_ROWS)
 
 
@@ -556,11 +569,11 @@ def bwd_smem_bytes(grads: str, d: int) -> int:
 def bwd_kernel_for(dk: int, dv: int, grads: str) -> str:
     """The kernel K7 (``grads="dq"``) or K7' (``"dkv"``) launches for a
     shape: the tiled kernel (``"flash_bwd_dq"``, ``"flash_bwd_dkv"``)
-    where ``dk == dv`` is one of ``FWD_DIMS`` and its block fits in shared
+    where ``dk == dv`` is one of ``BWD_DIMS`` and its block fits in shared
     memory, else the first kernel (``"flash_bwd_dq_simple"``,
     ``"flash_bwd_dkv_simple"``).  Both give the same bits."""
     name = f"flash_bwd_{grads}"
-    if dk != dv or dk not in FWD_DIMS \
+    if dk != dv or dk not in BWD_DIMS \
             or bwd_smem_bytes(grads, dk) > SMEM_MAX:
         return name + "_simple"
     return name

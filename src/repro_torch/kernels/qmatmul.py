@@ -7,8 +7,12 @@
 ``qmatmul``              -> the same source's ``qmatmul_bits`` (K3),
                             replacing ``qmatmul_p``: explicit (M, N) bits.
 ``qmatmul_swiglu_prng``  -> CUDA kernel ``csrc/qmatmul_swiglu_sr.cu``
-                            (K4'), replacing ``qmatmul_swiglu_prng_p``.
-``qmatmul_swiglu``       -> the same source's ``qmatmul_swiglu_bits``
+                            (K4'), replacing ``qmatmul_swiglu_prng_p``;
+                            the reference's other activations (``act``
+                            gelu, relu, relu_sq: ``ACT_FNS``) are their
+                            own instances and libraries,
+                            ``csrc/qmatmul_swiglu_<act>.cu``.
+``qmatmul_swiglu``       -> the same sources' ``qmatmul_swiglu_bits``
                             (K4), replacing ``qmatmul_swiglu_p``.
 ``qmatmul_batched_prng`` -> CUDA kernel ``csrc/qmatmul_batched_sr.cu``
                             (K8'), replacing ``qmatmul_batched_prng_p``: a
@@ -63,21 +67,25 @@ parent, change, change, parent.
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import Dict, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
+from repro_torch.core.fma import flush, fma
 from repro_torch.core.grids import get_grid
 from repro_torch.core.prng import int32_words
 from repro_torch.core.rounding import RoundingSpec
 from repro_torch.core.schemes import get_scheme
+from repro_torch.core.xla_math import tanh_f32
 from repro_torch.kernels import build, common
 
 # epilogue stream ids per seed-word pair: GEMM-result rounding vs the
 # activation-site rounding
 STREAM_FWD, STREAM_ACT = 0, 1
 _MODES = {"rn": 0, "sr": 1}
+_TINY = 2.0 ** -126       # float32's least normal magnitude
 
 # K3'/K3 and K4'/K4 calls with M at or below this run the decode route of
 # csrc/gemm_routes.cuh, larger M its large-M route: every decode step (M =
@@ -105,9 +113,16 @@ LAUNCHES: Dict[str, int] = {"qmatmul_sr": 0, "qmatmul_swiglu_sr": 0,
                             "qmatmul_batched_bits": 0}
 
 
+# K4' and K4 launches (both counted in LAUNCHES too) by activation, each
+# its own compiled library (_swiglu_source)
+ACT_LAUNCHES: Dict[str, int] = {"silu": 0, "gelu": 0, "relu": 0,
+                                "relu_sq": 0}
+
+
 def reset_launches() -> None:
-    for name in LAUNCHES:
-        LAUNCHES[name] = 0
+    for counts in (LAUNCHES, ACT_LAUNCHES):
+        for name in counts:
+            counts[name] = 0
 
 
 Words = Tuple[int, int]
@@ -405,7 +420,7 @@ def _lib_qmatmul():
 
 
 # ---------------------------------------------------------------------------
-# K4' / K4: h = round_act(silu(round(x@wg)) * round(x@wu))
+# K4' / K4: h = round_act(act(round(x@wg)) * round(x@wu))
 # ---------------------------------------------------------------------------
 def silu(g: torch.Tensor) -> torch.Tensor:
     """SiLU exactly as the kernel computes it: g * (1 / (1 + exp(-g))).
@@ -415,14 +430,99 @@ def silu(g: torch.Tensor) -> torch.Tensor:
     return g * (1.0 / (1.0 + torch.exp(-g)))
 
 
+def _mul(a: torch.Tensor, b, dtype: torch.dtype) -> torch.Tensor:
+    """``a * b`` as XLA's CPU code computes it in ``dtype``: in float32
+    with subnormal results flushed (the operands are flushed already),
+    then rounded to ``dtype``."""
+    return flush(a.float() * b).to(dtype)
+
+
+def _add(a: torch.Tensor, b, dtype: torch.dtype) -> torch.Tensor:
+    return flush(a.float() + b).to(dtype)
+
+
+# jax.nn.gelu's constants: sqrt(2 / pi) cast to the input's dtype, 0.044715
+# and 0.5 weakly typed (so also in the input's dtype)
+_SQRT_2_OVER_PI = float(np.sqrt(2 / np.pi))
+_GELU_K = 0.044715
+
+
+def _in(v: float, dtype: torch.dtype) -> float:
+    return float(torch.tensor(v, dtype=dtype))
+
+
+def _gelu_ops(g: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.gelu`` (its default tanh form) as the reference computes
+    it, op by op: ``x * (0.5 * (1 + tanh(c * (x + 0.044715 * x**3))))``
+    with XLA's tanh (``core.xla_math.tanh_f32``) and flushes.  On float32
+    (the GLU kernels' epilogue: jitted, so XLA fuses the inner sum into
+    one multiply-add) ``x + 0.044715 * x**3`` is ``fma(0.044715, x**3,
+    x)``; on bf16 (the unfused FFN under ``xla_allow_excess_precision =
+    False``) every operation rounds to bf16 and the tanh runs in float32
+    on the bf16 argument."""
+    dt = g.dtype
+    x = flush(g.float()).to(dt)
+    x3 = _mul(_mul(x, x, dt), x.float(), dt)
+    k = _in(_GELU_K, dt)
+    if dt == torch.float32:
+        inner = fma(torch.full_like(x, k), x3, x)
+    else:
+        inner = _add(x, _mul(x3, k, dt).float(), dt)
+    t = tanh_f32(_mul(inner, _in(_SQRT_2_OVER_PI, dt), dt).float()).to(dt)
+    return _mul(x, _mul(_add(t, 1.0, dt), 0.5, dt).float(), dt)
+
+
+@functools.lru_cache(maxsize=None)
+def _bf16_gelu_table(device: torch.device) -> torch.Tensor:
+    """``_gelu_ops`` of every bf16 value, indexed by its bit pattern + 2^15
+    (computed once on the CPU)."""
+    codes = torch.arange(-2 ** 15, 2 ** 15, dtype=torch.int32)
+    return _gelu_ops(codes.to(torch.int16).view(torch.bfloat16)).to(device)
+
+
+def gelu(g: torch.Tensor) -> torch.Tensor:
+    """The reference's ``jax.nn.gelu`` (``_gelu_ops``); on bf16 by a
+    lookup in ``_gelu_ops``' table of all 65,536 bf16 values, the same
+    bits in one gather (the op-by-op form's fused multiply-adds would
+    synchronise the card at every call).  ``csrc/rounding.cuh:gelu`` is
+    the card's float32 form."""
+    if g.dtype == torch.bfloat16:
+        idx = g.contiguous().view(torch.int16).long() + 2 ** 15
+        return _bf16_gelu_table(g.device)[idx]
+    return _gelu_ops(g)
+
+
+def relu(g: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.relu`` (``max(x, 0)``) as XLA's CPU code computes it: x
+    where x is a positive normal number, NaN kept, else +0 (-0 and
+    positive subnormals included: their comparison reads them as 0)."""
+    keep = (g.float() >= _TINY) | torch.isnan(g)
+    return torch.where(keep, g, torch.zeros_like(g))
+
+
+def relu_sq(g: torch.Tensor) -> torch.Tensor:
+    """``jnp.square(jax.nn.relu(x))``: relu's result times itself."""
+    r = relu(g)
+    return _mul(r, r.float(), g.dtype)
+
+
+# the GLU kernels' activations, the reference's ACT_FNS
+ACT_FNS = {"silu": silu, "gelu": gelu, "relu": relu, "relu_sq": relu_sq}
+
+
 def _swiglu_emit(accg, accu, bg, bu, ab, grid, mode, rand_bits,
                  act_spec: Optional[RoundingSpec], residuals: bool,
-                 out_packed: bool, residuals_packed: bool):
-    """The fused GLU epilogue of the twins: round both branches, SiLU and
-    product, the act site, then the storage of h and the residuals."""
+                 out_packed: bool, residuals_packed: bool, act: str):
+    """The fused GLU epilogue of the twins: round both branches, the
+    activation and product, the act site, then the storage of h and the
+    residuals.  SiLU's product rounds as torch's; the other activations'
+    is XLA's (its operands and result flushed)."""
     g_r = common.round_block(accg, bg, grid, mode, rand_bits=rand_bits)
     u_r = common.round_block(accu, bu, grid, mode, rand_bits=rand_bits)
-    h = silu(g_r) * u_r
+    if act == "silu":
+        h = silu(g_r) * u_r
+    else:
+        h = _mul(ACT_FNS[act](g_r), flush(u_r), torch.float32)
     if act_spec is not None:
         h = common.apply_spec_block(act_spec, h, ab)
         if out_packed:
@@ -439,7 +539,7 @@ def qmatmul_swiglu_plain(x: torch.Tensor, wg: torch.Tensor,
                          mode: str = "sr", rand_bits: int = 32,
                          act_spec: Optional[RoundingSpec] = None,
                          residuals: bool = False, out_packed: bool = False,
-                         residuals_packed: bool = False):
+                         residuals_packed: bool = False, act: str = "silu"):
     """The plain twin of K4': h, or (h, g_r, u_r) with ``residuals``,
     drawing the counter bits of the three seed pairs."""
     x = x.float()
@@ -458,7 +558,7 @@ def qmatmul_swiglu_plain(x: torch.Tensor, wg: torch.Tensor,
                                          stream=STREAM_ACT, device=dev)
     return _swiglu_emit(accg, accu, bg, bu, ab, get_grid(fmt), mode,
                         rand_bits, act_spec, residuals, out_packed,
-                        residuals_packed)
+                        residuals_packed, act)
 
 
 def qmatmul_swiglu_bits_plain(x: torch.Tensor, wg: torch.Tensor,
@@ -467,7 +567,8 @@ def qmatmul_swiglu_bits_plain(x: torch.Tensor, wg: torch.Tensor,
                               act_spec: Optional[RoundingSpec] = None,
                               act_bits=None, residuals: bool = False,
                               out_packed: bool = False,
-                              residuals_packed: bool = False):
+                              residuals_packed: bool = False,
+                              act: str = "silu"):
     """The plain twin of K4: as :func:`qmatmul_swiglu_plain` with the
     given (M, N) words for the gate, the up branch and the act site."""
     x = x.float()
@@ -480,15 +581,16 @@ def qmatmul_swiglu_bits_plain(x: torch.Tensor, wg: torch.Tensor,
     return _swiglu_emit(accg, accu, words(bits_g) if stoch else None,
                         words(bits_u) if stoch else None, words(act_bits),
                         get_grid(fmt), mode, rand_bits, act_spec, residuals,
-                        out_packed, residuals_packed)
+                        out_packed, residuals_packed, act)
 
 
 def _check_swiglu(x, wg, wu, fmt, mode, act, act_spec, rand_bits, eps,
                   overflow, out_packed, residuals_packed, what):
     """The checks both GLU flavours share; returns (grid, act_spec or
     None, act grid or None)."""
-    if act != "silu":
-        raise NotImplementedError(f"activation {act!r} is not ported yet")
+    if act not in ACT_FNS:
+        raise ValueError(f"unknown GLU activation {act!r}; known: "
+                         f"{sorted(ACT_FNS)}")
     if eps or overflow != "saturate":
         raise NotImplementedError("eps (sr_eps schemes) and overflow='inf' "
                                   "are not ported yet")
@@ -516,10 +618,10 @@ def _check_swiglu(x, wg, wu, fmt, mode, act, act_spec, rand_bits, eps,
 
 def _swiglu_launch(name: str, x, wg, wu, bits3, seeds, grid, mode,
                    rand_bits, act_spec, act_grid, residuals, out_packed,
-                   residuals_packed):
+                   residuals_packed, act):
     """One K4' (``qmatmul_swiglu_sr``) or K4 (``qmatmul_swiglu_bits``)
     launch: the decode route for M <= ``DECODE_MAX_M``, else the large-M
-    route."""
+    route; the activation's own library (``_swiglu_source``)."""
     M, K = x.shape
     N = wg.shape[1]
     x, wg, wu = x.contiguous(), wg.contiguous(), wu.contiguous()
@@ -547,7 +649,7 @@ def _swiglu_launch(name: str, x, wg, wu, bits3, seeds, grid, mode,
     tail = (outs[0].data_ptr(), _code_arg(act_grid if out_packed else None),
             *res_ptrs, _code_arg(grid if residuals_packed else None),
             M, N, K, fwd_site, xmax, act_site, act_xmax, _stream(x))
-    lib = _lib_swiglu()
+    lib = _lib_swiglu(act)
     entry = getattr(lib, name + ("_decode" if M <= DECODE_MAX_M else ""))
     if name == "qmatmul_swiglu_sr":
         words = (ctypes.c_uint32 * 6)(*[w & 0xFFFFFFFF for pair in seeds
@@ -557,6 +659,7 @@ def _swiglu_launch(name: str, x, wg, wu, bits3, seeds, grid, mode,
         rc = entry(*head, *(_ptr(b) for b in bits3), *tail)
     _launch_check(rc, name)
     LAUNCHES[name] += 1
+    ACT_LAUNCHES[act] += 1
     return result
 
 
@@ -582,10 +685,10 @@ def qmatmul_swiglu_prng(x: torch.Tensor, wg: torch.Tensor, wu: torch.Tensor,
     if x.device.type == "cpu":
         return qmatmul_swiglu_plain(x, wg, wu, seeds, grid, mode, rand_bits,
                                     act_spec, residuals, out_packed,
-                                    residuals_packed)
+                                    residuals_packed, act)
     return _swiglu_launch("qmatmul_swiglu_sr", x, wg, wu, None, seeds, grid,
                           mode, rand_bits, act_spec, act_grid, residuals,
-                          out_packed, residuals_packed)
+                          out_packed, residuals_packed, act)
 
 
 def qmatmul_swiglu(x: torch.Tensor, wg: torch.Tensor, wu: torch.Tensor,
@@ -618,14 +721,19 @@ def qmatmul_swiglu(x: torch.Tensor, wg: torch.Tensor, wu: torch.Tensor,
         return qmatmul_swiglu_bits_plain(x, wg, wu, bits3[0], bits3[1], grid,
                                          mode, rand_bits, act_spec, bits3[2],
                                          residuals, out_packed,
-                                         residuals_packed)
+                                         residuals_packed, act)
     return _swiglu_launch("qmatmul_swiglu_bits", x, wg, wu, bits3, None,
                           grid, mode, rand_bits, act_spec, act_grid,
-                          residuals, out_packed, residuals_packed)
+                          residuals, out_packed, residuals_packed, act)
 
 
-def _lib_swiglu():
-    lib = build.load("qmatmul_swiglu_sr")
+def _swiglu_source(act: str) -> str:
+    """The CUDA source (and library) of ``act``'s GLU kernels."""
+    return "qmatmul_swiglu_sr" if act == "silu" else f"qmatmul_swiglu_{act}"
+
+
+def _lib_swiglu(act: str = "silu"):
+    lib = build.load(_swiglu_source(act))
     if lib.qmatmul_swiglu_sr.argtypes is None:
         c = ctypes
         ints = c.POINTER(c.c_int)

@@ -1,7 +1,8 @@
 """Device times of variants of K3', K4' or K8' on one card, for choosing
 the routes' shapes by measurement: each variant is built by ``nvcc`` from a
 copy of the kernel's source (``csrc/qmatmul_sr.cu`` for K3',
-``csrc/qmatmul_swiglu_sr.cu`` for K4', ``csrc/qmatmul_batched_sr.cu`` for
+``csrc/qmatmul_swiglu_sr.cu`` and its ``qmatmul_swiglu.cuh`` for K4' (the
+silu instance), ``csrc/qmatmul_batched_sr.cu`` for
 K8') and of the routes' shared header ``csrc/gemm_routes.cuh`` with named
 constants changed, held bitwise to the sources as they stand (every
 variant keeps the summation order) and to the GEMM contract against the
@@ -34,6 +35,7 @@ import numpy as np
 
 ROOT = Path(__file__).resolve().parents[3]
 HEADER = "gemm_routes.cuh"
+GLU_HEADER = "qmatmul_swiglu.cuh"     # K4''s routes and constants
 # per kernel: its source and (M, K, N, B dtype) decode-route and large-M
 # shapes (K4' with residuals at the train step's 1024 rows)
 KERNELS = {
@@ -62,11 +64,10 @@ KNOBS = {"dwarps": (HEADER, "constexpr int kDWarps = 4;"),
          "wave": (HEADER, "constexpr long kWaveTiles = 120;"),
          "dstages": ("qmatmul_sr.cu", "constexpr int kDecStages = 8;"),
          "big": ("qmatmul_sr.cu", "constexpr int kBigRG = 2, kBigCG = 1;"),
-         "glu_dstages": ("qmatmul_swiglu_sr.cu",
-                         "constexpr int kDecStages = 4;"),
-         "glu_big": ("qmatmul_swiglu_sr.cu",
+         "glu_dstages": (GLU_HEADER, "constexpr int kDecStages = 4;"),
+         "glu_big": (GLU_HEADER,
                      "constexpr int kBigRG = 1, kBigMinBlocks = 3;"),
-         "glu_stages": ("qmatmul_swiglu_sr.cu",
+         "glu_stages": (GLU_HEADER,
                         "constexpr int kBigStages = 3, kSmallStages = 6;"),
          "swarps": ("qmatmul_batched_sr.cu",
                     "constexpr int kSWarps = 4;                    // warps "
@@ -193,7 +194,9 @@ def main(argv=None):
     torch.backends.cuda.matmul.allow_tf32 = False
     main_src, shapes = KERNELS[args.kernel]
     lib_name = main_src[:-len(".cu")]
-    srcs = {f: (build.CSRC / f).read_text() for f in (main_src, HEADER)}
+    files = (main_src, HEADER) + ((GLU_HEADER,) if args.kernel == "k4"
+                                  else ())
+    srcs = {f: (build.CSRC / f).read_text() for f in files}
     todo = {k: v for k, v in variants(args.kernel, srcs).items()
             if args.only is None or k in args.only or k == "as built"}
     out = ROOT / "build" / "k3_variants"

@@ -63,13 +63,17 @@ def profile(cell: dict, policy: str) -> dict:
             "op_host_ms_per_step": host_ms / steps, "kernels": rows}
 
 
-def profile_engine() -> dict:
+def profile_engine(built=None, **mix) -> dict:
     """The engine cell: one untraced run, then ``serve.ENGINE_RUN`` under
-    the profiler; "steps" are its model calls."""
+    the profiler; "steps" are its model calls.  ``built``: a (cfg, model,
+    params) triple of ``serve.build`` already warm (no untraced run);
+    ``mix``: ``ENGINE_RUN`` fields to replace (a shorter request mix)."""
     run = {k: v for k, v in serve.ENGINE_RUN.items() if k != "arch"}
-    built = serve.build(serve.ENGINE_RUN["arch"],
-                        gemm_policy=serve.ENGINE_POLICY)
-    serve.run_engine(built=built, verbose=False, **run)
+    run.update(mix)
+    if built is None:
+        built = serve.build(serve.ENGINE_RUN["arch"],
+                            gemm_policy=serve.ENGINE_POLICY)
+        serve.run_engine(built=built, verbose=False, **run)
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as prof:
@@ -82,7 +86,7 @@ def profile_engine() -> dict:
     device_ms = sum(r["device_ms"] for r in rows)
     launches = sum(e.count for e in events if e.key == "cudaLaunchKernel")
     host_ms = sum(e.self_cpu_time_total for e in events) / 1e3
-    return {"arch": serve.ENGINE_RUN["arch"], "policy": "ENGINE_POLICY",
+    return {"arch": built[0].name, "policy": "ENGINE_POLICY",
             "steps": steps, "device": torch.cuda.get_device_name(0),
             "tokps": out["tokps"], "wall_ms_per_step": wall_ms / steps,
             "device_ms_per_step": device_ms / steps,

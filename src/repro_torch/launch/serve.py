@@ -11,9 +11,11 @@ stores the KV cache as packed e4m3 codes; ``--kv-cache-fmt e4m3-sr``
 sets the cache's storage spec of any policy.)  The engine:
   PYTHONPATH=src python -m repro_torch.launch.serve --engine
 serves ``ENGINE_RUN`` (16 requests, 4 slots, pages of 64) under
-``ENGINE_POLICY``; add ``--reduced --device cpu`` for a CPU run.  The MoE
-decoder serves the same way: ``--arch qwen3-moe-30b-a3b`` (30.5 B
-parameters, 57 GiB of bf16 weights on one 80 GB card).
+``ENGINE_POLICY``; add ``--reduced --device cpu`` for a CPU run, and
+``--arch gemma-7b`` for gemma's.  The MoE decoder serves the same way:
+``--arch qwen3-moe-30b-a3b`` (30.5 B parameters, 57 GiB of bf16 weights on
+one 80 GB card); so do gemma-7b (GeGLU, head dim 256, tied embeddings) and
+phi3-medium-14b.
 
 As in the reference, the prompt is absorbed one token at a time with
 ``decode_step(compute_logits=False)`` (prompt absorption and decode are the
@@ -97,6 +99,11 @@ def serve_batch(model, params, prompts: torch.Tensor, gen: int,
 SERVE_RUN = dict(arch="tinyllama-1.1b", batch=4, prompt_len=32, gen=16)
 MOE_SERVE_RUN = dict(arch="qwen3-moe-30b-a3b", batch=4, prompt_len=32,
                      gen=16)
+# gemma-7b (8.5 B parameters, 17.1 GB of bf16 weights: GeGLU through K4''s
+# gelu instance, head dim 256) and phi3-medium-14b (14.7 B, 29.3 GB; a
+# short run: its first decode steps show the path)
+GEMMA_SERVE_RUN = dict(arch="gemma-7b", batch=4, prompt_len=32, gen=16)
+PHI3_SERVE_RUN = dict(arch="phi3-medium-14b", batch=4, prompt_len=32, gen=4)
 
 
 def build(arch: str, *, reduced: bool = False, seed: int = 0,

@@ -11,6 +11,16 @@ instance too where the tree has one) at the MoE decode path's (128, 1,
 of the same tensor (an unrounded yardstick).
 
   python src/repro_torch/launch/time_attention.py [--src DIR] [--tag NAME]
+      [--arch tinyllama-1.1b|gemma-7b] [--head-dim 16|32|64|128]
+
+``--arch gemma-7b`` times the head dim 256 instances instead: K9 at gemma's
+decode shape (batch 4 x 16 kv heads, G = 1, S_max = length = 48, e4m3
+codes; its tiled route too), K6 over 16 heads of 512 keys in one block,
+and K10 at the engine's shape (4 slots x 16 kv heads, pages of 64,
+lengths 80); K7 and K7' refuse d = 256, and K1' and K1 do not depend on
+it.  ``--head-dim`` times tinyllama-1.1b's shapes at another head dim
+(default 64, tinyllama's): the other compiled instances of K6's single
+pass, K7, K7', K9 and K10.
 
 ``--src`` names the ``src`` directory whose ``repro_torch`` is timed
 (default: the tree this file lives in), so one call can time two
@@ -79,6 +89,10 @@ def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--src", default=str(Path(__file__).resolve().parents[2]))
     ap.add_argument("--tag", default="")
+    ap.add_argument("--arch", choices=("tinyllama-1.1b", "gemma-7b"),
+                    default="tinyllama-1.1b")
+    ap.add_argument("--head-dim", type=int, choices=(16, 32, 64, 128),
+                    default=64)
     args = ap.parse_args(argv)
     sys.path.insert(0, args.src)
     import numpy as np
@@ -94,7 +108,7 @@ def main(argv=None):
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(0)
     specs = [parse_spec("binary8-sr")] * 3
-    d = 64
+    d = args.head_dim
     res, dev_res, digests = {}, {}, {}
 
     def timed(name, fn, stream=None, out=None, **kw):
@@ -107,6 +121,9 @@ def main(argv=None):
     def on_card(seed_words):    # int32 bit patterns, as the engine passes
         return torch.from_numpy(seed_words.astype(np.uint32)
                                 .view(np.int32)).to(dev)
+    if args.arch == "gemma-7b":
+        _time_d256(torch, gen, specs, timed, on_card)
+        return _emit(args, torch, res, dev_res, digests)
     # K9: batch 4 x 4 kv heads, G = 8, S_max = length = 48, e4m3 codes
     seeds = on_card(np.random.default_rng(0).integers(0, 2 ** 32, (16, 6),
                                                       dtype=np.uint64))
@@ -195,11 +212,55 @@ def main(argv=None):
               iters=200, warmup=20)
     timed("bf16 cast (128, 1, 768)", lambda: x.to(torch.bfloat16),
           iters=200, warmup=20)
-    out = dict(tag=args.tag, src=args.src,
+    return _emit(args, torch, res, dev_res, digests)
+
+
+def _emit(args, torch, res, dev_res, digests):
+    out = dict(tag=args.tag, src=args.src, arch=args.arch,
+               head_dim=256 if args.arch == "gemma-7b" else args.head_dim,
                device=torch.cuda.get_device_name(0), ms=res,
                device_ms=dev_res, digest=digests)
     print(json.dumps(out), flush=True)
     return out
+
+
+def _time_d256(torch, gen, specs, timed, on_card):
+    """gemma-7b's attention shapes at head dim 256 (``--arch gemma-7b``)."""
+    import numpy as np
+    from repro_torch.core.rounding import parse_spec
+    from repro_torch.kernels import common
+    from repro_torch.kernels import flash_attention as tfa
+    dev, d = torch.device("cuda"), 256
+    rng = np.random.default_rng(256)
+    seeds = on_card(rng.integers(0, 2 ** 32, (64, 6), dtype=np.uint64))
+    q = torch.randn((64, 1, d), generator=gen, device=dev)
+    codes = [common.pack_block(parse_spec("e4m3-rn")(torch.randn(
+        (64, 48, d), generator=gen, device=dev)), "e4m3") for _ in range(2)]
+    for label, kern in (("", None), (", tiled route", "flash_decode_tiled")):
+        timed(f"k9 d 256 B.KV=64 G=1 length 48{label}",
+              lambda kern=kern: tfa.flash_decode(
+                  q, *codes, seeds, 48, specs, scale=d ** -0.5,
+                  kv_fmt="e4m3", kv_block=1024, kernel=kern))
+    seeds6 = on_card(rng.integers(0, 2 ** 32, (16, 6), dtype=np.uint64))
+    q6, k6, v6 = (torch.randn((16, 512, d), generator=gen, device=dev)
+                  for _ in range(3))
+    kw6 = dict(scale=d ** -0.5, n_heads=16, n_kv=16, causal=True,
+               kv_block=512)
+    for label, kern in (("", None), (", two-pass", "flash_fwd_two_pass")):
+        timed(f"k6 d 256 B.H=16 S=512{label}",
+              lambda kern=kern: tfa.flash_fwd(q6, k6, v6, seeds6, specs,
+                                              kernel=kern, **kw6)[0],
+              iters=10, warmup=2)
+    pages = [common.pack_block(parse_spec("e4m3-rn")(torch.randn(
+        (17 * 16, 64, d), generator=gen, device=dev)), "e4m3")
+        for _ in range(2)]
+    tables = torch.tensor([[1, 2, 0, 0], [3, 4, 0, 0], [5, 6, 0, 0],
+                           [7, 8, 0, 0]], dtype=torch.int32, device=dev)
+    lengths = torch.full((4,), 80, dtype=torch.int32, device=dev)
+    timed("k10 d 256 B.KV=64 page 64 lengths 80",
+          lambda: tfa.flash_decode_paged(
+              q, *pages, seeds, lengths, tables, specs, scale=d ** -0.5,
+              n_kv=16, kv_fmt="e4m3"))
 
 
 if __name__ == "__main__":

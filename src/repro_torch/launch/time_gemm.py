@@ -4,7 +4,8 @@ expert GEMMs K8' and K8 at the MoE path's shapes), for comparing two trees
 of the port on one card.
 
   python src/repro_torch/launch/time_gemm.py [--src DIR] [--tag NAME]
-      [--kernel gemm|k8] [--routes] [--out FILE]
+      [--kernel gemm|k8] [--arch tinyllama-1.1b|gemma-7b] [--routes]
+      [--out FILE]
 
 ``--src`` names the ``src`` directory whose ``repro_torch`` is timed
 (default: the tree this file lives in), so one call can time two
@@ -24,6 +25,13 @@ its times and digest, which equals K4''s).  ``--routes`` (a tree with
 ``qmatmul.DECODE_MAX_M``) also times both routes forced at M = 4, 8, 16
 and 128, K3' on its decode shapes and K4' on its own, the measurement
 behind the route threshold.
+
+``--arch gemma-7b``: gemma-7b's decode GEMMs instead (M = 4 and a prompt's
+128: q, k, v 3072 -> 4096, o 4096 -> 3072, down 24576 -> 3072, the tied lm
+head 3072 -> 256000) and K4' (and K4) at 3072 -> 24576 under each
+activation of ``qmatmul.ACT_FNS`` (``k4[gelu]``: gemma's; a tree without
+the activations runs silu alone), ``decode_step`` summing a gemma decode
+step's launches under gelu.
 
 ``--kernel k8``: K8' (``qmatmul_batched_prng``) at qwen3-moe-30b-a3b's
 expert GEMMs, 128 experts x M rows, 2048 -> 768 (gate, up) and 768 -> 2048
@@ -55,6 +63,11 @@ DECODE_KN = [(2048, 2048, 44), (2048, 256, 44), (5632, 2048, 22),
              (2048, 32000, 1)]
 # K4''s shape (K, N, launches per decode step)
 GLU_KN = (2048, 5632, 22)
+# gemma-7b's (--arch gemma-7b): 28 layers of q, k, v, o and down through
+# K3', the fused GeGLU through K4', the tied lm head
+GEMMA_DECODE_KN = [(3072, 4096, 3 * 28), (4096, 3072, 28),
+                   (24576, 3072, 28), (3072, 256000, 1)]
+GEMMA_GLU_KN = (3072, 24576, 28)
 # (name, M, K, N, B dtype, launches per tinyllama decode step); "k4r":
 # K4' with residuals
 SHAPES = ([("k3", m, k, n, "bf16", c if m == 4 else 0)
@@ -135,6 +148,8 @@ def main(argv=None):
     ap.add_argument("--src", default=str(Path(__file__).resolve().parents[2]))
     ap.add_argument("--tag", default="")
     ap.add_argument("--kernel", choices=("gemm", "k8"), default="gemm")
+    ap.add_argument("--arch", choices=("tinyllama-1.1b", "gemma-7b"),
+                    default="tinyllama-1.1b")
     ap.add_argument("--routes", action="store_true")
     ap.add_argument("--out", default="")
     args = ap.parse_args(argv)
@@ -169,8 +184,10 @@ def main(argv=None):
     act = spec("binary8", "sr")
 
     def measure(name, M, K, N, bdt, yardstick=True):
-        glu = name in ("k4", "k4r")
+        glu = name.startswith("k4")
         kw = dict(act_spec=act, residuals=name == "k4r")
+        if "[" in name:             # k4[act]: K4' under that activation
+            kw["act"] = name[3:-1]
         nw = 2 if glu else 1
         a, ws, n = operands(M, K, N, bdt, nw)
 
@@ -206,18 +223,28 @@ def main(argv=None):
 
     keys = ("ms", "device_ms", "library_ms", "library_device_ms",
             "bits_ms", "bits_device_ms")
-    res, step = {}, {"k3": dict.fromkeys(keys, 0.0),
-                     "k4": dict.fromkeys(keys, 0.0)}
-    for name, M, K, N, bdt, per_step in SHAPES:
+    shapes = SHAPES
+    if args.arch == "gemma-7b":
+        acts = sorted(getattr(tq, "ACT_FNS", {"silu": None}))
+        K4, N4, c4 = GEMMA_GLU_KN
+        shapes = ([("k3", m, k, n, "bf16", c if m == 4 else 0)
+                   for m in (4, 128) for (k, n, c) in GEMMA_DECODE_KN]
+                  + [(f"k4[{a}]", m, K4, N4, "bf16",
+                      c4 if m == 4 and a == "gelu" else 0)
+                     for a in acts for m in (4, 128)])
+    res, step = {}, {}
+    for name, M, K, N, bdt, per_step in shapes:
         row = measure(name, M, K, N, bdt)
         res[f"{name} {M}x{K}x{N} {bdt}"] = row
         if per_step:
+            acc = step.setdefault(name[:2], dict.fromkeys(keys, 0.0))
             for key in keys:
                 if key in row:
-                    step[name][key] += row[key] * per_step
+                    acc[key] += row[key] * per_step
         print(f"  {name} {M}x{K}x{N} {bdt}: {json.dumps(row)}", flush=True)
     routes = {}
-    if args.routes and hasattr(tq, "DECODE_MAX_M"):
+    if args.routes and hasattr(tq, "DECODE_MAX_M") \
+            and args.arch == "tinyllama-1.1b":
         keep = tq.DECODE_MAX_M
         for M in (4, 8, 16, 128):
             for name, (K, N) in ([("k3", kn[:2]) for kn in DECODE_KN]
@@ -229,7 +256,7 @@ def main(argv=None):
                     print(f"  route {name} {route} {M}x{K}x{N}: "
                           f"{json.dumps(row)}", flush=True)
         tq.DECODE_MAX_M = keep
-    out = dict(tag=args.tag, src=args.src,
+    out = dict(tag=args.tag, src=args.src, arch=args.arch,
                device=torch.cuda.get_device_name(0), nvidia_smi=smi,
                shapes=res, decode_step=step, routes=routes)
     return _emit(out, args.out)

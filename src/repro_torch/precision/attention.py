@@ -176,24 +176,26 @@ def request_site_seeds(layer_words, positions, n_kv: int) -> np.ndarray:
                                                  + (B * n_kv, 6))
 
 
-def kv_request_bits(words, pos0, S: int, F: int, rand_bits: int,
-                    streams=(0,)) -> np.ndarray:
-    """The bits ``round_kv_request`` draws: (..., n_streams, B, S, F) for
-    kv-store words (..., B, 2) (leading axes: every layer at once) and
-    first positions pos0 (B,): element (b, s, f) of a stream is keyed by
-    (row ``pos0[b] + s``, col ``f``) under request b's words."""
+def kv_request_bits(words, pos0, S: int, F: int, rand_bits: int, streams,
+                    device) -> torch.Tensor:
+    """The bits ``round_kv_request`` draws, on ``device``: (..., n_streams,
+    B, S, F) for kv-store words (..., B, 2) (leading axes: every layer at
+    once) and first positions pos0 (B,): element (b, s, f) of a stream is
+    keyed by (row ``pos0[b] + s``, col ``f``) under request b's words."""
     w = _words(words)
     B = w.shape[-2]
     p0 = np.asarray(pos0, dtype=np.int64).reshape(B)
     rows = (p0[:, None] + np.arange(S, dtype=np.int64)[None])[..., None]
     cols = np.arange(F, dtype=np.int64)
+    st = np.asarray(streams, dtype=np.int64)[:, None, None, None]
+    shape = w.shape[:-2] + (len(st), B, S, F)
+    w, rows, cols, st = (common.host_to_device(np.ascontiguousarray(a),
+                                               device)
+                         for a in (w, rows, cols, st))
     k0 = w[..., None, :, None, None, 0]            # (..., 1, B, 1, 1)
     k1 = w[..., None, :, None, None, 1]
-    st = np.asarray(streams, dtype=np.int64)[:, None, None, None]
     bits = common.element_bits(k0, k1, rows, cols, rand_bits, st)
-    shape = w.shape[:-2] + (len(st), B, S, F)
-    return bits if bits.shape == shape else np.ascontiguousarray(
-        np.broadcast_to(bits, shape))
+    return bits.expand(shape).contiguous()
 
 
 def round_kv_request(x: torch.Tensor, spec: Optional[RoundingSpec], words,
@@ -216,9 +218,8 @@ def round_kv_request(x: torch.Tensor, spec: Optional[RoundingSpec], words,
         streams = stream if many else [stream]
         B, S = x.shape[int(many)], x.shape[int(many) + 1]
         F = x.numel() // (len(streams) * B * S)
-        bits = common.host_to_device(
-            kv_request_bits(words, pos0, S, F, spec.rand_bits, streams),
-            x.device)
+        bits = kv_request_bits(words, pos0, S, F, spec.rand_bits, streams,
+                               device=x.device)
     return common.apply_spec_block(spec, x, bits.reshape(x.shape))
 
 

@@ -1,8 +1,10 @@
 """Fused quantized GLU FFN (counterpart of
 ``repro.precision.fused.qffn_glu``).
 
-The gate GEMM, up GEMM, SiLU, product and activation-site rounding run as
-one kernel (``qmatmul_swiglu_prng``, K4'); the down projection is a
+The gate GEMM, up GEMM, activation (``act``: SiLU, or the reference's
+other ``ACT_FNS``, gemma-7b's GeGLU taking ``gelu``), product and
+activation-site rounding run as one kernel (``qmatmul_swiglu_prng``, K4',
+the activation's instance); the down projection is a
 rounded GEMM (``site_matmul``, K3').  The seed folds are the reference's:
 the gate and up roundings use the (call-site tag, SITE_FWD) double fold,
 the activation site (TAG_FFN_ACT, SITE_ACT) on stream 1, the down GEMM
@@ -21,7 +23,9 @@ When autograd needs it, the forward also keeps K4''s rounded branches g_r
 and u_r, and the backward is the reference's ``_qffn_glu_bwd``: the down
 projection's dgrad/wgrad, SiLU's pullback in float32 at the *rounded* gate,
 straight through both rounding sites, and the gate/up dgrad/wgrad -- six
-K3' launches.
+K3' launches.  The backward is ported for SiLU only: under another
+activation a forward that autograd would differentiate raises (training
+at gemma-7b's GeGLU is the next slice of the port).
 """
 from __future__ import annotations
 
@@ -169,6 +173,10 @@ def qffn_glu(x: torch.Tensor, w_gate: torch.Tensor, w_up: torch.Tensor,
     # cast is needed (a no-op for weights stored in bf16)
     wg, wu, wd = (w.to(x.dtype) for w in (w_gate, w_up, w_down))
     if needs_grad(x2, wg, wu, wd):
+        if act != "silu":
+            raise NotImplementedError(f"qffn_glu: the backward under act="
+                                      f"{act!r} is not ported yet (training "
+                                      "with GeGLU is the next slice)")
         out = _QFfnGlu.apply(x2, wg, wu, wd, policy, words, act)
     else:
         out = _down(policy, _glu(policy, act, x2, wg, wu, words, False), wd,

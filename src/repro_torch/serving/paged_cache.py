@@ -89,15 +89,15 @@ class PagedKVCache:
     def kv_bits(self, layer: int, spec, S: int, F: int) -> torch.Tensor:
         """Layer ``layer``'s KV-store bits (k and v streams) of an
         S-token append, (2, B, S, F) on the device; every layer's are
-        drawn and copied at once, on first use."""
+        drawn there at once, on first use."""
         key = ("kv", spec.rand_bits, S, F)
         if key not in self._index:
             from repro_torch.precision import attention as PA
             from repro_torch.precision.policy import TAG_ATTN_KV
             w_kv = PA.fold_words_vec(self.words, TAG_ATTN_KV)
-            self._index[key] = common.host_to_device(
-                PA.kv_request_bits(w_kv, self.lengths, S, F, spec.rand_bits,
-                                   (0, 1)), self.k_pages.device)
+            self._index[key] = PA.kv_request_bits(
+                w_kv, self.lengths, S, F, spec.rand_bits, (0, 1),
+                device=self.k_pages.device)
         return self._index[key][layer]
 
     def append_index(self, S: int):

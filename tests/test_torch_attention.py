@@ -715,6 +715,9 @@ FWD_PLANS = [
     (200, 32, 200, "flash_fwd"),
     (256, 48, 64, "flash_fwd_two_pass"),     # a head dim not compiled
     (0, 64, 512, "flash_fwd_two_pass"),      # no keys
+    (512, 256, 1024, "flash_fwd"),           # gemma-7b's head dim: 64-key
+    (48, 256, 1024, "flash_fwd"),            # tiles, blocks up to 512 keys
+    (1024, 256, 1024, "flash_fwd_two_pass"),
 ]
 
 
@@ -797,7 +800,7 @@ def test_bwd_smem_bytes():
     assert TF.bwd_smem_bytes("dkv", 64) == 99072
     for grads in ("dq", "dkv"):
         assert 2 * (TF.bwd_smem_bytes(grads, 64) + 1024) <= 233472
-        for d in TF.FWD_DIMS:
+        for d in TF.BWD_DIMS:
             assert TF.bwd_smem_bytes(grads, d) <= TF.SMEM_MAX
     with pytest.raises(ValueError, match="grads"):
         TF.bwd_smem_bytes("dx", 64)

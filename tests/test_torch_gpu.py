@@ -1829,3 +1829,281 @@ def test_bits_kernels_unaligned_and_counted(cuda):
     assert tq.LAUNCHES == dict(dict.fromkeys(tq.LAUNCHES, 0), qmatmul_bits=1,
                                qmatmul_swiglu_bits=1, qmatmul_batched_bits=1)
     assert tsr.LAUNCHES == {"sr_cast_prng": 0, "sr_cast_bits": 1}
+
+
+# ---------------------------------------------------------------------------
+# The GLU kernels' other activations (K4', K4: gelu, relu, relu_sq) and head
+# dim 256 in K6, K9 and K10 (gemma-7b)
+# ---------------------------------------------------------------------------
+GLU_ACTS = ("silu", "gelu", "relu", "relu_sq")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("act", GLU_ACTS)
+@pytest.mark.parametrize("route", ["decode", "large"])
+@pytest.mark.parametrize("M,K,N", [(4, 3072, 640), (37, 45, 70),
+                                   (128, 512, 640), (4, 8, 70)])
+def test_glu_act_kernels_match_plain(cuda, monkeypatch, act, route, M, K, N):
+    """K4' under each activation, on both routes: on exact-sum inputs the
+    residuals bitwise and the hidden bitwise too (within the act grid's
+    flips for SiLU, whose exp differs by ulps), rounded or not; K4 fed
+    K4''s words bitwise K4'; each launch counted under its activation."""
+    _route(monkeypatch, route)
+    x = _exact((M, K), 8.0, M).to(cuda)
+    wg = _exact((K, N), 4.0, 1).to(cuda).to(torch.bfloat16)
+    wu = _exact((K, N), 4.0, 2).to(cuda).to(torch.bfloat16)
+    for name in ("binary8-sr", "none"):
+        kw = dict(act=act, act_spec=ACT_SPECS[name], residuals=True)
+        tq.reset_launches()
+        got = tq.qmatmul_swiglu_prng(x, wg, wu, SEEDS, "binary8", **kw)
+        assert tq.ACT_LAUNCHES == dict(dict.fromkeys(GLU_ACTS, 0),
+                                       **{act: 1})
+        ref = tq.qmatmul_swiglu_plain(x, wg, wu, SEEDS, "binary8", **kw)
+        words = [tcommon.counter_bits_reduced(*SEEDS[i], (M, N), 32,
+                                              stream=i // 2, device=cuda)
+                 for i in range(3)]
+        bits = tq.qmatmul_swiglu(x, wg, wu, words[0], words[1], "binary8",
+                                 act_bits=words[2] if name != "none"
+                                 else None, **kw)
+        torch.cuda.synchronize()
+        for r, g in zip(ref[1:], got[1:]):
+            assert _bitwise(r, g)
+        for g, b in zip(got, bits):
+            assert _bitwise(g, b)
+        if act != "silu":
+            assert _bitwise(ref[0], got[0]), name
+        elif name != "none":
+            _assert_flips(ref[0], got[0], "binary8", adjacent_only=False)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("act", GLU_ACTS[1:])
+@pytest.mark.parametrize("M,K,N", [(4, 3072, 24576), (128, 3072, 2048),
+                                   (37, 45, 70), (16, 520, 136)])
+def test_glu_act_routes_agree(cuda, monkeypatch, act, M, K, N):
+    """On N(0, 1) inputs the two routes give the same h, g_r and u_r bit
+    for bit under every activation (gemma-7b's decode and prompt shapes
+    among them), packed outputs the codes of the float ones."""
+    x = _normal((M, K), M).to(cuda)
+    wg = _normal((K, N), 1, K ** -0.5).to(cuda).to(torch.bfloat16)
+    wu = _normal((K, N), 2, K ** -0.5).to(cuda).to(torch.bfloat16)
+    act_spec = ACT_SPECS["binary8-sr"]
+    outs = {}
+    for route in ("decode", "large"):
+        _route(monkeypatch, route)
+        outs[route] = tq.qmatmul_swiglu_prng(x, wg, wu, SEEDS, "binary8",
+                                             act=act, act_spec=act_spec,
+                                             residuals=True)
+    packed = tq.qmatmul_swiglu_prng(x, wg, wu, SEEDS, "binary8", act=act,
+                                    act_spec=act_spec, residuals=True,
+                                    out_packed=True, residuals_packed=True)
+    torch.cuda.synchronize()
+    for a, b in zip(outs["decode"], outs["large"]):
+        assert _bitwise(a, b)
+    for p, f in zip(packed, outs["large"]):
+        assert torch.equal(p, tcommon.pack_block(f, "binary8"))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("act", GLU_ACTS[1:])
+@pytest.mark.parametrize("route", ["decode", "large"])
+@pytest.mark.parametrize("fmt", ["binary32", "bfloat16"])
+def test_glu_act_functions_bitwise_on_a_sweep(cuda, monkeypatch, act, route,
+                                              fmt):
+    """The card's activation (rounding.cuh: gelu over tanh_xla, relu,
+    relu_sq) bitwise the twin on 131,072 values between -10 and 10 and
+    tiny ones (signed zeros, powers of two down to the subnormals, both
+    sides of tanh's 0.0004 edge and its clamp at 7.99881172), on the
+    binary32 grid (the float32 values themselves) and on bfloat16's: x is
+    the identity, so g_r is wg's row rounded, and u = 1 leaves act(g_r) as
+    the unrounded hidden."""
+    _route(monkeypatch, route)
+    edges = np.array([0.0, -0.0, 0.0004, -0.0004, 7.99881172180175781,
+                      -7.99881172180175781, 8.0, -8.0], np.float32)
+    edges = np.concatenate([edges, np.nextafter(edges, np.float32(np.inf)),
+                            np.nextafter(edges, np.float32(-np.inf))])
+    vals = np.concatenate([
+        edges, np.float32(2.0) ** -np.arange(1, 150, dtype=np.float32),
+        -np.float32(2.0) ** -np.arange(1, 150, dtype=np.float32),
+        np.linspace(-10, 10, 8192 * 16, dtype=np.float32)])
+    N = 8192
+    vals = vals[:16 * N].reshape(16, N)
+    wg = torch.from_numpy(vals).to(cuda)
+    x = torch.eye(16, device=cuda)
+    wu = torch.ones((16, N), device=cuda)
+    got = tq.qmatmul_swiglu_prng(x, wg, wu, SEEDS, fmt, "rn", act=act)
+    ref = tq.qmatmul_swiglu_plain(x, wg, wu, SEEDS, fmt, "rn", act=act)
+    torch.cuda.synchronize()
+    assert _bitwise(ref, got)
+
+
+@pytest.mark.gpu
+def test_glu_unknown_act_refused(cuda):
+    x = _normal((4, 16), 0).to(cuda)
+    w = _normal((16, 8), 1).to(cuda)
+    with pytest.raises(ValueError, match="unknown GLU activation"):
+        tq.qmatmul_swiglu_prng(x, w, w, SEEDS, "binary8", act="tanh")
+
+
+D256_FWD = [(512, 512, True, 0, "binary8-sr"), (300, 1024, True, 0,
+                                                "binary8-sr-r16"),
+            (200, 64, True, 5, "binary8-sr-r8"), (130, 128, False, 0,
+                                                  "e4m3-rn")]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("S,kb,causal,qoff,name", D256_FWD)
+def test_flash_fwd_d256_matches_plain_and_two_pass(cuda, S, kb, causal,
+                                                   qoff, name):
+    """K6 at head dim 256 (fwd1_kernel<256>, 64-key tiles): on exact-sum
+    inputs the logits and m bitwise the twin, out within the contract; on
+    N(0, 1) inputs bitwise the two-pass kernel (its wide instance) in out,
+    m, l and the logits."""
+    H, KV, d = 4, 2, 256
+    assert tfa.fwd_kernel_for(S, d, d, kb) == "flash_fwd"
+    specs = [parse_spec(name)] * 3
+    seeds = np.random.default_rng(S).integers(0, 2 ** 32, (H, 6),
+                                              dtype=np.uint64)
+    kw = dict(scale=d ** -0.5, n_heads=H, n_kv=KV, causal=causal,
+              kv_block=kb, q_offset=qoff, return_logits=True)
+    q = _exact((H, S, d), 8.0, 1).to(cuda)
+    k, v = (_exact((KV, S + qoff, d), 8.0, sd).to(cuda) for sd in (2, 3))
+    tfa.reset_launches()
+    got = tfa.flash_fwd(q, k, v, seeds, specs, **kw)
+    assert tfa.LAUNCHES["flash_fwd"] == 1
+    ref = tfa.flash_fwd_plain(q, k, v, seeds, specs, **kw)
+    torch.cuda.synchronize()
+    for i in (1, 3):
+        assert _bitwise(got[i], ref[i])
+    _assert_flips(ref[0], got[0], name.split("-")[0], adjacent_only=False,
+                  share=max(1e-4, 1.0 / got[0].numel()))
+    q = _normal((H, S, d), 1).to(cuda)
+    k, v = (_normal((KV, S + qoff, d), sd).to(cuda) for sd in (2, 3))
+    one = tfa.flash_fwd(q, k, v, seeds, specs, **kw)
+    two = tfa.flash_fwd(q, k, v, seeds, specs, kernel="flash_fwd_two_pass",
+                        **kw)
+    torch.cuda.synchronize()
+    for a, b in zip(one, two):
+        assert _bitwise(a, b)
+
+
+@pytest.mark.gpu
+def test_flash_fwd_d256_two_pass_when_block_does_not_fit(cuda):
+    """A logical block of 1024 keys at d = 256 (295,936 B of logits and
+    tiles) runs the two-pass kernel, within the twin's contract."""
+    H, S, d = 2, 1024, 256
+    assert tfa.fwd_kernel_for(S, d, d, S) == "flash_fwd_two_pass"
+    specs = [parse_spec("binary8-sr")] * 3
+    seeds = np.random.default_rng(4).integers(0, 2 ** 32, (H, 6),
+                                              dtype=np.uint64)
+    q, k, v = _fwd_case(H, 1, S, d, True, cuda)
+    kw = dict(scale=d ** -0.5, n_heads=H, n_kv=1, kv_block=S,
+              return_logits=True)
+    tfa.reset_launches()
+    got = tfa.flash_fwd(q, k, v, seeds, specs, **kw)
+    assert tfa.LAUNCHES["flash_fwd_two_pass"] == 1
+    ref = tfa.flash_fwd_plain(q, k, v, seeds, specs, **kw)
+    torch.cuda.synchronize()
+    for i in (1, 3):
+        assert _bitwise(got[i], ref[i])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("fmt,offset", [("e4m3", False), (None, False),
+                                        ("e4m3", True), (None, True)])
+@pytest.mark.parametrize("Smax,kb,lengths", [(48, 1024, (1, 17, 48)),
+                                             (300, 256, (1, 129, 300))])
+def test_flash_decode_d256_routes_agree(cuda, Smax, kb, lengths, fmt,
+                                        offset):
+    """K9 at d = 256 (the serve shape: B.KV 64, G 1, one block of 48
+    keys): the decode kernel's d = 256 instance (or, off a 16-byte
+    boundary, its generic one) bitwise the tiled kernel (its wide
+    instance), within the twin's contract, over codes as over values."""
+    BKV, G, d = 64, 1, 256
+    specs = [parse_spec("binary8-sr")] * 3
+    q = _normal((BKV, G, d), Smax).to(cuda)
+    k, v = (_normal((BKV, Smax, d), Smax + s).to(cuda) for s in (1, 2))
+    if fmt is not None:
+        k, v = (tcommon.pack_block(parse_spec(f"{fmt}-rn")(t), fmt)
+                for t in (k, v))
+    if offset:
+        k, v = _off16(k), _off16(v)
+    seeds = np.random.default_rng(kb).integers(0, 2 ** 32, (BKV, 6),
+                                               dtype=np.uint64)
+    kw = dict(scale=d ** -0.5, kv_block=kb, kv_fmt=fmt)
+    for length in lengths:
+        tfa.reset_launches()
+        got = tfa.flash_decode(q, k, v, seeds, length, specs, **kw)
+        tiled = tfa.flash_decode(q, k, v, seeds, length, specs,
+                                 kernel="flash_decode_tiled", **kw)
+        ref = tfa.flash_decode_plain(q, k, v, seeds, length, specs, **kw)
+        torch.cuda.synchronize()
+        assert tfa.LAUNCHES["flash_decode"] == 1
+        assert _bitwise(got, tiled), length
+        _assert_flips(ref, got, "binary8", adjacent_only=False,
+                      share=max(1e-4, 1.0 / got.numel()))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("page,G,window,fmt", [
+    (64, 1, 0, "e4m3"), (16, 1, 0, "e4m3"), (128, 2, 0, None),
+    (64, 1, 40, None), (8, 3, 0, "binary8"), (200, 1, 0, "e4m3")])
+def test_flash_decode_paged_d256(cuda, page, G, window, fmt):
+    """K10 at d = 256: the compiled d = 256 instance bitwise its generic
+    instance (the pool off a 16-byte boundary) and K9's tiled kernel with
+    kv_block == page, at two placements; on exact-sum inputs bitwise the
+    twin."""
+    specs = [parse_spec("binary8-sr")] * 3
+    n_kv, d = 2, 256
+    for exact in (False, True):
+        q, k, v, lengths, place, pool = _paged_case(
+            page, exact, page + G, n_kv=n_kv, G=G, d=d, n_max=3, B=6)
+        if fmt is not None:
+            k, v = (parse_spec(f"{fmt}-rn")(x) for x in (k, v))
+        seeds = np.random.default_rng(page).integers(
+            0, 2 ** 32, (q.shape[0], 6), dtype=np.uint64)
+        kw = dict(scale=d ** -0.5, window=window)
+        outs = []
+        for pl_seed, offset in ((0, False), (1, False), (0, True)):
+            tables = place(pl_seed)
+            kp, vp = (pool(x, tables).to(cuda) for x in (k, v))
+            if fmt is not None:
+                kp, vp = (tcommon.pack_block(x, fmt) for x in (kp, vp))
+            if offset:
+                kp, vp = _off16(kp), _off16(vp)
+            outs.append(tfa.flash_decode_paged(
+                q.to(cuda), kp, vp, seeds, lengths, tables, specs,
+                n_kv=n_kv, kv_fmt=fmt, **kw))
+        torch.cuda.synchronize()
+        assert _bitwise(outs[0], outs[1]) and _bitwise(outs[0], outs[2])
+        for b, n in enumerate(lengths):
+            sl = slice(b * n_kv, (b + 1) * n_kv)
+            k9 = tfa.flash_decode(q[sl].to(cuda), k[sl].to(cuda),
+                                  v[sl].to(cuda), seeds[sl], int(n), specs,
+                                  kv_block=page, kernel="flash_decode_tiled",
+                                  **kw)
+            torch.cuda.synchronize()
+            assert _bitwise(k9, outs[0][sl]), (b, int(n))
+        if exact and window == 0:
+            tables = place(0)
+            kp, vp = (pool(x, tables).to(cuda) for x in (k, v))
+            ref = tfa.flash_decode_paged_plain(q.to(cuda), kp, vp, seeds,
+                                               lengths, tables, specs,
+                                               n_kv=n_kv, **kw)
+            torch.cuda.synchronize()
+            assert _bitwise(ref, outs[0])
+
+
+@pytest.mark.gpu
+def test_flash_bwd_refuses_d256(cuda):
+    """K7 and K7' keep refusing head dims above 128 (training at gemma's
+    256 is the next slice), before any launch."""
+    q = torch.zeros((2, 4, 256), device=cuda)
+    st = torch.ones((2, 4), device=cuda)
+    sp = parse_spec("binary8-sr")
+    seeds = np.zeros((2, 6), np.uint64)
+    kw = dict(scale=0.0625, n_heads=2, n_kv=2)
+    with pytest.raises(NotImplementedError, match="next slice"):
+        tfa.flash_bwd_dq(q, q, q, q, st, st, st, seeds[:, :4], sp, sp, **kw)
+    with pytest.raises(NotImplementedError, match="next slice"):
+        tfa.flash_bwd_dkv(q, q, q, q, st, st, st, seeds, sp, sp, sp, **kw)

@@ -254,10 +254,13 @@ def test_swiglu_raises_on_unported_options():
     a, b = _normal_inputs(4, 16, 8, seed=1)
     args = (torch.from_numpy(a), torch.from_numpy(b), torch.from_numpy(b),
             SEEDS, "binary8")
-    for kwargs in (dict(act="gelu"), dict(eps=0.1),
-                   dict(overflow="inf")):
+    for kwargs in (dict(eps=0.1), dict(overflow="inf")):
         with pytest.raises(NotImplementedError):
             tq.qmatmul_swiglu_prng(*args, **kwargs)
+    # an activation the reference's ACT_FNS does not know (its
+    # _resolve_epilogue raises ValueError too)
+    with pytest.raises(ValueError, match="unknown GLU activation"):
+        tq.qmatmul_swiglu_prng(*args, act="tanh")
     # a packed hidden must land on a rounding grid (the reference's rule)
     with pytest.raises(ValueError):
         tq.qmatmul_swiglu_prng(*args, out_packed=True)
