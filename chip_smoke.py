@@ -247,7 +247,31 @@ Phases (any failed check exits non-zero; there is no CPU fallback):
    ``serve.run(**serve.PHI3_SERVE_RUN)``: phi3-medium-14b at full size
    (14.7 B parameters) under ``binary8-paper``, gen 4, its memory freed
    before and after: launch counts, tok/s, peak memory;
-35. one JSON line of per-kernel numbers (K3''s, K3's, K4''s, K4's, K8''s,
+35. K7 and K7' at head dim 256 (their tiled instances' 32-row blocks and
+   the first kernels' wide instances) at the gemma-7b train step's shape
+   (B.H 64, S 256, MHA, one block, causal) and on a ragged multi-block GQA
+   case (blocks of 64, S 200) with 32-, 16- and 8-bit draws: the tiled
+   kernels bitwise the first kernels, both within the twin's contract on
+   exact-sum and N(0, 1) inputs; timed beside the bound, the twin, the
+   first kernels and SDPA's backward alone, by CUDA events and graph
+   replay; the new instances' registers and spills printed;
+36. the GeGLU pullback kernel (``kernels.geglu_pullback``: dgate and dup
+   from g_r, u_r and dh, XLA's float32 pullback of ``jax.nn.gelu``)
+   bitwise its twin on a sweep of 131,072 float32 values and the edges
+   (XLA's tanh's, subnormals, infinities) with random cotangents and up
+   branches; timed over gemma's (1024, 24576) hidden beside the bound,
+   the twin and ``aten.gelu_backward`` (a yardstick);
+37. reduced gemma-7b (head dim 256 kept), 2 QSGD steps card vs CPU under
+   ``binary8-paper`` and ``binary8-paper-attn``: launch counts, phase 9's
+   limits;
+38. ``train.run(**train.GEMMA_TRAIN_RUN)``: gemma-7b at full width, depth
+   cut to 4 of 28 layers (1,893,755,904 parameters), batch 4 x 256, 4
+   steps, under ``binary8-paper`` and ``binary8-paper-attn``: launch
+   counts (K3', K4' on its gelu instance, K2', the momentum FMA, the
+   pullback kernel; under ``-attn`` K6, K7 and K7' at d = 256 once per
+   layer per step), a finite loss at every step, ms/step, tok/s, peak
+   memory, the run's and its checkpoint's seconds;
+39. one JSON line of per-kernel numbers (K3''s, K3's, K4''s, K4's, K8''s,
    K8's, K9's (both routes), K10's, K1''s and K1's with the registers and
    spills ptxas reports for their instances, phase 2; K3', K3, K4' and K4
    with their device time per decode step, K4' also per train step; K9's
@@ -255,7 +279,9 @@ Phases (any failed check exits non-zero; there is no CPU fallback):
    K2' and K2 with the wide and the generic instance on ``WIDE_TIMED``
    under ``wide_timed_chain`` and K2''s launches in phase 29; K4' and K4
    under gelu, relu and relu_sq per gemma decode step, K6, K9 and K10 at
-   d = 256 per gemma layer stack, phases 30-31), then the result line.
+   d = 256 per gemma layer stack, phases 30-31; K7 and K7' at d = 256 and
+   the GeGLU pullback per ``GEMMA_TRAIN_RUN`` step, phases 35-36), then
+   the result line.
 
 Detailed numbers also go to ``chiprun_out/chip_smoke.json``.
 """
@@ -435,6 +461,16 @@ PROFILE_CUT = dict(prompt_len=8, gen=4)
 ENGINE_PROFILE_MIX = dict(n_short=4, n_long=1, long=(16, 8))
 # K9 at gemma's decode step: batch 4 x 16 kv heads, one query row each
 GEMMA_DECODE = dict(BKV=BATCH * GEMMA["kv"], G=1, Smax=PROMPT + GEN)
+# phases 35-38: gemma-7b trained at full width (train.GEMMA_TRAIN_RUN:
+# PAPER_RUN's batch 4 x 256, depth cut to 4 of 28 layers); K7 and K7' at
+# its step's shape (batch 4 x 16 heads, MHA, S 256, one block, causal),
+# the GeGLU pullback over its (1024, 24576) hidden; per step K3' 19 L + 3
+# times (as tinyllama's), K4' and the pullback once per layer
+GEMMA_TRAIN_LAYERS = 4
+GEMMA_TRAIN_PARAMS = 1_893_755_904
+GEMMA_TRAIN_ATTN = dict(BH=TRAIN_BATCH * 16, BKV=TRAIN_BATCH * 16,
+                        S=TRAIN_SEQ, n_heads=16, n_kv=16)
+GEMMA_TRAIN_QMATMUL_PER_STEP = 19 * GEMMA_TRAIN_LAYERS + 3
 
 
 def stamp(*parts, **kw) -> None:
@@ -4051,6 +4087,378 @@ def phi3_serve_phase(torch, mods, serve):
     return res
 
 
+# ---------------------------------------------------------------------------
+# phases 35-38: gemma-7b training (K7, K7' at d = 256, the GeGLU pullback)
+# ---------------------------------------------------------------------------
+def bwd_d256_phase(torch, tfa, resources):
+    """Phase 35: K7 and K7' at head dim 256 (32-row blocks) at the gemma
+    train step's shape (``GEMMA_TRAIN_ATTN``) and on a ragged multi-block
+    GQA case with 32-, 16- and 8-bit draws, on the twin's forward
+    residuals: the tiled kernels bitwise the first kernels (each forced,
+    each launch counted on its route), both within the twin's contract on
+    exact-sum and N(0, 1) inputs; timed at the train shape beside the
+    bound, the twin, the first kernels and ``scaled_dot_product_attention``'s
+    backward alone (one forward kept; float32, unrounded: a yardstick),
+    by CUDA events and graph replay; the new instances' registers and
+    spills printed.  Returns rows keyed by kernel."""
+    import numpy as np
+    import torch.nn.functional as F
+    from repro_torch.core.rounding import grid_flips, parse_spec
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(2561)
+    rng = np.random.default_rng(2561)
+    d = GEMMA["hd"]
+    rows = {"flash_bwd_dq": [], "flash_bwd_dkv": []}
+    for fn, use in resources.get("flash_attention", {}).items():
+        if fn in ("dq_tile_kernel<256>", "dkv_tile_kernel<256>",
+                  "dq_kernel<32>", "dkv_kernel<32>"):
+            print(f"  {fn}: {use['registers']} registers, spill "
+                  f"{use['spill_stores']}/{use['spill_loads']} B", flush=True)
+
+    def draw(shape, exact):
+        if exact:
+            return torch.randint(-8, 9, shape, generator=gen,
+                                 device=dev).float() / 16
+        return torch.randn(shape, generator=gen, device=dev)
+
+    BH, BKV, S = (GEMMA_TRAIN_ATTN[k] for k in ("BH", "BKV", "S"))
+    cases = [(BH, BKV, S, 1024, "binary8-sr", 16, 16),
+             (16, 4, 200, 64, "binary8-sr", 4, 1),
+             (16, 4, 200, 64, "binary8-sr-r16", 4, 1),
+             (16, 4, 200, 64, "binary8-sr-r8", 4, 1)]
+    for bh, bkv, s_len, blk, name, nh, nkv in cases:
+        main = bh == BH and s_len == S
+        specs = [parse_spec(name)] * 3
+        seeds = rng.integers(0, 2 ** 32, (bh, 6), dtype=np.uint64)
+        seeds_dq = np.concatenate([seeds[:, :2], seeds[:, 4:]], axis=1)
+        kw = dict(scale=d ** -0.5, n_heads=nh, n_kv=nkv, causal=True,
+                  q_block=blk, kv_block=blk)
+        tag = f"{name} B.H={bh} S={s_len} d={d} blocks={blk}"
+        res = {}
+        for exact in (True, False):
+            q, do = draw((bh, s_len, d), exact), draw((bh, s_len, d), exact)
+            k, v = draw((bkv, s_len, d), exact), draw((bkv, s_len, d), exact)
+            r_out, r_m, r_l = tfa.flash_fwd_plain(q, k, v, seeds, specs, **kw)
+            dd = (do * r_out).sum(-1)
+            args = (q, k, v, do, r_m, r_l, dd)
+            for kern, plain, extra in (
+                    (tfa.flash_bwd_dq, tfa.flash_bwd_dq_plain,
+                     (seeds_dq, specs[0], specs[0])),
+                    (tfa.flash_bwd_dkv, tfa.flash_bwd_dkv_plain,
+                     (seeds, specs[0], specs[0], specs[1]))):
+                kname = kern.__name__
+                before = dict(tfa.LAUNCHES)
+                got = kern(*args, *extra, **kw)
+                first = kern(*args, *extra, **kw, kernel=f"{kname}_simple")
+                ref = plain(*args, *extra, **kw)
+                torch.cuda.synchronize()
+                launched = {n: tfa.LAUNCHES[n] - before[n] for n in before
+                            if tfa.LAUNCHES[n] != before[n]}
+                if launched != {kname: 1, f"{kname}_simple": 1}:
+                    fail(f"{kname} {tag}: launches {launched}, not one on "
+                         "each route")
+                got, first, ref = ((x,) if kname == "flash_bwd_dq" else x
+                                   for x in (got, first, ref))
+                for a, b in zip(got, first):
+                    if not bitwise(torch, a, b):
+                        fail(f"{kname} {tag}: the tiled kernel differs from "
+                             "the first kernel")
+                n_bad = 0
+                for a, r in zip(got, ref):
+                    n, _ = grid_flips(r, a, "binary8")
+                    if n > max(1e-4 * r.numel(), 1):
+                        fail(f"{kname} {tag} ({'exact' if exact else 'N(0,1)'}"
+                             f"): {n} of {r.numel()} elements differ from the "
+                             "twin")
+                    n_bad += n
+                key = "exact" if exact else "normal"
+                res.setdefault(kname, {}).update({
+                    f"mismatches_{key}": n_bad,
+                    "max_abs_err": max(res.get(kname, {}).get(
+                        "max_abs_err", 0.0), max(float((a - r).abs().max())
+                                                 for a, r in zip(got, ref)))})
+                if not exact:
+                    n_out = sum(r.numel() for r in ref)
+                    res[kname]["mismatch_share"] = n_bad / n_out
+                del got, first, ref
+        print(f"  {tag}: tiled == first kernels bitwise; mismatches vs the "
+              f"twin (exact / N(0,1)): dq "
+              f"{res['flash_bwd_dq']['mismatches_exact']} / "
+              f"{res['flash_bwd_dq']['mismatches_normal']}, dk+dv "
+              f"{res['flash_bwd_dkv']['mismatches_exact']} / "
+              f"{res['flash_bwd_dkv']['mismatches_normal']}", flush=True)
+        for kname, r in res.items():
+            rows[kname].append(dict(case=tag, main=main, **r))
+        if not main:
+            del q, k, v, do, args
+            continue
+        # timed at the train step's shape: one launch per layer per step
+        pairs = bh * s_len * (s_len + 1) // 2
+        B = bh // nh
+        q4, k4, v4, do4 = (x.view(B, -1, s_len, d) for x in (q, k, v, do))
+        qg, kg, vg = (x.detach().requires_grad_() for x in (q4, k4, v4))
+
+        def sdpa_fwd_bwd(i):
+            o = F.scaled_dot_product_attention(qg, kg, vg, is_causal=True)
+            torch.autograd.grad(o, (qg, kg, vg), do4)
+
+        def sdpa_bwd(i):
+            torch.autograd.grad(o_kept, (qg, kg, vg), do4, retain_graph=True)
+        sdpa_both = time_ms(torch, sdpa_fwd_bwd, 1)
+        s_bwd = torch.cuda.Stream()
+        s_bwd.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(s_bwd):
+            o_kept = F.scaled_dot_product_attention(qg, kg, vg,
+                                                    is_causal=True)
+            sdpa_bwd_ms = time_ms(torch, sdpa_bwd, 1)
+            sdpa_bwd_dev = graph_ms(torch, sdpa_bwd, 1, stream=s_bwd)
+        torch.cuda.current_stream().wait_stream(s_bwd)
+        seeds_c, seeds_dq_c = (
+            torch.from_numpy(x.astype(np.uint32).view(np.int32)).to(dev)
+            for x in (seeds, seeds_dq))
+
+        def call(kname, on_card, **route):
+            if kname == "flash_bwd_dq":
+                return lambda i: tfa.flash_bwd_dq(
+                    *args, seeds_dq_c if on_card else seeds_dq, specs[0],
+                    specs[0], **kw, **route)
+            return lambda i: tfa.flash_bwd_dkv(
+                *args, seeds_c if on_card else seeds, specs[0], specs[0],
+                specs[1], **kw, **route)
+        for kname, plain, extra in (
+                ("flash_bwd_dq", tfa.flash_bwd_dq_plain,
+                 (seeds_dq, specs[0], specs[0])),
+                ("flash_bwd_dkv", tfa.flash_bwd_dkv_plain,
+                 (seeds, specs[0], specs[0], specs[1]))):
+            first = dict(kernel=f"{kname}_simple")
+            flops, n_tf, nbytes = attn_work(kname, bh, bkv, s_len, d, pairs)
+            bms, by = attn_bound(flops, n_tf, nbytes)
+            row = rows[kname][-1]
+            row.update(
+                ms=time_ms(torch, call(kname, False), 1),
+                device_ms=graph_ms(torch, call(kname, True), 1, iters=10),
+                simple_ms=time_ms(torch, call(kname, False, **first), 1),
+                simple_device_ms=graph_ms(torch, call(kname, True, **first),
+                                          1, iters=10),
+                plain_ms=time_ms(torch, lambda i: plain(*args, *extra, **kw),
+                                 1, iters=3, warmup=1),
+                bound_ms=bms, bound_by=by, library_ms=sdpa_bwd_ms,
+                library_device_ms=sdpa_bwd_dev,
+                library_fwd_bwd_ms=sdpa_both,
+                library="scaled_dot_product_attention backward alone (dq, "
+                        "dk, dv together), float32, unrounded")
+            print(f"  {kname:14s} B.H={bh} S={s_len} d={d}: kernel "
+                  f"{row['ms']:.4f} ms, device {row['device_ms']:.4f} (first "
+                  f"kernel {row['simple_device_ms']:.4f})  bound {bms:.4f} ms "
+                  f"({by})  plain {row['plain_ms']:.3f} ms  SDPA backward "
+                  f"device {sdpa_bwd_dev:.4f} ms (by events {sdpa_bwd_ms:.4f}"
+                  f"; forward + backward {sdpa_both:.4f})", flush=True)
+        del o_kept, q, k, v, do, args, qg, kg, vg
+        torch.cuda.empty_cache()
+    return rows
+
+
+def geglu_pullback_phase(torch, tgp):
+    """Phase 36: the GeGLU pullback kernel bitwise its twin (NaNs as NaNs)
+    on 131,072 float32 gate values and more (the edges of XLA's tanh,
+    powers of two down to the subnormals, zeros, huge values, infinities,
+    N(0, 9) and ~1e-3 draws) with random cotangents and up branches;
+    timed at gemma's train-step hidden
+    (1024 x 24576) beside the bound (20 B per element), the twin and
+    ``aten.gelu_backward`` (tanh form, float32, unrounded, dgate alone: a
+    yardstick).  Returns its row."""
+    import numpy as np
+    dev = torch.device("cuda")
+    edges = np.array([0.0, -0.0, 0.0004, -0.0004, 7.99881172180175781,
+                      -7.99881172180175781, 8.0, -8.0, 1e30, -1e30, np.inf,
+                      -np.inf], np.float32)
+    edges = np.concatenate([edges, np.nextafter(edges, np.float32(np.inf)),
+                            np.nextafter(edges, np.float32(-np.inf))])
+    p2 = np.float32(2.0) ** -np.arange(1, 150, dtype=np.float32)
+    rng = np.random.default_rng(36)
+    g = torch.from_numpy(np.concatenate([
+        edges, p2, -p2, rng.normal(0, 3, 65536),
+        rng.normal(0, 1e-3, 65536)]).astype(np.float32)).to(dev)
+    u, dh = (torch.from_numpy(rng.standard_normal(g.numel()).astype(
+        np.float32)).to(dev) for _ in range(2))
+
+    def same(a, b):
+        nan = torch.isnan(a)
+        return torch.equal(nan, torch.isnan(b)) and torch.equal(
+            a[~nan].view(torch.int32), b[~nan].view(torch.int32))
+    tgp.reset_launches()
+    got = tgp.geglu_pullback(g, u, dh)
+    ref = tgp.geglu_pullback_plain(g, u, dh)
+    torch.cuda.synchronize()
+    if tgp.LAUNCHES["geglu_pullback"] != 1:
+        fail(f"geglu_pullback: launches {tgp.LAUNCHES}")
+    if not all(same(a, b) for a, b in zip(got, ref)):
+        fail("geglu_pullback: not bitwise the twin on the sweep")
+    n_sweep = g.numel()
+    M, N = TRAIN_M, GEMMA["ff"]
+    gen = torch.Generator(device=dev).manual_seed(37)
+    gs, us, dhs = (torch.randn((M, N), generator=gen, device=dev)
+                   for _ in range(3))
+
+    def call(i):
+        return tgp.geglu_pullback(gs, us, dhs)
+
+    def yard(i):
+        return torch.ops.aten.gelu_backward(dhs * us, gs, approximate="tanh")
+    n = M * N
+    t_bytes = 20 * n / PEAK_BYTES_PER_S
+    t_ops = 45 * n / PEAK_FP32_FLOPS      # ~45 float operations an element
+    got = call(0)
+    ref = tgp.geglu_pullback_plain(gs, us, dhs)
+    torch.cuda.synchronize()
+    if not all(same(a, b) for a, b in zip(got, ref)):
+        fail("geglu_pullback: not bitwise the twin at gemma's shape")
+    del got, ref
+    row = dict(case=f"({M}, {N}) float32", n=n, sweep=n_sweep,
+               ms=time_ms(torch, call, 1), device_ms=graph_ms(torch, call, 1),
+               plain_ms=time_ms(torch, lambda i: tgp.geglu_pullback_plain(
+                   gs, us, dhs), 1, iters=1, warmup=1),
+               bound_ms=1e3 * max(t_bytes, t_ops),
+               bound_by="bytes" if t_bytes >= t_ops else "operations",
+               library_ms=None, gelu_backward_ms=time_ms(torch, yard, 1),
+               gelu_backward_device_ms=graph_ms(torch, yard, 1),
+               max_abs_err=0.0, mismatch_share=0.0)
+    print(f"  geglu_pullback bitwise the twin on {n_sweep} values and at "
+          f"({M}, {N}); {row['ms']:.4f} ms, device "
+          f"{row['device_ms']:.4f}  bound {row['bound_ms']:.4f} ms "
+          f"({row['bound_by']})  plain {row['plain_ms']:.2f} ms  "
+          f"aten.gelu_backward (unrounded, dgate alone) device "
+          f"{row['gelu_backward_device_ms']:.4f}", flush=True)
+    del gs, us, dhs
+    torch.cuda.empty_cache()
+    return row
+
+
+def gemma_train_agreement_phase(torch, mods, train, policy):
+    """Phase 37: reduced gemma-7b with its head dim of 256, 2 QSGD steps
+    (the signed-SRe binary8 update through K2') on the card against the
+    CPU twins from the same parameters and batches: every kernel of the
+    path launched as the code predicts, at most ``AGREE_MAX_PARAMS``
+    parameters different and the losses within ``AGREE_MAX_REL_LOSS``
+    (phase 9's limits)."""
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.core import prng
+    from repro_torch.kernels.tree_update import flat_backed, tree_leaves
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models import build_model
+    from repro_torch.optim import qsgd
+    cfg = dataclasses.replace(reduced(get_config(GEMMA_ARCH)),
+                              gemm_policy=policy, head_dim=GEMMA["hd"])
+    model = build_model(cfg)
+    master = model.init_master(torch.Generator().manual_seed(3))
+    toks = torch.randint(0, cfg.vocab_size, (2, 2, 17),
+                         generator=torch.Generator().manual_seed(4))
+    batches = [{"tokens": t[:, :-1], "labels": t[:, 1:]} for t in toks]
+    run = train.PAPER_RUN
+    opt = qsgd(lr=0.05, momentum=0.9, update_path=run["update_path"],
+               cfg=train.rounding_config(run["rounding_kind"], run["fmt"],
+                                         run["eps"]))
+    out = {}
+    for device in ("cpu", "cuda"):
+        params = flat_backed(_to(master, device))
+        state = opt.init(params, prng.PRNGKey(1))
+        step = make_train_step(model, opt)
+        reset_all(*mods)
+        losses = []
+        for b in batches:
+            params, state, metrics = step(
+                params, state, {k: v.to(device) for k, v in b.items()})
+            losses.append(float(metrics["loss"]))
+        out[device] = (losses, tree_leaves(params), all_launches(*mods))
+    L = cfg.n_layers
+    n_attn = 2 * L if policy == ATTN_POLICY else 0
+    want = every_kernel({
+        "qmatmul_sr": 2 * (19 * L + 3), "qmatmul_swiglu_sr": 2 * L,
+        "geglu_pullback": 2 * L, "fused_qupdate_prng": 2, "momentum_fma": 2,
+        "flash_fwd": n_attn, "flash_bwd_dq": n_attn,
+        "flash_bwd_dkv": n_attn}, out["cuda"][2])
+    if out["cuda"][2] != want:
+        fail(f"reduced {GEMMA_ARCH} {policy} train: launches "
+             f"{out['cuda'][2]} != {want}")
+    lc, lg = out["cpu"][0], out["cuda"][0]
+    rel = max(abs(a - b) / abs(a) for a, b in zip(lc, lg))
+    n_diff, n = differing(torch, out["cpu"][1], out["cuda"][1])
+    print(f"  reduced {GEMMA_ARCH} (head dim {GEMMA['hd']}) {policy}: losses "
+          f"cpu {lc} card {lg} (max rel diff {rel:.3g}), parameters "
+          f"differing {n_diff}/{n}", flush=True)
+    if rel > AGREE_MAX_REL_LOSS or n_diff > AGREE_MAX_PARAMS:
+        fail(f"reduced {GEMMA_ARCH} {policy} train agreement beyond the "
+             "stated tolerance")
+    return dict(losses_cpu=lc, losses_card=lg, max_rel_loss=rel,
+                params_differing=n_diff, params=n)
+
+
+def gemma_train_phase(torch, mods, train, tq, policy):
+    """Phase 38: ``train.run(**train.GEMMA_TRAIN_RUN)`` under ``policy``:
+    gemma-7b at full width, depth cut to ``GEMMA_TRAIN_LAYERS`` of 28, batch
+    4 x 256, 4 QSGD steps through the TrainLoop (a fresh checkpoint
+    directory, removed after): launch counts (K4' on its gelu instance;
+    under ``-attn`` K6, K7 and K7' at d = 256 once per layer per step), a
+    finite loss at every step, ms/step, tok/s, peak memory, the seconds
+    of the run and of its final checkpoint."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()     # by earlier phases
+    run = dict(train.GEMMA_TRAIN_RUN, gemm_policy=policy)
+    if (run["arch"], run["n_layers"], run["batch"], run["seq"]) != (
+            GEMMA_ARCH, GEMMA_TRAIN_LAYERS, TRAIN_BATCH, TRAIN_SEQ):
+        fail(f"train.GEMMA_TRAIN_RUN {run} is not the run phases 35-36 time")
+    reset_all(*mods)
+    t0 = time.time()
+    with ckpt_dir("gemma") as ckpt:
+        out = train.run(steps=TRAIN_STEPS, device="cuda", ckpt_dir=ckpt,
+                        **run)
+        t_run = time.time() - t0
+        ckpt_bytes = dir_bytes(ckpt)
+    launches = all_launches(*mods)
+    acts = dict(tq.ACT_LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    L, steps = GEMMA_TRAIN_LAYERS, TRAIN_STEPS
+    n_attn = steps * L if policy == ATTN_POLICY else 0
+    want = every_kernel({
+        "qmatmul_sr": steps * GEMMA_TRAIN_QMATMUL_PER_STEP,
+        "qmatmul_swiglu_sr": steps * L, "geglu_pullback": steps * L,
+        "fused_qupdate_prng": steps, "momentum_fma": steps,
+        "flash_fwd": n_attn, "flash_bwd_dq": n_attn,
+        "flash_bwd_dkv": n_attn}, launches)
+    want_acts = dict(dict.fromkeys(acts, 0), gelu=steps * L)
+    if launches != want or acts != want_acts:
+        fail(f"{GEMMA_ARCH} train {policy}: launches {launches} / {acts} != "
+             f"{want} / {want_acts}")
+    losses = [h["loss"] for h in out["history"]]
+    if len(losses) != steps or not all(math.isfinite(v) for v in losses):
+        fail(f"{GEMMA_ARCH} train {policy}: losses {losses}")
+    if out["n_params"] != GEMMA_TRAIN_PARAMS or (
+            out["n_layers"], out["depth"]) != (L, GEMMA_LAYERS):
+        fail(f"{GEMMA_ARCH} train: {out['n_params']} parameters, layers "
+             f"{out['n_layers']} of {out['depth']}")
+    step_ms = [h["ms"] for h in out["history"]]
+    steady_ms = sum(step_ms[1:]) / len(step_ms[1:])
+    res = dict(losses=losses, step_ms=step_ms, steady_ms=steady_ms,
+               tokens_per_s=TRAIN_BATCH * TRAIN_SEQ / (steady_ms / 1e3),
+               peak_bytes=peak, held_bytes=held, launches=launches,
+               act_launches=acts, n_params=out["n_params"],
+               layers=f"{L} of {GEMMA_LAYERS}", run_s=t_run,
+               save_s=out["save_s"], ckpt_bytes=ckpt_bytes)
+    print(f"  layers {L} of {GEMMA_LAYERS} (depth cut), params "
+          f"{out['n_params']}, losses {losses}, ms/step {step_ms}, steady "
+          f"{steady_ms:.1f} ms/step, {res['tokens_per_s']:.1f} tok/s, peak "
+          f"memory {peak / 2 ** 30:.2f} GiB ({held / 2 ** 30:.2f} of it held "
+          f"by earlier phases), run {t_run:.1f} s (checkpoint {ckpt_bytes} "
+          f"bytes, save {out['save_s']:.1f} s), launches "
+          f"{ {k: v for k, v in launches.items() if v} }", flush=True)
+    del out
+    gc.collect()
+    torch.cuda.empty_cache()
+    return res
+
+
 def moe_kernel_entry(rows, name, source, replaces, launches, library):
     """A kernel of the MoE path: times per decode step (per-call time x
     launches per step at each path shape)."""
@@ -4148,8 +4556,8 @@ def main() -> None:
     sys.path.insert(0, str(HERE / "src"))
     try:
         from repro_torch.kernels import build, common as tcommon, \
-            flash_attention as tfa, fused_update as tfu, qmatmul as tq, \
-            sr_cast as tsr
+            flash_attention as tfa, fused_update as tfu, \
+            geglu_pullback as tgp, qmatmul as tq, sr_cast as tsr
         from repro_torch.launch import serve, train
         from repro_torch.precision import get_policy
     except ImportError as exc:
@@ -4195,7 +4603,7 @@ def main() -> None:
     train_rows = gemm_phase(torch, tq, gemm_cases(train=True))
 
     stamp("== phase 6: serve tinyllama-1.1b binary8-paper", flush=True)
-    mods = (tq, tfu, tfa, tsr)
+    mods = (tq, tfu, tfa, tsr, tgp)
     unpacked = {}           # its tokens and logits, for phase 23
     served = serve_phase(torch, mods, serve, keep=unpacked)
 
@@ -4321,6 +4729,26 @@ def main() -> None:
           f"serve {PHI3_ARCH} binary8-paper", flush=True)
     engine_gemma = gemma_engine_phase(torch, mods, serve, tq)
     served_phi3 = phi3_serve_phase(torch, mods, serve)
+
+    stamp(f"== phase 35: K7, K7' at head dim {GEMMA['hd']} vs plain twins "
+          "and the first kernels", flush=True)
+    bwd256_rows = bwd_d256_phase(torch, tfa, resources)
+
+    stamp("== phase 36: the GeGLU pullback kernel vs its plain twin",
+          flush=True)
+    pullback_row = geglu_pullback_phase(torch, tgp)
+
+    stamp(f"== phase 37: train agreement card vs cpu (reduced {GEMMA_ARCH}, "
+          f"head dim {GEMMA['hd']})", flush=True)
+    train_agree_gemma = {p: gemma_train_agreement_phase(torch, mods, train, p)
+                         for p in ("binary8-paper", ATTN_POLICY)}
+
+    stamp(f"== phase 38: train {GEMMA_ARCH} (GEMMA_TRAIN_RUN: "
+          f"{GEMMA_TRAIN_LAYERS} of {GEMMA_LAYERS} layers, batch "
+          f"{TRAIN_BATCH} x {TRAIN_SEQ}, {TRAIN_STEPS} steps) under "
+          f"binary8-paper and {ATTN_POLICY}", flush=True)
+    trained_gemma = {p: gemma_train_phase(torch, mods, train, tq, p)
+                     for p in ("binary8-paper", ATTN_POLICY)}
 
     kernels = []
     replaces = {"qmatmul_sr": "src/repro/kernels/qmatmul.py:360",
@@ -4574,7 +5002,8 @@ def main() -> None:
                                if on_path else None),
                 registers=dict(resources.get(f"qmatmul_swiglu_{act}", {}))))
     for name, line, runs, parts in (
-            ("flash_fwd", 195, None, ("fwd1_kernel<256>", "fwd_kernel<32>")),
+            ("flash_fwd", 195, trained_gemma[ATTN_POLICY],
+             ("fwd1_kernel<256>", "fwd_kernel<32>")),
             ("flash_decode", 649, served_gemma[ATTN_POLICY],
              ("decode_paged_kernel<1, 256, true>", "fwd_kernel<32>")),
             ("flash_decode_paged", 743, engine_gemma,
@@ -4597,10 +5026,61 @@ def main() -> None:
             launches_path=(f"serve {GEMMA_ARCH} {ATTN_POLICY}"
                            if name == "flash_decode" else
                            f"engine {GEMMA_ARCH} ENGINE_RUN, ENGINE_POLICY"
-                           if runs else None),
+                           if name == "flash_decode_paged" else
+                           f"train {GEMMA_ARCH} {ATTN_POLICY} "
+                           "(GEMMA_TRAIN_RUN)"),
             registers={fn: use for fn, use in
                        resources.get("flash_attention", {}).items()
                        if any(p in fn for p in parts)}))
+    # K7 and K7' at head dim 256 (per gemma-7b train step: one launch per
+    # layer of GEMMA_TRAIN_RUN), and the GeGLU pullback (no Pallas
+    # counterpart; per step: one launch per layer over the (1024, 24576)
+    # hidden)
+    for name, line, parts in (
+            ("flash_bwd_dq", 344, ("dq_tile_kernel<256>", "dq_kernel<32>")),
+            ("flash_bwd_dkv", 438, ("dkv_tile_kernel<256>",
+                                    "dkv_kernel<32>"))):
+        main_row = [r for r in bwd256_rows[name] if r["main"]][0]
+        kernels.append(dict(
+            name=f"{name}[d256]", route="cuda",
+            source="src/repro_torch/csrc/flash_attention.cu",
+            replaces=f"src/repro/kernels/flash_attention.py:{line}",
+            launches=trained_gemma[ATTN_POLICY]["launches"][name],
+            launches_simple=trained_gemma[ATTN_POLICY]["launches"][
+                f"{name}_simple"],
+            max_abs_err=max(r["max_abs_err"] for r in bwd256_rows[name]),
+            **{k: GEMMA_TRAIN_LAYERS * main_row[k]
+               for k in ("ms", "plain_ms", "bound_ms", "library_ms",
+                         "device_ms", "library_device_ms", "simple_ms",
+                         "simple_device_ms", "library_fwd_bwd_ms")},
+            bound_by=main_row["bound_by"], library=main_row["library"],
+            mismatch_share=max(r["mismatch_share"]
+                               for r in bwd256_rows[name]),
+            timed=f"one {GEMMA_ARCH} train step's {GEMMA_TRAIN_LAYERS} "
+                  f"launches ({main_row['case']})",
+            launches_path=f"train {GEMMA_ARCH} {ATTN_POLICY} "
+                          "(GEMMA_TRAIN_RUN)",
+            registers={fn: use for fn, use in
+                       resources.get("flash_attention", {}).items()
+                       if any(p in fn for p in parts)}))
+    kernels.append(dict(
+        name="geglu_pullback", route="cuda",
+        source="src/repro_torch/csrc/geglu_pullback.cu",
+        replaces="src/repro/precision/fused.py:144 (XLA's pullback of "
+                 "jax.nn.gelu in _qffn_glu_bwd; no Pallas kernel)",
+        launches=trained_gemma["binary8-paper"]["launches"]["geglu_pullback"],
+        max_abs_err=pullback_row["max_abs_err"],
+        **{k: GEMMA_TRAIN_LAYERS * pullback_row[k]
+           for k in ("ms", "device_ms", "plain_ms", "bound_ms",
+                     "gelu_backward_ms", "gelu_backward_device_ms")},
+        bound_by=pullback_row["bound_by"], library_ms=None,
+        mismatch_share=pullback_row["mismatch_share"],
+        timed=f"one {GEMMA_ARCH} train step's {GEMMA_TRAIN_LAYERS} launches "
+              f"({pullback_row['case']}); gelu_backward_*: "
+              "aten.gelu_backward (tanh form, unrounded, dgate alone), a "
+              "yardstick",
+        launches_path=f"train {GEMMA_ARCH} binary8-paper (GEMMA_TRAIN_RUN)",
+        registers=dict(resources.get("geglu_pullback", {}))))
     # each kernel's instances in ptxas' report: names holding all of the
     # parts (K9: the decode kernel's contiguous instances and the tiled
     # route's fwd_kernel)
@@ -4650,7 +5130,10 @@ def main() -> None:
                   glu_act_rows=glu_rows, attention_d256_rows=d256_rows,
                   agreement_gemma=agree_gemma, serve_gemma=served_gemma,
                   tied_embedding_copy=tied, engine_gemma=engine_gemma,
-                  serve_phi3=served_phi3,
+                  serve_phi3=served_phi3, bwd_d256_rows=bwd256_rows,
+                  geglu_pullback=pullback_row,
+                  train_agreement_gemma=train_agree_gemma,
+                  train_gemma=trained_gemma,
                   t_total_s=time.time() - T_START, kernels=kernels)
     out_dir = HERE / "chiprun_out"
     out_dir.mkdir(exist_ok=True)

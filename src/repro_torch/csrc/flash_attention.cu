@@ -63,16 +63,19 @@
 // flash_bwd_dq_simple / flash_bwd_dkv_simple) ran each product as a scalar
 // fmaf loop with two shared loads per FMA, one Threefry evaluation per
 // pair and per rounded output, tiles staged by divisions and scalar loads,
-// accumulators sized for d = 128: the load/store unit, not the FMA pipe,
-// bound them, at 16-21x their bound.  dq_tile_kernel and dkv_tile_kernel
-// (below) keep every sum in the first versions' order and tile it as
-// fwd1_kernel does: 4 x 4 patches of pairs and 4-column output runs from
-// float4 loads (eight shared loads per 64 FMAs), draws shared by four keys
-// or columns, 64-row blocks templated on d, K7's k and v tiles through a
-// two-buffer cp.async ring, and K7's heaviest causal blocks (the last query
-// rows) launched first.  Each tile still recomputes the logits and p that
-// the other kernel also computes: one pass for both would change K7's
-// interface (a ds scratch).
+// accumulators sized for d = 128 (an instance each for d = 256): the
+// load/store unit, not the FMA pipe, bound them, at 16-21x their bound.
+// dq_tile_kernel and dkv_tile_kernel (below) keep every sum in the first
+// versions' order and tile it as fwd1_kernel does: 4 x 4 patches of pairs
+// and 4-column output runs from float4 loads (eight shared loads per 64
+// FMAs), draws shared by four keys or columns, 64-row blocks templated on
+// d, K7's k and v tiles through a two-buffer cp.async ring, and K7's
+// heaviest causal blocks (the last query rows) launched first.  At d = 256
+// (gemma-7b's) a 64-row block's operands would not fit in shared memory:
+// that instance takes 32-row blocks and tiles (201,088 and 139,648 B) and
+// 1 x 4 patches of pairs (five shared loads per 16 FMAs).  Each tile still
+// recomputes the logits and p that the other kernel also computes: one
+// pass for both would change K7's interface (a ds scratch).
 //
 // Decode (K9 and K10) has a kernel of its own, decode_paged_kernel: one
 // block per (request, kv head, query row), so the engine's 4 slots x 4
@@ -121,12 +124,14 @@ constexpr int kTQ = 32;    // query rows per block (K6, K7, K9)
 constexpr int kTK = 64;    // key rows per tile (K6, K7, K9)
 constexpr int kTKV = 32;   // key rows per block (K7')
 constexpr int kTQB = 32;   // query rows per tile (K7')
-constexpr int kDMax = 128;      // head dims of the backward (K7, K7')
-constexpr int kDMaxFwd = 256;   // and of the forward and decode (K6, K9, K10)
-constexpr int kAcc = kTQ * kDMax / kThreads;    // 16 outputs per thread
-constexpr int kAccKV = kTKV * kDMax / kThreads;
-// fwd_kernel's outputs per thread for d above kDMax
-constexpr int kAccWide = kTQ * kDMaxFwd / kThreads;
+constexpr int kDMax = 256;      // head dims of every kernel (gemma-7b's)
+constexpr int kDNarrow = 128;   // the head dims of the first instances
+// outputs per thread of fwd_kernel and dq_kernel (kAcc) and of dkv_kernel
+// (kAccKV): instances for d up to kDNarrow, and wide ones up to kDMax
+constexpr int kAcc = kTQ * kDNarrow / kThreads;    // 16 outputs per thread
+constexpr int kAccKV = kTKV * kDNarrow / kThreads;
+constexpr int kAccWide = kTQ * kDMax / kThreads;
+constexpr int kAccKVWide = kTKV * kDMax / kThreads;
 
 struct Sites {
   rt::RoundParams p[3];
@@ -249,8 +254,8 @@ __device__ __forceinline__ float load_kv(const void* base, size_t idx,
   return rt::unpack(c, pack);
 }
 
-// kAccN outputs per thread: kAcc (d up to kDMax) or kAccWide (up to
-// kDMaxFwd), two instances, so the first compiles as it did before the
+// kAccN outputs per thread: kAcc (d up to kDNarrow) or kAccWide (up to
+// kDMax), two instances, so the first compiles as it did before the
 // second existed.
 template <int kAccN>
 __global__ void __launch_bounds__(kThreads) fwd_kernel(FwdArgs a) {
@@ -1027,7 +1032,7 @@ decode_paged_kernel(DecodeArgs a) {
   // output columns per thread: tid + kDecThreads u, u < kCols
   constexpr int kCols = DK > kDecThreads ? DK / kDecThreads
                         : DK > 0        ? 1
-                                        : kDMaxFwd / kDecThreads;
+                                        : kDMax / kDecThreads;
   const int page = a.page;
   const int r = blockIdx.x, h = blockIdx.y, req = blockIdx.z;
   const int bh = req * a.n_kv + h;
@@ -1257,6 +1262,9 @@ __device__ __forceinline__ void p_ds(const float* q, const float* k,
   *ds = __fmul_rn(__fmul_rn(*p, __fsub_rn(dp, dd)), g.scale);
 }
 
+// kAccN outputs per thread (kAcc: d up to kDNarrow, kAccWide: up to
+// kDMax), an instance each, as fwd_kernel's.
+template <int kAccN>
 __global__ void __launch_bounds__(kThreads) dq_kernel(BwdArgs a) {
   extern __shared__ float smem[];
   const Geo& g = a.g;
@@ -1284,16 +1292,16 @@ __global__ void __launch_bounds__(kThreads) dq_kernel(BwdArgs a) {
   if (tid < nr)
     load_row_stats(a, qbase + tid, row_safe + tid, row_linv + tid,
                    row_d + tid);
-  float acc[kAcc], part[kAcc];
+  float acc[kAccN], part[kAccN];
 #pragma unroll
-  for (int u = 0; u < kAcc; ++u) acc[u] = 0.0f;
+  for (int u = 0; u < kAccN; ++u) acc[u] = 0.0f;
   const int qpos_hi = g.q_offset + r0 + nr - 1;
   const int n_k = (g.kv_rows + g.kb - 1) / g.kb;
 
   for (int j = 0; j < n_k; ++j) {
     const int k0 = j * g.kb, k1 = min(k0 + g.kb, g.kv_rows);
 #pragma unroll
-    for (int u = 0; u < kAcc; ++u) part[u] = 0.0f;
+    for (int u = 0; u < kAccN; ++u) part[u] = 0.0f;
     for (int t0 = k0; t0 < k1; t0 += kTK) {
       if (g.causal && t0 > qpos_hi) break;
       const int t1 = min(t0 + kTK, k1);
@@ -1321,7 +1329,7 @@ __global__ void __launch_bounds__(kThreads) dq_kernel(BwdArgs a) {
       }
       __syncthreads();
 #pragma unroll
-      for (int u = 0; u < kAcc; ++u) {
+      for (int u = 0; u < kAccN; ++u) {
         const int e = tid + kThreads * u;
         if (e < kTQ * g.dk) {
           const int r = e / g.dk, c = e % g.dk;
@@ -1334,7 +1342,7 @@ __global__ void __launch_bounds__(kThreads) dq_kernel(BwdArgs a) {
     }
     // the kv block's dq contribution, rounded once (stream j)
 #pragma unroll
-    for (int u = 0; u < kAcc; ++u) {
+    for (int u = 0; u < kAccN; ++u) {
       const int e = tid + kThreads * u;
       if (e < kTQ * g.dk) {
         const int r = e / g.dk, c = e % g.dk;
@@ -1345,12 +1353,14 @@ __global__ void __launch_bounds__(kThreads) dq_kernel(BwdArgs a) {
     }
   }
 #pragma unroll
-  for (int u = 0; u < kAcc; ++u) {
+  for (int u = 0; u < kAccN; ++u) {
     const int e = tid + kThreads * u;
     if (e < kTQ * g.dk && e / g.dk < nr) a.dq[qbase * g.dk + e] = acc[u];
   }
 }
 
+// kAccN: kAccKV (d up to kDNarrow) or kAccKVWide (up to kDMax).
+template <int kAccN>
 __global__ void __launch_bounds__(kThreads) dkv_kernel(BwdArgs a) {
   extern __shared__ float smem[];
   const Geo& g = a.g;
@@ -1380,15 +1390,15 @@ __global__ void __launch_bounds__(kThreads) dkv_kernel(BwdArgs a) {
     const int c = e / g.dv, t = e % g.dv;
     Vs[c * ldv + t] = c < nc ? a.v[(kv_base + c) * g.dv + t] : 0.0f;
   }
-  float acc_k[kAccKV], part_k[kAccKV], acc_v[kAccKV], part_v[kAccKV];
+  float acc_k[kAccN], part_k[kAccN], acc_v[kAccN], part_v[kAccN];
 #pragma unroll
-  for (int u = 0; u < kAccKV; ++u) acc_k[u] = acc_v[u] = 0.0f;
+  for (int u = 0; u < kAccN; ++u) acc_k[u] = acc_v[u] = 0.0f;
   const int n_q = (g.rows + g.qb - 1) / g.qb;
 
   for (int i = 0; i < n_q; ++i) {
     const int q0 = i * g.qb, q1 = min(q0 + g.qb, g.rows);
 #pragma unroll
-    for (int u = 0; u < kAccKV; ++u) part_k[u] = part_v[u] = 0.0f;
+    for (int u = 0; u < kAccN; ++u) part_k[u] = part_v[u] = 0.0f;
     for (int rq0 = q0; rq0 < q1; rq0 += kTQB) {
       const int nq = min(kTQB, q1 - rq0);
       if (g.causal && g.q_offset + rq0 + nq - 1 < c0) continue;
@@ -1414,7 +1424,7 @@ __global__ void __launch_bounds__(kThreads) dkv_kernel(BwdArgs a) {
       }
       __syncthreads();
 #pragma unroll
-      for (int u = 0; u < kAccKV; ++u) {
+      for (int u = 0; u < kAccN; ++u) {
         const int e = tid + kThreads * u;
         if (e < kTKV * g.dv) {
           const int c = e / g.dv, cc = e % g.dv;
@@ -1435,7 +1445,7 @@ __global__ void __launch_bounds__(kThreads) dkv_kernel(BwdArgs a) {
     // the q block's dk (qk spec) and dv (av spec) contributions, rounded
     // once each, keyed by (k position, column) on stream i
 #pragma unroll
-    for (int u = 0; u < kAccKV; ++u) {
+    for (int u = 0; u < kAccN; ++u) {
       const int e = tid + kThreads * u;
       if (e < kTKV * g.dv) {
         const int c = e / g.dv, cc = e % g.dv;
@@ -1453,7 +1463,7 @@ __global__ void __launch_bounds__(kThreads) dkv_kernel(BwdArgs a) {
   }
   const size_t obase = static_cast<size_t>(bh) * g.kv_rows + c0;
 #pragma unroll
-  for (int u = 0; u < kAccKV; ++u) {
+  for (int u = 0; u < kAccN; ++u) {
     const int e = tid + kThreads * u;
     if (e < kTKV * g.dv && e / g.dv < nc) a.dv[obase * g.dv + e] = acc_v[u];
     if (e < kTKV * g.dk && e / g.dk < nc) a.dk[obase * g.dk + e] = acc_k[u];
@@ -1463,15 +1473,17 @@ __global__ void __launch_bounds__(kThreads) dkv_kernel(BwdArgs a) {
 // ---------------------------------------------------------------------------
 // K7 / K7': the tiled backward (dq_tile_kernel, dkv_tile_kernel).
 // ---------------------------------------------------------------------------
-// Each block takes 64 rows of one head -- query rows (K7) or keys (K7') --
-// and walks the other side in tiles of 64, the first versions' 64-key
-// tiles in K7.  Per tile, thread (rq, kq) = (tid / 16, tid % 16) computes
-// the 4 x 4 pairs of rows 4 rq.. and keys 4 kq..: 16 logit chains and 16
-// dp chains from float4 shared loads (k and v rows swizzled by 16-byte
-// chunk), the four keys' qk draws of a row from one or two Threefry
-// evaluations (site_bits4), then p and ds exactly as p_ds forms them,
-// written once to shared memory.  The products follow: a thread owns
-// D / 16 rows x 4 columns of dq (K7), or of dk and dv (K7').
+// Each block takes kBR rows of one head -- query rows (K7) or keys (K7')
+// -- and walks the other side in tiles of kBT rows: 64 and 64 up to d =
+// 128, 32 and 32 at d = 256, where 64-row blocks would not fit in shared
+// memory (410,368 and 295,680 B).  Per tile, thread (rq, kq) = (tid /
+// (kBT / 4), tid % (kBT / 4)) computes the kPairRows x 4 pairs of rows
+// kPairRows rq.. and keys 4 kq..: 16 (or 4 at d = 256) logit chains and as
+// many dp chains from float4 shared loads (k and v rows swizzled by
+// 16-byte chunk), the four keys' qk draws of a row from one or two
+// Threefry evaluations (site_bits4), then p and ds exactly as p_ds forms
+// them, written once to shared memory.  The products follow: a thread owns
+// kBR D / (4 kThreads) rows x 4 columns of dq (K7), or of dk and dv (K7').
 //
 // Bitwise the first versions.  Every chain keeps its operands and order:
 // a logit is qk_logit's fmaf chain over t = 0..d-1, dp is dot's, dq sums
@@ -1484,51 +1496,62 @@ __global__ void __launch_bounds__(kThreads) dkv_kernel(BwdArgs a) {
 // included, and no other (fmaf(+0, x, -0) is +0): the first versions cut
 // by their 32-row (K7) or 32-key (K7') blocks, so each thread cuts its
 // chains by the 32-row or 32-key block its own rows lie in -- K7 at that
-// block's causal edge in 64-key tiles, K7' after the 32-row tiles whose
-// rows all precede that block's first key.
-constexpr int kBR = 64;   // rows per block: query rows (K7), keys (K7')
-constexpr int kBT = 64;   // rows per tile: keys (K7), query rows (K7')
-static_assert(kBT == kTK, "K7's tiles are the first version's key tiles");
+// block's causal edge in the first version's 64-key tiles (whole tiles of
+// kBT keys), K7' after the 32-row tiles whose rows all precede that
+// block's first key.
+
+// rows of a tiled block and of a tile at head dim d (BwdShape::kBR, kBT)
+__host__ __device__ constexpr int bwd_rows(int d) { return d > 128 ? 32 : 64; }
 
 template <int D>
 struct BwdShape {
   static constexpr int kChunks = D / 4;
   static constexpr int kSwizzle = FwdShape<D>::kSwizzle;
+  static constexpr int kBR = bwd_rows(D);   // query rows (K7), keys (K7')
+  static constexpr int kBT = kBR;           // keys (K7), query rows (K7')
   static constexpr int kRows = kBR * kChunks / kThreads;   // output rows
+  // the pairs of a tile: kBT / 4 key quads, kPairRows rows a thread
+  static constexpr int kQuads = kBT / 4;
+  static constexpr int kPairRows = kBR * kBT / (4 * kThreads);
   // two blocks per SM where their shared memory fits (d <= 64)
   static constexpr int kMinBlocks = D <= 64 ? 2 : 1;
+  static_assert(kTK % kBT == 0 && kBR % kTQ == 0 && kBT % kTQB == 0,
+                "tiles and blocks cut the first versions' tiles whole");
 };
 
 size_t dq_tile_smem(int d) {   // q, dO; two k and two v tiles; ds; stats
-  return sizeof(float) * (2 * kBR * d + 4 * kBT * d + kBR * kBT + 3 * kBR);
+  const size_t r = bwd_rows(d);
+  return sizeof(float) * (2 * r * d + 4 * r * d + r * r + 3 * r);
 }
 
 size_t dkv_tile_smem(int d) {  // k, v; a q and a dO tile; p, ds; stats
-  return sizeof(float) * (2 * kBR * d + 2 * kBT * d + 2 * kBT * kBR + 3 * kBT);
+  const size_t r = bwd_rows(d);
+  return sizeof(float) * (2 * r * d + 2 * r * d + 2 * r * r + 3 * r);
 }
 
-// The 4 x 4 dot products of rows 4 rq.. of A (row stride D) with rows
+// The PR x 4 dot products of rows PR rq.. of A (row stride D) with rows
 // 4 kq.. of the swizzled B, each an fmaf chain over t = 0..D-1 in order.
-template <int D>
+template <int D, int PR>
 __device__ __forceinline__ void patch_dots(const float* A, const float* B,
-                                           int rq, int kq, float (&s)[4][4]) {
+                                           int rq, int kq,
+                                           float (&s)[PR][4]) {
   using S = BwdShape<D>;
 #pragma unroll
-  for (int r = 0; r < 4; ++r)
+  for (int r = 0; r < PR; ++r)
     s[r][0] = s[r][1] = s[r][2] = s[r][3] = 0.0f;
 #pragma unroll 4
   for (int t = 0; t < D; t += 4) {
-    float4 af[4], bf[4];
+    float4 af[PR], bf[4];
 #pragma unroll
-    for (int r = 0; r < 4; ++r)
-      af[r] = *reinterpret_cast<const float4*>(A + (4 * rq + r) * D + t);
+    for (int r = 0; r < PR; ++r)
+      af[r] = *reinterpret_cast<const float4*>(A + (PR * rq + r) * D + t);
     const int pch = (t / 4) ^ (kq & S::kSwizzle);
 #pragma unroll
     for (int c = 0; c < 4; ++c)
       bf[c] = *reinterpret_cast<const float4*>(B + (4 * kq + c) * D +
                                                4 * pch);
 #pragma unroll
-    for (int r = 0; r < 4; ++r)
+    for (int r = 0; r < PR; ++r)
 #pragma unroll
       for (int c = 0; c < 4; ++c) {
         s[r][c] = fmaf(af[r].x, bf[c].x, s[r][c]);
@@ -1609,13 +1632,14 @@ __device__ __forceinline__ void load_run(const float* p, float (&x)[N]) {
   }
 }
 
-// K7: 64 query rows of one head per block, the last rows' blocks (the
+// K7: kBR query rows of one head per block, the last rows' blocks (the
 // heaviest under a causal mask) launched first.
 template <int D>
 __global__ void __launch_bounds__(kThreads, BwdShape<D>::kMinBlocks)
 dq_tile_kernel(BwdArgs a) {
   using S = BwdShape<D>;
-  constexpr int R = S::kRows;
+  constexpr int R = S::kRows, PR = S::kPairRows;
+  constexpr int kBR = S::kBR, kBT = S::kBT;
   extern __shared__ float smem[];
   const Geo& g = a.g;
   const int bh = blockIdx.x;
@@ -1647,7 +1671,7 @@ dq_tile_kernel(BwdArgs a) {
                    row_d + tid);
   else if (tid < kBR)
     row_safe[tid] = row_linv[tid] = row_d[tid] = 0.0f;
-  const int kq = tid % 16, rq = tid / 16;                   // pairs
+  const int kq = tid % S::kQuads, rq = tid / S::kQuads;     // pairs
   const int pc = tid % S::kChunks, pr = tid / S::kChunks;   // dq outputs
   // the causal edge of the block, and of the first version's 32-row block
   // that holds this thread's dq rows
@@ -1691,13 +1715,13 @@ dq_tile_kernel(BwdArgs a) {
       const float* Kt = Ks + (i & 1) * kBT * D;
       const float* Vt = Vs + (i & 1) * kBT * D;
       {
-        float s[4][4], dp[4][4];
-        patch_dots<D>(Qs, Kt, rq, kq, s);
-        patch_dots<D>(dOs, Vt, rq, kq, dp);
+        float s[PR][4], dp[PR][4];
+        patch_dots<D, PR>(Qs, Kt, rq, kq, s);
+        patch_dots<D, PR>(dOs, Vt, rq, kq, dp);
         const int kpos0 = t0 + 4 * kq;
 #pragma unroll
-        for (int r = 0; r < 4; ++r) {
-          const int rr = 4 * rq + r;
+        for (int r = 0; r < PR; ++r) {
+          const int rr = PR * rq + r;
           const int qpos = g.q_offset + r0 + rr;
           uint32_t bits[4];
           site_bits4(p_qk, w, 0u, static_cast<uint32_t>(qpos),
@@ -1773,14 +1797,15 @@ dq_tile_kernel(BwdArgs a) {
   __pipeline_wait_prior(0);
 }
 
-// K7': 64 keys of one head per block (the first keys, the heaviest under
+// K7': kBR keys of one head per block (the first keys, the heaviest under
 // a causal mask, launched first); per logical q block, q and dO in tiles
-// of 64 rows.
+// of kBT rows.
 template <int D>
 __global__ void __launch_bounds__(kThreads, BwdShape<D>::kMinBlocks)
 dkv_tile_kernel(BwdArgs a) {
   using S = BwdShape<D>;
-  constexpr int R = S::kRows;
+  constexpr int R = S::kRows, PR = S::kPairRows;
+  constexpr int kBR = S::kBR, kBT = S::kBT;
   extern __shared__ float smem[];
   const Geo& g = a.g;
   const int bh = blockIdx.x;
@@ -1807,7 +1832,7 @@ dkv_tile_kernel(BwdArgs a) {
   __pipeline_commit();
   for (int e = nc * D + tid; e < kBR * D; e += kThreads)
     Ks[e] = Vs[e] = 0.0f;
-  const int kq = tid % 16, rq = tid / 16;                   // pairs
+  const int kq = tid % S::kQuads, rq = tid / S::kQuads;     // pairs
   const int pc = tid % S::kChunks, pk = tid / S::kChunks;   // dk, dv
   // the first key of the first version's 32-key block that holds this
   // thread's keys
@@ -1840,13 +1865,13 @@ dkv_tile_kernel(BwdArgs a) {
       __pipeline_wait_prior(0);
       __syncthreads();
       {
-        float s[4][4], dp[4][4];
-        patch_dots<D>(Qs, Ks, rq, kq, s);
-        patch_dots<D>(dOs, Vs, rq, kq, dp);
+        float s[PR][4], dp[PR][4];
+        patch_dots<D, PR>(Qs, Ks, rq, kq, s);
+        patch_dots<D, PR>(dOs, Vs, rq, kq, dp);
         const int kpos0 = c0 + 4 * kq;
 #pragma unroll
-        for (int r = 0; r < 4; ++r) {
-          const int rr = 4 * rq + r;
+        for (int r = 0; r < PR; ++r) {
+          const int rr = PR * rq + r;
           const int qpos = g.q_offset + t0 + rr;
           uint32_t bits[4];
           site_bits4(p_qk, w, 0u, static_cast<uint32_t>(qpos),
@@ -1990,7 +2015,7 @@ int decode_launch(const float* q, const void* k, const void* v,
                   int n_max, int page, int stride, int length, int dk,
                   int dv, int window, float scale, const int* site_ints,
                   const float* site_xmax, void* stream) {
-  if (dk > kDMaxFwd || dv > kDMaxFwd || dk < 1 || dv < 1 || page < 1 ||
+  if (dk > kDMax || dv > kDMax || dk < 1 || dv < 1 || page < 1 ||
       n_kv < 1 || n_max < 1 || G < 1 || BKV % n_kv != 0 ||
       BKV / n_kv > 65535 || n_kv > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
@@ -2064,10 +2089,10 @@ size_t fwd_smem(int dk, int dv) {
 // fwd_kernel for a call: its kAcc instance where the head dims allow.
 int launch_fwd_kernel(const FwdArgs& a, dim3 grid, void* stream) {
   const Geo& g = a.g;
-  if (g.dk > kDMaxFwd || g.dv > kDMaxFwd)
+  if (g.dk > kDMax || g.dv > kDMax)
     return static_cast<int>(cudaErrorInvalidValue);
   const size_t smem = fwd_smem(g.dk, g.dv);
-  if (g.dk <= kDMax && g.dv <= kDMax)
+  if (g.dk <= kDNarrow && g.dv <= kDNarrow)
     return launch(fwd_kernel<kAcc>, grid, smem, a, stream);
   return launch(fwd_kernel<kAccWide>, grid, smem, a, stream);
 }
@@ -2193,7 +2218,7 @@ extern "C" int flash_decode_paged(const float* q, const void* k,
 }
 
 // K7: the tiled kernel (dq_tile_kernel), for dk == dv in {16, 32, 64,
-// 128}; any other shape is refused, and the wrapper launches
+// 128, 256}; any other shape is refused, and the wrapper launches
 // flash_bwd_dq_simple instead.  Bit for bit flash_bwd_dq_simple.
 extern "C" int flash_bwd_dq(const float* q, const float* k, const float* v,
                             const float* dO, const float* m, const float* l,
@@ -2204,7 +2229,7 @@ extern "C" int flash_bwd_dq(const float* q, const float* k, const float* v,
                             const int* site_ints, const float* site_xmax,
                             void* stream) {
   const size_t smem = dq_tile_smem(dk);
-  const dim3 grid(BH, (Sq + kBR - 1) / kBR);
+  const dim3 grid(BH, (Sq + bwd_rows(dk) - 1) / bwd_rows(dk));
   if (dk != dv || kb < 1 || smem > static_cast<size_t>(kSmemMax) ||
       grid.y > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
@@ -2217,12 +2242,14 @@ extern "C" int flash_bwd_dq(const float* q, const float* k, const float* v,
     case 32: return launch_bwd(dq_tile_kernel<32>, grid, smem, a, stream);
     case 64: return launch_bwd(dq_tile_kernel<64>, grid, smem, a, stream);
     case 128: return launch_bwd(dq_tile_kernel<128>, grid, smem, a, stream);
+    case 256: return launch_bwd(dq_tile_kernel<256>, grid, smem, a, stream);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
 
 // K7's first kernel (dq_kernel): the independent reference flash_bwd_dq is
-// held against, and the route for the shapes it refuses.
+// held against, and the route for the shapes it refuses (dk, dv up to
+// 256: its wide instance above 128).
 extern "C" int flash_bwd_dq_simple(const float* q, const float* k,
                                    const float* v, const float* dO,
                                    const float* m, const float* l,
@@ -2242,11 +2269,13 @@ extern "C" int flash_bwd_dq_simple(const float* q, const float* k,
       sizeof(float) * (kTQ * dk + kTQ * dv + kTK * (dk + 1) + kTK * (dv + 1) +
                        kTQ * kTK + 3 * kTQ);
   const dim3 grid((Sq + kTQ - 1) / kTQ, BH);
-  return launch(dq_kernel, grid, smem, a, stream);
+  if (dk <= kDNarrow && dv <= kDNarrow)
+    return launch(dq_kernel<kAcc>, grid, smem, a, stream);
+  return launch(dq_kernel<kAccWide>, grid, smem, a, stream);
 }
 
 // K7': the tiled kernel (dkv_tile_kernel), for dk == dv in {16, 32, 64,
-// 128}; any other shape is refused, and the wrapper launches
+// 128, 256}; any other shape is refused, and the wrapper launches
 // flash_bwd_dkv_simple instead.  Bit for bit flash_bwd_dkv_simple.
 extern "C" int flash_bwd_dkv(const float* q, const float* k, const float* v,
                              const float* dO, const float* m, const float* l,
@@ -2257,7 +2286,7 @@ extern "C" int flash_bwd_dkv(const float* q, const float* k, const float* v,
                              int window, float scale, const int* site_ints,
                              const float* site_xmax, void* stream) {
   const size_t smem = dkv_tile_smem(dk);
-  const dim3 grid(BH, (Skv + kBR - 1) / kBR);
+  const dim3 grid(BH, (Skv + bwd_rows(dk) - 1) / bwd_rows(dk));
   if (dk != dv || qb < 1 || smem > static_cast<size_t>(kSmemMax) ||
       grid.y > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
@@ -2270,12 +2299,14 @@ extern "C" int flash_bwd_dkv(const float* q, const float* k, const float* v,
     case 32: return launch_bwd(dkv_tile_kernel<32>, grid, smem, a, stream);
     case 64: return launch_bwd(dkv_tile_kernel<64>, grid, smem, a, stream);
     case 128: return launch_bwd(dkv_tile_kernel<128>, grid, smem, a, stream);
+    case 256: return launch_bwd(dkv_tile_kernel<256>, grid, smem, a, stream);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
 
 // K7''s first kernel (dkv_kernel): the independent reference flash_bwd_dkv
-// is held against, and the route for the shapes it refuses.
+// is held against, and the route for the shapes it refuses (dk, dv up to
+// 256: its wide instance above 128).
 extern "C" int flash_bwd_dkv_simple(const float* q, const float* k,
                                     const float* v, const float* dO,
                                     const float* m, const float* l,
@@ -2295,5 +2326,7 @@ extern "C" int flash_bwd_dkv_simple(const float* q, const float* k,
       sizeof(float) * (kTKV * (dk + 1) + kTKV * (dv + 1) + kTQB * dk +
                        kTQB * dv + 2 * kTQB * (kTKV + 1) + 3 * kTQB);
   const dim3 grid((Skv + kTKV - 1) / kTKV, BH);
-  return launch(dkv_kernel, grid, smem, a, stream);
+  if (dk <= kDNarrow && dv <= kDNarrow)
+    return launch(dkv_kernel<kAccKV>, grid, smem, a, stream);
+  return launch(dkv_kernel<kAccKVWide>, grid, smem, a, stream);
 }

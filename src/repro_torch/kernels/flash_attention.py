@@ -68,10 +68,10 @@ SITE_QK, SITE_AV, SITE_OUT = 0, 1, 2
 SITE_BWD_A, SITE_BWD_B = 1, 2
 _DEF_BLOCK = 512
 _MODES = {"rn": 0, "sr": 1}
-# head dims each kernel takes (the reference's take any): K6, K9 and K10
-# up to 256 (gemma-7b's), K7 and K7' up to 128
+# head dims each kernel takes (the reference's take any): up to 256,
+# gemma-7b's
 D_MAX = {"flash_fwd": 256, "flash_decode": 256, "flash_decode_paged": 256,
-         "flash_bwd_dq": 128, "flash_bwd_dkv": 128}
+         "flash_bwd_dq": 256, "flash_bwd_dkv": 256}
 
 LAUNCHES: Dict[str, int] = {"flash_fwd": 0, "flash_fwd_two_pass": 0,
                             "flash_bwd_dq": 0, "flash_bwd_dq_simple": 0,
@@ -83,10 +83,10 @@ LAUNCHES: Dict[str, int] = {"flash_fwd": 0, "flash_fwd_two_pass": 0,
 FWD_DIMS = (16, 32, 64, 128, 256)
 FWD_ROWS = 32
 SMEM_MAX = 232448
-# the tiled backward (K7, K7'): head dims it is compiled for, rows a block
-# owns (query rows, keys) and rows a tile holds (keys, query rows)
-BWD_DIMS = (16, 32, 64, 128)
-BWD_ROWS = 64
+# the tiled backward (K7, K7'): head dims it is compiled for, and rows a
+# block owns (query rows, keys) and a tile holds (keys, query rows) at each
+# (``bwd_rows``)
+BWD_DIMS = (16, 32, 64, 128, 256)
 # the decode kernel (K10, K9): keys a round holds (V rows staged per
 # piece), pages a round takes at most
 DEC_KEYS = 128
@@ -468,10 +468,8 @@ def _check(tensors, what: str, d_max: int):
         if t.device != dev:
             raise ValueError(f"{what}: operands on different devices")
     if d_max > D_MAX[what]:
-        later = (" (training at head dim 256, gemma-7b's, is the next slice "
-                 "of the port)" if what.startswith("flash_bwd") else "")
         raise NotImplementedError(f"{what}: head dims above {D_MAX[what]} "
-                                  f"are not ported yet{later}")
+                                  "are not ported yet")
     return dev.type == "cpu"
 
 
@@ -551,14 +549,21 @@ def fwd_kernel_for(Skv: int, dk: int, dv: int, kv_block: int) -> str:
     return "flash_fwd"
 
 
+def bwd_rows(d: int) -> int:
+    """Rows of a tiled backward block and of its tiles at head dim ``d``
+    (``csrc/flash_attention.cu:bwd_rows``): 64, or 32 at d = 256, where
+    64-row blocks would not fit in shared memory."""
+    return 32 if d > 128 else 64
+
+
 def bwd_smem_bytes(grads: str, d: int) -> int:
     """Shared memory of one block of the tiled backward kernels
-    (``csrc/flash_attention.cu:dq_tile_smem``, ``dkv_tile_smem``): for
-    ``"dq"`` (K7) the block's q and dO rows, two k and two v tiles, the
-    tile's ds and three row statistics; for ``"dkv"`` (K7') the block's k
-    and v rows, one q and one dO tile, the tile's p and ds, the tile's row
-    statistics."""
-    r = BWD_ROWS
+    (``csrc/flash_attention.cu:dq_tile_smem``, ``dkv_tile_smem``) at
+    ``bwd_rows(d)`` rows: for ``"dq"`` (K7) the block's q and dO rows, two
+    k and two v tiles, the tile's ds and three row statistics; for
+    ``"dkv"`` (K7') the block's k and v rows, one q and one dO tile, the
+    tile's p and ds, the tile's row statistics."""
+    r = bwd_rows(d)
     if grads == "dq":
         return 4 * (2 * r * d + 4 * r * d + r * r + 3 * r)
     if grads == "dkv":

@@ -473,23 +473,82 @@ def _gelu_ops(g: torch.Tensor) -> torch.Tensor:
 
 
 @functools.lru_cache(maxsize=None)
-def _bf16_gelu_table(device: torch.device) -> torch.Tensor:
-    """``_gelu_ops`` of every bf16 value, indexed by its bit pattern + 2^15
+def _bf16_tables(device: torch.device) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``_gelu_ops`` of every bf16 value, and XLA's float32 tanh of it
+    rounded to bf16, each indexed by the value's bit pattern + 2^15
     (computed once on the CPU)."""
-    codes = torch.arange(-2 ** 15, 2 ** 15, dtype=torch.int32)
-    return _gelu_ops(codes.to(torch.int16).view(torch.bfloat16)).to(device)
+    x = torch.arange(-2 ** 15, 2 ** 15, dtype=torch.int32).to(
+        torch.int16).view(torch.bfloat16)
+    return (_gelu_ops(x).to(device),
+            tanh_f32(x.float()).to(torch.bfloat16).to(device))
+
+
+def _bf16_lookup(table: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    return table[x.contiguous().view(torch.int16).long() + 2 ** 15]
+
+
+def gelu_pullback(g: torch.Tensor, ct: torch.Tensor):
+    """(gelu(g), the cotangent of g) for the cotangent ``ct``:
+    ``jax.vjp(jax.nn.gelu, g)`` as the reference's compiled code computes
+    it, op by op in ``g``'s dtype, every operand and result flushed.  On
+    float32 (the fused FFN's pullback at the rounded gate) XLA fuses
+    three sums and folds two constants: with c = float32(sqrt(2 / pi)), t
+    = tanh(fma(0.044715, x² x, x) c) and cdf = (t + 1) 0.5, m = ((x ct)
+    0.5)(1 - t), a = fma(m, t, m), and the cotangent is fma(a k, x² 3,
+    fma(ct, cdf, a c)), k = float32(c 0.044715).  On bf16 (the unfused
+    FFN, compiled without excess precision) every operation rounds to
+    bf16, constants too, nothing fuses, and the tanh runs in float32 on
+    the bf16 argument: a lookup in a table of all 65,536 (no host sync on
+    the card).  ``csrc/geglu_pullback.cu`` is the card's float32 form."""
+    dt = g.dtype
+
+    def r(v):            # one operation's result, rounded to dt
+        return flush(v).to(dt).float()
+    x, ct = r(g.float()), r(ct.float())
+    c, k = _in(_SQRT_2_OVER_PI, dt), _in(_GELU_K, dt)
+    x2 = r(x * x)
+    x3 = r(x2 * x)
+    if dt == torch.float32:
+        t = tanh_f32(r(fma(k, x3, x) * c))
+    else:
+        t = _bf16_lookup(_bf16_tables(g.device)[1],
+                         r(r(x + r(x3 * k)) * c).to(dt)).float()
+    cdf = r(r(t + 1.0) * 0.5)
+    m = r(r(r(x * ct) * 0.5) * r(1.0 - t))
+    if dt == torch.float32:
+        a = fma(m, t, m)
+        dx = fma(r(a * float(np.float32(c) * np.float32(_GELU_K))),
+                 r(x2 * 3.0), fma(ct, cdf, r(a * c)))
+    else:
+        ac = r(r(m + r(m * t)) * c)
+        dx = r(r(r(ct * cdf) + ac) + r(r(ac * k) * r(x2 * 3.0)))
+    return r(x * cdf).to(dt), dx.to(dt)
+
+
+class _Gelu(torch.autograd.Function):
+    """``gelu`` with the reference's derivative (``gelu_pullback``)."""
+
+    @staticmethod
+    def forward(ctx, g):
+        ctx.save_for_backward(g)
+        if g.dtype == torch.bfloat16:
+            return _bf16_lookup(_bf16_tables(g.device)[0], g)
+        return _gelu_ops(g)
+
+    @staticmethod
+    def backward(ctx, ct):
+        (g,) = ctx.saved_tensors
+        return gelu_pullback(g, ct)[1]
 
 
 def gelu(g: torch.Tensor) -> torch.Tensor:
-    """The reference's ``jax.nn.gelu`` (``_gelu_ops``); on bf16 by a
-    lookup in ``_gelu_ops``' table of all 65,536 bf16 values, the same
-    bits in one gather (the op-by-op form's fused multiply-adds would
-    synchronise the card at every call).  ``csrc/rounding.cuh:gelu`` is
-    the card's float32 form."""
-    if g.dtype == torch.bfloat16:
-        idx = g.contiguous().view(torch.int16).long() + 2 ** 15
-        return _bf16_gelu_table(g.device)[idx]
-    return _gelu_ops(g)
+    """The reference's ``jax.nn.gelu`` (``_gelu_ops``), differentiable
+    with its derivative (``gelu_pullback``); on bf16 by a lookup in
+    ``_gelu_ops``' table of all 65,536 bf16 values, the same bits in one
+    gather (the op-by-op form's fused multiply-adds would synchronise the
+    card at every call).  ``csrc/rounding.cuh:gelu`` is the card's float32
+    form."""
+    return _Gelu.apply(g)
 
 
 def relu(g: torch.Tensor) -> torch.Tensor:

@@ -50,17 +50,20 @@ def tree_flatten(tree) -> Tuple[List[Any], Any]:
     return [tree], None
 
 
-def tree_unflatten(treedef, leaves):
-    it = iter(leaves)
+def _build(d, it):
+    if d is None:
+        return next(it)
+    kind, keys, children = d
+    if kind == "dict":
+        return {k: _build(c, it) for k, c in zip(keys, children)}
+    return [_build(c, it) for c in children]
 
-    def build(d):
-        if d is None:
-            return next(it)
-        kind, keys, children = d
-        if kind == "dict":
-            return {k: build(c) for k, c in zip(keys, children)}
-        return [build(c) for c in children]
-    return build(treedef)
+
+def tree_unflatten(treedef, leaves):
+    # a module-level recursion: a closure that calls itself would be a
+    # reference cycle holding ``leaves`` (the whole tree's tensors) until
+    # the cyclic collector runs, several GB per train step at full size
+    return _build(treedef, iter(leaves))
 
 
 def tree_leaves(tree) -> List[Any]:

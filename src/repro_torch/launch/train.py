@@ -117,6 +117,12 @@ PAPER_RUN = dict(arch="tinyllama-1.1b", batch=4, seq=256,
                  fmt="binary8", eps=0.1, update_path="fused")
 ADAM_RUN = dict(PAPER_RUN, optimizer="adam", moments_spec="bf16-sr",
                 ckpt_fmt="binary8", lr=4e-4)
+# gemma-7b trained at full width (GeGLU, 16 heads of 256, the tied 256000 x
+# 3072 embedding) with PAPER_RUN's batch, QSGD and update, its depth cut
+# from 28 layers to 4: 1,893,755,904 parameters, whose float32 masters,
+# momentum, bf16 casts and gradients fit one 80 GB card (all 28 layers,
+# 8.5 B parameters, would need ~170 GB)
+GEMMA_TRAIN_RUN = dict(PAPER_RUN, arch="gemma-7b", n_layers=4)
 
 
 @dataclasses.dataclass
@@ -153,12 +159,15 @@ def setup(arch: str, *, reduced: bool = False, batch: int = 8,
           eps: float = 0.1, momentum: float = 0.9, update_path: str = "jnp",
           gemm_policy=None, device=None, params=None,
           optimizer: str = "sgd", moments_spec: Optional[str] = None,
-          ckpt_fmt: Optional[str] = None) -> Trainer:
+          ckpt_fmt: Optional[str] = None,
+          n_layers: Optional[int] = None) -> Trainer:
     """The model, optimizer, state and data of a run; ``gemm_policy``: a
     preset or spec name, or a ``QuantPolicy``; ``moments_spec`` and
     ``ckpt_fmt`` are validated here, at launch.  ``params``: float32
     master parameters to start from (default: drawn from
-    ``torch.Generator(device).manual_seed(0)``)."""
+    ``torch.Generator(device).manual_seed(0)``).  ``n_layers``: the depth
+    cut, the architecture's first ``n_layers`` layers at full width (a
+    run's dict sets it, as ``GEMMA_TRAIN_RUN``; the CLI has no flag)."""
     dev = resolve_device(device)
     if moments_spec is not None:
         parse_moments_spec(moments_spec)
@@ -166,6 +175,10 @@ def setup(arch: str, *, reduced: bool = False, batch: int = 8,
     cfg = get_config(arch)
     if reduced:
         cfg = reduce_cfg(cfg)
+    if n_layers is not None:
+        if not 0 < n_layers <= cfg.n_layers:
+            raise ValueError(f"n_layers {n_layers} outside 1..{cfg.n_layers}")
+        cfg = dataclasses.replace(cfg, n_layers=n_layers)
     if gemm_policy is not None:
         cfg = dataclasses.replace(cfg, gemm_policy=gemm_policy)
     model = build_model(cfg)
@@ -197,6 +210,8 @@ def run(arch: str, *, ckpt_dir: str, steps: int = 50, batch: int = 8,
     fault log, tokens/s and the final state.  ``kw``: the rest of
     ``setup``'s arguments."""
     tr = setup(arch, batch=batch, seq=seq, **kw)
+    full = get_config(arch)      # its depth, printed beside a cut one
+    depth = (reduce_cfg(full) if kw.get("reduced") else full).n_layers
     injector = FaultInjector(fault_schedule, seed=fault_seed) \
         if fault_schedule else None
     # the loop holds the only reference to the state: the initial one goes
@@ -228,7 +243,8 @@ def run(arch: str, *, ckpt_dir: str, steps: int = 50, batch: int = 8,
             print(f"  step {h['step']:>5}  loss {h['loss']:.4f}  ce "
                   f"{h['ce']:.4f}  {h['ms']:.1f} ms  "
                   f"{batch * seq / (h['ms'] / 1e3):.1f} tok/s", flush=True)
-        print(f"arch={tr.cfg.name} params={n_params / 1e6:.1f}M "
+        print(f"arch={tr.cfg.name} layers={tr.cfg.n_layers}/{depth} "
+              f"params={n_params / 1e6:.1f}M "
               f"steps={out['final_step']} restarts={out['restarts']} "
               f"optimizer={kw.get('optimizer', 'sgd')} "
               f"update={kw.get('update_path', 'jnp')} device={tr.device} "
@@ -238,7 +254,8 @@ def run(arch: str, *, ckpt_dir: str, steps: int = 50, batch: int = 8,
             "fault_log": injector.log if injector else [],
             "resume_s": out["resume_s"], "save_s": out["save_s"],
             "mean_step_ms": mean_ms, "tokens_per_s": tok_s,
-            "params": params, "opt_state": opt_state, "n_params": n_params}
+            "params": params, "opt_state": opt_state, "n_params": n_params,
+            "n_layers": tr.cfg.n_layers, "depth": depth}
 
 
 DEFAULT_CKPT_DIR = os.path.join(tempfile.gettempdir(), "repro_train_ckpt")

@@ -7,7 +7,10 @@ and the down projection is a rounded GEMM.  Otherwise the hidden goes
 through the act rounding site (``qact``) between the GEMMs, the
 activation computed op by op in the activations' dtype as the reference's
 ``jax.nn.silu`` / ``jax.nn.gelu`` compute it (``kernels.qmatmul.silu``,
-``gelu``).  With no policy this is the plain bf16 FFN.  The reference's
+``gelu``), and differentiated as the reference differentiates them
+(``gelu`` through ``kernels.qmatmul.gelu_pullback``, the bf16 ops of
+``jax.vjp(jax.nn.gelu)``).  With no policy this is the plain bf16 FFN,
+which trains too (gemma-7b under the ``fp32`` baseline).  The reference's
 non-GLU FFNs (``gelu``, ``relu_sq``) need K3's activation epilogue
 (``qdot_act``), which is not ported yet: they raise.
 """

@@ -21,11 +21,14 @@ unpacked run's, bit for bit, with the (M, d_ff) hidden crossing memory in
 
 When autograd needs it, the forward also keeps K4''s rounded branches g_r
 and u_r, and the backward is the reference's ``_qffn_glu_bwd``: the down
-projection's dgrad/wgrad, SiLU's pullback in float32 at the *rounded* gate,
-straight through both rounding sites, and the gate/up dgrad/wgrad -- six
-K3' launches.  The backward is ported for SiLU only: under another
-activation a forward that autograd would differentiate raises (training
-at gemma-7b's GeGLU is the next slice of the port).
+projection's dgrad/wgrad, the activation's pullback in float32 at the
+*rounded* gate, straight through both rounding sites, and the gate/up
+dgrad/wgrad -- six K3' launches.  The pullback is SiLU's (``silu_pullback``,
+plain tensor ops) or GELU's: ``gelu_pullback`` op by op, as XLA computes
+``jax.vjp(jax.nn.gelu)``, which on the card runs as one kernel with the
+products dgate and dup (``kernels.geglu_pullback``, one launch per layer
+and step).  Under relu and relu_sq (no ported config trains them) a
+forward that autograd would differentiate raises.
 """
 from __future__ import annotations
 
@@ -34,8 +37,9 @@ from typing import Optional
 import torch
 
 from repro_torch.kernels import common
-from repro_torch.kernels.qmatmul import (STREAM_ACT, qmatmul_swiglu,
-                                         qmatmul_swiglu_prng)
+from repro_torch.kernels.geglu_pullback import geglu_pullback
+from repro_torch.kernels.qmatmul import (STREAM_ACT, gelu_pullback,
+                                         qmatmul_swiglu, qmatmul_swiglu_prng)
 from repro_torch.precision.policy import (SITE_ACT, SITE_DGRAD, SITE_FWD,
                                           SITE_WGRAD, TAG_FFN_ACT,
                                           TAG_FFN_DOWN, TAG_FFN_GATE,
@@ -118,13 +122,18 @@ def silu_pullback(g_r: torch.Tensor, ct: torch.Tensor):
     return g_r * s, ct * s + (ct * g_r) * (s * (1.0 - s))
 
 
+# (act(g_r), the cotangent of g_r) of each activation whose backward is
+# ported; gelu_pullback is kernels.qmatmul's (the unfused gelu's too)
+ACT_PULLBACKS = {"silu": silu_pullback, "gelu": gelu_pullback}
+
+
 class _QFfnGlu(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x2, wg, wu, wd, policy: QuantPolicy, words: Words,
                 act: str):
         h, g_r, u_r = _glu(policy, act, x2, wg, wu, words, residuals=True)
         ctx.save_for_backward(x2, wg, wu, wd, h, g_r, u_r)
-        ctx.policy, ctx.words = policy, words
+        ctx.policy, ctx.words, ctx.act = policy, words, act
         return _down(policy, h, wd, words)
 
     @staticmethod
@@ -140,11 +149,14 @@ class _QFfnGlu(torch.autograd.Function):
         w_down = fold_words(words, TAG_FFN_DOWN)
         dh = site_matmul(policy, SITE_DGRAD, g, wd.t().contiguous(), w_down)
         dwd = site_matmul(policy, SITE_WGRAD, h.t().contiguous(), g, w_down)
-        # straight through the activation-site rounding; SiLU's pullback at
-        # the rounded gate
-        act_out, dgate = silu_pullback(g_r, dh * u_r)
-        dup = (dh * act_out).contiguous()
-        dgate = dgate.contiguous()
+        # straight through the activation-site rounding; the activation's
+        # pullback at the rounded gate
+        if ctx.act == "gelu":
+            dgate, dup = geglu_pullback(g_r, u_r, dh)
+        else:
+            act_out, dgate = silu_pullback(g_r, dh * u_r)
+            dup = (dh * act_out).contiguous()
+            dgate = dgate.contiguous()
         w_gate = fold_words(words, TAG_FFN_GATE)
         w_up = fold_words(words, TAG_FFN_UP)
         dx = (site_matmul(policy, SITE_DGRAD, dgate, wg.t().contiguous(),
@@ -173,10 +185,10 @@ def qffn_glu(x: torch.Tensor, w_gate: torch.Tensor, w_up: torch.Tensor,
     # cast is needed (a no-op for weights stored in bf16)
     wg, wu, wd = (w.to(x.dtype) for w in (w_gate, w_up, w_down))
     if needs_grad(x2, wg, wu, wd):
-        if act != "silu":
+        if act not in ACT_PULLBACKS:
             raise NotImplementedError(f"qffn_glu: the backward under act="
-                                      f"{act!r} is not ported yet (training "
-                                      "with GeGLU is the next slice)")
+                                      f"{act!r} is not ported yet (no ported "
+                                      "config trains it)")
         out = _QFfnGlu.apply(x2, wg, wu, wd, policy, words, act)
     else:
         out = _down(policy, _glu(policy, act, x2, wg, wu, words, False), wd,

@@ -777,6 +777,8 @@ BWD_PLANS = [
     (8, 8, "flash_bwd_dq_simple", "flash_bwd_dkv_simple"),
     (64, 32, "flash_bwd_dq_simple", "flash_bwd_dkv_simple"),
     (32, 64, "flash_bwd_dq_simple", "flash_bwd_dkv_simple"),
+    (256, 256, "flash_bwd_dq", "flash_bwd_dkv"),   # gemma-7b's: 32-row
+    (256, 128, "flash_bwd_dq_simple", "flash_bwd_dkv_simple"),   # blocks
 ]
 
 
@@ -791,7 +793,8 @@ def test_bwd_smem_bytes():
     statistics; K7''s: k and v rows, a q and a dO tile, p and ds, the
     statistics.  At the train step's d = 64 two blocks of each fit an SM's
     233,472 bytes (1 KB of them reserved per block); every compiled head
-    dim fits one block."""
+    dim fits one block, d = 256 at 32 rows a block and tile (64 would take
+    410,368 and 295,680 bytes)."""
     assert TF.bwd_smem_bytes("dq", 64) == 4 * (2 * 64 * 64 + 4 * 64 * 64
                                                + 64 * 64 + 3 * 64)
     assert TF.bwd_smem_bytes("dq", 64) == 115456
@@ -802,6 +805,12 @@ def test_bwd_smem_bytes():
         assert 2 * (TF.bwd_smem_bytes(grads, 64) + 1024) <= 233472
         for d in TF.BWD_DIMS:
             assert TF.bwd_smem_bytes(grads, d) <= TF.SMEM_MAX
+    assert [TF.bwd_rows(d) for d in TF.BWD_DIMS] == [64, 64, 64, 64, 32]
+    assert TF.bwd_smem_bytes("dq", 256) == 4 * (2 * 32 * 256 + 4 * 32 * 256
+                                                + 32 * 32 + 3 * 32)
+    assert TF.bwd_smem_bytes("dq", 256) == 201088 <= TF.SMEM_MAX
+    assert TF.bwd_smem_bytes("dkv", 256) == 139648
+    assert 4 * (6 * 64 * 256 + 64 * 64 + 3 * 64) == 410368 > TF.SMEM_MAX
     with pytest.raises(ValueError, match="grads"):
         TF.bwd_smem_bytes("dx", 64)
 

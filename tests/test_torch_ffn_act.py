@@ -247,15 +247,24 @@ def test_qffn_glu_gelu_matches_reference(interpret_params, preset):
 
 
 def test_qffn_glu_gelu_backward_is_not_ported():
+    """Under relu and relu_sq the backward is not ported (no ported config
+    trains them): a forward that autograd would differentiate raises;
+    gelu's is ported now (tests/test_torch_gemma_train.py holds it to the
+    reference) and runs; the forward alone (no autograd) runs under each."""
     x, wg, wu, wd = _t(*_ffn_inputs(22))
     tctx = tp.QuantCtx(tp.get_policy("binary8-paper"), (1, 2))
     wg.requires_grad_(True)
-    with pytest.raises(NotImplementedError, match="next slice"):
-        tfused.qffn_glu(x, wg, wu, wd, tctx, act="gelu")
+    for act in ("relu", "relu_sq"):
+        with pytest.raises(NotImplementedError, match="not ported"):
+            tfused.qffn_glu(x, wg, wu, wd, tctx, act=act)
+    out = tfused.qffn_glu(x, wg, wu, wd, tctx, act="gelu")
+    out.sum().backward()
+    assert wg.grad.shape == wg.shape
     # the forward alone (no autograd) runs
     with torch.no_grad():
-        out = tfused.qffn_glu(x, wg, wu, wd, tctx, act="gelu")
-    assert out.shape == (2, 3, 32)
+        for act in ("gelu", "relu", "relu_sq"):
+            out = tfused.qffn_glu(x, wg, wu, wd, tctx, act=act)
+            assert out.shape == (2, 3, 32)
 
 
 @pytest.mark.parametrize("policy", [None, "engine"])

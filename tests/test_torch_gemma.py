@@ -240,21 +240,30 @@ def test_configs_match_reference_and_count_parameters():
 
 
 def test_attention_head_dim_limits():
-    """K6, K9 and K10 take head dims up to 256, K7 and K7' up to 128 (the
-    next slice trains at 256), on the CPU twins too."""
+    """Every attention kernel (K6, K7, K7', K9, K10) takes head dims up to
+    256, gemma-7b's, and refuses wider ones before any work, on the CPU
+    twins too."""
     assert tfa.D_MAX == {"flash_fwd": 256, "flash_decode": 256,
-                         "flash_decode_paged": 256, "flash_bwd_dq": 128,
-                         "flash_bwd_dkv": 128}
+                         "flash_decode_paged": 256, "flash_bwd_dq": 256,
+                         "flash_bwd_dkv": 256}
     q = torch.zeros((2, 3, 512))
     sp = [parse_spec("binary8-sr")] * 3
     seeds = np.zeros((2, 6), np.uint64)
     with pytest.raises(NotImplementedError, match="above 256"):
         tfa.flash_fwd(q, q, q, seeds, sp, scale=0.1, n_heads=2, n_kv=2)
-    q = q[..., :256]
     st = torch.ones((2, 3))
-    with pytest.raises(NotImplementedError, match="next slice"):
+    with pytest.raises(NotImplementedError, match="above 256"):
         tfa.flash_bwd_dq(q, q, q, q, st, st, st, seeds[:, :4], sp[0], sp[0],
                          scale=0.1, n_heads=2, n_kv=2)
+    with pytest.raises(NotImplementedError, match="above 256"):
+        tfa.flash_bwd_dkv(q, q, q, q, st, st, st, seeds, *sp, scale=0.1,
+                          n_heads=2, n_kv=2)
+    q = q[..., :256]
+    dq = tfa.flash_bwd_dq(q, q, q, q, st, st, st, seeds[:, :4], sp[0], sp[0],
+                          scale=0.1, n_heads=2, n_kv=2)
+    dk, dv = tfa.flash_bwd_dkv(q, q, q, q, st, st, st, seeds, *sp, scale=0.1,
+                               n_heads=2, n_kv=2)
+    assert dq.shape == dk.shape == dv.shape == (2, 3, 256)
 
 
 def test_serve_run_gemma_and_phi3_cli_reduced(capsys):

@@ -59,7 +59,9 @@ same words on any input (one main loop), and to their twins under the
 GEMM contract; K1 and K1''s signed-SRe branch bitwise on any input, K1's
 path instance bitwise its generic one;
 packed outputs are bitwise the codes of the float outputs, packed
-operands sum bitwise as their values.
+operands sum bitwise as their values.  K7 and K7' at head dim 256
+(32-row blocks) are held as at the other head dims; the GeGLU pullback
+kernel is bitwise its twin on any input (any NaN equal to any NaN).
 """
 import math
 
@@ -744,6 +746,21 @@ BWD_CASES = [
     (8, 1, 1, 200, 64, 64, 64, 0, True, 0, "binary8-sr", "negzero"),
     (8, 1, 1, 200, 64, 64, 64, 5, True, 0, "binary8-sr", "inf"),
     (8, 1, 1, 200, 32, 48, 30, 70, True, 0, "binary8-sr", "inf"),
+    # head dim 256 (gemma-7b's: 32-row blocks and tiles): the train step's
+    # one block of 256 (MHA), ragged blocks, 32/16/8-bit draws and rn, an
+    # offset, blocks off 32 rows, a window, no causal mask, -0 partials and
+    # the infinite rows
+    (16, 16, 1, 256, 256, 1024, 1024, 0, True, 0, "binary8-sr", "normal"),
+    (4, 1, 1, 200, 256, 64, 64, 0, True, 0, "binary8-sr", "normal"),
+    (4, 2, 1, 200, 256, 64, 64, 0, True, 0, "binary8-sr-r16", "normal"),
+    (4, 2, 1, 200, 256, 64, 64, 0, True, 0, "binary8-sr-r8", "normal"),
+    (4, 2, 1, 200, 256, 64, 64, 0, True, 0, "binary8-rn", "normal"),
+    (4, 4, 1, 150, 256, 48, 30, 7, True, 0, "binary8-sr", "normal"),
+    (4, 2, 1, 130, 256, 40, 100, 3, True, 37, "binary8-sr-r16", "normal"),
+    (4, 2, 1, 77, 256, 32, 16, 0, False, 0, "binary8-sr-r8", "normal"),
+    (4, 1, 1, 200, 256, 64, 64, 0, True, 0, "binary8-sr", "negzero"),
+    (4, 1, 1, 200, 256, 64, 64, 5, True, 0, "binary8-sr", "inf"),
+    (4, 1, 1, 200, 256, 48, 30, 70, True, 0, "binary8-sr", "inf"),
 ]
 
 
@@ -809,12 +826,14 @@ def test_flash_bwd_tiled_matches_first_version(cuda, case):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("dk,dv", [(48, 48), (64, 32)])
+@pytest.mark.parametrize("dk,dv", [(48, 48), (64, 32), (256, 128),
+                                   (128, 256), (200, 200)])
 def test_flash_bwd_first_kernels_where_not_compiled(cuda, dk, dv):
-    """Head dims the tiled kernels are not compiled for (d = 48, dk != dv)
-    launch the first kernels, counted under their own names, within the
-    attention contract of the twins; forcing the tiled kernel there raises
-    before any launch."""
+    """Head dims the tiled kernels are not compiled for (d = 48, dk != dv,
+    d = 200; above 128 the first kernels' wide instances) launch the first
+    kernels, counted under their own names, within the attention contract
+    of the twins; forcing the tiled kernel there raises before any
+    launch."""
     H, KV, S = 4, 2, 90
     specs = [parse_spec("binary8-sr")] * 3
     q, k, v, do = _bwd_case(H, KV, 1, S, dk, 0, "normal", cuda, 3, dv=dv)
@@ -2096,14 +2115,95 @@ def test_flash_decode_paged_d256(cuda, page, G, window, fmt):
 
 @pytest.mark.gpu
 def test_flash_bwd_refuses_d256(cuda):
-    """K7 and K7' keep refusing head dims above 128 (training at gemma's
-    256 is the next slice), before any launch."""
-    q = torch.zeros((2, 4, 256), device=cuda)
+    """K7 and K7' refuse head dims above 256 (gemma-7b's is the widest
+    ported), before any launch; at 256 they launch their tiled kernels."""
+    q = torch.zeros((2, 4, 512), device=cuda)
     st = torch.ones((2, 4), device=cuda)
     sp = parse_spec("binary8-sr")
     seeds = np.zeros((2, 6), np.uint64)
     kw = dict(scale=0.0625, n_heads=2, n_kv=2)
-    with pytest.raises(NotImplementedError, match="next slice"):
+    tfa.reset_launches()
+    with pytest.raises(NotImplementedError, match="above 256"):
         tfa.flash_bwd_dq(q, q, q, q, st, st, st, seeds[:, :4], sp, sp, **kw)
-    with pytest.raises(NotImplementedError, match="next slice"):
+    with pytest.raises(NotImplementedError, match="above 256"):
         tfa.flash_bwd_dkv(q, q, q, q, st, st, st, seeds, sp, sp, sp, **kw)
+    assert tfa.LAUNCHES == dict.fromkeys(tfa.LAUNCHES, 0)
+    q = q[..., :256].contiguous()
+    tfa.flash_bwd_dq(q, q, q, q, st, st, st, seeds[:, :4], sp, sp, **kw)
+    tfa.flash_bwd_dkv(q, q, q, q, st, st, st, seeds, sp, sp, sp, **kw)
+    torch.cuda.synchronize()
+    assert tfa.LAUNCHES == dict(dict.fromkeys(tfa.LAUNCHES, 0),
+                                flash_bwd_dq=1, flash_bwd_dkv=1)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("exact", [True, False])
+def test_flash_bwd_d256_matches_plain(cuda, exact):
+    """K7 and K7' at head dim 256 against their twins: one MHA block of
+    the train step's 256 rows and a ragged multi-block GQA case, on
+    exact-sum and N(0, 1) inputs, within the attention contract (p comes
+    from exp, so dq, dk and dv are not exact sums on either)."""
+    specs = [parse_spec("binary8-sr")] * 3
+    for H, KV, S, blk in ((4, 4, 256, 1024), (4, 1, 200, 64)):
+        if exact:
+            q, do = (_exact((H, S, 256), 16.0, i) for i in (1, 2))
+            k, v = (_exact((KV, S, 256), 16.0, i) for i in (3, 4))
+        else:
+            q, do = (_normal((H, S, 256), i) for i in (1, 2))
+            k, v = (_normal((KV, S, 256), i) for i in (3, 4))
+        seeds = np.random.default_rng(S).integers(0, 2 ** 32, (H, 6),
+                                                  dtype=np.uint64)
+        kw = dict(scale=1 / 16, n_heads=H, n_kv=KV, q_block=blk,
+                  kv_block=blk)
+        out, m, l = tfa.flash_fwd_plain(q, k, v, seeds, specs, **kw)
+        d = (do * out).sum(-1)
+        sq = np.concatenate([seeds[:, :2], seeds[:, 4:]], axis=1)
+        args = (q, k, v, do, m, l, d)
+        ref = (tfa.flash_bwd_dq_plain(*args, sq, specs[0], specs[0], **kw),
+               *tfa.flash_bwd_dkv_plain(*args, seeds, *specs, **kw))
+        card = [x.to(cuda) for x in args]
+        got = (tfa.flash_bwd_dq(*card, sq, specs[0], specs[0], **kw),
+               *tfa.flash_bwd_dkv(*card, seeds, *specs, **kw))
+        torch.cuda.synchronize()
+        for r, g in zip(ref, got):
+            _assert_flips(r, g.cpu(), "binary8", adjacent_only=False,
+                          share=max(1e-4, 1.0 / g.numel()))
+
+
+def _gelu_sweep(n_random, seed):
+    """XLA tanh's edges, powers of two down to the subnormals, zeros,
+    huge values and infinities, then N(0, 9) and ~1e-3 draws."""
+    edges = np.array([0.0, -0.0, 0.0004, -0.0004, 7.99881172180175781,
+                      -7.99881172180175781, 8.0, -8.0, 1e30, -1e30, np.inf,
+                      -np.inf], np.float32)
+    edges = np.concatenate([edges, np.nextafter(edges, np.float32(np.inf)),
+                            np.nextafter(edges, np.float32(-np.inf))])
+    p2 = np.float32(2.0) ** -np.arange(1, 150, dtype=np.float32)
+    rng = np.random.default_rng(seed)
+    return torch.from_numpy(np.concatenate([
+        edges, p2, -p2, rng.normal(0, 3, n_random // 2),
+        rng.normal(0, 1e-3, n_random // 2)]).astype(np.float32))
+
+
+def _same_nan(a, b):
+    """Bitwise equal, any NaN equal to any NaN."""
+    nan = torch.isnan(a)
+    return torch.equal(nan, torch.isnan(b)) and torch.equal(
+        a[~nan].view(torch.int32), b[~nan].view(torch.int32))
+
+
+@pytest.mark.gpu
+def test_geglu_pullback_kernel_matches_plain(cuda):
+    """The GeGLU pullback kernel bitwise its twin (NaNs as NaNs) on the
+    sweep with random cotangents and up branches, one launch counted."""
+    from repro_torch.kernels import geglu_pullback as tgp
+    g = _gelu_sweep(131_072, 5)
+    rng = np.random.default_rng(6)
+    dh, u = (torch.from_numpy(rng.standard_normal(g.numel()).astype(
+        np.float32)) for _ in range(2))
+    ref = tgp.geglu_pullback_plain(g, u, dh)
+    tgp.reset_launches()
+    got = tgp.geglu_pullback(g.to(cuda), u.to(cuda), dh.to(cuda))
+    torch.cuda.synchronize()
+    assert tgp.LAUNCHES == {"geglu_pullback": 1}
+    assert _same_nan(ref[0], got[0].cpu()) and _same_nan(ref[1], got[1].cpu())
