@@ -271,17 +271,49 @@ Phases (any failed check exits non-zero; there is no CPU fallback):
    pullback kernel; under ``-attn`` K6, K7 and K7' at d = 256 once per
    layer per step), a finite loss at every step, ms/step, tok/s, peak
    memory, the run's and its checkpoint's seconds;
-39. one JSON line of per-kernel numbers (K3''s, K3's, K4''s, K4's, K8''s,
-   K8's, K9's (both routes), K10's, K1''s and K1's with the registers and
-   spills ptxas reports for their instances, phase 2; K3', K3, K4' and K4
-   with their device time per decode step, K4' also per train step; K9's
-   tiled route and K1's generic instance beside the ones the path runs;
-   K2' and K2 with the wide and the generic instance on ``WIDE_TIMED``
-   under ``wide_timed_chain`` and K2''s launches in phase 29; K4' and K4
-   under gelu, relu and relu_sq per gemma decode step, K6, K9 and K10 at
-   d = 256 per gemma layer stack, phases 30-31; K7 and K7' at d = 256 and
-   the GeGLU pullback per ``GEMMA_TRAIN_RUN`` step, phases 35-36), then
-   the result line.
+39. one JSON line of per-kernel numbers, printed last, after phases
+   40-43 (K3''s, K3's, K4''s, K4's, K8''s, K8's, K9's (both routes),
+   K10's, K1''s and K1's with the registers and spills ptxas reports for
+   their instances, phase 2; K3', K3, K4' and K4 with their device time
+   per decode step, K4' also per train step; K9's tiled route and K1's
+   generic instance beside the ones the path runs; K2' and K2 with the
+   wide and the generic instance on ``WIDE_TIMED`` under
+   ``wide_timed_chain`` and K2''s launches in phase 29; K4' and K4 under
+   gelu, relu and relu_sq per gemma decode step, K6, K9 and K10 at d = 256
+   per gemma layer stack, phases 30-31; K7 and K7' at d = 256 and the
+   GeGLU pullback per ``GEMMA_TRAIN_RUN`` step, phases 35-36; the wide
+   instances of K3', K4', K8' and K1' (``<name>[wide]``) per path step
+   under e4m3-sr2-r16 beside the first instances, phases 40-43), then the
+   result line;
+40. the wide instances of K3', K4', K8' and K1' (every scheme x grid pair
+   of the reference's round_block, ``WIDE_SWEEP``: fixed point, sr2 at
+   r = 8, 16 and 32, the bit trick, rz / ra / rd / ru, overflow to
+   +-inf, a shifted grid, a format without subnormals, and sr_eps at eps
+   0.1 and 0.25 on the first instances): K3' (both routes forced, 4 x
+   2048 x 2048 and 128 x 2048 x 256), K4' under silu and gelu with
+   residuals (both routes, tinyllama's FFN at M = 4 and 128: a family's
+   first spec at the GEMM sites, its last at the act site), K8' (both
+   routes, the MoE decode shape) against their twins, bitwise on exact-sum
+   inputs and within the contract on N(0, 1) (``FINE_GRIDS`` within 1 %
+   one-step flips: their quantum is within reach of the float32 sums'
+   order), K1' bitwise on any input (the path's shape and 2**24 + 37
+   elements, values past xmax, -0s); on binary8 sr the wide instance
+   forced bitwise the first one; then per tinyllama train and decode step
+   (K3', K4') and per qwen3-moe decode step (K8', K1'), by CUDA events
+   and graph replay, the first instance on binary8 sr, the wide instance
+   forced on those sites and the wide instance under ``WIDE_TIMED_SPEC``
+   (e4m3-sr2-r16), beside the twin and the bound; the wide instances'
+   registers and spills;
+41. reduced tinyllama, 2 QSGD steps card vs CPU under binary8-sr_eps,
+   fxp16.8-sr2 and e4m3-sr2-r16 (phase 9's limits), the card's K3' and K4'
+   launches on the first instances (sr_eps) or the wide ones;
+42. ``train.run(**train.PAPER_RUN)`` at full size under binary8-sr_eps
+   (the first instances) and e4m3-sr2-r16 (the wide ones): phase 8's
+   checks, launches by instance, ms/step, tok/s, peak memory;
+43. ``serve.run(**serve.SERVE_RUN)`` under fxp16.8-sr2 (K3', K4' wide at
+   M = 4) and ``MOE_SERVE_RUN`` of qwen3-moe-30b-a3b at full size under
+   e4m3-sr2-r16 with its generation cut to ``WIDE_MOE_GEN`` tokens (K3',
+   K8', K1' wide): phases 6's and 17's checks, launches by instance.
 
 Detailed numbers also go to ``chiprun_out/chip_smoke.json``.
 """
@@ -471,6 +503,36 @@ GEMMA_TRAIN_PARAMS = 1_893_755_904
 GEMMA_TRAIN_ATTN = dict(BH=TRAIN_BATCH * 16, BKV=TRAIN_BATCH * 16,
                         S=TRAIN_SEQ, n_heads=16, n_kv=16)
 GEMMA_TRAIN_QMATMUL_PER_STEP = 19 * GEMMA_TRAIN_LAYERS + 3
+# phases 40-43: the wide instances of K3', K4', K8' and K1'.  Phase 40's
+# spec families (tests/test_torch_wide_gemm.py's): K3', K8' and K1' run
+# each spec, K4' a family's first at its GEMM sites and its last at its act
+# site.  "shift8" is binary8 shifted by scale 0.5, mu 0.25; "b8nosub"
+# binary8 without subnormals.
+WIDE_SWEEP = {
+    "fxp": ("fxp16.8-sr2", "fxp8.4-rn"),
+    "sr2": ("binary8-sr2", "binary8-sr2-r16", "binary8-sr2-r32"),
+    "bittrick": ("bf16-sr-bittrick", "binary8-sr-bittrick-r8"),
+    "directed": ("binary8-rz", "binary8-ra", "binary8-rd", "binary8-ru"),
+    "inf": ("binary8-rn-inf", "e4m3-sr-inf"),
+    "shift8": ("shift8-sr", "shift8-rn"),
+    "b8nosub": ("b8nosub-sr", "b8nosub-rn"),
+    "sr_eps": ("binary8-sr_eps-e0.1", "binary8-sr_eps-e0.25"),
+}
+# grids whose quantum (2^-8 absolute, 2^-8 relative) the float32
+# summation-order error reaches at K = 2048: on N(0, 1) inputs at most 1 %
+# of the outputs may flip, and a flip need not be one grid step (a sum on
+# the other side of a power of two has the other binade's neighbours); the
+# 8-bit grids keep the 1e-4 one-step contract
+FINE_GRIDS = ("fxp16.8", "fxp8.4", "bfloat16")
+# the spec the wide instances are timed under (phase 42's second train
+# run), beside the first instances on binary8 sr
+WIDE_TIMED_SPEC = "e4m3-sr2-r16"
+WIDE_AGREE_POLICIES = ("binary8-sr_eps", "fxp16.8-sr2", "e4m3-sr2-r16")
+WIDE_TRAIN_POLICIES = ("binary8-sr_eps", WIDE_TIMED_SPEC)
+WIDE_SERVE_POLICY = "fxp16.8-sr2"
+WIDE_MOE_POLICY = "e4m3-sr2-r16"
+# phase 43 cuts qwen3-moe's generation from MOE_SERVE_RUN's 16 to this
+WIDE_MOE_GEN = 4
 
 
 def stamp(*parts, **kw) -> None:
@@ -1235,10 +1297,13 @@ def update_instances(tfu, cfg):
 
 
 def register_wide_grids():
-    """The shifted grid of ``WIDE_UPDATE_CONFIGS`` (idempotent)."""
-    from repro_torch.core import grids
+    """The shifted grid of ``WIDE_UPDATE_CONFIGS`` and ``WIDE_SWEEP`` and
+    the latter's format without subnormals (idempotent)."""
+    from repro_torch.core import formats, grids
     grids.register_grid(grids.shifted_grid("binary8", 0.5, 0.25,
                                            name="shift8"))
+    formats.register_format(formats.FPFormat("b8nosub", 3, -14, 15,
+                                             subnormals=False))
 
 
 def update_check(torch, tfu, prng, x, g, cfg, name, offset=0):
@@ -2341,10 +2406,11 @@ def moe_agreement_phase(torch, serve, policy="binary8-paper"):
                 max_pick_gap=gap)
 
 
-def moe_serve_phase(torch, mods, serve, policy="binary8-paper"):
-    """The full-size qwen3-moe-30b-a3b serve run under ``policy``; every
-    launch count checked against the prediction from the code (the
-    explicit-bits kernels under an oracle policy)."""
+def moe_serve_phase(torch, mods, serve, policy="binary8-paper", gen=GEN):
+    """The full-size qwen3-moe-30b-a3b serve run under ``policy``, ``gen``
+    tokens generated (``MOE_SERVE_RUN``'s, or a cut); every launch count
+    checked against the prediction from the code (the explicit-bits
+    kernels under an oracle policy)."""
     from repro_torch.precision.policy import resolve_policy
     gc.collect()          # the dense phases' models and caches
     torch.cuda.empty_cache()
@@ -2354,19 +2420,20 @@ def moe_serve_phase(torch, mods, serve, policy="binary8-paper"):
             MOE_ARCH, BATCH, PROMPT, GEN):
         fail(f"serve.MOE_SERVE_RUN {run} is not the run whose shapes phase "
              "15 checks")
+    run = dict(run, gen=gen)
     reset_all(*mods)
     oracle = resolve_policy(policy).oracle
     with bits_clock() as bits_s:
         out = serve.run(**run, gemm_policy=policy, device="cuda")
     launches = all_launches(*mods)
     peak = torch.cuda.max_memory_allocated()
-    steps = PROMPT + GEN
+    steps = PROMPT + gen
     # per layer and step: q, k, v, o and the router through K3' (K3), gate,
     # up and down through K8' (K8), the hidden through K1' (K1); the lm
     # head per generated token
     q, bmm, cast = ("qmatmul_bits", "qmatmul_batched_bits", "sr_cast_bits") \
         if oracle else ("qmatmul_sr", "qmatmul_batched_sr", "sr_cast_prng")
-    want = {q: 5 * MOE_LAYERS * steps + GEN,
+    want = {q: 5 * MOE_LAYERS * steps + gen,
             bmm: 3 * MOE_LAYERS * steps, cast: MOE_LAYERS * steps}
     want = every_kernel(want, launches)
     if launches != want:
@@ -2375,7 +2442,7 @@ def moe_serve_phase(torch, mods, serve, policy="binary8-paper"):
         fail(f"MoE serve run has {out['n_params']} parameters, not "
              f"{moe_params()}")
     toks, logits = out["tokens"], out["logits"]
-    if tuple(toks.shape) != (BATCH, GEN) or int(toks.min()) < 0 \
+    if tuple(toks.shape) != (BATCH, gen) or int(toks.min()) < 0 \
             or int(toks.max()) >= MOE["vocab"]:
         fail(f"bad tokens {toks.tolist()}")
     if not bool(torch.isfinite(logits).all()):
@@ -4459,6 +4526,466 @@ def gemma_train_phase(torch, mods, train, tq, policy):
     return res
 
 
+# ---------------------------------------------------------------------------
+# Phases 40-43: the wide instances of K3', K4', K8' and K1' (every scheme x
+# grid pair of the reference's round_block) and the paths that run them
+# ---------------------------------------------------------------------------
+def instance_launches(tq, tsr):
+    """K3', K4', K8' and K1' launches by compiled instance."""
+    out = {k: dict(v) for k, v in tq.INSTANCE_LAUNCHES.items()}
+    out["sr_cast_prng"] = dict(tsr.INSTANCE_LAUNCHES)
+    return out
+
+
+def check_instances(by_inst, want: str, kernels, label: str) -> None:
+    """Every launch of ``kernels`` on the instance ``want`` ("fp" or
+    "wide"; K1''s first instances are "generic" and "sr_r32"), at least
+    one each, or the phase fails."""
+    for k in kernels:
+        counts = by_inst[k]
+        on = sum(v for i, v in counts.items()
+                 if (i == "wide") == (want == "wide"))
+        if on == 0 or on != sum(counts.values()):
+            fail(f"{label}: {k} launched {counts}, not all on the {want} "
+                 "instance")
+
+
+def _finite_err(torch, ref, got) -> float:
+    both = torch.isfinite(ref) & torch.isfinite(got)
+    if not bool((torch.isfinite(ref) == torch.isfinite(got)).all()):
+        return math.inf
+    return float((got[both] - ref[both]).abs().max()) if bool(both.any()) \
+        else 0.0
+
+
+def wide_contract(torch, ref, got, fmt, label) -> float:
+    """The GEMM contract on N(0, 1) inputs: at most 1e-4 of the outputs
+    flipped, each by one grid step (1 % on ``FINE_GRIDS``); returns the
+    share."""
+    from repro_torch.core.rounding import grid_flips
+    n, adjacent = grid_flips(ref, got, fmt)
+    fine = fmt in FINE_GRIDS
+    limit = max(1, (1e-2 if fine else 1e-4) * ref.numel())
+    if n > limit or not (adjacent or fine):
+        fail(f"{label}: {n} of {ref.numel()} outputs flipped (limit "
+             f"{limit:g}), adjacent on the grid: {adjacent}")
+    return n / ref.numel()
+
+
+def _gemm_site(name):
+    """(fmt, mode, rand_bits, eps) of a spec's GEMM result site
+    (saturating: the GEMM kernels take no overflow)."""
+    from repro_torch.core.rounding import parse_spec
+    s = parse_spec(name)
+    return s.fmt, s.mode, s.rand_bits, s.eps
+
+
+def wide_sweep_phase(torch, tq, tsr, resources):
+    """Phase 40: each wide family on K3' (both routes), K4' (silu and gelu,
+    both routes, with residuals), K8' (both routes) and K1' against the
+    twins: bitwise on exact sums (K1' on any input), the contract on
+    N(0, 1); the wide instance forced on binary8 sr bitwise the first
+    instance; then each kernel timed at the path shapes on the first
+    instance (binary8 sr), the wide one forced on the same sites, and the
+    wide one under ``WIDE_TIMED_SPEC``.  Returns {kernel: stats}."""
+    import numpy as np
+    from repro_torch.core.rounding import grid_flips, parse_spec, spec
+    register_wide_grids()
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(4040)
+    words = (0x3C6EF372, 0xA54FF53A)
+    seeds3 = ((0x510E527F, 0x9B05688C), (0x1F83D9AB, 0x5BE0CD19),
+              (0xCBBB9D5D, 0x629A292A))
+    names = [n for fam in WIDE_SWEEP.values() for n in fam]
+    stats = {k: dict(checks=0, max_abs_err=0.0, mismatch_share=0.0)
+             for k in ("qmatmul_sr", "qmatmul_swiglu_sr",
+                       "qmatmul_batched_sr", "sr_cast_prng")}
+
+    def note(kernel, err=0.0, share=0.0):
+        st = stats[kernel]
+        st["checks"] += 1
+        st["max_abs_err"] = max(st["max_abs_err"], err)
+        st["mismatch_share"] = max(st["mismatch_share"], share)
+
+    def ints(shape, div):
+        return (torch.randint(-8, 9, shape, generator=gen, device=dev)
+                .float() / div)
+
+    def same(a, b, label):
+        torch.cuda.synchronize()
+        if not bitwise(torch, a, b):
+            fail(f"{label}: not bitwise equal")
+
+    # K3' on both routes
+    for route, M, K, N in (("decode", 4, 2048, 2048),
+                           ("large", 128, 2048, 256)):
+        a, w = ints((M, K), 8.0), ints((K, N), 4.0).to(torch.bfloat16)
+        an = torch.randn((M, K), generator=gen, device=dev)
+        wn = (torch.randn((K, N), generator=gen, device=dev)
+              / math.sqrt(K)).to(torch.bfloat16)
+        with forced_route(tq, route):
+            for name in names:
+                fmt, mode, rb, eps = _gemm_site(name)
+                label = f"qmatmul_sr[wide] {route} {M}x{K}x{N} {name}"
+                same(tq.qmatmul_prng(a, w, words, fmt, mode, rb, eps=eps),
+                     tq.qmatmul_plain(a, w, words, fmt, mode, rb, eps=eps),
+                     label + " exact sums")
+                ref = tq.qmatmul_plain(an, wn, words, fmt, mode, rb, eps=eps)
+                got = tq.qmatmul_prng(an, wn, words, fmt, mode, rb, eps=eps)
+                note("qmatmul_sr", _finite_err(torch, ref, got),
+                     wide_contract(torch, ref, got, fmt, label))
+            same(tq.qmatmul_prng(an, wn, words, "binary8", instance="wide"),
+                 tq.qmatmul_prng(an, wn, words, "binary8"),
+                 f"qmatmul_sr {route}: the wide instance on binary8 sr vs "
+                 "the first")
+    # K4' under silu and gelu on both routes, with residuals: the family's
+    # first spec at the GEMM sites, its last at the act site
+    K, N = TINYLLAMA["d"], TINYLLAMA["ff"]
+    for route, M in (("decode", BATCH), ("large", 128)):
+        x, wg, wu = ints((M, K), 8.0), ints((K, N), 4.0), ints((K, N), 4.0)
+        xn = torch.randn((M, K), generator=gen, device=dev)
+        wgn, wun = [(torch.randn((K, N), generator=gen, device=dev)
+                     / math.sqrt(K)).to(torch.bfloat16) for _ in range(2)]
+        with forced_route(tq, route):
+            for act in ("silu", "gelu"):
+                for fam, specs in WIDE_SWEEP.items():
+                    fmt, mode, rb, eps = _gemm_site(specs[0])
+                    act_spec = parse_spec(specs[-1])
+                    kw = dict(act=act, act_spec=act_spec, rand_bits=rb,
+                              eps=eps, residuals=True)
+                    label = (f"qmatmul_swiglu_sr[wide] {act} {route} "
+                             f"{M}x{K}x{N} {fam}")
+                    got = tq.qmatmul_swiglu_prng(x, wg, wu, seeds3, fmt,
+                                                 mode, **kw)
+                    ref = tq.qmatmul_swiglu_plain(
+                        x, wg, wu, seeds3, fmt, mode, rb, act_spec, True,
+                        act=act, eps=eps)
+                    for r, g in zip(ref[1:], got[1:]):
+                        same(r, g, label + " residuals, exact sums")
+                    n, adjacent = grid_flips(ref[0], got[0], act_spec.fmt)
+                    if (act == "gelu" and n) or n > max(
+                            1, 1e-4 * ref[0].numel()) or not adjacent:
+                        fail(f"{label}: {n} hidden flips on exact sums")
+                    got = tq.qmatmul_swiglu_prng(xn, wgn, wun, seeds3, fmt,
+                                                 mode, **kw)
+                    ref = tq.qmatmul_swiglu_plain(
+                        xn, wgn, wun, seeds3, fmt, mode, rb, act_spec, True,
+                        act=act, eps=eps)
+                    share = max(wide_contract(torch, r, g, fmt, label)
+                                for r, g in zip(ref[1:], got[1:]))
+                    note("qmatmul_swiglu_sr", max(
+                        _finite_err(torch, r, g)
+                        for r, g in zip(ref[1:], got[1:])), share)
+            b8 = spec("binary8", "sr")
+            outs = [tq.qmatmul_swiglu_prng(xn, wgn, wun, seeds3, "binary8",
+                                           act_spec=b8, residuals=True,
+                                           instance=i)
+                    for i in (None, "wide")]
+            for o1, o2 in zip(*outs):
+                same(o1, o2, f"qmatmul_swiglu_sr {route}: the wide instance "
+                     "on binary8 sr vs the first")
+    # K8' at the MoE decode shape on both routes
+    E, M, K, N = BATCHED_SHAPES[0][:4]
+    e_seeds = np.random.default_rng(40).integers(0, 2 ** 32, (E, 2),
+                                                 dtype=np.int64)
+    a, b = ints((E, M, K), 8.0), ints((E, K, N), 4.0).to(torch.bfloat16)
+    an = torch.randn((E, M, K), generator=gen, device=dev)
+    bn = (torch.randn((E, K, N), generator=gen, device=dev)
+          / math.sqrt(K)).to(torch.bfloat16)
+    keep = tq.BATCHED_STREAM_MAX_M
+    for route, limit in (("stream", 1 << 30), ("large", 0)):
+        tq.BATCHED_STREAM_MAX_M = limit
+        try:
+            for name in names:
+                fmt, mode, rb, eps = _gemm_site(name)
+                label = f"qmatmul_batched_sr[wide] {route} {E}x{M}x{K}x{N} " \
+                    f"{name}"
+                same(tq.qmatmul_batched_prng(a, b, e_seeds, fmt, mode, rb,
+                                             eps=eps),
+                     tq.qmatmul_batched_plain(a, b, e_seeds, fmt, mode, rb,
+                                              eps=eps), label + " exact sums")
+                ref = tq.qmatmul_batched_plain(an, bn, e_seeds, fmt, mode, rb,
+                                               eps=eps)
+                got = tq.qmatmul_batched_prng(an, bn, e_seeds, fmt, mode, rb,
+                                              eps=eps)
+                note("qmatmul_batched_sr", _finite_err(torch, ref, got),
+                     wide_contract(torch, ref, got, fmt, label))
+            same(tq.qmatmul_batched_prng(an, bn, e_seeds, "binary8",
+                                         instance="wide"),
+                 tq.qmatmul_batched_prng(an, bn, e_seeds, "binary8"),
+                 f"qmatmul_batched_sr {route}: the wide instance on binary8 "
+                 "sr vs the first")
+        finally:
+            tq.BATCHED_STREAM_MAX_M = keep
+    # K1' at the path's shape and a long ragged tensor: bitwise on any input
+    for shape in (SR_CAST_PATH, (UPDATE_N_SMALL,)):
+        x = torch.randn(shape, generator=gen, device=dev) * 4
+        x.view(-1)[::17] *= 3e4
+        x.view(-1)[3::29] = -0.0
+        for name in names:
+            s = parse_spec(name)
+            got = tsr.sr_cast_prng(x, words, s.fmt, s.mode, s.eps,
+                                   rand_bits=s.rand_bits, overflow=s.overflow)
+            ref = tsr.sr_cast_prng_plain(x, words, s.fmt, s.mode,
+                                         s.rand_bits, s.eps,
+                                         overflow=s.overflow)
+            same(got, ref, f"sr_cast_prng[wide] {shape} {name}")
+            note("sr_cast_prng")
+        same(tsr.sr_cast_prng(x, words, "binary8", instance="wide"),
+             tsr.sr_cast_prng(x, words, "binary8"),
+             f"sr_cast_prng {shape}: the wide instance on binary8 sr vs the "
+             "first")
+    for k, st in stats.items():
+        print(f"  {k}[wide]: {st['checks']} checks against the twin, max "
+              f"|err| {st['max_abs_err']:.4g}, largest flip share "
+              f"{st['mismatch_share']:.3g}", flush=True)
+    wide_gemm_timing(torch, tq, tsr, stats)
+    for name, kernels_ in resources.items():
+        for fn, use in kernels_.items():
+            if "WideParams" in fn:
+                print(f"  {name}: {fn}: {use['registers']} registers, spill "
+                      f"{use['spill_stores']}/{use['spill_loads']} B",
+                      flush=True)
+    for k, st in stats.items():
+        st["registers"] = {
+            fn: use for fn, use in resources.get(
+                "sr_cast" if k == "sr_cast_prng" else
+                "qmatmul_swiglu_sr" if k == "qmatmul_swiglu_sr" else k,
+                {}).items() if "WideParams" in fn}
+    return stats
+
+
+def wide_gemm_timing(torch, tq, tsr, stats):
+    """Phase 40's timings: per tinyllama train step and decode step (K3',
+    K4') and per qwen3-moe decode step (K8', K1'), each call timed by CUDA
+    events and graph replay on the first instance (binary8 sr), on the
+    wide instance forced on the same sites and on the wide instance under
+    ``WIDE_TIMED_SPEC``, beside the twin under that spec and the bound.
+    Adds per-step sums to ``stats``."""
+    import numpy as np
+    from repro_torch.core.rounding import parse_spec, spec
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(4041)
+    ws_ = parse_spec(WIDE_TIMED_SPEC)
+    b8 = spec("binary8", "sr")
+    words = (0x243F6A88, 0x85A308D3)
+    seeds3 = ((1, 2), (3, 4), (5, 6))
+    keys = ("fp_ms", "fp_device_ms", "wide_b8_ms", "wide_b8_device_ms",
+            "ms", "device_ms", "plain_ms", "bound_ms")
+
+    def timed(calls, n, plain):
+        row = {}
+        for tag, fn in calls.items():
+            pre = f"{tag}_" if tag else ""
+            row[pre + "ms"] = time_ms(torch, fn, n)
+            row[pre + "device_ms"] = graph_ms(torch, fn, n)
+        row["plain_ms"] = time_ms(torch, plain, n, iters=2, warmup=1)
+        return row
+
+    def gemm_case(M, K, N, b, glu, res):
+        dt = torch.bfloat16 if b == "bf16" else torch.float32
+        nw = 2 if glu else 1
+        n = max(2, math.ceil(2 * L2_BYTES / (nw * K * N * dt.itemsize)))
+        a = torch.randn((M, K), generator=gen, device=dev)
+        wsets = [[(torch.randn((K, N), generator=gen, device=dev)
+                   / math.sqrt(K)).to(dt) for _ in range(nw)]
+                 for _ in range(n)]
+
+        def k3(s, inst=None):
+            return lambda i: tq.qmatmul_prng(a, wsets[i][0], words, s.fmt,
+                                             s.mode, s.rand_bits, eps=s.eps,
+                                             instance=inst)
+
+        def k4(s, inst=None):
+            return lambda i: tq.qmatmul_swiglu_prng(
+                a, *wsets[i], seeds3, s.fmt, s.mode, act_spec=s,
+                rand_bits=s.rand_bits, eps=s.eps, residuals=res,
+                instance=inst)
+        mk = k4 if glu else k3
+        if glu:
+            def plain(i):
+                return tq.qmatmul_swiglu_plain(a, *wsets[i], seeds3, ws_.fmt,
+                                               ws_.mode, ws_.rand_bits, ws_,
+                                               res, eps=ws_.eps)
+        else:
+            def plain(i):
+                return tq.qmatmul_plain(a, wsets[i][0], words, ws_.fmt,
+                                        ws_.mode, ws_.rand_bits, eps=ws_.eps)
+        row = timed({"fp": mk(b8), "wide_b8": mk(b8, "wide"),
+                     "": mk(ws_)}, n, plain)
+        row["bound_ms"], row["bound_by"] = bound_ms(
+            M, K, N, nw, dt.itemsize, 2 if res else 0)
+        return row
+
+    def add(kernel, path, row, count):
+        acc = stats[kernel].setdefault(path, dict.fromkeys(keys, 0.0))
+        for k in keys:
+            acc[k] += row[k] * count
+        acc["bound_by"] = row["bound_by"]
+
+    for M, K, N, b, count in TRAIN_GEMMS:
+        add("qmatmul_sr", "train_step", gemm_case(M, K, N, b, False, False),
+            count)
+    for K, N, count in QMATMUL_SHAPES:
+        add("qmatmul_sr", "decode_step", gemm_case(BATCH, K, N, "bf16", False,
+                                                   False), count)
+    K, N = TINYLLAMA["d"], TINYLLAMA["ff"]
+    add("qmatmul_swiglu_sr", "train_step",
+        gemm_case(TRAIN_M, K, N, "bf16", True, True), LAYERS)
+    add("qmatmul_swiglu_sr", "decode_step",
+        gemm_case(BATCH, K, N, "bf16", True, False), LAYERS)
+    for E, M, K, N, count in BATCHED_SHAPES:
+        n = max(1, math.ceil(2 * L2_BYTES / (E * K * N * 2)))
+        e_seeds = np.random.default_rng(E * K + N).integers(
+            0, 2 ** 32, (E, 2), dtype=np.int64)
+        a = torch.randn((E, M, K), generator=gen, device=dev)
+        wsets = [(torch.randn((E, K, N), generator=gen, device=dev)
+                  / math.sqrt(K)).to(torch.bfloat16) for _ in range(n)]
+
+        def k8(s, inst=None):
+            return lambda i: tq.qmatmul_batched_prng(
+                a, wsets[i], e_seeds, s.fmt, s.mode, s.rand_bits, eps=s.eps,
+                instance=inst)
+        row = timed({"fp": k8(b8), "wide_b8": k8(b8, "wide"), "": k8(ws_)},
+                    n, lambda i: tq.qmatmul_batched_plain(
+                        a, wsets[i], e_seeds, ws_.fmt, ws_.mode,
+                        ws_.rand_bits, eps=ws_.eps))
+        row["bound_ms"], row["bound_by"] = batched_bound(E, M, K, N, 2)
+        add("qmatmul_batched_sr", "decode_step", row, count)
+    n = max(1, math.ceil(2 * L2_BYTES / (8 * math.prod(SR_CAST_PATH))))
+    xs = [torch.randn(SR_CAST_PATH, generator=gen, device=dev) * 4
+          for _ in range(n)]
+
+    def k1(s, inst=None):
+        return lambda i: tsr.sr_cast_prng(xs[i], words, s.fmt, s.mode, s.eps,
+                                          rand_bits=s.rand_bits,
+                                          instance=inst)
+    row = timed({"fp": k1(b8), "wide_b8": k1(b8, "wide"), "": k1(ws_)}, n,
+                lambda i: tsr.sr_cast_prng_plain(xs[i], words, ws_.fmt,
+                                                 ws_.mode, ws_.rand_bits,
+                                                 ws_.eps))
+    row["bound_ms"], row["bound_by"] = sr_cast_bound(
+        math.prod(SR_CAST_PATH), ws_.rand_bits)
+    add("sr_cast_prng", "decode_step", row, MOE_LAYERS)
+    for kernel, st in stats.items():
+        for path in ("train_step", "decode_step"):
+            if path in st:
+                t = st[path]
+                print(f"  {kernel} per {path}: first instance (binary8 sr) "
+                      f"{t['fp_ms']:.4f} ms, device {t['fp_device_ms']:.4f}; "
+                      f"wide on binary8 sr {t['wide_b8_ms']:.4f}, device "
+                      f"{t['wide_b8_device_ms']:.4f}; wide on "
+                      f"{WIDE_TIMED_SPEC} {t['ms']:.4f}, device "
+                      f"{t['device_ms']:.4f}; twin {t['plain_ms']:.3f}; "
+                      f"bound {t['bound_ms']:.4f} ({t['bound_by']})",
+                      flush=True)
+
+
+def wide_agreement_phase(torch, mods, train, tq, tsr):
+    """Phase 41: reduced tinyllama, 2 QSGD steps card vs CPU under each of
+    ``WIDE_AGREE_POLICIES`` (phase 9's limits), the card's GEMM launches on
+    the instance each policy's sites take."""
+    res = {}
+    for policy in WIDE_AGREE_POLICIES:
+        res[policy], _ = train_agreement_phase(torch, mods, train, policy,
+                                               ("fused",))
+        by_inst = instance_launches(tq, tsr)
+        check_instances(by_inst, "fp" if policy == "binary8-sr_eps"
+                        else "wide", ("qmatmul_sr", "qmatmul_swiglu_sr"),
+                        f"train agreement {policy}")
+        res[policy]["instance_launches"] = by_inst
+    return res
+
+
+def wide_train_phase(torch, mods, train, tq, tsr):
+    """Phase 42: ``train.run(**train.PAPER_RUN)`` at full size under each
+    of ``WIDE_TRAIN_POLICIES``: phase 8's checks, and K3''s and K4''s
+    launches on the first instances (binary8-sr_eps) or the wide ones."""
+    res = {}
+    for policy in WIDE_TRAIN_POLICIES:
+        res[policy] = train_phase(torch, mods, train, policy)
+        by_inst = instance_launches(tq, tsr)
+        check_instances(by_inst, "fp" if policy == "binary8-sr_eps"
+                        else "wide", ("qmatmul_sr", "qmatmul_swiglu_sr"),
+                        f"train {policy}")
+        res[policy]["instance_launches"] = by_inst
+        print(f"  {policy}: launches by instance "
+              f"{ {k: v for k, v in by_inst.items() if any(v.values())} }",
+              flush=True)
+    return res
+
+
+def wide_serve_phase(torch, mods, serve, tq, tsr):
+    """Phase 43: ``serve.run(**serve.SERVE_RUN)`` under
+    ``WIDE_SERVE_POLICY`` (K3', K4' wide) and ``MOE_SERVE_RUN`` under
+    ``WIDE_MOE_POLICY`` with ``WIDE_MOE_GEN`` tokens (K3', K8', K1' wide):
+    phases 6's and 17's checks, every GEMM and cast launch on the wide
+    instances."""
+    res = {"tinyllama": serve_phase(torch, mods, serve, WIDE_SERVE_POLICY)}
+    res["tinyllama"]["instance_launches"] = instance_launches(tq, tsr)
+    check_instances(res["tinyllama"]["instance_launches"], "wide",
+                    ("qmatmul_sr", "qmatmul_swiglu_sr"),
+                    f"serve {WIDE_SERVE_POLICY}")
+    res["moe"] = moe_serve_phase(torch, mods, serve, WIDE_MOE_POLICY,
+                                 gen=WIDE_MOE_GEN)
+    res["moe"]["instance_launches"] = instance_launches(tq, tsr)
+    check_instances(res["moe"]["instance_launches"], "wide",
+                    ("qmatmul_sr", "qmatmul_batched_sr", "sr_cast_prng"),
+                    f"serve {MOE_ARCH} {WIDE_MOE_POLICY}")
+    for key, r in res.items():
+        print(f"  {key}: launches by instance "
+              f"{ {k: v for k, v in r['instance_launches'].items() if any(v.values())} }",
+              flush=True)
+    return res
+
+
+def wide_kernel_entries(stats, trained, served):
+    """The ``kernels`` line's entries of the four wide instances: times
+    per path step under ``WIDE_TIMED_SPEC``, launches from the runs that
+    take them (the e4m3-sr2-r16 train run for K3', K4'; the qwen3-moe
+    serve for K8', K1')."""
+    out = []
+    run = trained[WIDE_TIMED_SPEC]["instance_launches"]
+    moe = served["moe"]["instance_launches"]
+    for name, src, line, path, launches in (
+            ("qmatmul_sr", "qmatmul_sr.cu", "qmatmul.py:360", "train_step",
+             run["qmatmul_sr"]["wide"]),
+            ("qmatmul_swiglu_sr", "qmatmul_swiglu_sr.cu", "qmatmul.py:846",
+             "train_step", run["qmatmul_swiglu_sr"]["wide"]),
+            ("qmatmul_batched_sr", "qmatmul_batched_sr.cu", "qmatmul.py:599",
+             "decode_step", moe["qmatmul_batched_sr"]["wide"]),
+            ("sr_cast_prng", "sr_cast.cu", "sr_cast.py:148", "decode_step",
+             moe["sr_cast_prng"]["wide"])):
+        st = stats[name]
+        t = st[path]
+        entry = dict(
+            name=f"{name}[wide]", route="cuda",
+            source=f"src/repro_torch/csrc/{src}",
+            replaces=f"src/repro/kernels/{line}", launches=launches,
+            max_abs_err=st["max_abs_err"], ms=t["ms"], plain_ms=t["plain_ms"],
+            bound_ms=t["bound_ms"], bound_by=t["bound_by"], library_ms=None,
+            device_ms=t["device_ms"], first_instance_ms=t["fp_ms"],
+            first_instance_device_ms=t["fp_device_ms"],
+            wide_on_binary8_sr_ms=t["wide_b8_ms"],
+            wide_on_binary8_sr_device_ms=t["wide_b8_device_ms"],
+            mismatch_share=st["mismatch_share"], checks=st["checks"],
+            timed=(f"one {'tinyllama-1.1b train' if path == 'train_step' else MOE_ARCH + ' decode'} "
+                   f"step's launches under {WIDE_TIMED_SPEC}; first_instance_*: "
+                   "the first instance on binary8 sr, wide_on_binary8_sr_*: "
+                   "the wide instance forced on those sites"),
+            launches_path=(f"train {WIDE_TIMED_SPEC}" if path == "train_step"
+                           else f"serve {MOE_ARCH} {WIDE_MOE_POLICY}"),
+            registers=st["registers"])
+        if name == "qmatmul_sr" or name == "qmatmul_swiglu_sr":
+            d = st["decode_step"]
+            entry.update(serve_step_ms=d["ms"], serve_step_device_ms=d[
+                "device_ms"], serve_step_first_instance_device_ms=d[
+                "fp_device_ms"], launches_serve=served["tinyllama"][
+                "instance_launches"][name]["wide"])
+        out.append(entry)
+    return out
+
+
 def moe_kernel_entry(rows, name, source, replaces, launches, library):
     """A kernel of the MoE path: times per decode step (per-call time x
     launches per step at each path shape)."""
@@ -4749,6 +5276,23 @@ def main() -> None:
           f"binary8-paper and {ATTN_POLICY}", flush=True)
     trained_gemma = {p: gemma_train_phase(torch, mods, train, tq, p)
                      for p in ("binary8-paper", ATTN_POLICY)}
+
+    stamp("== phase 40: the wide instances of K3', K4', K8', K1' vs plain "
+          f"twins ({', '.join(WIDE_SWEEP)}), timed beside the first "
+          "instances", flush=True)
+    wide_stats = wide_sweep_phase(torch, tq, tsr, resources)
+
+    stamp("== phase 41: train agreement card vs cpu (reduced) under "
+          f"{', '.join(WIDE_AGREE_POLICIES)}", flush=True)
+    wide_agree = wide_agreement_phase(torch, mods, train, tq, tsr)
+
+    stamp(f"== phase 42: train tinyllama-1.1b (PAPER_RUN) under "
+          f"{' and '.join(WIDE_TRAIN_POLICIES)}", flush=True)
+    wide_trained = wide_train_phase(torch, mods, train, tq, tsr)
+
+    stamp(f"== phase 43: serve tinyllama-1.1b {WIDE_SERVE_POLICY}; serve "
+          f"{MOE_ARCH} {WIDE_MOE_POLICY} (gen {WIDE_MOE_GEN})", flush=True)
+    wide_served = wide_serve_phase(torch, mods, serve, tq, tsr)
 
     kernels = []
     replaces = {"qmatmul_sr": "src/repro/kernels/qmatmul.py:360",
@@ -5081,6 +5625,8 @@ def main() -> None:
               "yardstick",
         launches_path=f"train {GEMMA_ARCH} binary8-paper (GEMMA_TRAIN_RUN)",
         registers=dict(resources.get("geglu_pullback", {}))))
+    # the wide instances of K3', K4', K8' and K1' (phases 40-43)
+    wide_entries = wide_kernel_entries(wide_stats, wide_trained, wide_served)
     # each kernel's instances in ptxas' report: names holding all of the
     # parts (K9: the decode kernel's contiguous instances and the tiled
     # route's fwd_kernel)
@@ -5104,6 +5650,7 @@ def main() -> None:
             entry["registers"] = {
                 fn: use for fn, use in resources.get(src, {}).items()
                 if any(all(p in fn for p in alt) for alt in parts)}
+    kernels += wide_entries
     report = dict(device=kind, nvidia_smi=smi[0], build_s=t_build,
                   registers=resources,
                   rows=rows, train_rows=train_rows, update_rows=update_rows,
@@ -5133,7 +5680,9 @@ def main() -> None:
                   serve_phi3=served_phi3, bwd_d256_rows=bwd256_rows,
                   geglu_pullback=pullback_row,
                   train_agreement_gemma=train_agree_gemma,
-                  train_gemma=trained_gemma,
+                  train_gemma=trained_gemma, wide_stats=wide_stats,
+                  train_agreement_wide=wide_agree, train_wide=wide_trained,
+                  serve_wide=wide_served,
                   t_total_s=time.time() - T_START, kernels=kernels)
     out_dir = HERE / "chiprun_out"
     out_dir.mkdir(exist_ok=True)

@@ -797,14 +797,9 @@ Chain make_chain(const int* sites, const float* xmax, const float* eps) {
   return c;
 }
 
-// The flags of a site row's slot 7 (wide sites only): bits 0-1 the
-// Randomness, bit 2 overflow to +-inf, bit 3 a format without subnormals,
-// bit 4 a shifted grid, bit 5 a fixed-point grid (which the wide instance
-// rounds as the FP format it is).
-constexpr int kFlagInf = 4, kFlagNoSubnormals = 8, kFlagShifted = 16;
-
-// make_chain's sites for the wide instance; shift: float[6], (scale, mu)
-// of each site (null: no site is shifted).
+// make_chain's sites for the wide instance (rt::wide_params; slot 7 the
+// flags, rt::kFlagInf ...); shift: float[6], (scale, mu) of each site
+// (null: no site is shifted).
 WideChain make_wide_chain(const int* sites, const float* xmax,
                           const float* eps, const float* shift) {
   WideChain c;
@@ -812,13 +807,8 @@ WideChain make_wide_chain(const int* sites, const float* xmax,
   int* vs[3] = {&c.grad_v, &c.mul_v, &c.sub_v};
   for (int s = 0; s < 3; ++s) {
     const int* q = sites + 8 * s;
-    const int f = q[7];
-    const bool shifted = (f & kFlagShifted) && shift != nullptr;
-    *ps[s] = rt::WideParams{
-        rt::RoundParams{q[1], q[2], q[3], xmax[s], q[4], q[5], q[0], eps[s]},
-        f & 3, (f & kFlagInf) ? 1 : 0, (f & kFlagNoSubnormals) ? 0 : 1,
-        shifted ? 1 : 0, shifted ? shift[2 * s] : 1.0f,
-        shifted ? shift[2 * s + 1] : 0.0f};
+    *ps[s] = rt::wide_params(q, xmax[s], eps[s],
+                             shift != nullptr ? shift + 2 * s : nullptr);
     *vs[s] = q[6];
   }
   return c;

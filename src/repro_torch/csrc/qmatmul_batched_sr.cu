@@ -59,20 +59,28 @@
 //   output tiles by M.
 //
 // Epilogue (both routes): slice e's seed words, then rt::element_bits(w0,
-// w1, 0, rand_bits, r, c) (K8') or bits[e, r, c] (K8), rt::round_value and
-// rt::store_code.  Bits are keyed by the within-slice (r, c), so neither
+// w1, 0, rand_bits, r, c) (K8') or bits[e, r, c] (K8), rounding and
+// rt::store_code.  The epilogue is templated on its rounding site: the
+// first instances (rt::round_value: rn, sr, sr_eps on plain FP grids; K8
+// has these alone) and K8''s wide instance (qmatmul_batched_sr_wide /
+// _wide_stream: rt::round_value_wide, every scheme x grid pair, saturating;
+// its weight-stream route compiles the 1- and 16-row instances alone).  Bits are keyed by the within-slice (r, c), so neither
 // the tiling nor the route changes them.  Operands need no alignment:
 // where a pointer or a row length allows no vector loads, an instance
 // with element loads runs (kVec = false).
 #include <cuda_runtime.h>
 
 #include <cstdint>
+#include <type_traits>
 
 #include "gemm_routes.cuh"
 #include "rounding.cuh"
 
 namespace {
 
+// P: the rounding site, rt::RoundParams (the first instances) or
+// rt::WideParams (the wide instances, K8' only).
+template <typename P>
 struct Epilogue {
   const uint32_t* seeds;   // K8': (E, 2) words on the device, else nullptr
   const uint32_t* bits;    // K8's (E, M, N) words; nullptr: draw (K8')
@@ -80,7 +88,7 @@ struct Epilogue {
   rt::CodeFormat of;
   int M, N;
   uint32_t w0, w1;         // slice e's words (slice())
-  rt::RoundParams fwd;
+  P fwd;
 
   // this epilogue moved to slice e: its output and bits planes, its words
   __device__ __forceinline__ Epilogue slice(size_t e) const {
@@ -88,7 +96,7 @@ struct Epilogue {
     const size_t off = e * M * N;
     s.out = static_cast<char*>(out) + off * (of.bytes != 0 ? of.bytes : 4);
     if (bits != nullptr) s.bits = bits + off;
-    if (fwd.mode == rt::kSR && bits == nullptr) {
+    if (rt::draws(rt::site_of(fwd).mode) && bits == nullptr) {
       s.w0 = seeds[2 * e];
       s.w1 = seeds[2 * e + 1];
     }
@@ -124,13 +132,15 @@ __device__ __forceinline__ void element_bits2(uint32_t k0, uint32_t k1,
   out[1] = (w >> ((f + 1u) * rand_bits)) & mask;
 }
 
-__device__ __forceinline__ void Epilogue::four(int r, int c0,
-                                               const float (&v)[1][4]) const {
+template <typename P>
+__device__ __forceinline__ void Epilogue<P>::four(
+    int r, int c0, const float (&v)[1][4]) const {
+  const rt::RoundParams& site = rt::site_of(fwd);
   uint32_t w[4] = {0u, 0u, 0u, 0u};
   const size_t row = static_cast<size_t>(r) * N;
-  if (fwd.mode == rt::kSR) {
+  if (rt::draws(site.mode)) {
     if (bits == nullptr) {
-      rt::element_bits4(w0, w1, 0u, fwd.rand_bits, r, c0, w);
+      rt::element_bits4(w0, w1, 0u, site.rand_bits, r, c0, w);
     } else {
 #pragma unroll
       for (int j = 0; j < 4; ++j)
@@ -139,7 +149,7 @@ __device__ __forceinline__ void Epilogue::four(int r, int c0,
   }
   float y[4];
 #pragma unroll
-  for (int j = 0; j < 4; ++j) y[j] = rt::round_value(v[0][j], w[j], fwd);
+  for (int j = 0; j < 4; ++j) y[j] = rt::round_at(v[0][j], w[j], fwd);
   if (of.bytes == 0 && (N & 3) == 0) {
     *reinterpret_cast<float4*>(static_cast<float*>(out) + row + c0) =
         make_float4(y[0], y[1], y[2], y[3]);
@@ -150,21 +160,23 @@ __device__ __forceinline__ void Epilogue::four(int r, int c0,
   }
 }
 
-__device__ __forceinline__ void Epilogue::two(int r, int c0,
-                                              const float (&v)[2]) const {
+template <typename P>
+__device__ __forceinline__ void Epilogue<P>::two(int r, int c0,
+                                                 const float (&v)[2]) const {
+  const rt::RoundParams& site = rt::site_of(fwd);
   uint32_t w[2] = {0u, 0u};
   const size_t idx = static_cast<size_t>(r) * N + c0;
   const bool pair = c0 + 1 < N;
-  if (fwd.mode == rt::kSR) {
+  if (rt::draws(site.mode)) {
     if (bits == nullptr) {
-      element_bits2(w0, w1, fwd.rand_bits, r, c0, w);
+      element_bits2(w0, w1, site.rand_bits, r, c0, w);
     } else {
       w[0] = bits[idx];
       if (pair) w[1] = bits[idx + 1];
     }
   }
-  const float y0 = rt::round_value(v[0], w[0], fwd);
-  const float y1 = rt::round_value(v[1], w[1], fwd);
+  const float y0 = rt::round_at(v[0], w[0], fwd);
+  const float y1 = rt::round_at(v[1], w[1], fwd);
   if (of.bytes == 0 && (N & 1) == 0) {
     *reinterpret_cast<float2*>(static_cast<float*>(out) + idx) =
         make_float2(y0, y1);
@@ -275,11 +287,11 @@ __device__ __forceinline__ void load_stream_stage(char* stage, const void* A,
 // Block (x, y, z) = (column tile, row tile, slice): thread t owns columns
 // n0 + kSCols t + j of the tile's rows m0 .. m0 + rows - 1 (tile_rows <= TM
 // rows per tile) of slice z, each sum one chain over k ascending.
-template <typename S, typename SB, bool kVec>
+template <typename S, typename SB, bool kVec, typename Epi>
 __global__ void __launch_bounds__(S::kThreads)
 stream_kernel(const char* __restrict__ A, rt::CodeFormat af, bool a_vec,
               const SB* __restrict__ B, int M, int N, int K, int tile_rows,
-              Epilogue ep) {
+              Epi ep) {
   constexpr int TM = S::kRows, St = kSStages;
   extern __shared__ __align__(16) char smem[];
   const int n0 = blockIdx.x * kSBN, m0 = blockIdx.y * tile_rows;
@@ -344,7 +356,7 @@ stream_kernel(const char* __restrict__ A, rt::CodeFormat af, bool a_vec,
   }
   gemm::cp_wait<0>();
 
-  const Epilogue es = ep.slice(e);
+  const Epi es = ep.slice(e);
   const int c0 = n0 + cl;
   if (c0 >= N) return;
 #pragma unroll
@@ -352,12 +364,12 @@ stream_kernel(const char* __restrict__ A, rt::CodeFormat af, bool a_vec,
     if (r < rows) es.two(m0 + r, c0, acc[r]);
 }
 
-template <typename SB, int TM, bool kVec>
+template <typename SB, int TM, bool kVec, typename Epi>
 int launch_stream(const void* a, const rt::CodeFormat& af, bool a_vec,
                   const SB* b, int E, int M, int N, int K, int tile_rows,
-                  const Epilogue& ep, cudaStream_t s) {
+                  const Epi& ep, cudaStream_t s) {
   using S = Stream<SB, TM>;
-  auto kernel = stream_kernel<S, SB, kVec>;
+  auto kernel = stream_kernel<S, SB, kVec, Epi>;
   if (const int e = gemm::allow_smem(kernel, S::kSmem)) return e;
   const dim3 grid((N + kSBN - 1) / kSBN, (M + tile_rows - 1) / tile_rows, E);
   kernel<<<grid, S::kThreads, S::kSmem, s>>>(static_cast<const char*>(a), af,
@@ -369,26 +381,32 @@ int launch_stream(const void* a, const rt::CodeFormat& af, bool a_vec,
 // M's rows in the fewest tiles of at most kSMaxRows, each as even as it
 // can be; an instance of the least even TM (or 1) that holds a tile (the
 // time grows with TM: PERF.md), element loads (one instance) where the
-// operands allow no vectors.
-template <typename SB>
+// operands allow no vectors.  The wide instances compile TM = 1 (every MoE
+// decode call) and 16 alone: a tile of fewer rows runs in the 16-row
+// instance with the same sums, so the sweep of instances is not doubled.
+template <typename SB, typename P>
 int route_stream(const void* a, const rt::CodeFormat& af, bool a_vec,
                  bool vec, const SB* b, int E, int M, int N, int K,
-                 const Epilogue& ep, cudaStream_t s) {
+                 const Epilogue<P>& ep, cudaStream_t s) {
   const int tiles = (M + kSMaxRows - 1) / kSMaxRows;
   const int rows = (M + tiles - 1) / tiles;
 #define K8_STREAM(TM, VEC) \
   launch_stream<SB, TM, VEC>(a, af, a_vec, b, E, M, N, K, rows, ep, s)
   if (!vec) return K8_STREAM(kSMaxRows, false);
   if (rows == 1) return K8_STREAM(1, true);
-  switch ((rows + 1) / 2) {
-    case 1: return K8_STREAM(2, true);
-    case 2: return K8_STREAM(4, true);
-    case 3: return K8_STREAM(6, true);
-    case 4: return K8_STREAM(8, true);
-    case 5: return K8_STREAM(10, true);
-    case 6: return K8_STREAM(12, true);
-    case 7: return K8_STREAM(14, true);
-    default: return K8_STREAM(16, true);
+  if constexpr (std::is_same<P, rt::WideParams>::value) {
+    return K8_STREAM(kSMaxRows, true);
+  } else {
+    switch ((rows + 1) / 2) {
+      case 1: return K8_STREAM(2, true);
+      case 2: return K8_STREAM(4, true);
+      case 3: return K8_STREAM(6, true);
+      case 4: return K8_STREAM(8, true);
+      case 5: return K8_STREAM(10, true);
+      case 6: return K8_STREAM(12, true);
+      case 7: return K8_STREAM(14, true);
+      default: return K8_STREAM(16, true);
+    }
   }
 #undef K8_STREAM
 }
@@ -398,9 +416,9 @@ int route_stream(const void* a, const rt::CodeFormat& af, bool a_vec,
 // once the grid holds a wave of blocks; element loads (32x64 tiles) where
 // the operands allow no vectors.
 // ---------------------------------------------------------------------------
-template <typename SB>
+template <typename SB, typename Epi>
 int route_large(const void* a, const rt::CodeFormat& af, bool vec,
-                const SB* b, int E, int M, int N, int K, const Epilogue& ep,
+                const SB* b, int E, int M, int N, int K, const Epi& ep,
                 cudaStream_t s) {
   using Big = gemm::Tile<16, 2, 1, 3, SB, 1, 2>;
   using Mid = gemm::Tile<16, 1, 1, 6, SB, 1, 1>;
@@ -416,26 +434,25 @@ int route_large(const void* a, const rt::CodeFormat& af, bool vec,
   return gemm::launch_gemm_batched<Small, true>(a, af, b, E, M, N, K, ep, s);
 }
 
-template <typename SB>
+template <typename SB, typename P>
 int route(const void* a, const rt::CodeFormat& af, bool a_vec, bool vec,
-          const void* b, int E, int K, const Epilogue& ep, cudaStream_t s,
-          bool stream) {
+          const void* b, int E, int K, const Epilogue<P>& ep,
+          cudaStream_t s, bool stream) {
   const SB* w = static_cast<const SB*>(b);
   if (stream)
     return route_stream<SB>(a, af, a_vec, vec, w, E, ep.M, ep.N, K, ep, s);
   return route_large<SB>(a, af, vec, w, E, ep.M, ep.N, K, ep, s);
 }
 
+template <typename P>
 int run(const void* a, const int* a_fmt, const void* b, int b_is_bf16,
         const uint32_t* seeds, const uint32_t* bits, void* out,
-        const int* out_fmt, int E, int M, int N, int K, int precision,
-        int emin, int emax, float xmax, int mode, int rand_bits,
+        const int* out_fmt, int E, int M, int N, int K, const P& fwd,
         void* stream, bool stream_route) {
   if (E <= 0 || M <= 0 || N <= 0) return 0;
   const rt::CodeFormat af = rt::code_format(a_fmt);
-  const Epilogue ep{seeds, bits, out, rt::code_format(out_fmt), M, N, 0u, 0u,
-                    rt::RoundParams{precision, emin, emax, xmax, mode,
-                                    rand_bits, 1}};
+  const Epilogue<P> ep{seeds, bits, out, rt::code_format(out_fmt), M, N, 0u,
+                       0u, fwd};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   // vector loads: B rows of whole 16-byte chunks from a 16-byte aligned
   // base (so every slice's base is aligned too); a float32 A 16-byte
@@ -448,6 +465,13 @@ int run(const void* a, const int* a_fmt, const void* b, int b_is_bf16,
     return route<gemm::Bf16Bits>(a, af, a_vec, vec, b, E, K, ep, s,
                                  stream_route);
   return route<float>(a, af, a_vec, vec, b, E, K, ep, s, stream_route);
+}
+
+// The first instances' site: rn, sr or sr_eps on a plain FP grid.
+rt::RoundParams fp_site(int precision, int emin, int emax, float xmax,
+                        int mode, int rand_bits, float eps) {
+  return rt::RoundParams{precision, emin, emax, xmax, mode, rand_bits, 1,
+                         eps};
 }
 
 }  // namespace
@@ -463,22 +487,24 @@ extern "C" int qmatmul_batched_sr(const void* a, const int* a_fmt,
                                   const int* out_fmt, int E, int M, int N,
                                   int K, int precision, int emin, int emax,
                                   float xmax, int mode, int rand_bits,
-                                  void* stream) {
+                                  float eps, void* stream) {
   return run(a, a_fmt, b, b_is_bf16, seeds, nullptr, out, out_fmt, E, M, N,
-             K, precision, emin, emax, xmax, mode, rand_bits, stream, false);
+             K, fp_site(precision, emin, emax, xmax, mode, rand_bits, eps),
+             stream, false);
 }
 
 // K8, large-M route.  bits: (E, M, N) uint32 words on the device (read
-// only under sr).
+// only under a stochastic scheme).
 extern "C" int qmatmul_batched_bits(const void* a, const int* a_fmt,
                                     const void* b, int b_is_bf16,
                                     const uint32_t* bits, void* out,
                                     const int* out_fmt, int E, int M, int N,
                                     int K, int precision, int emin, int emax,
                                     float xmax, int mode, int rand_bits,
-                                    void* stream) {
+                                    float eps, void* stream) {
   return run(a, a_fmt, b, b_is_bf16, nullptr, bits, out, out_fmt, E, M, N,
-             K, precision, emin, emax, xmax, mode, rand_bits, stream, false);
+             K, fp_site(precision, emin, emax, xmax, mode, rand_bits, eps),
+             stream, false);
 }
 
 // K8', weight-stream route: qmatmul_batched_sr's arguments and result.
@@ -488,10 +514,11 @@ extern "C" int qmatmul_batched_sr_stream(const void* a, const int* a_fmt,
                                          const int* out_fmt, int E, int M,
                                          int N, int K, int precision,
                                          int emin, int emax, float xmax,
-                                         int mode, int rand_bits,
+                                         int mode, int rand_bits, float eps,
                                          void* stream) {
   return run(a, a_fmt, b, b_is_bf16, seeds, nullptr, out, out_fmt, E, M, N,
-             K, precision, emin, emax, xmax, mode, rand_bits, stream, true);
+             K, fp_site(precision, emin, emax, xmax, mode, rand_bits, eps),
+             stream, true);
 }
 
 // K8, weight-stream route: qmatmul_batched_bits' arguments and result.
@@ -502,7 +529,40 @@ extern "C" int qmatmul_batched_bits_stream(const void* a, const int* a_fmt,
                                            int N, int K, int precision,
                                            int emin, int emax, float xmax,
                                            int mode, int rand_bits,
-                                           void* stream) {
+                                           float eps, void* stream) {
   return run(a, a_fmt, b, b_is_bf16, nullptr, bits, out, out_fmt, E, M, N,
-             K, precision, emin, emax, xmax, mode, rand_bits, stream, true);
+             K, fp_site(precision, emin, emax, xmax, mode, rand_bits, eps),
+             stream, true);
+}
+
+// K8''s wide instance (every scheme x grid pair of the reference's
+// round_block, saturating: the reference's batched GEMM passes no
+// overflow), large-M route.  site: int[8] {1, precision, emin, emax, mode,
+// rand_bits, 0, flags} and fsite: float[4] {xmax, eps, scale, mu}
+// (rt::wide_params); other arguments as qmatmul_batched_sr's.
+extern "C" int qmatmul_batched_sr_wide(const void* a, const int* a_fmt,
+                                       const void* b, int b_is_bf16,
+                                       const uint32_t* seeds, void* out,
+                                       const int* out_fmt, int E, int M,
+                                       int N, int K, const int* site,
+                                       const float* fsite, void* stream) {
+  return run(a, a_fmt, b, b_is_bf16, seeds, nullptr, out, out_fmt, E, M, N,
+             K, rt::wide_params(site, fsite[0], fsite[1], fsite + 2), stream,
+             false);
+}
+
+// K8''s wide instance, weight-stream route: qmatmul_batched_sr_wide's
+// arguments.
+extern "C" int qmatmul_batched_sr_wide_stream(const void* a,
+                                              const int* a_fmt,
+                                              const void* b, int b_is_bf16,
+                                              const uint32_t* seeds,
+                                              void* out, const int* out_fmt,
+                                              int E, int M, int N, int K,
+                                              const int* site,
+                                              const float* fsite,
+                                              void* stream) {
+  return run(a, a_fmt, b, b_is_bf16, seeds, nullptr, out, out_fmt, E, M, N,
+             K, rt::wide_params(site, fsite[0], fsite[1], fsite + 2), stream,
+             true);
 }

@@ -61,9 +61,17 @@
 //   kept.
 //
 // Epilogue (both routes): draw rt::element_bits(k0, k1, 0, rand_bits, r, c)
-// (K3') or read bits[r N + c] (K3), then rt::round_value and
-// rt::store_code.  Bits are keyed by the global (r, c), so neither the
-// tiling nor the route changes them.
+// (K3') or read bits[r N + c] (K3), then round and rt::store_code.  Bits are
+// keyed by the global (r, c), so neither the tiling nor the route changes
+// them.  The epilogue is templated on its rounding site: the first
+// instances round with rt::round_value (rn, sr and sr_eps on plain FP grids
+// with subnormals; K3 has these alone), K3''s wide instance (entry points
+// qmatmul_sr_wide, qmatmul_sr_wide_decode) with rt::round_value_wide: every
+// scheme x grid pair of the reference's round_block (rz, ra, rd, ru, SR 2.0,
+// the bit trick, fixed-point and shifted grids, formats without
+// subnormals), saturating as the reference's GEMMs do.  Both run the same
+// main loops, so a wide instance differs only in its epilogue's cost: one
+// output per K FMAs (PERF.md).
 //
 // The two routes' main loops live in gemm_routes.cuh (shared with K4' and
 // K4, which run them over two weight operands); this file keeps K3''s
@@ -85,13 +93,16 @@
 
 namespace {
 
+// P: the rounding site, rt::RoundParams (the first instances) or
+// rt::WideParams (the wide instances).
+template <typename P>
 struct Epilogue {
   const uint32_t* bits;   // K3's words; nullptr: draw in-kernel (K3')
   void* out;
   rt::CodeFormat of;
   int M, N;
   uint32_t k0, k1;
-  rt::RoundParams fwd;
+  P fwd;
 
   // the large-M route's outputs (r, c0 .. c0 + 3)
   __device__ __forceinline__ void four(int r, int c0,
@@ -102,14 +113,16 @@ struct Epilogue {
 };
 
 // The rounding words of out[r, c0 .. c0 + 3] (c0 % 4 == 0): drawn (K3')
-// or read (K3); zero for rn.
-__device__ __forceinline__ void bits4(const Epilogue& e, int r, int c0,
+// or read (K3); zero for a deterministic scheme.
+template <typename P>
+__device__ __forceinline__ void bits4(const Epilogue<P>& e, int r, int c0,
                                       uint32_t (&w)[4]) {
 #pragma unroll
   for (int j = 0; j < 4; ++j) w[j] = 0u;
-  if (e.fwd.mode != rt::kSR) return;
+  const rt::RoundParams& site = rt::site_of(e.fwd);
+  if (!rt::draws(site.mode)) return;
   if (e.bits == nullptr) {
-    rt::element_bits4(e.k0, e.k1, 0u, e.fwd.rand_bits, r, c0, w);
+    rt::element_bits4(e.k0, e.k1, 0u, site.rand_bits, r, c0, w);
   } else {
     const size_t row = static_cast<size_t>(r) * e.N;
 #pragma unroll
@@ -120,13 +133,14 @@ __device__ __forceinline__ void bits4(const Epilogue& e, int r, int c0,
 
 // Round four sums with their words and store out[r, c0 .. c0 + 3];
 // columns at or past N are dropped.
-__device__ __forceinline__ void round_store4(const Epilogue& e, int r, int c0,
-                                             const float (&v)[4],
+template <typename P>
+__device__ __forceinline__ void round_store4(const Epilogue<P>& e, int r,
+                                             int c0, const float (&v)[4],
                                              const uint32_t (&w)[4]) {
   const size_t row = static_cast<size_t>(r) * e.N;
   float y[4];
 #pragma unroll
-  for (int j = 0; j < 4; ++j) y[j] = rt::round_value(v[j], w[j], e.fwd);
+  for (int j = 0; j < 4; ++j) y[j] = rt::round_at(v[j], w[j], e.fwd);
   if (e.of.bytes == 0 && (e.N & 3) == 0) {
     *reinterpret_cast<float4*>(static_cast<float*>(e.out) + row + c0) =
         make_float4(y[0], y[1], y[2], y[3]);
@@ -137,21 +151,24 @@ __device__ __forceinline__ void round_store4(const Epilogue& e, int r, int c0,
   }
 }
 
-__device__ __forceinline__ void Epilogue::four(int r, int c0,
-                                               const float (&v)[1][4]) const {
+template <typename P>
+__device__ __forceinline__ void Epilogue<P>::four(
+    int r, int c0, const float (&v)[1][4]) const {
   uint32_t w[4];
   bits4(*this, r, c0, w);
   round_store4(*this, r, c0, v[0], w);
 }
 
-__device__ __forceinline__ void Epilogue::one(int r, int c,
-                                              const float (&v)[1]) const {
+template <typename P>
+__device__ __forceinline__ void Epilogue<P>::one(int r, int c,
+                                                 const float (&v)[1]) const {
   const size_t idx = static_cast<size_t>(r) * N + c;
+  const rt::RoundParams& site = rt::site_of(fwd);
   uint32_t w = 0u;
-  if (fwd.mode == rt::kSR)
+  if (rt::draws(site.mode))
     w = bits != nullptr ? bits[idx]
-                        : rt::element_bits(k0, k1, 0u, fwd.rand_bits, r, c);
-  rt::store_code(out, idx, rt::round_value(v[0], w, fwd), of);
+                        : rt::element_bits(k0, k1, 0u, site.rand_bits, r, c);
+  rt::store_code(out, idx, rt::round_at(v[0], w, fwd), of);
 }
 
 // ---------------------------------------------------------------------------
@@ -167,9 +184,9 @@ constexpr int kMidStages = 6, kSmallStages = 8;
 
 // The largest tile whose grid holds about a wave of blocks; element loads
 // (32x64 tiles) where the operands allow no vectors.
-template <typename SB>
+template <typename SB, typename Epi>
 int route_gemm(const void* a, const rt::CodeFormat& af, bool vec,
-               const gemm::Weights<SB, 1>& b, int K, const Epilogue& ep,
+               const gemm::Weights<SB, 1>& b, int K, const Epi& ep,
                cudaStream_t s) {
   using Big = gemm::Tile<16, kBigRG, kBigCG, kBigStages, SB, 1,
                          kBigMinBlocks>;
@@ -188,9 +205,9 @@ int route_gemm(const void* a, const rt::CodeFormat& af, bool vec,
 // same, PERF.md).
 constexpr int kDecStages = 8;
 
-template <typename SB>
+template <typename SB, typename Epi>
 int route(const void* a, const rt::CodeFormat& af, bool a_vec, bool vec,
-          const void* b, int K, const Epilogue& ep, cudaStream_t s,
+          const void* b, int K, const Epi& ep, cudaStream_t s,
           bool decode) {
   const gemm::Weights<SB, 1> w{{static_cast<const SB*>(b)}};
   if (!decode) return route_gemm<SB>(a, af, vec, w, K, ep, s);
@@ -200,15 +217,15 @@ int route(const void* a, const rt::CodeFormat& af, bool a_vec, bool vec,
                                                       ep.N, K, ep, s);
 }
 
+template <typename P>
 int run(const void* a, const int* a_fmt, const void* b, int b_is_bf16,
         const uint32_t* bits, void* out, const int* out_fmt, int M, int N,
-        int K, uint32_t k0, uint32_t k1, int precision, int emin, int emax,
-        float xmax, int mode, int rand_bits, void* stream, bool decode) {
+        int K, uint32_t k0, uint32_t k1, const P& fwd, void* stream,
+        bool decode) {
   if (M <= 0 || N <= 0) return 0;
   const rt::CodeFormat af = rt::code_format(a_fmt);
-  const Epilogue ep{bits, out, rt::code_format(out_fmt), M, N, k0, k1,
-                    rt::RoundParams{precision, emin, emax, xmax, mode,
-                                    rand_bits, 1}};
+  const Epilogue<P> ep{bits, out, rt::code_format(out_fmt), M, N, k0, k1,
+                       fwd};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   // vector loads: B rows of whole 16-byte chunks from a 16-byte aligned
   // base; a float32 A 16-byte aligned with K % 4 == 0 (in the large-M
@@ -221,6 +238,13 @@ int run(const void* a, const int* a_fmt, const void* b, int b_is_bf16,
   return route<float>(a, af, a_vec, vec, b, K, ep, s, decode);
 }
 
+// The first instances' site: rn, sr or sr_eps on a plain FP grid.
+rt::RoundParams fp_site(int precision, int emin, int emax, float xmax,
+                        int mode, int rand_bits, float eps) {
+  return rt::RoundParams{precision, emin, emax, xmax, mode, rand_bits, 1,
+                         eps};
+}
+
 }  // namespace
 
 // K3', large-M route.  a: (M, K) float32, or codes per a_fmt (int[7],
@@ -230,20 +254,23 @@ extern "C" int qmatmul_sr(const void* a, const int* a_fmt, const void* b,
                           int b_is_bf16, void* out, const int* out_fmt,
                           int M, int N, int K, uint32_t k0, uint32_t k1,
                           int precision, int emin, int emax, float xmax,
-                          int mode, int rand_bits, void* stream) {
+                          int mode, int rand_bits, float eps, void* stream) {
   return run(a, a_fmt, b, b_is_bf16, nullptr, out, out_fmt, M, N, K, k0, k1,
-             precision, emin, emax, xmax, mode, rand_bits, stream, false);
+             fp_site(precision, emin, emax, xmax, mode, rand_bits, eps),
+             stream, false);
 }
 
 // K3, large-M route.  bits: (M, N) uint32 words on the device (read only
-// under sr).
+// under a stochastic scheme).
 extern "C" int qmatmul_bits(const void* a, const int* a_fmt, const void* b,
                             int b_is_bf16, const uint32_t* bits, void* out,
                             const int* out_fmt, int M, int N, int K,
                             int precision, int emin, int emax, float xmax,
-                            int mode, int rand_bits, void* stream) {
+                            int mode, int rand_bits, float eps,
+                            void* stream) {
   return run(a, a_fmt, b, b_is_bf16, bits, out, out_fmt, M, N, K, 0u, 0u,
-             precision, emin, emax, xmax, mode, rand_bits, stream, false);
+             fp_site(precision, emin, emax, xmax, mode, rand_bits, eps),
+             stream, false);
 }
 
 // K3', decode route: qmatmul_sr's arguments and result.
@@ -252,9 +279,10 @@ extern "C" int qmatmul_sr_decode(const void* a, const int* a_fmt,
                                  const int* out_fmt, int M, int N, int K,
                                  uint32_t k0, uint32_t k1, int precision,
                                  int emin, int emax, float xmax, int mode,
-                                 int rand_bits, void* stream) {
+                                 int rand_bits, float eps, void* stream) {
   return run(a, a_fmt, b, b_is_bf16, nullptr, out, out_fmt, M, N, K, k0, k1,
-             precision, emin, emax, xmax, mode, rand_bits, stream, true);
+             fp_site(precision, emin, emax, xmax, mode, rand_bits, eps),
+             stream, true);
 }
 
 // K3, decode route: qmatmul_bits' arguments and result.
@@ -264,7 +292,35 @@ extern "C" int qmatmul_bits_decode(const void* a, const int* a_fmt,
                                    const int* out_fmt, int M, int N, int K,
                                    int precision, int emin, int emax,
                                    float xmax, int mode, int rand_bits,
-                                   void* stream) {
+                                   float eps, void* stream) {
   return run(a, a_fmt, b, b_is_bf16, bits, out, out_fmt, M, N, K, 0u, 0u,
-             precision, emin, emax, xmax, mode, rand_bits, stream, true);
+             fp_site(precision, emin, emax, xmax, mode, rand_bits, eps),
+             stream, true);
+}
+
+// K3''s wide instance (every scheme x grid pair of the reference's
+// round_block, saturating: the reference's GEMMs pass no overflow), large-M
+// route.  site: int[8] {1, precision, emin, emax, mode, rand_bits, 0,
+// flags} and fsite: float[4] {xmax, eps, scale, mu} (rt::wide_params);
+// other arguments as qmatmul_sr's.
+extern "C" int qmatmul_sr_wide(const void* a, const int* a_fmt,
+                               const void* b, int b_is_bf16, void* out,
+                               const int* out_fmt, int M, int N, int K,
+                               uint32_t k0, uint32_t k1, const int* site,
+                               const float* fsite, void* stream) {
+  return run(a, a_fmt, b, b_is_bf16, nullptr, out, out_fmt, M, N, K, k0, k1,
+             rt::wide_params(site, fsite[0], fsite[1], fsite + 2), stream,
+             false);
+}
+
+// K3''s wide instance, decode route: qmatmul_sr_wide's arguments.
+extern "C" int qmatmul_sr_wide_decode(const void* a, const int* a_fmt,
+                                      const void* b, int b_is_bf16,
+                                      void* out, const int* out_fmt, int M,
+                                      int N, int K, uint32_t k0, uint32_t k1,
+                                      const int* site, const float* fsite,
+                                      void* stream) {
+  return run(a, a_fmt, b, b_is_bf16, nullptr, out, out_fmt, M, N, K, k0, k1,
+             rt::wide_params(site, fsite[0], fsite[1], fsite + 2), stream,
+             true);
 }

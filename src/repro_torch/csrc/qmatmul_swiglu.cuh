@@ -7,7 +7,12 @@
 // (QMATMUL_SWIGLU_ENTRIES below) for its activation.  The activation is
 // the epilogue's template parameter on both routes, so an instance holds
 // only its own activation's code, and the silu instances compile as before
-// the others existed.
+// the others existed.  The epilogue is also templated on its rounding
+// sites: the first instances (rt::RoundParams: rn, sr, sr_eps on plain FP
+// grids; K4 has these alone) and K4''s wide instance (rt::WideParams,
+// qmatmul_swiglu_sr_wide / _decode: every scheme x grid pair, the gate and
+// up sites saturating as the reference's, the act site overflowing as its
+// spec says).
 #pragma once
 
 #include <cuda_runtime.h>
@@ -29,6 +34,13 @@ struct Bits {           // K4's operands (on = 1); K4' draws (on = 0)
 struct Seeds {          // K4''s word pairs
   uint32_t g0, g1, u0, u1, a0, a1;
 };
+
+// K4''s six seed words (null: K4, which reads bits operands).
+inline Seeds seeds_of(const uint32_t* seeds) {
+  return seeds != nullptr ? Seeds{seeds[0], seeds[1], seeds[2], seeds[3],
+                                  seeds[4], seeds[5]}
+                          : Seeds{0, 0, 0, 0, 0, 0};
+}
 
 // Store four grid values at elements i0 .. i0 + 3 of a tensor stored as
 // `f`, or its first n of them (n < 4: the columns at or past N).  vec: the
@@ -64,7 +76,9 @@ __device__ __forceinline__ void store_code4(void* p, size_t i0,
     if (j < n) rt::store_code(p, i0 + j, y[j], f);
 }
 
-template <int kAct>
+// P: the rounding sites, rt::RoundParams (the first instances) or
+// rt::WideParams (the wide instances, K4' only).
+template <int kAct, typename P = rt::RoundParams>
 struct GluEpilogue {
   Bits bits;
   Seeds sd;
@@ -75,18 +89,20 @@ struct GluEpilogue {
   rt::CodeFormat rf;
   int N;
   bool vec;             // four-column stores (N % 4 == 0, aligned outputs)
-  rt::RoundParams fwd;
-  rt::RoundParams act;
+  P fwd;
+  P act;
 
   // h, g_r, u_r of the large-M route's outputs (r, c0 .. c0 + 3)
   __device__ __forceinline__ void four(int r, int c0,
                                        const float (&v)[2][4]) const {
+    const rt::RoundParams& fs = rt::site_of(fwd);
+    const rt::RoundParams& as = rt::site_of(act);
     uint32_t bg[4], bu[4], ba[4];
 #pragma unroll
     for (int j = 0; j < 4; ++j) bg[j] = bu[j] = ba[j] = 0u;
     const size_t row = static_cast<size_t>(r) * N;
     const int n = min(4, N - c0);
-    if (fwd.mode == rt::kSR) {
+    if (rt::draws(fs.mode)) {
       if (bits.on) {
 #pragma unroll
         for (int j = 0; j < 4; ++j)
@@ -95,26 +111,26 @@ struct GluEpilogue {
             bu[j] = bits.u[row + c0 + j];
           }
       } else {
-        rt::element_bits4(sd.g0, sd.g1, 0u, fwd.rand_bits, r, c0, bg);
-        rt::element_bits4(sd.u0, sd.u1, 0u, fwd.rand_bits, r, c0, bu);
+        rt::element_bits4(sd.g0, sd.g1, 0u, fs.rand_bits, r, c0, bg);
+        rt::element_bits4(sd.u0, sd.u1, 0u, fs.rand_bits, r, c0, bu);
       }
     }
-    if (act.enabled && act.mode == rt::kSR) {
+    if (as.enabled && rt::draws(as.mode)) {
       if (bits.on) {
 #pragma unroll
         for (int j = 0; j < 4; ++j)
           if (j < n) ba[j] = bits.act[row + c0 + j];
       } else {
-        rt::element_bits4(sd.a0, sd.a1, 1u, act.rand_bits, r, c0, ba);
+        rt::element_bits4(sd.a0, sd.a1, 1u, as.rand_bits, r, c0, ba);
       }
     }
     float g[4], u[4], h[4];
 #pragma unroll
     for (int j = 0; j < 4; ++j) {
-      g[j] = rt::round_value(v[0][j], bg[j], fwd);
-      u[j] = rt::round_value(v[1][j], bu[j], fwd);
+      g[j] = rt::round_at(v[0][j], bg[j], fwd);
+      u[j] = rt::round_at(v[1][j], bu[j], fwd);
       h[j] = rt::glu_hidden<kAct>(g[j], u[j]);
-      if (act.enabled) h[j] = rt::round_value(h[j], ba[j], act);
+      if (as.enabled) h[j] = rt::round_at(h[j], ba[j], act);
     }
     store_code4(out, row + c0, h, of, n, vec);
     if (g_out != nullptr) {   // residuals for the backward pass
@@ -126,27 +142,29 @@ struct GluEpilogue {
   // the decode route's output (r, c)
   __device__ __forceinline__ void one(int r, int c,
                                       const float (&v)[2]) const {
+    const rt::RoundParams& fs = rt::site_of(fwd);
+    const rt::RoundParams& as = rt::site_of(act);
     const size_t idx = static_cast<size_t>(r) * N + c;
     uint32_t bg = 0u, bu = 0u;
-    if (fwd.mode == rt::kSR) {
+    if (rt::draws(fs.mode)) {
       if (bits.on) {
         bg = bits.g[idx];
         bu = bits.u[idx];
       } else {
-        bg = rt::element_bits(sd.g0, sd.g1, 0u, fwd.rand_bits, r, c);
-        bu = rt::element_bits(sd.u0, sd.u1, 0u, fwd.rand_bits, r, c);
+        bg = rt::element_bits(sd.g0, sd.g1, 0u, fs.rand_bits, r, c);
+        bu = rt::element_bits(sd.u0, sd.u1, 0u, fs.rand_bits, r, c);
       }
     }
-    const float g_r = rt::round_value(v[0], bg, fwd);
-    const float u_r = rt::round_value(v[1], bu, fwd);
+    const float g_r = rt::round_at(v[0], bg, fwd);
+    const float u_r = rt::round_at(v[1], bu, fwd);
     float h = rt::glu_hidden<kAct>(g_r, u_r);
-    if (act.enabled) {
+    if (as.enabled) {
       uint32_t ba = 0u;
-      if (act.mode == rt::kSR)
+      if (rt::draws(as.mode))
         ba = bits.on ? bits.act[idx]
-                     : rt::element_bits(sd.a0, sd.a1, 1u, act.rand_bits, r,
+                     : rt::element_bits(sd.a0, sd.a1, 1u, as.rand_bits, r,
                                         c);
-      h = rt::round_value(h, ba, act);
+      h = rt::round_at(h, ba, act);
     }
     rt::store_code(out, idx, h, of);
     if (g_out != nullptr) {
@@ -168,10 +186,10 @@ constexpr int kBigRG = 1, kBigMinBlocks = 3;
 constexpr int kBigStages = 3, kSmallStages = 6;
 constexpr int kDecStages = 4;
 
-template <typename SB, int kAct>
+template <typename SB, typename Epi>
 int route(const float* x, bool a_vec, bool vec, const void* wg,
-          const void* wu, int M, int N, int K,
-          const GluEpilogue<kAct>& ep, cudaStream_t s, bool decode) {
+          const void* wu, int M, int N, int K, const Epi& ep,
+          cudaStream_t s, bool decode) {
   using Big = gemm::Tile<16, kBigRG, 1, kBigStages, SB, 2, kBigMinBlocks>;
   using Small = gemm::Tile<8, 1, 1, kSmallStages, SB, 2, 1>;
   const gemm::Weights<SB, 2> w{{static_cast<const SB*>(wg),
@@ -189,23 +207,18 @@ int route(const float* x, bool a_vec, bool vec, const void* wg,
   return gemm::launch_gemm<Small, true>(x, af, w, M, N, K, ep, s);
 }
 
-template <int kAct>
+template <int kAct, typename P>
 int run(const float* x, const void* wg, const void* wu, int w_is_bf16,
         const Bits& bits, const Seeds& sd, void* out, const int* out_fmt,
         void* g_out, void* u_out, const int* res_fmt, int M, int N, int K,
-        const int* fwd_site, float xmax, const int* act_site, float act_xmax,
-        void* stream, bool decode) {
+        const P& fwd, const P& act, void* stream, bool decode) {
   if (M <= 0 || N <= 0) return 0;
-  const rt::RoundParams fwd{fwd_site[0], fwd_site[1], fwd_site[2], xmax,
-                            fwd_site[3], fwd_site[4], 1};
-  const rt::RoundParams act{act_site[1], act_site[2], act_site[3], act_xmax,
-                            act_site[4], act_site[5], act_site[0]};
   const bool out_vec = N % 4 == 0 && gemm::aligned16(out) &&
                        (g_out == nullptr ||
                         (gemm::aligned16(g_out) && gemm::aligned16(u_out)));
-  const GluEpilogue<kAct> ep{bits,  sd,  out, rt::code_format(out_fmt),
-                       g_out, u_out, rt::code_format(res_fmt),
-                       N,     out_vec, fwd, act};
+  const GluEpilogue<kAct, P> ep{bits,  sd,  out, rt::code_format(out_fmt),
+                                g_out, u_out, rt::code_format(res_fmt),
+                                N,     out_vec, fwd, act};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   // vector loads: wg and wu rows of whole 16-byte chunks from 16-byte
   // aligned bases; x 16-byte aligned with K % 4 == 0 (the decode route
@@ -215,44 +228,73 @@ int run(const float* x, const void* wg, const void* wu, int w_is_bf16,
   const bool vec = gemm::aligned16(wg) && gemm::aligned16(wu) &&
                    N % (w_is_bf16 ? 8 : 4) == 0 && (decode || a_vec);
   if (w_is_bf16)
-    return route<gemm::Bf16Bits, kAct>(x, a_vec, vec, wg, wu, M, N, K, ep,
-                                       s, decode);
-  return route<float, kAct>(x, a_vec, vec, wg, wu, M, N, K, ep, s, decode);
+    return route<gemm::Bf16Bits>(x, a_vec, vec, wg, wu, M, N, K, ep, s,
+                                 decode);
+  return route<float>(x, a_vec, vec, wg, wu, M, N, K, ep, s, decode);
 }
 
 // One entry point's work: K4' (bits.on = 0, the seed words) or K4 (the bits
-// operands) on either route, under the library's activation.
+// operands) on either route, under the library's activation, on the first
+// instances.  fwd_site: int[6] {precision, emin, emax, mode, rand_bits,
+// eps bits}; act_site: int[7] {enabled, precision, emin, emax, mode,
+// rand_bits, eps bits}.
 template <int kAct>
 int entry(const float* x, const void* wg, const void* wu,
           int w_is_bf16, const Bits& bits, const uint32_t* seeds, void* out,
           const int* out_fmt, void* g_out, void* u_out, const int* res_fmt,
           int M, int N, int K, const int* fwd_site, float xmax,
           const int* act_site, float act_xmax, void* stream, bool decode) {
-  const Seeds sd = seeds != nullptr
-                       ? Seeds{seeds[0], seeds[1], seeds[2], seeds[3],
-                               seeds[4], seeds[5]}
-                       : Seeds{0, 0, 0, 0, 0, 0};
-  return run<kAct>(x, wg, wu, w_is_bf16, bits, sd, out, out_fmt, g_out,
-                   u_out, res_fmt, M, N, K, fwd_site, xmax, act_site,
-                   act_xmax, stream, decode);
+  const rt::RoundParams fwd{fwd_site[0], fwd_site[1], fwd_site[2], xmax,
+                            fwd_site[3], fwd_site[4], 1,
+                            rt::float_of_bits(fwd_site[5])};
+  const rt::RoundParams act{act_site[1], act_site[2], act_site[3], act_xmax,
+                            act_site[4], act_site[5], act_site[0],
+                            rt::float_of_bits(act_site[6])};
+  return run<kAct>(x, wg, wu, w_is_bf16, bits, seeds_of(seeds), out,
+                   out_fmt, g_out, u_out, res_fmt, M, N, K, fwd, act, stream,
+                   decode);
+}
+
+// K4''s wide instance: fwd and act sites as rows (rt::wide_params): int[8]
+// each and float[4] {xmax, eps, scale, mu} each (act's enabled in its slot
+// 0; the fwd site saturates, as the reference's does, the act site
+// overflows as its spec says).
+template <int kAct>
+int entry_wide(const float* x, const void* wg, const void* wu,
+               int w_is_bf16, const uint32_t* seeds, void* out,
+               const int* out_fmt, void* g_out, void* u_out,
+               const int* res_fmt, int M, int N, int K, const int* fwd_site,
+               const float* fwd_f, const int* act_site, const float* act_f,
+               void* stream, bool decode) {
+  return run<kAct>(x, wg, wu, w_is_bf16, Bits{0, nullptr, nullptr, nullptr},
+                   seeds_of(seeds), out, out_fmt, g_out, u_out, res_fmt, M,
+                   N, K, rt::wide_params(fwd_site, fwd_f[0], fwd_f[1],
+                                         fwd_f + 2),
+                   rt::wide_params(act_site, act_f[0], act_f[1], act_f + 2),
+                   stream, decode);
 }
 
 }  // namespace
 
-// The four entry points of one activation's library.
+// The six entry points of one activation's library.
 //
 // K4' (qmatmul_swiglu_sr, large-M route; qmatmul_swiglu_sr_decode, decode
 // route).  seeds: {gate k0, gate k1, up k0, up k1, act k0, act k1};
-// fwd_site: int[5] {precision, emin, emax, mode, rand_bits}; act_site:
-// int[6] {enabled, precision, emin, emax, mode, rand_bits}; out_fmt /
-// res_fmt: int[7] storage (null: float32); g_out/u_out: nullptr, or (M, N)
-// outputs for the rounded branches.  Launch on `stream`; returns cudaGetLastError() (0 on
-// success).
+// fwd_site: int[6] {precision, emin, emax, mode, rand_bits, eps bits};
+// act_site: int[7] {enabled, precision, emin, emax, mode, rand_bits, eps
+// bits}; out_fmt / res_fmt: int[7] storage (null: float32); g_out/u_out:
+// nullptr, or (M, N) outputs for the rounded branches.  Launch on
+// `stream`; returns cudaGetLastError() (0 on success).
 //
 // K4 (qmatmul_swiglu_bits, qmatmul_swiglu_bits_decode): the same with
-// bits_g, bits_u: (M, N) uint32 on the device (read only under sr) and
-// act_bits: (M, N) uint32, read only when the act site is stochastic, in
-// place of the seeds.
+// bits_g, bits_u: (M, N) uint32 on the device (read only under a
+// stochastic scheme) and act_bits: (M, N) uint32, read only when the act
+// site is stochastic, in place of the seeds.
+//
+// K4''s wide instance (qmatmul_swiglu_sr_wide, qmatmul_swiglu_sr_wide_
+// decode): K4''s arguments with each site as a wide row, int[8] {enabled,
+// precision, emin, emax, mode, rand_bits, 0, flags} and float[4] {xmax,
+// eps, scale, mu} (entry_wide).
 #define QMATMUL_SWIGLU_ENTRY_SR(NAME, ACT, DECODE)                           \
   extern "C" int NAME(const float* x, const void* wg, const void* wu,       \
                       int w_is_bf16, const uint32_t* seeds, void* out,      \
@@ -278,8 +320,22 @@ int entry(const float* x, const void* wg, const void* wu,
                       out_fmt, g_out, u_out, res_fmt, M, N, K, fwd_site,    \
                       xmax, act_site, act_xmax, stream, DECODE);            \
   }
+#define QMATMUL_SWIGLU_ENTRY_WIDE(NAME, ACT, DECODE)                         \
+  extern "C" int NAME(const float* x, const void* wg, const void* wu,       \
+                      int w_is_bf16, const uint32_t* seeds, void* out,      \
+                      const int* out_fmt, void* g_out, void* u_out,         \
+                      const int* res_fmt, int M, int N, int K,              \
+                      const int* fwd_site, const float* fwd_f,              \
+                      const int* act_site, const float* act_f,              \
+                      void* stream) {                                       \
+    return entry_wide<ACT>(x, wg, wu, w_is_bf16, seeds, out, out_fmt,       \
+                           g_out, u_out, res_fmt, M, N, K, fwd_site, fwd_f, \
+                           act_site, act_f, stream, DECODE);                \
+  }
 #define QMATMUL_SWIGLU_ENTRIES(ACT)                                 \
   QMATMUL_SWIGLU_ENTRY_SR(qmatmul_swiglu_sr, ACT, false)            \
   QMATMUL_SWIGLU_ENTRY_BITS(qmatmul_swiglu_bits, ACT, false)        \
   QMATMUL_SWIGLU_ENTRY_SR(qmatmul_swiglu_sr_decode, ACT, true)      \
-  QMATMUL_SWIGLU_ENTRY_BITS(qmatmul_swiglu_bits_decode, ACT, true)
+  QMATMUL_SWIGLU_ENTRY_BITS(qmatmul_swiglu_bits_decode, ACT, true)  \
+  QMATMUL_SWIGLU_ENTRY_WIDE(qmatmul_swiglu_sr_wide, ACT, false)     \
+  QMATMUL_SWIGLU_ENTRY_WIDE(qmatmul_swiglu_sr_wide_decode, ACT, true)

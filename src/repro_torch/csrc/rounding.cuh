@@ -1,10 +1,11 @@
 // Device-side rounding core shared by the rounded-GEMM and update kernels.
 //
 // A CUDA port of repro.kernels.common.round_block: round_value for plain FP
-// grids under the "rn", "sr", "sr_eps" and "signed_sr_eps" schemes (the
-// GEMM wrappers accept only rn and sr), round_value_wide for every scheme x
-// grid x overflow pair round_block takes (the eq.-8 update's wide
-// instance), and the reference's counter-based random bits (Threefry-2x32
+// grids under the "rn", "sr", "sr_eps" and "signed_sr_eps" schemes (every
+// kernel's first instances), round_value_wide for every scheme x grid x
+// overflow pair round_block takes (the wide instances of the eq.-8 update,
+// K3', K4', K8' and K1', which read their sites with wide_params and round
+// through round_at), and the reference's counter-based random bits (Threefry-2x32
 // keyed by the element's global (row, col), the interpret-mode derivation
 // of repro.kernels.common.counter_bits_reduced).
 // The plain PyTorch twin is repro_torch/kernels/common.py; both must give
@@ -352,6 +353,64 @@ __device__ __forceinline__ float round_value_wide(float x, uint32_t bits,
   if (z == 0.0f && signbit(z)) out = -0.0f;
   if (w.shifted) out = __fadd_rn(__fmul_rn(out, w.scale), w.mu);
   return isfinite(x) ? out : x;
+}
+
+// The flags of a wide site row's slot 7 (kernels/common.py: wide_flags):
+// bits 0-1 the Randomness, bit 2 overflow to +-inf, bit 3 a format without
+// subnormals, bit 4 a shifted grid, bit 5 a fixed-point grid (rounded as
+// the FP format it is).
+constexpr int kFlagInf = 4, kFlagNoSubnormals = 8, kFlagShifted = 16;
+
+// A wide site from the wrappers' row q = int[8] {enabled, precision, emin,
+// emax, mode, rand_bits, v source, flags} (kernels/common.py: wide_row),
+// its xmax and eps, and shift: its grid's (scale, mu), or null where no
+// site of the call is shifted.
+__host__ __device__ inline WideParams wide_params(const int* q, float xmax,
+                                                  float eps,
+                                                  const float* shift) {
+  const int f = q[7];
+  const bool shifted = (f & kFlagShifted) && shift != nullptr;
+  return WideParams{RoundParams{q[1], q[2], q[3], xmax, q[4], q[5], q[0],
+                                eps},
+                    f & 3, (f & kFlagInf) ? 1 : 0,
+                    (f & kFlagNoSubnormals) ? 0 : 1, shifted ? 1 : 0,
+                    shifted ? shift[0] : 1.0f, shifted ? shift[1] : 0.0f};
+}
+
+// Whether a site's scheme draws random bits: sr (sr2 and the bit trick are
+// sr with other draws), sr_eps and signed_sr_eps.
+__host__ __device__ __forceinline__ bool draws(int mode) {
+  return mode >= kSR && mode <= kSignedSREps;
+}
+
+// The GEMM and cast epilogues' rounding of one value, templated on their
+// site: round_value at a RoundParams site (their first instances: rn, sr
+// and sr_eps on plain FP grids with subnormals, saturating),
+// round_value_wide at a WideParams site (their wide instances: every
+// scheme x grid x overflow pair).  site_of gives the RoundParams part.
+__host__ __device__ __forceinline__ const RoundParams& site_of(
+    const RoundParams& p) {
+  return p;
+}
+__host__ __device__ __forceinline__ const RoundParams& site_of(
+    const WideParams& w) {
+  return w.r;
+}
+__host__ __device__ __forceinline__ RoundParams& site_of(RoundParams& p) {
+  return p;
+}
+__host__ __device__ __forceinline__ RoundParams& site_of(WideParams& w) {
+  return w.r;
+}
+__device__ __forceinline__ float round_at(float x, uint32_t bits,
+                                            const RoundParams& p,
+                                            float sign_v = 0.0f) {
+  return round_value(x, bits, p, sign_v);
+}
+__device__ __forceinline__ float round_at(float x, uint32_t bits,
+                                            const WideParams& w,
+                                            float sign_v = 0.0f) {
+  return round_value_wide(x, bits, w, sign_v);
 }
 
 // A packed code word's layout (repro_torch.kernels.common.pack_spec):

@@ -13,6 +13,9 @@
 //     word i of a flat uint32 bits operand (its low rand_bits bits), as
 //     the plain twin sr_cast_plain does.
 // Both take rn, sr, sr_eps and signed_sr_eps (rounding.cuh:round_value);
+// K1' also has a wide instance (sr_cast_prng_wide: rounding.cuh:
+// round_value_wide, every scheme x grid x overflow pair of the reference's
+// sr_cast_prng_p, the same threads and draws);
 // signed_sr_eps reads a bias-direction operand v of x's shape and rounds
 // toward -sign(v) with probability shifted by eps (the reference's
 // _signed_sr_cast_kernel, which draws 32-bit fields).
@@ -39,6 +42,8 @@
 // draws, no v) has an instance with both fixed at compile time
 // (sr_cast.sr_cast_bits_instance), beside the generic one.
 #include <cuda_runtime.h>
+
+#include <type_traits>
 
 #include "rounding.cuh"
 
@@ -101,16 +106,18 @@ __device__ __forceinline__ void store_group(float* p, long long i0,
 // from one Threefry evaluation, keyed (i0 / 128, (i0 % 128) / kE): element
 // i0 + j takes word j / (kE / 2) of it, field j % (kE / 2) (element_bits
 // at (i / 128, i % 128), stream 0).  kMode >= 0 fixes the scheme at compile
-// time (the path instance: no v); kMode < 0 reads it from p.
-template <int kE, int kMode>
+// time (the path instance: no v); kMode < 0 reads it from p.  P: the site,
+// rt::RoundParams (the first instances) or rt::WideParams (the wide one).
+template <int kE, int kMode, typename P = rt::RoundParams>
 __global__ void __launch_bounds__(kThreads)
 sr_cast_prng_kernel(const float* __restrict__ x,
                     const float* __restrict__ vdir, float* __restrict__ out,
                     long long n, int vec_ok, uint32_t k0, uint32_t k1,
-                    rt::RoundParams p) {
+                    P p) {
   constexpr int kBits = 64 / kE, kRatio = kE / 2;
-  p.rand_bits = kBits;
-  if (kMode >= 0) p.mode = kMode;
+  rt::RoundParams& site = rt::site_of(p);
+  site.rand_bits = kBits;
+  if (kMode >= 0) site.mode = kMode;
   const bool signed_v = kMode < 0 && vdir != nullptr;
   const long long n_groups = (n + kE - 1) / kE;
   const long long stride = static_cast<long long>(gridDim.x) * blockDim.x;
@@ -130,7 +137,9 @@ sr_cast_prng_kernel(const float* __restrict__ x,
       for (int j = 0; j < kE; ++j) sv[j] = 0.0f;
     }
     uint32_t o0 = 0u, o1 = 0u;
-    if (p.mode != rt::kRN)
+    // the first instances' test, kept as it was (their code unchanged)
+    if (std::is_same<P, rt::RoundParams>::value ? site.mode != rt::kRN
+                                                 : rt::draws(site.mode))
       rt::threefry2x32(k0, k1, static_cast<uint32_t>(i0 / kLanes),
                        static_cast<uint32_t>((i0 % kLanes) / kE), o0, o1);
 #pragma unroll
@@ -138,7 +147,7 @@ sr_cast_prng_kernel(const float* __restrict__ x,
       uint32_t w = j < kRatio ? o0 : o1;
       if constexpr (kBits < 32)
         w = (w >> ((j % kRatio) * kBits)) & ((1u << kBits) - 1u);
-      v[j] = rt::round_value(v[j], w, p, sv[j]);
+      v[j] = rt::round_at(v[j], w, p, sv[j]);
     }
     store_group<kE>(out, i0, n, full, v);
   }
@@ -261,5 +270,35 @@ extern "C" int sr_cast_bits(const float* x, const uint32_t* bits,
   else
     sr_cast_bits_kernel<-1><<<blocks, kBitsThreads, 0, st>>>(
         x, bits, v, out, n, vec_ok, p);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// K1''s wide instance: every scheme x grid x overflow pair of the
+// reference's round_block (sr_cast_prng_p takes overflow).  site: int[8]
+// {1, precision, emin, emax, mode, rand_bits, 0, flags} and fsite:
+// float[4] {xmax, eps, scale, mu} (rt::wide_params); other arguments as
+// sr_cast_prng's.
+extern "C" int sr_cast_prng_wide(const float* x, const float* v, float* out,
+                                 long long n, int vec_ok, uint32_t k0,
+                                 uint32_t k1, const int* site,
+                                 const float* fsite, void* stream) {
+  if (n <= 0) return 0;
+  const int rand_bits = site[5];
+  if (rand_bits != 32 && rand_bits != 16 && rand_bits != 8)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const rt::WideParams p =
+      rt::wide_params(site, fsite[0], fsite[1], fsite + 2);
+  const long long n_groups = (n - 1) / (64 / rand_bits) + 1;
+  const int blocks = blocks_for(n_groups);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (rand_bits == 32)
+    sr_cast_prng_kernel<2, -1, rt::WideParams><<<blocks, kThreads, 0, st>>>(
+        x, v, out, n, vec_ok, k0, k1, p);
+  else if (rand_bits == 16)
+    sr_cast_prng_kernel<4, -1, rt::WideParams><<<blocks, kThreads, 0, st>>>(
+        x, v, out, n, vec_ok, k0, k1, p);
+  else
+    sr_cast_prng_kernel<8, -1, rt::WideParams><<<blocks, kThreads, 0, st>>>(
+        x, v, out, n, vec_ok, k0, k1, p);
   return static_cast<int>(cudaGetLastError());
 }

@@ -32,6 +32,17 @@ from repro_torch.core.schemes import get_scheme
 
 GOLDEN = 0x9E3779B9          # stream offsets fold into the Threefry key
 
+# The kernels' scheme codes (``csrc/rounding.cuh``'s ``Mode``): sr2 and the
+# bit trick are SR with another draw (``RANDOMNESS``, ``rounding.cuh``'s
+# ``Randomness`` by scheme randomness; 3 is the bit trick's integer path on
+# bfloat16 at r = 16)
+SCHEME_CODES = {"rn": 0, "sr": 1, "sr_eps": 2, "signed_sr_eps": 3, "rz": 4,
+                "ra": 5, "rd": 6, "ru": 7, "sr2": 1, "sr_bittrick": 1}
+RANDOMNESS = {"none": 0, "uniform": 0, "comparison": 1, "bittrick": 2}
+# the schemes of ``rounding.cuh``'s ``round_value`` (the kernels' first
+# instances; their wide instances take every scheme)
+FP_SCHEMES = ("rn", "sr", "sr_eps", "signed_sr_eps")
+
 
 def round_block(x: torch.Tensor, bits: Optional[torch.Tensor], fmt, mode,
                 eps: float = 0.0, v: Optional[torch.Tensor] = None,
@@ -89,6 +100,49 @@ def apply_spec_block(spec: RoundingSpec, x: torch.Tensor,
     return round_block(x, bits if spec.stochastic else None, spec.fmt,
                        spec.mode, spec.eps, v=v, rand_bits=spec.rand_bits,
                        overflow=spec.overflow)
+
+
+def fp_site(s: RoundingSpec) -> bool:
+    """Whether a site is one ``rounding.cuh``'s ``round_value`` rounds
+    (the kernels' first instances): an identity site, or rn, sr, sr_eps or
+    signed-SRe on a plain FP grid with subnormals, saturating.  Every
+    other site needs a kernel's wide instance (``round_value_wide``)."""
+    if s.is_identity:
+        return True
+    grid = get_grid(s.fmt)
+    return (grid.kind == "fp" and not grid.transformed
+            and grid.fmt.subnormals and s.scheme.name in FP_SCHEMES
+            and s.overflow == "saturate")
+
+
+def wide_flags(s: RoundingSpec) -> int:
+    """Slot 7 of a wide site row (``rounding.cuh``'s ``wide_params``):
+    bits 0-1 the draw (``RANDOMNESS``; 3: the bit trick's integer path,
+    taken as the reference's ``round_block`` takes it), bit 2 overflow to
+    ±inf, bit 3 no subnormals, bit 4 a shifted grid, bit 5 a fixed-point
+    grid.  0 for every site of the first instances (``fp_site``)."""
+    grid = get_grid(s.fmt)
+    flags = RANDOMNESS[s.scheme.randomness]
+    if s.scheme.randomness == "bittrick" and not grid.transformed \
+            and grid.fmt.name == "bfloat16" and s.rand_bits == 16:
+        flags = 3
+    return (flags | 4 * (s.overflow == "inf") | 8 * (not grid.fmt.subnormals)
+            | 16 * grid.transformed | 32 * (grid.kind == "fxp"))
+
+
+def wide_row(s: RoundingSpec, v_source: int = 0):
+    """A site as the kernels' wide row: ([enabled, precision, emin, emax,
+    mode, rand_bits, v source, flags], [xmax, eps, scale, mu]); an
+    identity site is disabled (zeros, scale 1).  The update kernels (K2',
+    K2: three rows a chain) and the wide instances of K3', K4', K8' and K1'
+    read it (``rounding.cuh``'s ``wide_params``)."""
+    if s.is_identity:
+        return [0] * 8, [0.0, 0.0, 1.0, 0.0]
+    grid = get_grid(s.fmt)
+    f = grid.fmt
+    return ([1, f.precision, f.emin, f.emax, SCHEME_CODES[s.scheme.name],
+             s.rand_bits, v_source, wide_flags(s)],
+            [f.xmax, s.eps, grid.scale, grid.mu])
 
 
 def _stream_key(k1: int, stream: int) -> int:

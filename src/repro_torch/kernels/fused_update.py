@@ -68,14 +68,6 @@ from repro_torch.kernels import build, common
 
 LANES = 128                 # the reference's flat (rows, LANES) layout
 CHUNK = 1 << 24             # plain twins: elements per pass (LANES | CHUNK)
-# the kernels' scheme codes (``rounding.cuh``'s ``Mode``): sr2 and the bit
-# trick are SR with another draw (``_RANDOMNESS``)
-_MODES = {"rn": 0, "sr": 1, "sr_eps": 2, "signed_sr_eps": 3, "rz": 4,
-          "ra": 5, "rd": 6, "ru": 7, "sr2": 1, "sr_bittrick": 1}
-_GENERIC_MODES = ("rn", "sr", "sr_eps", "signed_sr_eps")
-# ``rounding.cuh``'s ``Randomness`` by scheme randomness; 3 is the bit
-# trick's integer path on bfloat16 at r = 16
-_RANDOMNESS = {"none": 0, "uniform": 0, "comparison": 1, "bittrick": 2}
 _V_SOURCES = {"self": 0, "grad": 1, "neg_grad": 2}
 
 # kernel launches since the last reset_launches(), by kernel name
@@ -106,26 +98,14 @@ def _check_spec(s: RoundingSpec, what: str) -> None:
     """K2' and K2 take every registered scheme on every grid, saturating
     or overflowing (the wide instance); only a scheme the kernels do not
     know is refused."""
-    if not s.is_identity and s.scheme.name not in _MODES:
+    if not s.is_identity and s.scheme.name not in common.SCHEME_CODES:
         raise NotImplementedError(f"{what}: scheme {s.scheme.name!r} has no "
                                   "rule in the update kernels")
 
 
-def _generic_spec(s: RoundingSpec) -> bool:
-    """Whether a site is the generic instance's (``rounding.cuh``'s
-    ``round_value``): rn, sr, sr_eps or signed-SRe on a plain FP grid with
-    subnormals, saturating."""
-    if s.is_identity:
-        return True
-    grid = get_grid(s.fmt)
-    return (grid.kind == "fp" and not grid.transformed
-            and grid.fmt.subnormals and s.scheme.name in _GENERIC_MODES
-            and s.overflow == "saturate")
-
-
 def _check_generic_spec(s: RoundingSpec, what: str) -> None:
     """K5's sites: the generic instance's only."""
-    if not _generic_spec(s):
+    if not common.fp_site(s):
         raise NotImplementedError(
             f"{what}: {s} is not ported to K5 (rn, sr, sr_eps, "
             "signed_sr_eps on a plain FP grid with subnormals, saturating)")
@@ -365,7 +345,7 @@ def _trainer_chain(cfg: GDRounding) -> bool:
     chain = list(cfg.step_specs())
     modes = tuple(None if s.is_identity else s.scheme.name for s in chain)
     return modes == ("rn", "sr", "signed_sr_eps") \
-        and all(_generic_spec(s) and _narrow(s) for s in chain) \
+        and all(common.fp_site(s) and _narrow(s) for s in chain) \
         and all(s.rand_bits == 32 for s in chain[1:])
 
 
@@ -375,14 +355,14 @@ K2_INSTANCES = ("generic", "trainer", "wide")
 
 def k2_instance(cfg: GDRounding) -> str:
     """Which compiled instance of K2' and K2 a config runs: ``"wide"``
-    where a site is not the generic instance's (``_generic_spec``);
+    where a site is not the generic instance's (``common.fp_site``);
     ``"trainer"`` for ``train.PAPER_RUN``'s chain (every scheme, draw width
     and the signed-SRe direction ``sub_v="grad"`` fixed at compile time, the
     sites' grids read at run time); else ``"generic"`` (the ``Chain`` read
     at run time).  The wide instance takes every chain; the entry points
     refuse a trainer launch that does not fit and a generic or trainer
     launch of a chain that needs the wide instance."""
-    if not all(_generic_spec(s) for s in cfg.step_specs()):
+    if not all(common.fp_site(s) for s in cfg.step_specs()):
         return "wide"
     return "trainer" if _trainer_chain(cfg) and cfg.sub_v == "grad" \
         else "generic"
@@ -547,35 +527,16 @@ def momentum_fma(a: float, m: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 # the C interface
 # ---------------------------------------------------------------------------
-def _wide_flags(s: RoundingSpec) -> int:
-    """Slot 7 of a site row (``fused_qupdate.cu``'s ``make_wide_chain``):
-    bits 0-1 the draw (``_RANDOMNESS``; 3: the bit trick's integer path,
-    taken as the reference's ``round_block`` takes it), bit 2 overflow to
-    ±inf, bit 3 no subnormals, bit 4 a shifted grid, bit 5 a fixed-point
-    grid.  0 for every site of the generic instance."""
-    grid = get_grid(s.fmt)
-    flags = _RANDOMNESS[s.scheme.randomness]
-    if s.scheme.randomness == "bittrick" and not grid.transformed \
-            and grid.fmt.name == "bfloat16" and s.rand_bits == 16:
-        flags = 3
-    return (flags | 4 * (s.overflow == "inf") | 8 * (not grid.fmt.subnormals)
-            | 16 * grid.transformed | 32 * (grid.kind == "fxp"))
-
-
 def _site_args(cfg: GDRounding):
-    """(int[24] sites, float[3] xmax, float[3] eps) host arrays."""
+    """(int[24] sites, float[3] xmax, float[3] eps) host arrays: each
+    site's ``common.wide_row`` (slot 6 its v source, slot 7 the flags the
+    wide instance reads)."""
     sites, xmax, eps = [], [], []
     for s, v in zip(cfg.step_specs(), (cfg.grad_v, cfg.mul_v, cfg.sub_v)):
-        if s.is_identity:
-            sites += [0] * 8
-            xmax.append(0.0)
-            eps.append(0.0)
-            continue
-        f = get_grid(s.fmt).fmt
-        sites += [1, f.precision, f.emin, f.emax, _MODES[s.scheme.name],
-                  s.rand_bits, _V_SOURCES[v], _wide_flags(s)]
-        xmax.append(f.xmax)
-        eps.append(s.eps)
+        ints, floats = common.wide_row(s, _V_SOURCES[v])
+        sites += ints
+        xmax.append(floats[0])
+        eps.append(floats[1])
     return ((ctypes.c_int * 24)(*sites), (ctypes.c_float * 3)(*xmax),
             (ctypes.c_float * 3)(*eps))
 
@@ -600,7 +561,7 @@ def _moment_args(m_spec: RoundingSpec, v_spec: RoundingSpec, packed: bool):
             f = get_grid(s.fmt).fmt
             bittrick = s.scheme.randomness == "bittrick"
             site[:7] = [1, f.precision, f.emin, f.emax,
-                        _MODES["sr" if bittrick else s.scheme.name],
+                        common.SCHEME_CODES["sr" if bittrick else s.scheme.name],
                         s.rand_bits, int(bittrick)]
             if packed:
                 ebits, mbits, width, has_nf = common.pack_spec(s.fmt)

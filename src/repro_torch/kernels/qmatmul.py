@@ -52,7 +52,19 @@ all rows of its columns, up to 16, so each expert's weights are read
 once per 16 rows) and the same large-M route, one grid plane per slice.
 Every route sums each output in one ascending chain, the first version's
 order, so the routes equal each other and that kernel bit for bit on
-every input, and the twins on exact sums.  On the card:
+every input, and the twins on exact sums.
+
+K3', K4' and K8' take every scheme x grid pair of the reference's
+``round_block`` but those that need a bias direction (as the reference's
+``_check_mode``): rn, sr and sr_eps on plain FP grids with subnormals run
+their first instances, everything else (rz, ra, rd, ru, SR 2.0, the bit
+trick, fixed-point and shifted grids, formats without subnormals; K4''s
+act site overflowing to ±inf) a wide instance of the same kernels whose
+epilogue is ``csrc/rounding.cuh``'s ``round_value_wide``
+(``gemm_instance``, ``swiglu_instance``; ``INSTANCE_LAUNCHES`` counts
+them).  The GEMM result sites saturate, as the reference's (they take no
+``overflow``).  The explicit-bits kernels K3, K4 and K8 have the first
+instances alone.  On the card:
 
   PYTHONPATH=src python -m pytest -q --noconftest -m gpu \
       tests/test_torch_gpu.py -k "qmatmul or swiglu"
@@ -76,7 +88,7 @@ import torch
 from repro_torch.core.fma import flush, fma
 from repro_torch.core.grids import get_grid
 from repro_torch.core.prng import int32_words
-from repro_torch.core.rounding import RoundingSpec
+from repro_torch.core.rounding import RoundingSpec, spec
 from repro_torch.core.schemes import get_scheme
 from repro_torch.core.xla_math import tanh_f32
 from repro_torch.kernels import build, common
@@ -84,7 +96,6 @@ from repro_torch.kernels import build, common
 # epilogue stream ids per seed-word pair: GEMM-result rounding vs the
 # activation-site rounding
 STREAM_FWD, STREAM_ACT = 0, 1
-_MODES = {"rn": 0, "sr": 1}
 _TINY = 2.0 ** -126       # float32's least normal magnitude
 
 # K3'/K3 and K4'/K4 calls with M at or below this run the decode route of
@@ -118,9 +129,20 @@ LAUNCHES: Dict[str, int] = {"qmatmul_sr": 0, "qmatmul_swiglu_sr": 0,
 ACT_LAUNCHES: Dict[str, int] = {"silu": 0, "gelu": 0, "relu": 0,
                                 "relu_sq": 0}
 
+# The compiled instances of K3', K4' and K8' (gemm_instance): "fp", the
+# first ones (csrc/rounding.cuh's round_value: rn, sr and sr_eps on plain FP
+# grids with subnormals), and "wide" (round_value_wide: every other scheme
+# x grid pair of the reference's round_block).  The explicit-bits kernels
+# K3, K4 and K8 have the first alone.
+GEMM_INSTANCES = ("fp", "wide")
+# launches of K3', K4' and K8' (counted in LAUNCHES too) by instance
+INSTANCE_LAUNCHES: Dict[str, Dict[str, int]] = {
+    name: dict.fromkeys(GEMM_INSTANCES, 0)
+    for name in ("qmatmul_sr", "qmatmul_swiglu_sr", "qmatmul_batched_sr")}
+
 
 def reset_launches() -> None:
-    for counts in (LAUNCHES, ACT_LAUNCHES):
+    for counts in (LAUNCHES, ACT_LAUNCHES, *INSTANCE_LAUNCHES.values()):
         for name in counts:
             counts[name] = 0
 
@@ -128,46 +150,84 @@ def reset_launches() -> None:
 Words = Tuple[int, int]
 
 
-def _check_fmt_mode(fmt, mode: str, rand_bits: int, what: str):
-    """The grids and schemes the GEMM kernels implement: plain FP grids
-    under rn or sr (r = 32, 16, 8).  Returns the grid."""
+def _site(fmt, mode: str, rand_bits: int, eps: float) -> RoundingSpec:
+    """A GEMM result site as a spec: saturating, as the reference's GEMM
+    kernels round (they take no overflow)."""
+    return spec(get_grid(fmt).name, mode, eps, rand_bits)
+
+
+def gemm_instance(fmt, mode: str, rand_bits: int = 32,
+                  eps: float = 0.0) -> str:
+    """The compiled instance of K3', K4' and K8' (``GEMM_INSTANCES``) a
+    GEMM result site runs: "fp" where ``round_value`` takes it
+    (``common.fp_site``), else "wide"."""
+    return "fp" if common.fp_site(_site(fmt, mode, rand_bits, eps)) \
+        else "wide"
+
+
+def _pick(chosen: str, instance: Optional[str], what: str) -> str:
+    """The instance a K3', K4' or K8' launch runs: ``chosen``, or the one
+    ``instance`` forces on the card ("wide" takes every site; "fp" only
+    the sites it rounds)."""
+    if instance not in (None, chosen, "wide"):
+        raise ValueError(f"{what}: cannot launch instance {instance!r} for "
+                         f"this site (it takes {chosen!r})")
+    return instance or chosen
+
+
+def _check_fmt_mode(fmt, mode: str, rand_bits: int, what: str,
+                    eps: float = 0.0, wide: bool = True):
+    """The sites the GEMM kernels take: every scheme x grid pair of the
+    reference's ``round_block`` but the schemes that need a bias-direction
+    operand (the reference's ``_check_mode`` raises ValueError for them
+    too), with 32-, 16- or 8-bit draws; without ``wide`` (the
+    explicit-bits kernels K3, K4 and K8, whose wide instances are not
+    ported) only the first instances' sites.  Returns the grid."""
     grid = get_grid(fmt)
-    if grid.kind != "fp" or grid.transformed:
-        raise NotImplementedError(f"{what}: grid {grid.name!r} is not a "
-                                  "plain FP grid (not ported yet)")
-    if not grid.fmt.subnormals:
-        raise NotImplementedError(f"{what}: grids without subnormals are "
-                                  "not ported yet")
-    scheme = get_scheme(mode).name
-    if scheme not in _MODES:
-        raise NotImplementedError(f"{what}: scheme {scheme!r} is not ported "
-                                  "yet (the GEMM kernels implement rn and "
-                                  "sr)")
+    scheme = get_scheme(mode)
+    if scheme.needs_v:
+        raise ValueError(f"{what}: {scheme.name} is not supported for GEMM "
+                         "result rounding (no bias-direction operand)")
     if rand_bits not in (32, 16, 8):
         raise ValueError(f"{what}: rand_bits must be 32, 16 or 8")
+    if not wide and gemm_instance(grid, mode, rand_bits, eps) == "wide":
+        raise NotImplementedError(
+            f"{what}: {_site(grid, mode, rand_bits, eps)} needs a wide "
+            "instance, which the explicit-bits kernels do not have yet (they "
+            "take rn, sr and sr_eps on plain FP grids with subnormals)")
     return grid
 
 
-def _round_args(grid, mode: str, rand_bits: int):
+def _round_args(grid, mode: str, rand_bits: int, eps: float):
     f = grid.fmt
     return (f.precision, f.emin, f.emax, ctypes.c_float(f.xmax),
-            _MODES[get_scheme(mode).name], rand_bits)
+            common.SCHEME_CODES[get_scheme(mode).name], rand_bits,
+            ctypes.c_float(eps))
 
 
-def _site_array(grid, mode: str, rand_bits: int, enabled: bool = True,
-                with_enabled: bool = False):
-    """A rounding site as the C interface's int array: {[enabled,]
-    precision, emin, emax, mode, rand_bits}, and its xmax."""
+def _site_array(grid, mode: str, rand_bits: int, eps: float = 0.0,
+                enabled: bool = True, with_enabled: bool = False):
+    """A first-instance rounding site as the GLU kernels' int array:
+    {[enabled,] precision, emin, emax, mode, rand_bits, eps bits}, and its
+    xmax."""
     if not enabled:
-        vals, xmax = [0, 0, 0, 0, 32], 0.0
+        vals, xmax = [0, 0, 0, 0, 32, 0], 0.0
     else:
         f = grid.fmt
-        vals = [f.precision, f.emin, f.emax, _MODES[get_scheme(mode).name],
-                rand_bits]
+        vals = [f.precision, f.emin, f.emax,
+                common.SCHEME_CODES[get_scheme(mode).name], rand_bits,
+                _float_bits(eps)]
         xmax = f.xmax
     if with_enabled:
         vals = [int(enabled)] + vals
     return (ctypes.c_int * len(vals))(*vals), ctypes.c_float(xmax)
+
+
+def _wide_args(s: Optional[RoundingSpec]):
+    """A site as the wide instances' (int[8], float[4]) row
+    (``common.wide_row``); None is a disabled site."""
+    ints, floats = common.wide_row(s if s is not None else spec())
+    return (ctypes.c_int * 8)(*ints), (ctypes.c_float * 4)(*floats)
 
 
 def _float_bits(v: float) -> int:
@@ -186,17 +246,22 @@ def _code_arg(fmt):
                               _float_bits(f.xmax), _float_bits(f.xmin))
 
 
-def _check_unsupported(bias, act, act_spec, eps, overflow):
+def _check_unsupported(bias, act, act_spec, overflow):
     if bias is not None:
         raise NotImplementedError("qmatmul bias epilogue is not ported yet")
     if act is not None or act_spec is not None:
         raise NotImplementedError("qmatmul activation epilogue is not "
                                   "ported yet (use qmatmul_swiglu*)")
-    if eps:
-        raise NotImplementedError("eps (sr_eps schemes) is not ported yet")
+    _check_overflow(overflow)
+
+
+def _check_overflow(overflow: str) -> None:
+    """A GEMM result site saturates at xmax: the reference's GEMM kernels
+    take no ``overflow``, so a spec's overflow to ±inf is not theirs."""
     if overflow != "saturate":
-        raise NotImplementedError(f"overflow={overflow!r} is not ported yet "
-                                  "(the kernels saturate at xmax)")
+        raise NotImplementedError(f"overflow={overflow!r}: the GEMM result "
+                                  "sites saturate at xmax, as the "
+                                  "reference's GEMM kernels do")
 
 
 def _pack_grid(fmt, what: str):
@@ -284,9 +349,10 @@ def _stream(t: torch.Tensor):
     return torch.cuda.current_stream(t.device).cuda_stream
 
 
-def _emit(acc, bits, grid, mode: str, rand_bits: int, out_packed: bool):
+def _emit(acc, bits, grid, mode: str, rand_bits: int, eps: float,
+          out_packed: bool):
     """The twins' epilogue: round, then pack where asked."""
-    y = common.round_block(acc, bits, grid, mode, rand_bits=rand_bits)
+    y = common.round_block(acc, bits, grid, mode, eps, rand_bits=rand_bits)
     return common.pack_block(y, grid) if out_packed else y
 
 
@@ -294,8 +360,8 @@ def _emit(acc, bits, grid, mode: str, rand_bits: int, out_packed: bool):
 # K3' / K3: rounded a @ b
 # ---------------------------------------------------------------------------
 def qmatmul_plain(a: torch.Tensor, b: torch.Tensor, seed_words: Words, fmt,
-                  mode: str = "sr", rand_bits: int = 32, *, a_fmt=None,
-                  out_packed: bool = False) -> torch.Tensor:
+                  mode: str = "sr", rand_bits: int = 32, *, eps: float = 0.0,
+                  a_fmt=None, out_packed: bool = False) -> torch.Tensor:
     """The plain twin of K3': fp32 GEMM, then round_block with the counter
     bits of the output's global (row, col), stream 0."""
     a_grid = None if a_fmt is None else get_grid(a_fmt)
@@ -305,12 +371,12 @@ def qmatmul_plain(a: torch.Tensor, b: torch.Tensor, seed_words: Words, fmt,
         bits = common.counter_bits_reduced(
             seed_words[0], seed_words[1], tuple(acc.shape), rand_bits,
             stream=STREAM_FWD, device=acc.device)
-    return _emit(acc, bits, get_grid(fmt), mode, rand_bits, out_packed)
+    return _emit(acc, bits, get_grid(fmt), mode, rand_bits, eps, out_packed)
 
 
 def qmatmul_bits_plain(a: torch.Tensor, b: torch.Tensor,
                        bits: Optional[torch.Tensor], fmt, mode: str = "sr",
-                       rand_bits: int = 32, *, a_fmt=None,
+                       rand_bits: int = 32, *, eps: float = 0.0, a_fmt=None,
                        out_packed: bool = False) -> torch.Tensor:
     """The plain twin of K3: fp32 GEMM, then round_block fed ``bits``
     (uint32 words in int64; the low ``rand_bits`` of each are used)."""
@@ -319,13 +385,14 @@ def qmatmul_bits_plain(a: torch.Tensor, b: torch.Tensor,
     if bits is not None:
         bits = bits.to(torch.int64) & 0xFFFFFFFF
     return _emit(acc, bits if get_scheme(mode).stochastic else None,
-                 get_grid(fmt), mode, rand_bits, out_packed)
+                 get_grid(fmt), mode, rand_bits, eps, out_packed)
 
 
 def _qmatmul_launch(name: str, a, a_grid, b, bits, seed_words, grid, mode,
-                    rand_bits, out_packed):
-    """One K3' (``qmatmul_sr``) or K3 (``qmatmul_bits``) launch: the
-    decode route for M <= ``DECODE_MAX_M``, else the large-M route."""
+                    rand_bits, eps, out_packed, instance=None):
+    """One K3' (``qmatmul_sr``, on the instance ``gemm_instance`` picks)
+    or K3 (``qmatmul_bits``) launch: the decode route for M <=
+    ``DECODE_MAX_M``, else the large-M route."""
     M, K = a.shape
     N = b.shape[1]
     a, b = a.contiguous(), b.contiguous()
@@ -337,39 +404,49 @@ def _qmatmul_launch(name: str, a, a_grid, b, bits, seed_words, grid, mode,
             int(b.dtype == torch.bfloat16))
     tail = (M, N, K)
     out_arg = (out.data_ptr(), _code_arg(grid if out_packed else None))
-    lib = _lib_qmatmul()
-    entry = getattr(lib, name + ("_decode" if M <= DECODE_MAX_M else ""))
-    if name == "qmatmul_sr":
-        rc = entry(*head, *out_arg, *tail, seed_words[0], seed_words[1],
-                   *_round_args(grid, mode, rand_bits), _stream(a))
+    entry = name + ("_decode" if M <= DECODE_MAX_M else "")
+    rnd = _round_args(grid, mode, rand_bits, eps)
+    if name == "qmatmul_bits":
+        args = (*head, _ptr(bits), *out_arg, *tail, *rnd)
     else:
-        rc = entry(*head, _ptr(bits), *out_arg, *tail,
-                   *_round_args(grid, mode, rand_bits), _stream(a))
+        instance = _pick(gemm_instance(grid, mode, rand_bits, eps),
+                         instance, name)
+        if instance == "wide":
+            entry = entry.replace(name, name + "_wide")
+            rnd = _wide_args(_site(grid, mode, rand_bits, eps))
+        args = (*head, *out_arg, *tail, seed_words[0], seed_words[1], *rnd)
+    rc = getattr(_lib_qmatmul(), entry)(*args, _stream(a))
     _launch_check(rc, name)
     LAUNCHES[name] += 1
+    if name == "qmatmul_sr":
+        INSTANCE_LAUNCHES[name][instance] += 1
     return out
 
 
 def qmatmul_prng(a: torch.Tensor, b: torch.Tensor, seed_words: Words, fmt,
                  mode: str = "sr", rand_bits: int = 32, *, eps: float = 0.0,
                  overflow: str = "saturate", bias=None, act=None,
-                 act_spec=None, out_packed: bool = False, a_fmt=None
-                 ) -> torch.Tensor:
+                 act_spec=None, out_packed: bool = False, a_fmt=None,
+                 instance: Optional[str] = None) -> torch.Tensor:
     """Rounded ``a @ b`` (a: (M, K) float32, or code words of ``a_fmt``;
     b: (K, N) float32 or bf16); ``seed_words``: the (k0, k1) uint32 pair
     of this GEMM site.  Returns (M, N) float32 grid values, or their code
-    words with ``out_packed``."""
-    _check_unsupported(bias, act, act_spec, eps, overflow)
-    grid = _check_fmt_mode(fmt, mode, rand_bits, "qmatmul_prng")
+    words with ``out_packed``.  Every scheme x grid pair of the
+    reference's ``round_block`` but those that need a bias direction:
+    rn, sr and sr_eps on plain FP grids with subnormals on the first
+    instance, the rest on the wide one (``gemm_instance``; ``instance``
+    "wide" forces the wide one on the card)."""
+    _check_unsupported(bias, act, act_spec, overflow)
+    grid = _check_fmt_mode(fmt, mode, rand_bits, "qmatmul_prng", eps)
     a_grid = _check_a(a, a_fmt, 2, "qmatmul_prng")
     _check_weights(a, (b,), "qmatmul_prng")
     if out_packed:
         _pack_grid(grid, "qmatmul_prng")
     if a.device.type == "cpu":
         return qmatmul_plain(a, b, seed_words, grid, mode, rand_bits,
-                             a_fmt=a_grid, out_packed=out_packed)
+                             eps=eps, a_fmt=a_grid, out_packed=out_packed)
     return _qmatmul_launch("qmatmul_sr", a, a_grid, b, None, seed_words,
-                           grid, mode, rand_bits, out_packed)
+                           grid, mode, rand_bits, eps, out_packed, instance)
 
 
 def qmatmul(a: torch.Tensor, b: torch.Tensor, bits: Optional[torch.Tensor],
@@ -380,12 +457,13 @@ def qmatmul(a: torch.Tensor, b: torch.Tensor, bits: Optional[torch.Tensor],
     """K3: rounded ``a @ b`` with explicit bits, ``bits`` (M, N) uint32
     words (int64, or int32 bit patterns; None for a deterministic mode;
     with ``rand_bits < 32`` the low bits of each word).  Operands, options
-    and result as :func:`qmatmul_prng`."""
-    _check_unsupported(bias, act, act_spec, eps, overflow)
+    and result as :func:`qmatmul_prng`, on the first instance's sites
+    alone."""
+    _check_unsupported(bias, act, act_spec, overflow)
     if act_bits is not None:
         raise NotImplementedError("qmatmul act_bits: the activation "
                                   "epilogue is not ported yet")
-    grid = _check_fmt_mode(fmt, mode, rand_bits, "qmatmul")
+    grid = _check_fmt_mode(fmt, mode, rand_bits, "qmatmul", eps, wide=False)
     a_grid = _check_a(a, a_fmt, 2, "qmatmul")
     _check_weights(a, (b,), "qmatmul")
     if out_packed:
@@ -396,9 +474,10 @@ def qmatmul(a: torch.Tensor, b: torch.Tensor, bits: Optional[torch.Tensor],
                         a.device, "qmatmul")
     if a.device.type == "cpu":
         return qmatmul_bits_plain(a, b, words, grid, mode, rand_bits,
-                                  a_fmt=a_grid, out_packed=out_packed)
+                                  eps=eps, a_fmt=a_grid,
+                                  out_packed=out_packed)
     return _qmatmul_launch("qmatmul_bits", a, a_grid, b, words, None, grid,
-                           mode, rand_bits, out_packed)
+                           mode, rand_bits, eps, out_packed)
 
 
 def _lib_qmatmul():
@@ -408,12 +487,16 @@ def _lib_qmatmul():
         head = [c.c_void_p, c.POINTER(c.c_int), c.c_void_p, c.c_int]
         out = [c.c_void_p, c.POINTER(c.c_int)]
         rnd = [c.c_int, c.c_int, c.c_int, c.c_float, c.c_int, c.c_int,
-               c.c_void_p]
-        sr = head + out + [c.c_int] * 3 + [c.c_uint32] * 2 + rnd
+               c.c_float, c.c_void_p]
+        wide = [c.POINTER(c.c_int), c.POINTER(c.c_float), c.c_void_p]
+        sr = head + out + [c.c_int] * 3 + [c.c_uint32] * 2
         bits = head + [c.c_void_p] + out + [c.c_int] * 3 + rnd
-        for fn, args in ((lib.qmatmul_sr, sr), (lib.qmatmul_bits, bits),
-                         (lib.qmatmul_sr_decode, sr),
-                         (lib.qmatmul_bits_decode, bits)):
+        for fn, args in ((lib.qmatmul_sr, sr + rnd),
+                         (lib.qmatmul_bits, bits),
+                         (lib.qmatmul_sr_decode, sr + rnd),
+                         (lib.qmatmul_bits_decode, bits),
+                         (lib.qmatmul_sr_wide, sr + wide),
+                         (lib.qmatmul_sr_wide_decode, sr + wide)):
             fn.argtypes = args
             fn.restype = c.c_int
     return lib
@@ -569,15 +652,15 @@ def relu_sq(g: torch.Tensor) -> torch.Tensor:
 ACT_FNS = {"silu": silu, "gelu": gelu, "relu": relu, "relu_sq": relu_sq}
 
 
-def _swiglu_emit(accg, accu, bg, bu, ab, grid, mode, rand_bits,
+def _swiglu_emit(accg, accu, bg, bu, ab, grid, mode, rand_bits, eps,
                  act_spec: Optional[RoundingSpec], residuals: bool,
                  out_packed: bool, residuals_packed: bool, act: str):
     """The fused GLU epilogue of the twins: round both branches, the
     activation and product, the act site, then the storage of h and the
     residuals.  SiLU's product rounds as torch's; the other activations'
     is XLA's (its operands and result flushed)."""
-    g_r = common.round_block(accg, bg, grid, mode, rand_bits=rand_bits)
-    u_r = common.round_block(accu, bu, grid, mode, rand_bits=rand_bits)
+    g_r = common.round_block(accg, bg, grid, mode, eps, rand_bits=rand_bits)
+    u_r = common.round_block(accu, bu, grid, mode, eps, rand_bits=rand_bits)
     if act == "silu":
         h = silu(g_r) * u_r
     else:
@@ -598,7 +681,8 @@ def qmatmul_swiglu_plain(x: torch.Tensor, wg: torch.Tensor,
                          mode: str = "sr", rand_bits: int = 32,
                          act_spec: Optional[RoundingSpec] = None,
                          residuals: bool = False, out_packed: bool = False,
-                         residuals_packed: bool = False, act: str = "silu"):
+                         residuals_packed: bool = False, act: str = "silu",
+                         eps: float = 0.0):
     """The plain twin of K4': h, or (h, g_r, u_r) with ``residuals``,
     drawing the counter bits of the three seed pairs."""
     x = x.float()
@@ -616,7 +700,7 @@ def qmatmul_swiglu_plain(x: torch.Tensor, wg: torch.Tensor,
                                          act_spec.rand_bits,
                                          stream=STREAM_ACT, device=dev)
     return _swiglu_emit(accg, accu, bg, bu, ab, get_grid(fmt), mode,
-                        rand_bits, act_spec, residuals, out_packed,
+                        rand_bits, eps, act_spec, residuals, out_packed,
                         residuals_packed, act)
 
 
@@ -627,7 +711,7 @@ def qmatmul_swiglu_bits_plain(x: torch.Tensor, wg: torch.Tensor,
                               act_bits=None, residuals: bool = False,
                               out_packed: bool = False,
                               residuals_packed: bool = False,
-                              act: str = "silu"):
+                              act: str = "silu", eps: float = 0.0):
     """The plain twin of K4: as :func:`qmatmul_swiglu_plain` with the
     given (M, N) words for the gate, the up branch and the act site."""
     x = x.float()
@@ -639,29 +723,35 @@ def qmatmul_swiglu_bits_plain(x: torch.Tensor, wg: torch.Tensor,
         return None if b is None else b.to(torch.int64) & 0xFFFFFFFF
     return _swiglu_emit(accg, accu, words(bits_g) if stoch else None,
                         words(bits_u) if stoch else None, words(act_bits),
-                        get_grid(fmt), mode, rand_bits, act_spec, residuals,
-                        out_packed, residuals_packed, act)
+                        get_grid(fmt), mode, rand_bits, eps, act_spec,
+                        residuals, out_packed, residuals_packed, act)
 
 
 def _check_swiglu(x, wg, wu, fmt, mode, act, act_spec, rand_bits, eps,
-                  overflow, out_packed, residuals_packed, what):
-    """The checks both GLU flavours share; returns (grid, act_spec or
-    None, act grid or None)."""
+                  overflow, out_packed, residuals_packed, what,
+                  wide: bool = True):
+    """The checks both GLU flavours share (``wide``: K4' takes every site
+    its wide instance rounds, K4 the first instance's alone); returns
+    (grid, act_spec or None, act grid or None)."""
     if act not in ACT_FNS:
         raise ValueError(f"unknown GLU activation {act!r}; known: "
                          f"{sorted(ACT_FNS)}")
-    if eps or overflow != "saturate":
-        raise NotImplementedError("eps (sr_eps schemes) and overflow='inf' "
-                                  "are not ported yet")
-    grid = _check_fmt_mode(fmt, mode, rand_bits, what)
+    _check_overflow(overflow)
+    grid = _check_fmt_mode(fmt, mode, rand_bits, what, eps, wide)
     act_grid = None
     if act_spec is not None and act_spec.is_identity:
         act_spec = None
     if act_spec is not None:
-        if act_spec.eps or act_spec.overflow != "saturate":
-            raise NotImplementedError("act_spec eps/overflow not ported yet")
+        if act_spec.scheme.needs_v:
+            raise ValueError(f"{what}: {act_spec.mode} is not supported for "
+                             "the activation rounding site (no "
+                             "bias-direction operand)")
         act_grid = _check_fmt_mode(act_spec.fmt, act_spec.mode,
                                    act_spec.rand_bits, "act_spec")
+        if not wide and not common.fp_site(act_spec):
+            raise NotImplementedError(
+                f"{what}: act_spec {act_spec} needs a wide instance, which "
+                "the explicit-bits kernels do not have yet")
     if out_packed:
         if act_spec is None:
             raise ValueError("out_packed with an activation requires a "
@@ -675,12 +765,24 @@ def _check_swiglu(x, wg, wu, fmt, mode, act, act_spec, rand_bits, eps,
     return grid, act_spec, act_grid
 
 
+def swiglu_instance(fmt, mode: str, rand_bits: int = 32, eps: float = 0.0,
+                    act_spec: Optional[RoundingSpec] = None) -> str:
+    """The compiled instance of K4' (``GEMM_INSTANCES``) a call runs:
+    "wide" where its GEMM site (``gemm_instance``) or its act site is not
+    the first instance's (an act site may overflow to ±inf: the
+    reference's act site rounds as its spec says), else "fp"."""
+    if act_spec is not None and not common.fp_site(act_spec):
+        return "wide"
+    return gemm_instance(fmt, mode, rand_bits, eps)
+
+
 def _swiglu_launch(name: str, x, wg, wu, bits3, seeds, grid, mode,
-                   rand_bits, act_spec, act_grid, residuals, out_packed,
-                   residuals_packed, act):
-    """One K4' (``qmatmul_swiglu_sr``) or K4 (``qmatmul_swiglu_bits``)
-    launch: the decode route for M <= ``DECODE_MAX_M``, else the large-M
-    route; the activation's own library (``_swiglu_source``)."""
+                   rand_bits, eps, act_spec, act_grid, residuals, out_packed,
+                   residuals_packed, act, instance=None):
+    """One K4' (``qmatmul_swiglu_sr``, on the instance ``swiglu_instance``
+    picks) or K4 (``qmatmul_swiglu_bits``) launch: the decode route for M
+    <= ``DECODE_MAX_M``, else the large-M route; the activation's own
+    library (``_swiglu_source``)."""
     M, K = x.shape
     N = wg.shape[1]
     x, wg, wu = x.contiguous(), wg.contiguous(), wu.contiguous()
@@ -695,30 +797,38 @@ def _swiglu_launch(name: str, x, wg, wu, bits3, seeds, grid, mode,
         return result                    # nothing to launch
     res_ptrs = (outs[1].data_ptr(), outs[2].data_ptr()) if residuals \
         else (None, None)
-    fwd_site, xmax = _site_array(grid, mode, rand_bits)
-    if act_spec is not None:
-        act_site, act_xmax = _site_array(act_grid, act_spec.mode,
-                                         act_spec.rand_bits,
-                                         with_enabled=True)
+    instance = _pick(swiglu_instance(grid, mode, rand_bits, eps, act_spec),
+                     instance, name) if name == "qmatmul_swiglu_sr" else "fp"
+    if instance == "wide":
+        sites = (*_wide_args(_site(grid, mode, rand_bits, eps)),
+                 *_wide_args(act_spec))
+    elif act_spec is not None:
+        sites = (*_site_array(grid, mode, rand_bits, eps),
+                 *_site_array(act_grid, act_spec.mode, act_spec.rand_bits,
+                              act_spec.eps, with_enabled=True))
     else:
-        act_site, act_xmax = _site_array(None, "rn", 32, enabled=False,
-                                         with_enabled=True)
+        sites = (*_site_array(grid, mode, rand_bits, eps),
+                 *_site_array(None, "rn", 32, enabled=False,
+                              with_enabled=True))
     head = (x.data_ptr(), wg.data_ptr(), wu.data_ptr(),
             int(wg.dtype == torch.bfloat16))
     tail = (outs[0].data_ptr(), _code_arg(act_grid if out_packed else None),
             *res_ptrs, _code_arg(grid if residuals_packed else None),
-            M, N, K, fwd_site, xmax, act_site, act_xmax, _stream(x))
-    lib = _lib_swiglu(act)
-    entry = getattr(lib, name + ("_decode" if M <= DECODE_MAX_M else ""))
+            M, N, K, *sites, _stream(x))
+    entry = name + ("_wide" if instance == "wide" else "") \
+        + ("_decode" if M <= DECODE_MAX_M else "")
+    fn = getattr(_lib_swiglu(act), entry)
     if name == "qmatmul_swiglu_sr":
         words = (ctypes.c_uint32 * 6)(*[w & 0xFFFFFFFF for pair in seeds
                                         for w in pair])
-        rc = entry(*head, words, *tail)
+        rc = fn(*head, words, *tail)
     else:
-        rc = entry(*head, *(_ptr(b) for b in bits3), *tail)
+        rc = fn(*head, *(_ptr(b) for b in bits3), *tail)
     _launch_check(rc, name)
     LAUNCHES[name] += 1
     ACT_LAUNCHES[act] += 1
+    if name == "qmatmul_swiglu_sr":
+        INSTANCE_LAUNCHES[name][instance] += 1
     return result
 
 
@@ -729,13 +839,16 @@ def qmatmul_swiglu_prng(x: torch.Tensor, wg: torch.Tensor, wu: torch.Tensor,
                         rand_bits: int = 32, eps: float = 0.0,
                         overflow: str = "saturate", out_packed: bool = False,
                         residuals: bool = False,
-                        residuals_packed: bool = False):
+                        residuals_packed: bool = False,
+                        instance: Optional[str] = None):
     """Fused GLU-FFN prefix (K4'): x (M, K) float32, wg/wu (K, N) float32
     or bf16; ``seeds``: the gate, up and activation-site (k0, k1) pairs.
     Returns h (M, N), or with ``residuals`` the tuple (h, g_r, u_r): the
     rounded gate and up branches the backward needs.  h is float32, or
     code words of the act grid with ``out_packed``; g_r/u_r float32, or
-    code words of ``fmt`` with ``residuals_packed``."""
+    code words of ``fmt`` with ``residuals_packed``.  The instance as
+    ``swiglu_instance`` picks (``instance`` "wide" forces the wide one on
+    the card)."""
     if len(seeds) != 3:
         raise ValueError("seeds must hold three (k0, k1) pairs")
     grid, act_spec, act_grid = _check_swiglu(
@@ -744,10 +857,11 @@ def qmatmul_swiglu_prng(x: torch.Tensor, wg: torch.Tensor, wu: torch.Tensor,
     if x.device.type == "cpu":
         return qmatmul_swiglu_plain(x, wg, wu, seeds, grid, mode, rand_bits,
                                     act_spec, residuals, out_packed,
-                                    residuals_packed, act)
+                                    residuals_packed, act, eps)
     return _swiglu_launch("qmatmul_swiglu_sr", x, wg, wu, None, seeds, grid,
-                          mode, rand_bits, act_spec, act_grid, residuals,
-                          out_packed, residuals_packed, act)
+                          mode, rand_bits, eps, act_spec, act_grid,
+                          residuals, out_packed, residuals_packed, act,
+                          instance)
 
 
 def qmatmul_swiglu(x: torch.Tensor, wg: torch.Tensor, wu: torch.Tensor,
@@ -765,7 +879,7 @@ def qmatmul_swiglu(x: torch.Tensor, wg: torch.Tensor, wu: torch.Tensor,
     what = "qmatmul_swiglu"
     grid, act_spec, act_grid = _check_swiglu(
         x, wg, wu, fmt, mode, act, act_spec, rand_bits, eps, overflow,
-        out_packed, residuals_packed, what)
+        out_packed, residuals_packed, what, wide=False)
     shape = (x.shape[0], wg.shape[1])
     stoch = get_scheme(mode).stochastic
     act_stoch = act_spec is not None and act_spec.stochastic
@@ -780,9 +894,9 @@ def qmatmul_swiglu(x: torch.Tensor, wg: torch.Tensor, wu: torch.Tensor,
         return qmatmul_swiglu_bits_plain(x, wg, wu, bits3[0], bits3[1], grid,
                                          mode, rand_bits, act_spec, bits3[2],
                                          residuals, out_packed,
-                                         residuals_packed, act)
+                                         residuals_packed, act, eps)
     return _swiglu_launch("qmatmul_swiglu_bits", x, wg, wu, bits3, None,
-                          grid, mode, rand_bits, act_spec, act_grid,
+                          grid, mode, rand_bits, eps, act_spec, act_grid,
                           residuals, out_packed, residuals_packed, act)
 
 
@@ -797,15 +911,18 @@ def _lib_swiglu(act: str = "silu"):
         c = ctypes
         ints = c.POINTER(c.c_int)
         head = [c.c_void_p] * 3 + [c.c_int]
-        tail = ([c.c_void_p, ints, c.c_void_p, c.c_void_p, ints]
-                + [c.c_int] * 3 + [ints, c.c_float, ints, c.c_float,
-                                   c.c_void_p])
-        sr = head + [c.POINTER(c.c_uint32)] + tail
+        floats = c.POINTER(c.c_float)
+        out = [c.c_void_p, ints, c.c_void_p, c.c_void_p, ints] + [c.c_int] * 3
+        tail = out + [ints, c.c_float, ints, c.c_float, c.c_void_p]
+        wide = out + [ints, floats, ints, floats, c.c_void_p]
+        sr = head + [c.POINTER(c.c_uint32)]
         bits = head + [c.c_void_p] * 3 + tail
-        for fn, args in ((lib.qmatmul_swiglu_sr, sr),
+        for fn, args in ((lib.qmatmul_swiglu_sr, sr + tail),
                          (lib.qmatmul_swiglu_bits, bits),
-                         (lib.qmatmul_swiglu_sr_decode, sr),
-                         (lib.qmatmul_swiglu_bits_decode, bits)):
+                         (lib.qmatmul_swiglu_sr_decode, sr + tail),
+                         (lib.qmatmul_swiglu_bits_decode, bits),
+                         (lib.qmatmul_swiglu_sr_wide, sr + wide),
+                         (lib.qmatmul_swiglu_sr_wide_decode, sr + wide)):
             fn.argtypes = args
             fn.restype = c.c_int
     return lib
@@ -816,8 +933,8 @@ def _lib_swiglu(act: str = "silu"):
 # ---------------------------------------------------------------------------
 def qmatmul_batched_plain(a: torch.Tensor, b: torch.Tensor, seeds, fmt,
                           mode: str = "sr", rand_bits: int = 32, *,
-                          a_fmt=None, out_packed: bool = False
-                          ) -> torch.Tensor:
+                          eps: float = 0.0, a_fmt=None,
+                          out_packed: bool = False) -> torch.Tensor:
     """The plain twin of K8': a batched fp32 GEMM, then round_block fed
     slice e's counter bits from ``seeds[e]`` at within-slice (row, col),
     stream 0 (``common.counter_bits_batch``)."""
@@ -829,13 +946,13 @@ def qmatmul_batched_plain(a: torch.Tensor, b: torch.Tensor, seeds, fmt,
                                          tuple(acc.shape), rand_bits,
                                          stream=STREAM_FWD,
                                          device=acc.device)
-    return _emit(acc, bits, get_grid(fmt), mode, rand_bits, out_packed)
+    return _emit(acc, bits, get_grid(fmt), mode, rand_bits, eps, out_packed)
 
 
 def qmatmul_batched_bits_plain(a: torch.Tensor, b: torch.Tensor, bits,
                                fmt, mode: str = "sr", rand_bits: int = 32,
-                               *, a_fmt=None, out_packed: bool = False
-                               ) -> torch.Tensor:
+                               *, eps: float = 0.0, a_fmt=None,
+                               out_packed: bool = False) -> torch.Tensor:
     """The plain twin of K8: a batched fp32 GEMM, then round_block fed the
     (E, M, N) ``bits``."""
     a_grid = None if a_fmt is None else get_grid(a_fmt)
@@ -843,7 +960,7 @@ def qmatmul_batched_bits_plain(a: torch.Tensor, b: torch.Tensor, bits,
     if bits is not None:
         bits = bits.to(torch.int64) & 0xFFFFFFFF
     return _emit(acc, bits if get_scheme(mode).stochastic else None,
-                 get_grid(fmt), mode, rand_bits, out_packed)
+                 get_grid(fmt), mode, rand_bits, eps, out_packed)
 
 
 def _host_seeds(seeds, E: int) -> np.ndarray:
@@ -857,8 +974,9 @@ def _host_seeds(seeds, E: int) -> np.ndarray:
     return arr
 
 
-def _check_batched(a, b, a_fmt, fmt, mode, rand_bits, out_packed, what):
-    grid = _check_fmt_mode(fmt, mode, rand_bits, what)
+def _check_batched(a, b, a_fmt, fmt, mode, rand_bits, eps, out_packed, what,
+                   wide: bool = True):
+    grid = _check_fmt_mode(fmt, mode, rand_bits, what, eps, wide)
     a_grid = _check_a(a, a_fmt, 3, what)
     _check_weights(a, (b,), what)
     if out_packed:
@@ -877,9 +995,10 @@ def batched_route(M: int) -> str:
 
 
 def _batched_launch(name: str, a, a_grid, b, bits, seeds, grid, mode,
-                    rand_bits, out_packed):
-    """One K8' (``qmatmul_batched_sr``) or K8 (``qmatmul_batched_bits``)
-    launch on the route ``batched_route`` picks."""
+                    rand_bits, eps, out_packed, instance=None):
+    """One K8' (``qmatmul_batched_sr``, on the instance ``gemm_instance``
+    picks) or K8 (``qmatmul_batched_bits``) launch on the route
+    ``batched_route`` picks."""
     E, M, K = a.shape
     N = b.shape[2]
     a, b = a.contiguous(), b.contiguous()
@@ -890,17 +1009,27 @@ def _batched_launch(name: str, a, a_grid, b, bits, seeds, grid, mode,
     head = (a.data_ptr(), _code_arg(a_grid), b.data_ptr(),
             int(b.dtype == torch.bfloat16))
     tail = (out.data_ptr(), _code_arg(grid if out_packed else None), E, M, N,
-            K, *_round_args(grid, mode, rand_bits), _stream(a))
-    entry = getattr(_lib_batched(), name + (
-        "_stream" if batched_route(M) == "stream" else ""))
+            K)
+    rnd = _round_args(grid, mode, rand_bits, eps)
     if name == "qmatmul_batched_sr":
+        instance = _pick(gemm_instance(grid, mode, rand_bits, eps),
+                         instance, name)
+        if instance == "wide":
+            rnd = _wide_args(_site(grid, mode, rand_bits, eps))
         dev_seeds = common.host_to_device(
             seeds.astype(np.uint32).view(np.int32), a.device)
-        rc = entry(*head, dev_seeds.data_ptr(), *tail)
+        operand = dev_seeds.data_ptr()
     else:
-        rc = entry(*head, _ptr(bits), *tail)
+        instance = "fp"
+        operand = _ptr(bits)
+    entry = name + ("_wide" if instance == "wide" else "") + (
+        "_stream" if batched_route(M) == "stream" else "")
+    rc = getattr(_lib_batched(), entry)(*head, operand, *tail, *rnd,
+                                        _stream(a))
     _launch_check(rc, name)
     LAUNCHES[name] += 1
+    if name == "qmatmul_batched_sr":
+        INSTANCE_LAUNCHES[name][instance] += 1
     return out
 
 
@@ -908,21 +1037,24 @@ def qmatmul_batched_prng(a: torch.Tensor, b: torch.Tensor, seeds, fmt,
                          mode: str = "sr", rand_bits: int = 32, *,
                          eps: float = 0.0, overflow: str = "saturate",
                          act=None, act_spec=None, out_packed: bool = False,
-                         a_fmt=None) -> torch.Tensor:
+                         a_fmt=None, instance: Optional[str] = None
+                         ) -> torch.Tensor:
     """Rounded ``a[e] @ b[e]`` for every slice e (a: (E, M, K) float32, or
     code words of ``a_fmt``; b: (E, K, N) float32 or bf16); ``seeds``: (E,
     2) uint32 words, one pair per slice (numpy array or tensor;
     ``policy.slice_words``).  Returns (E, M, N) float32 grid values, or
-    their code words with ``out_packed``."""
-    _check_unsupported(None, act, act_spec, eps, overflow)
-    grid, a_grid = _check_batched(a, b, a_fmt, fmt, mode, rand_bits,
+    their code words with ``out_packed``.  Sites and instances as
+    :func:`qmatmul_prng`'s."""
+    _check_unsupported(None, act, act_spec, overflow)
+    grid, a_grid = _check_batched(a, b, a_fmt, fmt, mode, rand_bits, eps,
                                   out_packed, "qmatmul_batched_prng")
     host = _host_seeds(seeds, a.shape[0])
     if a.device.type == "cpu":
         return qmatmul_batched_plain(a, b, host, grid, mode, rand_bits,
-                                     a_fmt=a_grid, out_packed=out_packed)
+                                     eps=eps, a_fmt=a_grid,
+                                     out_packed=out_packed)
     return _batched_launch("qmatmul_batched_sr", a, a_grid, b, None, host,
-                           grid, mode, rand_bits, out_packed)
+                           grid, mode, rand_bits, eps, out_packed, instance)
 
 
 def qmatmul_batched(a: torch.Tensor, b: torch.Tensor,
@@ -933,13 +1065,14 @@ def qmatmul_batched(a: torch.Tensor, b: torch.Tensor,
                     ) -> torch.Tensor:
     """K8: rounded ``a[e] @ b[e]`` with explicit bits, ``bits`` (E, M, N)
     uint32 words, one plane per slice (None for a deterministic mode).
-    Operands, options and result as :func:`qmatmul_batched_prng`."""
-    _check_unsupported(None, act, act_spec, eps, overflow)
+    Operands, options and result as :func:`qmatmul_batched_prng`, on the
+    first instance's sites alone."""
+    _check_unsupported(None, act, act_spec, overflow)
     if act_bits is not None:
         raise NotImplementedError("qmatmul_batched act_bits: the "
                                   "activation epilogue is not ported yet")
-    grid, a_grid = _check_batched(a, b, a_fmt, fmt, mode, rand_bits,
-                                  out_packed, "qmatmul_batched")
+    grid, a_grid = _check_batched(a, b, a_fmt, fmt, mode, rand_bits, eps,
+                                  out_packed, "qmatmul_batched", wide=False)
     stoch = get_scheme(mode).stochastic
     _need_bits(stoch, "qmatmul_batched", bits)
     words = _bits_words(bits if stoch else None,
@@ -947,10 +1080,10 @@ def qmatmul_batched(a: torch.Tensor, b: torch.Tensor,
                         "qmatmul_batched")
     if a.device.type == "cpu":
         return qmatmul_batched_bits_plain(a, b, words, grid, mode, rand_bits,
-                                          a_fmt=a_grid,
+                                          eps=eps, a_fmt=a_grid,
                                           out_packed=out_packed)
     return _batched_launch("qmatmul_batched_bits", a, a_grid, b, words,
-                           None, grid, mode, rand_bits, out_packed)
+                           None, grid, mode, rand_bits, eps, out_packed)
 
 
 def _lib_batched():
@@ -958,13 +1091,17 @@ def _lib_batched():
     if lib.qmatmul_batched_sr.argtypes is None:
         c = ctypes
         ints = c.POINTER(c.c_int)
-        args = ([c.c_void_p, ints, c.c_void_p, c.c_int, c.c_void_p,
-                 c.c_void_p, ints] + [c.c_int] * 4
-                + [c.c_int, c.c_int, c.c_int, c.c_float, c.c_int, c.c_int,
-                   c.c_void_p])
-        for fn in (lib.qmatmul_batched_sr, lib.qmatmul_batched_bits,
-                   lib.qmatmul_batched_sr_stream,
-                   lib.qmatmul_batched_bits_stream):
+        head = ([c.c_void_p, ints, c.c_void_p, c.c_int, c.c_void_p,
+                 c.c_void_p, ints] + [c.c_int] * 4)
+        rnd = [c.c_int, c.c_int, c.c_int, c.c_float, c.c_int, c.c_int,
+               c.c_float, c.c_void_p]
+        wide = [ints, c.POINTER(c.c_float), c.c_void_p]
+        for fn, args in ((lib.qmatmul_batched_sr, head + rnd),
+                         (lib.qmatmul_batched_bits, head + rnd),
+                         (lib.qmatmul_batched_sr_stream, head + rnd),
+                         (lib.qmatmul_batched_bits_stream, head + rnd),
+                         (lib.qmatmul_batched_sr_wide, head + wide),
+                         (lib.qmatmul_batched_sr_wide_stream, head + wide)):
             fn.argtypes = args
             fn.restype = c.c_int
     return lib

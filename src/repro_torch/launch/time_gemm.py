@@ -5,7 +5,7 @@ of the port on one card.
 
   python src/repro_torch/launch/time_gemm.py [--src DIR] [--tag NAME]
       [--kernel gemm|k8] [--arch tinyllama-1.1b|gemma-7b] [--routes]
-      [--out FILE]
+      [--spec NAME] [--out FILE]
 
 ``--src`` names the ``src`` directory whose ``repro_torch`` is timed
 (default: the tree this file lives in), so one call can time two
@@ -46,6 +46,15 @@ at M = 10.
 With ``--routes`` (a tree with ``qmatmul.BATCHED_STREAM_MAX_M``) it also
 times both routes forced at M = 1, 10, 16, 17, 24, 32, 48, 64, 96 and
 128 (2048 -> 768), the measurement behind that threshold.
+
+``--spec NAME`` (a tree with the wide instances, ``qmatmul.
+gemm_instance``): at every shape K3', K4' (its GEMM and act sites under
+the spec) and K8' are also timed under that canonical spec name on the
+instance it takes (``spec_ms``, ``spec_device_ms``, ``spec_digest``;
+e.g. 'e4m3-sr2-r16': the wide instances), and the wide instance forced
+on the binary8 sr sites of the run (``wide_ms``, ``wide_device_ms``,
+``wide_digest``, which equals ``digest``): the wide instance's cost
+beside the first one's on the same work.
 
 Prints one JSON line (and writes it to ``--out``).  It needs a card.
 """
@@ -151,6 +160,7 @@ def main(argv=None):
     ap.add_argument("--arch", choices=("tinyllama-1.1b", "gemma-7b"),
                     default="tinyllama-1.1b")
     ap.add_argument("--routes", action="store_true")
+    ap.add_argument("--spec", default=None)
     ap.add_argument("--out", default="")
     args = ap.parse_args(argv)
     sys.path.insert(0, args.src)
@@ -166,7 +176,7 @@ def main(argv=None):
     if args.kernel == "k8":
         out = dict(tag=args.tag, src=args.src,
                    device=torch.cuda.get_device_name(0), nvidia_smi=smi,
-                   **time_k8(torch, tq, args.routes))
+                   **time_k8(torch, tq, args.routes, args.spec))
         return _emit(out, args.out)
     gen = torch.Generator(device="cuda").manual_seed(0)
 
@@ -182,6 +192,7 @@ def main(argv=None):
     from repro_torch.core.rounding import spec
     from repro_torch.kernels import common as tc
     act = spec("binary8", "sr")
+    wide = _wide_spec(tq, args.spec)
 
     def measure(name, M, K, N, bdt, yardstick=True):
         glu = name.startswith("k4")
@@ -198,6 +209,18 @@ def main(argv=None):
             return tq.qmatmul_prng(a, ws[i][0], SEEDS[0], "binary8")
         row = dict(digest=digest(call(0)), ms=time_ms(torch, call, n),
                    device_ms=graph_ms(torch, call, n))
+        if wide is not None:
+            def call_spec(i, forced=False):
+                s = act if forced else wide
+                k = dict(instance="wide") if forced else {}
+                if glu:
+                    return tq.qmatmul_swiglu_prng(
+                        a, *ws[i], SEEDS, s.fmt, s.mode,
+                        **dict(kw, act_spec=s), rand_bits=s.rand_bits,
+                        eps=s.eps, **k)
+                return tq.qmatmul_prng(a, ws[i][0], SEEDS[0], s.fmt, s.mode,
+                                       s.rand_bits, eps=s.eps, **k)
+            row.update(_spec_rows(torch, call_spec, n))
         if glu:
             # K4 fed the words K4' draws, as int32 bit patterns
             bits = [int32_words(tc.counter_bits_reduced(
@@ -222,7 +245,7 @@ def main(argv=None):
         return row
 
     keys = ("ms", "device_ms", "library_ms", "library_device_ms",
-            "bits_ms", "bits_device_ms")
+            "bits_ms", "bits_device_ms") + _SPEC_KEYS
     shapes = SHAPES
     if args.arch == "gemma-7b":
         acts = sorted(getattr(tq, "ACT_FNS", {"silu": None}))
@@ -262,6 +285,33 @@ def main(argv=None):
     return _emit(out, args.out)
 
 
+# the --spec timings: under the spec, and the wide instance forced on the
+# binary8 sr sites
+_SPEC_KEYS = ("spec_ms", "spec_device_ms", "wide_ms", "wide_device_ms")
+
+
+def _wide_spec(tq, name):
+    """--spec's RoundingSpec (None without it); a tree without the wide
+    instances cannot take it."""
+    if name is None:
+        return None
+    if not hasattr(tq, "gemm_instance"):
+        raise SystemExit("--spec: this tree has no wide GEMM instances")
+    from repro_torch.core.rounding import parse_spec
+    return parse_spec(name)
+
+
+def _spec_rows(torch, call, n):
+    """The --spec columns of one shape: ``call(i)`` under the spec,
+    ``call(i, True)`` on the wide instance forced on binary8 sr."""
+    return dict(spec_digest=digest(call(0)),
+                spec_ms=time_ms(torch, call, n),
+                spec_device_ms=graph_ms(torch, call, n),
+                wide_digest=digest(call(0, True)),
+                wide_ms=time_ms(torch, lambda i: call(i, True), n),
+                wide_device_ms=graph_ms(torch, lambda i: call(i, True), n))
+
+
 def _emit(out, path):
     line = json.dumps(out)
     print(line, flush=True)
@@ -271,13 +321,15 @@ def _emit(out, path):
     return out
 
 
-def time_k8(torch, tq, routes):
+def time_k8(torch, tq, routes, spec_name=None):
     """K8', K8 and bf16 torch.bmm at K8_SHAPES (and both K8' routes forced
-    at K8_ROUTE_M): times, device times and digests."""
+    at K8_ROUTE_M): times, device times and digests; with ``spec_name``
+    the --spec columns too."""
     import numpy as np
     from repro_torch.core.prng import int32_words
     from repro_torch.kernels import common as tc
     gen = torch.Generator(device="cuda").manual_seed(0)
+    wide = _wide_spec(tq, spec_name)
 
     def measure(E, M, K, N, yardstick=True):
         seeds = np.random.default_rng(E * K + N).integers(
@@ -296,6 +348,16 @@ def time_k8(torch, tq, routes):
             return tq.qmatmul_batched(a, ws[i], bits, "binary8")
         row = dict(digest=digest(call(0)), ms=time_ms(torch, call, n),
                    device_ms=graph_ms(torch, call, n))
+        if wide is not None:
+            def call_spec(i, forced=False):
+                if forced:
+                    return tq.qmatmul_batched_prng(a, ws[i], seeds,
+                                                   "binary8",
+                                                   instance="wide")
+                return tq.qmatmul_batched_prng(a, ws[i], seeds, wide.fmt,
+                                               wide.mode, wide.rand_bits,
+                                               eps=wide.eps)
+            row.update(_spec_rows(torch, call_spec, n))
         if yardstick:
             a16 = a.to(torch.bfloat16)
 
@@ -310,7 +372,7 @@ def time_k8(torch, tq, routes):
         return row
 
     keys = ("ms", "device_ms", "bits_ms", "bits_device_ms", "library_ms",
-            "library_device_ms")
+            "library_device_ms") + (_SPEC_KEYS if wide is not None else ())
     res = {}
     totals = {"decode_step": dict.fromkeys(keys, 0.0),
               "prefill": dict.fromkeys(keys, 0.0)}

@@ -47,7 +47,7 @@ from repro_torch.kernels.tree_update import flat_backed, tree_leaves
 from repro_torch.launch.steps import make_train_step
 from repro_torch.models import build_model
 from repro_torch.optim import base as optim_base, qadam, qsgd
-from repro_torch.precision import PRESETS
+from repro_torch.precision import PRESETS, get_policy
 from repro_torch.train import TrainLoop, TrainLoopConfig
 
 
@@ -263,6 +263,13 @@ _NOT_PORTED = ("mesh", "wire_spec", "wire_topology", "accum_steps",
                "accum_spec", "loss_scale", "watchdog", "health_fmt")
 
 
+def _gemm_policy(name: str) -> str:
+    """``--gemm-policy``: a preset or a canonical spec name, resolved
+    (``precision.get_policy``) so that an unknown name is a usage error."""
+    get_policy(name)
+    return name
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="smollm-360m")
@@ -300,10 +307,13 @@ def main(argv=None):
                          "(self-validating per leaf, restore stays "
                          "bit-exact), e.g. 'binary8' or 'bf16-sr'; default "
                          "raw float32")
-    ap.add_argument("--gemm-policy", default=None, choices=sorted(PRESETS),
+    ap.add_argument("--gemm-policy", default=None, type=_gemm_policy,
                     help="quantized-GEMM precision policy (eq. 8a) of every "
-                         "forward/dgrad/wgrad GEMM; default: unrounded "
-                         "bf16 GEMMs")
+                         "forward/dgrad/wgrad GEMM: a preset ("
+                         f"{', '.join(sorted(PRESETS))}) or any canonical "
+                         "spec name, e.g. 'fxp16.8-sr2' or 'e4m3-sr2-r16' "
+                         "(every GEMM and the act site); default: "
+                         "unrounded bf16 GEMMs")
     ap.add_argument("--fault-schedule", default=None,
                     help="fault schedule, e.g. 'preempt@3,corrupt@4,"
                          "nan@6' (health/inject.py)")

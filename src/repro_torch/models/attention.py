@@ -80,7 +80,8 @@ def _sdpa(q, k, v, mask, scale: float):
 def flash_attention(q, k, v, scale: float, *, causal: bool = True,
                     q_block: int = 1024, kv_block: int = 1024):
     """Blocked attention with online softmax (the reference's
-    ``flash_attention``, same block loop and float32 arithmetic).
+    ``flash_attention``, same block loop and float32 arithmetic; torch's
+    exp and sums, which differ from XLA's by float32 ulps: ROADMAP §3).
     q: (B, Sq, H, dk); k: (B, Skv, KV, dk); v: (B, Skv, KV, dv)."""
     B, Sq, H, dk = q.shape
     KV = k.shape[2]

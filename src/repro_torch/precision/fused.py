@@ -84,8 +84,10 @@ def _glu(policy: QuantPolicy, act: str, x2, wg, wu, words: Words,
     seeds = (_site_words(words, TAG_FFN_GATE, SITE_FWD),
              _site_words(words, TAG_FFN_UP, SITE_FWD),
              _site_words(words, TAG_FFN_ACT, SITE_ACT))
+    # the gate and up sites saturate (the reference passes no overflow);
+    # the act site rounds as its spec says, overflow included
     kw = dict(act=act, act_spec=act_spec, rand_bits=s.rand_bits, eps=s.eps,
-              overflow=s.overflow, residuals=residuals,
+              residuals=residuals,
               out_packed=_h_pack_fmt(policy) is not None,
               residuals_packed=residuals and _res_pack_fmt(policy) is not None)
     if not policy.oracle:

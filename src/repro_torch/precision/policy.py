@@ -164,43 +164,70 @@ def policy_with_kv_fmt(base, kv_cache_fmt: Optional[str]) -> QuantPolicy:
                                                pol.kv_cache_packed))
 
 
-# The schemes the kernels round with at each kind of site: the GEMM,
-# attention and fused-GLU act epilogues take rn and sr; the activation
-# casts (K1, K1') also sr_eps.
-_KERNEL_SCHEMES = ("rn", "sr")
-_CAST_SCHEMES = ("rn", "sr", "sr_eps")
+# The schemes the attention kernels (K6, K7, K7', K9, K10) and the KV
+# store round with: rn and sr on plain FP grids with subnormals,
+# saturating.  The GEMM and activation sites take every spec their
+# kernels' wide instances take (``_check_ported``).
+_ATTN_SCHEMES = ("rn", "sr")
 
 
-def _check_ported_site(s: RoundingSpec, site: str, schemes) -> None:
-    """Raise NotImplementedError, naming the site, for a spec the kernels
-    that would run it do not take (checked when the policy is made, not at
-    the first GEMM)."""
+def _check_attn_site(s: RoundingSpec, site: str) -> None:
+    """Raise NotImplementedError, naming the site, for an attention or KV
+    store spec the kernels that would run it do not take."""
     if s.is_identity:
         return
     grid = get_grid(s.fmt)
     if grid.kind != "fp" or grid.transformed or not grid.fmt.subnormals:
         raise NotImplementedError(
             f"site {site!r}: grid {grid.name!r} is not ported yet (the "
-            "kernels take plain FP grids with subnormals)")
-    if s.scheme.name not in schemes:
+            "attention kernels take plain FP grids with subnormals)")
+    if s.scheme.name not in _ATTN_SCHEMES:
         raise NotImplementedError(
             f"site {site!r}: scheme {s.scheme.name!r} is not ported yet "
-            f"(the kernels of this site take {', '.join(schemes)})")
-    if s.eps and s.scheme.name != "sr_eps":
+            f"(the attention kernels take {', '.join(_ATTN_SCHEMES)})")
+    if s.eps:
         raise NotImplementedError(f"site {site!r}: eps is not ported yet")
     if s.overflow != "saturate":
         raise NotImplementedError(f"site {site!r}: overflow={s.overflow!r} "
-                                  "is not ported yet (the kernels "
+                                  "is not ported yet (the attention kernels "
                                   "saturate)")
 
 
+def _check_oracle_site(s: RoundingSpec, site: str,
+                       saturating: bool) -> None:
+    """Under ``oracle`` a site runs an explicit-bits kernel (K3, K4, K8 or
+    K1), which has the first instances alone: raise NotImplementedError,
+    naming the site, for a spec only a wide instance rounds.  The GEMM
+    sites saturate whatever the spec says (``saturating``), as the
+    reference's do."""
+    if saturating and not s.is_identity:
+        s = dataclasses.replace(s, overflow="saturate")
+    if not common.fp_site(s):
+        raise NotImplementedError(
+            f"site {site!r}: {s} is not ported to the explicit-bits kernels "
+            "(oracle; they take rn, sr and sr_eps on plain FP grids with "
+            "subnormals, saturating)")
+
+
 def _check_ported(pol: QuantPolicy) -> QuantPolicy:
-    for site in ("fwd", "dgrad", "wgrad", "attn_qk", "attn_av", "attn_out"):
-        _check_ported_site(getattr(pol, site), site, _KERNEL_SCHEMES)
-    # with a rounded fwd site the dense FFN rounds the act site inside the
-    # fused GLU kernel; otherwise it goes through the activation cast
-    _check_ported_site(pol.act, "act", _KERNEL_SCHEMES
-                       if not pol.fwd.is_identity else _CAST_SCHEMES)
+    """The GEMM sites (fwd, dgrad, wgrad: K3', K4', K8') and the act site
+    (K4''s act epilogue, K1') take every spec but those that need a bias
+    direction (refused by ``_check_gemm_spec``): rn, sr and sr_eps on plain
+    FP grids with subnormals run the kernels' first instances, the rest
+    their wide ones.  The GEMM sites saturate, as the reference's do; the
+    fused GLU's act site overflows as its spec says, the activation cast
+    saturates (the reference's ``qact``).  What stays unported raises here,
+    naming the site: the oracle's explicit-bits kernels under a wide spec,
+    the attention sites and the KV store beyond rn and sr on plain FP
+    grids."""
+    if pol.oracle:
+        for site in ("fwd", "dgrad", "wgrad"):
+            _check_oracle_site(getattr(pol, site), site, True)
+        _check_oracle_site(pol.act, "act", False)
+    for site in ("attn_qk", "attn_av", "attn_out"):
+        _check_attn_site(getattr(pol, site), site)
+    if pol.kv_cache_fmt is not None:
+        _check_attn_site(parse_spec(pol.kv_cache_fmt), "kv_cache")
     return pol
 
 
@@ -355,8 +382,8 @@ def site_matmul(policy: QuantPolicy, site: int, a: torch.Tensor,
             a = common.unpack_block(a, a_fmt)
         return a.float() @ b.float()
     w = fold_words(words, site)
-    kw = dict(eps=s.eps, overflow=s.overflow, a_fmt=a_fmt,
-              out_packed=out_packed)
+    # no overflow: the reference's GEMM sites saturate whatever the spec
+    kw = dict(eps=s.eps, a_fmt=a_fmt, out_packed=out_packed)
     if policy.oracle:
         bits = None
         if s.stochastic:
@@ -430,7 +457,7 @@ def batched_site_matmul(policy: QuantPolicy, site: int, a: torch.Tensor,
     if s.is_identity:
         return torch.bmm(a.float(), b.float())
     seeds = slice_words(fold_words(words, site), a.shape[0])
-    kw = dict(eps=s.eps, overflow=s.overflow)
+    kw = dict(eps=s.eps)            # saturating, as ``site_matmul``
     if policy.oracle:
         bits = None
         if s.stochastic:
@@ -537,7 +564,8 @@ def act_round(policy: QuantPolicy, x: torch.Tensor,
     ``(x.size, 1)``)."""
     s = policy.act
     w = fold_words(words, SITE_ACT)
-    kw = dict(rand_bits=s.rand_bits, overflow=s.overflow)
+    # no overflow: the reference's qact saturates whatever the spec
+    kw = dict(rand_bits=s.rand_bits)
     if policy.oracle:
         bits = None
         if s.stochastic:

@@ -302,14 +302,16 @@ def _numpy_params(jparams):
 # binary8-paper and -attn: tests/test_torch_attention.py's limits (5e-7,
 # at most 8 of the 581,952 parameters).  No policy (the unfused bf16
 # GeGLU, bf16 GEMMs, the plain float32 attention): the forward agrees
-# (step 1's loss), but torch's exp and summation orders differ from XLA's
-# by float32 ulps, which the bf16 casts of the backward turn into bf16
-# ulps of the attention gradients (ROADMAP §3), so the binary8 update
-# takes other steps for some parameters and step 2 spreads them: limits
-# 1e-3 relative and 1 % of the parameters.
+# (step 1's loss), but the plain attention's backward sums (the dots and
+# the softmax reductions) run in another order than XLA's, which the bf16
+# casts turn into bf16 ulps of the attention gradients
+# (``test_plain_attention_vjp_elements_apart``, ROADMAP §3), so the binary8
+# update takes other steps for some parameters and step 2 spreads them:
+# the limits are the readings, 5.04e-4 relative at step 2 (5.037e-4) and
+# 1,601 parameters (0.28 %; XLA's exp in the forward read 1,599).
 TRAIN_LIMITS = {"binary8-paper": (5e-7, 5e-7, 8 / 581_952),
                 "binary8-paper-attn": (5e-7, 5e-7, 8 / 581_952),
-                None: (5e-7, 1e-3, 0.01)}
+                None: (5e-7, 5.04e-4, 1_601 / 581_952)}
 
 
 @pytest.mark.parametrize("policy", list(TRAIN_LIMITS))
@@ -371,6 +373,47 @@ def test_gemma_train_steps_match_reference(interpret_params, policy):
     assert rel[0] <= max_rel1 and rel[1] <= max_rel2, (rel, losses,
                                                        ref_losses)
     assert n_diff <= max_share * n, (n_diff, n)
+
+
+@pytest.mark.parametrize("inputs", ["exact", "normal"])
+def test_plain_attention_vjp_elements_apart(inputs):
+    """The remaining cause of the no-policy train step's differences, on
+    the plain float32 attention alone: ``flash_attention`` at reduced
+    gemma-7b's shapes (batch 2, 8 tokens, 4 heads of 256, bf16 in and out,
+    causal) and its VJP against jax's of the reference's, compiled without
+    excess precision.  The forward is bitwise at its bf16 output (torch's
+    exp is float32 ulps off XLA's, which the cast absorbs here); the
+    backward's float32 sums (the dot of the cotangent with v, the
+    softmax's row sums) run in another order than XLA's, so some bf16
+    gradients land one ulp apart.  Limits are the readings (of 16,384
+    elements each: out, dq, dk, dv): dyadic inputs 0, 45, 17, 0 (0, 39, 16,
+    0 with XLA's exp in the forward: the backward's sums dominate); N(0, 1)
+    inputs 0, 4, 0, 2."""
+    from repro.models.attention import flash_attention as jflash
+    from repro_torch.models.attention import flash_attention as tflash
+    B, S, H, d = 2, 8, 4, HEAD_DIM
+    rng = np.random.default_rng(0)
+    draws = [(rng.integers(-4, 5, (B, S, H, d)) / 8).astype(np.float32)
+             for _ in range(4)]
+    if inputs == "normal":
+        draws = [rng.standard_normal((B, S, H, d)).astype(np.float32)
+                 for _ in range(4)]
+
+    def ref_fn(q, k, v, ct):
+        out, vjp = jax.vjp(lambda q, k, v: jflash(q, k, v, d ** -0.5), q, k,
+                           v)
+        return (out,) + vjp(ct)
+    args = [jnp.asarray(x, jnp.bfloat16) for x in draws]
+    ref = jax.jit(ref_fn).lower(*args).compile(COMPILE)(*args)
+    q, k, v = (torch.from_numpy(x).to(torch.bfloat16).requires_grad_()
+               for x in draws[:3])
+    out = tflash(q, k, v, d ** -0.5)
+    out.backward(torch.from_numpy(draws[3]).to(torch.bfloat16))
+    apart = [int((np.asarray(r.astype(jnp.float32))
+                  != g.detach().float().numpy()).sum())
+             for r, g in zip(ref, (out, q.grad, k.grad, v.grad))]
+    limits = [0, 45, 17, 0] if inputs == "exact" else [0, 4, 0, 2]
+    assert all(a <= lim for a, lim in zip(apart, limits)), apart
 
 
 def test_gemma_train_run_depth_cut_and_launches(monkeypatch, tmp_path,

@@ -2207,3 +2207,187 @@ def test_geglu_pullback_kernel_matches_plain(cuda):
     torch.cuda.synchronize()
     assert tgp.LAUNCHES == {"geglu_pullback": 1}
     assert _same_nan(ref[0], got[0].cpu()) and _same_nan(ref[1], got[1].cpu())
+
+
+# ---------------------------------------------------------------------------
+# The wide instances of K3', K4', K8' and K1': every scheme x grid pair of
+# the reference's round_block (the families of tests/test_torch_wide_gemm.py
+# and chip_smoke.py's kernel sweep), held to the twins on both routes.  On
+# N(0, 1) inputs the 8-bit grids keep the GEMM contract; the fixed-point
+# and bfloat16 grids (quantum 2^-8 absolute, 2^-8 relative) lie within
+# reach of the float32 summation-order error, so there at most 1 % of the
+# outputs may flip, and a flip need not be one grid step (a sum on the other
+# side of a power of two has the other binade's neighbours).
+# ---------------------------------------------------------------------------
+WIDE_GEMM_FAMILIES = {
+    "fxp": ("fxp16.8-sr2", "fxp8.4-rn"),
+    "sr2": ("binary8-sr2", "binary8-sr2-r16", "binary8-sr2-r32"),
+    "bittrick": ("bf16-sr-bittrick", "binary8-sr-bittrick-r8"),
+    "directed": ("binary8-rz", "binary8-ra", "binary8-rd", "binary8-ru"),
+    "inf": ("binary8-rn-inf", "e4m3-sr-inf"),
+    "shifted": ("shift8-sr", "shift8-rn"),
+    "nosub": ("b8nosub-sr", "b8nosub-rn"),
+    "sr_eps": ("binary8-sr_eps-e0.1", "binary8-sr_eps-e0.25"),
+}
+FINE_GRIDS = ("fxp16.8", "fxp8.4", "bfloat16")
+
+
+def _gemm_site(name):
+    """A spec's GEMM result site: (fmt, mode, rand_bits, eps), saturating
+    (the GEMM sites take no overflow)."""
+    s = parse_spec(name)
+    return s.fmt, s.mode, s.rand_bits, s.eps
+
+
+def _assert_wide_contract(ref, got, fmt):
+    fine = fmt in FINE_GRIDS
+    n, adjacent = grid_flips(ref, got, fmt)
+    assert n <= max(1, (1e-2 if fine else 1e-4) * ref.numel()), (n, ref.numel())
+    assert adjacent or fine
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("route", ["decode", "large"])
+@pytest.mark.parametrize("family", sorted(WIDE_GEMM_FAMILIES))
+def test_wide_qmatmul_matches_plain(cuda, monkeypatch, route, family):
+    """K3' and K8' on the instance each site takes (the wide one but for
+    sr_eps and the saturating -inf specs), both routes forced: bitwise the
+    twins on exact sums, the contract on N(0, 1); each launch counted on
+    its instance."""
+    register_wide_grids()
+    _route(monkeypatch, route)
+    monkeypatch.setattr(tq, "BATCHED_STREAM_MAX_M",
+                        1 << 30 if route == "decode" else 0)
+    e_seeds = np.array(SEEDS, dtype=np.int64)
+    for name in WIDE_GEMM_FAMILIES[family]:
+        fmt, mode, rb, eps = _gemm_site(name)
+        instance = tq.gemm_instance(fmt, mode, rb, eps)
+        for M, K, N, seed in ((16, 520, 70, 1), (4, 2048, 256, 2)):
+            a = _exact((M, K), 8.0, seed).to(cuda)
+            b = _exact((K, N), 4.0, seed + 1).to(cuda).to(torch.bfloat16)
+            tq.reset_launches()
+            got = tq.qmatmul_prng(a, b, SEEDS[0], fmt, mode, rb, eps=eps)
+            ref = tq.qmatmul_plain(a, b, SEEDS[0], fmt, mode, rb, eps=eps)
+            assert tq.INSTANCE_LAUNCHES["qmatmul_sr"][instance] == 1
+            assert torch.equal(got.view(torch.int32), ref.view(torch.int32)), \
+                (name, M, K, N)
+            a3, b3 = a[:3].reshape(3, 1, K), b.float()[None].expand(
+                3, K, N).contiguous()
+            got = tq.qmatmul_batched_prng(a3, b3, e_seeds, fmt, mode, rb,
+                                          eps=eps)
+            ref = tq.qmatmul_batched_plain(a3, b3, e_seeds, fmt, mode, rb,
+                                           eps=eps)
+            assert tq.INSTANCE_LAUNCHES["qmatmul_batched_sr"][instance] == 1
+            assert torch.equal(got.view(torch.int32), ref.view(torch.int32))
+        a = _normal((16, 2048), 3).to(cuda)
+        b = _normal((2048, 256), 4, 2048 ** -0.5).to(cuda)
+        _assert_wide_contract(
+            tq.qmatmul_plain(a, b, SEEDS[1], fmt, mode, rb, eps=eps),
+            tq.qmatmul_prng(a, b, SEEDS[1], fmt, mode, rb, eps=eps), fmt)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("route", ["decode", "large"])
+@pytest.mark.parametrize("name", ["binary8-sr", "binary8-rn", "e4m3-sr-r16",
+                                  "binary8-sr_eps-e0.1", "bf16-sr-r8"])
+def test_wide_instances_equal_the_first_ones(cuda, monkeypatch, route, name):
+    """On the sites the first instances take, the wide instances (forced by
+    ``instance="wide"``) give their bits on any input: K3', K8' and K4'
+    (with residuals) on N(0, 1) inputs, K1' on values past xmax."""
+    _route(monkeypatch, route)
+    monkeypatch.setattr(tq, "BATCHED_STREAM_MAX_M",
+                        1 << 30 if route == "decode" else 0)
+    fmt, mode, rb, eps = _gemm_site(name)
+    a = _normal((12, 2048), 5).to(cuda)
+    b = _normal((2048, 264), 6, 2048 ** -0.5).to(cuda).to(torch.bfloat16)
+    outs = [tq.qmatmul_prng(a, b, SEEDS[0], fmt, mode, rb, eps=eps,
+                            instance=i) for i in (None, "wide")]
+    assert torch.equal(outs[0].view(torch.int32), outs[1].view(torch.int32))
+    e_seeds = np.array(SEEDS, dtype=np.int64)
+    a3 = a[:6].reshape(3, 2, 2048)
+    b3 = b[None].expand(3, 2048, 264).contiguous()
+    outs = [tq.qmatmul_batched_prng(a3, b3, e_seeds, fmt, mode, rb, eps=eps,
+                                    instance=i) for i in (None, "wide")]
+    assert torch.equal(outs[0].view(torch.int32), outs[1].view(torch.int32))
+    act = spec(fmt, mode, eps, rb)
+    outs = [tq.qmatmul_swiglu_prng(a, b, b, SEEDS, fmt, mode, act_spec=act,
+                                   rand_bits=rb, eps=eps, residuals=True,
+                                   instance=i) for i in (None, "wide")]
+    for o1, o2 in zip(*outs):
+        assert torch.equal(o1.view(torch.int32), o2.view(torch.int32))
+    x = _normal((3 * 128 + 37,), 7, 3e4).to(cuda)
+    outs = [tsr.sr_cast_prng(x, SEEDS[1], fmt, mode, eps, rand_bits=rb,
+                             instance=i) for i in (None, "wide")]
+    assert torch.equal(outs[0].view(torch.int32), outs[1].view(torch.int32))
+    with pytest.raises(ValueError, match="cannot launch"):
+        tq.qmatmul_prng(a, b, SEEDS[0], "fxp16.8", "sr2", 8, instance="fp")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("route", ["decode", "large"])
+@pytest.mark.parametrize("act", ["silu", "gelu"])
+@pytest.mark.parametrize("family", sorted(WIDE_GEMM_FAMILIES))
+def test_wide_swiglu_matches_plain(cuda, monkeypatch, route, act, family):
+    """K4' with residuals on the instance its sites take: the family's
+    first spec at the GEMM sites, its last at the act site (overflow as the
+    spec says); on exact sums the residuals bitwise and the hidden bitwise
+    (gelu) or within SiLU's act-grid flips, on N(0, 1) the contract."""
+    register_wide_grids()
+    _route(monkeypatch, route)
+    names = WIDE_GEMM_FAMILIES[family]
+    fmt, mode, rb, eps = _gemm_site(names[0])
+    act_spec = parse_spec(names[-1])
+    x = _exact((8, 520), 4.0, 11).to(cuda)
+    wg = _exact((520, 72), 8.0, 12).to(cuda)
+    wu = _exact((520, 72), 8.0, 13).to(cuda)
+    kw = dict(act=act, act_spec=act_spec, rand_bits=rb, eps=eps,
+              residuals=True)
+    tq.reset_launches()
+    got = tq.qmatmul_swiglu_prng(x, wg, wu, SEEDS, fmt, mode, **kw)
+    ref = tq.qmatmul_swiglu_plain(x, wg, wu, SEEDS, fmt, mode, rb, act_spec,
+                                  True, act=act, eps=eps)
+    want = tq.swiglu_instance(fmt, mode, rb, eps, act_spec)
+    assert tq.INSTANCE_LAUNCHES["qmatmul_swiglu_sr"][want] == 1
+    for r, g in zip(ref[1:], got[1:]):
+        assert torch.equal(r.view(torch.int32), g.view(torch.int32))
+    if act == "gelu":
+        assert torch.equal(ref[0].view(torch.int32), got[0].view(torch.int32))
+    else:
+        n, adjacent = grid_flips(ref[0], got[0], act_spec.fmt)
+        assert n <= max(1, 1e-4 * ref[0].numel()) and adjacent
+    x = _normal((8, 2048), 14).to(cuda)
+    wg = _normal((2048, 256), 15, 2048 ** -0.5).to(cuda)
+    wu = _normal((2048, 256), 16, 2048 ** -0.5).to(cuda)
+    got = tq.qmatmul_swiglu_prng(x, wg, wu, SEEDS, fmt, mode, **kw)
+    ref = tq.qmatmul_swiglu_plain(x, wg, wu, SEEDS, fmt, mode, rb, act_spec,
+                                  True, act=act, eps=eps)
+    for r, g in zip(ref[1:], got[1:]):
+        _assert_wide_contract(r, g, fmt)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("offset", [0, 1])
+@pytest.mark.parametrize("n", [1, 5, 129, 128 * 3 + 5, 2 ** 20 + 37])
+@pytest.mark.parametrize("family", sorted(WIDE_GEMM_FAMILIES))
+def test_wide_sr_cast_matches_plain(cuda, family, n, offset):
+    """K1' on the instance each spec takes (the wide one for every family
+    but sr_eps), overflow as the spec says, bitwise its twin on any input
+    (values past xmax, -0s), aligned and one element off a 16-byte
+    boundary; each launch counted on its instance."""
+    register_wide_grids()
+    base = _normal((n + offset,), n, 4.0)
+    base[::17] *= 3e4
+    base[3::29] = -0.0
+    x = base.to(cuda)[offset:]
+    for name in WIDE_GEMM_FAMILIES[family]:
+        s = parse_spec(name)
+        tsr.reset_launches()
+        got = tsr.sr_cast_prng(x, SEEDS[2], s.fmt, s.mode, s.eps,
+                               rand_bits=s.rand_bits, overflow=s.overflow)
+        ref = tsr.sr_cast_prng_plain(x, SEEDS[2], s.fmt, s.mode, s.rand_bits,
+                                     s.eps, overflow=s.overflow)
+        want = tsr.sr_cast_instance(s.mode, s.rand_bits, False, s.fmt, s.eps,
+                                    s.overflow)
+        assert tsr.INSTANCE_LAUNCHES[want] == 1
+        assert torch.equal(got.view(torch.int32), ref.view(torch.int32)), \
+            name

@@ -101,17 +101,25 @@ def test_sr_cast_twin_matches_reference(fmt):
 
 
 def test_sr_cast_unported_branches_raise():
-    """sr2, overflow='inf' and non-FP grids are not ported (the v branch
-    and sr_eps are: tests/test_torch_oracle.py)."""
-    x = torch.ones(5)
+    """K1' takes sr2 and overflow='inf' (its wide instance on the card),
+    bitwise the reference's interpret kernel; K1 keeps the generic
+    instance's sites, so a fixed-point grid raises there; signed_sr_eps
+    without its bias direction raises ValueError (the v branch and sr_eps
+    are ported: tests/test_torch_oracle.py)."""
+    x = np.array([0.3, -1.7, 2.2e5, -9e4, 1.0], np.float32)
+    for mode, kw in (("sr2", {}), ("sr", dict(overflow="inf"))):
+        ref = jsr.sr_cast_prng_p(jnp.asarray(x),
+                                 jnp.asarray(np.array(WORDS, np.uint32)),
+                                 "binary8", mode, interpret=True, **kw)
+        got = tsr.sr_cast_prng(torch.from_numpy(x), WORDS, "binary8", mode,
+                               **kw)
+        np.testing.assert_array_equal(_bits(ref), _bits(got.numpy()))
+    assert np.isinf(_bits(got.numpy()).view(np.float32)).any()
     with pytest.raises(NotImplementedError):
-        tsr.sr_cast_prng(x, WORDS, "binary8", "sr2")
-    with pytest.raises(NotImplementedError):
-        tsr.sr_cast_prng(x, WORDS, "binary8", "sr", overflow="inf")
-    with pytest.raises(NotImplementedError):
-        tsr.sr_cast(x, None, "fxp16.8", "rn")
+        tsr.sr_cast(torch.ones(5), None, "fxp16.8", "rn")
     with pytest.raises(ValueError):
-        tsr.sr_cast_prng(x, WORDS, "binary8", "signed_sr_eps", eps=0.1)
+        tsr.sr_cast_prng(torch.ones(5), WORDS, "binary8", "signed_sr_eps",
+                         eps=0.1)
 
 
 # ---------------------------------------------------------------------------

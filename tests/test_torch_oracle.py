@@ -383,20 +383,35 @@ def test_qact_oracle_matches_reference():
                                        ("fxp16.8-sr", "fwd"),
                                        ("binary8-rz", "fwd")])
 def test_policy_resolution_names_the_unported_site(name, site):
-    with pytest.raises(NotImplementedError, match=repr(site)):
-        tp.get_policy(name)
-    jp.get_policy(name)                          # the reference takes it
+    """Every spec name the reference's policies take resolves to the same
+    sites (the GEMM kernels' wide instances round what their first
+    instances do not); under ``oracle`` the explicit-bits kernels have the
+    first instances alone, so a spec that needs a wide one raises there,
+    naming the site."""
+    pol, ref = tp.get_policy(name), jp.get_policy(name)
+    for attr in ("fwd", "dgrad", "wgrad", "act"):
+        assert getattr(pol, attr) == tr.parse_spec(str(getattr(ref, attr)))
+    s = getattr(pol, site)
+    if tcommon.fp_site(s):
+        assert tp.make_policy(s, s, s, s, oracle=True).oracle
+    else:
+        with pytest.raises(NotImplementedError, match=repr(site)):
+            tp.make_policy(s, s, s, s, oracle=True)
 
 
 def test_policy_resolution_checks_each_site():
+    sr2 = tr.spec("binary8", "sr2", rand_bits=8)
     with pytest.raises(NotImplementedError, match="'act'"):
-        tp.make_policy(fmt="binary8", act=tr.spec("binary8", "sr_eps",
-                                                  eps=0.1))
+        tp.make_policy(fmt="binary8", act=sr2, oracle=True)
     with pytest.raises(NotImplementedError, match="'wgrad'"):
-        tp.make_policy(fmt="binary8", wgrad=tr.spec("binary8", "sr",
-                                                    overflow="inf"))
-    # the activation cast alone (no fused GLU) takes sr_eps
-    pol = tp.make_policy(act=tr.spec("binary8", "sr_eps", eps=0.1))
+        tp.make_policy(fmt="binary8", wgrad=sr2, oracle=True)
+    # the GEMM sites saturate whatever the spec says, the oracle's too
+    inf = tr.spec("binary8", "sr", overflow="inf")
+    assert tp.make_policy(fmt="binary8", wgrad=inf, oracle=True).wgrad == inf
+    # the fused GLU's act site and the activation cast alone take sr_eps
+    eps = tr.spec("binary8", "sr_eps", eps=0.1)
+    assert tp.make_policy(fmt="binary8", act=eps).act == eps
+    pol = tp.make_policy(act=eps)
     x = torch.from_numpy(_normal((3, 40), 62))
     got = tp.qact(x, tp.QuantCtx(pol, SEEDS[0]), 1)
     assert torch.equal(got, tsr.sr_cast_prng(

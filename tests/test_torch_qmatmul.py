@@ -225,11 +225,21 @@ def test_cpu_tensors_take_the_plain_twin_and_count_no_launch():
                                     dict(act_spec=tr.spec("binary8", "sr")),
                                     dict(overflow="inf"),
                                     dict(act="gelu"), dict(act="silu")])
-def test_qmatmul_raises_on_unported_options(kwargs):
+def test_qmatmul_raises_on_unported_options(interpret_params, kwargs):
     """The bias and activation epilogues of K3/K3' (no ported config has a
-    non-GLU FFN), eps and overflow='inf' raise; a_fmt and out_packed are
-    ported (tests/test_torch_packed.py)."""
+    non-GLU FFN) raise, and so does overflow='inf' (the reference's GEMM
+    kernels take no overflow: their results saturate); eps is ported (here
+    under sr, where it changes nothing, as in the reference's kernel); a_fmt
+    and out_packed are ported (tests/test_torch_packed.py)."""
     a, b = _normal_inputs(4, 16, 8, seed=1)
+    if "eps" in kwargs:
+        ref = jq.qmatmul_prng_p(jnp.asarray(a), jnp.asarray(b),
+                                _seed_arr(SEEDS[0]), "binary8", "sr",
+                                kwargs["eps"])
+        got = tq.qmatmul_prng(torch.from_numpy(a), torch.from_numpy(b),
+                              SEEDS[0], "binary8", **kwargs)
+        _assert_one_ulp(ref, got.numpy(), "binary8")
+        return
     with pytest.raises(NotImplementedError):
         tq.qmatmul_prng(torch.from_numpy(a), torch.from_numpy(b), SEEDS[0],
                         "binary8", **kwargs)
@@ -240,23 +250,54 @@ def test_qmatmul_raises_on_unported_options(kwargs):
                                       ("bfloat16", "sr_bittrick"),
                                       ("binary8", "signed_sr_eps"),
                                       ("fxp16.8", "sr")])
-def test_qmatmul_raises_on_unported_schemes_and_grids(fmt, mode):
-    a, b = _normal_inputs(4, 16, 8, seed=1)
-    with pytest.raises(NotImplementedError):
-        tq.qmatmul_prng(torch.from_numpy(a), torch.from_numpy(b), SEEDS[0],
-                        fmt, mode)
-    with pytest.raises(NotImplementedError):
-        tq.qmatmul_swiglu_prng(torch.from_numpy(a), torch.from_numpy(b),
-                               torch.from_numpy(b), SEEDS, fmt, mode)
+def test_qmatmul_raises_on_unported_schemes_and_grids(interpret_params, fmt,
+                                                      mode):
+    """Every scheme x grid pair of the reference's round_block is ported
+    to K3' and K4' (their wide instances on the card): bitwise the
+    reference's interpret kernels on exact sums, K4''s rounded branches
+    too.  signed_sr_eps needs a bias direction that a GEMM result has not:
+    ValueError, as the reference's ``_check_mode`` raises."""
+    a, b = _exact_inputs(4, 16, 8, seed=1)
+    at, bt = torch.from_numpy(a), torch.from_numpy(b)
+    if mode == "signed_sr_eps":
+        with pytest.raises(ValueError):
+            jq.qmatmul_prng_p(jnp.asarray(a), jnp.asarray(b),
+                              _seed_arr(SEEDS[0]), fmt, mode)
+        with pytest.raises(ValueError):
+            tq.qmatmul_prng(at, bt, SEEDS[0], fmt, mode)
+        with pytest.raises(ValueError):
+            tq.qmatmul_swiglu_prng(at, bt, bt, SEEDS, fmt, mode)
+        return
+    eps = 0.25 if mode == "sr_eps" else 0.0
+    ref = jq.qmatmul_prng_p(jnp.asarray(a), jnp.asarray(b),
+                            _seed_arr(SEEDS[0]), fmt, mode, eps)
+    got = tq.qmatmul_prng(at, bt, SEEDS[0], fmt, mode, eps=eps)
+    assert np.array_equal(np.asarray(ref).view(np.int32),
+                          got.numpy().view(np.int32))
+    ref = jq.qmatmul_swiglu_prng_p(jnp.asarray(a), jnp.asarray(b),
+                                   jnp.asarray(b), _seed_arr(SEEDS), fmt,
+                                   mode, eps, residuals=True)
+    got = tq.qmatmul_swiglu_prng(at, bt, bt, SEEDS, fmt, mode, eps=eps,
+                                 residuals=True)
+    for r, g in zip(ref[1:], got[1:]):
+        assert np.array_equal(np.asarray(r).view(np.int32),
+                              g.numpy().view(np.int32))
 
 
-def test_swiglu_raises_on_unported_options():
+def test_swiglu_raises_on_unported_options(interpret_params):
     a, b = _normal_inputs(4, 16, 8, seed=1)
     args = (torch.from_numpy(a), torch.from_numpy(b), torch.from_numpy(b),
             SEEDS, "binary8")
-    for kwargs in (dict(eps=0.1), dict(overflow="inf")):
-        with pytest.raises(NotImplementedError):
-            tq.qmatmul_swiglu_prng(*args, **kwargs)
+    # eps is ported (under sr it changes nothing, as in the reference's
+    # kernel); overflow='inf' of the GEMM sites is not the reference's
+    ref = jq.qmatmul_swiglu_prng_p(jnp.asarray(a), jnp.asarray(b),
+                                   jnp.asarray(b), _seed_arr(SEEDS),
+                                   "binary8", "sr", 0.1, residuals=True)
+    got = tq.qmatmul_swiglu_prng(*args, eps=0.1, residuals=True)
+    for r, g in zip(ref[1:], got[1:]):
+        _assert_one_ulp(r, g.numpy(), "binary8")
+    with pytest.raises(NotImplementedError):
+        tq.qmatmul_swiglu_prng(*args, overflow="inf")
     # an activation the reference's ACT_FNS does not know (its
     # _resolve_epilogue raises ValueError too)
     with pytest.raises(ValueError, match="unknown GLU activation"):
@@ -266,18 +307,36 @@ def test_swiglu_raises_on_unported_options():
         tq.qmatmul_swiglu_prng(*args, out_packed=True)
 
 
-def test_policies_the_kernels_cannot_honour_raise():
-    """A spec the kernels would round differently (overflow to inf) is
-    refused when the policy is made, and at the GEMM and the fused FFN for
-    a policy built around that check: never silently saturated."""
-    a, b = _normal_inputs(4, 16, 8, seed=1)
-    with pytest.raises(NotImplementedError, match="fwd"):
-        tp.get_policy("binary8-rn-inf")
-    s = tr.parse_spec("binary8-rn-inf")
-    ctx = tp.QuantCtx(tp.QuantPolicy(s, s, s, s), SEEDS[0])
-    with pytest.raises(NotImplementedError):
-        tp.qdot(torch.from_numpy(a), torch.from_numpy(b), ctx)
-    x = torch.from_numpy(a).reshape(1, 4, 16)
-    with pytest.raises(NotImplementedError):
-        tfused.qffn_glu(x, torch.from_numpy(b), torch.from_numpy(b),
-                        torch.from_numpy(b.T.copy()), ctx)
+def test_policies_the_kernels_cannot_honour_raise(interpret_params):
+    """A spec that overflows to +-inf resolves as in the reference, which
+    rounds its GEMM sites (``qdot``: fwd, dgrad, wgrad) saturating whatever
+    the spec says, and its fused GLU's act site as the spec says: both
+    packages give the same bits on inputs that overflow, the GEMM results
+    saturated at xmax, never +-inf."""
+    from repro.precision import fused as jfused
+    from repro.precision import policy as jp
+    rng = np.random.default_rng(1)
+    a = (rng.integers(-8, 9, (4, 16)) * 512.0).astype(np.float32)
+    b = (rng.integers(-8, 9, (16, 8)) * 64.0).astype(np.float32)
+    name = "binary8-rn-inf"
+    pol, jpol = tp.get_policy(name), jp.get_policy(name)
+    assert pol.fwd == tr.parse_spec(name) and pol.fwd.overflow == "inf"
+    words = SEEDS[0]
+    ref = jp.qdot(jnp.asarray(a), jnp.asarray(b),
+                  jp.QuantCtx(jpol, _seed_arr(words)))
+    got = tp.qdot(torch.from_numpy(a), torch.from_numpy(b),
+                  tp.QuantCtx(pol, words))
+    ref = np.asarray(ref)
+    assert np.array_equal(ref.view(np.int32), got.numpy().view(np.int32))
+    xmax = float(tr.get_grid("binary8").fmt.xmax)
+    assert np.all(np.isfinite(ref)) and np.abs(ref).max() == xmax
+    x = a.reshape(1, 4, 16) / 64.0
+    wd = np.ascontiguousarray(b.T) / 64.0
+    ref = jfused.qffn_glu(jnp.asarray(x), jnp.asarray(b), jnp.asarray(b),
+                          jnp.asarray(wd), jp.QuantCtx(jpol,
+                                                       _seed_arr(words)))
+    got = tfused.qffn_glu(torch.from_numpy(x), torch.from_numpy(b),
+                          torch.from_numpy(b), torch.from_numpy(wd),
+                          tp.QuantCtx(pol, words))
+    assert np.array_equal(np.asarray(ref).view(np.int32),
+                          got.numpy().view(np.int32))

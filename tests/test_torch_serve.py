@@ -172,6 +172,9 @@ def test_unported_arch_and_policy_raise():
     with pytest.raises(NotImplementedError):
         get_config("deepseek-v2-236b")
     from repro_torch.precision import policy as tp
-    # a spec name resolves only where the kernels take its scheme
+    # a spec name resolves at every site (the GEMM kernels' wide instances
+    # take what their first instances do not), but the explicit-bits
+    # kernels of the oracle have the first instances alone
+    assert tp.get_policy("binary8-sr_eps").fwd.scheme.name == "sr_eps"
     with pytest.raises(NotImplementedError, match="fwd"):
-        tp.get_policy("binary8-sr_eps")
+        tp.make_policy(fmt="binary8", mode="sr2", oracle=True)

@@ -305,6 +305,22 @@ def test_train_cli_needs_a_device_or_cpu(capsys, tmp_path):
                                update_path="fused")
 
 
+def test_train_cli_takes_presets_and_spec_names(capsys, tmp_path):
+    """``--gemm-policy`` takes a preset or any canonical spec name, as the
+    reference's CLI does (e.g. 'fxp16.8-sr2', 'e4m3-sr2-r16'); an unknown
+    name is a usage error."""
+    base = ["--arch", "tinyllama-1.1b", "--reduced", "--steps", "1",
+            "--batch", "1", "--seq", "8", "--device", "cpu"]
+    for i, name in enumerate(("binary8-sr_eps", "e4m3-sr2-r16")):
+        out = ttrain.main(base + ["--gemm-policy", name, "--ckpt-dir",
+                                  str(tmp_path / str(i))])
+        assert len(out["history"]) == 1
+        assert np.isfinite(out["history"][0]["loss"])
+    with pytest.raises(SystemExit):
+        ttrain.main(base + ["--gemm-policy", "binary8-nonsense"])
+    assert "invalid" in capsys.readouterr().err
+
+
 def test_profile_train_needs_a_card():
     """The profiling entry point measures the device: with no card it
     raises rather than timing the CPU."""
