@@ -4562,7 +4562,11 @@ def wide_contract(torch, ref, got, fmt, label) -> float:
     """The GEMM contract on N(0, 1) inputs: at most 1e-4 of the outputs
     flipped, each by one grid step (1 % on ``FINE_GRIDS``); returns the
     share."""
+    from repro_torch.core.grids import get_grid
     from repro_torch.core.rounding import grid_flips
+    grid = get_grid(fmt)
+    if grid.transformed:        # steps in the shifted grid's coordinates
+        ref, got, fmt = grid.to_grid(ref), grid.to_grid(got), grid.fmt.name
     n, adjacent = grid_flips(ref, got, fmt)
     fine = fmt in FINE_GRIDS
     limit = max(1, (1e-2 if fine else 1e-4) * ref.numel())
