@@ -244,23 +244,38 @@ def predecessor(x: torch.Tensor, fmt) -> torch.Tensor:
     return grid.from_grid(-_successor_fmt(-grid.to_grid(x), grid.fmt))
 
 
-def grid_flips(ref: torch.Tensor, got: torch.Tensor, fmt):
+def grid_flips(ref: torch.Tensor, got: torch.Tensor, fmt, slack=None):
     """Compare two tensors of grid values: (number of elements whose
     values differ, whether every such pair is one grid step apart).
 
     +0 and -0 count as equal.  A pair on both sides of zero within one
     step of it (the unrounded value's sign itself was within rounding
-    error) counts as adjacent.
+    error) counts as adjacent.  Steps are counted in a shifted grid's own
+    coordinates.  With ``slack`` (a float, or a tensor like ``ref``: how
+    far apart the two unrounded values may lie, in carrier units), a pair
+    also counts as adjacent when it is at most one step at the larger
+    magnitude plus its slack apart, the most a monotone rounding of two
+    such values gives.
     """
     diff = ref != got
     n = int(diff.sum())
     if n == 0:
         return 0, True
     r, g = ref[diff], got[diff]
+    if torch.is_tensor(slack):
+        slack = slack[diff]
+    grid = get_grid(fmt)
+    if grid.transformed:
+        r, g, fmt = grid.to_grid(r), grid.to_grid(g), grid.fmt.name
+        if slack is not None:
+            slack = slack / grid.scale
     lo = torch.minimum(r.abs(), g.abs())
     step = ulp(lo, fmt)
     q0 = ulp(torch.zeros_like(lo), fmt)
     adjacent = ((r - g).abs() == step) | ((r.abs() <= q0) & (g.abs() <= q0))
+    if slack is not None:
+        hi = torch.maximum(r.abs(), g.abs())
+        adjacent |= (r - g).abs() <= ulp(hi, fmt) + slack
     return n, bool(adjacent.all())
 
 

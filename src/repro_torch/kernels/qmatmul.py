@@ -139,6 +139,9 @@ GEMM_INSTANCES = ("fp", "wide")
 INSTANCE_LAUNCHES: Dict[str, Dict[str, int]] = {
     name: dict.fromkeys(GEMM_INSTANCES, 0)
     for name in ("qmatmul_sr", "qmatmul_swiglu_sr", "qmatmul_batched_sr")}
+# True launches the wide instances of K3', K4' and K8' on every site, the
+# first instances' too (the card checks hold the two against each other)
+FORCE_WIDE = False
 
 
 def reset_launches() -> None:
@@ -156,6 +159,7 @@ def _site(fmt, mode: str, rand_bits: int, eps: float) -> RoundingSpec:
     return spec(get_grid(fmt).name, mode, eps, rand_bits)
 
 
+@functools.lru_cache(maxsize=None)
 def gemm_instance(fmt, mode: str, rand_bits: int = 32,
                   eps: float = 0.0) -> str:
     """The compiled instance of K3', K4' and K8' (``GEMM_INSTANCES``) a
@@ -163,16 +167,6 @@ def gemm_instance(fmt, mode: str, rand_bits: int = 32,
     (``common.fp_site``), else "wide"."""
     return "fp" if common.fp_site(_site(fmt, mode, rand_bits, eps)) \
         else "wide"
-
-
-def _pick(chosen: str, instance: Optional[str], what: str) -> str:
-    """The instance a K3', K4' or K8' launch runs: ``chosen``, or the one
-    ``instance`` forces on the card ("wide" takes every site; "fp" only
-    the sites it rounds)."""
-    if instance not in (None, chosen, "wide"):
-        raise ValueError(f"{what}: cannot launch instance {instance!r} for "
-                         f"this site (it takes {chosen!r})")
-    return instance or chosen
 
 
 def _check_fmt_mode(fmt, mode: str, rand_bits: int, what: str,
@@ -388,8 +382,19 @@ def qmatmul_bits_plain(a: torch.Tensor, b: torch.Tensor,
                  get_grid(fmt), mode, rand_bits, eps, out_packed)
 
 
+@functools.lru_cache(maxsize=None)
+def _gemm_site_args(grid, mode: str, rand_bits: int, eps: float,
+                    force_wide: bool):
+    """(instance, round arguments) of a K3' or K8' result site: the
+    instance ``gemm_instance`` picks (the wide one with ``force_wide``) and
+    its C arguments, once per site."""
+    if force_wide or gemm_instance(grid, mode, rand_bits, eps) == "wide":
+        return "wide", _wide_args(_site(grid, mode, rand_bits, eps))
+    return "fp", _round_args(grid, mode, rand_bits, eps)
+
+
 def _qmatmul_launch(name: str, a, a_grid, b, bits, seed_words, grid, mode,
-                    rand_bits, eps, out_packed, instance=None):
+                    rand_bits, eps, out_packed):
     """One K3' (``qmatmul_sr``, on the instance ``gemm_instance`` picks)
     or K3 (``qmatmul_bits``) launch: the decode route for M <=
     ``DECODE_MAX_M``, else the large-M route."""
@@ -405,15 +410,14 @@ def _qmatmul_launch(name: str, a, a_grid, b, bits, seed_words, grid, mode,
     tail = (M, N, K)
     out_arg = (out.data_ptr(), _code_arg(grid if out_packed else None))
     entry = name + ("_decode" if M <= DECODE_MAX_M else "")
-    rnd = _round_args(grid, mode, rand_bits, eps)
     if name == "qmatmul_bits":
-        args = (*head, _ptr(bits), *out_arg, *tail, *rnd)
+        args = (*head, _ptr(bits), *out_arg, *tail,
+                *_round_args(grid, mode, rand_bits, eps))
     else:
-        instance = _pick(gemm_instance(grid, mode, rand_bits, eps),
-                         instance, name)
+        instance, rnd = _gemm_site_args(grid, mode, rand_bits, eps,
+                                        FORCE_WIDE)
         if instance == "wide":
             entry = entry.replace(name, name + "_wide")
-            rnd = _wide_args(_site(grid, mode, rand_bits, eps))
         args = (*head, *out_arg, *tail, seed_words[0], seed_words[1], *rnd)
     rc = getattr(_lib_qmatmul(), entry)(*args, _stream(a))
     _launch_check(rc, name)
@@ -426,16 +430,16 @@ def _qmatmul_launch(name: str, a, a_grid, b, bits, seed_words, grid, mode,
 def qmatmul_prng(a: torch.Tensor, b: torch.Tensor, seed_words: Words, fmt,
                  mode: str = "sr", rand_bits: int = 32, *, eps: float = 0.0,
                  overflow: str = "saturate", bias=None, act=None,
-                 act_spec=None, out_packed: bool = False, a_fmt=None,
-                 instance: Optional[str] = None) -> torch.Tensor:
+                 act_spec=None, out_packed: bool = False, a_fmt=None
+                 ) -> torch.Tensor:
     """Rounded ``a @ b`` (a: (M, K) float32, or code words of ``a_fmt``;
     b: (K, N) float32 or bf16); ``seed_words``: the (k0, k1) uint32 pair
     of this GEMM site.  Returns (M, N) float32 grid values, or their code
     words with ``out_packed``.  Every scheme x grid pair of the
     reference's ``round_block`` but those that need a bias direction:
     rn, sr and sr_eps on plain FP grids with subnormals on the first
-    instance, the rest on the wide one (``gemm_instance``; ``instance``
-    "wide" forces the wide one on the card)."""
+    instance, the rest on the wide one (``gemm_instance``; ``FORCE_WIDE``
+    takes the wide one for every site on the card)."""
     _check_unsupported(bias, act, act_spec, overflow)
     grid = _check_fmt_mode(fmt, mode, rand_bits, "qmatmul_prng", eps)
     a_grid = _check_a(a, a_fmt, 2, "qmatmul_prng")
@@ -446,7 +450,7 @@ def qmatmul_prng(a: torch.Tensor, b: torch.Tensor, seed_words: Words, fmt,
         return qmatmul_plain(a, b, seed_words, grid, mode, rand_bits,
                              eps=eps, a_fmt=a_grid, out_packed=out_packed)
     return _qmatmul_launch("qmatmul_sr", a, a_grid, b, None, seed_words,
-                           grid, mode, rand_bits, eps, out_packed, instance)
+                           grid, mode, rand_bits, eps, out_packed)
 
 
 def qmatmul(a: torch.Tensor, b: torch.Tensor, bits: Optional[torch.Tensor],
@@ -776,9 +780,33 @@ def swiglu_instance(fmt, mode: str, rand_bits: int = 32, eps: float = 0.0,
     return gemm_instance(fmt, mode, rand_bits, eps)
 
 
+@functools.lru_cache(maxsize=None)
+def _swiglu_site_args(name: str, grid, mode: str, rand_bits: int,
+                      eps: float, act_spec: Optional[RoundingSpec],
+                      force_wide: bool):
+    """(instance, the GEMM and act sites' C arguments) of a K4' or K4
+    launch: the instance ``swiglu_instance`` picks for K4' (the wide one
+    with ``force_wide``), the first for K4; once per site pair."""
+    instance = "fp"
+    if name == "qmatmul_swiglu_sr" and (force_wide or swiglu_instance(
+            grid, mode, rand_bits, eps, act_spec) == "wide"):
+        instance = "wide"
+    if instance == "wide":
+        return instance, (*_wide_args(_site(grid, mode, rand_bits, eps)),
+                          *_wide_args(act_spec))
+    if act_spec is not None:
+        return instance, (
+            *_site_array(grid, mode, rand_bits, eps),
+            *_site_array(get_grid(act_spec.fmt), act_spec.mode,
+                         act_spec.rand_bits, act_spec.eps, with_enabled=True))
+    return instance, (*_site_array(grid, mode, rand_bits, eps),
+                      *_site_array(None, "rn", 32, enabled=False,
+                                   with_enabled=True))
+
+
 def _swiglu_launch(name: str, x, wg, wu, bits3, seeds, grid, mode,
                    rand_bits, eps, act_spec, act_grid, residuals, out_packed,
-                   residuals_packed, act, instance=None):
+                   residuals_packed, act):
     """One K4' (``qmatmul_swiglu_sr``, on the instance ``swiglu_instance``
     picks) or K4 (``qmatmul_swiglu_bits``) launch: the decode route for M
     <= ``DECODE_MAX_M``, else the large-M route; the activation's own
@@ -797,19 +825,8 @@ def _swiglu_launch(name: str, x, wg, wu, bits3, seeds, grid, mode,
         return result                    # nothing to launch
     res_ptrs = (outs[1].data_ptr(), outs[2].data_ptr()) if residuals \
         else (None, None)
-    instance = _pick(swiglu_instance(grid, mode, rand_bits, eps, act_spec),
-                     instance, name) if name == "qmatmul_swiglu_sr" else "fp"
-    if instance == "wide":
-        sites = (*_wide_args(_site(grid, mode, rand_bits, eps)),
-                 *_wide_args(act_spec))
-    elif act_spec is not None:
-        sites = (*_site_array(grid, mode, rand_bits, eps),
-                 *_site_array(act_grid, act_spec.mode, act_spec.rand_bits,
-                              act_spec.eps, with_enabled=True))
-    else:
-        sites = (*_site_array(grid, mode, rand_bits, eps),
-                 *_site_array(None, "rn", 32, enabled=False,
-                              with_enabled=True))
+    instance, sites = _swiglu_site_args(name, grid, mode, rand_bits, eps,
+                                        act_spec, FORCE_WIDE)
     head = (x.data_ptr(), wg.data_ptr(), wu.data_ptr(),
             int(wg.dtype == torch.bfloat16))
     tail = (outs[0].data_ptr(), _code_arg(act_grid if out_packed else None),
@@ -839,16 +856,15 @@ def qmatmul_swiglu_prng(x: torch.Tensor, wg: torch.Tensor, wu: torch.Tensor,
                         rand_bits: int = 32, eps: float = 0.0,
                         overflow: str = "saturate", out_packed: bool = False,
                         residuals: bool = False,
-                        residuals_packed: bool = False,
-                        instance: Optional[str] = None):
+                        residuals_packed: bool = False):
     """Fused GLU-FFN prefix (K4'): x (M, K) float32, wg/wu (K, N) float32
     or bf16; ``seeds``: the gate, up and activation-site (k0, k1) pairs.
     Returns h (M, N), or with ``residuals`` the tuple (h, g_r, u_r): the
     rounded gate and up branches the backward needs.  h is float32, or
     code words of the act grid with ``out_packed``; g_r/u_r float32, or
     code words of ``fmt`` with ``residuals_packed``.  The instance as
-    ``swiglu_instance`` picks (``instance`` "wide" forces the wide one on
-    the card)."""
+    ``swiglu_instance`` picks (``FORCE_WIDE``: the wide one on the
+    card)."""
     if len(seeds) != 3:
         raise ValueError("seeds must hold three (k0, k1) pairs")
     grid, act_spec, act_grid = _check_swiglu(
@@ -860,8 +876,7 @@ def qmatmul_swiglu_prng(x: torch.Tensor, wg: torch.Tensor, wu: torch.Tensor,
                                     residuals_packed, act, eps)
     return _swiglu_launch("qmatmul_swiglu_sr", x, wg, wu, None, seeds, grid,
                           mode, rand_bits, eps, act_spec, act_grid,
-                          residuals, out_packed, residuals_packed, act,
-                          instance)
+                          residuals, out_packed, residuals_packed, act)
 
 
 def qmatmul_swiglu(x: torch.Tensor, wg: torch.Tensor, wu: torch.Tensor,
@@ -995,7 +1010,7 @@ def batched_route(M: int) -> str:
 
 
 def _batched_launch(name: str, a, a_grid, b, bits, seeds, grid, mode,
-                    rand_bits, eps, out_packed, instance=None):
+                    rand_bits, eps, out_packed):
     """One K8' (``qmatmul_batched_sr``, on the instance ``gemm_instance``
     picks) or K8 (``qmatmul_batched_bits``) launch on the route
     ``batched_route`` picks."""
@@ -1010,17 +1025,14 @@ def _batched_launch(name: str, a, a_grid, b, bits, seeds, grid, mode,
             int(b.dtype == torch.bfloat16))
     tail = (out.data_ptr(), _code_arg(grid if out_packed else None), E, M, N,
             K)
-    rnd = _round_args(grid, mode, rand_bits, eps)
     if name == "qmatmul_batched_sr":
-        instance = _pick(gemm_instance(grid, mode, rand_bits, eps),
-                         instance, name)
-        if instance == "wide":
-            rnd = _wide_args(_site(grid, mode, rand_bits, eps))
+        instance, rnd = _gemm_site_args(grid, mode, rand_bits, eps,
+                                        FORCE_WIDE)
         dev_seeds = common.host_to_device(
             seeds.astype(np.uint32).view(np.int32), a.device)
         operand = dev_seeds.data_ptr()
     else:
-        instance = "fp"
+        instance, rnd = "fp", _round_args(grid, mode, rand_bits, eps)
         operand = _ptr(bits)
     entry = name + ("_wide" if instance == "wide" else "") + (
         "_stream" if batched_route(M) == "stream" else "")
@@ -1037,8 +1049,7 @@ def qmatmul_batched_prng(a: torch.Tensor, b: torch.Tensor, seeds, fmt,
                          mode: str = "sr", rand_bits: int = 32, *,
                          eps: float = 0.0, overflow: str = "saturate",
                          act=None, act_spec=None, out_packed: bool = False,
-                         a_fmt=None, instance: Optional[str] = None
-                         ) -> torch.Tensor:
+                         a_fmt=None) -> torch.Tensor:
     """Rounded ``a[e] @ b[e]`` for every slice e (a: (E, M, K) float32, or
     code words of ``a_fmt``; b: (E, K, N) float32 or bf16); ``seeds``: (E,
     2) uint32 words, one pair per slice (numpy array or tensor;
@@ -1054,7 +1065,7 @@ def qmatmul_batched_prng(a: torch.Tensor, b: torch.Tensor, seeds, fmt,
                                      eps=eps, a_fmt=a_grid,
                                      out_packed=out_packed)
     return _batched_launch("qmatmul_batched_sr", a, a_grid, b, None, host,
-                           grid, mode, rand_bits, eps, out_packed, instance)
+                           grid, mode, rand_bits, eps, out_packed)
 
 
 def qmatmul_batched(a: torch.Tensor, b: torch.Tensor,

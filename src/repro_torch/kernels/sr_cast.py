@@ -36,6 +36,7 @@ draws 32-bit fields whatever ``rand_bits`` says.
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import Dict, Optional
 
 import torch
@@ -53,6 +54,9 @@ LAUNCHES: Dict[str, int] = {"sr_cast_prng": 0, "sr_cast_bits": 0}
 SR_CAST_INSTANCES = ("generic", "sr_r32", "wide")
 # K1' launches (counted in LAUNCHES too) by instance
 INSTANCE_LAUNCHES: Dict[str, int] = dict.fromkeys(SR_CAST_INSTANCES, 0)
+# True launches K1''s wide instance on every site, the other instances'
+# too (the card checks hold them against each other)
+FORCE_WIDE = False
 
 
 def reset_launches() -> None:
@@ -99,6 +103,7 @@ def _check(x: torch.Tensor, fmt, mode: str, v, rand_bits: int, eps: float,
     return grid, vf, rand_bits
 
 
+@functools.lru_cache(maxsize=None)
 def sr_cast_instance(mode: str, rand_bits: int, has_v: bool, fmt=None,
                      eps: float = 0.0, overflow: str = "saturate") -> str:
     """Which compiled instance of K1' a call runs: ``"wide"`` where the
@@ -138,6 +143,11 @@ def _round_args(grid, mode: str, rand_bits: int, eps: float):
     return (f.precision, f.emin, f.emax, ctypes.c_float(f.xmax),
             common.SCHEME_CODES[get_scheme(mode).name], rand_bits,
             ctypes.c_float(eps))
+
+
+@functools.lru_cache(maxsize=None)
+def _wide_row(grid, mode: str, rand_bits: int, eps: float, overflow: str):
+    return common.wide_row(_spec(grid, mode, rand_bits, eps, overflow))
 
 
 def sr_cast_prng_plain(x: torch.Tensor, seed_words: Words, fmt,
@@ -183,8 +193,7 @@ def _launch(name: str, x, bits, vf, seed_words, grid, mode, rand_bits, eps,
     lib = _lib()
     v_ptr = None if vf is None else vf.data_ptr()
     if instance == "wide":
-        ints, floats = common.wide_row(_spec(grid, mode, rand_bits, eps,
-                                             overflow))
+        ints, floats = _wide_row(grid, mode, rand_bits, eps, overflow)
         rc = lib.sr_cast_prng_wide(x.data_ptr(), v_ptr, out.data_ptr(),
                                    x.numel(), vec_ok, seed_words[0],
                                    seed_words[1], (ctypes.c_int * 8)(*ints),
@@ -215,16 +224,17 @@ def sr_cast_prng(x: torch.Tensor, seed_words: Words, fmt, mode: str = "sr",
     (k0, k1) uint32 pair of this rounding site; ``v``: the bias direction
     of signed_sr_eps.  Returns float32 grid values of ``x``'s shape.
     ``instance``: on the card, ``"generic"`` launches the generic instance
-    and ``"wide"`` the wide one whatever ``sr_cast_instance`` chooses (the
-    checks hold the instances against each other; only the wide one takes
+    whatever ``sr_cast_instance`` chooses (the checks hold the instances
+    against each other; ``FORCE_WIDE`` launches the wide one, which takes
     every site)."""
     grid, vf, rand_bits = _check(x, fmt, mode, v, rand_bits, eps, overflow,
                                  "sr_cast_prng")
     chosen = sr_cast_instance(mode, rand_bits, vf is not None, grid, eps,
                               overflow)
-    allowed = (None, chosen, "wide") + (("generic",) if chosen != "wide"
-                                        else ())
-    if instance not in allowed:
+    if FORCE_WIDE:
+        chosen = "wide"
+    if instance not in (None, chosen) + (("generic",) if chosen != "wide"
+                                         else ()):
         raise ValueError(f"sr_cast_prng: cannot launch instance "
                          f"{instance!r} for this spec (it takes {chosen!r})")
     if x.device.type == "cpu":

@@ -212,15 +212,14 @@ def main(argv=None):
         if wide is not None:
             def call_spec(i, forced=False):
                 s = act if forced else wide
-                k = dict(instance="wide") if forced else {}
                 if glu:
                     return tq.qmatmul_swiglu_prng(
                         a, *ws[i], SEEDS, s.fmt, s.mode,
                         **dict(kw, act_spec=s), rand_bits=s.rand_bits,
-                        eps=s.eps, **k)
+                        eps=s.eps)
                 return tq.qmatmul_prng(a, ws[i][0], SEEDS[0], s.fmt, s.mode,
-                                       s.rand_bits, eps=s.eps, **k)
-            row.update(_spec_rows(torch, call_spec, n))
+                                       s.rand_bits, eps=s.eps)
+            row.update(_spec_rows(torch, tq, call_spec, n))
         if glu:
             # K4 fed the words K4' draws, as int32 bit patterns
             bits = [int32_words(tc.counter_bits_reduced(
@@ -301,15 +300,21 @@ def _wide_spec(tq, name):
     return parse_spec(name)
 
 
-def _spec_rows(torch, call, n):
+def _spec_rows(torch, tq, call, n):
     """The --spec columns of one shape: ``call(i)`` under the spec,
-    ``call(i, True)`` on the wide instance forced on binary8 sr."""
-    return dict(spec_digest=digest(call(0)),
-                spec_ms=time_ms(torch, call, n),
-                spec_device_ms=graph_ms(torch, call, n),
-                wide_digest=digest(call(0, True)),
-                wide_ms=time_ms(torch, lambda i: call(i, True), n),
-                wide_device_ms=graph_ms(torch, lambda i: call(i, True), n))
+    ``call(i, True)`` on binary8 sr with ``tq.FORCE_WIDE`` set (the wide
+    instance on the first instance's site)."""
+    row = dict(spec_digest=digest(call(0)),
+               spec_ms=time_ms(torch, call, n),
+               spec_device_ms=graph_ms(torch, call, n))
+    tq.FORCE_WIDE = True
+    try:
+        row.update(wide_digest=digest(call(0, True)),
+                   wide_ms=time_ms(torch, lambda i: call(i, True), n),
+                   wide_device_ms=graph_ms(torch, lambda i: call(i, True), n))
+    finally:
+        tq.FORCE_WIDE = False
+    return row
 
 
 def _emit(out, path):
@@ -352,12 +357,11 @@ def time_k8(torch, tq, routes, spec_name=None):
             def call_spec(i, forced=False):
                 if forced:
                     return tq.qmatmul_batched_prng(a, ws[i], seeds,
-                                                   "binary8",
-                                                   instance="wide")
+                                                   "binary8")
                 return tq.qmatmul_batched_prng(a, ws[i], seeds, wide.fmt,
                                                wide.mode, wide.rand_bits,
                                                eps=wide.eps)
-            row.update(_spec_rows(torch, call_spec, n))
+            row.update(_spec_rows(torch, tq, call_spec, n))
         if yardstick:
             a16 = a.to(torch.bfloat16)
 
